@@ -1,0 +1,42 @@
+"""Model factory (port of vitlens_tpu/factory.py::create_model).
+
+Parameters are made on ``device`` and filled from an explicit
+``torch.Generator`` seeded with ``seed``, with the JAX package's init
+distributions (the values differ from JAX's: the generators differ). Matmul
+and convolution weights are then cast to ``dtype`` once; LayerNorm
+parameters, biases and embeddings stay fp32 and are cast at use, as in JAX.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from vitlens_tpu_torch.config import make_model_config
+from vitlens_tpu_torch.models.layers import MATMUL_WEIGHTS
+from vitlens_tpu_torch.models.tri import TriModel
+
+
+def make_generator(seed: int, device=None) -> torch.Generator:
+    return torch.Generator(device=torch.device(device or "cpu")).manual_seed(seed)
+
+
+def cast_matmul_weights_(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Cast, in place, every parameter whose leaf name is in
+    ``MATMUL_WEIGHTS`` to ``dtype``."""
+    for name, p in module.named_parameters():
+        if name.rsplit(".", 1)[-1] in MATMUL_WEIGHTS:
+            p.data = p.data.to(dtype)
+    return module
+
+
+def create_model(model: str = "ViT-L-14", modality: str = "audio", *,
+                 seed: int = 0, quick_gelu: bool = False, device=None,
+                 dtype: torch.dtype = torch.float32,
+                 **tower_overrides) -> TriModel:
+    """Build the Lens + text model for ``modality`` on trunk ``model``."""
+    cfg = make_model_config(model, modality, quick_gelu=quick_gelu,
+                            **tower_overrides)
+    m = TriModel(cfg, device=device)
+    m.init_(make_generator(seed, device))
+    return cast_matmul_weights_(m, dtype)

@@ -1,0 +1,75 @@
+"""Unmasked softmax attention: softmax(q @ k^T * scale) @ v.
+
+On a CUDA tensor :func:`flash_attention` launches the hand-written Hopper
+kernel in ``csrc/flash_attention.cu`` (the port of
+``vitlens_tpu/ops/flash_attention.py::_fused_attention_fwd_impl``, forward
+only) or raises on what the kernel does not take. On a CPU tensor it runs
+:func:`attention_reference`, the plain PyTorch version of the same contract:
+fp32 scores, softmax and P @ V, rounded once to the input dtype.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+HEAD_DIM = 64
+
+
+def attention_reference(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
+    """q [B, H, NQ, Dh], k/v [B, H, NK, Dh] -> [B, H, NQ, Dh]."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    s = (q.float() @ k.float().transpose(-1, -2)) * scale
+    return (torch.softmax(s, dim=-1) @ v.float()).to(q.dtype)
+
+
+def _check_cuda_args(q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_attention: q, k, v must be [B, H, N, Dh]")
+    if k.shape != v.shape or q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
+        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)} do not match")
+    if q.shape[3] != HEAD_DIM:
+        raise ValueError(f"flash_attention: head dim must be {HEAD_DIM}, "
+                         f"got {q.shape[3]}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"flash_attention: {name} is on {t.device}")
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"flash_attention: {name} must be bfloat16, "
+                             f"got {t.dtype}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} must be contiguous and "
+                             "16-byte aligned")
+    if k.shape[2] == 0:
+        raise ValueError("flash_attention: no keys")
+
+
+def flash_attention(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
+    """q [B, H, NQ, Dh], k/v [B, H, NK, Dh] -> [B, H, NQ, Dh], no mask.
+
+    CPU tensors take :func:`attention_reference`. CUDA tensors launch the
+    kernel: bf16, head dim 64, contiguous. Anything else raises."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if not q.is_cuda:
+        return attention_reference(q, k, v, scale)
+    _check_cuda_args(q, k, v)
+    from vitlens_tpu_torch.ops import _build
+
+    B, H, NQ, _ = q.shape
+    out = torch.empty_like(q)
+    if B * H * NQ == 0:
+        return out
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _build.library().vitlens_flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B * H, NQ,
+        k.shape[2], float(scale), stream)
+    _build.check(err, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -1,0 +1,63 @@
+"""Loads a JAX-package parameter pytree (numpy arrays) into the port's modules.
+
+The port's parameter names are the JAX key paths joined with dots, with two
+structural differences handled here:
+
+* a transformer's stacked ``blocks`` (every leaf with a leading [layers]
+  axis) becomes ``blocks.<i>.<leaf path>``, one entry per layer;
+* lists (the perceiver's ``layers`` and ``self_blocks``) are indexed
+  ``<name>.<i>``.
+
+Layouts are unchanged ([in, out] matmul weights, the OIHW audio conv). A key
+of the tree that the module lacks, a module parameter the tree lacks, or a
+shape mismatch raises. Values are copied into the existing parameters, so
+they take each parameter's dtype and device (matmul weights already cast to
+the compute dtype stay so).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+
+def flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
+    """JAX pytree -> {dotted port name: array}."""
+    out: Dict[str, np.ndarray] = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            name = f"{prefix}{k}"
+            if k == "blocks" and isinstance(v, dict):
+                for path, leaf in flatten(v).items():
+                    for i in range(leaf.shape[0]):
+                        out[f"{name}.{i}.{path}"] = leaf[i]
+            else:
+                out.update(flatten(v, name + "."))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(flatten(v, f"{prefix}{i}."))
+    else:
+        out[prefix[:-1]] = np.asarray(tree)
+    return out
+
+
+def load_params(module: nn.Module, tree: Any) -> nn.Module:
+    """Copy the JAX param tree ``tree`` into ``module`` in place."""
+    flat = flatten(tree)
+    params = dict(module.named_parameters())
+    unknown = sorted(set(flat) - set(params))
+    missing = sorted(set(params) - set(flat))
+    if unknown or missing:
+        raise KeyError(f"JAX params do not match {type(module).__name__}: "
+                       f"unknown {unknown[:8]}, missing {missing[:8]}")
+    with torch.no_grad():
+        for name, p in params.items():
+            arr = flat[name]
+            if tuple(arr.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: JAX shape {tuple(arr.shape)}, "
+                                 f"port shape {tuple(p.shape)}")
+            p.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
+    return module
