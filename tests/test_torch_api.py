@@ -54,7 +54,7 @@ def test_encode_matches_jax(jax_params, dtype, min_cos):
                     compute_dtype=jdt)
     for m in MODALITIES:
         jm._towers[m]["params"] = jax_params[m]
-    pm = ViTLens("vitlensB", MODALITIES, compute_dtype=tdt)
+    pm = ViTLens("vitlensB", MODALITIES, device="cpu", compute_dtype=tdt)
     for m in MODALITIES:
         load_params(pm.towers[m], jax_params[m])
     fbank = _fbank()
@@ -71,9 +71,10 @@ def test_encode_matches_jax(jax_params, dtype, min_cos):
 def test_batch_buckets_and_single_clip():
     """Padding to a bucket leaves the real rows unchanged; a [B, T, F] fbank
     (one clip) is accepted; unported modalities and host audio raise."""
-    pm = ViTLens("vitlensB", ("audio",), seed=1)
+    pm = ViTLens("vitlensB", ("audio",), device="cpu", seed=1)
     pm.towers["audio"].trunk.blocks = pm.towers["audio"].trunk.blocks[:2]
-    bucketed = ViTLens("vitlensB", ("audio",), seed=1, batch_buckets=(4,))
+    bucketed = ViTLens("vitlensB", ("audio",), device="cpu", seed=1,
+                       batch_buckets=(4,))
     bucketed.towers["audio"] = pm.towers["audio"]
     fb = _fbank()[:, 0]
     want = pm.encode({"audio": fb}, preprocessed=True)["audio"]
@@ -83,4 +84,4 @@ def test_batch_buckets_and_single_clip():
     with pytest.raises(NotImplementedError, match="not yet ported"):
         pm.encode({"audio": fb})
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        ViTLens("vitlensB", ("image",))
+        ViTLens("vitlensB", ("image",), device="cpu")

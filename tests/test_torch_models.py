@@ -139,17 +139,19 @@ def test_create_model_and_tri_encode_match_jax():
     from vitlens_tpu_torch.factory import create_model
     from vitlens_tpu_torch.models import tri as PT
 
-    half = create_model("ViT-Tiny-Test", "audio", seed=0, dtype=torch.bfloat16)
+    half = create_model("ViT-Tiny-Test", "audio", seed=0, device="cpu",
+                        dtype=torch.bfloat16)
     assert half.visual.trunk.blocks[0].mlp.fc.w.dtype == torch.bfloat16
     assert half.visual.proj.dtype == torch.bfloat16
     assert half.visual.trunk.blocks[0].ln_1.scale.dtype == torch.float32
     assert half.visual.class_embedding.dtype == torch.float32
-    again = create_model("ViT-Tiny-Test", "audio", seed=0, dtype=torch.bfloat16)
+    again = create_model("ViT-Tiny-Test", "audio", seed=0, device="cpu",
+                         dtype=torch.bfloat16)
     assert torch.equal(again.visual.perceiver.latents, half.visual.perceiver.latents)
 
     cfg = jax_model_config("ViT-Tiny-Test", "audio")
     params, state = JT.tri_model_init(jax.random.PRNGKey(6), cfg)
-    model = create_model("ViT-Tiny-Test", "audio")
+    model = create_model("ViT-Tiny-Test", "audio", device="cpu")
     load_params(model.visual, params["visual"])
     load_params(model.text, params["text"])
     fbank = _x(2, 512, 128, seed=6)

@@ -1,6 +1,7 @@
 """Package-level rules of the port: it imports neither jax nor the JAX
-package, the kernel build fails loudly without nvcc, and the kernel wrappers
-refuse what their kernels do not take."""
+package and reads none of its files, its entry points default to the card,
+the kernel build fails loudly without nvcc, and the kernel wrappers refuse
+what their kernels do not take."""
 
 import os
 import subprocess
@@ -11,7 +12,10 @@ import torch
 
 from vitlens_tpu_torch.ops import _build
 from vitlens_tpu_torch.ops import flash_attention as PFA
+from vitlens_tpu_torch.ops import fps as PF
 from vitlens_tpu_torch.ops import fused_mlp as PFM
+from vitlens_tpu_torch.ops import fused_point_encoder as PFE
+from vitlens_tpu_torch.text import tokenizer as PT
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -19,8 +23,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_port_imports_no_jax():
     code = (
         "import sys, pkgutil, importlib, vitlens_tpu_torch\n"
-        "for m in pkgutil.walk_packages(vitlens_tpu_torch.__path__, 'vitlens_tpu_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(vitlens_tpu_torch.__path__, 'vitlens_tpu_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "for n in ('ops.fps', 'ops.fused_point_encoder', 'adapters.tokenizers', 'data.processors'):\n"
+        "    assert 'vitlens_tpu_torch.' + n in names, n\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'vitlens_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n")
@@ -92,3 +99,84 @@ def test_flash_attention_kernel_argument_checks():
     with pytest.raises(ValueError, match="contiguous"):
         t = torch.zeros(1, 5, 2, 64, dtype=torch.bfloat16).transpose(1, 2)
         PFA._check_cuda_args(t, t, t)
+
+
+def test_port_reads_its_own_vocab():
+    """The BPE vocab is the port's own, byte-identical copy; no default path
+    points into the JAX package."""
+    ours = os.path.join(REPO, "vitlens_tpu_torch", "text",
+                        "bpe_simple_vocab_16e6.txt.gz")
+    theirs = os.path.join(REPO, "vitlens_tpu", "text",
+                          "bpe_simple_vocab_16e6.txt.gz")
+    with open(ours, "rb") as a, open(theirs, "rb") as b:
+        assert a.read() == b.read()
+    jax_pkg = os.path.join(REPO, "vitlens_tpu") + os.sep
+    for p in PT._DEFAULT_PATHS:
+        assert not os.path.realpath(p).startswith(jax_pkg), p
+    assert os.path.realpath(PT._DEFAULT_PATHS[0]) == os.path.realpath(ours)
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    from vitlens_tpu_torch.api import ViTLens
+    from vitlens_tpu_torch.factory import create_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ViTLens()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        create_model("ViT-Tiny-Test", "audio")
+    assert create_model("ViT-Tiny-Test", "pc", device="cpu").visual.proj.is_cpu
+
+
+def _fps_args(b=2, n=100):
+    return torch.zeros(b, n, 3), torch.zeros(b, dtype=torch.int32), 16
+
+
+def test_fps_kernel_argument_checks():
+    PF._check_cuda_args(*_fps_args())
+    xyz, start, npoint = _fps_args()
+    with pytest.raises(ValueError, match="float32"):
+        PF._check_cuda_args(xyz.half(), start, npoint)
+    with pytest.raises(ValueError, match=r"\[B, N, 3\]"):
+        PF._check_cuda_args(torch.zeros(2, 100, 4), start, npoint)
+    with pytest.raises(ValueError, match="N="):
+        PF._check_cuda_args(torch.zeros(2, PF.MAX_POINTS + 1, 3), start, npoint)
+    with pytest.raises(ValueError, match="contiguous"):
+        PF._check_cuda_args(torch.zeros(3, 100, 2).transpose(0, 2)[:2], start, npoint)
+    with pytest.raises(ValueError, match="int32"):
+        PF._check_cuda_args(xyz, start.long(), npoint)
+    with pytest.raises(ValueError, match="is on"):
+        PF._check_cuda_args(xyz, start.to("meta"), npoint)
+
+
+def _enc_args(m=32, c=(128, 256, 512, 256), nb_dtype=torch.bfloat16):
+    c1, c2, c3, c4 = c
+    bf, f32 = torch.bfloat16, torch.float32
+    bn = lambda n: tuple(torch.zeros(n, dtype=f32) for _ in range(4))  # noqa: E731
+    return [torch.zeros(2, 4, m, 3, dtype=nb_dtype),
+            torch.zeros(3, c1, dtype=bf), torch.zeros(c1), bn(c1),
+            torch.zeros(c1, c2, dtype=bf), torch.zeros(c2),
+            torch.zeros(2 * c2, c3, dtype=bf), torch.zeros(c3), bn(c3),
+            torch.zeros(c3, c4, dtype=bf), torch.zeros(c4)]
+
+
+def test_point_encoder_kernel_argument_checks():
+    PFE._check_cuda_args(*_enc_args())
+    with pytest.raises(ValueError, match="bfloat16"):
+        PFE._check_cuda_args(*_enc_args(nb_dtype=torch.float32))
+    with pytest.raises(ValueError, match="group size"):
+        PFE._check_cuda_args(*_enc_args(m=48))
+    with pytest.raises(ValueError, match="multiples of 64"):
+        PFE._check_cuda_args(*_enc_args(c=(128, 256, 512, 200)))
+    args = _enc_args()
+    args[4] = torch.zeros(128, 128, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="w3 must be"):
+        PFE._check_cuda_args(*args)  # w2's width no longer matches w3
+    args = _enc_args()
+    args[1] = torch.zeros(128, 3, dtype=torch.bfloat16).t()
+    with pytest.raises(ValueError, match="contiguous"):
+        PFE._check_cuda_args(*args)
+    args = _enc_args()
+    args[2] = args[2].to("meta")
+    with pytest.raises(ValueError, match="is on"):
+        PFE._check_cuda_args(*args)

@@ -1,7 +1,8 @@
 """Modality adapters (port of vitlens_tpu/adapters/tokenizers.py).
 
-Only the AST-style audio adapter is ported; the other modalities' adapters
-are not yet ported.
+Ported: the AST-style audio adapter and the PointBERT point tokenizer (eval
+mode). The PNSA point tokenizer and the other modalities' adapters are not
+yet ported.
 """
 
 from __future__ import annotations
@@ -12,8 +13,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from vitlens_tpu_torch.config import TowerConfig
-from vitlens_tpu_torch.models.layers import _param, normal_
+from vitlens_tpu_torch.config import PointAdapterConfig, TowerConfig
+from vitlens_tpu_torch.models.layers import Linear, _param, gelu, normal_
+from vitlens_tpu_torch.ops.fps import group_points
+from vitlens_tpu_torch.ops.fused_point_encoder import BN_EPS, fused_point_encoder
 
 
 class AudioAdapter(nn.Module):
@@ -41,3 +44,78 @@ class AudioAdapter(nn.Module):
         y = F.conv2d(x, self.conv1.w.to(x.dtype),
                      stride=(self.audio.fstride, self.audio.tstride))
         return y.flatten(2).transpose(1, 2), self.pos_emb
+
+
+class BatchNorm(nn.Module):
+    """Eval-mode BatchNorm over the last axis: ``scale`` and ``bias`` are
+    parameters, the running ``mean`` and ``var`` buffers (JAX keeps them in
+    the state tree; ``weights.from_jax.load_state`` copies them)."""
+
+    def __init__(self, dim: int, eps: float = BN_EPS, device=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = _param(dim, device=device)
+        self.bias = _param(dim, device=device)
+        self.register_buffer("mean", torch.empty(dim, device=device))
+        self.register_buffer("var", torch.empty(dim, device=device))
+
+    def init_(self, g: torch.Generator) -> None:
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+            self.bias.zero_()
+            self.mean.zero_()
+            self.var.fill_(1.0)
+
+    def stats(self) -> Tuple[torch.Tensor, ...]:
+        return self.mean, self.var, self.scale, self.bias
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        inv = torch.rsqrt(self.var.float() + self.eps) * self.scale.float()
+        y = (x.float() - self.mean.float()) * inv + self.bias.float()
+        return y.to(x.dtype)
+
+
+class PointTokenizer(nn.Module):
+    """PointBERT tokenizer, eval mode: FPS centers and kNN groups, the
+    mini-PointNet per group (``ops.fused_point_encoder``: the kernel on CUDA),
+    ``reduce_dim`` to the token width, and an MLP of the centers as the
+    adapter's positional embedding. Module names follow the JAX param tree
+    (``encoder.conv1..4``, ``encoder.bn1/bn2``, ``reduce_dim``,
+    ``pos_embed.fc1/fc2``)."""
+
+    def __init__(self, cfg: PointAdapterConfig, device=None):
+        super().__init__()
+        if cfg.tokenizer != "pointbert":
+            raise NotImplementedError(
+                f"the {cfg.tokenizer!r} point tokenizer is not yet ported")
+        self.cfg = cfg
+        e = self.encoder = nn.Module()
+        e.conv1 = Linear(3, 128, device=device)
+        e.conv2 = Linear(128, 256, device=device)
+        e.conv3 = Linear(512, 512, device=device)
+        e.conv4 = Linear(512, cfg.encoder_dims, device=device)
+        e.bn1 = BatchNorm(128, device=device)
+        e.bn2 = BatchNorm(512, device=device)
+        self.reduce_dim = Linear(cfg.encoder_dims, cfg.trans_dim, device=device)
+        self.pos_embed = nn.Module()
+        self.pos_embed.fc1 = Linear(3, 128, device=device)
+        self.pos_embed.fc2 = Linear(128, cfg.trans_dim, device=device)
+
+    def init_(self, g: torch.Generator) -> None:
+        e = self.encoder
+        for m in (e.conv1, e.conv2, e.conv3, e.conv4, self.reduce_dim,
+                  self.pos_embed.fc1, self.pos_embed.fc2, e.bn1, e.bn2):
+            m.init_(g)
+
+    def forward(self, pts: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """pts [B, N, 3] -> (tokens [B, G, trans_dim], pos [B, G, trans_dim]).
+        FPS starts at point 0, as JAX does in eval."""
+        cfg, e = self.cfg, self.encoder
+        nb, center = group_points(pts, cfg.num_group, cfg.group_size)
+        feat = fused_point_encoder(
+            nb, e.conv1.w, e.conv1.b, e.bn1.stats(), e.conv2.w, e.conv2.b,
+            e.conv3.w, e.conv3.b, e.bn2.stats(), e.conv4.w, e.conv4.b,
+            e.bn1.eps)
+        tokens = self.reduce_dim(feat)
+        fc1, fc2 = self.pos_embed.fc1, self.pos_embed.fc2
+        return tokens, fc2(gelu(fc1(center.to(tokens.dtype))))

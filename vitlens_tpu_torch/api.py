@@ -1,10 +1,16 @@
-"""One-stop inference API (port of vitlens_tpu/api.py::ViTLens), audio and text.
+"""One-stop inference API (port of vitlens_tpu/api.py::ViTLens): audio, point
+clouds and text.
 
 ``ViTLens(...).encode({modality: inputs})`` -> {modality: [B, embed_dim]}.
 Audio inputs are fbank arrays, [B, n_clip, T, F] (clip embeddings are
-mean-pooled) or [B, T, F], passed with ``preprocessed=True``; text inputs are
-caption strings (or token ids with ``preprocessed=True``). The host fbank
-processor, the image tower and the other modalities are not yet ported.
+mean-pooled) or [B, T, F], passed with ``preprocessed=True``; point-cloud
+inputs are raw clouds (arrays [N, C] or ``.npy`` paths, sampled to the
+tower's point count by the host processor) or, with ``preprocessed=True``,
+[B, npoints, 3]; text inputs are caption strings (or token ids with
+``preprocessed=True``). The host fbank processor, the image tower and the
+other modalities are not yet ported.
+
+The model is built on the card unless ``device`` names another device.
 """
 
 from __future__ import annotations
@@ -16,12 +22,13 @@ import torch
 import torch.nn as nn
 
 from vitlens_tpu_torch.config import make_model_config
-from vitlens_tpu_torch.data.processors import TextProcessor
-from vitlens_tpu_torch.factory import cast_matmul_weights_, make_generator
+from vitlens_tpu_torch.data.processors import PointCloudProcessor, TextProcessor
+from vitlens_tpu_torch.factory import (cast_matmul_weights_, make_generator,
+                                       resolve_device)
 from vitlens_tpu_torch.models.text import TextTower
 from vitlens_tpu_torch.models.vit import VisionTower
 
-PORTED_MODALITIES = ("audio", "text")
+PORTED_MODALITIES = ("audio", "pc", "text")
 _TRUNKS = {"vitlensL": "ViT-L-14", "vitlensB": "ViT-B-16",
            "vitlensG": "ViT-bigG-14"}
 
@@ -41,7 +48,8 @@ def _as_tensor(data, dtype: torch.dtype) -> torch.Tensor:
 class ViTLens(nn.Module):
     """Multi-modal encoder bound to one trunk (default ViT-L-14).
 
-    Weights are made on ``device`` from a generator seeded with ``seed``;
+    Weights are made on ``device`` (default: the CUDA device; pass
+    ``device="cpu"`` for the host) from a generator seeded with ``seed``;
     matmul weights are cast to ``compute_dtype`` once. ``batch_buckets`` pads
     each encode batch up to the next bucket with zero rows, which are sliced
     off (rows are computed independently)."""
@@ -58,21 +66,32 @@ class ViTLens(nn.Module):
         for m in self.modalities:
             if m not in PORTED_MODALITIES:
                 raise NotImplementedError(f"modality {m!r} is not yet ported")
+        if model_var == "vitlensG" and "pc" in self.modalities:
+            raise NotImplementedError(
+                "the vitlensG pc tower (PNSA tokenizer) is not yet ported")
+        device = resolve_device(device)
         self.compute_dtype = compute_dtype
         self.batch_buckets = (tuple(sorted(batch_buckets))
                               if batch_buckets else None)
         self.towers = nn.ModuleDict()
         g = make_generator(seed, device)
         for m in self.modalities:
-            cfg = make_model_config(self.trunk, "audio" if m == "audio" else "image")
-            if m == "audio":
-                tower = VisionTower(cfg.tower, device=device)
-            else:
+            cfg = make_model_config(self.trunk, m if m != "text" else "image")
+            if m == "text":
                 tower = TextTower(cfg.text, cfg.embed_dim, cfg.quick_gelu,
                                   device=device)
+            else:
+                tower = VisionTower(cfg.tower, device=device)
             tower.init_(g)
             self.towers[m] = cast_matmul_weights_(tower, compute_dtype)
-        self.processors = {"text": TextProcessor()} if "text" in self.modalities else {}
+        self.processors = {}
+        if "text" in self.modalities:
+            self.processors["text"] = TextProcessor()
+        if "pc" in self.modalities:
+            # the processor samples to the tower's point count and width
+            pt = self.towers["pc"].cfg.point
+            self.processors["pc"] = PointCloudProcessor(
+                n_sample_points=pt.npoints, channels=pt.in_channel)
 
     @property
     def device(self) -> torch.device:
@@ -91,9 +110,9 @@ class ViTLens(nn.Module):
     @torch.inference_mode()
     def encode(self, inputs, normalize: bool = True,
                preprocessed: bool = False) -> Dict[str, torch.Tensor]:
-        """inputs: {modality: captions (text) or fbank arrays (audio, with
-        ``preprocessed=True``)}. Returns {modality: [B, embed_dim]} on the
-        model's device (fp32 when normalized)."""
+        """inputs: {modality: captions (text), clouds (pc) or fbank arrays
+        (audio, with ``preprocessed=True``)}. Returns {modality: [B,
+        embed_dim]} on the model's device (fp32 when normalized)."""
         out: Dict[str, torch.Tensor] = {}
         dev, dt = self.device, self.compute_dtype
         for m, data in inputs.items():
@@ -102,6 +121,9 @@ class ViTLens(nn.Module):
             if m == "text":
                 x = _as_tensor(data if preprocessed
                                else self.processors["text"](data), torch.long)
+            elif m == "pc":
+                x = _as_tensor(data if preprocessed
+                               else self.processors["pc"](data), torch.float32)
             else:
                 if not preprocessed:
                     raise NotImplementedError(

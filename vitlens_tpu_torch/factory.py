@@ -5,6 +5,9 @@ Parameters are made on ``device`` and filled from an explicit
 distributions (the values differ from JAX's: the generators differ). Matmul
 and convolution weights are then cast to ``dtype`` once; LayerNorm
 parameters, biases and embeddings stay fp32 and are cast at use, as in JAX.
+
+The entry points run on the card: ``device=None`` means ``"cuda"``, and with
+no CUDA device they raise unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -17,8 +20,19 @@ from vitlens_tpu_torch.models.layers import MATMUL_WEIGHTS
 from vitlens_tpu_torch.models.tri import TriModel
 
 
-def make_generator(seed: int, device=None) -> torch.Generator:
-    return torch.Generator(device=torch.device(device or "cpu")).manual_seed(seed)
+def resolve_device(device=None) -> torch.device:
+    """``None`` -> the CUDA device, which must exist; anything else as given."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "vitlens_tpu_torch runs on a CUDA device by default and none "
+                "is available; pass device='cpu' to run on the host")
+        device = "cuda"
+    return torch.device(device)
+
+
+def make_generator(seed: int, device) -> torch.Generator:
+    return torch.Generator(device=torch.device(device)).manual_seed(seed)
 
 
 def cast_matmul_weights_(module: nn.Module, dtype: torch.dtype) -> nn.Module:
@@ -35,6 +49,7 @@ def create_model(model: str = "ViT-L-14", modality: str = "audio", *,
                  dtype: torch.dtype = torch.float32,
                  **tower_overrides) -> TriModel:
     """Build the Lens + text model for ``modality`` on trunk ``model``."""
+    device = resolve_device(device)
     cfg = make_model_config(model, modality, quick_gelu=quick_gelu,
                             **tower_overrides)
     m = TriModel(cfg, device=device)

@@ -1,10 +1,13 @@
-"""Lens-aware vision tower (port of vitlens_tpu/models/vit.py), audio only.
+"""Lens-aware vision tower (port of vitlens_tpu/models/vit.py): audio and
+point clouds.
 
-    fbank -> audio adapter (+ adapter pos) -> Perceiver Lens -> prepend CLS
-    -> + positional embedding -> ln_pre -> trunk -> CLS pool -> ln_post -> @ proj
+    fbank or points -> adapter (+ adapter pos) -> Perceiver Lens -> prepend
+    CLS -> + positional embedding -> ln_pre -> trunk -> CLS pool -> ln_post
+    -> @ proj
 
-Raw waveforms (the JAX package's on-device fbank) and the other modalities
-are not yet ported and raise ``NotImplementedError``.
+Raw waveforms (the JAX package's on-device fbank), the PNSA point tokenizer
+and the other modalities are not yet ported and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -12,7 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from vitlens_tpu_torch.adapters.tokenizers import AudioAdapter
+from vitlens_tpu_torch.adapters.tokenizers import AudioAdapter, PointTokenizer
 from vitlens_tpu_torch.config import TowerConfig
 from vitlens_tpu_torch.models.layers import (LayerNorm, Transformer, _param,
                                              normal_)
@@ -22,7 +25,7 @@ from vitlens_tpu_torch.models.perceiver import Perceiver
 class VisionTower(nn.Module):
     def __init__(self, cfg: TowerConfig, device=None):
         super().__init__()
-        if cfg.modality != "audio":
+        if cfg.modality not in ("audio", "pc"):
             raise NotImplementedError(
                 f"the {cfg.modality!r} tower is not yet ported")
         p = cfg.perceiver
@@ -32,7 +35,10 @@ class VisionTower(nn.Module):
         self.cfg = cfg
         arch = cfg.arch
         width = arch.width
-        self.adapter = AudioAdapter(cfg, device=device)
+        if cfg.modality == "audio":
+            self.adapter = AudioAdapter(cfg, device=device)
+        else:
+            self.adapter = PointTokenizer(cfg.point, device=device)
         self.perceiver = Perceiver(p, device=device)
         self.class_embedding = _param(width, device=device)
         self.positional_embedding = _param(cfg.num_tokens + 1, width,
@@ -56,8 +62,10 @@ class VisionTower(nn.Module):
         normal_(self.proj, scale, g)
 
     def forward(self, x: torch.Tensor, compute_dtype=torch.float32):
-        """x: fbank [B, target_length, mel_bins] -> features [B, embed_dim]."""
-        if x.dim() != 3:
+        """x: fbank [B, target_length, mel_bins] or points [B, N, 3] ->
+        features [B, embed_dim]. The input is cast to ``compute_dtype`` first,
+        so FPS sees the rounded coordinates, as in JAX."""
+        if self.cfg.modality == "audio" and x.dim() != 3:
             raise NotImplementedError(
                 "raw-waveform audio input (on-device fbank) is not yet ported; "
                 "pass a [B, target_length, mel_bins] fbank")

@@ -1,8 +1,9 @@
 """Builds the hand-written CUDA kernels under ``csrc/`` and loads them.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``) into
-one shared library with a plain C interface, at first use, and loaded with
-``ctypes``. The library lives in ``build/kernels/<hash>/`` at the repository
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``), one
+``nvcc`` process per source, all started together, and the objects are linked
+into one shared library with a plain C interface, at first use, and loaded
+with ``ctypes``. The library lives in ``build/kernels/<hash>/`` at the repository
 root (git-ignored), keyed by a hash of the sources and the flags, so an edit to
 a kernel rebuilds it and an unchanged checkout reuses the last build.
 
@@ -25,7 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 _LIB_NAME = "libvitlens_kernels.so"
 
 _P = ctypes.c_void_p
@@ -35,6 +36,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "vitlens_fused_mlp_fwd": [_P] * 10 + [_I, _I, _I, _I, _F, _P],
     "vitlens_flash_attention_fwd": [_P] * 4 + [_I, _I, _I, _F, _P],
+    "vitlens_fps_fwd": [_P] * 3 + [_I] * 3 + [_P],
+    "vitlens_point_encoder_fwd": [_P] * 16 + [_I] * 6 + [_P],
 }
 
 
@@ -74,16 +77,25 @@ def build() -> Path:
         return lib
     nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp_dir:
+        objs = [os.path.join(tmp_dir, src.stem + ".o") for src in _sources()]
+        compiles = [[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
+                    for src, obj in zip(_sources(), objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in compiles]
+        outs = [p.communicate()[0] for p in procs]
+        tmp_lib = os.path.join(tmp_dir, _LIB_NAME)
+        steps = list(zip(compiles, procs, outs))
+        if all(p.returncode == 0 for p in procs):
+            link = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp_lib, *objs]
+            proc = subprocess.run(link, capture_output=True, text=True)
+            steps.append((link, proc, proc.stdout + proc.stderr))
+        for cmd, p, out in steps:
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{out}")
+        os.replace(tmp_lib, lib)  # atomic: a loader never sees half a file
     return lib
 
 

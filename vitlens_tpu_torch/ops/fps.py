@@ -1,0 +1,145 @@
+"""Farthest-point sampling and kNN grouping (port of vitlens_tpu/ops/fps.py).
+
+On a CUDA tensor :func:`fps_indices` launches the hand-written Hopper kernel in
+``csrc/fps.cu`` (the port of both ``_fps_indices_pallas_batched`` and
+``_fps_indices_pallas``) or raises on what the kernel does not take. On a CPU
+tensor it runs :func:`fps_indices_reference`, the plain PyTorch version, which
+mirrors the JAX package's ``_fps_indices_xla`` step for step. Both are
+index-exact: the distance is ``(dx*dx + dy*dy) + dz*dz`` rounded after every
+operation, and ties go to the smallest index.
+
+kNN is the exact branch only (a pairwise-distance matmul and ``torch.topk``);
+gathers are plain ``torch.gather``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+MAX_POINTS = 16384  # the kernel keeps a row's xyz in shared memory (12 B/point)
+
+
+def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """Pairwise squared distance in the matmul form, in the inputs' dtype.
+    src [..., N, C], dst [..., M, C] -> [..., N, M]."""
+    d = -2.0 * (src @ dst.transpose(-1, -2))
+    d = d + (src * src).sum(-1)[..., :, None]
+    return d + (dst * dst).sum(-1)[..., None, :]
+
+
+def fps_indices_reference(xyz: torch.Tensor, npoint: int,
+                          start: torch.Tensor) -> torch.Tensor:
+    """Plain version: xyz [B, N, 3] fp32, start [B] -> [B, npoint] int32.
+
+    Each step records the current point, lowers the running distance
+    (starting at 1e10) to the squared distance from it, and moves to the
+    first index of the largest running distance."""
+    B, N, _ = xyz.shape
+    x, y, z = xyz.float().unbind(-1)
+    rows = torch.arange(B, device=xyz.device)
+    dist = torch.full((B, N), 1e10, dtype=torch.float32, device=xyz.device)
+    idx = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
+    far = start.to(device=xyz.device, dtype=torch.long)
+    for i in range(npoint):
+        idx[:, i] = far
+        dx = x - x[rows, far][:, None]
+        dy = y - y[rows, far][:, None]
+        dz = z - z[rows, far][:, None]
+        d = (dx * dx + dy * dy) + dz * dz
+        dist = torch.minimum(dist, d)
+        far = torch.argmax(dist, dim=-1)
+    return idx
+
+
+def _check_cuda_args(xyz, start, npoint):
+    if xyz.dim() != 3 or xyz.shape[2] != 3:
+        raise ValueError(f"fps_indices: xyz must be [B, N, 3], got {tuple(xyz.shape)}")
+    if xyz.dtype != torch.float32:
+        raise ValueError(f"fps_indices: xyz must be float32, got {xyz.dtype}")
+    if not xyz.is_contiguous():
+        raise ValueError("fps_indices: xyz must be contiguous")
+    B, N, _ = xyz.shape
+    if not 1 <= N <= MAX_POINTS:
+        raise ValueError(f"fps_indices: N={N} must be in [1, {MAX_POINTS}]")
+    if npoint < 1:
+        raise ValueError(f"fps_indices: npoint={npoint} must be >= 1")
+    if start.device != xyz.device:
+        raise ValueError(f"fps_indices: start is on {start.device}, xyz on {xyz.device}")
+    if start.dtype != torch.int32 or tuple(start.shape) != (B,):
+        raise ValueError(f"fps_indices: start must be int32 [{B}], got "
+                         f"{start.dtype} {tuple(start.shape)}")
+    if not start.is_contiguous():
+        raise ValueError("fps_indices: start must be contiguous")
+
+
+def fps_indices(xyz: torch.Tensor, npoint: int,
+                start: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Batched farthest-point sampling: xyz [B, N, 3] -> [B, npoint] int32.
+
+    The start is 0 for every row, or ``start`` [B], or uniform in [0, N) from
+    ``generator``. xyz is cast to fp32 first, as in JAX. CPU tensors take
+    :func:`fps_indices_reference`; CUDA tensors launch the kernel (contiguous
+    xyz, N <= 16384) or raise. Start indices must lie in [0, N)."""
+    if xyz.dim() != 3 or xyz.shape[-1] != 3:
+        raise ValueError(
+            f"fps_indices expects xyz [B, N, 3]; got {tuple(xyz.shape)} — pass "
+            "coordinates only (xyz[..., :3])")
+    B, N, _ = xyz.shape
+    if start is None:
+        if generator is not None:
+            start = torch.randint(0, N, (B,), generator=generator,
+                                  device=generator.device).to(xyz.device)
+        else:
+            start = torch.zeros((B,), dtype=torch.int32, device=xyz.device)
+    start = start.to(torch.int32)
+    xyz = xyz.float()
+    if not xyz.is_cuda:
+        return fps_indices_reference(xyz, npoint, start)
+    _check_cuda_args(xyz, start, npoint)
+    from vitlens_tpu_torch.ops import _build
+
+    idx = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
+    if B == 0:
+        return idx
+    stream = torch.cuda.current_stream(xyz.device).cuda_stream
+    err = _build.library().vitlens_fps_fwd(
+        xyz.data_ptr(), start.data_ptr(), idx.data_ptr(), B, N, npoint, stream)
+    _build.check(err, "fps_indices")
+    fps_indices.launches += 1
+    return idx
+
+
+fps_indices.launches = 0
+
+
+def take_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """points [B, N, C], idx [B, ...] -> [B, ..., C] (a plain gather)."""
+    B, _, C = points.shape
+    flat = idx.reshape(B, -1).long()
+    out = torch.gather(points, 1, flat[..., None].expand(-1, -1, C))
+    return out.reshape(*idx.shape, C)
+
+
+def fps(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
+    """The sampled points [B, npoint, C], starting at point 0; distances use
+    xyz[..., :3] and the other channels ride along."""
+    idx = fps_indices(xyz[..., :3].contiguous(), npoint)
+    return take_points(xyz, idx)
+
+
+def knn_indices(xyz: torch.Tensor, query: torch.Tensor, k: int) -> torch.Tensor:
+    """The k nearest points of each query point, nearest first.
+    xyz [B, N, C], query [B, S, C] -> [B, S, k] int64."""
+    return torch.topk(-square_distance(query, xyz), k, dim=-1).indices
+
+
+def group_points(xyz: torch.Tensor, num_group: int, group_size: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """FPS centers and their kNN neighbourhoods, center-normalised:
+    (neighborhood [B, G, M, C], center [B, G, C])."""
+    center = fps(xyz, num_group)
+    idx = knn_indices(xyz, center, group_size)
+    return take_points(xyz, idx) - center[:, :, None, :], center

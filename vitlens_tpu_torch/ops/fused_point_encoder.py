@@ -1,0 +1,127 @@
+"""Eval-mode PointBERT mini-PointNet over point groups (the tokenizer's
+per-group encoder).
+
+    h = relu(BN1(nb @ W1 + b1)) @ W2 + b2;  g = max over M of h
+    h = relu(BN2(h @ W3[C2:] + g @ W3[:C2] + b3)) @ W4 + b4;  out = max over M
+
+On a CUDA tensor :func:`fused_point_encoder` launches the hand-written Hopper
+kernel in ``csrc/fused_point_encoder.cu`` (the port of
+``vitlens_tpu/ops/fused_point_encoder.py::_pallas_point_encoder``, forward
+only) or raises on what the kernel does not take. On a CPU tensor it runs
+:func:`point_encoder_reference`, the plain PyTorch version, which mirrors the
+JAX package's ``xla_reference`` cast for cast.
+
+A BatchNorm is given as ``(mean, var, scale, bias)``; eval BN is
+``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in fp32.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+BN_EPS = 1e-5
+GROUP_SIZES = (16, 32, 64)  # the kernel tiles 64 points: whole groups only
+
+
+def _bn_fold(bn: Sequence[torch.Tensor], eps: float):
+    """(mean, rsqrt(var + eps) * scale, bias), all fp32."""
+    mean, var, scale, bias = bn
+    inv = torch.rsqrt(var.float() + eps) * scale.float()
+    return mean.float(), inv, bias.float()
+
+
+def point_encoder_reference(nb, w1, b1, bn1, w2, b2, w3, b3, bn2, w4, b4,
+                            eps: float = BN_EPS) -> torch.Tensor:
+    """Plain version: nb [..., M, 3] -> [..., C4] in nb's dtype. Matmuls
+    rounded once, biases added in nb's dtype, BN in fp32 rounded back, conv3
+    accumulated in fp32 and rounded once."""
+    dt = nb.dtype
+
+    def bn(x, stats):
+        mean, inv, bias = _bn_fold(stats, eps)
+        return ((x.float() - mean) * inv + bias).to(dt)
+
+    h = nb @ w1.to(dt) + b1.to(dt)
+    h = torch.relu(bn(h, bn1))
+    h = h @ w2.to(dt) + b2.to(dt)
+    g = h.amax(dim=-2, keepdim=True)
+    w3 = w3.to(dt).float()
+    c2 = h.shape[-1]
+    h32 = (h.float() @ w3[c2:] + g.float() @ w3[:c2]) + b3.float()
+    h = torch.relu(bn(h32.to(dt), bn2))
+    h = h @ w4.to(dt) + b4.to(dt)
+    return h.amax(dim=-2)
+
+
+def _check_cuda_args(nb, w1, b1, bn1, w2, b2, w3, b3, bn2, w4, b4):
+    if nb.dim() != 4 or nb.shape[-1] != 3:
+        raise ValueError(f"fused_point_encoder: nb must be [B, G, M, 3], "
+                         f"got {tuple(nb.shape)}")
+    m = nb.shape[2]
+    if m not in GROUP_SIZES:
+        raise ValueError(f"fused_point_encoder: group size M={m} must be one "
+                         f"of {GROUP_SIZES}")
+    c1, c2, c3, c4 = w1.shape[-1], w2.shape[-1], w3.shape[-1], w4.shape[-1]
+    if any(c % 64 for c in (c1, c2, c3, c4)):
+        raise ValueError(f"fused_point_encoder: widths {(c1, c2, c3, c4)} "
+                         "must be multiples of 64")
+    tensors = [("nb", nb, tuple(nb.shape), torch.bfloat16),
+               ("w1", w1, (3, c1), torch.bfloat16),
+               ("w2", w2, (c1, c2), torch.bfloat16),
+               ("w3", w3, (2 * c2, c3), torch.bfloat16),
+               ("w4", w4, (c3, c4), torch.bfloat16),
+               ("b1", b1, (c1,), torch.float32), ("b2", b2, (c2,), torch.float32),
+               ("b3", b3, (c3,), torch.float32), ("b4", b4, (c4,), torch.float32)]
+    for bn_name, bn, c in (("bn1", bn1, c1), ("bn2", bn2, c3)):
+        tensors += [(f"{bn_name}[{i}]", t, (c,), torch.float32)
+                    for i, t in enumerate(bn)]
+    for name, t, shape, dtype in tensors:
+        if t.device != nb.device:
+            raise ValueError(f"fused_point_encoder: {name} is on {t.device}, "
+                             f"nb on {nb.device}")
+        if t.dtype != dtype:
+            raise ValueError(f"fused_point_encoder: {name} must be {dtype}, "
+                             f"got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"fused_point_encoder: {name} must be {shape}, "
+                             f"got {tuple(t.shape)}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"fused_point_encoder: {name} must be contiguous "
+                             "and 16-byte aligned")
+
+
+def fused_point_encoder(nb, w1, b1, bn1, w2, b2, w3, b3, bn2, w4, b4,
+                        eps: float = BN_EPS) -> torch.Tensor:
+    """nb [B, G, M, 3] -> features [B, G, C4].
+
+    CPU tensors take :func:`point_encoder_reference`. CUDA tensors launch the
+    kernel: nb and w1..w4 bf16, biases and BN tensors fp32, all contiguous,
+    M in (16, 32, 64), C1..C4 multiples of 64. Anything else raises."""
+    if not nb.is_cuda:
+        return point_encoder_reference(nb, w1, b1, bn1, w2, b2, w3, b3, bn2,
+                                       w4, b4, eps)
+    _check_cuda_args(nb, w1, b1, bn1, w2, b2, w3, b3, bn2, w4, b4)
+    from vitlens_tpu_torch.ops import _build
+
+    B, G, M, _ = nb.shape
+    c1, c2, c3, c4 = w1.shape[1], w2.shape[1], w3.shape[1], w4.shape[1]
+    out = torch.empty((B, G, c4), dtype=nb.dtype, device=nb.device)
+    if B * G == 0:
+        return out
+    m1, i1, s1 = _bn_fold(bn1, eps)
+    m2, i2, s2 = _bn_fold(bn2, eps)
+    stream = torch.cuda.current_stream(nb.device).cuda_stream
+    err = _build.library().vitlens_point_encoder_fwd(
+        nb.data_ptr(), w1.data_ptr(), b1.data_ptr(), m1.data_ptr(),
+        i1.data_ptr(), s1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+        w3.data_ptr(), b3.data_ptr(), m2.data_ptr(), i2.data_ptr(),
+        s2.data_ptr(), w4.data_ptr(), b4.data_ptr(), out.data_ptr(),
+        B * G, M, c1, c2, c3, c4, stream)
+    _build.check(err, "fused_point_encoder")
+    fused_point_encoder.launches += 1
+    return out
+
+
+fused_point_encoder.launches = 0

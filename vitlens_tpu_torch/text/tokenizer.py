@@ -4,9 +4,9 @@ Token-exact copy of vitlens_tpu/text/tokenizer.py's ``SimpleTokenizer`` that
 needs no ``regex`` package: the BPE split pattern's letter and number
 classes (``\\p{L}``, ``\\p{N}``) are built once from ``unicodedata``
 categories and compiled with the standard library's ``re``. The merge table
-is read as a data file from $VITLENS_BPE_PATH or from the JAX package's
-directory (``vitlens_tpu/text/bpe_simple_vocab_16e6.txt.gz``) without
-importing that package.
+is read from $VITLENS_BPE_PATH or else from the port's own copy,
+``vitlens_tpu_torch/text/bpe_simple_vocab_16e6.txt.gz`` (the public OpenAI
+CLIP data file).
 """
 
 from __future__ import annotations
@@ -23,8 +23,7 @@ from typing import Dict, List, Sequence, Tuple, Union
 import numpy as np
 
 _DEFAULT_PATHS = [
-    os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir,
-                 os.pardir, "vitlens_tpu", "text",
+    os.path.join(os.path.dirname(os.path.abspath(__file__)),
                  "bpe_simple_vocab_16e6.txt.gz"),
 ]
 

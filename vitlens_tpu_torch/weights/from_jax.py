@@ -10,7 +10,9 @@ structural differences handled here:
 
 Layouts are unchanged ([in, out] matmul weights, the OIHW audio conv). A key
 of the tree that the module lacks, a module parameter the tree lacks, or a
-shape mismatch raises. Values are copied into the existing parameters, so
+shape mismatch raises. :func:`load_state` does the same for the JAX state
+tree (the point tokenizer's BatchNorm running statistics) and the module's
+buffers. Values are copied into the existing parameters, so
 they take each parameter's dtype and device (matmul weights already cast to
 the compute dtype stay so).
 """
@@ -44,20 +46,30 @@ def flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-def load_params(module: nn.Module, tree: Any) -> nn.Module:
-    """Copy the JAX param tree ``tree`` into ``module`` in place."""
+def _copy_into(module: nn.Module, tree: Any, targets: Dict[str, torch.Tensor],
+               what: str) -> nn.Module:
     flat = flatten(tree)
-    params = dict(module.named_parameters())
-    unknown = sorted(set(flat) - set(params))
-    missing = sorted(set(params) - set(flat))
+    unknown = sorted(set(flat) - set(targets))
+    missing = sorted(set(targets) - set(flat))
     if unknown or missing:
-        raise KeyError(f"JAX params do not match {type(module).__name__}: "
+        raise KeyError(f"JAX {what} do not match {type(module).__name__}: "
                        f"unknown {unknown[:8]}, missing {missing[:8]}")
     with torch.no_grad():
-        for name, p in params.items():
+        for name, p in targets.items():
             arr = flat[name]
             if tuple(arr.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: JAX shape {tuple(arr.shape)}, "
                                  f"port shape {tuple(p.shape)}")
             p.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
     return module
+
+
+def load_params(module: nn.Module, tree: Any) -> nn.Module:
+    """Copy the JAX param tree ``tree`` into ``module`` in place."""
+    return _copy_into(module, tree, dict(module.named_parameters()), "params")
+
+
+def load_state(module: nn.Module, tree: Any) -> nn.Module:
+    """Copy the JAX state tree ``tree`` (e.g. ``{"adapter": {"encoder":
+    {"bn1": {"mean", "var"}, ...}}}``) into ``module``'s buffers in place."""
+    return _copy_into(module, tree, dict(module.named_buffers()), "state")
