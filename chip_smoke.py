@@ -8,10 +8,15 @@ Phases, one printed line each (or more); any failure exits non-zero:
   2. build: compiles the hand-written kernels from vitlens_tpu_torch/csrc/
      (one nvcc per source, in parallel).
   3. kernels: each kernel against its plain PyTorch version on the card, at
-     the shapes of the main paths: fused MLP (bf16, <= 2.5e-2 relative),
-     attention (bf16, <= 1e-2 relative), FPS (index-exact, at B64/N 8192 with
-     zero starts and B8/N 10000 with random starts) and the point encoder
-     (bf16, <= 2e-2 relative).
+     the shapes of the main paths: fused MLP, both variants (out and the
+     save-preact output a; bf16, <= 2.5e-2 and 1e-2 relative), attention
+     (bf16, <= 1e-2 relative), fused LN + projection (bf16, <= 1e-2
+     relative), FPS (index-exact, at B64/N 8192 with zero starts and B8/N
+     10000 with random starts) and the point encoder (bf16, <= 2e-2
+     relative); then the gradients of each kernel-backed autograd Function
+     (fused MLP, attention, LN + projection) against torch autograd of its
+     plain version on the card, in bf16 (<= 2e-2 relative for the fused MLP
+     and LN + projection, 1e-2 for attention).
   4. slice: ViTLens("vitlensL", ("audio", "pc", "text")) at full ViT-L width
      and depth with random weights from a seeded CUDA generator, bf16
      compute, answers audio requests (B = 1, 4, 8, 3 clips each), point-cloud
@@ -25,13 +30,30 @@ Phases, one printed line each (or more); any failure exits non-zero:
      with the same weights moved to the CPU in fp32, where the plain versions
      run. The pc clouds are rounded through bf16 first, so that both runs give
      FPS the same coordinates; their FPS indices must be equal.
+  4b. train: the vitlensL audio+text model at full width and depth, fp32
+     trainable masters, frozen weights in bf16, bf16 compute, with the
+     published audio recipe (visual and text towers locked, CLS unlocked,
+     dual loss aligned to text). The gradients of one B = 2 pass and one
+     B = 2 step against the same on the CPU in fp32 (loss within 5e-2,
+     grad_norm within 1e-1 relative, gradient cosine >= 0.99); 3 steps at
+     B = 8, 2 at B = 8 with accum_freq 4 and one with remat, each with its
+     launches per kernel variant against the count derived from the config;
+     finite losses, every trainable parameter changed, every frozen one
+     bit-identical.
+  4c. opt-in: with VITLENS_ENABLE_FUSED_LNQKV=1 (set for this phase only), a
+     B = 1 audio encode, a text encode and a train step launch the fused LN +
+     projection 24 times per audio tower pass and 12 per text pass; the
+     encode and the B = 2 gradients hold cosine >= 0.99 against the CPU fp32
+     path.
   5. timing: each kernel against its plain version (and, where one PyTorch
      call computes the same function, that call) at the B64 shapes of the
      main paths, beside each kernel's bound; the audio (64 samples x 3 clips)
-     and pc (64 clouds) encode rates at B64 in bf16; a torch.profiler
-     breakdown of one B64 audio and one B64 pc encode with the device's busy
-     and idle share. Every time is printed beside the card's name and power
-     limit.
+     and pc (64 clouds) encode rates at B64 in bf16, the audio encode also
+     with the opt-in; the audio train-step rate at B64 with and without the
+     opt-in, with the peak device memory; a torch.profiler breakdown of one
+     B64 audio and one B64 pc encode and one B64 train step with the device's
+     busy and idle share. Every time is printed beside the card's name and
+     power limit.
 The last lines are {"kernels": [...]}, the card's name and power limit, then
 {"ok": true, "device": {...}}.
 """
@@ -46,9 +68,21 @@ import sys
 import time
 
 MLP_TOL = 2.5e-2   # bf16 rounding; the kernel keeps the act input in fp32
+PREACT_TOL = 1e-2  # a: the kernel adds b1 in fp32, the plain version in bf16
 ATTN_TOL = 1e-2    # bf16 P in the P @ V product, fp32 everywhere else
+LNP_TOL = 1e-2     # bf16 LN output and product; only sum order differs
 ENC_TOL = 2e-2     # bf16 rounding; rounding points that differ by one ulp
+# Gradients of the Functions against autograd of the plain versions, bf16:
+# the intermediate gradients (dh, da, dy) round to bf16 at other points in
+# the closed-form backward than in autograd, and dW, db, dLN sum ~1000 rows
+# (the first H100 run read at most 6.9e-3).
+GRAD_TOL = 2e-2
+ATTN_GRAD_TOL = 1e-2  # both recompute P in fp32; only the rounding of dq/dk/dv
 COS_MIN = 0.99     # bf16 card path against the fp32 CPU plain path
+LOSS_TOL = 5e-2    # |loss card - loss CPU|: bf16 features at logit scale 14.3
+# grad_norm card / CPU - 1: bf16 gradients; a cosine of 0.99 alone allows
+# ~14%, the ViT-Tiny rehearsal on the CPU read 2%
+NORM_TOL = 1e-1
 SEED = 0
 B = 64             # the benchmark batch of both encode paths
 
@@ -121,6 +155,16 @@ def attn_bound(b, h, nq, nk, dh=64):  # q, k, v, out bf16
                  PEAK_BF16)
 
 
+def preact_bound(m, d, h):  # the save-preact variant also writes a [M, H] bf16
+    return bound(4 * m * d * h,
+                 2 * (2 * m * d + 2 * d * h + m * h) + 4 * (3 * d + h), PEAK_BF16)
+
+
+def ln_proj_bound(m, d, n):  # x, out, W bf16; LN params and bias fp32
+    return bound(2 * m * d * n, 2 * (m * d + m * n + d * n) + 4 * (2 * d + n),
+                 PEAK_BF16)
+
+
 def fps_bound(b, n, npoint):
     # per step and point: 3 sub, 3 mul, 2 add, min, compare (fp32 cores)
     return bound(10 * b * n * npoint, 12 * b * n + 4 * b + 4 * b * npoint,
@@ -145,6 +189,16 @@ def mlp_inputs(torch, g, m, d, h):
             r(d, std=0.1, dtype=f32), r(d, h, std=d ** -0.5),
             r(h, std=0.1, dtype=f32), r(h, d, std=h ** -0.5),
             r(d, std=0.1, dtype=f32))
+
+
+def ln_proj_inputs(torch, g, m, d, n):
+    def r(*shape, std=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=g, device="cuda") * std).to(dtype)
+
+    f32 = torch.float32
+    return (r(m, d, std=0.5), 1.0 + r(d, std=0.1, dtype=f32),
+            r(d, std=0.1, dtype=f32), r(d, n, std=d ** -0.5),
+            r(n, std=0.1, dtype=f32))
 
 
 def qkv_inputs(torch, g, b, h, nq, nk):
@@ -174,9 +228,220 @@ def enc_inputs(torch, g, bg_shape, m):
             bn(c3), r(c3, c4, std=c3 ** -0.5).bfloat16(), r(c4, std=0.1))
 
 
+def grad_errs(torch, g, function, plain, args):
+    """Relative errors of the gradients of ``function`` (a kernel-backed
+    autograd Function) against torch autograd of ``plain`` on the same
+    inputs and output gradient, one per input."""
+    def run(fn):
+        leaves = [t.detach().clone().requires_grad_(True) for t in args]
+        out = fn(*leaves)
+        cot = torch.randn(out.shape, generator=g, device="cuda").to(out.dtype)
+        return out, torch.autograd.grad(out, leaves, cot)
+
+    state = g.get_state()
+    out, got = run(function)
+    if "Function" not in type(out.grad_fn).__name__:
+        fail(f"{function.__name__}: autograd did not record its Function")
+    g.set_state(state)  # the same output gradient for both
+    _, want = run(plain)
+    return [rel_err(a, b) for a, b in zip(got, want)]
+
+
+COUNTED = ("fused_mlp", "fused_mlp_save_preact", "flash_attention", "fps",
+           "point_encoder", "fused_ln_proj")
+
+
+def train_launches(cfg, text_layers, accum, remat, opt_in):
+    """Launches per kernel variant of one train step of the dual audio+text
+    recipe, derived from the config: each pass with grad runs the audio
+    trunk through the save-preact variant (twice under remat: the block is
+    recomputed in the backward) and the frozen text tower through the plain
+    one; accum_freq > 1 adds a cached pass of both towers without grad.
+    Attention: the trunk's blocks and the Lens's cross and self blocks (the
+    text tower's causal attention is plain)."""
+    la, lt = cfg.arch.layers, text_layers
+    lens = cfg.perceiver.depth * (1 + cfg.perceiver.self_per_cross_attn)
+    cached = accum if accum > 1 else 0
+    r = 2 if remat else 1
+    return {"fused_mlp": accum * lt + cached * (la + lt),
+            "fused_mlp_save_preact": accum * la * r,
+            "flash_attention": accum * (la * r + lens) + cached * (la + lens),
+            "fps": 0, "point_encoder": 0,
+            "fused_ln_proj": (accum * (la * r + lt) + cached * (la + lt)
+                              if opt_in else 0)}
+
+
+def train_phase(torch, np, counters, totals):
+    """Phases 4b and 4c: the audio train step of the published recipe on
+    the card, against the CPU in fp32. Returns what phase 5 times."""
+    from dataclasses import replace
+
+    from vitlens_tpu_torch.factory import create_model, make_trainable_
+    from vitlens_tpu_torch.models import tri
+    from vitlens_tpu_torch.train.freeze import count_trainable, tri_model_mask
+    from vitlens_tpu_torch.train.losses import make_loss_fn
+    from vitlens_tpu_torch.train.step import (OptimizerConfig, StepConfig,
+                                              init_train_state, make_optimizer,
+                                              make_train_step, micro_grads)
+
+    def reset():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read():
+        """The launches since reset(), added to the main-path totals."""
+        torch.cuda.synchronize()
+        counts = {name: fn.launches for name, fn in counters.items()}
+        for name, n in counts.items():
+            totals[name] += n
+        return counts
+
+    t0 = time.time()
+    model = create_model("ViT-L-14", "audio", seed=SEED, device="cuda",
+                         dtype=torch.float32)
+    cfg = model.cfg
+    acfg, n_text = cfg.tower, cfg.text.layers
+    mask = tri_model_mask(model, cfg, lock_visual=True, lock_text=True,
+                          unlock_cls=True)
+    tx, mask = make_optimizer(model, OptimizerConfig(
+        lr=1e-4, warmup=10, total_steps=1000, grad_clip_norm=1.0), mask)
+    make_trainable_(model, mask, torch.bfloat16)
+    ref = copy.deepcopy(model).to(device="cpu", dtype=torch.float32)
+    names = [n for n, t in mask.items() if t]
+    rng = np.random.RandomState(SEED)
+
+    def batch(b):
+        text = rng.randint(1, 49000, size=(b, 77))
+        text[:, 0], text[:, -1] = 49406, 49407
+        fb = rng.randn(b, acfg.audio.target_length, acfg.audio.mel_bins) * 0.5
+        return {"text": torch.from_numpy(text).long(),
+                "visual": torch.from_numpy(fb.astype(np.float32))}
+
+    sc = StepConfig(n_tower=2, align_to="text", compute_dtype=torch.bfloat16)
+    sc_cpu = replace(sc, compute_dtype=torch.float32)
+    loss_fn = make_loss_fn(2)
+
+    def grads_of(m, step_cfg, bt):
+        params = {n: p for n, p in m.named_parameters() if mask[n]}
+        dev = m.logit_scale.device
+        loss, gr = micro_grads(m, {k: v.to(dev) for k, v in bt.items()},
+                               step_cfg, params, loss_fn)
+        return float(loss), torch.cat([gr[n].float().flatten().cpu() for n in names])
+
+    def cosine(a, b):  # in float64: the gradients have ~1.3e8 elements
+        a, b = a.double().flatten(), b.double().flatten()
+        return (a @ b / (a.norm() * b.norm())).item()
+
+    def expect(label, counts, want):
+        if counts != want:
+            fail(f"{label}: launches {counts}, expected {want}")
+
+    b2 = batch(2)
+    loss_cpu, g_cpu = grads_of(ref, sc_cpu, b2)
+    reset()
+    loss_card, g_card = grads_of(model, sc, b2)
+    expect("B=2 gradients", read(), train_launches(acfg, n_text, 1, False, False))
+    cos_g = cosine(g_card, g_cpu)
+    if not (cos_g >= COS_MIN and abs(loss_card - loss_cpu) <= LOSS_TOL):
+        fail(f"B=2 gradients vs CPU fp32: cosine {cos_g}, loss {loss_card} vs "
+             f"{loss_cpu}")
+
+    # -- 4c: the opt-in fused LN + projection, at the initial weights -------
+    os.environ["VITLENS_ENABLE_FUSED_LNQKV"] = "1"
+    try:
+        reset()
+        loss_opt, g_opt = grads_of(model, sc, b2)
+        expect("opt-in B=2 gradients", read(),
+               train_launches(acfg, n_text, 1, False, True))
+        fb1, ids1 = batch(1)["visual"], b2["text"][:1]
+        with torch.no_grad():
+            reset()
+            emb = tri.encode_visual(model, fb1.cuda(), normalize=True,
+                                    compute_dtype=torch.bfloat16)
+            n_audio = read()["fused_ln_proj"]
+            reset()
+            temb = tri.encode_text(model, ids1.cuda(), normalize=True,
+                                   compute_dtype=torch.bfloat16)
+            n_txt = read()["fused_ln_proj"]
+            emb_cpu = tri.encode_visual(ref, fb1, normalize=True)
+            temb_cpu = tri.encode_text(ref, ids1, normalize=True)
+    finally:
+        del os.environ["VITLENS_ENABLE_FUSED_LNQKV"]
+    cos_opt = {"audio encode": cosine(emb.cpu(), emb_cpu),
+               "text encode": cosine(temb.cpu(), temb_cpu),
+               "B=2 gradients": cosine(g_opt, g_cpu)}
+    if (n_audio, n_txt) != (acfg.arch.layers, n_text):
+        fail(f"opt-in encodes: fused_ln_proj launches audio {n_audio}, text "
+             f"{n_txt}, expected {acfg.arch.layers} and {n_text}")
+    if min(cos_opt.values()) < COS_MIN or abs(loss_opt - loss_cpu) > LOSS_TOL:
+        fail(f"opt-in vs CPU fp32: cosines {cos_opt}, loss {loss_opt} vs {loss_cpu}")
+    print(f"[4c opt-in] VITLENS_ENABLE_FUSED_LNQKV=1: fused_ln_proj launches "
+          f"{n_audio} per audio encode (B=1), {n_txt} per text encode, "
+          f"{train_launches(acfg, n_text, 1, False, True)['fused_ln_proj']} per "
+          f"B=2 gradient pass; cosine vs CPU fp32: "
+          + " ".join(f"{k} {v:.6f}" for k, v in cos_opt.items())
+          + f"; loss {loss_opt:.5f} (CPU {loss_cpu:.5f})", flush=True)
+
+    # -- 4b: train steps -----------------------------------------------------
+    frozen0 = {n: p.detach().clone() for n, p in model.named_parameters()
+               if not mask[n]}
+    train0 = {n: p.detach().clone() for n, p in model.named_parameters()
+              if mask[n]}
+    state, state_cpu = init_train_state(model, tx), init_train_state(ref, tx)
+    step_cpu = make_train_step(cfg, tx, mask, sc_cpu)
+    state_cpu, m_cpu = step_cpu(state_cpu, b2)
+    del ref, state_cpu
+    runs = ([("B=2, the CPU's step", b2, 1, False, False)]
+            + [("B=8", None, 1, False, False)] * 3
+            + [("B=8 accum_freq 4", None, 4, False, False)] * 2
+            + [("B=8 remat", None, 1, True, False),
+               ("B=8 opt-in", None, 1, False, True)])
+    per_step = []
+    for label, bt, accum, remat, opt_in in runs:
+        step = make_train_step(cfg, tx, mask, replace(sc, accum_freq=accum,
+                                                      remat=remat))
+        if opt_in:
+            os.environ["VITLENS_ENABLE_FUSED_LNQKV"] = "1"
+        try:
+            reset()
+            state, m = step(state, batch(8) if bt is None else bt)
+            counts = read()
+        finally:
+            os.environ.pop("VITLENS_ENABLE_FUSED_LNQKV", None)
+        expect(label, counts, train_launches(acfg, n_text, accum, remat, opt_in))
+        m = {k: float(v) for k, v in m.items()}
+        if not all(np.isfinite(v) for v in m.values()):
+            fail(f"{label}: metrics {m}")
+        per_step.append((label, m["loss"], counts))
+        if bt is b2:
+            m_card = m
+    d_loss = abs(m_card["loss"] - float(m_cpu["loss"]))
+    d_norm = abs(m_card["grad_norm"] / float(m_cpu["grad_norm"]) - 1)
+    if d_loss > LOSS_TOL or d_norm > NORM_TOL:
+        fail(f"B=2 step vs CPU fp32: card {m_card}, CPU "
+             f"{ {k: float(v) for k, v in m_cpu.items()} }")
+    moved = [n for n, p in model.named_parameters() if not mask[n]
+             and not torch.equal(p, frozen0[n])]
+    still = [n for n, p in model.named_parameters() if mask[n]
+             and torch.equal(p, train0[n])]
+    if moved or still:
+        fail(f"frozen parameters that changed {moved[:5]}, trainable ones "
+             f"that did not {still[:5]}")
+    del frozen0, train0
+    print(f"[4b train] vitlensL audio+text, recipe lock_visual + lock_text + "
+          f"unlock_cls: {count_trainable(model, mask)} trainable parameters "
+          f"in {len(names)} tensors; phases 4b and 4c took "
+          f"{time.time() - t0:.1f} s with the CPU fp32 runs; B=2 vs CPU fp32: gradient cosine {cos_g:.6f}, loss "
+          f"{loss_card:.5f} vs {loss_cpu:.5f}, step grad_norm "
+          f"{m_card['grad_norm']:.5f} vs {float(m_cpu['grad_norm']):.5f}; steps "
+          f"(label, loss, launches) {per_step}; frozen parameters "
+          f"bit-identical, every trainable one changed", flush=True)
+    return model, state, tx, mask, sc, batch
+
+
 def profile_encode(torch, card, label, encode):
-    """One encode under torch.profiler: the kernel table and the device's
-    busy and idle share."""
+    """One call under torch.profiler: the top kernels by device time and the
+    device's busy and idle share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -185,10 +450,14 @@ def profile_encode(torch, card, label, encode):
         encode()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    table = prof.key_averages()
-    busy_ms = sum(e.self_device_time_total for e in table
-                  if e.device_type == DeviceType.CUDA) / 1e3
-    print(table.table(sort_by="self_cuda_time_total", row_limit=30), flush=True)
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    for e in kernels[:15]:  # the top kernels by device time
+        t = e.self_device_time_total / 1e3
+        print(f"    {t:9.3f} ms {100 * t / busy_ms:5.1f}% {e.count:5d}x "
+              f"{e.key[:110]}")
     print(f"[5 profile] {card} | {label} under the profiler: device busy "
           f"{busy_ms:.2f} ms of {wall_ms:.2f} ms wall (idle share "
           f"{max(0.0, 1 - busy_ms / wall_ms):.3f})", flush=True)
@@ -213,6 +482,24 @@ def encode_rate(torch, card, label, encode, samples, rows_note=""):
     return samples / best
 
 
+def train_rate(torch, card, label, step, samples, runs=3):
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    best = min(times)
+    print(f"[5 timing] {card} | {label}: {samples / best:.2f} samples/s, best "
+          f"of {runs}: {best * 1e3:.2f} ms, all ms "
+          f"{[round(t * 1e3, 2) for t in times]}; peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    return samples / best
+
+
 def main() -> int:
     import torch
 
@@ -230,12 +517,21 @@ def main() -> int:
     from vitlens_tpu_torch.ops.flash_attention import (attention_reference,
                                                        flash_attention)
     from vitlens_tpu_torch.ops.fps import fps_indices, fps_indices_reference
-    from vitlens_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_reference
+    from vitlens_tpu_torch.ops.fused_ln_proj import (fused_ln_proj,
+                                                     ln_proj_reference)
+    from vitlens_tpu_torch.ops.fused_mlp import (fused_mlp, fused_mlp_reference,
+                                                 fused_mlp_save_preact)
     from vitlens_tpu_torch.ops.fused_point_encoder import (
         fused_point_encoder, point_encoder_reference)
 
+    # The kernels of the JSON line (the save-preact variant is kernel 1's) and
+    # every launch counter, by variant.
     kernels = {"fused_mlp": fused_mlp, "flash_attention": flash_attention,
-               "fps": fps_indices, "point_encoder": fused_point_encoder}
+               "fps": fps_indices, "point_encoder": fused_point_encoder,
+               "fused_ln_proj": fused_ln_proj}
+    counters = dict(zip(COUNTED, (fused_mlp, fused_mlp_save_preact,
+                                  flash_attention, fps_indices,
+                                  fused_point_encoder, fused_ln_proj)))
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"[1 device] {card} | torch {torch.__version__} cuda "
@@ -300,9 +596,64 @@ def main() -> int:
     checks.append(f"enc{B}x512x32={e:.2e}")
     if not (torch.isfinite(got).all() and e <= ENC_TOL):
         fail(f"fused_point_encoder: rel err {e} > {ENC_TOL}")
-    print(f"[3 kernels] all within bound (mlp <= {MLP_TOL}, attn <= {ATTN_TOL}, "
-          f"encoder <= {ENC_TOL} relative, fps index-exact): {' '.join(checks)}",
+    for m in (6168, 1001):
+        for act in ("gelu", "quick_gelu"):
+            a = mlp_inputs(torch, g, m, 1024, 4096)
+            got, pre = fused_mlp_save_preact(*a, act=act)
+            torch.cuda.synchronize()
+            want, want_pre = fused_mlp_reference(*a, act=act, save_preact=True)
+            e, e_pre = rel_err(got, want), rel_err(pre, want_pre)
+            err["fused_mlp"] = max(err["fused_mlp"], abs_err(got, want),
+                                   abs_err(pre, want_pre))
+            checks.append(f"preact{m}/{act}=out {e:.2e},a {e_pre:.2e}")
+            if not (torch.isfinite(got).all() and torch.isfinite(pre).all()
+                    and e <= MLP_TOL and e_pre <= PREACT_TOL):
+                fail(f"fused_mlp_save_preact M={m} {act}: rel err out {e}, a "
+                     f"{e_pre} > {MLP_TOL}, {PREACT_TOL}")
+    err["fused_ln_proj"] = 0.0
+    for m, d, n in ((6168, 1024, 3072), (1001, 1024, 3072), (6168, 768, 2304),
+                    (1001, 768, 2304)):
+        a = ln_proj_inputs(torch, g, m, d, n)
+        got = fused_ln_proj(*a)
+        torch.cuda.synchronize()
+        want = ln_proj_reference(*a)
+        e = rel_err(got, want)
+        err["fused_ln_proj"] = max(err["fused_ln_proj"], abs_err(got, want))
+        checks.append(f"lnproj{m}x{d}x{n}={e:.2e}")
+        if not (torch.isfinite(got).all() and e <= LNP_TOL):
+            fail(f"fused_ln_proj {m}x{d}x{n}: rel err {e} > {LNP_TOL}")
+    print(f"[3 kernels] all within bound (mlp <= {MLP_TOL}, save-preact a <= "
+          f"{PREACT_TOL}, attn <= {ATTN_TOL}, ln_proj <= {LNP_TOL}, encoder <= "
+          f"{ENC_TOL} relative, fps index-exact): {' '.join(checks)}",
           flush=True)
+
+    grad_checks = {
+        "fused_mlp M1001 gelu": (
+            fused_mlp, fused_mlp_reference, mlp_inputs(torch, g, 1001, 1024, 4096),
+            GRAD_TOL, ("dx", "dlnw", "dlnb", "dw1", "db1", "dw2", "db2")),
+        "fused_ln_proj M1001 1024->3072": (
+            fused_ln_proj, ln_proj_reference,
+            ln_proj_inputs(torch, g, 1001, 1024, 3072), GRAD_TOL,
+            ("dx", "dlnw", "dlnb", "dw", "db")),
+        "attention [2,16,257,257]": (
+            flash_attention, attention_reference,
+            qkv_inputs(torch, g, 2, 16, 257, 257), ATTN_GRAD_TOL,
+            ("dq", "dk", "dv")),
+        "attention [2,1,256,600]": (
+            flash_attention, attention_reference,
+            qkv_inputs(torch, g, 2, 1, 256, 600), ATTN_GRAD_TOL,
+            ("dq", "dk", "dv"))}
+    lines = []
+    for label, (fn, plain, args, tol, names) in grad_checks.items():
+        errs = grad_errs(torch, g, fn, plain, args)
+        lines.append(f"{label}: " + ", ".join(
+            f"{n} {e:.2e}" for n, e in zip(names, errs)))
+        if max(errs) > tol:
+            fail(f"gradients of {label}: {dict(zip(names, errs))} > {tol}")
+    del grad_checks
+    print(f"[3 gradients] each Function's gradients against autograd of its "
+          f"plain version, bf16 (<= {GRAD_TOL}, attention <= {ATTN_GRAD_TOL} "
+          f"relative): " + "; ".join(lines), flush=True)
 
     # -- 4: the slices through the port's entry point -----------------------
     t0 = time.time()
@@ -317,9 +668,12 @@ def main() -> int:
         return cfg.arch.layers + cfg.perceiver.depth * (
             1 + cfg.perceiver.self_per_cross_attn)
 
-    want_launches = {"audio": (n_layers, n_attn(acfg), 0, 0),
-                     "pc": (n_layers, n_attn(pcfg), 1, 1),
-                     "text": (n_text, 0, 0, 0)}
+    def expected(mlp, attn, fps=0, enc=0):
+        return dict(zip(COUNTED, (mlp, 0, attn, fps, enc, 0)))
+
+    want_launches = {"audio": expected(n_layers, n_attn(acfg)),
+                     "pc": expected(n_layers, n_attn(pcfg), 1, 1),
+                     "text": expected(n_text, 0)}
     captions = ["a dog barking in the distance", "rain on a tin roof",
                 "an orchestra tuning up", "a car engine starting",
                 "birds singing at dawn", "a crowd cheering in a stadium",
@@ -338,21 +692,21 @@ def main() -> int:
                 *(("pc", b, {"pc": c}, True) for b, c in clouds.items()),
                 ("pc", len(raw), {"pc": raw}, False),
                 ("text", len(captions), {"text": captions}, False)]
-    launches = dict.fromkeys(kernels, 0)
+    launches = dict.fromkeys(COUNTED, 0)
     outs, per_call = [], []
     for path, b, inputs, pre in requests:
-        for fn in kernels.values():
+        for fn in counters.values():
             fn.launches = 0
         emb = model.encode(inputs, preprocessed=pre)[path]
         torch.cuda.synchronize()
-        counts = tuple(fn.launches for fn in kernels.values())
-        for name, n in zip(kernels, counts):
+        counts = {name: fn.launches for name, fn in counters.items()}
+        for name, n in counts.items():
             launches[name] += n
-        per_call.append((path, b, counts))
+        per_call.append((path, b, tuple(counts[k] for k in (
+            "fused_mlp", "flash_attention", "fps", "point_encoder"))))
         outs.append((path, b, pre, emb))
         if counts != want_launches[path]:
-            fail(f"{path} B={b}: launches (mlp, attn, fps, encoder) = "
-                 f"{counts}, expected {want_launches[path]}")
+            fail(f"{path} B={b}: launches {counts}, expected {want_launches[path]}")
     for path, b, pre, emb in outs:
         if tuple(emb.shape) != (b, 768) or not torch.isfinite(emb).all():
             fail(f"{path} B={b}: shape {tuple(emb.shape)} or non-finite values")
@@ -385,6 +739,10 @@ def main() -> int:
           + f"; pc B=1 FPS indices equal on card and CPU ({n_group} centers)",
           flush=True)
 
+    # -- 4b, 4c: the audio train step -----------------------------------------
+    trainer, state, tx, mask, sc, train_batch = train_phase(torch, np, counters,
+                                                            launches)
+
     # -- 5: timing at the B64 shapes -----------------------------------------
     timings = {name: [] for name in kernels}
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -399,6 +757,32 @@ def main() -> int:
              "bound_ms": bd, "bound_by": by, "library_ms": None,
              "tflops": 4 * m * d * h / k_ms / 1e9})
         del a
+    m = 257 * B  # the B64 train step's audio trunk
+    a = mlp_inputs(torch, g, m, 1024, 4096)
+    k_ms, p_ms = paired_ms(lambda: fused_mlp_save_preact(*a),
+                           lambda: fused_mlp_reference(*a, save_preact=True))
+    bd, by = preact_bound(m, 1024, 4096)
+    timings["fused_mlp"].append(
+        {"shape": f"save-preact variant, train trunk M={m} D=1024 H=4096",
+         "ms": k_ms, "plain_ms": p_ms, "bound_ms": bd, "bound_by": by,
+         "library_ms": None, "plain_variant_ms": cuda_ms(lambda: fused_mlp(*a)),
+         "tflops": 4 * m * 1024 * 4096 / k_ms / 1e9})
+    del a
+    for label, (m, d, n) in (("audio encode trunk", (257 * B * 3, 1024, 3072)),
+                             ("train trunk", (257 * B, 1024, 3072)),
+                             ("text", (77 * B, 768, 2304))):
+        a = ln_proj_inputs(torch, g, m, d, n)
+        k_ms, p_ms = paired_ms(lambda: fused_ln_proj(*a),
+                               lambda: ln_proj_reference(*a), plain_iters=5)
+        x, lnw, lnb, w, b = a
+        y = torch.nn.functional.layer_norm(x.float(), (d,), lnw, lnb).bfloat16()
+        gemm_ms = cuda_ms(lambda: torch.addmm(b.bfloat16(), y, w))
+        bd, by = ln_proj_bound(m, d, n)
+        timings["fused_ln_proj"].append(
+            {"shape": f"{label} M={m} D={d} N={n}", "ms": k_ms, "plain_ms": p_ms,
+             "gemm_only_ms": gemm_ms, "bound_ms": bd, "bound_by": by,
+             "library_ms": None, "tflops": 2 * m * d * n / k_ms / 1e9})
+        del a, x, y, w
     for label, (b, h, nq, nk) in (("audio trunk", (B * 3, 16, 257, 257)),
                                   ("audio lens cross", (B * 3, 1, 256, 600)),
                                   ("audio lens self", (B * 3, 16, 256, 256)),
@@ -436,6 +820,10 @@ def main() -> int:
                   f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms"
                   + (f", plain bf16 {r['plain_bf16_ms']:.4f} ms"
                      if "plain_bf16_ms" in r else "")
+                  + (f", plain variant {r['plain_variant_ms']:.4f} ms"
+                     if "plain_variant_ms" in r else "")
+                  + (f", cuBLAS addmm on the normalised input (GEMM only) "
+                     f"{r['gemm_only_ms']:.4f} ms" if "gemm_only_ms" in r else "")
                   + (f", library {r['library_ms']:.4f} ms"
                      if r["library_ms"] is not None else "")
                   + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
@@ -456,16 +844,51 @@ def main() -> int:
                 rows_note=f" ({B * 3} clips per call)")
     pc_rate = encode_rate(torch, card, f"pc encode B{B} x {npts} points bf16",
                           pc64_encode, B)
+    os.environ["VITLENS_ENABLE_FUSED_LNQKV"] = "1"
+    try:
+        encode_rate(torch, card, f"audio encode B{B} x 3 clips bf16, opt-in "
+                    "fused LN + qkv", audio64, B,
+                    rows_note=f" ({B * 3} clips per call)")
+    finally:
+        del os.environ["VITLENS_ENABLE_FUSED_LNQKV"]
+    encode_rate(torch, card, f"audio encode B{B} x 3 clips bf16 (again, "
+                "default)", audio64, B, rows_note=f" ({B * 3} clips per call)")
     profile_encode(torch, card, f"B{B} audio encode", audio64)
     profile_encode(torch, card, f"B{B} pc encode", pc64_encode)
+
+    from vitlens_tpu_torch.train.step import make_train_step
+
+    train_step = make_train_step(trainer.cfg, tx, mask, sc)
+    batch64 = {k: v.cuda() for k, v in train_batch(B).items()}
+
+    def step64():
+        train_step(state, batch64)
+
+    train_rates = {False: [], True: []}
+    for opt_in in (False, True, True, False):
+        if opt_in:
+            os.environ["VITLENS_ENABLE_FUSED_LNQKV"] = "1"
+        try:
+            train_rates[opt_in] += [train_rate(torch, card, f"audio train step B{B} bf16 (recipe: "
+                       f"lock visual + text, unlock CLS; no remat)"
+                       + (", opt-in fused LN + qkv" if opt_in else ""), step64, B)]
+        finally:
+            os.environ.pop("VITLENS_ENABLE_FUSED_LNQKV", None)
+    profile_encode(torch, card, f"B{B} audio train step", step64)
 
     replaces = {
         "fused_mlp": "vitlens_tpu/ops/fused_mlp.py:105",
         "flash_attention": "vitlens_tpu/ops/flash_attention.py:53",
         "fps": "vitlens_tpu/ops/fps.py:120, vitlens_tpu/ops/fps.py:175",
-        "point_encoder": "vitlens_tpu/ops/fused_point_encoder.py:116"}
+        "point_encoder": "vitlens_tpu/ops/fused_point_encoder.py:116",
+        "fused_ln_proj": "vitlens_tpu/ops/fused_ln_proj.py:56"}
     sources = {"fused_mlp": "fused_mlp.cu", "flash_attention": "flash_attention.cu",
-               "fps": "fps.cu", "point_encoder": "fused_point_encoder.cu"}
+               "fps": "fps.cu", "point_encoder": "fused_point_encoder.cu",
+               "fused_ln_proj": "fused_ln_proj.cu"}
+    # kernel 1's count is both variants'; the split is beside it
+    by_variant = {"plain": launches["fused_mlp"],
+                  "save_preact": launches["fused_mlp_save_preact"]}
+    launches["fused_mlp"] += launches["fused_mlp_save_preact"]
     line = []
     for name in kernels:
         main = timings[name][0]
@@ -473,12 +896,15 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"vitlens_tpu_torch/csrc/{sources[name]}",
             "replaces": replaces[name], "launches": launches[name],
+            **({"launches_by_variant": by_variant} if name == "fused_mlp" else {}),
             "max_abs_err": err[name], "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
             "shapes": timings[name]})
-    print(f"[done] {card} | pc encode B{B}: {pc_rate:.2f} samples/s; whole run "
-          f"{time.time() - t_start:.1f} s", flush=True)
+    print(f"[done] {card} | pc encode B{B}: {pc_rate:.2f} samples/s; audio "
+          f"train step B{B}: {max(train_rates[False]):.2f} samples/s, opt-in "
+          f"{max(train_rates[True]):.2f}; whole run {time.time() - t_start:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

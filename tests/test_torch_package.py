@@ -13,6 +13,7 @@ import torch
 from vitlens_tpu_torch.ops import _build
 from vitlens_tpu_torch.ops import flash_attention as PFA
 from vitlens_tpu_torch.ops import fps as PF
+from vitlens_tpu_torch.ops import fused_ln_proj as PFL
 from vitlens_tpu_torch.ops import fused_mlp as PFM
 from vitlens_tpu_torch.ops import fused_point_encoder as PFE
 from vitlens_tpu_torch.text import tokenizer as PT
@@ -26,7 +27,8 @@ def test_port_imports_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(vitlens_tpu_torch.__path__, 'vitlens_tpu_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "for n in ('ops.fps', 'ops.fused_point_encoder', 'adapters.tokenizers', 'data.processors'):\n"
+        "for n in ('ops.fps', 'ops.fused_point_encoder', 'adapters.tokenizers', 'data.processors',\n"
+        "          'ops.fused_ln_proj', 'train.losses', 'train.schedules', 'train.freeze', 'train.step'):\n"
         "    assert 'vitlens_tpu_torch.' + n in names, n\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'vitlens_tpu'))\n"
         "assert not bad, bad\n"
@@ -86,6 +88,70 @@ def test_fused_mlp_kernel_argument_checks():
     args[3] = torch.zeros(128, 64, dtype=torch.bfloat16).t()
     with pytest.raises(ValueError, match="contiguous"):
         PFM._check_cuda_args(*args, "gelu")
+
+
+def test_save_preact_entry_point_checks_its_arguments():
+    """The save-preact launch path checks its arguments before it touches
+    the library, and its C entry point has its own signature (one pointer
+    more than the plain variant's: the pre-activation output)."""
+    with pytest.raises(ValueError, match="bfloat16"):
+        PFM._launch(*_mlp(dtype=torch.float32), "gelu", 1e-5, save_preact=True)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        PFM._launch(*_mlp(h=96), "gelu", 1e-5, save_preact=True)
+    plain = _build._SIGNATURES["vitlens_fused_mlp_fwd"]
+    save = _build._SIGNATURES["vitlens_fused_mlp_fwd_save_preact"]
+    assert save == [save[0]] + plain
+
+
+def _ln_proj(m=8, d=128, n=384, dtype=torch.bfloat16):
+    f32 = torch.float32
+    return (torch.zeros(m, d, dtype=dtype), torch.ones(d, dtype=f32),
+            torch.zeros(d, dtype=f32), torch.zeros(d, n, dtype=dtype),
+            torch.zeros(n, dtype=f32))
+
+
+def test_fused_ln_proj_kernel_argument_checks():
+    PFL._check_cuda_args(*_ln_proj())
+    with pytest.raises(ValueError, match="bfloat16"):
+        PFL._check_cuda_args(*_ln_proj(dtype=torch.float32))
+    with pytest.raises(ValueError, match="multiples of 128"):
+        PFL._check_cuda_args(*_ln_proj(d=192, n=576))
+    with pytest.raises(ValueError, match="multiples of 128"):
+        PFL._check_cuda_args(*_ln_proj(n=320))
+    with pytest.raises(ValueError, match="at most"):
+        PFL._check_cuda_args(*_ln_proj(m=1, d=PFL.MAX_D + 128))
+    args = list(_ln_proj())
+    args[3] = torch.zeros(384, 128, dtype=torch.bfloat16).t()
+    with pytest.raises(ValueError, match="contiguous"):
+        PFL._check_cuda_args(*args)
+    args = list(_ln_proj())
+    args[4] = torch.zeros(384, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="b must be torch.float32"):
+        PFL._check_cuda_args(*args)
+    args = list(_ln_proj())
+    args[1] = args[1].to("meta")
+    with pytest.raises(ValueError, match="is on"):
+        PFL._check_cuda_args(*args)
+    assert _build._SIGNATURES["vitlens_fused_ln_proj_fwd"][:8] == [_build._P] * 8
+
+
+def test_source_hash_covers_every_kernel_source(tmp_path, monkeypatch):
+    """fused_ln_proj.cu is built, and an edit to it or to the shared GEMM
+    header changes the build's hash (so a stale library is never loaded);
+    the header is included, not compiled on its own."""
+    names = sorted(p.name for p in _build.CSRC.iterdir())
+    assert "fused_ln_proj.cu" in names and "gemm_bf16.cuh" in names
+    for name in names:
+        (tmp_path / name).write_bytes((_build.CSRC / name).read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert [p.name for p in _build._sources()] == [
+        n for n in names if n.endswith(".cu")]
+    seen = {_build.source_hash()}
+    for name in ("fused_ln_proj.cu", "gemm_bf16.cuh"):
+        with open(tmp_path / name, "a") as f:
+            f.write("\n// edit\n")
+        seen.add(_build.source_hash())
+    assert len(seen) == 3
 
 
 def test_flash_attention_kernel_argument_checks():

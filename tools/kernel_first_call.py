@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """First call of new kernels on the card: compile every csrc/*.cu with
-``-Xptxas -v`` (registers, shared memory, spills), then hold the FPS and
-point-encoder kernels against their plain versions at the point-cloud path's
-shapes and at edge shapes (ragged N, partial group tiles, other group sizes
-and widths), with one timing each.
+``-Xptxas -v`` (registers, shared memory, spills), then hold kernels against
+their plain versions at their paths' shapes and at edge shapes, with one
+timing each: FPS and the point encoder (ragged N, partial group tiles, other
+group sizes and widths), the fused MLP's save-preact variant and the fused
+LN + projection (ragged M, both trunk widths).
 
-    python3 tools/kernel_first_call.py
+    python3 tools/kernel_first_call.py [fps] [encoder] [mlp] [ln_proj]
 
-Needs one CUDA device and nvcc. Exits non-zero if a kernel disagrees.
+With no names it checks all four. Needs one CUDA device and nvcc. Exits
+non-zero if a kernel disagrees.
 """
 
 import os
@@ -22,6 +24,10 @@ import torch  # noqa: E402
 
 from vitlens_tpu_torch.ops import _build  # noqa: E402
 from vitlens_tpu_torch.ops.fps import fps_indices, fps_indices_reference  # noqa: E402
+from vitlens_tpu_torch.ops.fused_ln_proj import (  # noqa: E402
+    fused_ln_proj, ln_proj_reference)
+from vitlens_tpu_torch.ops.fused_mlp import (  # noqa: E402
+    fused_mlp, fused_mlp_reference, fused_mlp_save_preact)
 from vitlens_tpu_torch.ops.fused_point_encoder import (  # noqa: E402
     fused_point_encoder, point_encoder_reference)
 
@@ -54,7 +60,73 @@ def encoder_inputs(g, shape, widths):
             r(c4, std=0.1))
 
 
+FPS_CASES = ((64, 8192, 512, False), (8, 10000, 512, True),
+             (3, 100, 64, True), (2, 16384, 512, False))
+ENC_CASES = (((64, 512, 32), (128, 256, 512, 256)),
+             ((1, 25, 16), (128, 256, 512, 256)),
+             ((3, 7, 64), (128, 256, 512, 256)),
+             ((2, 9, 32), (64, 192, 320, 192)))
+
+
+def rel_err(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+def check_mlp(g):
+    """The save-preact variant's (out, a) and the plain variant against the
+    plain version: out within 2.5e-2, a within 1e-2 relative (bf16)."""
+    ok = True
+    for m, d, h in ((6168, 1024, 4096), (1001, 1024, 4096), (77, 768, 3072)):
+        def r(*shape, std=1.0, dtype=torch.bfloat16):
+            return (torch.randn(*shape, generator=g, device="cuda") * std).to(dtype)
+
+        f32 = torch.float32
+        args = (r(m, d, std=0.5), 1 + r(d, std=0.1, dtype=f32),
+                r(d, std=0.1, dtype=f32), r(d, h, std=d ** -0.5),
+                r(h, std=0.1, dtype=f32), r(h, d, std=h ** -0.5),
+                r(d, std=0.1, dtype=f32))
+        for act in ("gelu", "quick_gelu"):
+            out, a = fused_mlp_save_preact(*args, act=act)
+            plain_out = fused_mlp(*args, act=act)
+            torch.cuda.synchronize()
+            want_out, want_a = fused_mlp_reference(*args, act=act, save_preact=True)
+            e_out, e_a = rel_err(out, want_out), rel_err(a, want_a)
+            same = torch.equal(out, plain_out)
+            ok &= e_out <= 2.5e-2 and e_a <= 1e-2 and same
+            print(f"mlp save-preact M{m} D{d} H{h} {act}: out {e_out:.2e}, a "
+                  f"{e_a:.2e}, out equal to the plain variant's: {same}; "
+                  f"save-preact {ms(lambda: fused_mlp_save_preact(*args, act=act)):.4f} "
+                  f"ms, plain variant {ms(lambda: fused_mlp(*args, act=act)):.4f} ms",
+                  flush=True)
+    return ok
+
+
+def check_ln_proj(g):
+    """The fused LN + projection against its plain version, bf16, 1e-2
+    relative."""
+    ok = True
+    for m, d, n in ((6168, 1024, 3072), (1001, 1024, 3072), (1001, 768, 2304),
+                    (1, 768, 2304), (49344, 1024, 3072)):
+        x = (torch.randn(m, d, generator=g, device="cuda") * 0.5
+             + torch.randn(d, generator=g, device="cuda")).bfloat16()
+        lnw = 1 + torch.randn(d, generator=g, device="cuda") * 0.1
+        lnb = torch.randn(d, generator=g, device="cuda") * 0.1
+        w = (torch.randn(d, n, generator=g, device="cuda") * d ** -0.5).bfloat16()
+        b = torch.randn(n, generator=g, device="cuda") * 0.1
+        got = fused_ln_proj(x, lnw, lnb, w, b)
+        torch.cuda.synchronize()
+        e = rel_err(got, ln_proj_reference(x, lnw, lnb, w, b))
+        ok &= bool(torch.isfinite(got).all()) and e <= 1e-2
+        print(f"ln_proj M{m} D{d} N{n}: rel err {e:.2e}; kernel "
+              f"{ms(lambda: fused_ln_proj(x, lnw, lnb, w, b)):.4f} ms, plain "
+              f"{ms(lambda: ln_proj_reference(x, lnw, lnb, w, b), 2):.4f} ms",
+              flush=True)
+    return ok
+
+
 def main() -> int:
+    which = set(sys.argv[1:]) or {"fps", "encoder", "mlp", "ln_proj"}
     nvcc = _build.find_nvcc()
     with tempfile.TemporaryDirectory() as tmp:
         for src in sorted(_build.CSRC.glob("*.cu")):
@@ -70,8 +142,11 @@ def main() -> int:
     print(f"build {time.time() - t0:.1f} s", flush=True)
     g = torch.Generator(device="cuda").manual_seed(0)
     ok = True
-    for b, n, npoint, random_start in ((64, 8192, 512, False), (8, 10000, 512, True),
-                                       (3, 100, 64, True), (2, 16384, 512, False)):
+    if "mlp" in which:
+        ok &= check_mlp(g)
+    if "ln_proj" in which:
+        ok &= check_ln_proj(g)
+    for b, n, npoint, random_start in FPS_CASES if "fps" in which else ():
         xyz = torch.randn(b, n, 3, generator=g, device="cuda") * 0.3
         start = (torch.randint(0, n, (b,), generator=g, device="cuda", dtype=torch.int32)
                  if random_start else torch.zeros(b, dtype=torch.int32, device="cuda"))
@@ -83,10 +158,7 @@ def main() -> int:
               f"{ms(lambda: fps_indices(xyz, npoint, start)):.4f} ms, plain "
               f"{ms(lambda: fps_indices_reference(xyz, npoint, start), 2):.4f} ms",
               flush=True)
-    for shape, widths in ((((64, 512, 32)), (128, 256, 512, 256)),
-                          ((1, 25, 16), (128, 256, 512, 256)),
-                          ((3, 7, 64), (128, 256, 512, 256)),
-                          ((2, 9, 32), (64, 192, 320, 192))):
+    for shape, widths in ENC_CASES if "encoder" in which else ():
         args = encoder_inputs(g, shape, widths)
         got = fused_point_encoder(*args)
         torch.cuda.synchronize()

@@ -6,6 +6,10 @@ distributions (the values differ from JAX's: the generators differ). Matmul
 and convolution weights are then cast to ``dtype`` once; LayerNorm
 parameters, biases and embeddings stay fp32 and are cast at use, as in JAX.
 
+For training, build the model in fp32 and call :func:`make_trainable_` with
+the trainability mask: trainable parameters stay fp32 masters, cast at use,
+and only the frozen matmul weights are cast to the compute dtype.
+
 The entry points run on the card: ``device=None`` means ``"cuda"``, and with
 no CUDA device they raise unless the caller passes ``device="cpu"``.
 """
@@ -36,12 +40,26 @@ def make_generator(seed: int, device) -> torch.Generator:
 
 
 def cast_matmul_weights_(module: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """Cast, in place, every parameter whose leaf name is in
-    ``MATMUL_WEIGHTS`` to ``dtype``."""
+    """Cast, in place, every frozen parameter whose leaf name is in
+    ``MATMUL_WEIGHTS`` to ``dtype``. A parameter that requires grad is a
+    trainable fp32 master and is never cast."""
     for name, p in module.named_parameters():
-        if name.rsplit(".", 1)[-1] in MATMUL_WEIGHTS:
+        if name.rsplit(".", 1)[-1] in MATMUL_WEIGHTS and not p.requires_grad:
             p.data = p.data.to(dtype)
     return module
+
+
+def make_trainable_(model: nn.Module, mask, dtype: torch.dtype) -> nn.Module:
+    """Mark the parameters that ``mask`` ({name: trainable}, from
+    ``train.freeze``) trains as requiring grad, then cast the frozen matmul
+    weights to the compute ``dtype``. The model must be fp32."""
+    from vitlens_tpu_torch.train.freeze import apply_mask
+
+    for name, p in model.named_parameters():
+        if p.dtype != torch.float32:
+            raise ValueError(f"{name} is {p.dtype}: build the model in fp32 "
+                             "before making it trainable")
+    return cast_matmul_weights_(apply_mask(model, mask), dtype)
 
 
 def create_model(model: str = "ViT-L-14", modality: str = "audio", *,

@@ -8,8 +8,9 @@ LayerNorm parameters are ``scale``/``bias``, attention keeps the packed
 
 Numerical contracts, as in JAX: LayerNorm in fp32 cast back; exact-erf GELU;
 QuickGELU x * sigmoid(1.702 x); weights, biases and LayerNorm parameters cast
-to the activation dtype at use (a no-op for matmul weights, which the factory
-casts to the compute dtype once at load).
+to the activation dtype at use (a no-op for frozen matmul weights, which the
+factory casts to the compute dtype once at load; trainable ones stay fp32
+masters and the cast carries their gradient).
 
 Each module's ``init_(g)`` fills its parameters from the ``torch.Generator``
 ``g`` with the JAX package's init distributions.
@@ -23,8 +24,12 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from vitlens_tpu_torch.ops.attention import dot_product_attention
+from vitlens_tpu_torch.ops.fused_ln_proj import (fused_ln_proj_applicable,
+                                                 fused_ln_proj_available,
+                                                 fused_ln_qkv)
 from vitlens_tpu_torch.ops.fused_mlp import fused_mlp
 
 # Leaf names of the parameters that feed a matmul or a convolution: the
@@ -125,13 +130,19 @@ class MHA(nn.Module):
             self.out_b.zero_()
 
     def forward(self, x, mask: Optional[torch.Tensor] = None):
-        B, N, D = x.shape
         qkv = x @ self.qkv_w.to(x.dtype) + self.qkv_b.to(x.dtype)
+        return self.from_qkv(qkv, mask)
+
+    def from_qkv(self, qkv, mask: Optional[torch.Tensor] = None):
+        """Attention and the out-projection given the packed [B, N, 3D]
+        projection (JAX ``_attn_from_qkv``)."""
+        B, N, D3 = qkv.shape
+        D = D3 // 3
         qkv = qkv.view(B, N, 3, self.heads, D // self.heads).permute(2, 0, 3, 1, 4)
         q, k, v = (t.contiguous() for t in qkv)
         o = dot_product_attention(q, k, v, mask=mask)
         o = o.transpose(1, 2).reshape(B, N, D)
-        return o @ self.out_w.to(x.dtype) + self.out_b.to(x.dtype)
+        return o @ self.out_w.to(qkv.dtype) + self.out_b.to(qkv.dtype)
 
 
 class MLP(nn.Module):
@@ -162,7 +173,10 @@ class LayerScale(nn.Module):
 class ResBlock(nn.Module):
     """Pre-LN residual attention block. The MLP half goes through
     ``ops.fused_mlp`` (the kernel on CUDA); a block with layer-scale takes
-    the plain composition, as in JAX, since the kernel has no layer-scale."""
+    the plain composition, as in JAX, since the kernel has no layer-scale.
+    With ``VITLENS_ENABLE_FUSED_LNQKV`` set, the front half (ln_1 + the
+    packed qkv projection) goes through ``ops.fused_ln_proj`` where it
+    applies (bf16, widths multiples of 128), as in JAX."""
 
     def __init__(self, dim: int, heads: int, mlp_ratio: float = 4.0,
                  ls_init_value: Optional[float] = None,
@@ -186,7 +200,11 @@ class ResBlock(nn.Module):
                 m.init_(g)
 
     def forward(self, x, mask: Optional[torch.Tensor] = None):
-        a = self.attn(self.ln_1(x), mask)
+        if (fused_ln_proj_available()
+                and fused_ln_proj_applicable(x, self.attn.qkv_w)):
+            a = self.attn.from_qkv(fused_ln_qkv(x, self.ln_1, self.attn), mask)
+        else:
+            a = self.attn(self.ln_1(x), mask)
         if self.ls_1 is not None:
             a = self.ls_1(a)
         x = x + a
@@ -195,9 +213,11 @@ class ResBlock(nn.Module):
             h = self.mlp.proj(act(self.mlp.fc(self.ln_2(x))))
             return x + self.ls_2(h)
         d = x.shape[-1]
-        out = fused_mlp(x.reshape(-1, d), self.ln_2.scale, self.ln_2.bias,
-                        self.mlp.fc.w, self.mlp.fc.b, self.mlp.proj.w,
-                        self.mlp.proj.b, self.act, self.ln_2.eps)
+        fc, proj = self.mlp.fc, self.mlp.proj
+        out = fused_mlp(x.reshape(-1, d), self.ln_2.scale.float(),
+                        self.ln_2.bias.float(), fc.w.to(x.dtype), fc.b.float(),
+                        proj.w.to(x.dtype), proj.b.float(), self.act,
+                        self.ln_2.eps)
         return out.reshape(x.shape)
 
 
@@ -217,8 +237,18 @@ class Transformer(nn.Module):
             b.init_(g)
 
     def forward(self, x, mask: Optional[torch.Tensor] = None,
-                skip_first_n: Optional[int] = None):
-        """``skip_first_n`` drops the first N blocks (the vitlensG recipe)."""
+                skip_first_n: Optional[int] = None, remat: bool = False):
+        """``skip_first_n`` drops the first N blocks (the vitlensG recipe).
+        ``remat=True`` recomputes each block's activations in the backward
+        pass (JAX ``jax.checkpoint`` of the scan body) with non-reentrant
+        ``torch.utils.checkpoint``; it only acts while autograd records."""
+        if remat not in (False, True):
+            raise NotImplementedError(
+                f"remat={remat!r}: only full remat (True) is ported; the "
+                "'dots' policy is not")
         for b in self.blocks[skip_first_n or 0:]:
-            x = b(x, mask)
+            if remat and torch.is_grad_enabled():
+                x = checkpoint(b, x, mask, use_reentrant=False)
+            else:
+                x = b(x, mask)
         return x

@@ -41,12 +41,14 @@ class TextTower(nn.Module):
         self.ln_final.init_(g)
         normal_(self.text_projection, self.cfg.width ** -0.5, g)
 
-    def forward(self, text: torch.Tensor, compute_dtype=torch.float32):
-        """text: [B, context_length] token ids -> [B, embed_dim]."""
+    def forward(self, text: torch.Tensor, compute_dtype=torch.float32, *,
+                remat: bool = False):
+        """text: [B, context_length] token ids -> [B, embed_dim]. ``remat``
+        recomputes the trunk's blocks in the backward pass."""
         x = self.token_embedding[text].to(compute_dtype)
         x = x + self.positional_embedding.to(compute_dtype)
         mask = causal_mask(self.cfg.context_length, device=x.device)
-        x = self.ln_final(self.trunk(x, mask=mask))
+        x = self.ln_final(self.trunk(x, mask=mask, remat=remat))
         eot = text.argmax(dim=-1)
         pooled = x[torch.arange(x.shape[0], device=x.device), eot]
         return pooled @ self.text_projection.to(pooled.dtype)

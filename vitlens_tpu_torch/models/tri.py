@@ -1,7 +1,8 @@
 """Lens tower + CLIP text tower (port of vitlens_tpu/models/tri.py).
 
 The frozen CLIP image tower is not yet ported, so the port's model holds the
-Lens ("visual") tower, the text tower and the logit scale.
+Lens ("visual") tower, the text tower and the logit scale. ``train`` and
+``remat`` thread through the encode helpers as in JAX.
 """
 
 from __future__ import annotations
@@ -41,12 +42,13 @@ class TriModel(nn.Module):
 
 
 def encode_visual(model: TriModel, x: torch.Tensor, *, normalize: bool = False,
-                  compute_dtype=torch.float32) -> torch.Tensor:
-    feats = model.visual(x, compute_dtype)
+                  train: bool = False, compute_dtype=torch.float32,
+                  remat: bool = False) -> torch.Tensor:
+    feats = model.visual(x, compute_dtype, train=train, remat=remat)
     return _l2_normalize(feats) if normalize else feats
 
 
 def encode_text(model: TriModel, text: torch.Tensor, *, normalize: bool = False,
-                compute_dtype=torch.float32) -> torch.Tensor:
-    feats = model.text(text, compute_dtype)
+                compute_dtype=torch.float32, remat: bool = False) -> torch.Tensor:
+    feats = model.text(text, compute_dtype, remat=remat)
     return _l2_normalize(feats) if normalize else feats

@@ -61,15 +61,26 @@ class VisionTower(nn.Module):
         self.ln_post.init_(g)
         normal_(self.proj, scale, g)
 
-    def forward(self, x: torch.Tensor, compute_dtype=torch.float32):
+    def forward(self, x: torch.Tensor, compute_dtype=torch.float32, *,
+                train: bool = False, remat: bool = False):
         """x: fbank [B, target_length, mel_bins] or points [B, N, 3] ->
         features [B, embed_dim]. The input is cast to ``compute_dtype`` first,
-        so FPS sees the rounded coordinates, as in JAX."""
+        so FPS sees the rounded coordinates, as in JAX. ``remat`` recomputes
+        the trunk's blocks in the backward pass. ``train`` marks a training
+        pass: train-time patch dropout and the point tokenizer's batch
+        BatchNorm and random FPS starts are not ported and raise."""
         if self.cfg.modality == "audio" and x.dim() != 3:
             raise NotImplementedError(
                 "raw-waveform audio input (on-device fbank) is not yet ported; "
                 "pass a [B, target_length, mel_bins] fbank")
         cfg = self.cfg
+        if train and cfg.patch_dropout > 0:
+            raise NotImplementedError(
+                "train-time patch dropout (patch_dropout > 0) is not yet ported")
+        if train and cfg.modality == "pc":
+            raise NotImplementedError(
+                "point-cloud training (batch BatchNorm, random FPS starts) is "
+                "not yet ported")
         x = x.to(compute_dtype)
         tokens, pos = self.adapter(x)
         if cfg.use_adapter_pos:
@@ -81,7 +92,7 @@ class VisionTower(nn.Module):
         if cfg.use_orig_pos:
             h = h + self.positional_embedding.to(h.dtype)
         h = self.ln_pre(h)
-        h = self.trunk(h, skip_first_n=cfg.skip_first_n_layers)
+        h = self.trunk(h, skip_first_n=cfg.skip_first_n_layers, remat=remat)
         pooled = h.mean(dim=1) if cfg.arch.global_average_pool else h[:, 0]
         pooled = self.ln_post(pooled)
         return pooled @ self.proj.to(pooled.dtype)

@@ -1,6 +1,6 @@
 """Builds the hand-written CUDA kernels under ``csrc/`` and loads them.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``), one
+Every ``csrc/*.cu`` file (with the headers it includes) is compiled by ``nvcc`` for Hopper (``sm_90a``), one
 ``nvcc`` process per source, all started together, and the objects are linked
 into one shared library with a plain C interface, at first use, and loaded
 with ``ctypes``. The library lives in ``build/kernels/<hash>/`` at the repository
@@ -35,6 +35,8 @@ _F = ctypes.c_float
 # C signatures of the entry points (pointers and the stream are c_void_p).
 _SIGNATURES = {
     "vitlens_fused_mlp_fwd": [_P] * 10 + [_I, _I, _I, _I, _F, _P],
+    "vitlens_fused_mlp_fwd_save_preact": [_P] * 11 + [_I, _I, _I, _I, _F, _P],
+    "vitlens_fused_ln_proj_fwd": [_P] * 8 + [_I, _I, _I, _F, _P],
     "vitlens_flash_attention_fwd": [_P] * 4 + [_I, _I, _I, _F, _P],
     "vitlens_fps_fwd": [_P] * 3 + [_I] * 3 + [_P],
     "vitlens_point_encoder_fwd": [_P] * 16 + [_I] * 6 + [_P],

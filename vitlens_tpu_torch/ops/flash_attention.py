@@ -2,10 +2,15 @@
 
 On a CUDA tensor :func:`flash_attention` launches the hand-written Hopper
 kernel in ``csrc/flash_attention.cu`` (the port of
-``vitlens_tpu/ops/flash_attention.py::_fused_attention_fwd_impl``, forward
-only) or raises on what the kernel does not take. On a CPU tensor it runs
+``vitlens_tpu/ops/flash_attention.py::_fused_attention_fwd_impl``) or raises
+on what the kernel does not take. On a CPU tensor it runs
 :func:`attention_reference`, the plain PyTorch version of the same contract:
 fp32 scores, softmax and P @ V, rounded once to the input dtype.
+
+Training follows the JAX package's ``custom_vjp``: the forward is the kernel
+(or the plain version on the CPU), and the backward recomputes the
+probabilities in fp32 from the saved q, k, v (the JAX ``_bwd``), on both
+devices.
 """
 
 from __future__ import annotations
@@ -47,13 +52,7 @@ def _check_cuda_args(q, k, v):
         raise ValueError("flash_attention: no keys")
 
 
-def flash_attention(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
-    """q [B, H, NQ, Dh], k/v [B, H, NK, Dh] -> [B, H, NQ, Dh], no mask.
-
-    CPU tensors take :func:`attention_reference`. CUDA tensors launch the
-    kernel: bf16, head dim 64, contiguous. Anything else raises."""
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
+def _forward(q, k, v, scale: float) -> torch.Tensor:
     if not q.is_cuda:
         return attention_reference(q, k, v, scale)
     _check_cuda_args(q, k, v)
@@ -70,6 +69,52 @@ def flash_attention(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
     return out
+
+
+def attention_backward(g, q, k, v, scale: float, needs=(True, True, True)):
+    """The JAX ``_bwd``: probabilities recomputed in fp32; (dq, dk, dv), each
+    None unless ``needs`` asks for it."""
+    q32, k32, v32, g32 = q.float(), k.float(), v.float(), g.float()
+    p = torch.softmax((q32 @ k32.transpose(-1, -2)) * scale, dim=-1)
+    dv = (p.transpose(-1, -2) @ g32).to(v.dtype) if needs[2] else None
+    dq = dk = None
+    if needs[0] or needs[1]:
+        dp = g32 @ v32.transpose(-1, -2)
+        ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+        if needs[0]:
+            dq = ((ds @ k32) * scale).to(q.dtype)
+        if needs[1]:
+            dk = ((ds.transpose(-1, -2) @ q32) * scale).to(k.dtype)
+    return dq, dk, dv
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return _forward(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        return (*attention_backward(g, q, k, v, ctx.scale,
+                                    ctx.needs_input_grad[:3]), None)
+
+
+def flash_attention(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
+    """q [B, H, NQ, Dh], k/v [B, H, NK, Dh] -> [B, H, NQ, Dh], no mask.
+
+    CPU tensors take :func:`attention_reference`. CUDA tensors launch the
+    kernel: bf16, head dim 64, contiguous. Anything else raises. When
+    autograd records and an input requires grad, this is
+    :class:`FlashAttentionFunction`."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFunction.apply(q, k, v, scale)
+    return _forward(q, k, v, scale)
 
 
 flash_attention.launches = 0

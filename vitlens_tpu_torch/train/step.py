@@ -1,0 +1,250 @@
+"""Training step, single device (port of vitlens_tpu/train/step.py with
+``mesh=None``): AdamW with the reference's weight-decay exclusion, frozen
+towers, trainable-only gradients, the accum-freq cached-negative replay, the
+logit-scale clamp.
+
+The optimizer reproduces the JAX package's ``optax.masked(optax.chain(
+clip_by_global_norm, adamw(schedule, mask=wd_mask)), trainable)``: the lr of
+an update is ``schedule(count)`` with count starting at 0, weight decay is
+decoupled and masked by :func:`wd_mask`, frozen parameters get no optimizer
+state, and the clip is ``g / norm * max_norm`` only where ``norm >=
+max_norm``. Unlike JAX's pure step, the port updates the parameters and the
+optimizer state in place (it keeps one copy of each), and returns the same
+``TrainState`` with its step advanced.
+
+Only the dual objective aligned to text trains here: ``n_tower=3`` and
+``align_to`` image, video or clip need the image tower (ROADMAP Queue 1,
+item 5), and a mesh needs the parallelism work (item 12).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+from vitlens_tpu_torch.models import tri
+from vitlens_tpu_torch.train import losses as losses_lib
+from vitlens_tpu_torch.train.freeze import Mask
+from vitlens_tpu_torch.train.schedules import get_schedule
+
+MAX_LOGIT_SCALE = math.log(100.0)
+
+_NO_DECAY_LEAF_NAMES = {
+    "b", "bias", "scale", "qkv_b", "out_b", "gamma",
+    "class_embedding", "logit_scale",
+}
+
+
+def wd_mask(model: nn.Module) -> Mask:
+    """True where weight decay applies, by the parameter's leaf name: the
+    reference excludes biases, LN/BN parameters, the class embedding and
+    the logit scale (audio_main.py:368-393)."""
+    return {name: name.rsplit(".", 1)[-1] not in _NO_DECAY_LEAF_NAMES
+            for name, _ in model.named_parameters()}
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    lr: float = 5e-4
+    beta1: float = 0.9
+    beta2: float = 0.98  # reference default for ViT runs (params.py)
+    eps: float = 1e-6
+    weight_decay: float = 0.2
+    grad_clip_norm: Optional[float] = None
+    warmup: int = 10000
+    total_steps: int = 100000
+    schedule: str = "cosine"
+
+
+def global_norm(grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+    return torch.sqrt(sum(g.float().square().sum() for g in grads.values()))
+
+
+class AdamW:
+    """``optax.masked(chain(clip_by_global_norm?, adamw), trainable)`` over
+    named parameters. State: ``{"count": int, "mu": {name: t}, "nu": {name:
+    t}}`` for the trainable names only."""
+
+    def __init__(self, cfg: OptimizerConfig, trainable: Mask, decay: Mask):
+        self.cfg = cfg
+        self.schedule = get_schedule(cfg.schedule, cfg.lr, cfg.warmup,
+                                     cfg.total_steps)
+        self.names = [n for n, t in trainable.items() if t]
+        self.decay = decay
+
+    def init(self, model: nn.Module) -> Dict[str, Any]:
+        params = dict(model.named_parameters())
+        zeros = lambda: {n: torch.zeros_like(params[n]) for n in self.names}  # noqa: E731
+        return {"count": 0, "mu": zeros(), "nu": zeros()}
+
+    @torch.no_grad()
+    def update_(self, params: Dict[str, torch.Tensor],
+                grads: Dict[str, torch.Tensor], state: Dict[str, Any]) -> None:
+        """Apply one update to ``params`` (the trainable ones) in place."""
+        cfg = self.cfg
+        if cfg.grad_clip_norm:
+            norm = global_norm(grads)
+            keep = norm < cfg.grad_clip_norm
+            grads = {n: torch.where(keep, g, g / norm * cfg.grad_clip_norm)
+                     for n, g in grads.items()}
+        count = state["count"]
+        lr = self.schedule(count)
+        t = count + 1
+        bc1, bc2 = 1 - cfg.beta1 ** t, 1 - cfg.beta2 ** t
+        for name in self.names:
+            p, g = params[name], grads[name]
+            mu, nu = state["mu"][name], state["nu"][name]
+            mu.mul_(cfg.beta1).add_(g, alpha=1 - cfg.beta1)
+            nu.mul_(cfg.beta2).addcmul_(g, g, value=1 - cfg.beta2)
+            u = (mu / bc1) / ((nu / bc2).sqrt() + cfg.eps)
+            if self.decay[name]:
+                u = u + cfg.weight_decay * p
+            p.add_(u, alpha=-lr)
+        state["count"] = t
+
+
+def make_optimizer(model: nn.Module, cfg: OptimizerConfig,
+                   trainable_mask: Optional[Mask] = None) -> Tuple[AdamW, Mask]:
+    if trainable_mask is None:
+        trainable_mask = {name: True for name, _ in model.named_parameters()}
+    return AdamW(cfg, trainable_mask, wd_mask(model)), trainable_mask
+
+
+@dataclass
+class TrainState:
+    model: nn.Module
+    opt_state: Dict[str, Any]
+    step: int = 0
+
+
+def init_train_state(model: nn.Module, tx: AdamW) -> TrainState:
+    """The optimizer state of ``model``, whose trainable parameters (those
+    ``factory.make_trainable_`` marked) must be exactly the optimizer's, and
+    fp32 masters."""
+    for name, p in model.named_parameters():
+        if p.requires_grad != (name in tx.names):
+            raise ValueError(f"{name}: requires_grad={p.requires_grad} does not "
+                             "match the mask; call factory.make_trainable_ first")
+        if p.requires_grad and p.dtype != torch.float32:
+            raise ValueError(f"{name}: a trainable parameter must be an fp32 "
+                             f"master, got {p.dtype}")
+    return TrainState(model=model, opt_state=tx.init(model))
+
+
+@torch.no_grad()
+def clamp_logit_scale(model: nn.Module) -> None:
+    model.logit_scale.clamp_(0.0, MAX_LOGIT_SCALE)
+
+
+@dataclass(frozen=True)
+class StepConfig:
+    n_tower: int = 3                  # 3 = tri loss, 2 = dual (align_to)
+    align_to: str = "image"           # dual anchor: image | text; or "clip"
+    contra_loss_type: str = "general"  # general | label_mask | sim_mask
+    sim_thres: float = 0.9
+    accum_freq: int = 1
+    compute_dtype: torch.dtype = torch.bfloat16
+    remat: bool = False               # True: recompute each trunk block
+
+
+def _forward_features(model, batch, sc: StepConfig) -> Dict[str, torch.Tensor]:
+    """The dual step's towers: the text anchor and the Lens tower."""
+    dt = sc.compute_dtype
+    return {
+        "logit_scale": model.logit_scale.exp().float(),
+        "anchor_features": tri.encode_text(model, batch["text"], normalize=True,
+                                           compute_dtype=dt, remat=sc.remat),
+        "visual_features": tri.encode_visual(model, batch["visual"],
+                                             normalize=True, train=True,
+                                             compute_dtype=dt, remat=sc.remat),
+    }
+
+
+def _grads(loss, params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    got = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    return {n: torch.zeros_like(p) if g is None else g
+            for (n, p), g in zip(params.items(), got)}
+
+
+def micro_grads(model, batch, sc: StepConfig, params, loss_fn):
+    """(loss, {name: grad}) of one pass over the whole batch, for the
+    trainable ``params`` only."""
+    loss = loss_fn(_forward_features(model, batch, sc), batch.get("label"))
+    return loss.detach(), _grads(loss, params)
+
+
+def accum_grads(model, batch, sc: StepConfig, params, loss_fn):
+    """--accum-freq replay (reference train.py:154-210): features of every
+    micro-batch cached without grad, then per micro-batch a pass with grad,
+    with the cached features of the others spliced in as negatives. The sum
+    of the pass gradients is the full-batch gradient (no 1/accum scaling);
+    the loss is averaged for logging."""
+    A = sc.accum_freq
+    b = batch["visual"].shape[0]
+    if b % A:
+        raise ValueError(f"batch {b} is not divisible by accum_freq {A}")
+    micro = [{k: v[i * (b // A):(i + 1) * (b // A)] for k, v in batch.items()}
+             for i in range(A)]
+    with torch.no_grad():
+        cached = [_forward_features(model, mb, sc) for mb in micro]
+    keys = [k for k in cached[0] if k.endswith("_features")]
+    loss_total, grads_total = 0.0, None
+    for i, mb in enumerate(micro):
+        out_i = _forward_features(model, mb, sc)
+        merged = {"logit_scale": out_i["logit_scale"]}
+        for k in keys:
+            merged[k] = torch.cat([out_i[k] if j == i else cached[j][k]
+                                   for j in range(A)])
+        loss = loss_fn(merged, batch.get("label"))
+        grads = _grads(loss, params)
+        loss_total = loss_total + loss.detach()
+        grads_total = grads if grads_total is None else {
+            n: grads_total[n] + g for n, g in grads.items()}
+    return loss_total / A, grads_total
+
+
+def make_train_step(model_cfg, tx: AdamW, trainable_mask: Mask,
+                    sc: StepConfig = StepConfig(), mesh=None,
+                    partition: str = "ddp"):
+    """Build the single-device step: ``step(state, batch) -> (state,
+    metrics)`` with batch ``{"text": [B, 77] ids, "visual": [B, T, F] fbank,
+    optional "label"}`` and metrics ``loss``, ``logit_scale`` (after the
+    update) and ``grad_norm`` (before the clip), 0-dim tensors. The towers
+    come from the state's model; ``model_cfg`` is the JAX signature's and
+    is not read."""
+    if mesh is not None or partition != "ddp":
+        raise NotImplementedError(
+            "the data-parallel and FSDP train steps (mesh, partition) are not "
+            "yet ported: ROADMAP Queue 1, item 12 (parallelism)")
+    if sc.n_tower == 3 or sc.align_to in ("image", "video", "clip"):
+        raise NotImplementedError(
+            f"n_tower={sc.n_tower}, align_to={sc.align_to!r} needs the image "
+            "tower, which is not yet ported: ROADMAP Queue 1, item 5")
+    if sc.n_tower != 2 or sc.align_to != "text":
+        raise ValueError(f"unknown step: n_tower={sc.n_tower}, "
+                         f"align_to={sc.align_to!r}")
+    loss_fn = losses_lib.make_loss_fn(sc.n_tower, sc.contra_loss_type,
+                                      sim_thres=sc.sim_thres)
+    names = [n for n, t in trainable_mask.items() if t]
+    grads_fn = accum_grads if sc.accum_freq > 1 else micro_grads
+
+    def step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        model = state.model
+        dev = model.logit_scale.device
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        batch["text"] = batch["text"].long()
+        all_params = dict(model.named_parameters())
+        params = {n: all_params[n] for n in names}
+        loss, grads = grads_fn(model, batch, sc, params, loss_fn)
+        grad_norm = global_norm(grads)
+        tx.update_(params, grads, state.opt_state)
+        clamp_logit_scale(model)
+        state.step += 1
+        return state, {"loss": loss, "grad_norm": grad_norm,
+                       "logit_scale": model.logit_scale.detach().exp()}
+
+    return step

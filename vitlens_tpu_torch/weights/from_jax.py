@@ -10,7 +10,8 @@ structural differences handled here:
 
 Layouts are unchanged ([in, out] matmul weights, the OIHW audio conv). A key
 of the tree that the module lacks, a module parameter the tree lacks, or a
-shape mismatch raises. :func:`load_state` does the same for the JAX state
+shape mismatch raises. :func:`load_tri_params` loads a whole JAX
+``tri_model_init`` tree but its ``image`` tower. :func:`load_state` does the same for the JAX state
 tree (the point tokenizer's BatchNorm running statistics) and the module's
 buffers. Values are copied into the existing parameters, so
 they take each parameter's dtype and device (matmul weights already cast to
@@ -67,6 +68,12 @@ def _copy_into(module: nn.Module, tree: Any, targets: Dict[str, torch.Tensor],
 def load_params(module: nn.Module, tree: Any) -> nn.Module:
     """Copy the JAX param tree ``tree`` into ``module`` in place."""
     return _copy_into(module, tree, dict(module.named_parameters()), "params")
+
+
+def load_tri_params(model: nn.Module, params: Any) -> nn.Module:
+    """Copy a JAX ``tri_model_init`` param tree into the port's ``TriModel``,
+    leaving out the image tower, which the port does not have."""
+    return load_params(model, {k: v for k, v in params.items() if k != "image"})
 
 
 def load_state(module: nn.Module, tree: Any) -> nn.Module:
