@@ -13,7 +13,13 @@ Phases, one printed line each (or more); any failure exits non-zero:
      (bf16, <= 1e-2 relative), fused LN + projection (bf16, <= 1e-2
      relative), FPS (index-exact, at B64/N 8192 with zero starts and B8/N
      10000 with random starts) and the point encoder (bf16, <= 2e-2
-     relative); then the gradients of each kernel-backed autograd Function
+     relative), the int8 product (equal, at 4096^3, at the quantized encode's
+     ragged M = 49344 and at an M that is not a multiple of 64), the row gather
+     (bit-equal, [49408, 512] table, 9856 ids with repeated and boundary ids),
+     the chained fused MLP with and without the out-projection (both
+     activations, bf16, <= 2.5e-2 relative, M = 16448 and a ragged M) and the
+     fused LN + projection at the LN + qkv prototype's shape; then the
+     gradients of each kernel-backed autograd Function
      (fused MLP, attention, LN + projection) against torch autograd of its
      plain version on the card, in bf16 (<= 2e-2 relative for the fused MLP
      and LN + projection, 1e-2 for attention).
@@ -30,6 +36,19 @@ Phases, one printed line each (or more); any failure exits non-zero:
      with the same weights moved to the CPU in fp32, where the plain versions
      run. The pc clouds are rounded through bf16 first, so that both runs give
      FPS the same coordinates; their FPS indices must be equal.
+  4q. quantized: the audio tower of that model quantized to int8 (W8A8) on
+     the card by quant.quantize_model, at full width and depth: w_q made on
+     the card equal to w_q made on the CPU; a B = 1 and a B = 64 x 3 clips
+     audio encode, each with 96 int8 products (4 x 24 blocks), 32 attention
+     and no fused MLP or fused LN + projection launch, a text encode of the
+     copy's float text tower (12 fused MLP) and one of a copy whose text tower
+     is quantized too (48 int8 products, no fused MLP); cosine >= 0.99 of the B = 1
+     int8 encode against the same quantized weights in fp32 on the CPU and of
+     both against the float bf16 encode on the card.
+  4s. scripts: each bench entry point of vitlens_tpu_torch.scripts (the
+     counterparts of the TPU prototypes' own main()) runs in this process at
+     its own shapes with few iterations, must exit 0, and must launch its
+     kernel.
   4b. train: the vitlensL audio+text model at full width and depth, fp32
      trainable masters, frozen weights in bf16, bf16 compute, with the
      published audio recipe (visual and text towers locked, CLS unlocked,
@@ -50,9 +69,13 @@ Phases, one printed line each (or more); any failure exits non-zero:
      main paths, beside each kernel's bound; the audio (64 samples x 3 clips)
      and pc (64 clouds) encode rates at B64 in bf16, the audio encode also
      with the opt-in; the audio train-step rate at B64 with and without the
-     opt-in, with the peak device memory; a torch.profiler breakdown of one
-     B64 audio and one B64 pc encode and one B64 train step with the device's
-     busy and idle share. Every time is printed beside the card's name and
+     opt-in, with the peak device memory; the int8 product at 4096^3 and the
+     quantized encode's four shapes beside torch._int_mm, the row gather beside
+     index_select, the chained MLPs beside the three-launch fused MLP on the
+     same function and today's split; the B64 quantized audio encode rate
+     beside the float one; a torch.profiler breakdown of one B64 audio (float
+     and quantized) and one B64 pc encode and one B64 train step with the
+     device's busy and idle share. Every time is printed beside the card's name and
      power limit.
 The last lines are {"kernels": [...]}, the card's name and power limit, then
 {"ok": true, "device": {...}}.
@@ -78,6 +101,7 @@ ENC_TOL = 2e-2     # bf16 rounding; rounding points that differ by one ulp
 # (the first H100 run read at most 6.9e-3).
 GRAD_TOL = 2e-2
 ATTN_GRAD_TOL = 1e-2  # both recompute P in fp32; only the rounding of dq/dk/dv
+CHAIN_TOL = 2.5e-2  # as the fused MLP: bf16 roundings of z, h and out
 COS_MIN = 0.99     # bf16 card path against the fp32 CPU plain path
 LOSS_TOL = 5e-2    # |loss card - loss CPU|: bf16 features at logit scale 14.3
 # grad_norm card / CPU - 1: bf16 gradients; a cosine of 0.99 alone allows
@@ -89,6 +113,7 @@ B = 64             # the benchmark batch of both encode paths
 # One NVIDIA H100 SXM at its full 700 W (NVIDIA's data sheet, dense rates).
 PEAK_BF16 = 989e12
 PEAK_FP32 = 67e12
+PEAK_INT8 = 1979e12
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -180,6 +205,39 @@ def enc_bound(bg, m, c1, c2, c3, c4):
     return bound(ops, nbytes, PEAK_BF16)
 
 
+def int8_bound(m, k, n):  # a, b int8 read once; the int32 product written once
+    return bound(2 * m * k * n, m * k + k * n + 4 * m * n, PEAK_INT8)
+
+
+def gather_bound(j, row_bytes):  # J rows read and written, J int32 ids
+    return bound(0, 2 * j * row_bytes + 4 * j, PEAK_BF16)
+
+
+def chain_bound(m, d, h, outproj):  # as mlp_bound, plus ctx, Wo and bo
+    extra_ops, extra_bytes = (2 * m * d * d, 2 * (m * d + d * d) + 4 * d) \
+        if outproj else (0, 0)
+    return bound(4 * m * d * h + extra_ops,
+                 2 * (2 * m * d + 2 * d * h) + 4 * (3 * d + h) + extra_bytes,
+                 PEAK_BF16)
+
+
+def int8_inputs(torch, g, m, k, n):
+    """a [M, K], b [K, N] and b transposed, random in [-127, 127]."""
+    a = torch.randint(-127, 128, (m, k), generator=g, device="cuda",
+                      dtype=torch.int8)
+    b = torch.randint(-127, 128, (k, n), generator=g, device="cuda",
+                      dtype=torch.int8)
+    return a, b, b.t().contiguous()
+
+
+def outproj_inputs(torch, g, m, d):
+    def r(*shape, std=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=g, device="cuda") * std).to(dtype)
+
+    return (r(m, d, std=0.5), r(d, d, std=d ** -0.5),
+            r(d, std=0.1, dtype=torch.float32))
+
+
 def mlp_inputs(torch, g, m, d, h):
     def r(*shape, std=1.0, dtype=torch.bfloat16):
         return (torch.randn(*shape, generator=g, device="cuda") * std).to(dtype)
@@ -248,7 +306,13 @@ def grad_errs(torch, g, function, plain, args):
 
 
 COUNTED = ("fused_mlp", "fused_mlp_save_preact", "flash_attention", "fps",
-           "point_encoder", "fused_ln_proj")
+           "point_encoder", "fused_ln_proj", "int8_matmul", "row_gather",
+           "fused_mlp_chunked", "fused_attnout_mlp")
+
+
+def launch_counts(**counts):
+    """Expected launches by counter: the named ones, every other 0."""
+    return {**dict.fromkeys(COUNTED, 0), **counts}
 
 
 def train_launches(cfg, text_layers, accum, remat, opt_in):
@@ -263,12 +327,12 @@ def train_launches(cfg, text_layers, accum, remat, opt_in):
     lens = cfg.perceiver.depth * (1 + cfg.perceiver.self_per_cross_attn)
     cached = accum if accum > 1 else 0
     r = 2 if remat else 1
-    return {"fused_mlp": accum * lt + cached * (la + lt),
-            "fused_mlp_save_preact": accum * la * r,
-            "flash_attention": accum * (la * r + lens) + cached * (la + lens),
-            "fps": 0, "point_encoder": 0,
-            "fused_ln_proj": (accum * (la * r + lt) + cached * (la + lt)
-                              if opt_in else 0)}
+    return launch_counts(
+        fused_mlp=accum * lt + cached * (la + lt),
+        fused_mlp_save_preact=accum * la * r,
+        flash_attention=accum * (la * r + lens) + cached * (la + lens),
+        fused_ln_proj=(accum * (la * r + lt) + cached * (la + lt)
+                       if opt_in else 0))
 
 
 def train_phase(torch, np, counters, totals):
@@ -500,6 +564,268 @@ def train_rate(torch, card, label, step, samples, runs=3):
     return samples / best
 
 
+def check_new_kernels(torch, g, err, checks):
+    """Phase 3, continued: the int8 product, the row gather, the chained
+    fused MLPs and the fused LN + projection at the LN + qkv prototype's
+    shape, each against its plain version on the card."""
+    from vitlens_tpu_torch.ops.fused_ln_proj import (fused_ln_proj,
+                                                     ln_proj_reference)
+    from vitlens_tpu_torch.ops.fused_mlp_chain import (
+        fused_attnout_mlp, fused_mlp_chain_reference, fused_mlp_chunked)
+    from vitlens_tpu_torch.ops.int8_matmul import (int8_matmul,
+                                                   int8_matmul_reference)
+    from vitlens_tpu_torch.ops.row_gather import row_gather, row_gather_reference
+
+    err["int8_matmul"] = 0.0
+    for m, k, n in ((4096, 4096, 4096), (771 * 64, 1024, 3072), (1001, 4096, 1024)):
+        a, b, b_t = int8_inputs(torch, g, m, k, n)
+        got = int8_matmul(a, b, b_t)
+        torch.cuda.synchronize()
+        want = int8_matmul_reference(a, b)
+        n_diff = (got != want).sum().item()
+        err["int8_matmul"] = max(err["int8_matmul"],
+                                 (got.long() - want.long()).abs().max().item())
+        checks.append(f"int8 {m}x{k}x{n}:{n_diff}-differ")
+        if n_diff:
+            fail(f"int8_matmul {m}x{k}x{n}: {n_diff} elements differ from the "
+                 "plain version (the product is exact)")
+        del a, b, b_t, got, want
+    v, d, j = 49408, 512, 9856
+    table = torch.randn(v, d, generator=g, device="cuda").bfloat16()
+    ids = torch.randint(0, v, (j,), generator=g, device="cuda", dtype=torch.int32)
+    ids[:4] = torch.tensor([0, v - 1, 7, 7], dtype=torch.int32)
+    got = row_gather(table, ids)
+    torch.cuda.synchronize()
+    want = row_gather_reference(table, ids)
+    n_diff = (got.view(torch.int16) != want.view(torch.int16)).sum().item()
+    err["row_gather"] = abs_err(got, want)
+    checks.append(f"gather {v}x{d} J{j}:{n_diff}-differ")
+    if n_diff:
+        fail(f"row_gather: {n_diff} elements differ bitwise from table[ids]")
+    err["fused_mlp_chunked"] = err["fused_attnout_mlp"] = 0.0
+    for m in (16448, 1001):
+        x, *mlp = mlp_inputs(torch, g, m, 1024, 4096)
+        proj = outproj_inputs(torch, g, m, 1024)
+        for act in ("gelu_tanh", "gelu"):
+            for name, got, want in (
+                    ("fused_mlp_chunked", fused_mlp_chunked(x, *mlp, act=act),
+                     fused_mlp_chain_reference(x, *mlp, act=act)),
+                    ("fused_attnout_mlp",
+                     fused_attnout_mlp(x, *proj, *mlp, act=act),
+                     fused_mlp_chain_reference(x, *mlp, act=act, outproj=proj))):
+                torch.cuda.synchronize()
+                e = rel_err(got, want)
+                err[name] = max(err[name], abs_err(got, want))
+                checks.append(f"{name} M{m}/{act}={e:.2e}")
+                if not (torch.isfinite(got).all() and e <= CHAIN_TOL):
+                    fail(f"{name} M={m} {act}: rel err {e} > {CHAIN_TOL}")
+        del x, mlp, proj
+    a = ln_proj_inputs(torch, g, 16448, 1024, 3072)
+    got = fused_ln_proj(*a)
+    torch.cuda.synchronize()
+    want = ln_proj_reference(*a)
+    e = rel_err(got, want)
+    err["fused_ln_qkv"] = abs_err(got, want)
+    checks.append(f"ln_qkv 16448x1024x3072={e:.2e}")
+    if not (torch.isfinite(got).all() and e <= LNP_TOL):
+        fail(f"fused_ln_proj at the LN + qkv prototype's shape: rel err {e} > "
+             f"{LNP_TOL}")
+
+
+def quant_phase(torch, model, counters, totals, fb1, fb64, captions, want):
+    """Phase 4q: the audio tower quantized to int8 on the card and driven
+    through ViTLens.encode. Returns the quantized model."""
+    from vitlens_tpu_torch.quant import (is_quantized, quantize_model,
+                                         quantize_weight)
+
+    t0 = time.time()
+    qmodel = quantize_model(model, towers=("towers.audio",))
+    tower, source = qmodel.towers["audio"], model.towers["audio"]
+    if (not is_quantized(tower) or is_quantized(source)
+            or is_quantized(qmodel.towers["text"])
+            or tower.trunk.blocks[0].mlp.fc.w is not None):
+        fail("quantize_model: the copy's audio trunk must be quantized, "
+             "nothing else")
+    last = len(source.trunk.blocks) - 1
+    for i in (0, last):
+        fb, qb = source.trunk.blocks[i], tower.trunk.blocks[i]
+        for name, w, q, q_t in (
+                ("qkv", fb.attn.qkv_w, qb.attn.qkv_w_q, qb.attn.qkv_w_qt),
+                ("out", fb.attn.out_w, qb.attn.out_w_q, qb.attn.out_w_qt),
+                ("fc", fb.mlp.fc.w, qb.mlp.fc.w_q, qb.mlp.fc.w_qt),
+                ("proj", fb.mlp.proj.w, qb.mlp.proj.w_q, qb.mlp.proj.w_qt)):
+            q_cpu = quantize_weight(w.cpu())[0]
+            if not (torch.equal(q.cpu(), q_cpu) and torch.equal(q_t.cpu(), q_cpu.t())):
+                fail(f"block {i} {name}: w_q made on the card differs from "
+                     "w_q made on the CPU")
+    embs, per_call = {}, []
+    for label, b, key, inputs in (("audio B=1", 1, "audio", {"audio": fb1}),
+                                  (f"audio B={B}", B, "audio", {"audio": fb64}),
+                                  ("text", len(captions), "text",
+                                   {"text": captions})):
+        for fn in counters.values():
+            fn.launches = 0
+        emb = qmodel.encode(inputs, preprocessed=key == "audio")[key]
+        torch.cuda.synchronize()
+        counts = {name: fn.launches for name, fn in counters.items()}
+        for name, n in counts.items():
+            totals[name] += n
+        if counts != want[key]:
+            fail(f"quantized {label}: launches {counts}, expected {want[key]}")
+        norm_err = (emb.float().norm(dim=-1) - 1).abs().max().item()
+        if (tuple(emb.shape) != (b, 768) or not torch.isfinite(emb).all()
+                or norm_err > 1e-3):
+            fail(f"quantized {label}: shape {tuple(emb.shape)}, norms off 1 by "
+                 f"{norm_err}, or non-finite values")
+        embs[label] = emb.float()
+        per_call.append((label, counts["int8_matmul"], counts["flash_attention"],
+                         counts["fused_mlp"]))
+    # the text tower quantized too: D = 768 products on a ragged M = B * 77
+    both = quantize_model(qmodel, towers=("towers.text",))
+    for fn in counters.values():
+        fn.launches = 0
+    temb = both.encode({"text": captions})["text"].float()
+    torch.cuda.synchronize()
+    counts = {name: fn.launches for name, fn in counters.items()}
+    for name, n in counts.items():
+        totals[name] += n
+    if counts != want["text_int8"]:
+        fail(f"quantized text: launches {counts}, expected {want['text_int8']}")
+    per_call.append(("text, int8 tower", counts["int8_matmul"],
+                     counts["flash_attention"], counts["fused_mlp"]))
+    del both
+    # what the int8 encodes are held against (these launches are not counted)
+    floats = {label: model.encode({"audio": fb}, preprocessed=True)["audio"].float()
+              for label, fb in (("audio B=1", fb1), (f"audio B={B}", fb64))}
+    qref = copy.deepcopy(qmodel).to(device="cpu", dtype=torch.float32)
+    qref.compute_dtype = torch.float32
+    cpu1 = qref.encode({"audio": fb1.cpu()}, preprocessed=True)["audio"]
+    del qref
+
+    def cos_min(a, b):
+        return torch.nn.functional.cosine_similarity(a, b, dim=-1).min().item()
+
+    cos = {"B=1 int8 card vs quantized fp32 CPU": cos_min(embs["audio B=1"].cpu(), cpu1),
+           "B=1 int8 vs float bf16, card": cos_min(embs["audio B=1"],
+                                                   floats["audio B=1"]),
+           f"B={B} int8 vs float bf16, card": cos_min(embs[f"audio B={B}"],
+                                                      floats[f"audio B={B}"]),
+           "text int8 vs float bf16, card": cos_min(temb, embs["text"])}
+    if min(cos.values()) < COS_MIN:
+        fail(f"quantized audio encode: min cosine {cos} < {COS_MIN}")
+    print(f"[4q quantized] vitlensL audio trunk quantized to int8 on the card "
+          f"(w_q and its transposed copy equal to the CPU's for blocks 0 and "
+          f"{last}); requests (label, int8 products, attention, fused MLP "
+          f"launches) {per_call}; min cosine: "
+          + "; ".join(f"{k} {v:.6f}" for k, v in cos.items())
+          + f"; phase took {time.time() - t0:.1f} s with the CPU fp32 run",
+          flush=True)
+    return qmodel
+
+
+SCRIPT_RUNS = (  # (entry point, arguments, the counter its kernel adds to)
+    ("fused_mlp_chunked", ["--iters", "5"], "fused_mlp_chunked"),
+    ("fused_ln_qkv", ["--iters", "5"], "fused_ln_proj"),
+    ("fused_attnout_mlp", ["--iters", "5"], "fused_attnout_mlp"),
+    ("bench_int8_native", ["--iters", "10"], "int8_matmul"),
+    ("bench_dma_gather", ["--iters", "50"], "row_gather"),
+    ("bench_int8_encode", ["--iters", "3"], "int8_matmul"))
+
+
+def scripts_phase(torch, counters, totals):
+    """Phase 4s: the bench entry points, in this process, each with the
+    launches of its kernel. Returns {entry point: launches}."""
+    import importlib
+
+    by_script = {}
+    for name, argv, kernel in SCRIPT_RUNS:
+        module = importlib.import_module(f"vitlens_tpu_torch.scripts.{name}")
+        for fn in counters.values():
+            fn.launches = 0
+        print(f"[4s scripts] python -m vitlens_tpu_torch.scripts.{name} "
+              f"{' '.join(argv)}", flush=True)
+        rc = module.main(argv)
+        torch.cuda.synchronize()
+        counts = {k: fn.launches for k, fn in counters.items()}
+        if rc != 0 or counts[kernel] == 0:
+            fail(f"scripts.{name}: exit code {rc}, {kernel} launches "
+                 f"{counts[kernel]}")
+        for k, n in counts.items():
+            totals[k] += n
+        by_script[name] = counts[kernel]
+    print(f"[4s scripts] every entry point exited 0; launches of its kernel: "
+          f"{by_script}", flush=True)
+    return by_script
+
+
+def time_new_kernels(torch, g, timings):
+    """Phase 5, continued: the int8 product, the row gather and the chained
+    fused MLPs at their shapes, beside plain, library and bound."""
+    from vitlens_tpu_torch.ops.fused_mlp import fused_mlp
+    from vitlens_tpu_torch.ops.fused_mlp_chain import (
+        fused_attnout_mlp, fused_mlp_chain_reference, fused_mlp_chunked)
+    from vitlens_tpu_torch.ops.int8_matmul import (int8_matmul,
+                                                   int8_matmul_reference)
+    from vitlens_tpu_torch.ops.row_gather import row_gather, row_gather_reference
+
+    m = 257 * B * 3  # the quantized B64 x 3 clips encode's rows
+    for label, (m_, k, n) in (("quantized trunk fc", (m, 1024, 4096)),
+                              ("quantized trunk qkv", (m, 1024, 3072)),
+                              ("quantized trunk out", (m, 1024, 1024)),
+                              ("quantized trunk proj", (m, 4096, 1024)),
+                              ("prototype", (4096, 4096, 4096))):
+        a, b, b_t = int8_inputs(torch, g, m_, k, n)
+        k_ms, p_ms = paired_ms(lambda: int8_matmul(a, b, b_t),
+                               lambda: int8_matmul_reference(a, b), plain_iters=3)
+        bd, by = int8_bound(m_, k, n)
+        timings["int8_matmul"].append(
+            {"shape": f"{label} M={m_} K={k} N={n}", "ms": k_ms, "plain_ms": p_ms,
+             "bound_ms": bd, "bound_by": by,
+             "library_ms": cuda_ms(lambda: torch._int_mm(a, b)),
+             "tops": 2 * m_ * k * n / k_ms / 1e9})
+        del a, b, b_t
+    v, d, j = 49408, 512, 9856
+    table = torch.randn(v, d, generator=g, device="cuda").bfloat16()
+    ids = torch.randint(0, v, (j,), generator=g, device="cuda", dtype=torch.int32)
+    k_ms, p_ms = paired_ms(lambda: row_gather(table, ids),
+                           lambda: row_gather_reference(table, ids), iters=100,
+                           plain_iters=100)
+    bd, by = gather_bound(j, 2 * d)
+    timings["row_gather"].append(
+        {"shape": f"table [{v},{d}] bf16, {j} ids", "ms": k_ms, "plain_ms": p_ms,
+         "bound_ms": bd, "bound_by": by,
+         "library_ms": cuda_ms(lambda: torch.index_select(table, 0, ids), 100)})
+    m, d, h = 257 * B, 1024, 4096
+    x, *mlp = mlp_inputs(torch, g, m, d, h)
+    proj = outproj_inputs(torch, g, m, d)
+    ctx, wo, bo = proj
+
+    def today():  # the library's out-projection + residual, then kernel 1
+        return fused_mlp(x + (ctx @ wo + bo.to(x.dtype)), *mlp, act="gelu")
+
+    for act in ("gelu_tanh", "gelu"):
+        k_ms, p_ms = paired_ms(
+            lambda: fused_mlp_chunked(x, *mlp, act=act),
+            lambda: fused_mlp_chain_reference(x, *mlp, act=act), plain_iters=3)
+        bd, by = chain_bound(m, d, h, False)
+        timings["fused_mlp_chunked"].append(
+            {"shape": f"M={m} D={d} H={h} {act}", "ms": k_ms, "plain_ms": p_ms,
+             "bound_ms": bd, "bound_by": by, "library_ms": None,
+             "tflops": 4 * m * d * h / k_ms / 1e9,
+             **({"three_launch_ms": cuda_ms(lambda: fused_mlp(x, *mlp, act="gelu"))}
+                if act == "gelu" else {})})
+        k_ms, p_ms = paired_ms(
+            lambda: fused_attnout_mlp(x, *proj, *mlp, act=act),
+            lambda: fused_mlp_chain_reference(x, *mlp, act=act, outproj=proj),
+            plain_iters=3)
+        bd, by = chain_bound(m, d, h, True)
+        timings["fused_attnout_mlp"].append(
+            {"shape": f"M={m} D={d} H={h} {act}", "ms": k_ms, "plain_ms": p_ms,
+             "bound_ms": bd, "bound_by": by, "library_ms": None,
+             "tflops": (2 * m * d * d + 4 * m * d * h) / k_ms / 1e9,
+             **({"today_split_ms": cuda_ms(today)} if act == "gelu" else {})})
+
+
 def main() -> int:
     import torch
 
@@ -521,17 +847,30 @@ def main() -> int:
                                                      ln_proj_reference)
     from vitlens_tpu_torch.ops.fused_mlp import (fused_mlp, fused_mlp_reference,
                                                  fused_mlp_save_preact)
+    from vitlens_tpu_torch.ops.fused_mlp_chain import (fused_attnout_mlp,
+                                                       fused_mlp_chunked)
     from vitlens_tpu_torch.ops.fused_point_encoder import (
         fused_point_encoder, point_encoder_reference)
+    from vitlens_tpu_torch.ops.int8_matmul import int8_matmul
+    from vitlens_tpu_torch.ops.row_gather import row_gather
 
-    # The kernels of the JSON line (the save-preact variant is kernel 1's) and
-    # every launch counter, by variant.
+    # The kernels of the JSON line (the save-preact variant is kernel 1's; the
+    # LN + qkv prototype's kernel is the fused LN + projection, held and timed
+    # at the prototype's shape under its own name) and every launch counter,
+    # by variant.
     kernels = {"fused_mlp": fused_mlp, "flash_attention": flash_attention,
                "fps": fps_indices, "point_encoder": fused_point_encoder,
-               "fused_ln_proj": fused_ln_proj}
+               "fused_ln_proj": fused_ln_proj, "int8_matmul": int8_matmul,
+               "row_gather": row_gather, "fused_mlp_chunked": fused_mlp_chunked,
+               "fused_attnout_mlp": fused_attnout_mlp,
+               "fused_ln_qkv": fused_ln_proj}
     counters = dict(zip(COUNTED, (fused_mlp, fused_mlp_save_preact,
                                   flash_attention, fps_indices,
-                                  fused_point_encoder, fused_ln_proj)))
+                                  fused_point_encoder, fused_ln_proj,
+                                  int8_matmul, row_gather, fused_mlp_chunked,
+                                  fused_attnout_mlp)))
+    if len(counters) != len(COUNTED):
+        fail("a launch counter is missing")
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"[1 device] {card} | torch {torch.__version__} cuda "
@@ -622,10 +961,11 @@ def main() -> int:
         checks.append(f"lnproj{m}x{d}x{n}={e:.2e}")
         if not (torch.isfinite(got).all() and e <= LNP_TOL):
             fail(f"fused_ln_proj {m}x{d}x{n}: rel err {e} > {LNP_TOL}")
+    check_new_kernels(torch, g, err, checks)
     print(f"[3 kernels] all within bound (mlp <= {MLP_TOL}, save-preact a <= "
           f"{PREACT_TOL}, attn <= {ATTN_TOL}, ln_proj <= {LNP_TOL}, encoder <= "
-          f"{ENC_TOL} relative, fps index-exact): {' '.join(checks)}",
-          flush=True)
+          f"{ENC_TOL}, chained mlp <= {CHAIN_TOL} relative, fps index-exact, "
+          f"int8 product and row gather equal): {' '.join(checks)}", flush=True)
 
     grad_checks = {
         "fused_mlp M1001 gelu": (
@@ -669,7 +1009,8 @@ def main() -> int:
             1 + cfg.perceiver.self_per_cross_attn)
 
     def expected(mlp, attn, fps=0, enc=0):
-        return dict(zip(COUNTED, (mlp, 0, attn, fps, enc, 0)))
+        return launch_counts(fused_mlp=mlp, flash_attention=attn, fps=fps,
+                             point_encoder=enc)
 
     want_launches = {"audio": expected(n_layers, n_attn(acfg)),
                      "pc": expected(n_layers, n_attn(pcfg), 1, 1),
@@ -738,6 +1079,17 @@ def main() -> int:
           + " ".join(f"{k} {v:.6f}" for k, v in cos.items())
           + f"; pc B=1 FPS indices equal on card and CPU ({n_group} centers)",
           flush=True)
+
+    # -- 4q: the int8 quantized audio encode; 4s: the bench entry points -----
+    fb64 = torch.randn(B, 3, acfg.audio.target_length, acfg.audio.mel_bins,
+                       generator=g, device="cuda") * 0.5
+    qmodel = quant_phase(
+        torch, model, counters, launches, fbanks[1], fb64, captions,
+        {"audio": launch_counts(int8_matmul=4 * n_layers,
+                                flash_attention=n_attn(acfg)),
+         "text": want_launches["text"],
+         "text_int8": launch_counts(int8_matmul=4 * n_text)})
+    by_script = scripts_phase(torch, counters, launches)
 
     # -- 4b, 4c: the audio train step -----------------------------------------
     trainer, state, tx, mask, sc, train_batch = train_phase(torch, np, counters,
@@ -814,6 +1166,8 @@ def main() -> int:
         {"shape": f"[{B},512,32,3] -> [{B},512,256]", "ms": k_ms,
          "plain_ms": p_ms, "bound_ms": bd, "bound_by": by, "library_ms": None})
     del enc_args, fps_inputs
+    time_new_kernels(torch, g, timings)
+    timings["fused_ln_qkv"] = [timings["fused_ln_proj"][1]]  # M=16448, 1024->3072
     for name, rows in timings.items():
         for r in rows:
             print(f"[5 timing] {card} | {name} {r['shape']}: kernel "
@@ -827,11 +1181,15 @@ def main() -> int:
                   + (f", library {r['library_ms']:.4f} ms"
                      if r["library_ms"] is not None else "")
                   + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
-                  + (f", kernel {r['tflops']:.1f} TFLOP/s" if "tflops" in r else ""),
+                  + (f", kernel {r['tflops']:.1f} TFLOP/s" if "tflops" in r else "")
+                  + (f", kernel {r['tops']:.1f} TOP/s" if "tops" in r else "")
+                  + (f", three-launch fused MLP on the same function "
+                     f"{r['three_launch_ms']:.4f} ms" if "three_launch_ms" in r else "")
+                  + (f", today's split (library out-projection + residual, "
+                     f"then the three-launch fused MLP) {r['today_split_ms']:.4f} ms"
+                     if "today_split_ms" in r else ""),
                   flush=True)
 
-    fb64 = torch.randn(B, 3, acfg.audio.target_length, acfg.audio.mel_bins,
-                       generator=g, device="cuda") * 0.5
     pc64 = torch.randn(B, npts, 3, generator=g, device="cuda") * 0.3
 
     def audio64():
@@ -840,8 +1198,11 @@ def main() -> int:
     def pc64_encode():
         return model.encode({"pc": pc64}, preprocessed=True)["pc"]
 
-    encode_rate(torch, card, f"audio encode B{B} x 3 clips bf16", audio64, B,
-                rows_note=f" ({B * 3} clips per call)")
+    def qaudio64():
+        return qmodel.encode({"audio": fb64}, preprocessed=True)["audio"]
+
+    audio_rate = encode_rate(torch, card, f"audio encode B{B} x 3 clips bf16",
+                             audio64, B, rows_note=f" ({B * 3} clips per call)")
     pc_rate = encode_rate(torch, card, f"pc encode B{B} x {npts} points bf16",
                           pc64_encode, B)
     os.environ["VITLENS_ENABLE_FUSED_LNQKV"] = "1"
@@ -851,9 +1212,18 @@ def main() -> int:
                     rows_note=f" ({B * 3} clips per call)")
     finally:
         del os.environ["VITLENS_ENABLE_FUSED_LNQKV"]
-    encode_rate(torch, card, f"audio encode B{B} x 3 clips bf16 (again, "
-                "default)", audio64, B, rows_note=f" ({B * 3} clips per call)")
+    q_rates = [encode_rate(torch, card, f"audio encode B{B} x 3 clips, int8 "
+                           "(W8A8) quantized trunk, bf16 elsewhere", qaudio64, B,
+                           rows_note=f" ({B * 3} clips per call)")]
+    audio_again = encode_rate(torch, card, f"audio encode B{B} x 3 clips bf16 "
+                              "(again, default)", audio64, B,
+                              rows_note=f" ({B * 3} clips per call)")
+    q_rates.append(encode_rate(torch, card, f"audio encode B{B} x 3 clips, int8 "
+                               "(W8A8) quantized trunk (again)", qaudio64, B,
+                               rows_note=f" ({B * 3} clips per call)"))
     profile_encode(torch, card, f"B{B} audio encode", audio64)
+    profile_encode(torch, card, f"B{B} int8 quantized audio encode", qaudio64)
+    del qmodel
     profile_encode(torch, card, f"B{B} pc encode", pc64_encode)
 
     from vitlens_tpu_torch.train.step import make_train_step
@@ -881,14 +1251,25 @@ def main() -> int:
         "flash_attention": "vitlens_tpu/ops/flash_attention.py:53",
         "fps": "vitlens_tpu/ops/fps.py:120, vitlens_tpu/ops/fps.py:175",
         "point_encoder": "vitlens_tpu/ops/fused_point_encoder.py:116",
-        "fused_ln_proj": "vitlens_tpu/ops/fused_ln_proj.py:56"}
+        "fused_ln_proj": "vitlens_tpu/ops/fused_ln_proj.py:56",
+        "int8_matmul": "scripts/bench_int8_native.py:64",
+        "row_gather": "scripts/bench_dma_gather.py:49",
+        "fused_mlp_chunked": "scripts/fused_mlp_pallas.py:91",
+        "fused_attnout_mlp": "scripts/fused_attnout_mlp_pallas.py:62",
+        "fused_ln_qkv": "scripts/fused_ln_qkv_pallas.py:48"}
     sources = {"fused_mlp": "fused_mlp.cu", "flash_attention": "flash_attention.cu",
                "fps": "fps.cu", "point_encoder": "fused_point_encoder.cu",
-               "fused_ln_proj": "fused_ln_proj.cu"}
+               "fused_ln_proj": "fused_ln_proj.cu", "int8_matmul": "int8_matmul.cu",
+               "row_gather": "row_gather.cu",
+               "fused_mlp_chunked": "fused_mlp_chain.cu",
+               "fused_attnout_mlp": "fused_mlp_chain.cu",
+               "fused_ln_qkv": "fused_ln_proj.cu"}
     # kernel 1's count is both variants'; the split is beside it
     by_variant = {"plain": launches["fused_mlp"],
                   "save_preact": launches["fused_mlp_save_preact"]}
     launches["fused_mlp"] += launches["fused_mlp_save_preact"]
+    # the LN + qkv prototype's path is its entry point's run
+    launches["fused_ln_qkv"] = by_script["fused_ln_qkv"]
     line = []
     for name in kernels:
         main = timings[name][0]
@@ -901,7 +1282,14 @@ def main() -> int:
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
             "shapes": timings[name]})
-    print(f"[done] {card} | pc encode B{B}: {pc_rate:.2f} samples/s; audio "
+    for name, n in launches.items():
+        if n == 0:
+            fail(f"{name}: no launch on any main path")
+    print(f"[done] {card} | audio encode B{B}: {audio_rate:.2f} and "
+          f"{audio_again:.2f} samples/s float bf16, {q_rates[0]:.2f} and "
+          f"{q_rates[1]:.2f} int8 quantized "
+          f"({max(q_rates) / max(audio_rate, audio_again):.3f}x); pc encode "
+          f"B{B}: {pc_rate:.2f} samples/s; audio "
           f"train step B{B}: {max(train_rates[False]):.2f} samples/s, opt-in "
           f"{max(train_rates[True]):.2f}; whole run {time.time() - t_start:.1f} s",
           flush=True)

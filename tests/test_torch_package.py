@@ -28,7 +28,10 @@ def test_port_imports_no_jax():
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "for n in ('ops.fps', 'ops.fused_point_encoder', 'adapters.tokenizers', 'data.processors',\n"
-        "          'ops.fused_ln_proj', 'train.losses', 'train.schedules', 'train.freeze', 'train.step'):\n"
+        "          'ops.fused_ln_proj', 'train.losses', 'train.schedules', 'train.freeze', 'train.step',\n"
+        "          'quant', 'ops.int8_matmul', 'ops.row_gather', 'ops.fused_mlp_chain', 'scripts.fused_mlp_chunked',\n"
+        "          'scripts.fused_ln_qkv', 'scripts.fused_attnout_mlp', 'scripts.bench_int8_native',\n"
+        "          'scripts.bench_dma_gather', 'scripts.bench_int8_encode'):\n"
         "    assert 'vitlens_tpu_torch.' + n in names, n\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'vitlens_tpu'))\n"
         "assert not bad, bad\n"
@@ -152,6 +155,30 @@ def test_source_hash_covers_every_kernel_source(tmp_path, monkeypatch):
             f.write("\n// edit\n")
         seen.add(_build.source_hash())
     assert len(seen) == 3
+
+
+def test_new_kernel_sources_are_built_and_bound():
+    """The int8 product, the row gather and the chained MLP are sources of
+    the one library, each with its C signature; the PTX primitives they share
+    with the bf16 GEMM are a header, hashed but not compiled on its own; and
+    chip_smoke.py imports nothing of jax either."""
+    names = sorted(p.name for p in _build.CSRC.iterdir())
+    for name in ("int8_matmul.cu", "row_gather.cu", "fused_mlp_chain.cu", "ptx.cuh"):
+        assert name in names
+    assert "ptx.cuh" not in [p.name for p in _build._sources()]
+    sig = _build._SIGNATURES
+    assert sig["vitlens_int8_matmul_fwd"] == [_build._P] * 3 + [_build._I] * 3 + [_build._P]
+    assert sig["vitlens_row_gather_fwd"] == sig["vitlens_int8_matmul_fwd"]
+    assert (sig["vitlens_fused_attnout_mlp_fwd"]
+            == [_build._P] * 3 + sig["vitlens_fused_mlp_chunked_fwd"])
+    sources = "".join(p.read_text() for p in _build._sources())
+    for name in sig:  # every bound entry point is defined in some source
+        assert f'extern "C" int {name}(' in sources, name
+    src = open(os.path.join(REPO, "chip_smoke.py"), encoding="utf-8").read()
+    for line in src.splitlines():
+        s = line.strip()
+        if s.startswith(("import ", "from ")):
+            assert s.split()[1].split(".")[0] not in ("jax", "jaxlib", "vitlens_tpu"), s
 
 
 def test_flash_attention_kernel_argument_checks():

@@ -4,11 +4,15 @@
 their plain versions at their paths' shapes and at edge shapes, with one
 timing each: FPS and the point encoder (ragged N, partial group tiles, other
 group sizes and widths), the fused MLP's save-preact variant and the fused
-LN + projection (ragged M, both trunk widths).
+LN + projection (ragged M, both trunk widths), the int8 product (ragged M,
+the smallest legal K and N, a K that is not a multiple of the k-step), the
+row gather (a single row, repeated and boundary ids, rows of 16 bytes) and
+the chained fused MLP with and without the out-projection (ragged M, both
+widths and activations).
 
-    python3 tools/kernel_first_call.py [fps] [encoder] [mlp] [ln_proj]
+    python3 tools/kernel_first_call.py [fps] [encoder] [mlp] [ln_proj] [int8] [gather] [chain]
 
-With no names it checks all four. Needs one CUDA device and nvcc. Exits
+With no names it checks all seven. Needs one CUDA device and nvcc. Exits
 non-zero if a kernel disagrees.
 """
 
@@ -26,6 +30,12 @@ from vitlens_tpu_torch.ops import _build  # noqa: E402
 from vitlens_tpu_torch.ops.fps import fps_indices, fps_indices_reference  # noqa: E402
 from vitlens_tpu_torch.ops.fused_ln_proj import (  # noqa: E402
     fused_ln_proj, ln_proj_reference)
+from vitlens_tpu_torch.ops.fused_mlp_chain import (  # noqa: E402
+    fused_attnout_mlp, fused_mlp_chain_reference, fused_mlp_chunked)
+from vitlens_tpu_torch.ops.int8_matmul import (  # noqa: E402
+    int8_matmul, int8_matmul_reference)
+from vitlens_tpu_torch.ops.row_gather import (  # noqa: E402
+    row_gather, row_gather_reference)
 from vitlens_tpu_torch.ops.fused_mlp import (  # noqa: E402
     fused_mlp, fused_mlp_reference, fused_mlp_save_preact)
 from vitlens_tpu_torch.ops.fused_point_encoder import (  # noqa: E402
@@ -125,8 +135,95 @@ def check_ln_proj(g):
     return ok
 
 
+def check_int8(g):
+    """The int8 product against its plain version: equal, element for
+    element. Extreme operands (all +-127) hold the accumulator's range."""
+    ok = True
+    for m, k, n in ((4096, 4096, 4096), (49344, 1024, 3072), (49344, 4096, 1024),
+                    (4928, 768, 2304), (1001, 1024, 1024), (1, 32, 128),
+                    (130, 160, 384), (77, 4096, 128)):
+        a = torch.randint(-127, 128, (m, k), generator=g, device="cuda",
+                          dtype=torch.int8)
+        b = torch.randint(-127, 128, (k, n), generator=g, device="cuda",
+                          dtype=torch.int8)
+        if (m, k, n) == (77, 4096, 128):
+            a.fill_(-127)
+            b.fill_(127)
+        b_t = b.t().contiguous()
+        got = int8_matmul(a, b, b_t)
+        torch.cuda.synchronize()
+        n_diff = (got != int8_matmul_reference(a, b)).sum().item()
+        ok &= n_diff == 0
+        t = ms(lambda: int8_matmul(a, b, b_t))
+        print(f"int8 M{m} K{k} N{n}: {n_diff} elements differ; kernel {t:.4f} ms "
+              f"({2 * m * k * n / t / 1e9:.1f} TOP/s), torch._int_mm "
+              + (f"{ms(lambda: torch._int_mm(a, b)):.4f} ms" if m > 16 and k % 8 == 0
+                 and n % 8 == 0 else "n/a"), flush=True)
+    return ok
+
+
+def check_gather(g):
+    """The row gather against its plain version: bit-equal."""
+    ok = True
+    for v, d, j, dtype in ((49408, 512, 9856, torch.bfloat16),
+                           (49408, 512, 1, torch.bfloat16),
+                           (100, 8, 333, torch.bfloat16),
+                           (1000, 768, 4928, torch.float32)):
+        table = torch.randn(v, d, generator=g, device="cuda").to(dtype)
+        ids = torch.randint(0, v, (j,), generator=g, device="cuda",
+                            dtype=torch.int32)
+        ids[0] = v - 1
+        if j > 3:
+            ids[1], ids[2], ids[3] = 0, 0, v - 1
+        got = row_gather(table, ids)
+        torch.cuda.synchronize()
+        same = torch.equal(got.view(torch.uint8),
+                           row_gather_reference(table, ids).view(torch.uint8))
+        ok &= same
+        print(f"gather V{v} D{d} J{j} {dtype}: bit-equal {same}; kernel "
+              f"{ms(lambda: row_gather(table, ids), 20):.4f} ms, index_select "
+              f"{ms(lambda: torch.index_select(table, 0, ids), 20):.4f} ms",
+              flush=True)
+    return ok
+
+
+def check_chain(g):
+    """The chained fused MLP (with and without the out-projection) against
+    its plain version, bf16, 2.5e-2 relative."""
+    ok = True
+    for m, d, h in ((16448, 1024, 4096), (1001, 1024, 4096), (1, 1024, 128),
+                    (77, 256, 1024)):
+        def r(*shape, std=1.0, dtype=torch.bfloat16):
+            return (torch.randn(*shape, generator=g, device="cuda") * std).to(dtype)
+
+        f32 = torch.float32
+        mlp = (1 + r(d, std=0.1, dtype=f32), r(d, std=0.1, dtype=f32),
+               r(d, h, std=d ** -0.5), r(h, std=0.1, dtype=f32),
+               r(h, d, std=h ** -0.5), r(d, std=0.1, dtype=f32))
+        x = r(m, d, std=0.5)
+        proj = (r(m, d, std=0.5), r(d, d, std=d ** -0.5), r(d, std=0.1, dtype=f32))
+        for act in ("gelu_tanh", "gelu"):
+            got = fused_mlp_chunked(x, *mlp, act=act)
+            got_o = fused_attnout_mlp(x, *proj, *mlp, act=act)
+            torch.cuda.synchronize()
+            e = rel_err(got, fused_mlp_chain_reference(x, *mlp, act=act))
+            e_o = rel_err(got_o, fused_mlp_chain_reference(x, *mlp, act=act,
+                                                           outproj=proj))
+            ok &= (bool(torch.isfinite(got).all() and torch.isfinite(got_o).all())
+                   and e <= 2.5e-2 and e_o <= 2.5e-2)
+            print(f"chain M{m} D{d} H{h} {act}: chunked {e:.2e}, attn-out "
+                  f"{e_o:.2e}; chunked "
+                  f"{ms(lambda: fused_mlp_chunked(x, *mlp, act=act)):.4f} ms, "
+                  f"attn-out {ms(lambda: fused_attnout_mlp(x, *proj, *mlp, act=act)):.4f}"
+                  f" ms, three-launch fused_mlp "
+                  + (f"{ms(lambda: fused_mlp(x, *mlp, act='gelu')):.4f} ms"
+                     if d % 64 == 0 else "n/a"), flush=True)
+    return ok
+
+
 def main() -> int:
-    which = set(sys.argv[1:]) or {"fps", "encoder", "mlp", "ln_proj"}
+    which = set(sys.argv[1:]) or {"fps", "encoder", "mlp", "ln_proj", "int8",
+                                  "gather", "chain"}
     nvcc = _build.find_nvcc()
     with tempfile.TemporaryDirectory() as tmp:
         for src in sorted(_build.CSRC.glob("*.cu")):
@@ -146,6 +243,12 @@ def main() -> int:
         ok &= check_mlp(g)
     if "ln_proj" in which:
         ok &= check_ln_proj(g)
+    if "int8" in which:
+        ok &= check_int8(g)
+    if "gather" in which:
+        ok &= check_gather(g)
+    if "chain" in which:
+        ok &= check_chain(g)
     for b, n, npoint, random_start in FPS_CASES if "fps" in which else ():
         xyz = torch.randn(b, n, 3, generator=g, device="cuda") * 0.3
         start = (torch.randint(0, n, (b,), generator=g, device="cuda", dtype=torch.int32)

@@ -12,6 +12,11 @@ to the activation dtype at use (a no-op for frozen matmul weights, which the
 factory casts to the compute dtype once at load; trainable ones stay fp32
 masters and the cast carries their gradient).
 
+A ``Linear`` or ``MHA`` quantized by ``quant.py`` holds int8 weights and
+their scales as buffers in place of its float weight and sends its product
+through ``quant.int8_matmul``; the dispatch is on the presence of ``w_q``, as
+the JAX package dispatches on the key.
+
 Each module's ``init_(g)`` fills its parameters from the ``torch.Generator``
 ``g`` with the JAX package's init distributions.
 """
@@ -31,6 +36,7 @@ from vitlens_tpu_torch.ops.fused_ln_proj import (fused_ln_proj_applicable,
                                                  fused_ln_proj_available,
                                                  fused_ln_qkv)
 from vitlens_tpu_torch.ops.fused_mlp import fused_mlp
+from vitlens_tpu_torch.quant import int8_matmul
 
 # Leaf names of the parameters that feed a matmul or a convolution: the
 # factory casts exactly these to the compute dtype once, at load.
@@ -39,6 +45,14 @@ MATMUL_WEIGHTS = frozenset({"w", "qkv_w", "out_w", "proj", "text_projection"})
 
 def _param(*shape, device=None) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, device=device), requires_grad=False)
+
+
+def _quant_slots(module: nn.Module, name: str) -> None:
+    """Empty buffers for the int8 form of the weight ``name``: ``<name>_q``
+    (int8 [K, N]), ``<name>_s`` (fp32 [1, N]) and ``<name>_qt`` (int8 [N, K],
+    what the CUDA kernel reads). ``quant.py`` fills them."""
+    for suffix in ("_q", "_s", "_qt"):
+        module.register_buffer(name + suffix, None)
 
 
 def normal_(t: torch.Tensor, std: float, g: torch.Generator) -> None:
@@ -93,6 +107,7 @@ class Linear(nn.Module):
         super().__init__()
         self.w = _param(d_in, d_out, device=device)
         self.b = _param(d_out, device=device) if bias else None
+        _quant_slots(self, "w")
 
     def init_(self, g: torch.Generator) -> None:
         """torch nn.Linear's default init, in the [in, out] layout."""
@@ -102,6 +117,8 @@ class Linear(nn.Module):
             uniform_(self.b, 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0, g)
 
     def forward(self, x):
+        if self.w_q is not None:  # int8-quantized (quant.py)
+            return int8_matmul(x, self.w_q, self.w_s, self.b, self.w_qt)
         y = x @ self.w.to(x.dtype)
         if self.b is not None:
             y = y + self.b.to(x.dtype)
@@ -119,6 +136,8 @@ class MHA(nn.Module):
         self.qkv_b = _param(3 * dim, device=device)
         self.out_w = _param(dim, dim, device=device)
         self.out_b = _param(dim, device=device)
+        _quant_slots(self, "qkv_w")
+        _quant_slots(self, "out_w")
 
     def init_(self, g: torch.Generator) -> None:
         dim = self.out_w.shape[0]
@@ -130,7 +149,11 @@ class MHA(nn.Module):
             self.out_b.zero_()
 
     def forward(self, x, mask: Optional[torch.Tensor] = None):
-        qkv = x @ self.qkv_w.to(x.dtype) + self.qkv_b.to(x.dtype)
+        if self.qkv_w_q is not None:  # int8-quantized (quant.py)
+            qkv = int8_matmul(x, self.qkv_w_q, self.qkv_w_s, self.qkv_b,
+                              self.qkv_w_qt)
+        else:
+            qkv = x @ self.qkv_w.to(x.dtype) + self.qkv_b.to(x.dtype)
         return self.from_qkv(qkv, mask)
 
     def from_qkv(self, qkv, mask: Optional[torch.Tensor] = None):
@@ -142,6 +165,9 @@ class MHA(nn.Module):
         q, k, v = (t.contiguous() for t in qkv)
         o = dot_product_attention(q, k, v, mask=mask)
         o = o.transpose(1, 2).reshape(B, N, D)
+        if self.out_w_q is not None:  # int8-quantized (quant.py)
+            return int8_matmul(o, self.out_w_q, self.out_w_s, self.out_b,
+                               self.out_w_qt)
         return o @ self.out_w.to(qkv.dtype) + self.out_b.to(qkv.dtype)
 
 
@@ -176,7 +202,9 @@ class ResBlock(nn.Module):
     the plain composition, as in JAX, since the kernel has no layer-scale.
     With ``VITLENS_ENABLE_FUSED_LNQKV`` set, the front half (ln_1 + the
     packed qkv projection) goes through ``ops.fused_ln_proj`` where it
-    applies (bf16, widths multiples of 128), as in JAX."""
+    applies (bf16, widths multiples of 128), as in JAX. A quantized block
+    (``quant.quantize_resblocks``) takes the plain composition for both
+    halves, as in JAX: neither kernel reads int8 weights."""
 
     def __init__(self, dim: int, heads: int, mlp_ratio: float = 4.0,
                  ls_init_value: Optional[float] = None,
@@ -199,8 +227,12 @@ class ResBlock(nn.Module):
             if m is not None:
                 m.init_(g)
 
+    @property
+    def quantized(self) -> bool:
+        return self.attn.qkv_w_q is not None
+
     def forward(self, x, mask: Optional[torch.Tensor] = None):
-        if (fused_ln_proj_available()
+        if (not self.quantized and fused_ln_proj_available()
                 and fused_ln_proj_applicable(x, self.attn.qkv_w)):
             a = self.attn.from_qkv(fused_ln_qkv(x, self.ln_1, self.attn), mask)
         else:
@@ -208,10 +240,10 @@ class ResBlock(nn.Module):
         if self.ls_1 is not None:
             a = self.ls_1(a)
         x = x + a
-        if self.ls_2 is not None:
+        if self.ls_2 is not None or self.mlp.fc.w_q is not None:
             act = quick_gelu if self.act == "quick_gelu" else gelu
             h = self.mlp.proj(act(self.mlp.fc(self.ln_2(x))))
-            return x + self.ls_2(h)
+            return x + (h if self.ls_2 is None else self.ls_2(h))
         d = x.shape[-1]
         fc, proj = self.mlp.fc, self.mlp.proj
         out = fused_mlp(x.reshape(-1, d), self.ln_2.scale.float(),

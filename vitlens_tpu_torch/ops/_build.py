@@ -40,6 +40,10 @@ _SIGNATURES = {
     "vitlens_flash_attention_fwd": [_P] * 4 + [_I, _I, _I, _F, _P],
     "vitlens_fps_fwd": [_P] * 3 + [_I] * 3 + [_P],
     "vitlens_point_encoder_fwd": [_P] * 16 + [_I] * 6 + [_P],
+    "vitlens_int8_matmul_fwd": [_P] * 3 + [_I] * 3 + [_P],
+    "vitlens_row_gather_fwd": [_P] * 3 + [_I] * 3 + [_P],
+    "vitlens_fused_mlp_chunked_fwd": [_P] * 8 + [_I, _I, _I, _I, _F, _P],
+    "vitlens_fused_attnout_mlp_fwd": [_P] * 11 + [_I, _I, _I, _I, _F, _P],
 }
 
 

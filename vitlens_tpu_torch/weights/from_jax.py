@@ -8,6 +8,12 @@ structural differences handled here:
 * lists (the perceiver's ``layers`` and ``self_blocks``) are indexed
   ``<name>.<i>``.
 
+A tree quantized by the JAX package's ``quant.py`` (``w_q``/``w_s`` leaves in
+place of ``w``, int8 [L, K, N] and fp32 [L, 1, N] under ``blocks``) loads into
+a module quantized by the port's ``quant.py``: the int8 leaves and scales go
+into the buffers of the same names, and the transposed copies the CUDA kernel
+reads (``*_qt``) are remade from them.
+
 Layouts are unchanged ([in, out] matmul weights, the OIHW audio conv). A key
 of the tree that the module lacks, a module parameter the tree lacks, or a
 shape mismatch raises. :func:`load_tri_params` loads a whole JAX
@@ -61,13 +67,29 @@ def _copy_into(module: nn.Module, tree: Any, targets: Dict[str, torch.Tensor],
             if tuple(arr.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: JAX shape {tuple(arr.shape)}, "
                                  f"port shape {tuple(p.shape)}")
-            p.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
+            dtype = np.int8 if arr.dtype == np.int8 else np.float32
+            p.copy_(torch.from_numpy(np.array(arr, dtype=dtype)))
     return module
 
 
+def _quant_buffers(module: nn.Module) -> Dict[str, torch.Tensor]:
+    """The int8 weights, their scales and their transposed copies."""
+    return {n: b for n, b in module.named_buffers()
+            if n.endswith(("_q", "_s", "_qt"))}
+
+
 def load_params(module: nn.Module, tree: Any) -> nn.Module:
-    """Copy the JAX param tree ``tree`` into ``module`` in place."""
-    return _copy_into(module, tree, dict(module.named_parameters()), "params")
+    """Copy the JAX param tree ``tree`` into ``module`` in place. The leaves
+    of a quantized tree go into the quantized module's buffers."""
+    quant = _quant_buffers(module)
+    targets = dict(module.named_parameters())
+    targets.update((n, b) for n, b in quant.items() if not n.endswith("_qt"))
+    _copy_into(module, tree, targets, "params")
+    with torch.no_grad():
+        for name, b in quant.items():
+            if name.endswith("_qt"):
+                b.copy_(quant[name[:-1]].t())
+    return module
 
 
 def load_tri_params(model: nn.Module, params: Any) -> nn.Module:
@@ -79,4 +101,6 @@ def load_tri_params(model: nn.Module, params: Any) -> nn.Module:
 def load_state(module: nn.Module, tree: Any) -> nn.Module:
     """Copy the JAX state tree ``tree`` (e.g. ``{"adapter": {"encoder":
     {"bn1": {"mean", "var"}, ...}}}``) into ``module``'s buffers in place."""
-    return _copy_into(module, tree, dict(module.named_buffers()), "state")
+    quant = _quant_buffers(module)
+    targets = {n: b for n, b in module.named_buffers() if n not in quant}
+    return _copy_into(module, tree, targets, "state")
