@@ -8,9 +8,12 @@ Phases, one printed line each (or more); any failure exits non-zero:
   2. build: compiles the hand-written kernels from vitlens_tpu_torch/csrc/
      (one nvcc per source, in parallel).
   3. kernels: each kernel against its plain PyTorch version on the card, at
-     the shapes of the main paths: fused MLP, both variants (out and the
-     save-preact output a; bf16, <= 2.5e-2 and 1e-2 relative), attention
-     (bf16, <= 1e-2 relative), fused LN + projection (bf16, <= 1e-2
+     the shapes of the main paths and at edge shapes: fused MLP, both
+     variants and both activations (out and the save-preact output a; bf16,
+     <= 2.5e-2 and 1e-2 relative; also a ragged M = 4100 and D/H = 768/3072
+     and 1664/8192), attention (bf16, <= 1e-2 relative; also every NQ, NK in
+     {1, 7, 77, 257, 600}, NK past the K/V-resident limit, and the packed-qkv
+     and Lens views bit-equal to contiguous copies), fused LN + projection (bf16, <= 1e-2
      relative), FPS (index-exact, at B64/N 8192 with zero starts and B8/N
      10000 with random starts) and the point encoder (bf16, <= 2e-2
      relative), the int8 product (equal, at 4096^3, at the quantized encode's
@@ -66,7 +69,9 @@ Phases, one printed line each (or more); any failure exits non-zero:
      path.
   5. timing: each kernel against its plain version (and, where one PyTorch
      call computes the same function, that call) at the B64 shapes of the
-     main paths, beside each kernel's bound; the audio (64 samples x 3 clips)
+     main paths, beside each kernel's bound, with cuBLAS's two products
+     (torch.addmm on the normalised input) beside the fused MLP and the trunk
+     attention also on the packed-qkv views; the audio (64 samples x 3 clips)
      and pc (64 clouds) encode rates at B64 in bf16, the audio encode also
      with the opt-in; the audio train-step rate at B64 with and without the
      opt-in, with the peak device memory; the int8 product at 4096^3 and the
@@ -564,6 +569,50 @@ def train_rate(torch, card, label, step, samples, runs=3):
     return samples / best
 
 
+def check_attention_edges(torch, g, err, checks):
+    """Attention at the edges of its tiling: every NQ, NK in {1, 7, 77, 257,
+    600} and NK of 833 and 2048 keys (more chunks than the ring holds),
+    against the plain version; and the trunk's packed-qkv views and the
+    Lens's q / to_kv views bit-equal to the same call on contiguous
+    copies."""
+    from vitlens_tpu_torch.ops.flash_attention import (attention_reference,
+                                                       flash_attention)
+
+    worst = 0.0
+    for b, h, nq, nk in (*((2, 3, nq, nk) for nq in (1, 7, 77, 257, 600)
+                           for nk in (1, 7, 77, 257, 600)),
+                         (2, 2, 257, 833), (3, 1, 256, 2048)):
+        q, k, v = qkv_inputs(torch, g, b, h, nq, nk)
+        got = flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        want = attention_reference(q, k, v)
+        e = rel_err(got, want)
+        worst = max(worst, e)
+        err["flash_attention"] = max(err["flash_attention"], abs_err(got, want))
+        if not (torch.isfinite(got).all() and e <= ATTN_TOL):
+            fail(f"flash_attention {b}x{h}x{nq}x{nk}: rel err {e} > {ATTN_TOL}")
+    checks.append(f"attn-edges(NQ,NK in 1..600, NK 833, 2048)<={worst:.2e}")
+    for label, b, nq, nk, h, packed in (("packed-qkv", 4, 257, 257, 16, True),
+                                        ("packed-qkv", 2, 77, 77, 12, True),
+                                        ("lens-cross", 4, 256, 600, 1, False),
+                                        ("lens-self", 2, 256, 256, 16, False)):
+        if packed:
+            qkv = torch.randn(b, nq, 3 * h * 64, generator=g, device="cuda").bfloat16()
+            q, k, v = qkv.view(b, nq, 3, h, 64).permute(2, 0, 3, 1, 4)
+        else:
+            q = torch.randn(b, nq, h * 64, generator=g, device="cuda").bfloat16()
+            kv = torch.randn(b, nk, 2 * h * 64, generator=g, device="cuda").bfloat16()
+            q = q.view(b, nq, h, 64).transpose(1, 2)
+            k, v = kv.view(b, nk, 2, h, 64).permute(2, 0, 3, 1, 4)
+        got = flash_attention(q, k, v)
+        want = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"flash_attention on {label} views B{b} NQ{nq} NK{nk} H{h}: "
+                 "differs from the call on contiguous copies")
+        checks.append(f"attn-{label}-views{b}x{h}x{nq}x{nk}=bit-equal")
+
+
 def check_new_kernels(torch, g, err, checks):
     """Phase 3, continued: the int8 product, the row gather, the chained
     fused MLPs and the fused LN + projection at the LN + qkv prototype's
@@ -886,7 +935,8 @@ def main() -> int:
     g = torch.Generator(device="cuda").manual_seed(SEED)
     err = {name: 0.0 for name in kernels}
     checks = []
-    for m, d, h in ((6168, 1024, 4096), (616, 768, 3072), (1001, 1024, 4096)):
+    for m, d, h in ((6168, 1024, 4096), (616, 768, 3072), (1001, 1024, 4096),
+                    (4100, 1024, 4096), (4100, 1664, 8192)):
         for act in ("gelu", "quick_gelu"):
             a = mlp_inputs(torch, g, m, d, h)
             got = fused_mlp(*a, act=act)
@@ -908,6 +958,7 @@ def main() -> int:
         checks.append(f"attn{b}x{h}x{nq}x{nk}={e:.2e}")
         if not (torch.isfinite(got).all() and e <= ATTN_TOL):
             fail(f"flash_attention {b}x{h}x{nq}x{nk}: rel err {e} > {ATTN_TOL}")
+    check_attention_edges(torch, g, err, checks)
     fps_inputs = {}
     for b, n, starts in ((B, 8192, "zero"), (8, 10000, "random")):
         xyz = torch.randn(b, n, 3, generator=g, device="cuda") * 0.3
@@ -935,19 +986,20 @@ def main() -> int:
     checks.append(f"enc{B}x512x32={e:.2e}")
     if not (torch.isfinite(got).all() and e <= ENC_TOL):
         fail(f"fused_point_encoder: rel err {e} > {ENC_TOL}")
-    for m in (6168, 1001):
+    for m, d, h in ((6168, 1024, 4096), (1001, 1024, 4096), (4100, 1024, 4096),
+                    (616, 768, 3072), (4100, 1664, 8192)):
         for act in ("gelu", "quick_gelu"):
-            a = mlp_inputs(torch, g, m, 1024, 4096)
+            a = mlp_inputs(torch, g, m, d, h)
             got, pre = fused_mlp_save_preact(*a, act=act)
             torch.cuda.synchronize()
             want, want_pre = fused_mlp_reference(*a, act=act, save_preact=True)
             e, e_pre = rel_err(got, want), rel_err(pre, want_pre)
             err["fused_mlp"] = max(err["fused_mlp"], abs_err(got, want),
                                    abs_err(pre, want_pre))
-            checks.append(f"preact{m}/{act}=out {e:.2e},a {e_pre:.2e}")
+            checks.append(f"preact{m}x{d}x{h}/{act}=out {e:.2e},a {e_pre:.2e}")
             if not (torch.isfinite(got).all() and torch.isfinite(pre).all()
                     and e <= MLP_TOL and e_pre <= PREACT_TOL):
-                fail(f"fused_mlp_save_preact M={m} {act}: rel err out {e}, a "
+                fail(f"fused_mlp_save_preact {m}x{d}x{h} {act}: rel err out {e}, a "
                      f"{e_pre} > {MLP_TOL}, {PREACT_TOL}")
     err["fused_ln_proj"] = 0.0
     for m, d, n in ((6168, 1024, 3072), (1001, 1024, 3072), (6168, 768, 2304),
@@ -1104,11 +1156,17 @@ def main() -> int:
         a = mlp_inputs(torch, g, m, d, h)
         k_ms, p_ms = paired_ms(lambda: fused_mlp(*a), lambda: fused_mlp_reference(*a))
         bd, by = mlp_bound(m, d, h)
+        x, lnw, lnb, w1, b1, w2, b2 = a
+        y = torch.nn.functional.layer_norm(x.float(), (d,), lnw, lnb).bfloat16()
+        hid = torch.empty(m, h, dtype=torch.bfloat16, device="cuda")
+        b1h, b2h = b1.bfloat16(), b2.bfloat16()
+        gemm_ms = cuda_ms(lambda: (torch.addmm(b1h, y, w1, out=hid),
+                                   torch.addmm(b2h, hid, w2)))
         timings["fused_mlp"].append(
             {"shape": f"{label} M={m} D={d} H={h}", "ms": k_ms, "plain_ms": p_ms,
-             "bound_ms": bd, "bound_by": by, "library_ms": None,
-             "tflops": 4 * m * d * h / k_ms / 1e9})
-        del a
+             "gemm_only_ms": gemm_ms, "bound_ms": bd, "bound_by": by,
+             "library_ms": None, "tflops": 4 * m * d * h / k_ms / 1e9})
+        del a, x, y, hid
     m = 257 * B  # the B64 train step's audio trunk
     a = mlp_inputs(torch, g, m, 1024, 4096)
     k_ms, p_ms = paired_ms(lambda: fused_mlp_save_preact(*a),
@@ -1145,10 +1203,16 @@ def main() -> int:
         bf16_ms = cuda_ms(lambda: plain_attention(q, k, v, None, 64 ** -0.5))
         lib_ms = cuda_ms(lambda: sdpa(q, k, v))
         bd, by = attn_bound(b, h, nq, nk)
-        timings["flash_attention"].append(
-            {"shape": f"{label} [{b},{h},{nq},{nk},64]", "ms": k_ms,
-             "plain_ms": p_ms, "plain_bf16_ms": bf16_ms, "bound_ms": bd,
-             "bound_by": by, "library_ms": lib_ms})
+        row = {"shape": f"{label} [{b},{h},{nq},{nk},64]", "ms": k_ms,
+               "plain_ms": p_ms, "plain_bf16_ms": bf16_ms, "bound_ms": bd,
+               "bound_by": by, "library_ms": lib_ms}
+        if label == "audio trunk":  # as the trunk calls it: packed-qkv views
+            qkv = torch.randn(b, nq, 3 * h * 64, generator=g,
+                              device="cuda").bfloat16()
+            qv, kv_, vv = qkv.view(b, nq, 3, h, 64).permute(2, 0, 3, 1, 4)
+            row["packed_views_ms"] = cuda_ms(lambda: flash_attention(qv, kv_, vv))
+            del qkv, qv, kv_, vv
+        timings["flash_attention"].append(row)
         del q, k, v
     xyz, start = fps_inputs[(B, 8192)]
     k_ms, p_ms = paired_ms(lambda: fps_indices(xyz, 512, start),
@@ -1178,6 +1242,8 @@ def main() -> int:
                      if "plain_variant_ms" in r else "")
                   + (f", cuBLAS addmm on the normalised input (GEMM only) "
                      f"{r['gemm_only_ms']:.4f} ms" if "gemm_only_ms" in r else "")
+                  + (f", kernel on the packed-qkv views {r['packed_views_ms']:.4f} ms"
+                     if "packed_views_ms" in r else "")
                   + (f", library {r['library_ms']:.4f} ms"
                      if r["library_ms"] is not None else "")
                   + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']})"

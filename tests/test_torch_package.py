@@ -189,9 +189,53 @@ def test_flash_attention_kernel_argument_checks():
         PFA._check_cuda_args(z, z, z)
     with pytest.raises(ValueError, match="bfloat16"):
         PFA._check_cuda_args(q.float(), q.float(), q.float())
-    with pytest.raises(ValueError, match="contiguous"):
-        t = torch.zeros(1, 5, 2, 64, dtype=torch.bfloat16).transpose(1, 2)
-        PFA._check_cuda_args(t, t, t)
+    # views are taken: a transposed [B, N, H, Dh] and the packed qkv's
+    t = torch.zeros(1, 5, 2, 64, dtype=torch.bfloat16).transpose(1, 2)
+    PFA._check_cuda_args(t, t, t)
+    qkv = torch.zeros(2, 7, 3, 2, 64, dtype=torch.bfloat16).permute(2, 0, 3, 1, 4)
+    PFA._check_cuda_args(qkv[0], qkv[1], qkv[2])
+
+
+def test_flash_attention_kernel_rejects_unreadable_views():
+    """A last dim that is not contiguous, a stride that is not a multiple of
+    8 elements (16 bytes) or a misaligned base raise; a size-1 dim's stride
+    is never stepped and does not."""
+    q = torch.zeros(2, 2, 5, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="last dim must be contiguous"):
+        t = torch.zeros(2, 2, 64, 5, dtype=torch.bfloat16).transpose(2, 3)
+        PFA._check_cuda_args(t, q, q)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        t = torch.zeros(2, 2, 5, 68, dtype=torch.bfloat16)[..., :64]
+        PFA._check_cuda_args(q, t, t)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        t = torch.zeros(2 * 2 * 5 * 64 + 8, dtype=torch.bfloat16)[4:4 + 2 * 2 * 5 * 64]
+        PFA._check_cuda_args(q, q, t.view(2, 2, 5, 64))
+    with pytest.raises(ValueError, match="scale must be > 0"):
+        PFA._check_cuda_args(q, q, q, -0.125)
+    one = torch.zeros(512, dtype=torch.bfloat16).as_strided((1, 1, 4, 64),
+                                                           (4 * 64, 68, 64, 1))
+    PFA._check_cuda_args(one, one, one)
+    assert PFA._strides(one) == (PFA.HEAD_DIM, PFA.HEAD_DIM, 64)
+
+
+def _declarations():
+    import re
+
+    src = "".join(p.read_text() for p in _build._sources())
+    return {m.group(1): m.group(2) for m in re.finditer(
+        r'extern "C" int (\w+)\((.*?)\)\s*\{', src, re.S)}
+
+
+@pytest.mark.parametrize("name", sorted(_build._SIGNATURES))
+def test_attention_signature_matches_its_declaration(name):
+    """Every ctypes signature (the attention entry point's among them: 4
+    pointers, 4 ints, 9 strides as long long, the scale and the stream) has
+    one argument per parameter of its extern "C" declaration, in kind."""
+    kinds = {"const void*": _build._P, "void*": _build._P, "int": _build._I,
+             "long long": _build._L, "float": _build._F}
+    params = [" ".join(p.split()[:-1])
+              for p in _declarations()[name].replace("\n", " ").split(",")]
+    assert [kinds[p] for p in params] == _build._SIGNATURES[name]
 
 
 def test_port_reads_its_own_vocab():

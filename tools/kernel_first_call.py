@@ -3,16 +3,19 @@
 ``-Xptxas -v`` (registers, shared memory, spills), then hold kernels against
 their plain versions at their paths' shapes and at edge shapes, with one
 timing each: FPS and the point encoder (ragged N, partial group tiles, other
-group sizes and widths), the fused MLP's save-preact variant and the fused
-LN + projection (ragged M, both trunk widths), the int8 product (ragged M,
-the smallest legal K and N, a K that is not a multiple of the k-step), the
-row gather (a single row, repeated and boundary ids, rows of 16 bytes) and
-the chained fused MLP with and without the out-projection (ragged M, both
-widths and activations).
+group sizes and widths), the fused MLP, both variants (a small square
+product first, ragged M, both trunk widths, bigG's D = 1664, and the audio
+trunk's M = 49344 beside cuBLAS), attention (NQ and NK from 1 to 600, NK past
+the resident limit, the packed-qkv and Lens views bit-equal to contiguous
+copies, the four main shapes beside SDPA), the fused LN + projection (ragged
+M, both trunk widths), the int8 product (ragged M, the smallest legal K and
+N, a K that is not a multiple of the k-step), the row gather (a single row,
+repeated and boundary ids, rows of 16 bytes) and the chained fused MLP with
+and without the out-projection (ragged M, both widths and activations).
 
-    python3 tools/kernel_first_call.py [fps] [encoder] [mlp] [ln_proj] [int8] [gather] [chain]
+    python3 tools/kernel_first_call.py [fps] [encoder] [mlp] [attn] [ln_proj] [int8] [gather] [chain]
 
-With no names it checks all seven. Needs one CUDA device and nvcc. Exits
+With no names it checks all eight. Needs one CUDA device and nvcc. Exits
 non-zero if a kernel disagrees.
 """
 
@@ -27,6 +30,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import torch  # noqa: E402
 
 from vitlens_tpu_torch.ops import _build  # noqa: E402
+from vitlens_tpu_torch.ops.flash_attention import (  # noqa: E402
+    attention_reference, flash_attention)
 from vitlens_tpu_torch.ops.fps import fps_indices, fps_indices_reference  # noqa: E402
 from vitlens_tpu_torch.ops.fused_ln_proj import (  # noqa: E402
     fused_ln_proj, ln_proj_reference)
@@ -83,19 +88,32 @@ def rel_err(got, want):
             / want.float().abs().max()).item()
 
 
-def check_mlp(g):
-    """The save-preact variant's (out, a) and the plain variant against the
-    plain version: out within 2.5e-2, a within 1e-2 relative (bf16)."""
-    ok = True
-    for m, d, h in ((6168, 1024, 4096), (1001, 1024, 4096), (77, 768, 3072)):
-        def r(*shape, std=1.0, dtype=torch.bfloat16):
-            return (torch.randn(*shape, generator=g, device="cuda") * std).to(dtype)
+def mlp_args(g, m, d, h):
+    def r(*shape, std=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=g, device="cuda") * std).to(dtype)
 
-        f32 = torch.float32
-        args = (r(m, d, std=0.5), 1 + r(d, std=0.1, dtype=f32),
-                r(d, std=0.1, dtype=f32), r(d, h, std=d ** -0.5),
-                r(h, std=0.1, dtype=f32), r(h, d, std=h ** -0.5),
-                r(d, std=0.1, dtype=f32))
+    f32 = torch.float32
+    return (r(m, d, std=0.5), 1 + r(d, std=0.1, dtype=f32),
+            r(d, std=0.1, dtype=f32), r(d, h, std=d ** -0.5),
+            r(h, std=0.1, dtype=f32), r(h, d, std=h ** -0.5),
+            r(d, std=0.1, dtype=f32))
+
+
+MLP_CASES = ((256, 256, 256), (6168, 1024, 4096), (4100, 1024, 4096),
+             (1001, 1024, 4096), (77, 768, 3072), (616, 768, 3072),
+             (4100, 1664, 8192), (1, 1024, 4096))
+
+
+def check_mlp(g):
+    """Both variants of the fused MLP against the plain version: out within
+    2.5e-2 and the pre-activation a (the first product alone, with b1)
+    within 1e-2 relative (bf16), the plain variant's out equal to the
+    save-preact variant's; small square first, then the paths' shapes, a
+    ragged M, both trunk widths and bigG's D = 1664; then the audio trunk's
+    M = 49344 timed beside cuBLAS on the same two products."""
+    ok = True
+    for m, d, h in MLP_CASES:
+        args = mlp_args(g, m, d, h)
         for act in ("gelu", "quick_gelu"):
             out, a = fused_mlp_save_preact(*args, act=act)
             plain_out = fused_mlp(*args, act=act)
@@ -104,11 +122,86 @@ def check_mlp(g):
             e_out, e_a = rel_err(out, want_out), rel_err(a, want_a)
             same = torch.equal(out, plain_out)
             ok &= e_out <= 2.5e-2 and e_a <= 1e-2 and same
-            print(f"mlp save-preact M{m} D{d} H{h} {act}: out {e_out:.2e}, a "
-                  f"{e_a:.2e}, out equal to the plain variant's: {same}; "
-                  f"save-preact {ms(lambda: fused_mlp_save_preact(*args, act=act)):.4f} "
-                  f"ms, plain variant {ms(lambda: fused_mlp(*args, act=act)):.4f} ms",
+            print(f"mlp M{m} D{d} H{h} {act}: out {e_out:.2e}, a {e_a:.2e}, out "
+                  f"equal to the plain variant's: {same}; save-preact "
+                  f"{ms(lambda: fused_mlp_save_preact(*args, act=act)):.4f} ms, "
+                  f"plain variant {ms(lambda: fused_mlp(*args, act=act)):.4f} ms",
                   flush=True)
+    m, d, h = 257 * 64 * 3, 1024, 4096
+    x, lnw, lnb, w1, b1, w2, b2 = args = mlp_args(g, m, d, h)
+    y = torch.nn.functional.layer_norm(x.float(), (d,), lnw, lnb).bfloat16()
+    hid = torch.empty(m, h, dtype=torch.bfloat16, device="cuda")
+    b1h, b2h = b1.bfloat16(), b2.bfloat16()
+    t = ms(lambda: fused_mlp(*args), 10)
+    t_lib = ms(lambda: (torch.addmm(b1h, y, w1, out=hid), torch.addmm(b2h, hid, w2)), 10)
+    print(f"mlp M{m} D{d} H{h}: kernel {t:.4f} ms "
+          f"({4 * m * d * h / t / 1e9:.1f} TFLOP/s); cuBLAS addmm on the "
+          f"normalised input, the two products only, {t_lib:.4f} ms", flush=True)
+    return ok
+
+
+ATTN_CASES = tuple((2, 3, nq, nk) for nq in (1, 7, 77, 257, 600)
+                   for nk in (1, 7, 77, 257, 600)) + (
+    (2, 2, 257, 833), (1, 2, 130, 2048), (3, 1, 256, 4100))
+ATTN_MAIN = (("audio trunk", 192, 16, 257, 257), ("audio lens cross", 192, 1, 256, 600),
+             ("audio lens self", 192, 16, 256, 256), ("pc lens cross", 64, 1, 256, 512))
+
+
+def check_attn(g):
+    """Attention against its plain version (bf16, 1e-2 relative) at every
+    NQ, NK in {1, 7, 77, 257, 600} and at NK past the resident limit (833
+    keys need 14 chunks of 64); the packed-qkv views of the trunk and the
+    Lens's q / to_kv views bit-equal to the same call on contiguous copies;
+    then the four main shapes timed beside SDPA (contiguous inputs) and the
+    trunk call on the packed-qkv views."""
+    ok = True
+    for b, h, nq, nk in ATTN_CASES:
+        q, k, v = (torch.randn(b, h, n, 64, generator=g, device="cuda").bfloat16()
+                   for n in (nq, nk, nk))
+        got = flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        e = rel_err(got, attention_reference(q, k, v))
+        good = bool(torch.isfinite(got).all()) and e <= 1e-2
+        ok &= good
+        if not good or (nq, nk) in ((1, 1), (257, 257), (600, 600)) or nk > 600:
+            print(f"attn B{b} H{h} NQ{nq} NK{nk}: rel err {e:.2e}", flush=True)
+    for b, n, heads in ((3, 257, 16), (2, 77, 12)):  # trunk: packed qkv views
+        qkv = torch.randn(b, n, 3 * heads * 64, generator=g, device="cuda").bfloat16()
+        q, k, v = qkv.view(b, n, 3, heads, 64).permute(2, 0, 3, 1, 4)
+        got = flash_attention(q, k, v)
+        want = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        ok &= same
+        print(f"attn packed-qkv views B{b} N{n} H{heads}: bit-equal to "
+              f"contiguous copies: {same}", flush=True)
+    for b, nq, nk, heads in ((3, 256, 600, 1), (2, 256, 256, 16)):  # Lens
+        q = torch.randn(b, nq, heads * 64, generator=g, device="cuda").bfloat16()
+        kv = torch.randn(b, nk, 2 * heads * 64, generator=g, device="cuda").bfloat16()
+        q = q.view(b, nq, heads, 64).transpose(1, 2)
+        k, v = kv.view(b, nk, 2, heads, 64).permute(2, 0, 3, 1, 4)
+        got = flash_attention(q, k, v)
+        want = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        ok &= same
+        print(f"attn Lens views B{b} NQ{nq} NK{nk} H{heads}: bit-equal to "
+              f"contiguous copies: {same}", flush=True)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for label, b, h, nq, nk in ATTN_MAIN:
+        q, k, v = (torch.randn(b, h, n, 64, generator=g, device="cuda").bfloat16()
+                   for n in (nq, nk, nk))
+        e = rel_err(flash_attention(q, k, v), attention_reference(q, k, v))
+        ok &= e <= 1e-2
+        line = (f"attn {label} [{b},{h},{nq},{nk}]: rel err {e:.2e}; kernel "
+                f"{ms(lambda: flash_attention(q, k, v), 20):.4f} ms, SDPA "
+                f"{ms(lambda: sdpa(q, k, v), 20):.4f} ms")
+        if label == "audio trunk":
+            qkv = torch.randn(b, nq, 3 * h * 64, generator=g, device="cuda").bfloat16()
+            qv, kv_, vv = qkv.view(b, nq, 3, h, 64).permute(2, 0, 3, 1, 4)
+            line += (f", kernel on the packed-qkv views "
+                     f"{ms(lambda: flash_attention(qv, kv_, vv), 20):.4f} ms")
+        print(line, flush=True)
     return ok
 
 
@@ -222,18 +315,22 @@ def check_chain(g):
 
 
 def main() -> int:
-    which = set(sys.argv[1:]) or {"fps", "encoder", "mlp", "ln_proj", "int8",
-                                  "gather", "chain"}
+    which = set(sys.argv[1:]) or {"fps", "encoder", "mlp", "attn", "ln_proj",
+                                  "int8", "gather", "chain"}
     nvcc = _build.find_nvcc()
-    with tempfile.TemporaryDirectory() as tmp:
-        for src in sorted(_build.CSRC.glob("*.cu")):
-            out = subprocess.run(
-                [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src),
-                 "-o", os.path.join(tmp, src.stem + ".o")],
-                capture_output=True, text=True)
-            lines = [ln.strip() for ln in (out.stdout + out.stderr).splitlines()
-                     if "registers" in ln or "spill" in ln or "error" in ln]
-            print(src.name, out.returncode, lines, flush=True)
+    with tempfile.TemporaryDirectory() as tmp:  # one nvcc a source, in parallel
+        srcs = sorted(_build.CSRC.glob("*.cu"))
+        procs = [subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src),
+             "-o", os.path.join(tmp, src.stem + ".o")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src in srcs]
+        for src, proc in zip(srcs, procs):
+            out = proc.communicate()[0]
+            lines = [ln.strip() for ln in out.splitlines()
+                     if any(w in ln for w in ("registers", "spill", "error", "warning",
+                                             "entry function"))]
+            print(src.name, proc.returncode, lines, flush=True)
     t0 = time.time()
     _build.library()
     print(f"build {time.time() - t0:.1f} s", flush=True)
@@ -241,6 +338,8 @@ def main() -> int:
     ok = True
     if "mlp" in which:
         ok &= check_mlp(g)
+    if "attn" in which:
+        ok &= check_attn(g)
     if "ln_proj" in which:
         ok &= check_ln_proj(g)
     if "int8" in which:

@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
-"""Times variants of the point-encoder kernel against the committed source,
-in one process on one card, at the point-cloud path's B64 shape
-([64, 512, 32, 3] -> [64, 512, 256]).
+"""Times variants of a kernel against the committed source, in one process on
+one card, at its main path's shapes.
 
-    python3 tools/kernel_variants.py            # the variants in VARIANTS
-    python3 tools/kernel_variants.py '{"bk64": {"constexpr int BK = 32;": "constexpr int BK = 64;"}}'
+    python3 tools/kernel_variants.py encoder     # the point encoder, [64, 512, 32, 3]
+    python3 tools/kernel_variants.py attn        # attention, its four main shapes
+    python3 tools/kernel_variants.py mlp         # the fused MLP, M = 49344 and 16448
+    python3 tools/kernel_variants.py attn '{"cw8": {"return w9 < w8 \\? 9 : 8;": "return 8;"}}'
+    python3 tools/kernel_variants.py attn '{"mma_sync": {"@source": "tools/attention_variants/flash_attention_both.cu", "constexpr bool USE_WGMMA = true;": "constexpr bool USE_WGMMA = false;"}}'
 
-Each variant is a copy of csrc/fused_point_encoder.cu with regex
-substitutions applied (a variant may remove a stage to measure its cost, in
-which case its output is wrong and its error says so); all are compiled in
-parallel into libraries under a temporary directory and timed in turns, twice.
-Prints each variant's registers and spills, time and relative error against
-the plain version; a variant that fails to launch is reported and skipped.
+Each variant is a copy of the kernel's source (or of the file named by its
+"@source" key) and of the headers under csrc/ with regex substitutions applied
+to all of them (a variant may remove a stage
+to measure its cost, in which case its output is wrong and its error says
+so); all are compiled in parallel into libraries under a temporary directory
+and timed in turns, twice. Prints each variant's registers and spills, time
+and relative error against the plain version; a variant that fails to build
+or launch is reported and skipped.
 """
 
 import ctypes
@@ -23,10 +27,14 @@ import sys
 import tempfile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+REPO = __import__("pathlib").Path(__file__).resolve().parents[1]
 
 import torch  # noqa: E402
 
 from vitlens_tpu_torch.ops import _build  # noqa: E402
+from vitlens_tpu_torch.ops.flash_attention import (  # noqa: E402
+    _strides, attention_reference)
+from vitlens_tpu_torch.ops.fused_mlp import fused_mlp_reference  # noqa: E402
 from vitlens_tpu_torch.ops.fused_point_encoder import (  # noqa: E402
     _bn_fold, point_encoder_reference)
 
@@ -35,7 +43,7 @@ WIDTHS = (128, 256, 512, 256)
 # Tile shapes around the committed one, and the committed kernel with its
 # tensor-core products replaced by a register op (its output is wrong; its
 # time is that of everything but the mma.sync instructions).
-VARIANTS = {
+ENCODER_VARIANTS = {
     "bk64": {"constexpr int BK = 32;": "constexpr int BK = 64;"},
     "nc256_s2": {"constexpr int NC = 128;": "constexpr int NC = 256;",
                  "constexpr int STAGES = 3;": "constexpr int STAGES = 2;"},
@@ -44,41 +52,65 @@ VARIANTS = {
 }
 
 
-def build_variants(variants, tmp):
+def build_variants(source, entry, variants, tmp):
     nvcc = _build.find_nvcc()
-    src = (_build.CSRC / "fused_point_encoder.cu").read_text()
+    base = {p.name: p.read_text() for p in _build.CSRC.glob("*.cuh")}
+    base[source] = (_build.CSRC / source).read_text()
     procs = {}
     for name, subs in [("committed", {}), *variants.items()]:
-        text = src
-        for pattern, repl in subs.items():
-            text, n = re.subn(pattern, repl, text)
-            if not n:
-                raise SystemExit(f"{name}: pattern {pattern!r} not found")
-        path = os.path.join(tmp, f"{name}.cu")
-        with open(path, "w") as f:
-            f.write(text)
+        vdir = os.path.join(tmp, name)
+        os.makedirs(vdir)
+        subs = dict(subs)
+        files = dict(base)
+        if "@source" in subs:  # a whole other source file, from the repo root
+            files[source] = (REPO / subs.pop("@source")).read_text()
+        hits = dict.fromkeys(subs, 0)
+        for fname, text in files.items():
+            for pattern, repl in subs.items():
+                text, n = re.subn(pattern, repl, text)
+                hits[pattern] += n
+            with open(os.path.join(vdir, fname), "w") as f:
+                f.write(text)
+        missing = [pat for pat, n in hits.items() if not n]
+        if missing:
+            raise SystemExit(f"{name}: pattern(s) {missing!r} not found")
         procs[name] = subprocess.Popen(
             [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-o",
-             os.path.join(tmp, f"lib{name}.so"), path],
+             os.path.join(vdir, "lib.so"), os.path.join(vdir, source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     fns = {}
     for name, p in procs.items():
         out = p.communicate()[0]
         print(name, p.returncode, [ln.strip() for ln in out.splitlines()
                                    if "registers" in ln or "spill" in ln
-                                   or "error" in ln][:4], flush=True)
+                                   or "error" in ln or "C75" in ln][:6], flush=True)
         if p.returncode == 0:
-            fn = ctypes.CDLL(os.path.join(tmp, f"lib{name}.so")).vitlens_point_encoder_fwd
-            fn.argtypes = _build._SIGNATURES["vitlens_point_encoder_fwd"]
+            fn = getattr(ctypes.CDLL(os.path.join(tmp, name, "lib.so")), entry)
+            fn.argtypes = _build._SIGNATURES[entry]
             fn.restype = ctypes.c_int
             fns[name] = fn
     return fns
 
 
-def main() -> int:
-    variants = json.loads(sys.argv[1]) if len(sys.argv) > 1 else VARIANTS
-    g = torch.Generator(device="cuda").manual_seed(0)
+def ms(fn, iters=20):
+    for _ in range(3):
+        fn()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
 
+
+def rel(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+def encoder_cases(g):
+    """(label, call(fn), want, out) at the point-cloud path's B64 shape."""
     def r(*shape, std=1.0):
         return torch.randn(*shape, generator=g, device="cuda") * std
 
@@ -91,48 +123,104 @@ def main() -> int:
          r(2 * c2, c3, std=(2 * c2) ** -0.5).bfloat16(), r(c3, std=0.1), bn(c3),
          r(c3, c4, std=c3 ** -0.5).bfloat16(), r(c4, std=0.1))
     nb = r(64, 512, 32, 3, std=0.1).bfloat16()
-    want = point_encoder_reference(nb, *w)
     m1, i1, s1 = _bn_fold(w[2], 1e-5)
     m2, i2, s2 = _bn_fold(w[7], 1e-5)
-    stream = torch.cuda.current_stream().cuda_stream
+    out = torch.empty(64, 512, c4, dtype=torch.bfloat16, device="cuda")
 
-    def call(fn, out):
-        err = fn(nb.data_ptr(), w[0].data_ptr(), w[1].data_ptr(), m1.data_ptr(),
-                 i1.data_ptr(), s1.data_ptr(), w[3].data_ptr(), w[4].data_ptr(),
-                 w[5].data_ptr(), w[6].data_ptr(), m2.data_ptr(), i2.data_ptr(),
-                 s2.data_ptr(), w[8].data_ptr(), w[9].data_ptr(), out.data_ptr(),
-                 64 * 512, 32, c1, c2, c3, c4, stream)
-        _build.check(err, "variant")
+    def call(fn):
+        return fn(nb.data_ptr(), w[0].data_ptr(), w[1].data_ptr(), m1.data_ptr(),
+                  i1.data_ptr(), s1.data_ptr(), w[3].data_ptr(), w[4].data_ptr(),
+                  w[5].data_ptr(), w[6].data_ptr(), m2.data_ptr(), i2.data_ptr(),
+                  s2.data_ptr(), w[8].data_ptr(), w[9].data_ptr(), out.data_ptr(),
+                  64 * 512, 32, c1, c2, c3, c4, _stream())
 
-    def ms(fn, iters=20):
-        for _ in range(3):
-            fn()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(iters):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        return a.elapsed_time(b) / iters
+    return [("[64,512,32,3]", call, point_encoder_reference(nb, *w), out)]
 
+
+ATTN_SHAPES = (("trunk", 192, 16, 257, 257), ("lens cross", 192, 1, 256, 600),
+               ("lens self", 192, 16, 256, 256), ("pc lens cross", 64, 1, 256, 512),
+               ("trunk packed-qkv views", 192, 16, 257, 257))
+
+
+def attn_cases(g):
+    cases = []
+    for label, b, h, nq, nk in ATTN_SHAPES:
+        if "views" in label:
+            qkv = torch.randn(b, nq, 3 * h * 64, generator=g, device="cuda").bfloat16()
+            q, k, v = qkv.view(b, nq, 3, h, 64).permute(2, 0, 3, 1, 4)
+        else:
+            q, k, v = (torch.randn(b, h, n, 64, generator=g, device="cuda").bfloat16()
+                       for n in (nq, nk, nk))
+        out = torch.empty(b, nq, h, 64, dtype=torch.bfloat16, device="cuda")
+
+        def call(fn, q=q, k=k, v=v, out=out, b=b, h=h, nq=nq, nk=nk):
+            return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+                      h, nq, nk, *_strides(q), *_strides(k), *_strides(v),
+                      64 ** -0.5, _stream())
+
+        cases.append((f"{label} [{b},{h},{nq},{nk}]", call,
+                      attention_reference(q, k, v).transpose(1, 2), out))
+    return cases
+
+
+def mlp_cases(g):
+    cases = []
+    for m in (257 * 64 * 3, 257 * 64):
+        d, h = 1024, 4096
+
+        def r(*shape, std=1.0, dtype=torch.bfloat16):
+            return (torch.randn(*shape, generator=g, device="cuda") * std).to(dtype)
+
+        f32 = torch.float32
+        args = (r(m, d, std=0.5), 1 + r(d, std=0.1, dtype=f32),
+                r(d, std=0.1, dtype=f32), r(d, h, std=d ** -0.5),
+                r(h, std=0.1, dtype=f32), r(h, d, std=h ** -0.5),
+                r(d, std=0.1, dtype=f32))
+        y = torch.empty(m, d, dtype=torch.bfloat16, device="cuda")
+        hid = torch.empty(m, h, dtype=torch.bfloat16, device="cuda")
+        out = torch.empty(m, d, dtype=torch.bfloat16, device="cuda")
+
+        def call(fn, args=args, y=y, hid=hid, out=out, m=m):
+            return fn(*(t.data_ptr() for t in args), y.data_ptr(), hid.data_ptr(),
+                      out.data_ptr(), m, 1024, 4096, 0, 1e-5, _stream())
+
+        cases.append((f"M={m} D=1024 H=4096", call, fused_mlp_reference(*args), out))
+    return cases
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+KERNELS = {  # source, entry point, cases, default variants
+    "encoder": ("fused_point_encoder.cu", "vitlens_point_encoder_fwd",
+                encoder_cases, ENCODER_VARIANTS),
+    "attn": ("flash_attention.cu", "vitlens_flash_attention_fwd", attn_cases, {}),
+    "mlp": ("fused_mlp.cu", "vitlens_fused_mlp_fwd", mlp_cases, {}),
+}
+
+
+def main() -> int:
+    source, entry, make_cases, defaults = KERNELS[sys.argv[1]]
+    variants = json.loads(sys.argv[2]) if len(sys.argv) > 2 else defaults
+    cases = make_cases(torch.Generator(device="cuda").manual_seed(0))
     with tempfile.TemporaryDirectory() as tmp:
-        fns = build_variants(variants, tmp)
+        fns = build_variants(source, entry, variants, tmp)
         best = {}
         for rep in range(2):
             for name, fn in list(fns.items()):
-                out = torch.empty(64, 512, c4, dtype=torch.bfloat16, device="cuda")
-                try:
-                    call(fn, out)
-                except RuntimeError as e:
-                    print(f"{name}: does not launch ({e})", flush=True)
-                    del fns[name]
-                    continue
-                torch.cuda.synchronize()
-                err = ((out.float() - want.float()).abs().max()
-                       / want.float().abs().max()).item()
-                t = ms(lambda: call(fn, out))
-                best[name] = min(best.get(name, t), t)
-                print(f"pass {rep} {name}: {t:.4f} ms, rel err {err:.2e}", flush=True)
+                for label, call, want, out in cases:
+                    err = call(fn)
+                    torch.cuda.synchronize()
+                    if err:
+                        print(f"{name}: does not launch (CUDA error {err})", flush=True)
+                        del fns[name]
+                        break
+                    e = rel(out, want)
+                    t = ms(lambda: call(fn))
+                    key = f"{name} {label}"
+                    best[key] = min(best.get(key, t), t)
+                    print(f"pass {rep} {key}: {t:.4f} ms, rel err {e:.2e}", flush=True)
     print({k: round(v, 4) for k, v in best.items()})
     return 0
 

@@ -1,6 +1,6 @@
 // Unmasked softmax attention, forward only:
 //
-//     o = softmax(q @ k^T * scale) @ v      q [BH, NQ, 64], k/v [BH, NK, 64]
+//     o = softmax(q @ k^T * scale) @ v      q [B, H, NQ, 64], k/v [B, H, NK, 64]
 //
 // Replaces vitlens_tpu/ops/flash_attention.py::_fused_attention_fwd_impl (body
 // `_fused_attn_kernel`). Scores, the softmax (running max, exponentials and
@@ -10,222 +10,562 @@
 // fp32 probabilities.
 //
 // What bounds it on an H100: at the encode's lengths (NK <= 600, head dim 64)
-// the products are small (2 * NQ * NK * 64 FLOP each per head); the kernel is
-// bound by reading Q/K/V and by the softmax's exponentials and shuffles, not
-// by tensor-core FLOPs. Its gain over the plain PyTorch path is that the
-// [NQ, NK] scores and probabilities never reach HBM.
+// a head does 4 * NQ * NK * 64 FLOP on (2 NQ + 2 NK) * 128 bytes, ~64 FLOP a
+// byte at NQ = NK = 257, well under the card's ridge: reading q, k, v and
+// writing o bounds it, and after that the exponentials (one MUFU op per
+// score) and the latency of each warpgroup's serial S -> max -> exp -> P V
+// chain. So the design reads every byte once from HBM, keeps the scores on
+// chip, and puts as many independent warpgroups on an SM as fit.
 //
-// Design: one CTA of 4 warps per (batch*head, 64-row q tile); each warp owns
-// 16 q rows. K/V stream through shared memory in 64-row tiles; S = Q K^T and
-// O += P V use mma.sync m16n8k16 (bf16 in, fp32 accumulate) with the
-// accumulators in registers, and an online softmax (running max and sum)
-// rescales O between tiles. Ragged NQ and NK tails are zero-filled on load
-// and masked (-inf scores, skipped stores) in the kernel: no padding copies.
-// Head dim is fixed at 64; the Python wrapper checks it, bf16 and contiguity.
+// Design:
+//   * A CTA is one consumer warpgroup of 64 q rows a pass and one producer
+//     warp; three CTAs share an SM (74 KB of shared memory each), or two
+//     with deeper rings where one pass a CTA would not fill the card.
+//     S = Q K^T runs on wgmma m64nNk16 with Q as the register A operand and
+//     K read from shared memory (K-major, 128-byte swizzle); O += P V on
+//     wgmma m64n64k16 with P, rounded to bf16, as the register A operand
+//     and V through the transposed-B (MN-major) descriptor.
+//   * K/V come by TMA (cp.async.bulk.tensor, 4-D maps over the caller's
+//     strides), 64 keys a chunk, each chunk completing its own mbarrier.
+//     Where all chunks fit the CTA's share of the SM and the CTA runs more
+//     than one pass, they stay resident and every pass reads them there
+//     (K/V cross HBM once a CTA). Otherwise the same kernel streams them
+//     through a ring of slots guarded by full/empty mbarriers, one pass a
+//     CTA; the CTAs of one head are neighbours in the grid and meet its
+//     K/V in L2. On the encode's shapes every CTA runs one pass: on the
+//     card, three streaming CTAs an SM beat two that keep a head's K/V
+//     resident for all of its passes (0.32 against 0.43 ms at the trunk).
+//   * Ragged tails at the instruction's granularity: q at m64 (rows past NQ
+//     are zero-filled by TMA and never stored); keys at n8 for S (the last
+//     chunk's product is m64nNk16 with N = 8 * ceil(keys / 8)) and at k16
+//     for P V; keys past NK are -inf before the max and their V rows are
+//     zero-filled, so P = 0 meets finite V. Every chunk holds a key, so
+//     the running max is finite after the first chunk, and the rescale of
+//     a row whose max was -inf is by 0, never exp(-inf + inf).
+//   * q, k and v are read where they lie: a batch, a head and a row stride
+//     each (the packed qkv projection's views need no copy). The output is
+//     written [B, NQ, H, 64], each warp's 16 x 128-byte rows staged through
+//     shared memory into coalesced 16-byte stores, so that the caller's
+//     [B, NQ, H * 64] is a view.
 
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "ptx.cuh"
+#include "tma.cuh"
 
 namespace {
 
-constexpr int HD = 64;         // head dim
-constexpr int TQ = 64;         // q rows per CTA
-constexpr int TK = 64;         // keys per tile
-constexpr int LD = HD + 8;     // padded smem row (bf16 elements)
-constexpr int THREADS = 128;   // 4 warps x 16 q rows
+constexpr int HD = 64;                       // head dim: 128-byte rows
+constexpr int KC = 64;                       // keys per chunk
+constexpr int SLOT_BYTES = 2 * KC * HD * 2;  // K and V of a chunk, 16 KB
+constexpr int Q_BYTES = 64 * HD * 2;         // a pass's 64 q rows, 8 KB
+constexpr int WARP_BYTES = 16 * HD * 2;      // a warp's 16 q rows (and its O)
+constexpr int MIN_CTAS = 3;                  // CTAs an SM holds on a full grid
+// An SM's 228 KB less the 1 KB the system keeps per CTA and the static
+// barriers, split three or two ways.
+constexpr int SMEM_3 = 74 * 1024;
+constexpr int SMEM_2 = 112 * 1024;
+
+__host__ __device__ constexpr int smem_bytes(int slots, int qbufs) {
+  return slots * SLOT_BYTES + qbufs * Q_BYTES + 1024;  // + alignment slack
+}
+constexpr int SLOT_CAP = (SMEM_2 - smem_bytes(0, 1)) / SLOT_BYTES;  // barriers
+
+// Byte offset of 16-byte chunk `c` of row `r` in a tile of 128-byte rows
+// under the 128-byte swizzle (what TMA writes for a 1024-aligned tile).
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return r * 128 + ((c ^ (r & 7)) << 4);
+}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
+__device__ __forceinline__ float ex2(float x) {  // 2^x; 2^-inf = 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
+// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
+// leading and stride byte offsets (all >> 4), layout type 1 at bit 62.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_s8(float* d, const uint32_t* a, uint64_t desc_b,
+                                         int scale_d) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1, 0;\n"
+      "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
-// Copies rows [r0, r0 + 64) of a [n, 64] bf16 matrix into smem, zero-filling
-// rows >= n. 64 rows x 8 chunks of 16 bytes over 128 threads.
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src, int r0,
-                                          int n) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    int c = threadIdx.x + i * THREADS;
-    int r = c / 8, cc = (c % 8) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (r0 + r < n)
-      v = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r0 + r) * HD + cc);
-    *reinterpret_cast<uint4*>(dst + r * LD + cc) = v;
-  }
+__device__ __forceinline__ void wgmma_s16(float* d, const uint32_t* a, uint64_t desc_b,
+                                          int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
-__global__ void __launch_bounds__(THREADS)
-    flash_fwd(const __nv_bfloat16* __restrict__ q,
-              const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-              int NQ, int NK, float scale) {
-  __shared__ __align__(16) __nv_bfloat16 Qs[TQ * LD];
-  __shared__ __align__(16) __nv_bfloat16 Ks[TK * LD];
-  __shared__ __align__(16) __nv_bfloat16 Vs[TK * LD];
+__device__ __forceinline__ void wgmma_s24(float* d, const uint32_t* a, uint64_t desc_b,
+                                          int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %17, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11}, "
+      "{%12, %13, %14, %15}, %16, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
 
-  const int bh = blockIdx.y, q0 = blockIdx.x * TQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;  // mma group row / thread-in-group
-  const __nv_bfloat16* qb = q + static_cast<size_t>(bh) * NQ * HD;
-  const __nv_bfloat16* kb = k + static_cast<size_t>(bh) * NK * HD;
-  const __nv_bfloat16* vb = v + static_cast<size_t>(bh) * NK * HD;
+__device__ __forceinline__ void wgmma_s32(float* d, const uint32_t* a, uint64_t desc_b,
+                                          int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
 
-  load_tile(Qs, qb, q0, NQ);
-  __syncthreads();
+__device__ __forceinline__ void wgmma_s40(float* d, const uint32_t* a, uint64_t desc_b,
+                                          int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19}, "
+      "{%20, %21, %22, %23}, %24, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
 
-  // Q fragments (A operand, row-major 16x16 per k-step), kept in registers.
-  uint32_t qf[HD / 16][4];
-  const int qr = warp * 16 + g;
+__device__ __forceinline__ void wgmma_s48(float* d, const uint32_t* a, uint64_t desc_b,
+                                          int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_s56(float* d, const uint32_t* a, uint64_t desc_b,
+                                          int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %33, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n56k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27}, "
+      "{%28, %29, %30, %31}, %32, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_s64(float* d, const uint32_t* a, uint64_t desc_b,
+                                          int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_pv(float* d, const uint32_t* a, uint64_t desc_b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+
+// S[64 x n] = Q K^T for n = 8 * ceil(valid / 8) keys of a chunk, 4 k16 steps
+// (the first overwrites).
+__device__ __forceinline__ void wg_scores(float (&d)[32], const uint32_t (&qf)[4][4],
+                                          uint64_t desc, int valid) {
+  const int n8 = (valid + 7) / 8;
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qf[kk][0] = *reinterpret_cast<const uint32_t*>(&Qs[qr * LD + c]);
-    qf[kk][1] = *reinterpret_cast<const uint32_t*>(&Qs[(qr + 8) * LD + c]);
-    qf[kk][2] = *reinterpret_cast<const uint32_t*>(&Qs[qr * LD + c + 8]);
-    qf[kk][3] = *reinterpret_cast<const uint32_t*>(&Qs[(qr + 8) * LD + c + 8]);
+    const uint64_t db = desc + ((kk * 32) >> 4);
+    switch (n8) {
+      case 1: wgmma_s8(d, qf[kk], db, kk > 0); break;
+      case 2: wgmma_s16(d, qf[kk], db, kk > 0); break;
+      case 3: wgmma_s24(d, qf[kk], db, kk > 0); break;
+      case 4: wgmma_s32(d, qf[kk], db, kk > 0); break;
+      case 5: wgmma_s40(d, qf[kk], db, kk > 0); break;
+      case 6: wgmma_s48(d, qf[kk], db, kk > 0); break;
+      case 7: wgmma_s56(d, qf[kk], db, kk > 0); break;
+      default: wgmma_s64(d, qf[kk], db, kk > 0); break;
+    }
+  }
+}
+
+// One consumer warpgroup of 64 q rows a pass and one producer warp.
+// scale_log2 = scale * log2(e) > 0, so the row max of the raw scores is the
+// max of the scaled ones.
+__global__ void __launch_bounds__(160, MIN_CTAS)
+    flash_fwd(const __grid_constant__ CUtensorMap map_q,
+                 const __grid_constant__ CUtensorMap map_k,
+                 const __grid_constant__ CUtensorMap map_v,
+                 __nv_bfloat16* __restrict__ o, int H, int NQ, int NK,
+                 int passes_per_cta, int slots, float scale_log2) {
+  constexpr int QROWS = 64, QBUF = Q_BYTES, WARPS = 4;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[SLOT_CAP], empty[SLOT_CAP];
+  __shared__ __align__(8) uint64_t qfull[2], qempty[2];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* qbuf = smem + slots * SLOT_BYTES;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int chunks = (NK + KC - 1) / KC;
+  const bool streaming = chunks > slots;
+  const int p0 = blockIdx.x * passes_per_cta;
+  const int npass = min(passes_per_cta, (NQ + QROWS - 1) / QROWS - p0);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < slots; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], WARPS);
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&qfull[i], 1);
+      mbar_init(&qempty[i], WARPS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == WARPS) {  // ---- producer ----
+    if (lane == 0) {
+      auto load_q = [&](int i) {
+        const int qs = i & 1;
+        if (i >= 2) mbar_wait(&qempty[qs], ((i >> 1) - 1) & 1);
+        mbar_arrive_tx(&qfull[qs], QBUF);
+        tma_load_4d(qbuf + qs * QBUF, &map_q, &qfull[qs], 0, (p0 + i) * QROWS, h, b);
+      };
+      load_q(0);
+      if (npass > 1) load_q(1);
+      for (int c = 0; c < chunks; ++c) {
+        const int s = c % slots;
+        if (c >= slots) mbar_wait(&empty[s], ((c / slots) - 1) & 1);
+        unsigned char* kd = smem + s * SLOT_BYTES;
+        mbar_arrive_tx(&full[s], SLOT_BYTES);
+        tma_load_4d(kd, &map_k, &full[s], 0, c * KC, h, b);
+        tma_load_4d(kd + SLOT_BYTES / 2, &map_v, &full[s], 0, c * KC, h, b);
+      }
+      for (int i = 2; i < npass; ++i) load_q(i);
+    }
+    return;
   }
 
-  float oacc[HD / 8][4];
+  // ---- consumers: warp w of warpgroup wg holds rows 16 w + g and + 8 ----
+  const uint32_t ring = smem_u32(smem);
+  const int g = lane / 4, t = lane % 4;
+  auto release = [&](int c) {
+    if (streaming && lane == 0) mbar_arrive(&empty[c % slots]);
+  };
+  for (int i = 0; i < npass; ++i) {
+    const int qs = i & 1;
+    unsigned char* stage = qbuf + qs * QBUF + warp * WARP_BYTES;
+    const int row0 = (p0 + i) * QROWS + warp * 16;
+    mbar_wait(&qfull[qs], (i >> 1) & 1);
+    uint32_t qf[HD / 16][4];  // Q as the register A operand of S
 #pragma unroll
-  for (int i = 0; i < HD / 8; ++i)
-    oacc[i][0] = oacc[i][1] = oacc[i][2] = oacc[i][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY;  // running max, rows g and g+8
-  float l0 = 0.f, l1 = 0.f;              // this thread's share of the row sums
+    for (int kk = 0; kk < HD / 16; ++kk)
+      ldmatrix_x4(qf[kk], stage + swz(lane % 16, kk * 2 + lane / 16));
 
-  for (int k0 = 0; k0 < NK; k0 += TK) {
-    __syncthreads();  // previous tile fully consumed
-    load_tile(Ks, kb, k0, NK);
-    load_tile(Vs, vb, k0, NK);
-    __syncthreads();
+    float od[32];  // O [64 x 64]: od[4j], od[4j+1] row g, od[4j+2], od[4j+3] row g+8
+    float sc[32];  // S of the chunk, then P
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+    for (int c = 0; c < chunks; ++c) {
+      const uint32_t slot = ring + (c % slots) * SLOT_BYTES;
+      const int valid = min(KC, NK - c * KC);
+      mbar_wait(&full[c % slots], (c / slots) & 1);
+      wgmma_fence();
+      wg_scores(sc, qf, smem_desc(slot, 0, 1024), valid);
+      wgmma_commit();
+      wgmma_wait<0>();  // S, and the previous chunk's P V
+      if (c > 0) release(c - 1);
 
-    // S = Q K^T for this warp's 16 rows x 64 keys: 8 n-tiles of 8 keys.
-    float s[TK / 8][4];
+      if (valid < KC) {
 #pragma unroll
-    for (int nt = 0; nt < TK / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const int key = nt * 8 + g;
+        for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        const int c = kk * 16 + 2 * t;
-        uint32_t b0 = *reinterpret_cast<const uint32_t*>(&Ks[key * LD + c]);
-        uint32_t b1 = *reinterpret_cast<const uint32_t*>(&Ks[key * LD + c + 8]);
-        mma_bf16(s[nt], qf[kk], b0, b1);
+          for (int e = 0; e < 4; ++e)
+            if (j * 8 + 2 * t + (e & 1) >= valid) sc[4 * j + e] = -INFINITY;
       }
-    }
-
-    // Scale, mask keys past NK, and take the tile's row maxima.
-    float tm0 = -INFINITY, tm1 = -INFINITY;
+      float tm0 = fmaxf(sc[0], sc[1]), tm1 = fmaxf(sc[2], sc[3]);
 #pragma unroll
-    for (int nt = 0; nt < TK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + nt * 8 + 2 * t + (e & 1);
-        float val = key < NK ? s[nt][e] * scale : -INFINITY;
-        s[nt][e] = val;
-        if (e < 2) tm0 = fmaxf(tm0, val);
-        else tm1 = fmaxf(tm1, val);
+      for (int j = 1; j < 8; ++j) {
+        tm0 = fmaxf(tm0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+        tm1 = fmaxf(tm1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
       }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        tm0 = fmaxf(tm0, __shfl_xor_sync(0xffffffffu, tm0, off));
+        tm1 = fmaxf(tm1, __shfl_xor_sync(0xffffffffu, tm1, off));
+      }
+      // The chunk holds a key, so the new max is finite, and a row whose
+      // max was -inf is rescaled by 0, never by exp(-inf - -inf).
+      const float nm0 = fmaxf(m0, tm0), nm1 = fmaxf(m1, tm1);
+      const float a0 = m0 == -INFINITY ? 0.f : ex2((m0 - nm0) * scale_log2);
+      const float a1 = m1 == -INFINITY ? 0.f : ex2((m1 - nm1) * scale_log2);
+      m0 = nm0;
+      m1 = nm1;
+      const float ms0 = m0 * scale_log2, ms1 = m1 * scale_log2;
+      float r0 = 0.f, r1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        sc[4 * j] = ex2(fmaf(sc[4 * j], scale_log2, -ms0));
+        sc[4 * j + 1] = ex2(fmaf(sc[4 * j + 1], scale_log2, -ms0));
+        sc[4 * j + 2] = ex2(fmaf(sc[4 * j + 2], scale_log2, -ms1));
+        sc[4 * j + 3] = ex2(fmaf(sc[4 * j + 3], scale_log2, -ms1));
+        r0 += sc[4 * j] + sc[4 * j + 1];
+        r1 += sc[4 * j + 2] + sc[4 * j + 3];
+      }
+      l0 = l0 * a0 + r0;
+      l1 = l1 * a1 + r1;
+      if (c > 0) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          od[4 * j] *= a0;
+          od[4 * j + 1] *= a0;
+          od[4 * j + 2] *= a1;
+          od[4 * j + 3] *= a1;
+        }
+      }
+      // O += P V: P's accumulator layout is the register A operand (two n8
+      // tiles make one k16 step); V through the transposed-B descriptor.
+      uint32_t pa[KC / 16][4];
+#pragma unroll
+      for (int kt = 0; kt < KC / 16; ++kt) {
+        pa[kt][0] = pack_bf16(sc[8 * kt], sc[8 * kt + 1]);
+        pa[kt][1] = pack_bf16(sc[8 * kt + 2], sc[8 * kt + 3]);
+        pa[kt][2] = pack_bf16(sc[8 * kt + 4], sc[8 * kt + 5]);
+        pa[kt][3] = pack_bf16(sc[8 * kt + 6], sc[8 * kt + 7]);
+      }
+      const uint64_t dv = smem_desc(slot + SLOT_BYTES / 2, 8192, 1024);
+      wgmma_fence();
+#pragma unroll
+      for (int kt = 0; kt < KC / 16; ++kt)
+        if (kt * 16 < valid)
+          wgmma_pv(od, pa[kt], dv + ((kt * 2048) >> 4), c > 0 || kt > 0);
+      wgmma_commit();
     }
+    wgmma_wait<0>();
+    release(chunks - 1);
+
 #pragma unroll
     for (int off = 1; off <= 2; off <<= 1) {
-      tm0 = fmaxf(tm0, __shfl_xor_sync(0xffffffffu, tm0, off));
-      tm1 = fmaxf(tm1, __shfl_xor_sync(0xffffffffu, tm1, off));
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
     }
-    // Every tile holds at least one valid key, so the new maxima are finite.
-    const float nm0 = fmaxf(m0, tm0), nm1 = fmaxf(m1, tm1);
-    const float a0 = __expf(m0 - nm0), a1 = __expf(m1 - nm1);
-    m0 = nm0;
-    m1 = nm1;
-    l0 *= a0;
-    l1 *= a1;
+    const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+    __syncwarp();
 #pragma unroll
-    for (int i = 0; i < HD / 8; ++i) {
-      oacc[i][0] *= a0;
-      oacc[i][1] *= a0;
-      oacc[i][2] *= a1;
-      oacc[i][3] *= a1;
+    for (int j = 0; j < 8; ++j) {
+      *reinterpret_cast<uint32_t*>(stage + swz(g, j) + 4 * t) =
+          pack_bf16(od[4 * j] * inv0, od[4 * j + 1] * inv0);
+      *reinterpret_cast<uint32_t*>(stage + swz(g + 8, j) + 4 * t) =
+          pack_bf16(od[4 * j + 2] * inv1, od[4 * j + 3] * inv1);
     }
+    __syncwarp();
 #pragma unroll
-    for (int nt = 0; nt < TK / 8; ++nt) {
-      s[nt][0] = __expf(s[nt][0] - m0);
-      s[nt][1] = __expf(s[nt][1] - m0);
-      s[nt][2] = __expf(s[nt][2] - m1);
-      s[nt][3] = __expf(s[nt][3] - m1);
-      l0 += s[nt][0] + s[nt][1];
-      l1 += s[nt][2] + s[nt][3];
+    for (int jj = 0; jj < 4; ++jj) {
+      const int idx = jj * 32 + lane, r = idx / 8, cc = idx % 8;
+      if (row0 + r < NQ)
+        *reinterpret_cast<uint4*>(
+            o + ((static_cast<size_t>(b) * NQ + row0 + r) * H + h) * HD + cc * 8) =
+            *reinterpret_cast<const uint4*>(stage + swz(r, cc));
     }
+    __syncwarp();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    if (lane == 0) mbar_arrive(&qempty[qs]);
+  }
+}
 
-    // O += P V: 4 k-steps of 16 keys; P's accumulator layout is reused as
-    // the A operand (two adjacent 8-key n-tiles make one 16-key k-step).
-#pragma unroll
-    for (int kt = 0; kt < TK / 16; ++kt) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kt][0], s[2 * kt][1]);
-      pa[1] = pack_bf16(s[2 * kt][2], s[2 * kt][3]);
-      pa[2] = pack_bf16(s[2 * kt + 1][0], s[2 * kt + 1][1]);
-      pa[3] = pack_bf16(s[2 * kt + 1][2], s[2 * kt + 1][3]);
-      const int kr = kt * 16 + 2 * t;
-#pragma unroll
-      for (int dt = 0; dt < HD / 8; ++dt) {
-        const int d = dt * 8 + g;
-        uint32_t b0 = pack_raw(Vs[kr * LD + d], Vs[(kr + 1) * LD + d]);
-        uint32_t b1 = pack_raw(Vs[(kr + 8) * LD + d], Vs[(kr + 9) * LD + d]);
-        mma_bf16(oacc[dt], pa, b0, b1);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int off = 1; off <= 2; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-  const int r0 = q0 + qr, r1 = r0 + 8;
-  __nv_bfloat16* ob = o + static_cast<size_t>(bh) * NQ * HD;
-#pragma unroll
-  for (int dt = 0; dt < HD / 8; ++dt) {
-    const int c = dt * 8 + 2 * t;
-    if (r0 < NQ)
-      *reinterpret_cast<uint32_t*>(&ob[static_cast<size_t>(r0) * HD + c]) =
-          pack_bf16(oacc[dt][0] * inv0, oacc[dt][1] * inv0);
-    if (r1 < NQ)
-      *reinterpret_cast<uint32_t*>(&ob[static_cast<size_t>(r1) * HD + c]) =
-          pack_bf16(oacc[dt][2] * inv1, oacc[dt][3] * inv1);
-  }
+int sm_count() {
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n > 0 ? n : 132;
 }
 
 }  // namespace
 
-// q [BH, NQ, 64], k/v [BH, NK, 64], o [BH, NQ, 64], all bf16 and contiguous.
-// Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int vitlens_flash_attention_fwd(const void* q, const void* k,
-                                           const void* v, void* o, int BH,
-                                           int NQ, int NK, float scale,
-                                           void* stream) {
-  dim3 grid((NQ + TQ - 1) / TQ, BH);
-  flash_fwd<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), NQ,
-      NK, scale);
+// q [B, H, NQ, 64], k/v [B, H, NK, 64] bf16 with element strides
+// (batch, head, row) given for each, the last dim contiguous, every stride a
+// multiple of 8 elements and the bases 16-byte aligned; o [B, NQ, H, 64]
+// contiguous; scale > 0. Returns cudaGetLastError() after the launch (0 on
+// success), cudaErrorInvalidValue if a tensor map cannot be encoded.
+extern "C" int vitlens_flash_attention_fwd(
+    const void* q, const void* k, const void* v, void* o, int B, int H, int NQ,
+    int NK, long long qsb, long long qsh, long long qsn, long long ksb,
+    long long ksh, long long ksn, long long vsb, long long vsh, long long vsn,
+    float scale, void* stream) {
+  CUtensorMap map_q, map_k, map_v;
+  const uint64_t q_dims[4] = {HD, static_cast<uint64_t>(NQ),
+                              static_cast<uint64_t>(H), static_cast<uint64_t>(B)};
+  const uint64_t kv_dims[4] = {HD, static_cast<uint64_t>(NK),
+                               static_cast<uint64_t>(H), static_cast<uint64_t>(B)};
+  const uint64_t q_strides[4] = {1, static_cast<uint64_t>(qsn),
+                                 static_cast<uint64_t>(qsh),
+                                 static_cast<uint64_t>(qsb)};
+  const uint64_t k_strides[4] = {1, static_cast<uint64_t>(ksn),
+                                 static_cast<uint64_t>(ksh),
+                                 static_cast<uint64_t>(ksb)};
+  const uint64_t v_strides[4] = {1, static_cast<uint64_t>(vsn),
+                                 static_cast<uint64_t>(vsh),
+                                 static_cast<uint64_t>(vsb)};
+  const uint32_t q_box[4] = {HD, 64, 1, 1};
+  const uint32_t kv_box[4] = {HD, KC, 1, 1};
+  if (!encode_bf16_map(&map_q, q, 4, q_dims, q_strides, q_box) ||
+      !encode_bf16_map(&map_k, k, 4, kv_dims, k_strides, kv_box) ||
+      !encode_bf16_map(&map_v, v, 4, kv_dims, v_strides, kv_box))
+    return static_cast<int>(cudaErrorInvalidValue);
+
+  const int BH = B * H, sms = sm_count();
+  const int chunks = (NK + KC - 1) / KC, passes = (NQ + 63) / 64;
+  // Three CTAs an SM, or two with deeper rings where one pass a CTA would
+  // not fill the card.
+  const bool small = static_cast<long long>(BH) * passes <= 2LL * sms;
+  const int budget = small ? SMEM_2 : SMEM_3;
+  const int per_sm = small ? 2 : MIN_CTAS;
+  // Resident K/V: all chunks fit beside two q buffers; a CTA then takes as
+  // many of its head's passes as still leave per_sm CTAs for every SM.
+  // Otherwise one pass a CTA, through a ring of the slots that fit beside
+  // one q buffer.
+  int per_cta = 1;
+  if (chunks <= (budget - smem_bytes(0, 2)) / SLOT_BYTES) {
+    const int want = (per_sm * sms + BH - 1) / BH;  // CTAs a head
+    const int split = want < passes ? want : passes;
+    per_cta = (passes + split - 1) / split;
+  }
+  const int ring = (budget - smem_bytes(0, 1)) / SLOT_BYTES;
+  const int slots = per_cta > 1 || chunks < ring ? chunks : ring;
+  const int smem = smem_bytes(slots, per_cta > 1 ? 2 : 1);
+  static int smem_set[64] = {};  // the largest size granted, per device
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 64 || smem > smem_set[dev]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < 64) smem_set[dev] = smem;
+  }
+  dim3 grid((passes + per_cta - 1) / per_cta, BH);
+  flash_fwd<<<grid, 160, smem, static_cast<cudaStream_t>(stream)>>>(
+      map_q, map_k, map_v, static_cast<__nv_bfloat16*>(o), H, NQ, NK, per_cta,
+      slots, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }

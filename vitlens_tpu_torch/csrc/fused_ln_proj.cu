@@ -18,7 +18,7 @@
 // Design (first, simple and correct): two launches on the caller's stream.
 //   1. ln_stats: one warp per row -> mean [M], rstd [M] fp32 (8 bytes a
 //      row; x is read once more by the GEMM).
-//   2. gemm<EPI_BIAS, LN_A> (gemm_bf16.cuh): each A tile is normalised in
+//   2. gemm (gemm_bf16.cuh): each A tile is normalised in
 //      shared memory as it lands, before the mma.sync, so LN(x) never
 //      reaches HBM; the epilogue adds b in fp32 and rounds once.
 // A CTA re-reads its rows' statistics and the LN affine from L2; wgmma and
@@ -90,9 +90,9 @@ extern "C" int vitlens_fused_ln_proj_fwd(const void* x, const void* lnw,
                       static_cast<const float*>(rstd),
                       static_cast<const float*>(lnw),
                       static_cast<const float*>(lnb)};
-  err = launch_gemm<EPI_BIAS, true>(
+  err = launch_gemm(
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-      static_cast<const float*>(b), nullptr, static_cast<__nv_bfloat16*>(out),
-      nullptr, ln, M, N, D, 0, s);
+      static_cast<const float*>(b), static_cast<__nv_bfloat16*>(out), ln, M, N,
+      D, s);
   return static_cast<int>(err);
 }

@@ -16,23 +16,28 @@
 // What bounds it on an H100: at the audio encode's B64 x 3 clips shape
 // (M = 49344 rows, D = 1024, H = 4096) it does 4*M*D*H ~ 0.83 TFLOP against
 // ~0.2 GB of x/out/weight bytes (plus 0.4 GB of `a` in the save-preact
-// variant), far above the card's ~295 FLOP/byte ridge, so it is tensor-core
-// bound.
+// variant), far above the card's ~295 FLOP/byte ridge, so it is bound by the
+// tensor cores (0.84 ms at 989 TFLOP/s).
 //
-// Design (first, simple and correct): three launches on the caller's stream.
+// Design: three launches on the caller's stream.
 //   1. ln_rows: one warp per row, LN in fp32 -> y [M, D] bf16.
-//   2. gemm<EPI_BIAS_ACT> (or <EPI_BIAS_ACT_PREACT>): y @ W1 with the b1 + act
-//      epilogue -> h [M, H] bf16 (and a [M, H] bf16, a second coalesced
-//      16-byte store of the same staged tile).
-//   3. gemm<EPI_BIAS_RESIDUAL>: h @ W2 with the b2 + x epilogue -> out [M, D].
-// The GEMM is gemm_bf16.cuh's mma.sync kernel. This design writes h (~0.4 GB
-// at B64) to HBM and reads it back; the one-kernel design that streams H
-// chunks into an fp32 [tm, D] accumulator, with wgmma and TMA, is later work.
+//   2. sm90::gemm_tma<EPI_BIAS_ACT> (or <EPI_BIAS_ACT_PREACT>): y @ W1 with
+//      the b1 + act epilogue -> h [M, H] bf16 (and a [M, H] bf16, a second
+//      coalesced 16-byte store of the same staged tile).
+//   3. sm90::gemm_tma<EPI_BIAS_RESIDUAL>: h @ W2 with the b2 + x epilogue ->
+//      out [M, D].
+// Both products run on gemm_sm90.cuh's warp-specialised GEMM: TMA loads
+// into a 4-stage mbarrier ring and wgmma.mma_async from two consumer
+// warpgroups, reading W1 and W2 as stored ([K, N], through the MN-major
+// descriptor). The TPU kernel keeps the weights in VMEM and never writes h;
+// an SM cannot hold 16.8 MB of weights, so this design writes h (~0.4 GB at
+// B64) to HBM and reads it back, about 0.25 ms of the call's bytes.
 //
 // Requirements checked by the Python wrapper: bf16 x/W1/W2, fp32 LN params and
-// biases, everything contiguous, D and H multiples of 64.
+// biases, everything contiguous and 16-byte aligned (TMA's base and row
+// strides), D and H multiples of 64.
 
-#include "gemm_bf16.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -96,23 +101,21 @@ int fused_mlp(const void* x, const void* lnw, const void* lnb, const void* w1,
                  static_cast<__nv_bfloat16*>(y), M, D, eps);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const LnPrologue no_ln{};
   const auto* yb = static_cast<const __nv_bfloat16*>(y);
-  const auto* w1b = static_cast<const __nv_bfloat16*>(w1);
-  const auto* b1f = static_cast<const float*>(b1);
   auto* hb = static_cast<__nv_bfloat16*>(h);
-  if (a != nullptr)
-    err = launch_gemm<EPI_BIAS_ACT_PREACT, false>(
-        yb, w1b, b1f, nullptr, hb, static_cast<__nv_bfloat16*>(a), no_ln, M, H,
-        D, act, s);
-  else
-    err = launch_gemm<EPI_BIAS_ACT, false>(yb, w1b, b1f, nullptr, hb, nullptr,
-                                           no_ln, M, H, D, act, s);
+  sm90::Params fc{static_cast<const float*>(b1), nullptr, hb,
+                  static_cast<__nv_bfloat16*>(a), M, H, D, act};
+  err = a != nullptr
+            ? sm90::launch_gemm<sm90::EPI_BIAS_ACT_PREACT>(
+                  yb, static_cast<const __nv_bfloat16*>(w1), fc, s)
+            : sm90::launch_gemm<sm90::EPI_BIAS_ACT>(
+                  yb, static_cast<const __nv_bfloat16*>(w1), fc, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_gemm<EPI_BIAS_RESIDUAL, false>(
-      hb, static_cast<const __nv_bfloat16*>(w2), static_cast<const float*>(b2),
-      static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out),
-      nullptr, no_ln, M, D, H, act, s);
+  sm90::Params proj{static_cast<const float*>(b2),
+                    static_cast<const __nv_bfloat16*>(x),
+                    static_cast<__nv_bfloat16*>(out), nullptr, M, D, H, act};
+  err = sm90::launch_gemm<sm90::EPI_BIAS_RESIDUAL>(
+      hb, static_cast<const __nv_bfloat16*>(w2), proj, s);
   return static_cast<int>(err);
 }
 

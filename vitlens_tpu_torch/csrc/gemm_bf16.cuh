@@ -1,21 +1,20 @@
-// Shared bf16 tensor-core GEMM for the fused MLP (fused_mlp.cu) and the fused
-// LayerNorm + projection (fused_ln_proj.cu):
+// bf16 tensor-core GEMM of the fused LayerNorm + projection
+// (fused_ln_proj.cu):
 //
-//     C[M, N] = epilogue(prologue(A)[M, K] @ B[K, N])    (row-major bf16)
+//     C[M, N] = LN(A)[M, K] @ B[K, N] + bias    (row-major bf16)
 //
 // 128x256x64 CTA tiles over 8 warps (64x64 each), a 3-stage cp.async
 // pipeline, ldmatrix operand loads and mma.sync m16n8k16 with fp32
 // accumulators in registers. The epilogue stages the fp32 tile in shared
-// memory and finishes it with coalesced 16-byte loads and stores; the
-// save-preact epilogue writes its two outputs with the same pattern. The
-// ragged M tail (and an N that is not a multiple of 256) is handled by
-// zero-filled loads and masked stores. K must be a multiple of 64 and N of 8.
+// memory and finishes it with coalesced 16-byte loads and stores. The ragged
+// M tail (and an N that is not a multiple of 256) is handled by zero-filled
+// loads and masked stores. K must be a multiple of 64 and N of 8.
 //
-// With LN_A the A tiles are LayerNorm-ed in shared memory as they land,
-// before the mma: y = bf16(((a - mean[row]) * rstd[row]) * w[k] + b[k]) in
-// fp32 with no fused multiply-add, so that y rounds as the plain PyTorch
-// version's does. The per-row statistics come from a separate pass; the
-// normalised rows never reach HBM.
+// The A tiles are LayerNorm-ed in shared memory as they land, before the
+// mma: y = bf16(((a - mean[row]) * rstd[row]) * w[k] + b[k]) in fp32 with no
+// fused multiply-add, so that y rounds as the plain PyTorch version's does.
+// The per-row statistics come from a separate pass; the normalised rows
+// never reach HBM. (The fused MLP's products moved to gemm_sm90.cuh.)
 //
 // Each translation unit that includes this header gets its own copy (an
 // anonymous namespace), so the objects link together.
@@ -44,14 +43,7 @@ constexpr int SMEM_PIPE = STAGES * (A_STAGE + B_STAGE) * 2;
 constexpr int SMEM_BYTES =
     SMEM_PIPE > BM * C_LD * 4 ? SMEM_PIPE : BM * C_LD * 4;
 
-enum Epilogue {
-  EPI_BIAS_ACT = 0,         // C = act(acc + bias)
-  EPI_BIAS_RESIDUAL = 1,    // C = resid + bias + acc
-  EPI_BIAS_ACT_PREACT = 2,  // C = act(acc + bias), C2 = acc + bias
-  EPI_BIAS = 3,             // C = acc + bias
-};
-
-// Per-row statistics and per-column affine of the LN_A prologue.
+// Per-row statistics and per-column affine of the LayerNorm prologue.
 struct LnPrologue {
   const float* mean;  // [M]
   const float* rstd;  // [M]
@@ -59,25 +51,18 @@ struct LnPrologue {
   const float* b;     // [K]
 };
 
-// Extra dynamic shared memory of the LN_A prologue: w and b [K], mean and
+// Extra dynamic shared memory of the LayerNorm prologue: w and b [K], mean and
 // rstd of the CTA's BM rows.
 inline int ln_smem_bytes(int K) { return 4 * (2 * K + 2 * BM); }
 
-__device__ __forceinline__ float act_fn(float v, int act) {
-  if (act == 0) return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
-  return v / (1.0f + __expf(-1.702f * v));
-}
-
-template <int EPI, bool LN_A>
 __global__ void __launch_bounds__(THREADS, 1)
     gemm(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ B,
-         const float* __restrict__ bias, const __nv_bfloat16* __restrict__ resid,
-         __nv_bfloat16* __restrict__ C, __nv_bfloat16* __restrict__ C2,
-         LnPrologue ln, int M, int N, int K, int act) {
+         const float* __restrict__ bias, __nv_bfloat16* __restrict__ C,
+         LnPrologue ln, int M, int N, int K) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* Bs = As + STAGES * A_STAGE;
-  // LN_A only: past the pipeline and epilogue buffers, alive all along.
+  // Past the pipeline and epilogue buffers, alive all along.
   float* ln_w = reinterpret_cast<float*>(smem_raw + SMEM_BYTES);
   float* ln_b = ln_w + K;
   float* row_mean = ln_b + K;
@@ -89,16 +74,15 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int KT = K / BK;
   constexpr int A_CHUNKS = BK / 8, B_CHUNKS = BN / 8;  // 16-byte chunks a row
 
-  if constexpr (LN_A) {  // read by the first iteration, after its barrier
-    for (int i = tid; i < K; i += THREADS) {
-      ln_w[i] = ln.w[i];
-      ln_b[i] = ln.b[i];
-    }
-    for (int i = tid; i < BM; i += THREADS) {
-      const bool ok = row0 + i < M;
-      row_mean[i] = ok ? ln.mean[row0 + i] : 0.f;
-      row_rstd[i] = ok ? ln.rstd[row0 + i] : 0.f;
-    }
+  // Read by the first iteration, after its barrier.
+  for (int i = tid; i < K; i += THREADS) {
+    ln_w[i] = ln.w[i];
+    ln_b[i] = ln.b[i];
+  }
+  for (int i = tid; i < BM; i += THREADS) {
+    const bool ok = row0 + i < M;
+    row_mean[i] = ok ? ln.mean[row0 + i] : 0.f;
+    row_rstd[i] = ok ? ln.rstd[row0 + i] : 0.f;
   }
 
   auto load_stage = [&](int stage, int kt) {
@@ -154,29 +138,27 @@ __global__ void __launch_bounds__(THREADS, 1)
 
     __nv_bfloat16* as = As + (kt % STAGES) * A_STAGE;
     const __nv_bfloat16* bs = Bs + (kt % STAGES) * B_STAGE;
-    if constexpr (LN_A) {
-      // Normalise this stage's A tile in place: the same chunk mapping as
-      // load_stage, 8 values per 16-byte chunk.
-      const int k0 = kt * BK;
+    // Normalise this stage's A tile in place: the same chunk mapping as
+    // load_stage, 8 values per 16-byte chunk.
+    const int k0 = kt * BK;
 #pragma unroll
-      for (int i = 0; i < BM * A_CHUNKS / THREADS; ++i) {
-        const int c = tid + i * THREADS;
-        const int r = c / A_CHUNKS, kc = (c % A_CHUNKS) * 8;
-        uint4* p = reinterpret_cast<uint4*>(as + r * A_LD + kc);
-        uint4 u = *p;
-        __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&u);
-        const float mu = row_mean[r], rs = row_rstd[r];
+    for (int i = 0; i < BM * A_CHUNKS / THREADS; ++i) {
+      const int c = tid + i * THREADS;
+      const int r = c / A_CHUNKS, kc = (c % A_CHUNKS) * 8;
+      uint4* p = reinterpret_cast<uint4*>(as + r * A_LD + kc);
+      uint4 u = *p;
+      __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&u);
+      const float mu = row_mean[r], rs = row_rstd[r];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float d = __fsub_rn(__bfloat162float(e[j]), mu);
-          const float y = __fadd_rn(__fmul_rn(__fmul_rn(d, rs), ln_w[k0 + kc + j]),
-                                    ln_b[k0 + kc + j]);
-          e[j] = __float2bfloat16(y);
-        }
-        *p = u;
+      for (int j = 0; j < 8; ++j) {
+        const float d = __fsub_rn(__bfloat162float(e[j]), mu);
+        const float y = __fadd_rn(__fmul_rn(__fmul_rn(d, rs), ln_w[k0 + kc + j]),
+                                  ln_b[k0 + kc + j]);
+        e[j] = __float2bfloat16(y);
       }
-      __syncthreads();
+      *p = u;
     }
+    __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
       uint32_t af[MT][4];
@@ -204,7 +186,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   // Epilogue: the fp32 accumulators go to a [BM, BN] tile in shared memory
   // (reusing the pipeline's buffers; c0,c1 are row g, cols 2t,2t+1 and
   // c2,c3 row g+8), then each warp finishes whole rows in 8-column chunks
-  // so that loads of x and stores of C (and C2) are 16-byte and coalesced.
+  // so that stores of C are 16-byte and coalesced.
   __syncthreads();
   float* Cs = reinterpret_cast<float*>(smem_raw);
   const int g = lane / 4, t = lane % 4;
@@ -231,43 +213,22 @@ __global__ void __launch_bounds__(THREADS, 1)
     const size_t off = static_cast<size_t>(gr) * N + gc;
     uint4 o;
     __nv_bfloat16* oe = reinterpret_cast<__nv_bfloat16*>(&o);
-    if constexpr (EPI == EPI_BIAS_ACT || EPI == EPI_BIAS_ACT_PREACT) {
-      uint4 o2;
-      __nv_bfloat16* o2e = reinterpret_cast<__nv_bfloat16*>(&o2);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const float a = part[e] + bias[gc + e];
-        oe[e] = __float2bfloat16(act_fn(a, act));
-        o2e[e] = __float2bfloat16(a);
-      }
-      if constexpr (EPI == EPI_BIAS_ACT_PREACT)
-        *reinterpret_cast<uint4*>(C2 + off) = o2;
-    } else if constexpr (EPI == EPI_BIAS) {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) oe[e] = __float2bfloat16(part[e] + bias[gc + e]);
-    } else {  // x + b2 + part, as the TPU kernel sums it
-      const uint4 xr = *reinterpret_cast<const uint4*>(resid + off);
-      const __nv_bfloat16* xe = reinterpret_cast<const __nv_bfloat16*>(&xr);
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        oe[e] = __float2bfloat16(__bfloat162float(xe[e]) + bias[gc + e] + part[e]);
-    }
+    for (int e = 0; e < 8; ++e) oe[e] = __float2bfloat16(part[e] + bias[gc + e]);
     *reinterpret_cast<uint4*>(C + off) = o;
   }
 }
 
-template <int EPI, bool LN_A>
-cudaError_t launch_gemm(const __nv_bfloat16* A, const __nv_bfloat16* B,
-                        const float* bias, const __nv_bfloat16* resid,
-                        __nv_bfloat16* C, __nv_bfloat16* C2, LnPrologue ln,
-                        int M, int N, int K, int act, cudaStream_t stream) {
-  const int smem = SMEM_BYTES + (LN_A ? ln_smem_bytes(K) : 0);
+inline cudaError_t launch_gemm(const __nv_bfloat16* A, const __nv_bfloat16* B,
+                               const float* bias, __nv_bfloat16* C,
+                               LnPrologue ln, int M, int N, int K,
+                               cudaStream_t stream) {
+  const int smem = SMEM_BYTES + ln_smem_bytes(K);
   cudaError_t err = cudaFuncSetAttribute(
-      gemm<EPI, LN_A>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      gemm, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm<EPI, LN_A><<<grid, THREADS, smem, stream>>>(A, B, bias, resid, C, C2, ln,
-                                                   M, N, K, act);
+  gemm<<<grid, THREADS, smem, stream>>>(A, B, bias, C, ln, M, N, K);
   return cudaGetLastError();
 }
 

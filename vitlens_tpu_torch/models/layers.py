@@ -161,8 +161,10 @@ class MHA(nn.Module):
         projection (JAX ``_attn_from_qkv``)."""
         B, N, D3 = qkv.shape
         D = D3 // 3
-        qkv = qkv.view(B, N, 3, self.heads, D // self.heads).permute(2, 0, 3, 1, 4)
-        q, k, v = (t.contiguous() for t in qkv)
+        # q, k, v are strided views of the packed projection (the kernel
+        # reads them in place) and the kernel's output is [B, N, H, Dh] seen
+        # as [B, H, N, Dh], so the reshape back to [B, N, D] is a view too.
+        q, k, v = qkv.view(B, N, 3, self.heads, D // self.heads).permute(2, 0, 3, 1, 4)
         o = dot_product_attention(q, k, v, mask=mask)
         o = o.transpose(1, 2).reshape(B, N, D)
         if self.out_w_q is not None:  # int8-quantized (quant.py)

@@ -47,9 +47,9 @@ class Attention(nn.Module):
         B, Nq, _ = x.shape
         Nk = context.shape[1]
         h, dh = self.heads, self.dim_head
-        q = self.to_q(x).view(B, Nq, h, dh).transpose(1, 2).contiguous()
-        kv = self.to_kv(context).view(B, Nk, 2, h, dh).permute(2, 0, 3, 1, 4)
-        k, v = kv[0].contiguous(), kv[1].contiguous()
+        # Views, read in place by the kernel; its output's reshape is a view.
+        q = self.to_q(x).view(B, Nq, h, dh).transpose(1, 2)
+        k, v = self.to_kv(context).view(B, Nk, 2, h, dh).permute(2, 0, 3, 1, 4)
         o = dot_product_attention(q, k, v, scale=dh ** -0.5)
         return self.to_out(o.transpose(1, 2).reshape(B, Nq, h * dh))
 

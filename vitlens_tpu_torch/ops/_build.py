@@ -32,12 +32,13 @@ _LIB_NAME = "libvitlens_kernels.so"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures of the entry points (pointers and the stream are c_void_p).
 _SIGNATURES = {
     "vitlens_fused_mlp_fwd": [_P] * 10 + [_I, _I, _I, _I, _F, _P],
     "vitlens_fused_mlp_fwd_save_preact": [_P] * 11 + [_I, _I, _I, _I, _F, _P],
     "vitlens_fused_ln_proj_fwd": [_P] * 8 + [_I, _I, _I, _F, _P],
-    "vitlens_flash_attention_fwd": [_P] * 4 + [_I, _I, _I, _F, _P],
+    "vitlens_flash_attention_fwd": [_P] * 4 + [_I] * 4 + [_L] * 9 + [_F, _P],
     "vitlens_fps_fwd": [_P] * 3 + [_I] * 3 + [_P],
     "vitlens_point_encoder_fwd": [_P] * 16 + [_I] * 6 + [_P],
     "vitlens_int8_matmul_fwd": [_P] * 3 + [_I] * 3 + [_P],

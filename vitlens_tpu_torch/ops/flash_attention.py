@@ -3,7 +3,9 @@
 On a CUDA tensor :func:`flash_attention` launches the hand-written Hopper
 kernel in ``csrc/flash_attention.cu`` (the port of
 ``vitlens_tpu/ops/flash_attention.py::_fused_attention_fwd_impl``) or raises
-on what the kernel does not take. On a CPU tensor it runs
+on what the kernel does not take. The kernel reads q, k and v where they lie
+(strided views, such as the packed qkv projection's) and writes its output
+in [B, NQ, H, Dh] order. On a CPU tensor it runs
 :func:`attention_reference`, the plain PyTorch version of the same contract:
 fp32 scores, softmax and P @ V, rounded once to the input dtype.
 
@@ -30,7 +32,14 @@ def attention_reference(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
     return (torch.softmax(s, dim=-1) @ v.float()).to(q.dtype)
 
 
-def _check_cuda_args(q, k, v):
+def _check_cuda_args(q, k, v, scale: float = HEAD_DIM ** -0.5):
+    """Raises on what the kernel does not take. q, k, v may be views (the
+    packed qkv projection's, a transposed [B, N, H, Dh]): the last dim must be
+    contiguous, every other stride a multiple of 8 elements (16 bytes, as
+    TMA reads rows) and each base 16-byte aligned. The scale must be > 0
+    (the kernel takes the row max of the unscaled scores)."""
+    if not scale > 0:
+        raise ValueError(f"flash_attention: scale must be > 0, got {scale}")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention: q, k, v must be [B, H, N, Dh]")
     if k.shape != v.shape or q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
@@ -45,30 +54,44 @@ def _check_cuda_args(q, k, v):
         if t.dtype != torch.bfloat16:
             raise ValueError(f"flash_attention: {name} must be bfloat16, "
                              f"got {t.dtype}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"flash_attention: {name} must be contiguous and "
-                             "16-byte aligned")
+        if t.stride(3) != 1:
+            raise ValueError(f"flash_attention: {name}'s last dim must be "
+                             f"contiguous, got stride {t.stride(3)}")
+        if any(st % 8 for st in _strides(t)):
+            raise ValueError(f"flash_attention: {name}'s strides "
+                             f"{tuple(t.stride())} must be multiples of 8 "
+                             "elements (16 bytes)")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} must be 16-byte aligned")
     if k.shape[2] == 0:
         raise ValueError("flash_attention: no keys")
+
+
+def _strides(t):
+    """(batch, head, row) strides in elements; a dim of size 1 is never
+    stepped, so its stride is reported as one row (128 bytes)."""
+    return tuple(st if n > 1 else HEAD_DIM
+                 for n, st in zip(t.shape[:3], t.stride()[:3]))
 
 
 def _forward(q, k, v, scale: float) -> torch.Tensor:
     if not q.is_cuda:
         return attention_reference(q, k, v, scale)
-    _check_cuda_args(q, k, v)
+    _check_cuda_args(q, k, v, scale)
     from vitlens_tpu_torch.ops import _build
 
     B, H, NQ, _ = q.shape
-    out = torch.empty_like(q)
+    out = torch.empty((B, NQ, H, HEAD_DIM), dtype=q.dtype, device=q.device)
     if B * H * NQ == 0:
-        return out
+        return out.transpose(1, 2)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _build.library().vitlens_flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B * H, NQ,
-        k.shape[2], float(scale), stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, NQ,
+        k.shape[2], *_strides(q), *_strides(k), *_strides(v), float(scale),
+        stream)
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
-    return out
+    return out.transpose(1, 2)
 
 
 def attention_backward(g, q, k, v, scale: float, needs=(True, True, True)):
@@ -106,7 +129,11 @@ def flash_attention(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
     """q [B, H, NQ, Dh], k/v [B, H, NK, Dh] -> [B, H, NQ, Dh], no mask.
 
     CPU tensors take :func:`attention_reference`. CUDA tensors launch the
-    kernel: bf16, head dim 64, contiguous. Anything else raises. When
+    kernel: bf16, head dim 64, views with a contiguous last dim and strides
+    of 16 bytes (see :func:`_check_cuda_args`); the result is a
+    [B, NQ, H, Dh] tensor seen as [B, H, NQ, Dh], so that
+    ``out.transpose(1, 2).reshape(B, NQ, H * Dh)`` is a view. Anything else
+    raises. When
     autograd records and an input requires grad, this is
     :class:`FlashAttentionFunction`."""
     if scale is None:
