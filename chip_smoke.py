@@ -13,12 +13,20 @@ Phases, one printed line each (or more); any failure exits non-zero:
      <= 2.5e-2 and 1e-2 relative; also a ragged M = 4100 and D/H = 768/3072
      and 1664/8192), attention (bf16, <= 1e-2 relative; also every NQ, NK in
      {1, 7, 77, 257, 600}, NK past the K/V-resident limit, and the packed-qkv
-     and Lens views bit-equal to contiguous copies), fused LN + projection (bf16, <= 1e-2
+     and Lens views bit-equal to contiguous copies; and head dims 32, 80,
+     88, 104, 112 and 128 at every NQ, NK in {1, 77, 257, 600}, contiguous
+     and on the packed-qkv views), fused LN + projection (bf16, <= 1e-2
      relative), FPS (index-exact, at B64/N 8192 with zero starts and B8/N
      10000 with random starts) and the point encoder (bf16, <= 2e-2
-     relative), the int8 product (equal, at 4096^3, at the quantized encode's
-     ragged M = 49344 and at an M that is not a multiple of 64), the row gather
-     (bit-equal, [49408, 512] table, 9856 ids with repeated and boundary ids),
+     relative), the int8 product's INT32 epilogue (equal, at 4096^3, at the
+     quantized encode's ragged M = 49344 and at an M that is not a multiple
+     of 64), its DEQUANT epilogue (bit-equal to the plain dequantise of the
+     same product, with and without bias, bf16 and fp32 output), the
+     quantise kernel (bit-equal, the quantized encode's K at M = 49344 and a
+     ragged M, rows with zeros, .5 ties and negative extremes) and
+     quant.int8_matmul on the card bit-equal to its plain version, the row
+     gather (bit-equal, [49408, 512] table, 9856 ids with repeated and
+     boundary ids),
      the chained fused MLP with and without the out-projection (both
      activations, bf16, <= 2.5e-2 relative, M = 16448 and a ragged M) and the
      fused LN + projection at the LN + qkv prototype's shape; then the
@@ -39,13 +47,26 @@ Phases, one printed line each (or more); any failure exits non-zero:
      with the same weights moved to the CPU in fp32, where the plain versions
      run. The pc clouds are rounded through bf16 first, so that both runs give
      FPS the same coordinates; their FPS indices must be equal.
+  4f. fp32 default: ViTLens("vitlensL", ("audio", "pc", "text")) with its
+     default compute dtype (fp32, as in JAX) encodes B = 2 of each on the
+     card through the plain paths (the kernels take bf16, as JAX's gates
+     send fp32 to XLA): no fused MLP, attention or point-encoder launch, one
+     FPS launch per pc request; cosine >= 0.999 against the same model in
+     fp32 on the CPU (the audio encode also with cuDNN's TF32 convolution
+     off); the text encode on its own line.
+  4h. head dims: bf16 B = 1 audio encodes at full width whose trunks have
+     head dims other than 64, ViTLens("vitlensG", ("audio",)) (ViT-bigG-14,
+     104) and a ViT-H-14 audio tower (80), each trunk cut to 4 blocks so that
+     the CPU run stays short: launches derived from the config (4 fused MLP,
+     4 + the Lens's attention), cosine >= 0.99 against the CPU in fp32.
   4q. quantized: the audio tower of that model quantized to int8 (W8A8) on
-     the card by quant.quantize_model, at full width and depth: w_q made on
-     the card equal to w_q made on the CPU; a B = 1 and a B = 64 x 3 clips
-     audio encode, each with 96 int8 products (4 x 24 blocks), 32 attention
-     and no fused MLP or fused LN + projection launch, a text encode of the
-     copy's float text tower (12 fused MLP) and one of a copy whose text tower
-     is quantized too (48 int8 products, no fused MLP); cosine >= 0.99 of the B = 1
+     the card by quant.quantize_model, at full width and depth: w_q and w_s
+     made on the card equal to those made on the CPU; a B = 1 and a B = 64 x
+     3 clips audio encode, each with 96 DEQUANT products and 96 quantise
+     launches (4 x 24 blocks), 32 attention and no fused MLP or fused LN +
+     projection launch, a text encode of the copy's float text tower (12
+     fused MLP) and one of a copy whose text tower is quantized too (48 of
+     each, no fused MLP); cosine >= 0.99 of the B = 1
      int8 encode against the same quantized weights in fp32 on the CPU and of
      both against the float bf16 encode on the card.
   4s. scripts: each bench entry point of vitlens_tpu_torch.scripts (the
@@ -74,10 +95,14 @@ Phases, one printed line each (or more); any failure exits non-zero:
      attention also on the packed-qkv views; the audio (64 samples x 3 clips)
      and pc (64 clouds) encode rates at B64 in bf16, the audio encode also
      with the opt-in; the audio train-step rate at B64 with and without the
-     opt-in, with the peak device memory; the int8 product at 4096^3 and the
-     quantized encode's four shapes beside torch._int_mm, the row gather beside
-     index_select, the chained MLPs beside the three-launch fused MLP on the
-     same function and today's split; the B64 quantized audio encode rate
+     opt-in, with the peak device memory; attention at the bigG trunk's
+     head dim 104 beside SDPA; the int8 product's INT32 and DEQUANT
+     epilogues at 4096^3 and the quantized encode's four shapes beside
+     torch._int_mm, the quantise kernel beside its bound, the row gather's
+     device time and, through its wrapper, its time back to back and host
+     time a call, beside index_select's, the chained MLPs beside the
+     three-launch fused MLP on the same function and today's split; the B64
+     quantized audio encode rate
      beside the float one; a torch.profiler breakdown of one B64 audio (float
      and quantized) and one B64 pc encode and one B64 train step with the
      device's busy and idle share. Every time is printed beside the card's name and
@@ -180,7 +205,7 @@ def mlp_bound(m, d, h):  # x, out, W1, W2 bf16; LN params and biases fp32
                  PEAK_BF16)
 
 
-def attn_bound(b, h, nq, nk, dh=64):  # q, k, v, out bf16
+def attn_bound(b, h, nq, nk, dh):  # q, k, v, out bf16
     return bound(4 * b * h * nq * nk * dh, 2 * b * h * dh * (2 * nq + 2 * nk),
                  PEAK_BF16)
 
@@ -212,6 +237,17 @@ def enc_bound(bg, m, c1, c2, c3, c4):
 
 def int8_bound(m, k, n):  # a, b int8 read once; the int32 product written once
     return bound(2 * m * k * n, m * k + k * n + 4 * m * n, PEAK_INT8)
+
+
+def dequant_bound(m, k, n):
+    """a, b int8 read once; row scales, column scales and bias fp32; the
+    bf16 output written once."""
+    return bound(2 * m * k * n, m * k + k * n + 4 * m + 8 * n + 2 * m * n,
+                 PEAK_INT8)
+
+
+def quantize_bound(m, k, elem_bytes):  # x read once; int8 rows, fp32 scales
+    return bound(0, m * k * elem_bytes + m * k + 4 * m, PEAK_BF16)
 
 
 def gather_bound(j, row_bytes):  # J rows read and written, J int32 ids
@@ -264,9 +300,53 @@ def ln_proj_inputs(torch, g, m, d, n):
             r(n, std=0.1, dtype=f32))
 
 
-def qkv_inputs(torch, g, b, h, nq, nk):
-    return tuple(torch.randn(b, h, n, 64, generator=g, device="cuda")
+def qkv_inputs(torch, g, b, h, nq, nk, d=64):
+    return tuple(torch.randn(b, h, n, d, generator=g, device="cuda")
                  .to(torch.bfloat16) for n in (nq, nk, nk))
+
+
+def quant_rows(torch, g, m, k, dtype):
+    """Activations whose rows hold the quantise step's edge cases: an
+    all-zero row (the 1e-12 floor), a row of exact .5 ties (amax 127, so the
+    row scale is 1), a row whose extremes are negative, and random rows of
+    three magnitudes."""
+    x = torch.randn(m, k, generator=g, device="cuda")
+    x = x * torch.tensor([1e-3, 1.0, 40.0], device="cuda")[
+        torch.randint(0, 3, (m, 1), generator=g, device="cuda")]
+    x[0] = 0
+    if m > 1:
+        x[1] = torch.tensor([127.0, -0.5, 0.5, 1.5, 2.5, -1.5, -2.5, 3.5],
+                            device="cuda").repeat(k // 8)
+    if m > 2:
+        x[2] = -x[2].abs() * 3
+    return x.to(dtype)
+
+
+def device_ms(torch, fn, iters=50):
+    """The device time a call of ``fn``: the kernels it launches, summed by
+    the profiler over ``iters`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3 / iters
+
+
+def host_us(torch, fn, iters=300):
+    """The host time a call of ``fn`` takes to enqueue its work (the card
+    keeps up where the device time is the shorter)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
 
 
 ENC_WIDTHS = (128, 256, 512, 256)  # the PointBERT encoder's C1..C4
@@ -311,8 +391,8 @@ def grad_errs(torch, g, function, plain, args):
 
 
 COUNTED = ("fused_mlp", "fused_mlp_save_preact", "flash_attention", "fps",
-           "point_encoder", "fused_ln_proj", "int8_matmul", "row_gather",
-           "fused_mlp_chunked", "fused_attnout_mlp")
+           "point_encoder", "fused_ln_proj", "int8_matmul", "int8_matmul_dequant",
+           "int8_quantize", "row_gather", "fused_mlp_chunked", "fused_attnout_mlp")
 
 
 def launch_counts(**counts):
@@ -613,6 +693,111 @@ def check_attention_edges(torch, g, err, checks):
         checks.append(f"attn-{label}-views{b}x{h}x{nq}x{nk}=bit-equal")
 
 
+OTHER_HEAD_DIMS = (32, 80, 88, 104, 112, 128)  # the trunks' head dims besides 64
+
+
+def check_head_dims(torch, g, err, checks):
+    """Attention at head dims other than 64 (the trunks of ViT-H-14,
+    ViT-g-14, ViT-bigG-14 and ViT-e-14 have 80, 88, 104 and 112): every NQ,
+    NK in {1, 77, 257, 600} on contiguous tensors and on the packed qkv
+    projection's views, against the plain version (bf16, <= ATTN_TOL)."""
+    from vitlens_tpu_torch.ops.flash_attention import (attention_reference,
+                                                       flash_attention)
+
+    for d in OTHER_HEAD_DIMS:
+        worst = 0.0
+        for nq in (1, 77, 257, 600):
+            for nk in (1, 77, 257, 600):
+                cases = [("", qkv_inputs(torch, g, 2, 3, nq, nk, d))]
+                if nq == nk:  # the trunk's packed qkv, read in place
+                    qkv = torch.randn(2, nq, 3 * 3 * d, generator=g,
+                                      device="cuda").bfloat16()
+                    cases.append((" packed-qkv views", tuple(
+                        qkv.view(2, nq, 3, 3, d).permute(2, 0, 3, 1, 4))))
+                for kind, args in cases:
+                    got = flash_attention(*args)
+                    torch.cuda.synchronize()
+                    want = attention_reference(*args)
+                    e = rel_err(got, want)
+                    worst = max(worst, e)
+                    err["flash_attention"] = max(err["flash_attention"],
+                                                 abs_err(got, want))
+                    if not (torch.isfinite(got).all() and e <= ATTN_TOL):
+                        fail(f"flash_attention D={d} NQ={nq} NK={nk}{kind}: "
+                             f"rel err {e} > {ATTN_TOL}")
+        checks.append(f"attn-D{d}(NQ,NK in 1..600, packed views)<={worst:.2e}")
+
+
+def check_int8_epilogues(torch, g, err, checks):
+    """The quantise kernel bit-equal to its plain version at the quantized
+    encode's shapes (its inputs' K: 1024 for qkv, out and fc, 4096 for proj)
+    and at a ragged M, bf16 and fp32 input; the DEQUANT epilogue bit-equal
+    to the plain dequantise of the same int32 product, with and without bias
+    and in bf16 and fp32; and quant.int8_matmul on the card (quantise ->
+    DEQUANT) bit-equal to its plain version end to end."""
+    from vitlens_tpu_torch import quant
+    from vitlens_tpu_torch.ops.int8_matmul import (
+        dequant_reference, int8_matmul_dequant, int8_matmul_reference,
+        int8_quantize, int8_quantize_reference)
+
+    def bits(t):
+        return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+    m = 257 * B * 3
+    # why the plain quantise divides by a tensor: PyTorch's CUDA division by
+    # a Python scalar multiplies by the reciprocal instead
+    a = torch.rand(1 << 16, generator=g, device="cuda") * 100
+    n_recip = ((a / 127.0) != (a / a.new_tensor(127.0))).sum().item()
+    checks.append(f"cuda-x/127.0-vs-IEEE-x/127:{n_recip}-of-65536-differ")
+    err["int8_quantize"] = err["int8_matmul_dequant"] = 0.0
+    for m_, k, dt in ((m, 1024, torch.bfloat16), (m, 4096, torch.bfloat16),
+                      (1001, 3072, torch.bfloat16), (1001, 1024, torch.float32)):
+        x = quant_rows(torch, g, m_, k, dt)
+        xi, xs = int8_quantize(x)
+        torch.cuda.synchronize()
+        want_i, want_s = int8_quantize_reference(x)
+        n_diff = (xi != want_i).sum().item() + (bits(xs) != bits(want_s)).sum().item()
+        err["int8_quantize"] = max(err["int8_quantize"],
+                                   (xs - want_s).abs().max().item())
+        checks.append(f"quantize {m_}x{k}/{str(dt)[6:]}:{n_diff}-differ")
+        if n_diff:
+            fail(f"int8_quantize {m_}x{k} {dt}: {n_diff} of xi and xs differ "
+                 "from the plain version")
+        del x, xi, xs, want_i, want_s
+    for m_, k, n in ((m, 1024, 4096), (m, 4096, 1024), (1001, 1024, 3072)):
+        a, b, b_t = int8_inputs(torch, g, m_, k, n)
+        acc = int8_matmul_reference(a, b)
+        xs = torch.rand(m_, 1, generator=g, device="cuda") * 0.02 + 1e-4
+        ws = torch.rand(1, n, generator=g, device="cuda") * 0.01 + 1e-5
+        bias = torch.randn(n, generator=g, device="cuda")
+        for bb, dt in ((bias, torch.bfloat16), (None, torch.bfloat16),
+                       (bias, torch.float32)):
+            got = int8_matmul_dequant(a, b, xs, ws, bb, dt, b_t)
+            torch.cuda.synchronize()
+            want = dequant_reference(acc, xs, ws, bb, dt)
+            n_diff = (bits(got) != bits(want)).sum().item()
+            err["int8_matmul_dequant"] = max(err["int8_matmul_dequant"],
+                                             abs_err(got, want))
+            checks.append(f"dequant {m_}x{k}x{n}/{'bias' if bb is not None else 'no-bias'}"
+                          f"/{str(dt)[6:]}:{n_diff}-differ")
+            if n_diff:
+                fail(f"int8_matmul_dequant {m_}x{k}x{n} {dt}: {n_diff} elements "
+                     "differ from the plain dequantise of the same product")
+        del a, b, b_t, acc, got, want
+    for m_, k, n in ((m, 1024, 3072), (77 * 8, 768, 2304)):  # end to end
+        x = quant_rows(torch, g, m_, k, torch.bfloat16)
+        w_q, w_s = quant.quantize_weight(torch.randn(k, n, generator=g, device="cuda") * 0.05)
+        bias = torch.randn(n, generator=g, device="cuda")
+        got = quant.int8_matmul(x, w_q, w_s, bias, w_q.t().contiguous())
+        torch.cuda.synchronize()
+        n_diff = (bits(got) != bits(quant.int8_matmul_reference(x, w_q, w_s, bias))).sum().item()
+        checks.append(f"quant.int8_matmul {m_}x{k}x{n}:{n_diff}-differ")
+        if n_diff:
+            fail(f"quant.int8_matmul {m_}x{k}x{n} on the card: {n_diff} elements "
+                 "differ from its plain version")
+        del x, got
+
+
 def check_new_kernels(torch, g, err, checks):
     """Phase 3, continued: the int8 product, the row gather, the chained
     fused MLPs and the fused LN + projection at the LN + qkv prototype's
@@ -681,6 +866,147 @@ def check_new_kernels(torch, g, err, checks):
              f"{LNP_TOL}")
 
 
+def run_counted(torch, counters, totals, fn):
+    """fn() with every launch count set to 0 just before and read just
+    after; the counts are added to the main-path totals."""
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    counts = {name: c.launches for name, c in counters.items()}
+    for name, n in counts.items():
+        totals[name] += n
+    return out, counts
+
+
+def cos_min(torch, a, b):
+    return torch.nn.functional.cosine_similarity(
+        a.float().cpu(), b.float().cpu(), dim=-1).min().item()
+
+
+FP32_COS_MIN = 0.999  # fp32 on the card against fp32 on the CPU
+
+
+def fp32_phase(torch, counters, totals, fb2, clouds2, captions2):
+    """Phase 4f: the default ViTLens (compute fp32, as in JAX) encodes B = 2
+    of each modality on the card through the plain paths (the kernels take
+    bf16): no fused MLP, attention or point-encoder launch, the FPS launch as
+    in bf16; against the same model in fp32 on the CPU."""
+    from vitlens_tpu_torch.api import ViTLens
+
+    t0 = time.time()
+    model = ViTLens("vitlensL", ("audio", "pc", "text"), device="cuda", seed=SEED)
+    if model.compute_dtype != torch.float32:
+        fail(f"ViTLens's default compute dtype is {model.compute_dtype}, not fp32")
+    ref = copy.deepcopy(model).to("cpu")
+    want = {"audio": launch_counts(), "pc": launch_counts(fps=1),
+            "text": launch_counts()}
+    cos, per_call = {}, []
+    for path, data, pre in (("audio", fb2, True), ("pc", clouds2, True),
+                            ("text", captions2, False)):
+        emb, counts = run_counted(torch, counters, totals,
+                                  lambda: model.encode({path: data}, preprocessed=pre)[path])
+        if counts != want[path]:
+            fail(f"fp32 {path} B=2: launches {counts}, expected {want[path]}")
+        if tuple(emb.shape) != (2, 768) or not torch.isfinite(emb).all():
+            fail(f"fp32 {path} B=2: shape {tuple(emb.shape)} or non-finite values")
+        cpu_data = data.cpu() if isinstance(data, torch.Tensor) else data
+        cos[path] = cos_min(torch, emb, ref.encode({path: cpu_data},
+                                                   preprocessed=pre)[path])
+        per_call.append((path, counts["fps"]))
+    # cuDNN runs the audio adapter's fp32 convolution in TF32 by default
+    # (fp32 products outside it stay fp32): the same encode without it.
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cos_no_tf32 = cos_min(torch, model.encode({"audio": fb2}, preprocessed=True)["audio"],
+                              ref.encode({"audio": fb2.cpu()}, preprocessed=True)["audio"])
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    del model, ref
+    if min(cos.values()) < FP32_COS_MIN:
+        fail(f"fp32 card vs CPU: min cosine {cos} < {FP32_COS_MIN}")
+    print(f"[4f fp32 default] ViTLens('vitlensL', ('audio', 'pc', 'text')) "
+          f"(compute fp32) on the card, B=2 each: no fused MLP, attention or "
+          f"point-encoder launch, FPS launches per request {per_call}; min "
+          f"cosine vs CPU fp32: audio {cos['audio']:.7f} (cudnn.allow_tf32="
+          f"{tf32}; {cos_no_tf32:.7f} with it off), pc {cos['pc']:.7f}; "
+          f"torch.backends.cuda.matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32}; phase took "
+          f"{time.time() - t0:.1f} s with the CPU run", flush=True)
+    print(f"[4f fp32 default] text encode B=2 (ResBlock plain MLP, masked "
+          f"plain_attention): min cosine vs CPU fp32 {cos['text']:.7f}, no "
+          f"kernel launch", flush=True)
+
+
+HD_DEPTH = 4  # trunk blocks kept in the head-dim phase (the CPU run stays short)
+
+
+def head_dim_phase(torch, counters, totals, fb1):
+    """Phase 4h: bf16 B = 1 audio encodes at full width whose trunks have
+    head dims other than 64, on the card against the CPU in fp32, with
+    launch counts derived from the config: ViTLens("vitlensG", ("audio",))
+    (ViT-bigG-14, head dim 104) and a ViT-H-14 audio tower (head dim 80),
+    each trunk cut to HD_DEPTH blocks."""
+    from dataclasses import replace
+
+    from vitlens_tpu_torch.api import ViTLens
+    from vitlens_tpu_torch.config import make_model_config
+    from vitlens_tpu_torch.factory import cast_matmul_weights_, make_generator
+    from vitlens_tpu_torch.models.vit import VisionTower
+
+    t0 = time.time()
+    big = ViTLens("vitlensG", ("audio",), device="cuda",
+                  compute_dtype=torch.bfloat16, seed=SEED)
+    big.towers["audio"].trunk.blocks = big.towers["audio"].trunk.blocks[:HD_DEPTH]
+    torch.cuda.empty_cache()
+    cfg = make_model_config("ViT-H-14", "audio").tower
+    h14 = VisionTower(replace(cfg, arch=replace(cfg.arch, layers=HD_DEPTH)),
+                      device="cuda")
+    h14.init_(make_generator(SEED, "cuda"))
+    cast_matmul_weights_(h14, torch.bfloat16)
+    clips = fb1.reshape((-1,) + tuple(fb1.shape[2:]))  # [3, T, F]
+
+    def h14_encode(tower, x, dtype):
+        f = tower(x, dtype).float().mean(dim=0, keepdim=True)
+        return f / f.norm(dim=-1, keepdim=True)
+
+    lines = []
+    for label, net, encode, ref_encode in (
+            ("vitlensG audio (ViT-bigG-14, head dim 104)", big,
+             lambda m: m.encode({"audio": fb1}, preprocessed=True)["audio"],
+             lambda m: m.encode({"audio": fb1.cpu()}, preprocessed=True)["audio"]),
+            ("ViT-H-14 audio tower (head dim 80)", h14,
+             lambda m: h14_encode(m, clips, torch.bfloat16),
+             lambda m: h14_encode(m, clips.cpu(), torch.float32))):
+        tcfg = net.towers["audio"].cfg if net is big else net.cfg
+        heads = tcfg.arch.width // tcfg.arch.heads
+        want = launch_counts(
+            fused_mlp=HD_DEPTH,
+            flash_attention=HD_DEPTH + tcfg.perceiver.depth * (
+                1 + tcfg.perceiver.self_per_cross_attn))
+        emb, counts = run_counted(torch, counters, totals, lambda: encode(net))
+        if counts != want:
+            fail(f"{label}: launches {counts}, expected {want}")
+        if tuple(emb.shape) != (1, tcfg.embed_dim) or not torch.isfinite(emb).all():
+            fail(f"{label}: shape {tuple(emb.shape)} or non-finite values")
+        ref = copy.deepcopy(net).to(device="cpu", dtype=torch.float32)
+        if net is big:
+            ref.compute_dtype = torch.float32
+        cos = cos_min(torch, emb, ref_encode(ref))
+        del ref
+        if cos < COS_MIN:
+            fail(f"{label}: cosine vs CPU fp32 {cos} < {COS_MIN}")
+        lines.append(f"{label}, width {tcfg.arch.width}, head dim {heads}: "
+                     f"launches (fused MLP, attention) {counts['fused_mlp']}, "
+                     f"{counts['flash_attention']}; cosine vs CPU fp32 {cos:.6f}")
+    del big, h14
+    torch.cuda.empty_cache()
+    print(f"[4h head dims] bf16 B=1 x 3 clips audio encodes at full width, each "
+          f"trunk cut to {HD_DEPTH} blocks (the CPU fp32 run stays short): "
+          + "; ".join(lines) + f"; phase took {time.time() - t0:.1f} s", flush=True)
+
+
 def quant_phase(torch, model, counters, totals, fb1, fb64, captions, want):
     """Phase 4q: the audio tower quantized to int8 on the card and driven
     through ViTLens.encode. Returns the quantized model."""
@@ -698,27 +1024,27 @@ def quant_phase(torch, model, counters, totals, fb1, fb64, captions, want):
     last = len(source.trunk.blocks) - 1
     for i in (0, last):
         fb, qb = source.trunk.blocks[i], tower.trunk.blocks[i]
-        for name, w, q, q_t in (
-                ("qkv", fb.attn.qkv_w, qb.attn.qkv_w_q, qb.attn.qkv_w_qt),
-                ("out", fb.attn.out_w, qb.attn.out_w_q, qb.attn.out_w_qt),
-                ("fc", fb.mlp.fc.w, qb.mlp.fc.w_q, qb.mlp.fc.w_qt),
-                ("proj", fb.mlp.proj.w, qb.mlp.proj.w_q, qb.mlp.proj.w_qt)):
-            q_cpu = quantize_weight(w.cpu())[0]
-            if not (torch.equal(q.cpu(), q_cpu) and torch.equal(q_t.cpu(), q_cpu.t())):
-                fail(f"block {i} {name}: w_q made on the card differs from "
-                     "w_q made on the CPU")
+        for name, w, q, q_t, s_card in (
+                ("qkv", fb.attn.qkv_w, qb.attn.qkv_w_q, qb.attn.qkv_w_qt,
+                 qb.attn.qkv_w_s),
+                ("out", fb.attn.out_w, qb.attn.out_w_q, qb.attn.out_w_qt,
+                 qb.attn.out_w_s),
+                ("fc", fb.mlp.fc.w, qb.mlp.fc.w_q, qb.mlp.fc.w_qt, qb.mlp.fc.w_s),
+                ("proj", fb.mlp.proj.w, qb.mlp.proj.w_q, qb.mlp.proj.w_qt,
+                 qb.mlp.proj.w_s)):
+            q_cpu, s_cpu = quantize_weight(w.cpu())
+            if not (torch.equal(q.cpu(), q_cpu) and torch.equal(q_t.cpu(), q_cpu.t())
+                    and torch.equal(s_card.cpu(), s_cpu)):
+                fail(f"block {i} {name}: w_q or w_s made on the card differs "
+                     "from the one made on the CPU")
     embs, per_call = {}, []
     for label, b, key, inputs in (("audio B=1", 1, "audio", {"audio": fb1}),
                                   (f"audio B={B}", B, "audio", {"audio": fb64}),
                                   ("text", len(captions), "text",
                                    {"text": captions})):
-        for fn in counters.values():
-            fn.launches = 0
-        emb = qmodel.encode(inputs, preprocessed=key == "audio")[key]
-        torch.cuda.synchronize()
-        counts = {name: fn.launches for name, fn in counters.items()}
-        for name, n in counts.items():
-            totals[name] += n
+        emb, counts = run_counted(
+            torch, counters, totals,
+            lambda: qmodel.encode(inputs, preprocessed=key == "audio")[key])
         if counts != want[key]:
             fail(f"quantized {label}: launches {counts}, expected {want[key]}")
         norm_err = (emb.float().norm(dim=-1) - 1).abs().max().item()
@@ -727,21 +1053,18 @@ def quant_phase(torch, model, counters, totals, fb1, fb64, captions, want):
             fail(f"quantized {label}: shape {tuple(emb.shape)}, norms off 1 by "
                  f"{norm_err}, or non-finite values")
         embs[label] = emb.float()
-        per_call.append((label, counts["int8_matmul"], counts["flash_attention"],
+        per_call.append((label, counts["int8_matmul_dequant"],
+                         counts["int8_quantize"], counts["flash_attention"],
                          counts["fused_mlp"]))
     # the text tower quantized too: D = 768 products on a ragged M = B * 77
     both = quantize_model(qmodel, towers=("towers.text",))
-    for fn in counters.values():
-        fn.launches = 0
-    temb = both.encode({"text": captions})["text"].float()
-    torch.cuda.synchronize()
-    counts = {name: fn.launches for name, fn in counters.items()}
-    for name, n in counts.items():
-        totals[name] += n
+    temb, counts = run_counted(torch, counters, totals,
+                               lambda: both.encode({"text": captions})["text"].float())
     if counts != want["text_int8"]:
         fail(f"quantized text: launches {counts}, expected {want['text_int8']}")
-    per_call.append(("text, int8 tower", counts["int8_matmul"],
-                     counts["flash_attention"], counts["fused_mlp"]))
+    per_call.append(("text, int8 tower", counts["int8_matmul_dequant"],
+                     counts["int8_quantize"], counts["flash_attention"],
+                     counts["fused_mlp"]))
     del both
     # what the int8 encodes are held against (these launches are not counted)
     floats = {label: model.encode({"audio": fb}, preprocessed=True)["audio"].float()
@@ -751,21 +1074,18 @@ def quant_phase(torch, model, counters, totals, fb1, fb64, captions, want):
     cpu1 = qref.encode({"audio": fb1.cpu()}, preprocessed=True)["audio"]
     del qref
 
-    def cos_min(a, b):
-        return torch.nn.functional.cosine_similarity(a, b, dim=-1).min().item()
-
-    cos = {"B=1 int8 card vs quantized fp32 CPU": cos_min(embs["audio B=1"].cpu(), cpu1),
-           "B=1 int8 vs float bf16, card": cos_min(embs["audio B=1"],
+    cos = {"B=1 int8 card vs quantized fp32 CPU": cos_min(torch, embs["audio B=1"], cpu1),
+           "B=1 int8 vs float bf16, card": cos_min(torch, embs["audio B=1"],
                                                    floats["audio B=1"]),
-           f"B={B} int8 vs float bf16, card": cos_min(embs[f"audio B={B}"],
+           f"B={B} int8 vs float bf16, card": cos_min(torch, embs[f"audio B={B}"],
                                                       floats[f"audio B={B}"]),
-           "text int8 vs float bf16, card": cos_min(temb, embs["text"])}
+           "text int8 vs float bf16, card": cos_min(torch, temb, embs["text"])}
     if min(cos.values()) < COS_MIN:
         fail(f"quantized audio encode: min cosine {cos} < {COS_MIN}")
     print(f"[4q quantized] vitlensL audio trunk quantized to int8 on the card "
-          f"(w_q and its transposed copy equal to the CPU's for blocks 0 and "
-          f"{last}); requests (label, int8 products, attention, fused MLP "
-          f"launches) {per_call}; min cosine: "
+          f"(w_q, its transposed copy and w_s equal to the CPU's for blocks 0 "
+          f"and {last}); requests (label, DEQUANT products, quantise, "
+          f"attention, fused MLP launches) {per_call}; min cosine: "
           + "; ".join(f"{k} {v:.6f}" for k, v in cos.items())
           + f"; phase took {time.time() - t0:.1f} s with the CPU fp32 run",
           flush=True)
@@ -778,7 +1098,7 @@ SCRIPT_RUNS = (  # (entry point, arguments, the counter its kernel adds to)
     ("fused_attnout_mlp", ["--iters", "5"], "fused_attnout_mlp"),
     ("bench_int8_native", ["--iters", "10"], "int8_matmul"),
     ("bench_dma_gather", ["--iters", "50"], "row_gather"),
-    ("bench_int8_encode", ["--iters", "3"], "int8_matmul"))
+    ("bench_int8_encode", ["--iters", "3"], "int8_matmul_dequant"))
 
 
 def scripts_phase(torch, counters, totals):
@@ -789,18 +1109,12 @@ def scripts_phase(torch, counters, totals):
     by_script = {}
     for name, argv, kernel in SCRIPT_RUNS:
         module = importlib.import_module(f"vitlens_tpu_torch.scripts.{name}")
-        for fn in counters.values():
-            fn.launches = 0
         print(f"[4s scripts] python -m vitlens_tpu_torch.scripts.{name} "
               f"{' '.join(argv)}", flush=True)
-        rc = module.main(argv)
-        torch.cuda.synchronize()
-        counts = {k: fn.launches for k, fn in counters.items()}
+        rc, counts = run_counted(torch, counters, totals, lambda: module.main(argv))
         if rc != 0 or counts[kernel] == 0:
             fail(f"scripts.{name}: exit code {rc}, {kernel} launches "
                  f"{counts[kernel]}")
-        for k, n in counts.items():
-            totals[k] += n
         by_script[name] = counts[kernel]
     print(f"[4s scripts] every entry point exited 0; launches of its kernel: "
           f"{by_script}", flush=True)
@@ -808,13 +1122,16 @@ def scripts_phase(torch, counters, totals):
 
 
 def time_new_kernels(torch, g, timings):
-    """Phase 5, continued: the int8 product, the row gather and the chained
+    """Phase 5, continued: the int8 product's two epilogues and the quantise
+    kernel, the row gather (its device time, and the wrapper's time back to
+    back and its host time a call, beside index_select's) and the chained
     fused MLPs at their shapes, beside plain, library and bound."""
     from vitlens_tpu_torch.ops.fused_mlp import fused_mlp
     from vitlens_tpu_torch.ops.fused_mlp_chain import (
         fused_attnout_mlp, fused_mlp_chain_reference, fused_mlp_chunked)
-    from vitlens_tpu_torch.ops.int8_matmul import (int8_matmul,
-                                                   int8_matmul_reference)
+    from vitlens_tpu_torch.ops.int8_matmul import (
+        dequant_reference, int8_matmul, int8_matmul_dequant, int8_matmul_reference,
+        int8_quantize, int8_quantize_reference)
     from vitlens_tpu_torch.ops.row_gather import row_gather, row_gather_reference
 
     m = 257 * B * 3  # the quantized B64 x 3 clips encode's rows
@@ -824,26 +1141,58 @@ def time_new_kernels(torch, g, timings):
                               ("quantized trunk proj", (m, 4096, 1024)),
                               ("prototype", (4096, 4096, 4096))):
         a, b, b_t = int8_inputs(torch, g, m_, k, n)
+        lib_ms = cuda_ms(lambda: torch._int_mm(a, b))
         k_ms, p_ms = paired_ms(lambda: int8_matmul(a, b, b_t),
                                lambda: int8_matmul_reference(a, b), plain_iters=3)
         bd, by = int8_bound(m_, k, n)
         timings["int8_matmul"].append(
-            {"shape": f"{label} M={m_} K={k} N={n}", "ms": k_ms, "plain_ms": p_ms,
-             "bound_ms": bd, "bound_by": by,
-             "library_ms": cuda_ms(lambda: torch._int_mm(a, b)),
-             "tops": 2 * m_ * k * n / k_ms / 1e9})
+            {"shape": f"INT32, {label} M={m_} K={k} N={n}", "ms": k_ms,
+             "plain_ms": p_ms, "bound_ms": bd, "bound_by": by,
+             "library_ms": lib_ms, "tops": 2 * m_ * k * n / k_ms / 1e9})
+        xs = torch.rand(m_, 1, generator=g, device="cuda") * 0.02 + 1e-4
+        ws = torch.rand(1, n, generator=g, device="cuda") * 0.01 + 1e-5
+        bias = torch.randn(n, generator=g, device="cuda")
+        k_ms, p_ms = paired_ms(
+            lambda: int8_matmul_dequant(a, b, xs, ws, bias, torch.bfloat16, b_t),
+            lambda: dequant_reference(int8_matmul_reference(a, b), xs, ws, bias,
+                                      torch.bfloat16), plain_iters=3)
+        bd, by = dequant_bound(m_, k, n)
+        timings["int8_matmul_dequant"].append(
+            {"shape": f"DEQUANT to bf16 with bias, {label} M={m_} K={k} N={n}",
+             "ms": k_ms, "plain_ms": p_ms, "bound_ms": bd, "bound_by": by,
+             "library_ms": lib_ms, "tops": 2 * m_ * k * n / k_ms / 1e9})
         del a, b, b_t
+    for label, k in (("qkv, out and fc inputs", 1024), ("proj input", 4096)):
+        x = quant_rows(torch, g, m, k, torch.bfloat16)
+        k_ms, p_ms = paired_ms(lambda: int8_quantize(x),
+                               lambda: int8_quantize_reference(x), plain_iters=5)
+        bd, by = quantize_bound(m, k, 2)
+        timings["int8_quantize"].append(
+            {"shape": f"{label} [{m},{k}] bf16", "ms": k_ms, "plain_ms": p_ms,
+             "bound_ms": bd, "bound_by": by, "library_ms": None})
+        del x
     v, d, j = 49408, 512, 9856
     table = torch.randn(v, d, generator=g, device="cuda").bfloat16()
     ids = torch.randint(0, v, (j,), generator=g, device="cuda", dtype=torch.int32)
-    k_ms, p_ms = paired_ms(lambda: row_gather(table, ids),
-                           lambda: row_gather_reference(table, ids), iters=100,
-                           plain_iters=100)
+
+    def gather():
+        return row_gather(table, ids)
+
+    def index_select():
+        return torch.index_select(table, 0, ids)
+
+    wrapper_ms, p_ms = paired_ms(gather, lambda: row_gather_reference(table, ids),
+                                 iters=100, plain_iters=100)
     bd, by = gather_bound(j, 2 * d)
+    # the kernel's own time is its device time; back to back through the
+    # Python wrapper the host's enqueue can be the longer
     timings["row_gather"].append(
-        {"shape": f"table [{v},{d}] bf16, {j} ids", "ms": k_ms, "plain_ms": p_ms,
-         "bound_ms": bd, "bound_by": by,
-         "library_ms": cuda_ms(lambda: torch.index_select(table, 0, ids), 100)})
+        {"shape": f"table [{v},{d}] bf16, {j} ids", "ms": device_ms(torch, gather),
+         "plain_ms": p_ms, "bound_ms": bd, "bound_by": by,
+         "library_ms": cuda_ms(index_select, 100), "wrapper_ms": wrapper_ms,
+         "library_device_ms": device_ms(torch, index_select),
+         "host_us": host_us(torch, gather),
+         "library_host_us": host_us(torch, index_select)})
     m, d, h = 257 * B, 1024, 4096
     x, *mlp = mlp_inputs(torch, g, m, d, h)
     proj = outproj_inputs(torch, g, m, d)
@@ -900,23 +1249,28 @@ def main() -> int:
                                                        fused_mlp_chunked)
     from vitlens_tpu_torch.ops.fused_point_encoder import (
         fused_point_encoder, point_encoder_reference)
-    from vitlens_tpu_torch.ops.int8_matmul import int8_matmul
+    from vitlens_tpu_torch.ops.int8_matmul import (int8_matmul,
+                                                   int8_matmul_dequant,
+                                                   int8_quantize)
     from vitlens_tpu_torch.ops.row_gather import row_gather
 
     # The kernels of the JSON line (the save-preact variant is kernel 1's; the
     # LN + qkv prototype's kernel is the fused LN + projection, held and timed
-    # at the prototype's shape under its own name) and every launch counter,
-    # by variant.
+    # at the prototype's shape under its own name; kernel 10's two epilogues
+    # are two entries) and every launch counter, by variant.
     kernels = {"fused_mlp": fused_mlp, "flash_attention": flash_attention,
                "fps": fps_indices, "point_encoder": fused_point_encoder,
                "fused_ln_proj": fused_ln_proj, "int8_matmul": int8_matmul,
+               "int8_matmul_dequant": int8_matmul_dequant,
+               "int8_quantize": int8_quantize,
                "row_gather": row_gather, "fused_mlp_chunked": fused_mlp_chunked,
                "fused_attnout_mlp": fused_attnout_mlp,
                "fused_ln_qkv": fused_ln_proj}
     counters = dict(zip(COUNTED, (fused_mlp, fused_mlp_save_preact,
                                   flash_attention, fps_indices,
                                   fused_point_encoder, fused_ln_proj,
-                                  int8_matmul, row_gather, fused_mlp_chunked,
+                                  int8_matmul, int8_matmul_dequant,
+                                  int8_quantize, row_gather, fused_mlp_chunked,
                                   fused_attnout_mlp)))
     if len(counters) != len(COUNTED):
         fail("a launch counter is missing")
@@ -959,6 +1313,7 @@ def main() -> int:
         if not (torch.isfinite(got).all() and e <= ATTN_TOL):
             fail(f"flash_attention {b}x{h}x{nq}x{nk}: rel err {e} > {ATTN_TOL}")
     check_attention_edges(torch, g, err, checks)
+    check_head_dims(torch, g, err, checks)
     fps_inputs = {}
     for b, n, starts in ((B, 8192, "zero"), (8, 10000, "random")):
         xyz = torch.randn(b, n, 3, generator=g, device="cuda") * 0.3
@@ -1014,10 +1369,13 @@ def main() -> int:
         if not (torch.isfinite(got).all() and e <= LNP_TOL):
             fail(f"fused_ln_proj {m}x{d}x{n}: rel err {e} > {LNP_TOL}")
     check_new_kernels(torch, g, err, checks)
+    check_int8_epilogues(torch, g, err, checks)
     print(f"[3 kernels] all within bound (mlp <= {MLP_TOL}, save-preact a <= "
-          f"{PREACT_TOL}, attn <= {ATTN_TOL}, ln_proj <= {LNP_TOL}, encoder <= "
-          f"{ENC_TOL}, chained mlp <= {CHAIN_TOL} relative, fps index-exact, "
-          f"int8 product and row gather equal): {' '.join(checks)}", flush=True)
+          f"{PREACT_TOL}, attn <= {ATTN_TOL} at head dims 64 and {OTHER_HEAD_DIMS}, "
+          f"ln_proj <= {LNP_TOL}, encoder <= {ENC_TOL}, chained mlp <= "
+          f"{CHAIN_TOL} relative, fps index-exact, int8 product (both "
+          f"epilogues), quantise and row gather bit-equal): {' '.join(checks)}",
+          flush=True)
 
     grad_checks = {
         "fused_mlp M1001 gelu": (
@@ -1088,13 +1446,9 @@ def main() -> int:
     launches = dict.fromkeys(COUNTED, 0)
     outs, per_call = [], []
     for path, b, inputs, pre in requests:
-        for fn in counters.values():
-            fn.launches = 0
-        emb = model.encode(inputs, preprocessed=pre)[path]
-        torch.cuda.synchronize()
-        counts = {name: fn.launches for name, fn in counters.items()}
-        for name, n in counts.items():
-            launches[name] += n
+        emb, counts = run_counted(
+            torch, counters, launches,
+            lambda: model.encode(inputs, preprocessed=pre)[path])
         per_call.append((path, b, tuple(counts[k] for k in (
             "fused_mlp", "flash_attention", "fps", "point_encoder"))))
         outs.append((path, b, pre, emb))
@@ -1132,15 +1486,22 @@ def main() -> int:
           + f"; pc B=1 FPS indices equal on card and CPU ({n_group} centers)",
           flush=True)
 
+    # -- 4f: the fp32 default; 4h: head dims other than 64 --------------------
+    fp32_phase(torch, counters, launches, fbanks[4][:2], clouds[4][:2],
+               captions[:2])
+    head_dim_phase(torch, counters, launches, fbanks[1])
+
     # -- 4q: the int8 quantized audio encode; 4s: the bench entry points -----
     fb64 = torch.randn(B, 3, acfg.audio.target_length, acfg.audio.mel_bins,
                        generator=g, device="cuda") * 0.5
     qmodel = quant_phase(
         torch, model, counters, launches, fbanks[1], fb64, captions,
-        {"audio": launch_counts(int8_matmul=4 * n_layers,
+        {"audio": launch_counts(int8_matmul_dequant=4 * n_layers,
+                                int8_quantize=4 * n_layers,
                                 flash_attention=n_attn(acfg)),
          "text": want_launches["text"],
-         "text_int8": launch_counts(int8_matmul=4 * n_text)})
+         "text_int8": launch_counts(int8_matmul_dequant=4 * n_text,
+                                    int8_quantize=4 * n_text)})
     by_script = scripts_phase(torch, counters, launches)
 
     # -- 4b, 4c: the audio train step -----------------------------------------
@@ -1193,17 +1554,21 @@ def main() -> int:
              "gemm_only_ms": gemm_ms, "bound_ms": bd, "bound_by": by,
              "library_ms": None, "tflops": 2 * m * d * n / k_ms / 1e9})
         del a, x, y, w
-    for label, (b, h, nq, nk) in (("audio trunk", (B * 3, 16, 257, 257)),
-                                  ("audio lens cross", (B * 3, 1, 256, 600)),
-                                  ("audio lens self", (B * 3, 16, 256, 256)),
-                                  ("pc lens cross", (B, 1, 256, 512))):
-        q, k, v = qkv_inputs(torch, g, b, h, nq, nk)
+    for label, (b, h, nq, nk, dh) in (("audio trunk", (B * 3, 16, 257, 257, 64)),
+                                      ("audio lens cross", (B * 3, 1, 256, 600, 64)),
+                                      ("audio lens self", (B * 3, 16, 256, 256, 64)),
+                                      ("pc lens cross", (B, 1, 256, 512, 64)),
+                                      ("bigG trunk", (B * 3, 16, 257, 257, 104))):
+        q, k, v = qkv_inputs(torch, g, b, h, nq, nk, dh)
         k_ms, p_ms = paired_ms(lambda: flash_attention(q, k, v),
                                lambda: attention_reference(q, k, v))
-        bf16_ms = cuda_ms(lambda: plain_attention(q, k, v, None, 64 ** -0.5))
+        bf16_ms = cuda_ms(lambda: plain_attention(q, k, v, None, dh ** -0.5))
         lib_ms = cuda_ms(lambda: sdpa(q, k, v))
-        bd, by = attn_bound(b, h, nq, nk)
-        row = {"shape": f"{label} [{b},{h},{nq},{nk},64]", "ms": k_ms,
+        bd, by = attn_bound(b, h, nq, nk, dh)
+        # the kernel's device time beside the call's: a short call through
+        # the Python wrapper can be bound by the host's enqueue
+        row = {"shape": f"{label} [{b},{h},{nq},{nk},{dh}]", "ms": k_ms,
+               "device_ms": device_ms(torch, lambda: flash_attention(q, k, v)),
                "plain_ms": p_ms, "plain_bf16_ms": bf16_ms, "bound_ms": bd,
                "bound_by": by, "library_ms": lib_ms}
         if label == "audio trunk":  # as the trunk calls it: packed-qkv views
@@ -1235,7 +1600,9 @@ def main() -> int:
     for name, rows in timings.items():
         for r in rows:
             print(f"[5 timing] {card} | {name} {r['shape']}: kernel "
-                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms"
+                  f"{r['ms']:.4f} ms"
+                  + (f" (device {r['device_ms']:.4f} ms)" if "device_ms" in r else "")
+                  + f", plain {r['plain_ms']:.4f} ms"
                   + (f", plain bf16 {r['plain_bf16_ms']:.4f} ms"
                      if "plain_bf16_ms" in r else "")
                   + (f", plain variant {r['plain_variant_ms']:.4f} ms"
@@ -1244,6 +1611,10 @@ def main() -> int:
                      f"{r['gemm_only_ms']:.4f} ms" if "gemm_only_ms" in r else "")
                   + (f", kernel on the packed-qkv views {r['packed_views_ms']:.4f} ms"
                      if "packed_views_ms" in r else "")
+                  + (f", through the wrapper back to back {r['wrapper_ms']:.4f} ms"
+                     f" (host {r['host_us']:.2f} us a call; index_select device "
+                     f"{r['library_device_ms']:.4f} ms, host {r['library_host_us']:.2f} us)"
+                     if "wrapper_ms" in r else "")
                   + (f", library {r['library_ms']:.4f} ms"
                      if r["library_ms"] is not None else "")
                   + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
@@ -1319,6 +1690,10 @@ def main() -> int:
         "point_encoder": "vitlens_tpu/ops/fused_point_encoder.py:116",
         "fused_ln_proj": "vitlens_tpu/ops/fused_ln_proj.py:56",
         "int8_matmul": "scripts/bench_int8_native.py:64",
+        "int8_matmul_dequant": "scripts/bench_int8_native.py:64 (with the XLA-fused "
+                               "tail of vitlens_tpu/quant.py:84)",
+        "int8_quantize": "vitlens_tpu/quant.py:77 (the XLA-fused head of "
+                         "int8_matmul; no pallas_call)",
         "row_gather": "scripts/bench_dma_gather.py:49",
         "fused_mlp_chunked": "scripts/fused_mlp_pallas.py:91",
         "fused_attnout_mlp": "scripts/fused_attnout_mlp_pallas.py:62",
@@ -1326,6 +1701,8 @@ def main() -> int:
     sources = {"fused_mlp": "fused_mlp.cu", "flash_attention": "flash_attention.cu",
                "fps": "fps.cu", "point_encoder": "fused_point_encoder.cu",
                "fused_ln_proj": "fused_ln_proj.cu", "int8_matmul": "int8_matmul.cu",
+               "int8_matmul_dequant": "int8_matmul.cu",
+               "int8_quantize": "int8_matmul.cu",
                "row_gather": "row_gather.cu",
                "fused_mlp_chunked": "fused_mlp_chain.cu",
                "fused_attnout_mlp": "fused_mlp_chain.cu",

@@ -119,7 +119,8 @@ def test_lens_attention_matches_jax(heads, dim_head, dtype):
 @pytest.mark.parametrize("module", ["mha", "lens"])
 def test_callers_pass_views_not_copies(module, monkeypatch):
     """The trunk's and the Lens's q, k, v reach the kernel's entry point as
-    views of one projection each (no copies were made)."""
+    views of one projection each (no copies were made). In bf16: the kernel
+    takes bf16, and an fp32 call takes the plain path, as in JAX."""
     seen = []
 
     def record(q, k, v, scale):
@@ -131,11 +132,12 @@ def test_callers_pass_views_not_copies(module, monkeypatch):
         if module == "mha":
             m = PL.MHA(128, 2)
             m.init_(torch.Generator().manual_seed(0))
-            m(torch.from_numpy(_x(2, 5, 128)))
+            m(torch.from_numpy(_x(2, 5, 128)).bfloat16())
         else:
             m = PP.Attention(64, 32, 2, 64)
             m.init_(torch.Generator().manual_seed(0))
-            m(torch.from_numpy(_x(2, 5, 64)), torch.from_numpy(_x(2, 8, 32)))
+            m(torch.from_numpy(_x(2, 5, 64)).bfloat16(),
+              torch.from_numpy(_x(2, 8, 32)).bfloat16())
     (q, k, v), = seen
     assert not (q.is_contiguous() or k.is_contiguous() or v.is_contiguous())
     assert k.untyped_storage().data_ptr() == v.untyped_storage().data_ptr()

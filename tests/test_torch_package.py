@@ -185,7 +185,7 @@ def test_flash_attention_kernel_argument_checks():
     q = torch.zeros(1, 2, 5, 64, dtype=torch.bfloat16)
     PFA._check_cuda_args(q, q, q)
     with pytest.raises(ValueError, match="head dim"):
-        z = torch.zeros(1, 2, 5, 32, dtype=torch.bfloat16)
+        z = torch.zeros(1, 2, 5, 100, dtype=torch.bfloat16)
         PFA._check_cuda_args(z, z, z)
     with pytest.raises(ValueError, match="bfloat16"):
         PFA._check_cuda_args(q.float(), q.float(), q.float())
@@ -215,7 +215,7 @@ def test_flash_attention_kernel_rejects_unreadable_views():
     one = torch.zeros(512, dtype=torch.bfloat16).as_strided((1, 1, 4, 64),
                                                            (4 * 64, 68, 64, 1))
     PFA._check_cuda_args(one, one, one)
-    assert PFA._strides(one) == (PFA.HEAD_DIM, PFA.HEAD_DIM, 64)
+    assert PFA._strides(one) == (64, 64, 64)
 
 
 def _declarations():
@@ -229,7 +229,7 @@ def _declarations():
 @pytest.mark.parametrize("name", sorted(_build._SIGNATURES))
 def test_attention_signature_matches_its_declaration(name):
     """Every ctypes signature (the attention entry point's among them: 4
-    pointers, 4 ints, 9 strides as long long, the scale and the stream) has
+    pointers, 5 ints, 9 strides as long long, the scale and the stream) has
     one argument per parameter of its extern "C" declaration, in kind."""
     kinds = {"const void*": _build._P, "void*": _build._P, "int": _build._I,
              "long long": _build._L, "float": _build._F}

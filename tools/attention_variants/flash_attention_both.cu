@@ -377,16 +377,7 @@ __global__ void __launch_bounds__(32 * (CW + 1), MIN_CTAS)
   }
 }
 
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    if (n <= 0) n = 132;
-  }
-  return n;
-}
+// sm_count() comes from tma.cuh.
 
 template <int CW>
 cudaError_t launch(const CUtensorMap& map_q, const CUtensorMap& map_k,
@@ -872,13 +863,15 @@ cudaError_t launch_wg(const CUtensorMap& map_q, const CUtensorMap& map_k,
 // q [B, H, NQ, 64], k/v [B, H, NK, 64] bf16 with element strides
 // (batch, head, row) given for each, the last dim contiguous, every stride a
 // multiple of 8 elements and the bases 16-byte aligned; o [B, NQ, H, 64]
-// contiguous; scale > 0. Returns cudaGetLastError() after the launch (0 on success),
-// cudaErrorInvalidValue if a tensor map cannot be encoded.
+// contiguous; scale > 0; D (the head dim, taken for the committed entry
+// point's signature) must be 64. Returns cudaGetLastError() after the launch
+// (0 on success), cudaErrorInvalidValue if a tensor map cannot be encoded.
 extern "C" int vitlens_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int B, int H, int NQ,
-    int NK, long long qsb, long long qsh, long long qsn, long long ksb,
+    int NK, int D, long long qsb, long long qsh, long long qsn, long long ksb,
     long long ksh, long long ksn, long long vsb, long long vsh, long long vsn,
     float scale, void* stream) {
+  if (D != HD) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap map_q, map_k, map_v;
   const uint64_t q_dims[4] = {HD, static_cast<uint64_t>(NQ),
                               static_cast<uint64_t>(H), static_cast<uint64_t>(B)};

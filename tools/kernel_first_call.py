@@ -7,15 +7,21 @@ group sizes and widths), the fused MLP, both variants (a small square
 product first, ragged M, both trunk widths, bigG's D = 1664, and the audio
 trunk's M = 49344 beside cuBLAS), attention (NQ and NK from 1 to 600, NK past
 the resident limit, the packed-qkv and Lens views bit-equal to contiguous
-copies, the four main shapes beside SDPA), the fused LN + projection (ragged
-M, both trunk widths), the int8 product (ragged M, the smallest legal K and
-N, a K that is not a multiple of the k-step), the row gather (a single row,
-repeated and boundary ids, rows of 16 bytes) and the chained fused MLP with
-and without the out-projection (ragged M, both widths and activations).
+copies, the four main shapes beside SDPA), attention at head dims other than
+64 (8 to 128: NQ, NK in {1, 77, 257, 600}, the packed-qkv views, and
+[192, 16, 257, 257] at D = 104 beside SDPA), the fused LN + projection
+(ragged M, both trunk widths), the int8 product's two epilogues (INT32 and
+DEQUANT, bit-equal: ragged M, the smallest legal K and N, a K that is not a
+multiple of the k-step, with and without bias, bf16 and fp32 output), the
+int8 quantise kernel (bit-equal: all-zero rows, exact .5 ties, bf16 and fp32
+input), the row gather (a single row, repeated and boundary ids, rows of 16
+bytes; its device time from the profiler and the wrapper's host time a call
+beside index_select's) and the chained fused MLP with and without the
+out-projection (ragged M, both widths and activations).
 
-    python3 tools/kernel_first_call.py [fps] [encoder] [mlp] [attn] [ln_proj] [int8] [gather] [chain]
+    python3 tools/kernel_first_call.py [fps] [encoder] [mlp] [attn] [attn_hd] [ln_proj] [int8] [quantize] [gather] [chain]
 
-With no names it checks all eight. Needs one CUDA device and nvcc. Exits
+With no names it checks all ten. Needs one CUDA device and nvcc. Exits
 non-zero if a kernel disagrees.
 """
 
@@ -29,6 +35,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import torch  # noqa: E402
 
+import chip_smoke  # noqa: E402
+
 from vitlens_tpu_torch.ops import _build  # noqa: E402
 from vitlens_tpu_torch.ops.flash_attention import (  # noqa: E402
     attention_reference, flash_attention)
@@ -38,7 +46,8 @@ from vitlens_tpu_torch.ops.fused_ln_proj import (  # noqa: E402
 from vitlens_tpu_torch.ops.fused_mlp_chain import (  # noqa: E402
     fused_attnout_mlp, fused_mlp_chain_reference, fused_mlp_chunked)
 from vitlens_tpu_torch.ops.int8_matmul import (  # noqa: E402
-    int8_matmul, int8_matmul_reference)
+    dequant_reference, int8_matmul, int8_matmul_dequant, int8_matmul_reference,
+    int8_quantize, int8_quantize_reference)
 from vitlens_tpu_torch.ops.row_gather import (  # noqa: E402
     row_gather, row_gather_reference)
 from vitlens_tpu_torch.ops.fused_mlp import (  # noqa: E402
@@ -205,6 +214,49 @@ def check_attn(g):
     return ok
 
 
+HD_CASES = tuple((2, 3, nq, nk) for nq in (1, 77, 257, 600) for nk in (1, 77, 257, 600))
+
+
+def check_attn_hd(g):
+    """Attention at head dims 8 to 128 against its plain version (bf16, 1e-2
+    relative) at NQ, NK in {1, 77, 257, 600}; the packed-qkv views bit-equal
+    to contiguous copies; the bigG trunk's shape at D = 104 timed beside
+    SDPA."""
+    ok = True
+    for d in (8, 32, 80, 88, 104, 112, 128):
+        worst = 0.0
+        for b, h, nq, nk in HD_CASES:
+            q, k, v = (torch.randn(b, h, n, d, generator=g, device="cuda").bfloat16()
+                       for n in (nq, nk, nk))
+            got = flash_attention(q, k, v)
+            torch.cuda.synchronize()
+            e = rel_err(got, attention_reference(q, k, v))
+            good = bool(torch.isfinite(got).all()) and e <= 1e-2
+            ok &= good
+            worst = max(worst, e)
+            if not good:
+                print(f"attn D{d} B{b} H{h} NQ{nq} NK{nk}: rel err {e:.2e}", flush=True)
+        qkv = torch.randn(3, 257, 3 * 16 * d, generator=g, device="cuda").bfloat16()
+        q, k, v = qkv.view(3, 257, 3, 16, d).permute(2, 0, 3, 1, 4)
+        got = flash_attention(q, k, v)
+        want = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        ok &= same
+        print(f"attn D{d}: worst rel err {worst:.2e} over NQ, NK in 1..600; "
+              f"packed-qkv views bit-equal: {same}", flush=True)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for d in (104, 64):
+        q, k, v = (torch.randn(192, 16, 257, d, generator=g, device="cuda").bfloat16()
+                   for _ in range(3))
+        e = rel_err(flash_attention(q, k, v), attention_reference(q, k, v))
+        ok &= e <= 1e-2
+        print(f"attn [192,16,257,257,{d}]: rel err {e:.2e}; kernel "
+              f"{ms(lambda: flash_attention(q, k, v), 20):.4f} ms, SDPA "
+              f"{ms(lambda: sdpa(q, k, v), 20):.4f} ms", flush=True)
+    return ok
+
+
 def check_ln_proj(g):
     """The fused LN + projection against its plain version, bf16, 1e-2
     relative."""
@@ -229,12 +281,14 @@ def check_ln_proj(g):
 
 
 def check_int8(g):
-    """The int8 product against its plain version: equal, element for
-    element. Extreme operands (all +-127) hold the accumulator's range."""
+    """The int8 product's two epilogues against their plain versions: INT32
+    equal element for element (extreme operands, all +-127, hold the
+    accumulator's range); DEQUANT bit-equal to the plain dequantise of the
+    plain product, with and without bias, in bf16 and fp32."""
     ok = True
-    for m, k, n in ((4096, 4096, 4096), (49344, 1024, 3072), (49344, 4096, 1024),
-                    (4928, 768, 2304), (1001, 1024, 1024), (1, 32, 128),
-                    (130, 160, 384), (77, 4096, 128)):
+    for m, k, n in ((1, 32, 128), (130, 160, 384), (77, 4096, 128),
+                    (4096, 4096, 4096), (49344, 1024, 4096), (49344, 1024, 3072),
+                    (49344, 4096, 1024), (4928, 768, 2304), (1001, 1024, 1024)):
         a = torch.randint(-127, 128, (m, k), generator=g, device="cuda",
                           dtype=torch.int8)
         b = torch.randint(-127, 128, (k, n), generator=g, device="cuda",
@@ -245,23 +299,64 @@ def check_int8(g):
         b_t = b.t().contiguous()
         got = int8_matmul(a, b, b_t)
         torch.cuda.synchronize()
-        n_diff = (got != int8_matmul_reference(a, b)).sum().item()
+        acc = int8_matmul_reference(a, b)
+        n_diff = (got != acc).sum().item()
         ok &= n_diff == 0
+        xs = torch.rand(m, 1, generator=g, device="cuda") * 0.02 + 1e-4
+        ws = torch.rand(1, n, generator=g, device="cuda") * 0.01 + 1e-5
+        bias = torch.randn(n, generator=g, device="cuda")
+        dq = []
+        for bb, dt in ((bias, torch.bfloat16), (None, torch.bfloat16),
+                       (bias, torch.float32)):
+            y = int8_matmul_dequant(a, b, xs, ws, bb, dt, b_t)
+            torch.cuda.synchronize()
+            want = dequant_reference(acc, xs, ws, bb, dt)
+            dq.append(int((y.view(torch.int16 if dt == torch.bfloat16 else torch.int32)
+                           != want.view(torch.int16 if dt == torch.bfloat16
+                                        else torch.int32)).sum().item()))
+        ok &= not any(dq)
         t = ms(lambda: int8_matmul(a, b, b_t))
-        print(f"int8 M{m} K{k} N{n}: {n_diff} elements differ; kernel {t:.4f} ms "
-              f"({2 * m * k * n / t / 1e9:.1f} TOP/s), torch._int_mm "
+        t_dq = ms(lambda: int8_matmul_dequant(a, b, xs, ws, bias, torch.bfloat16, b_t))
+        print(f"int8 M{m} K{k} N{n}: INT32 {n_diff} elements differ, DEQUANT "
+              f"(bias bf16, no bias bf16, bias fp32) {dq} differ; INT32 {t:.4f} ms "
+              f"({2 * m * k * n / t / 1e9:.1f} TOP/s), DEQUANT {t_dq:.4f} ms, "
+              "torch._int_mm "
               + (f"{ms(lambda: torch._int_mm(a, b)):.4f} ms" if m > 16 and k % 8 == 0
                  and n % 8 == 0 else "n/a"), flush=True)
     return ok
 
 
+def check_quantize(g):
+    """The quantise kernel against its plain version: xi and xs equal, bf16
+    and fp32 input, at the quantized encode's four shapes' K and ragged M."""
+    ok = True
+    for m, k in ((49344, 1024), (49344, 4096), (4928, 768), (1001, 3072), (3, 32)):
+        for dt in (torch.bfloat16, torch.float32):
+            x = chip_smoke.quant_rows(torch, g, m, k, dt)
+            xi, xs = int8_quantize(x)
+            torch.cuda.synchronize()
+            want_i, want_s = int8_quantize_reference(x)
+            n_i = (xi != want_i).sum().item()
+            n_s = (xs.view(torch.int32) != want_s.view(torch.int32)).sum().item()
+            ok &= n_i == 0 and n_s == 0
+            t = ms(lambda: int8_quantize(x), 20)
+            bd = chip_smoke.quantize_bound(m, k, x.element_size())[0]
+            print(f"quantize M{m} K{k} {dt}: {n_i} of xi and {n_s} of xs differ; "
+                  f"kernel {t:.4f} ms, plain {ms(lambda: int8_quantize_reference(x), 3):.4f}"
+                  f" ms, bound {bd:.4f} ms (bytes)", flush=True)
+    return ok
+
+
 def check_gather(g):
-    """The row gather against its plain version: bit-equal."""
+    """The row gather against its plain version: bit-equal; at the bench's
+    shape, the kernel's device time (profiler) and the wrapper's host time a
+    call beside index_select's, and both timed back to back."""
     ok = True
     for v, d, j, dtype in ((49408, 512, 9856, torch.bfloat16),
                            (49408, 512, 1, torch.bfloat16),
                            (100, 8, 333, torch.bfloat16),
-                           (1000, 768, 4928, torch.float32)):
+                           (1000, 768, 4928, torch.float32),
+                           (1000, 64, 300000, torch.bfloat16)):
         table = torch.randn(v, d, generator=g, device="cuda").to(dtype)
         ids = torch.randint(0, v, (j,), generator=g, device="cuda",
                             dtype=torch.int32)
@@ -273,10 +368,22 @@ def check_gather(g):
         same = torch.equal(got.view(torch.uint8),
                            row_gather_reference(table, ids).view(torch.uint8))
         ok &= same
-        print(f"gather V{v} D{d} J{j} {dtype}: bit-equal {same}; kernel "
-              f"{ms(lambda: row_gather(table, ids), 20):.4f} ms, index_select "
-              f"{ms(lambda: torch.index_select(table, 0, ids), 20):.4f} ms",
-              flush=True)
+        line = (f"gather V{v} D{d} J{j} {dtype}: bit-equal {same}; kernel "
+                f"{ms(lambda: row_gather(table, ids), 20):.4f} ms, index_select "
+                f"{ms(lambda: torch.index_select(table, 0, ids), 20):.4f} ms back to back")
+        if j == 9856:
+            def gather():
+                return row_gather(table, ids)
+
+            def index_select():
+                return torch.index_select(table, 0, ids)
+
+            line += (f"; device ms: kernel {chip_smoke.device_ms(torch, gather):.4f}, "
+                     f"index_select {chip_smoke.device_ms(torch, index_select):.4f}"
+                     f"; host us a call: wrapper {chip_smoke.host_us(torch, gather):.2f}, "
+                     f"index_select {chip_smoke.host_us(torch, index_select):.2f}"
+                     f"; bound {chip_smoke.gather_bound(j, 2 * d)[0]:.4f} ms")
+        print(line, flush=True)
     return ok
 
 
@@ -315,8 +422,8 @@ def check_chain(g):
 
 
 def main() -> int:
-    which = set(sys.argv[1:]) or {"fps", "encoder", "mlp", "attn", "ln_proj",
-                                  "int8", "gather", "chain"}
+    which = set(sys.argv[1:]) or {"fps", "encoder", "mlp", "attn", "attn_hd",
+                                  "ln_proj", "int8", "quantize", "gather", "chain"}
     nvcc = _build.find_nvcc()
     with tempfile.TemporaryDirectory() as tmp:  # one nvcc a source, in parallel
         srcs = sorted(_build.CSRC.glob("*.cu"))
@@ -340,10 +447,14 @@ def main() -> int:
         ok &= check_mlp(g)
     if "attn" in which:
         ok &= check_attn(g)
+    if "attn_hd" in which:
+        ok &= check_attn_hd(g)
     if "ln_proj" in which:
         ok &= check_ln_proj(g)
     if "int8" in which:
         ok &= check_int8(g)
+    if "quantize" in which:
+        ok &= check_quantize(g)
     if "gather" in which:
         ok &= check_gather(g)
     if "chain" in which:

@@ -3,8 +3,12 @@
 one card, at its main path's shapes.
 
     python3 tools/kernel_variants.py encoder     # the point encoder, [64, 512, 32, 3]
-    python3 tools/kernel_variants.py attn        # attention, its four main shapes
+    python3 tools/kernel_variants.py attn        # attention, its main shapes and bigG's D = 104
     python3 tools/kernel_variants.py mlp         # the fused MLP, M = 49344 and 16448
+    python3 tools/kernel_variants.py int8        # the int8 DEQUANT product, fc and proj
+    python3 tools/kernel_variants.py int8 '{"pingpong": {"@source": "tools/int8_variants/int8_pingpong.cu"}}'
+    python3 tools/kernel_variants.py quantize    # the quantise kernel, K = 1024 and 4096
+    python3 tools/kernel_variants.py gather '{"old": {"@source": "path/to/row_gather.cu"}}'
     python3 tools/kernel_variants.py attn '{"cw8": {"return w9 < w8 \\? 9 : 8;": "return 8;"}}'
     python3 tools/kernel_variants.py attn '{"mma_sync": {"@source": "tools/attention_variants/flash_attention_both.cu", "constexpr bool USE_WGMMA = true;": "constexpr bool USE_WGMMA = false;"}}'
 
@@ -14,7 +18,8 @@ to all of them (a variant may remove a stage
 to measure its cost, in which case its output is wrong and its error says
 so); all are compiled in parallel into libraries under a temporary directory
 and timed in turns, twice. Prints each variant's registers and spills, time
-and relative error against the plain version; a variant that fails to build
+(back to back through ctypes, and the profiler's device time) and relative
+error against the plain version; a variant that fails to build
 or launch is reported and skipped.
 """
 
@@ -30,6 +35,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 REPO = __import__("pathlib").Path(__file__).resolve().parents[1]
 
 import torch  # noqa: E402
+
+import chip_smoke  # noqa: E402
 
 from vitlens_tpu_torch.ops import _build  # noqa: E402
 from vitlens_tpu_torch.ops.flash_attention import (  # noqa: E402
@@ -137,26 +144,31 @@ def encoder_cases(g):
     return [("[64,512,32,3]", call, point_encoder_reference(nb, *w), out)]
 
 
-ATTN_SHAPES = (("trunk", 192, 16, 257, 257), ("lens cross", 192, 1, 256, 600),
-               ("lens self", 192, 16, 256, 256), ("pc lens cross", 64, 1, 256, 512),
-               ("trunk packed-qkv views", 192, 16, 257, 257))
+ATTN_SHAPES = (("trunk", 192, 16, 257, 257, 64), ("lens cross", 192, 1, 256, 600, 64),
+               ("lens self", 192, 16, 256, 256, 64), ("pc lens cross", 64, 1, 256, 512, 64),
+               ("trunk packed-qkv views", 192, 16, 257, 257, 64),
+               ("bigG trunk", 192, 16, 257, 257, 104))
+
+# Attention with its P V products run over every 16-key step of a chunk
+# (the keys past NK hold P = 0 and zero-filled V).
+ATTN_VARIANTS = {"pv_all": {r"if \(kt \* 16 < valid\)\s*\n\s*": ""}}
 
 
 def attn_cases(g):
     cases = []
-    for label, b, h, nq, nk in ATTN_SHAPES:
+    for label, b, h, nq, nk, d in ATTN_SHAPES:
         if "views" in label:
-            qkv = torch.randn(b, nq, 3 * h * 64, generator=g, device="cuda").bfloat16()
-            q, k, v = qkv.view(b, nq, 3, h, 64).permute(2, 0, 3, 1, 4)
+            qkv = torch.randn(b, nq, 3 * h * d, generator=g, device="cuda").bfloat16()
+            q, k, v = qkv.view(b, nq, 3, h, d).permute(2, 0, 3, 1, 4)
         else:
-            q, k, v = (torch.randn(b, h, n, 64, generator=g, device="cuda").bfloat16()
+            q, k, v = (torch.randn(b, h, n, d, generator=g, device="cuda").bfloat16()
                        for n in (nq, nk, nk))
-        out = torch.empty(b, nq, h, 64, dtype=torch.bfloat16, device="cuda")
+        out = torch.empty(b, nq, h, d, dtype=torch.bfloat16, device="cuda")
 
-        def call(fn, q=q, k=k, v=v, out=out, b=b, h=h, nq=nq, nk=nk):
+        def call(fn, q=q, k=k, v=v, out=out, b=b, h=h, nq=nq, nk=nk, d=d):
             return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
-                      h, nq, nk, *_strides(q), *_strides(k), *_strides(v),
-                      64 ** -0.5, _stream())
+                      h, nq, nk, d, *_strides(q), *_strides(k), *_strides(v),
+                      d ** -0.5, _stream())
 
         cases.append((f"{label} [{b},{h},{nq},{nk}]", call,
                       attention_reference(q, k, v).transpose(1, 2), out))
@@ -188,6 +200,89 @@ def mlp_cases(g):
     return cases
 
 
+# The int8 product with its epilogue or its products cut out (the output is
+# wrong; the time is that of the rest); then, with the products cut out, the
+# epilogue without each of its parts: the TMA store, the wait for the
+# staging buffer, the writes into it, the column scale and bias reads.
+_NO_MMA = {r"wgmma_m64n256k32_s8\(d, da[^;]*;": "(void)da; (void)db;"}
+INT8_VARIANTS = {
+    "no_epilogue": {r"pass < BN / PASS_COLS; \+\+pass": "pass < 0; ++pass"},
+    "no_mma": _NO_MMA,
+    "epi_no_store": {**_NO_MMA, r"tma_store_2d\(&map_c, out[^;]*;": ";"},
+    "epi_no_wait": {**_NO_MMA, r"if \(tid == 0\) bulk_wait_read\(\);": ";"},
+    "epi_no_put": {**_NO_MMA, r"put2\(dst, from_float[^;]*;": "(void)dst;"},
+    "epi_no_wsb": {**_NO_MMA,
+                   r"w = \*reinterpret_cast<const float2\*>\(wsb \+ 8[^;]*;":
+                   "w = make_float2(1.f, 1.f);",
+                   r"bias = \*reinterpret_cast<const float2\*>\(wsb[^;]*;": ";"},
+}
+
+
+def int8_cases(g):
+    from vitlens_tpu_torch.ops.int8_matmul import (dequant_reference,
+                                                   int8_matmul_reference)
+
+    cases = []
+    for label, m, k, n in (("fc", 49344, 1024, 4096), ("proj", 49344, 4096, 1024)):
+        a = torch.randint(-127, 128, (m, k), generator=g, device="cuda", dtype=torch.int8)
+        b = torch.randint(-127, 128, (k, n), generator=g, device="cuda", dtype=torch.int8)
+        bt = b.t().contiguous()
+        xs = torch.rand(m, 1, generator=g, device="cuda") * 0.02 + 1e-4
+        ws = torch.rand(1, n, generator=g, device="cuda") * 0.01 + 1e-5
+        bias = torch.randn(n, generator=g, device="cuda")
+        out = torch.empty(m, n, dtype=torch.bfloat16, device="cuda")
+
+        def call(fn, a=a, bt=bt, xs=xs, ws=ws, bias=bias, out=out, m=m, k=k, n=n):
+            return fn(a.data_ptr(), bt.data_ptr(), xs.data_ptr(), ws.data_ptr(),
+                      bias.data_ptr(), out.data_ptr(), m, n, k, 1, _stream())
+
+        want = dequant_reference(int8_matmul_reference(a, b), xs, ws, bias,
+                                 torch.bfloat16)
+        cases.append((f"DEQUANT {label} M={m} K={k} N={n}", call, want, out))
+    return cases
+
+
+# The quantise kernel's row loops unrolled, to keep more loads in flight a
+# lane.
+QUANT_VARIANTS = {
+    f"unroll{u}": {r"(\n\s*)for \(int c = lane \* V; c < K; c \+= 32 \* V\)":
+                   f"\\1#pragma unroll {u}\\1for (int c = lane * V; c < K; c += 32 * V)"}
+    for u in (2, 4)}
+
+
+def quantize_cases(g):
+    """The quantized encode's activations: [49344, 1024] and [49344, 4096]
+    bf16 rows (the int8 rows are held to the plain version's)."""
+    from vitlens_tpu_torch.ops.int8_matmul import int8_quantize_reference
+
+    cases = []
+    for k in (1024, 4096):
+        x = chip_smoke.quant_rows(torch, g, 49344, k, torch.bfloat16)
+        xi = torch.empty(49344, k, dtype=torch.int8, device="cuda")
+        xs = torch.empty(49344, 1, device="cuda")
+
+        def call(fn, x=x, xi=xi, xs=xs, k=k):
+            return fn(x.data_ptr(), xi.data_ptr(), xs.data_ptr(), 49344, k, 1,
+                      _stream())
+
+        cases.append((f"[49344,{k}] bf16", call, int8_quantize_reference(x)[0], xi))
+    return cases
+
+
+def gather_cases(g):
+    """The bench's row gather: 9856 ids into the [49408, 512] bf16 table."""
+    table = torch.randn(49408, 512, generator=g, device="cuda").bfloat16()
+    ids = torch.randint(0, 49408, (9856,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    out = torch.empty(9856, 512, dtype=torch.bfloat16, device="cuda")
+
+    def call(fn):
+        return fn(table.data_ptr(), ids.data_ptr(), out.data_ptr(), 9856, 49408,
+                  1024, _stream())
+
+    return [("[49408,512] bf16, 9856 ids", call, table[ids.long()], out)]
+
+
 def _stream():
     return torch.cuda.current_stream().cuda_stream
 
@@ -195,8 +290,14 @@ def _stream():
 KERNELS = {  # source, entry point, cases, default variants
     "encoder": ("fused_point_encoder.cu", "vitlens_point_encoder_fwd",
                 encoder_cases, ENCODER_VARIANTS),
-    "attn": ("flash_attention.cu", "vitlens_flash_attention_fwd", attn_cases, {}),
+    "attn": ("flash_attention.cu", "vitlens_flash_attention_fwd", attn_cases,
+             ATTN_VARIANTS),
     "mlp": ("fused_mlp.cu", "vitlens_fused_mlp_fwd", mlp_cases, {}),
+    "int8": ("int8_matmul.cu", "vitlens_int8_matmul_dequant_fwd", int8_cases,
+             INT8_VARIANTS),
+    "gather": ("row_gather.cu", "vitlens_row_gather_fwd", gather_cases, {}),
+    "quantize": ("int8_matmul.cu", "vitlens_int8_quantize_fwd", quantize_cases,
+                 QUANT_VARIANTS),
 }
 
 
@@ -220,7 +321,9 @@ def main() -> int:
                     t = ms(lambda: call(fn))
                     key = f"{name} {label}"
                     best[key] = min(best.get(key, t), t)
-                    print(f"pass {rep} {key}: {t:.4f} ms, rel err {e:.2e}", flush=True)
+                    print(f"pass {rep} {key}: {t:.4f} ms (device "
+                          f"{chip_smoke.device_ms(torch, lambda: call(fn)):.4f} ms), "
+                          f"rel err {e:.2e}", flush=True)
     print({k: round(v, 4) for k, v in best.items()})
     return 0
 

@@ -16,7 +16,9 @@ import torch.nn.functional as F
 from vitlens_tpu_torch.config import PointAdapterConfig, TowerConfig
 from vitlens_tpu_torch.models.layers import Linear, _param, gelu, normal_
 from vitlens_tpu_torch.ops.fps import group_points
-from vitlens_tpu_torch.ops.fused_point_encoder import BN_EPS, fused_point_encoder
+from vitlens_tpu_torch.ops.fused_point_encoder import (
+    BN_EPS, fused_point_encoder, point_encoder_applicable,
+    point_encoder_reference)
 
 
 class AudioAdapter(nn.Module):
@@ -77,7 +79,8 @@ class BatchNorm(nn.Module):
 
 class PointTokenizer(nn.Module):
     """PointBERT tokenizer, eval mode: FPS centers and kNN groups, the
-    mini-PointNet per group (``ops.fused_point_encoder``: the kernel on CUDA),
+    mini-PointNet per group (``ops.fused_point_encoder``, the kernel on CUDA,
+    for bf16 groups; other dtypes take its plain version, as in JAX),
     ``reduce_dim`` to the token width, and an MLP of the centers as the
     adapter's positional embedding. Module names follow the JAX param tree
     (``encoder.conv1..4``, ``encoder.bn1/bn2``, ``reduce_dim``,
@@ -112,7 +115,9 @@ class PointTokenizer(nn.Module):
         FPS starts at point 0, as JAX does in eval."""
         cfg, e = self.cfg, self.encoder
         nb, center = group_points(pts, cfg.num_group, cfg.group_size)
-        feat = fused_point_encoder(
+        encoder = (fused_point_encoder if point_encoder_applicable(nb)
+                   else point_encoder_reference)
+        feat = encoder(
             nb, e.conv1.w, e.conv1.b, e.bn1.stats(), e.conv2.w, e.conv2.b,
             e.conv3.w, e.conv3.b, e.bn2.stats(), e.conv4.w, e.conv4.b,
             e.bn1.eps)

@@ -2,6 +2,10 @@
 //
 //     C[M, N] = epilogue(A[M, K] @ B[K, N])     (row-major bf16, fp32 sums)
 //
+// Its ring (the producer's and the consumers' step over a 4-stage mbarrier
+// ring of 48 KB stages, `ring_produce` / `ring_consume`) is the shared core of
+// the sm_90a GEMMs: int8_matmul.cu runs its s8 products on the same ring.
+//
 // What bounds it on an H100: the MLP's products (M = 49344, K/N = 1024/4096
 // at the audio trunk) do ~200 FLOP per byte of their operands, far above the
 // card's ridge of ~295 FLOP per byte of HBM for the whole call, so it is
@@ -107,6 +111,41 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// The ring shared by the sm_90a GEMMs, of NST stages of SB bytes. `it`
+// counts k-tiles over the whole life of the CTA (across output tiles for a
+// persistent one): k-tile `it` lives in stage it % NST, and full[s] /
+// empty[s] complete once a use.
+//
+// Producer step (one thread): wait until the consumers released the
+// stage's previous use, arm full[s] with the `bytes` TMA will bring, and
+// issue them with load(stage pointer, &full[s]).
+template <int NST = STAGES, int SB = STAGE_BYTES, class Load>
+__device__ __forceinline__ void ring_produce(uint64_t* full, uint64_t* empty,
+                                             unsigned char* smem, int it,
+                                             uint32_t bytes, Load&& load) {
+  const int s = it % NST;
+  if (it >= NST) mbar_wait(&empty[s], ((it / NST) - 1) & 1);
+  mbar_arrive_tx(&full[s], bytes);
+  load(smem + s * SB, &full[s]);
+}
+
+// Consumer step (a whole warpgroup): wait for k-tile `it`, issue its wgmma
+// group with mma(stage shared address), keep it in flight and wait out the
+// group before it, whose stage a warp's lane 0 then releases (one arrival a
+// warp) unless `it` is the output tile's first k-tile.
+template <int NST = STAGES, int SB = STAGE_BYTES, class Mma>
+__device__ __forceinline__ void ring_consume(uint64_t* full, uint64_t* empty,
+                                             uint32_t ring, int it, bool release,
+                                             Mma&& mma) {
+  const int s = it % NST;
+  mbar_wait(&full[s], (it / NST) & 1);
+  wgmma_fence();
+  mma(ring + s * SB);
+  wgmma_commit();
+  wgmma_wait<1>();  // the previous k-tile's products are done
+  if (release && threadIdx.x % 32 == 0) mbar_arrive(&empty[(it - 1) % NST]);
+}
+
 // d[64 x 256] += A[64 x 16] (K-major) * B[16 x 256] (MN-major, transposed-B
 // flag set). scale_d = 0 would overwrite d instead.
 __device__ __forceinline__ void wgmma_m64n256k16(float* d, uint64_t desc_a,
@@ -197,16 +236,14 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (tid == 0) {
       const int left = (p.N - col0 + B_BOX - 1) / B_BOX;
       const int boxes = left < BN / B_BOX ? left : BN / B_BOX;
-      for (int kt = 0; kt < KT; ++kt) {
-        const int s = kt % STAGES;
-        if (kt >= STAGES) mbar_wait(&empty[s], ((kt / STAGES) - 1) & 1);
-        unsigned char* a = smem + s * STAGE_BYTES;
-        mbar_arrive_tx(&full[s], A_BYTES + boxes * B_BOX_BYTES);
-        tma_load_2d(a, &map_a, &full[s], kt * BK, row0);
-        for (int j = 0; j < boxes; ++j)
-          tma_load_2d(a + A_BYTES + j * B_BOX_BYTES, &map_b, &full[s],
-                      col0 + j * B_BOX, kt * BK);
-      }
+      for (int kt = 0; kt < KT; ++kt)
+        ring_produce(full, empty, smem, kt, A_BYTES + boxes * B_BOX_BYTES,
+                     [&](unsigned char* a, uint64_t* bar) {
+                       tma_load_2d(a, &map_a, bar, kt * BK, row0);
+                       for (int j = 0; j < boxes; ++j)
+                         tma_load_2d(a + A_BYTES + j * B_BOX_BYTES, &map_b, bar,
+                                     col0 + j * B_BOX, kt * BK);
+                     });
     }
   } else {  // ---- consumers ----
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
@@ -214,26 +251,19 @@ __global__ void __launch_bounds__(THREADS, 1)
     // other instruction defines the accumulators inside the wgmma pipeline.
     float d[128];
     const uint32_t ring = smem_u32(smem);
-    for (int kt = 0; kt < KT; ++kt) {
-      const int s = kt % STAGES;
-      mbar_wait(&full[s], (kt / STAGES) & 1);
-      const uint32_t a = ring + s * STAGE_BYTES + wg * 64 * 128;
-      const uint32_t b = ring + s * STAGE_BYTES + A_BYTES;
-      // A: 64 rows of 128 bytes, 8-row groups 1024 bytes apart; a k16 step
-      // is 32 bytes along the swizzled row. B: [64 k][64 n] boxes 8 KB apart
-      // along N (leading offset), 8-k groups 1024 bytes apart (stride
-      // offset); a k16 step is 16 rows, 2048 bytes.
-      const uint64_t da = smem_desc(a, 0, 1024);
-      const uint64_t db = smem_desc(b, B_BOX_BYTES, 1024);
-      wgmma_fence();
+    for (int kt = 0; kt < KT; ++kt)
+      ring_consume(full, empty, ring, kt, kt > 0, [&](uint32_t stage) {
+        // A: 64 rows of 128 bytes, 8-row groups 1024 bytes apart; a k16 step
+        // is 32 bytes along the swizzled row. B: [64 k][64 n] boxes 8 KB
+        // apart along N (leading offset), 8-k groups 1024 bytes apart
+        // (stride offset); a k16 step is 16 rows, 2048 bytes.
+        const uint64_t da = smem_desc(stage + wg * 64 * 128, 0, 1024);
+        const uint64_t db = smem_desc(stage + A_BYTES, B_BOX_BYTES, 1024);
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_m64n256k16(d, da + ((kk * 32) >> 4), db + ((kk * 2048) >> 4),
-                         kt > 0 || kk > 0);
-      wgmma_commit();
-      wgmma_wait<1>();  // the previous k-tile's products are done
-      if (kt > 0 && tid % 32 == 0) mbar_arrive(&empty[(kt - 1) % STAGES]);
-    }
+        for (int kk = 0; kk < BK / 16; ++kk)
+          wgmma_m64n256k16(d, da + ((kk * 32) >> 4), db + ((kk * 2048) >> 4),
+                           kt > 0 || kk > 0);
+      });
     wgmma_wait<0>();
 
     // Epilogue. Both consumers are past their last product, so the ring is

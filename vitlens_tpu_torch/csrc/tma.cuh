@@ -1,5 +1,5 @@
 // Hopper copy primitives shared by the sm_90a kernels (gemm_sm90.cuh,
-// flash_attention.cu): mbarriers, TMA tile loads (cp.async.bulk.tensor) and
+// flash_attention.cu, int8_matmul.cu): mbarriers, TMA tile loads (cp.async.bulk.tensor) and
 // the host-side tensor-map encoder.
 //
 // The encoder, cuTensorMapEncodeTiled, lives in libcuda. It is fetched once
@@ -84,7 +84,46 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// 2-D TMA tile store from shared memory (one thread issues it): rows and
+// columns of the box outside the tensor are not written. Commit the stores
+// as a bulk group; wait until the groups' shared-memory reads are done (the
+// source may be written again) or until they are complete.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src,
+                                             int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Orders this thread's shared-memory writes before later async-proxy (TMA)
+// reads of them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ---- host side -------------------------------------------------------------
+
+// The current device's SM count (132 on an H100 SXM).
+inline int sm_count() {
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n > 0 ? n : 132;
+}
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   void*, const cuuint64_t*, const cuuint64_t*,
@@ -111,13 +150,14 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dims (innermost first; dim 0 contiguous),
-// strides in elements for dims 1.., a box of `box` elements, 128-byte
-// swizzle (box[0] must be 64 bf16 = 128 bytes) and zero fill out of bounds.
-// Returns false if it cannot be encoded.
-inline bool encode_bf16_map(CUtensorMap* map, const void* base, int rank,
-                            const uint64_t* dims, const uint64_t* strides,
-                            const uint32_t* box) {
+// A tensor map of `rank` dims (innermost first; dim 0 contiguous) of
+// `elem_bytes`-byte elements, strides in elements for dims 1.., a box of
+// `box` elements, 128-byte swizzle (box[0] must span at most 128 bytes) and
+// zero fill out of bounds. Returns false if it cannot be encoded.
+inline bool encode_map(CUtensorMap* map, CUtensorMapDataType dtype,
+                       int elem_bytes, const void* base, int rank,
+                       const uint64_t* dims, const uint64_t* strides,
+                       const uint32_t* box) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return false;
   cuuint64_t gdim[5], gstride[4];
@@ -126,14 +166,29 @@ inline bool encode_bf16_map(CUtensorMap* map, const void* base, int rank,
     gdim[i] = dims[i];
     bdim[i] = box[i];
     estride[i] = 1;
-    if (i > 0) gstride[i - 1] = strides[i] * 2;  // bytes
+    if (i > 0) gstride[i - 1] = strides[i] * elem_bytes;  // bytes
   }
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-                  const_cast<void*>(base), gdim, gstride, bdim, estride,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  CUresult r = fn(map, dtype, rank, const_cast<void*>(base), gdim, gstride,
+                  bdim, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS;
+}
+
+// A bf16 tensor map (box[0] at most 64 elements = 128 bytes).
+inline bool encode_bf16_map(CUtensorMap* map, const void* base, int rank,
+                            const uint64_t* dims, const uint64_t* strides,
+                            const uint32_t* box) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, rank, dims,
+                    strides, box);
+}
+
+// An 8-bit (int8) tensor map (box[0] at most 128 elements = 128 bytes).
+inline bool encode_i8_map(CUtensorMap* map, const void* base, int rank,
+                          const uint64_t* dims, const uint64_t* strides,
+                          const uint32_t* box) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, base, rank, dims,
+                    strides, box);
 }
 
 }  // namespace

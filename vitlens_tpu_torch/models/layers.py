@@ -35,7 +35,7 @@ from vitlens_tpu_torch.ops.attention import dot_product_attention
 from vitlens_tpu_torch.ops.fused_ln_proj import (fused_ln_proj_applicable,
                                                  fused_ln_proj_available,
                                                  fused_ln_qkv)
-from vitlens_tpu_torch.ops.fused_mlp import fused_mlp
+from vitlens_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_applicable
 from vitlens_tpu_torch.quant import int8_matmul
 
 # Leaf names of the parameters that feed a matmul or a convolution: the
@@ -199,9 +199,11 @@ class LayerScale(nn.Module):
 
 
 class ResBlock(nn.Module):
-    """Pre-LN residual attention block. The MLP half goes through
-    ``ops.fused_mlp`` (the kernel on CUDA); a block with layer-scale takes
-    the plain composition, as in JAX, since the kernel has no layer-scale.
+    """Pre-LN residual attention block. The MLP half of a bf16 block goes
+    through ``ops.fused_mlp`` (the kernel on CUDA); a block in another dtype
+    (``fused_mlp_applicable``) or with layer-scale takes the plain
+    composition, as in JAX, since the kernel takes bf16 and has no
+    layer-scale.
     With ``VITLENS_ENABLE_FUSED_LNQKV`` set, the front half (ln_1 + the
     packed qkv projection) goes through ``ops.fused_ln_proj`` where it
     applies (bf16, widths multiples of 128), as in JAX. A quantized block
@@ -242,7 +244,8 @@ class ResBlock(nn.Module):
         if self.ls_1 is not None:
             a = self.ls_1(a)
         x = x + a
-        if self.ls_2 is not None or self.mlp.fc.w_q is not None:
+        if (self.ls_2 is not None or self.mlp.fc.w_q is not None
+                or not fused_mlp_applicable(x)):
             act = quick_gelu if self.act == "quick_gelu" else gelu
             h = self.mlp.proj(act(self.mlp.fc(self.ln_2(x))))
             return x + (h if self.ls_2 is None else self.ls_2(h))

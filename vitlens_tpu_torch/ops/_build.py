@@ -23,6 +23,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -38,10 +40,12 @@ _SIGNATURES = {
     "vitlens_fused_mlp_fwd": [_P] * 10 + [_I, _I, _I, _I, _F, _P],
     "vitlens_fused_mlp_fwd_save_preact": [_P] * 11 + [_I, _I, _I, _I, _F, _P],
     "vitlens_fused_ln_proj_fwd": [_P] * 8 + [_I, _I, _I, _F, _P],
-    "vitlens_flash_attention_fwd": [_P] * 4 + [_I] * 4 + [_L] * 9 + [_F, _P],
+    "vitlens_flash_attention_fwd": [_P] * 4 + [_I] * 5 + [_L] * 9 + [_F, _P],
     "vitlens_fps_fwd": [_P] * 3 + [_I] * 3 + [_P],
     "vitlens_point_encoder_fwd": [_P] * 16 + [_I] * 6 + [_P],
     "vitlens_int8_matmul_fwd": [_P] * 3 + [_I] * 3 + [_P],
+    "vitlens_int8_matmul_dequant_fwd": [_P] * 6 + [_I] * 4 + [_P],
+    "vitlens_int8_quantize_fwd": [_P] * 3 + [_I] * 3 + [_P],
     "vitlens_row_gather_fwd": [_P] * 3 + [_I] * 3 + [_P],
     "vitlens_fused_mlp_chunked_fwd": [_P] * 8 + [_I, _I, _I, _I, _F, _P],
     "vitlens_fused_attnout_mlp_fwd": [_P] * 11 + [_I, _I, _I, _I, _F, _P],
@@ -115,6 +119,13 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The raw handle of the current CUDA stream on ``t``'s device, the
+    stream a kernel launches on: PyTorch's own accessor, which costs less
+    host time a call than building a ``torch.cuda.Stream``."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def check(err: int, what: str) -> None:

@@ -1,12 +1,14 @@
 """Attention entry point shared by every tower (ViT trunk, text tower, Lens).
 
-Dispatch: an unmasked call goes to
+Dispatch: an unmasked bf16 call goes to
 :func:`vitlens_tpu_torch.ops.flash_attention.flash_attention`: on a CUDA
 tensor the hand-written kernel, which raises on what it does not take, and on
 a CPU tensor its plain version; on both devices its backward is the JAX
-package's fp32 recompute. Masked calls (the text tower's causal mask) take
-:func:`plain_attention`, which mirrors the JAX package's ``_xla_attention``,
-with native autograd. Eager PyTorch does not fuse the plain path, so on the
+package's fp32 recompute. Masked calls (the text tower's causal mask) and
+calls in any other dtype (the fp32 default; ``flash_attention_applicable``)
+take :func:`plain_attention`, which mirrors the JAX package's
+``_xla_attention``, with native autograd, as the JAX package sends them to
+XLA. Eager PyTorch does not fuse the plain path, so on the
 card it would write the [B, H, NQ, NK] scores to HBM in every layer; the JAX
 package's KV >= 4096 threshold was a TPU choice and is not carried over.
 """
@@ -17,7 +19,8 @@ from typing import Optional
 
 import torch
 
-from vitlens_tpu_torch.ops.flash_attention import flash_attention
+from vitlens_tpu_torch.ops.flash_attention import (flash_attention,
+                                                   flash_attention_applicable)
 
 
 def plain_attention(q, k, v, mask: Optional[torch.Tensor], scale: float):
@@ -37,7 +40,7 @@ def dot_product_attention(q, k, v, mask: Optional[torch.Tensor] = None,
     [B, H, NQ, Dh]. ``scale`` defaults to Dh ** -0.5."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if mask is None:
+    if mask is None and flash_attention_applicable(q):
         return flash_attention(q, k, v, scale)
     return plain_attention(q, k, v, mask, scale)
 

@@ -21,7 +21,17 @@ from typing import Optional
 
 import torch
 
-HEAD_DIM = 64
+# Head dims the kernel takes: multiples of 8 from 8 to 128 (it pads to 64
+# or 128 columns in shared memory and stores only the true ones).
+HEAD_DIMS = range(8, 129, 8)
+
+
+def flash_attention_applicable(q: torch.Tensor) -> bool:
+    """The dtype gate of ``ops.attention``: the kernel takes bf16; calls in
+    any other dtype (the fp32 default) take the plain path, as the JAX
+    package sends them to XLA. The wrapper itself still raises on a non-bf16
+    CUDA tensor."""
+    return q.dtype == torch.bfloat16
 
 
 def attention_reference(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
@@ -32,12 +42,15 @@ def attention_reference(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
     return (torch.softmax(s, dim=-1) @ v.float()).to(q.dtype)
 
 
-def _check_cuda_args(q, k, v, scale: float = HEAD_DIM ** -0.5):
+def _check_cuda_args(q, k, v, scale: Optional[float] = None):
     """Raises on what the kernel does not take. q, k, v may be views (the
     packed qkv projection's, a transposed [B, N, H, Dh]): the last dim must be
     contiguous, every other stride a multiple of 8 elements (16 bytes, as
     TMA reads rows) and each base 16-byte aligned. The scale must be > 0
-    (the kernel takes the row max of the unscaled scores)."""
+    (the kernel takes the row max of the unscaled scores); it defaults to
+    the head dim ** -0.5."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
     if not scale > 0:
         raise ValueError(f"flash_attention: scale must be > 0, got {scale}")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
@@ -45,9 +58,9 @@ def _check_cuda_args(q, k, v, scale: float = HEAD_DIM ** -0.5):
     if k.shape != v.shape or q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} do not match")
-    if q.shape[3] != HEAD_DIM:
-        raise ValueError(f"flash_attention: head dim must be {HEAD_DIM}, "
-                         f"got {q.shape[3]}")
+    if q.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim must be a multiple of 8 "
+                         f"from 8 to 128, got {q.shape[3]}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"flash_attention: {name} is on {t.device}")
@@ -69,8 +82,8 @@ def _check_cuda_args(q, k, v, scale: float = HEAD_DIM ** -0.5):
 
 def _strides(t):
     """(batch, head, row) strides in elements; a dim of size 1 is never
-    stepped, so its stride is reported as one row (128 bytes)."""
-    return tuple(st if n > 1 else HEAD_DIM
+    stepped, so its stride is reported as one row (the head dim)."""
+    return tuple(st if n > 1 else t.shape[3]
                  for n, st in zip(t.shape[:3], t.stride()[:3]))
 
 
@@ -80,14 +93,14 @@ def _forward(q, k, v, scale: float) -> torch.Tensor:
     _check_cuda_args(q, k, v, scale)
     from vitlens_tpu_torch.ops import _build
 
-    B, H, NQ, _ = q.shape
-    out = torch.empty((B, NQ, H, HEAD_DIM), dtype=q.dtype, device=q.device)
+    B, H, NQ, dh = q.shape
+    out = torch.empty((B, NQ, H, dh), dtype=q.dtype, device=q.device)
     if B * H * NQ == 0:
         return out.transpose(1, 2)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = _build.stream_of(q)
     err = _build.library().vitlens_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, NQ,
-        k.shape[2], *_strides(q), *_strides(k), *_strides(v), float(scale),
+        k.shape[2], dh, *_strides(q), *_strides(k), *_strides(v), float(scale),
         stream)
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
@@ -129,13 +142,12 @@ def flash_attention(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
     """q [B, H, NQ, Dh], k/v [B, H, NK, Dh] -> [B, H, NQ, Dh], no mask.
 
     CPU tensors take :func:`attention_reference`. CUDA tensors launch the
-    kernel: bf16, head dim 64, views with a contiguous last dim and strides
-    of 16 bytes (see :func:`_check_cuda_args`); the result is a
-    [B, NQ, H, Dh] tensor seen as [B, H, NQ, Dh], so that
-    ``out.transpose(1, 2).reshape(B, NQ, H * Dh)`` is a view. Anything else
-    raises. When
-    autograd records and an input requires grad, this is
-    :class:`FlashAttentionFunction`."""
+    kernel: bf16, a head dim that is a multiple of 8 from 8 to 128, views
+    with a contiguous last dim and strides of 16 bytes (see
+    :func:`_check_cuda_args`); the result is a [B, NQ, H, Dh] tensor seen as
+    [B, H, NQ, Dh], so that ``out.transpose(1, 2).reshape(B, NQ, H * Dh)``
+    is a view. Anything else raises. When autograd records and an input
+    requires grad, this is :class:`FlashAttentionFunction`."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad

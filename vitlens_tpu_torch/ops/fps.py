@@ -104,7 +104,7 @@ def fps_indices(xyz: torch.Tensor, npoint: int,
     idx = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
     if B == 0:
         return idx
-    stream = torch.cuda.current_stream(xyz.device).cuda_stream
+    stream = _build.stream_of(xyz)
     err = _build.library().vitlens_fps_fwd(
         xyz.data_ptr(), start.data_ptr(), idx.data_ptr(), B, N, npoint, stream)
     _build.check(err, "fps_indices")

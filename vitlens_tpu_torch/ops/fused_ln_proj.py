@@ -75,7 +75,7 @@ def _forward(x, lnw, lnb, w, b, eps):
     if m == 0:
         return out
     stats = torch.empty((2, m), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = _build.stream_of(x)
     err = _build.library().vitlens_fused_ln_proj_fwd(
         x.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), w.data_ptr(),
         b.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(), out.data_ptr(),

@@ -51,6 +51,15 @@ def _layer_norm32(x, lnw, lnb, eps):
     return xhat, rstd, xhat * lnw.float() + lnb.float()
 
 
+def fused_mlp_applicable(x: torch.Tensor) -> bool:
+    """The dtype gate of the call sites: JAX's ``fused_mlp_applicable``
+    without its TPU row threshold. The kernel takes bf16 activations; a block
+    whose activations are in any other dtype (the fp32 default) takes the
+    plain composition, as the JAX package sends them to XLA. The wrapper
+    itself still raises on a non-bf16 CUDA tensor."""
+    return x.dtype == torch.bfloat16
+
+
 def fused_mlp_reference(x, lnw, lnb, w1, b1, w2, b2, act: str = "gelu",
                         eps: float = 1e-5, save_preact: bool = False):
     """Plain PyTorch version. x [M, D]; lnw, lnb [D]; w1 [D, H]; b1 [H];
@@ -105,7 +114,7 @@ def _launch(x, lnw, lnb, w1, b1, w2, b2, act, eps, save_preact):
         return (out, a) if save_preact else out
     y_scratch = torch.empty_like(x)
     h_scratch = torch.empty((m, h), dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = _build.stream_of(x)
     lib = _build.library()
     ptrs = [x.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), w1.data_ptr(),
             b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), y_scratch.data_ptr(),

@@ -103,7 +103,7 @@ def _launch(x, lnw, lnb, w1, b1, w2, b2, act, eps, outproj):
     if m == 0:
         return out
     lib = _build.library()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = _build.stream_of(x)
     mlp = [lnw.data_ptr(), lnb.data_ptr(), w1.data_ptr(), b1.data_ptr(),
            w2.data_ptr(), b2.data_ptr(), out.data_ptr()]
     tail = (m, d, w1.shape[1], ACTS.index(act), float(eps), stream)

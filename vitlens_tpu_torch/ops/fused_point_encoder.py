@@ -32,6 +32,14 @@ def _bn_fold(bn: Sequence[torch.Tensor], eps: float):
     return mean.float(), inv, bias.float()
 
 
+def point_encoder_applicable(nb: torch.Tensor) -> bool:
+    """The dtype gate of the tokenizer, as in JAX's
+    ``point_encoder_applicable``: the kernel takes bf16 groups; groups in any
+    other dtype (the fp32 default) take :func:`point_encoder_reference`. The
+    wrapper itself still raises on a non-bf16 CUDA tensor."""
+    return nb.dtype == torch.bfloat16
+
+
 def point_encoder_reference(nb, w1, b1, bn1, w2, b2, w3, b3, bn2, w4, b4,
                             eps: float = BN_EPS) -> torch.Tensor:
     """Plain version: nb [..., M, 3] -> [..., C4] in nb's dtype. Matmuls
@@ -112,7 +120,7 @@ def fused_point_encoder(nb, w1, b1, bn1, w2, b2, w3, b3, bn2, w4, b4,
         return out
     m1, i1, s1 = _bn_fold(bn1, eps)
     m2, i2, s2 = _bn_fold(bn2, eps)
-    stream = torch.cuda.current_stream(nb.device).cuda_stream
+    stream = _build.stream_of(nb)
     err = _build.library().vitlens_point_encoder_fwd(
         nb.data_ptr(), w1.data_ptr(), b1.data_ptr(), m1.data_ptr(),
         i1.data_ptr(), s1.data_ptr(), w2.data_ptr(), b2.data_ptr(),

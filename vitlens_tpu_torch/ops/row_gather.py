@@ -58,10 +58,9 @@ def row_gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     out = torch.empty((j, d), dtype=table.dtype, device=table.device)
     if j == 0:
         return out
-    stream = torch.cuda.current_stream(table.device).cuda_stream
     err = _build.library().vitlens_row_gather_fwd(
         table.data_ptr(), ids.data_ptr(), out.data_ptr(), j, v,
-        d * table.element_size(), stream)
+        d * table.element_size(), _build.stream_of(table))
     _build.check(err, "row_gather")
     row_gather.launches += 1
     return out

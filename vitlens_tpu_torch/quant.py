@@ -31,7 +31,11 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from vitlens_tpu_torch.ops.int8_matmul import int8_matmul as _int8_product
+from vitlens_tpu_torch.ops.int8_matmul import (dequant_reference,
+                                               int8_matmul_dequant,
+                                               int8_matmul_reference as _product_reference,
+                                               int8_quantize,
+                                               int8_quantize_reference)
 
 _Q = 127.0
 
@@ -40,12 +44,26 @@ def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """[..., K, N] float -> (int8 [..., K, N], fp32 scales [..., 1, N]).
 
     Symmetric per output channel: s_n = max(amax_k |w[..., k, n]| / 127,
-    1e-12), q = clip(round(w / s), -127, 127). Works unchanged on stacked
-    [L, K, N] weights (the reduction is over axis -2 only)."""
+    1e-12), q = clip(round(w / s), -127, 127), with IEEE divisions on either
+    device (see ``ops.int8_matmul.int8_quantize_reference``). Works unchanged
+    on stacked [L, K, N] weights (the reduction is over axis -2 only)."""
     wf = w.detach().float()
-    s = (wf.abs().amax(dim=-2, keepdim=True) / _Q).clamp_min(1e-12)
+    amax = wf.abs().amax(dim=-2, keepdim=True)
+    s = (amax / amax.new_tensor(_Q)).clamp_min(1e-12)
     q = torch.round(wf / s).clamp(-_Q, _Q).to(torch.int8)
     return q, s
+
+
+def int8_matmul_reference(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
+                          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain version of :func:`int8_matmul`, on either device: the
+    quantise step, the exact int8 product and the dequantise step as plain
+    tensor code (``ops.int8_matmul``'s ``*_reference`` functions)."""
+    shape = x.shape
+    k, n = shape[-1], w_q.shape[-1]
+    xi, xs = int8_quantize_reference(x.reshape(-1, k))
+    y = dequant_reference(_product_reference(xi, w_q), xs, w_s, bias, x.dtype)
+    return y.reshape(shape[:-1] + (n,))
 
 
 def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
@@ -54,20 +72,20 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
     """x [..., K] @ dequant(w_q, w_s) with dynamic per-row activation
     quantization, in x.dtype.
 
-    One amax over the contracted axis gives each row's scale in fp32; the
-    int8 x int8 -> int32 product is ``ops.int8_matmul`` (the Hopper kernel
-    on CUDA tensors, which reads ``w_qt``, w_q transposed); the row scale,
-    the column scale and the bias are applied in fp32 before the one cast."""
+    One amax over the contracted axis gives each row's scale in fp32
+    (``ops.int8_quantize``); the int8 x int8 -> int32 product, the row scale,
+    the column scale and the bias, applied in fp32 before the one cast, are
+    ``ops.int8_matmul_dequant``. On CUDA tensors these are two kernel launches
+    (the product reads ``w_qt``, w_q transposed), which make no other pass
+    over the activations, as XLA fuses the JAX package's; on CPU tensors
+    they are :func:`int8_matmul_reference`'s plain steps."""
     shape = x.shape
     k, n = shape[-1], w_q.shape[-1]
-    x2 = x.reshape(-1, k).float()
-    xs = (x2.abs().amax(dim=-1, keepdim=True) / _Q).clamp_min(1e-12)
-    xi = torch.round(x2 / xs).clamp(-_Q, _Q).to(torch.int8)
-    acc = _int8_product(xi, w_q, w_qt)
-    y = acc.float() * xs * w_s.reshape(1, n)
+    xi, xs = int8_quantize(x.reshape(-1, k))
     if bias is not None:
-        y = y + bias.float()
-    return y.to(x.dtype).reshape(shape[:-1] + (n,))
+        bias = bias.float()
+    y = int8_matmul_dequant(xi, w_q, xs, w_s, bias, x.dtype, w_qt)
+    return y.reshape(shape[:-1] + (n,))
 
 
 def _swap_weight_(module: nn.Module, name: str) -> None:
