@@ -16,9 +16,15 @@ Phases, one printed line each (or more); any failure exits non-zero:
      and Lens views bit-equal to contiguous copies; and head dims 32, 80,
      88, 104, 112 and 128 at every NQ, NK in {1, 77, 257, 600}, contiguous
      and on the packed-qkv views), fused LN + projection (bf16, <= 1e-2
-     relative), FPS (index-exact, at B64/N 8192 with zero starts and B8/N
-     10000 with random starts) and the point encoder (bf16, <= 2e-2
-     relative), the int8 product's INT32 epilogue (equal, at 4096^3, at the
+     relative; ragged M at D/N 768/2304, 1024/3072 and 1664/4992, bigG's
+     ragged N), FPS
+     (index-exact, at B64/N 8192 with zero starts and B8/N 10000 with random
+     starts) and the point encoder (bf16, <= 2e-2 relative; at the pc
+     path's [64, 512, 32] and at every group size M in {16, 32, 48, 64,
+     128} with 21 groups, a count no tile size divides but 1; at M = 48,
+     80 and 128 over more tiles than two a CTA, groups straddling its two
+     consumers; at C4 = 384 and 512, conv4 in passes), the int8 product's
+     INT32 epilogue (equal, at 4096^3, at the
      quantized encode's ragged M = 49344 and at an M that is not a multiple
      of 64), its DEQUANT epilogue (bit-equal to the plain dequantise of the
      same product, with and without bias, bf16 and fp32 output), the
@@ -46,7 +52,10 @@ Phases, one printed line each (or more); any failure exits non-zero:
      (cosine >= 0.99) of the B = 1 audio and pc requests and the text request
      with the same weights moved to the CPU in fp32, where the plain versions
      run. The pc clouds are rounded through bf16 first, so that both runs give
-     FPS the same coordinates; their FPS indices must be equal.
+     FPS the same coordinates; their FPS indices must be equal. Then the B = 1
+     pc request again with the tokenizer's group size set to 24, which the
+     point-encoder kernel does not take: the plain encoder runs (1 FPS, 0
+     point-encoder launches) and the cosine against the CPU holds.
   4f. fp32 default: ViTLens("vitlensL", ("audio", "pc", "text")) with its
      default compute dtype (fp32, as in JAX) encodes B = 2 of each on the
      card through the plain paths (the kernels take bf16, as JAX's gates
@@ -91,8 +100,8 @@ Phases, one printed line each (or more); any failure exits non-zero:
   5. timing: each kernel against its plain version (and, where one PyTorch
      call computes the same function, that call) at the B64 shapes of the
      main paths, beside each kernel's bound, with cuBLAS's two products
-     (torch.addmm on the normalised input) beside the fused MLP and the trunk
-     attention also on the packed-qkv views; the audio (64 samples x 3 clips)
+     (torch.addmm on the normalised input) beside the fused MLP and the
+     fused LN + projection, the trunk attention also on the packed-qkv views; the audio (64 samples x 3 clips)
      and pc (64 clouds) encode rates at B64 in bf16, the audio encode also
      with the opt-in; the audio train-step rate at B64 with and without the
      opt-in, with the peak device memory; attention at the bigG trunk's
@@ -114,6 +123,7 @@ The last lines are {"kernels": [...]}, the card's name and power limit, then
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import os
 import subprocess
@@ -352,10 +362,11 @@ def host_us(torch, fn, iters=300):
 ENC_WIDTHS = (128, 256, 512, 256)  # the PointBERT encoder's C1..C4
 
 
-def enc_inputs(torch, g, bg_shape, m):
+def enc_inputs(torch, g, bg_shape, m, c4=ENC_WIDTHS[3]):
     """Group points [..., M, 3] bf16 and encoder weights with nontrivial BN
-    statistics, in the wrapper's argument order."""
-    c1, c2, c3, c4 = ENC_WIDTHS
+    statistics, in the wrapper's argument order; C4 is the tokenizer's
+    encoder_dims."""
+    c1, c2, c3 = ENC_WIDTHS[:3]
 
     def r(*shape, std=1.0):
         return torch.randn(*shape, generator=g, device="cuda") * std
@@ -1332,15 +1343,29 @@ def main() -> int:
         if n_diff:
             fail(f"fps_indices B{b} N{n} {starts} starts: {n_diff} indices "
                  "differ from the plain version")
-    enc_args = enc_inputs(torch, g, (B, 512), 32)
-    got = fused_point_encoder(*enc_args)
-    torch.cuda.synchronize()
-    want = point_encoder_reference(*enc_args)
-    e = rel_err(got, want)
-    err["point_encoder"] = abs_err(got, want)
-    checks.append(f"enc{B}x512x32={e:.2e}")
-    if not (torch.isfinite(got).all() and e <= ENC_TOL):
-        fail(f"fused_point_encoder: rel err {e} > {ENC_TOL}")
+    err["point_encoder"] = 0.0
+    # Every M on 21 groups (a ragged last tile); then many tiles a CTA (more
+    # than 2 x 132) with groups straddling the two consumers (M = 48, 80,
+    # 128); C4 = 384 (three passes of 128 columns) and 512 (two of 256);
+    # last the pc encode's B64 shape, timed in phase 5.
+    for bg_shape, m, c4 in (((3, 7), 16, 256), ((3, 7), 32, 256),
+                            ((3, 7), 48, 256), ((3, 7), 64, 256),
+                            ((3, 7), 128, 256), ((B, 512), 48, 256),
+                            ((3, 101), 80, 256), ((3, 101), 128, 256),
+                            ((3, 101), 48, 384), ((3, 7), 128, 512),
+                            ((B, 64), 32, 512), ((B, 512), 32, 256)):
+        args = enc_inputs(torch, g, bg_shape, m, c4)
+        got = fused_point_encoder(*args)
+        torch.cuda.synchronize()
+        want = point_encoder_reference(*args)
+        e = rel_err(got, want)
+        err["point_encoder"] = max(err["point_encoder"], abs_err(got, want))
+        label = "x".join(map(str, bg_shape))
+        checks.append(f"enc{label}x{m}/{c4}={e:.2e}")
+        if not (torch.isfinite(got).all() and e <= ENC_TOL):
+            fail(f"fused_point_encoder {label} M={m} C4={c4}: rel err {e} > "
+                 f"{ENC_TOL}")
+    enc_args = args  # [B, 512, 32]: timed in phase 5
     for m, d, h in ((6168, 1024, 4096), (1001, 1024, 4096), (4100, 1024, 4096),
                     (616, 768, 3072), (4100, 1664, 8192)):
         for act in ("gelu", "quick_gelu"):
@@ -1358,7 +1383,7 @@ def main() -> int:
                      f"{e_pre} > {MLP_TOL}, {PREACT_TOL}")
     err["fused_ln_proj"] = 0.0
     for m, d, n in ((6168, 1024, 3072), (1001, 1024, 3072), (6168, 768, 2304),
-                    (1001, 768, 2304)):
+                    (1001, 768, 2304), (4100, 1664, 4992), (77, 1664, 4992)):
         a = ln_proj_inputs(torch, g, m, d, n)
         got = fused_ln_proj(*a)
         torch.cuda.synchronize()
@@ -1470,6 +1495,23 @@ def main() -> int:
     cos = {path: torch.nn.functional.cosine_similarity(
         card_emb[path].float().cpu(), want[path][path].float(), dim=-1).min().item()
         for path in want}
+    # A group size the point-encoder kernel does not take (M = 24): the
+    # tokenizer's gate sends the groups to the plain encoder, on both.
+    tok_card, tok_ref = model.towers["pc"].adapter, ref.towers["pc"].adapter
+    saved = (tok_card.cfg, tok_ref.cfg)
+    tok_card.cfg = tok_ref.cfg = dataclasses.replace(tok_card.cfg, group_size=24)
+    try:
+        emb24, counts24 = run_counted(
+            torch, counters, launches,
+            lambda: model.encode({"pc": clouds[1]}, preprocessed=True)["pc"])
+        want24 = ref.encode({"pc": clouds[1].cpu()}, preprocessed=True)["pc"]
+    finally:
+        tok_card.cfg, tok_ref.cfg = saved
+    if counts24 != expected(n_layers, n_attn(pcfg), 1, 0):
+        fail(f"pc B=1 at group size 24: launches {counts24}, expected no "
+             "point-encoder launch")
+    cos["pc group size 24"] = torch.nn.functional.cosine_similarity(
+        emb24.float().cpu(), want24.float(), dim=-1).min().item()
     del ref
     n_group = pcfg.point.num_group
     idx_card = fps_indices(clouds[1].bfloat16(), n_group).cpu()
@@ -1483,7 +1525,9 @@ def main() -> int:
           f"(path, B, launches (mlp, attn, fps, encoder)) {per_call}; "
           f"main-path totals {launches}; min cosine vs CPU fp32 plain path: "
           + " ".join(f"{k} {v:.6f}" for k, v in cos.items())
-          + f"; pc B=1 FPS indices equal on card and CPU ({n_group} centers)",
+          + f"; pc B=1 FPS indices equal on card and CPU ({n_group} centers); "
+          f"pc B=1 at group size 24 through the plain encoder, launches "
+          f"{tuple(counts24[k] for k in ('fused_mlp', 'flash_attention', 'fps', 'point_encoder'))}",
           flush=True)
 
     # -- 4f: the fp32 default; 4h: head dims other than 64 --------------------

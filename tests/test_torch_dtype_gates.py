@@ -141,13 +141,18 @@ def test_bf16_reaches_the_kernel(case, monkeypatch):
 @pytest.mark.parametrize("dtype,taken", [(torch.bfloat16, True), (torch.float32, False),
                                          (torch.float16, False)])
 def test_gate_predicates(dtype, taken):
-    """Each gate is a predicate of the activations' dtype alone: no shape or
-    size threshold."""
+    """The MLP and attention gates are predicates of the activations' dtype
+    alone: no shape or size threshold. The point encoder's also reads the
+    group size and widths its kernel takes; at the tokenizer's own (M = 32,
+    the published widths) it too follows the dtype alone, at any batch."""
     for shape in ((1, 8), (4096, 1024)):
         x = torch.zeros(shape, dtype=dtype)
         assert fused_mlp_applicable(x) is taken
         assert flash_attention_applicable(x.view(1, 1, *shape)) is taken
-        assert point_encoder_applicable(x.view(1, 1, *shape)) is taken
+    ws = [torch.zeros(a, b) for a, b in ((3, 128), (128, 256), (512, 512), (512, 256))]
+    for groups in ((1, 1), (64, 512)):
+        nb = torch.zeros(*groups, 32, 3, dtype=dtype)
+        assert point_encoder_applicable(nb, *ws) is taken
 
 
 def test_masked_bf16_attention_stays_plain(monkeypatch):

@@ -135,22 +135,23 @@ def test_fused_ln_proj_kernel_argument_checks():
     args[1] = args[1].to("meta")
     with pytest.raises(ValueError, match="is on"):
         PFL._check_cuda_args(*args)
-    assert _build._SIGNATURES["vitlens_fused_ln_proj_fwd"][:8] == [_build._P] * 8
+    sig = _build._SIGNATURES["vitlens_fused_ln_proj_fwd"]  # y scratch, no stats
+    assert sig[:7] == [_build._P] * 7 and sig[7] == _build._I
 
 
 def test_source_hash_covers_every_kernel_source(tmp_path, monkeypatch):
-    """fused_ln_proj.cu is built, and an edit to it or to the shared GEMM
-    header changes the build's hash (so a stale library is never loaded);
+    """fused_ln_proj.cu is built, and an edit to it or to the Hopper GEMM
+    header it runs on changes the build's hash (so a stale library is never loaded);
     the header is included, not compiled on its own."""
     names = sorted(p.name for p in _build.CSRC.iterdir())
-    assert "fused_ln_proj.cu" in names and "gemm_bf16.cuh" in names
+    assert "fused_ln_proj.cu" in names and "gemm_sm90.cuh" in names
     for name in names:
         (tmp_path / name).write_bytes((_build.CSRC / name).read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     assert [p.name for p in _build._sources()] == [
         n for n in names if n.endswith(".cu")]
     seen = {_build.source_hash()}
-    for name in ("fused_ln_proj.cu", "gemm_bf16.cuh"):
+    for name in ("fused_ln_proj.cu", "gemm_sm90.cuh"):
         with open(tmp_path / name, "a") as f:
             f.write("\n// edit\n")
         seen.add(_build.source_hash())
@@ -301,10 +302,16 @@ def test_point_encoder_kernel_argument_checks():
     PFE._check_cuda_args(*_enc_args())
     with pytest.raises(ValueError, match="bfloat16"):
         PFE._check_cuda_args(*_enc_args(nb_dtype=torch.float32))
-    with pytest.raises(ValueError, match="group size"):
-        PFE._check_cuda_args(*_enc_args(m=48))
-    with pytest.raises(ValueError, match="multiples of 64"):
-        PFE._check_cuda_args(*_enc_args(c=(128, 256, 512, 200)))
+    for m in (16, 48, 128):  # multiples of 16 up to the 128-row tile
+        PFE._check_cuda_args(*_enc_args(m=m))
+    for m in (8, 24, 144):
+        with pytest.raises(ValueError, match="group size"):
+            PFE._check_cuda_args(*_enc_args(m=m))
+    for c4 in (128, 384, 512):  # any multiple of 128, 256 or 128 a pass
+        PFE._check_cuda_args(*_enc_args(c=(128, 256, 512, c4)))
+    for c in ((128, 256, 512, 200), (128, 256, 384, 256), (64, 256, 512, 256)):
+        with pytest.raises(ValueError, match="widths"):
+            PFE._check_cuda_args(*_enc_args(c=c))
     args = _enc_args()
     args[4] = torch.zeros(128, 128, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="w3 must be"):

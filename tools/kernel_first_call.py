@@ -86,10 +86,25 @@ def encoder_inputs(g, shape, widths):
 
 FPS_CASES = ((64, 8192, 512, False), (8, 10000, 512, True),
              (3, 100, 64, True), (2, 16384, 512, False))
-ENC_CASES = (((64, 512, 32), (128, 256, 512, 256)),
-             ((1, 25, 16), (128, 256, 512, 256)),
+# (groups shape with M, widths): every M the kernel takes at a group count
+# that fills no whole last tile, C4 = 128, 384 and 512 (conv4 in passes),
+# many tiles a CTA with groups straddling its two consumers, then the pc
+# encode's B64 shape.
+ENC_CASES = (((1, 25, 16), (128, 256, 512, 256)),
+             ((3, 7, 32), (128, 256, 512, 256)),
+             ((2, 9, 48), (128, 256, 512, 256)),
              ((3, 7, 64), (128, 256, 512, 256)),
-             ((2, 9, 32), (64, 192, 320, 192)))
+             ((1, 3, 80), (128, 256, 512, 256)),
+             ((2, 5, 128), (128, 256, 512, 256)),
+             ((2, 9, 32), (128, 256, 512, 128)),
+             ((2, 9, 48), (128, 256, 512, 384)),
+             ((3, 7, 128), (128, 256, 512, 512)),
+             ((1, 1, 16), (128, 256, 512, 256)),
+             ((1, 1000, 32), (128, 256, 512, 256)),
+             ((3, 101, 80), (128, 256, 512, 256)),
+             ((64, 512, 48), (128, 256, 512, 256)),
+             ((64, 512, 32), (128, 256, 512, 512)),
+             ((64, 512, 32), (128, 256, 512, 256)))
 
 
 def rel_err(got, want):
@@ -259,10 +274,12 @@ def check_attn_hd(g):
 
 def check_ln_proj(g):
     """The fused LN + projection against its plain version, bf16, 1e-2
-    relative."""
+    relative: ragged M, the three trunk widths, bigG's ragged N = 4992, and
+    the trunk's M = 16448 and 49344."""
     ok = True
     for m, d, n in ((6168, 1024, 3072), (1001, 1024, 3072), (1001, 768, 2304),
-                    (1, 768, 2304), (49344, 1024, 3072)):
+                    (1, 768, 2304), (77, 1664, 4992), (4100, 1664, 4992),
+                    (16448, 1024, 3072), (49344, 1024, 3072)):
         x = (torch.randn(m, d, generator=g, device="cuda") * 0.5
              + torch.randn(d, generator=g, device="cuda")).bfloat16()
         lnw = 1 + torch.randn(d, generator=g, device="cuda") * 0.1

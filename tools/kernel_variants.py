@@ -2,7 +2,9 @@
 """Times variants of a kernel against the committed source, in one process on
 one card, at its main path's shapes.
 
-    python3 tools/kernel_variants.py encoder     # the point encoder, [64, 512, 32, 3]
+    python3 tools/kernel_variants.py encoder     # the point encoder, [64, 512, 32, 3] and M = 48
+    python3 tools/kernel_variants.py lnproj      # the fused LN + projection beside its in-place design (tools/ln_proj_variants/)
+    python3 tools/kernel_variants.py lnproj '{"inplace_no_norm": {"@source": "tools/ln_proj_variants/fused_ln_proj_inplace.cu", "ln_normalise\\(smem \\+ s \\* STAGE_BYTES[^;]*;": ";"}}'
     python3 tools/kernel_variants.py attn        # attention, its main shapes and bigG's D = 104
     python3 tools/kernel_variants.py mlp         # the fused MLP, M = 49344 and 16448
     python3 tools/kernel_variants.py int8        # the int8 DEQUANT product, fc and proj
@@ -47,15 +49,58 @@ from vitlens_tpu_torch.ops.fused_point_encoder import (  # noqa: E402
 
 WIDTHS = (128, 256, 512, 256)
 
-# Tile shapes around the committed one, and the committed kernel with its
-# tensor-core products replaced by a register op (its output is wrong; its
-# time is that of everything but the mma.sync instructions).
+# The point encoder's knobs (csrc/fused_point_encoder.cu): the g-product on
+# CUDA cores instead of a padded m64 wgmma (the W3[:C2] tiles then leave the
+# ring, and the kernel reads W3 through L1), the ring's depth and the
+# consumers' register share; then the committed kernel with its products
+# cut out (its output is wrong; its time is that of everything but the wgmma
+# instructions), also without its weight loads, or with half the weight
+# bytes. Rows a tile (128) and clusters (none) are fixed in this design.
+_ENC_G_CORES = r"""
+    for (int col = 2 * t2; col < C3; col += 2 * 128 * CONSUMERS) {
+      float acc[MAX_GROUPS][2] = {};
+      for (int k = 0; k < C2; ++k) {
+        const float2 w = __bfloat1622float2(
+            *reinterpret_cast<const bf162*>(a.w3 + k * C3 + col));
+#pragma unroll
+        for (int t = 0; t < MAX_GROUPS; ++t)
+          if (t < ng) {
+            const float gv =
+                __bfloat162float(*reinterpret_cast<const bf16*>(R + swz(t, k, G_ATOM)));
+            acc[t][0] = fmaf(gv, w.x, acc[t][0]);
+            acc[t][1] = fmaf(gv, w.y, acc[t][1]);
+          }
+      }
+#pragma unroll
+      for (int t = 0; t < MAX_GROUPS; ++t)
+        if (t < ng) {
+          GT[t * C3 + col] = acc[t][0];
+          GT[t * C3 + col + 1] = acc[t][1];
+        }
+    }"""
+_ENC_NO_MMA = {r"wgmma_m64n128k16\(d, da[^;]*;": "(void)da;",
+               r"wgmma_m64n128k16_first\(d, da, db\);": "(void)db;",
+               r"wgmma_m64n64k16(_first)?\(a3, da, db\);": "(void)db;"}
 ENCODER_VARIANTS = {
-    "bk64": {"constexpr int BK = 32;": "constexpr int BK = 64;"},
-    "nc256_s2": {"constexpr int NC = 128;": "constexpr int NC = 256;",
-                 "constexpr int STAGES = 3;": "constexpr int STAGES = 2;"},
-    "no_mma": {r"mma_bf16\(acc\[i\]\[j\], af\[i\], bfr\[j\]\[0\], bfr\[j\]\[1\]\);":
-               "acc[i][j][0] += __uint_as_float(af[i][0] ^ bfr[j][0]);"},
+    "g_cores": {
+        r"for \(int kt = 0; kt < C2 / 64; \+\+kt\)\s*for \(int q = 0; q < NB3; \+\+q\)"
+        r"[^\n]*\n\s*load\(&map_w3, [^;]*;": "",
+        r"(?s)(// 3\. gterm = g @ W3\[:C2\] -> GT \[groups, C3\] fp32\n).*?"
+        r"(\n\s*named_sync\(1, 128 \* CONSUMERS\);  // GT complete)":
+        r"\1" + _ENC_G_CORES + r"\2",
+        r"  bf16\* out;\n  int BG, M, C4;": "  bf16* out;\n  const bf16* w3;\n  int BG, M, C4;",
+        r"static_cast<bf16\*>\(out\), BG, M, c4\}":
+        "static_cast<bf16*>(out), static_cast<const bf16*>(w3), BG, M, c4}"},
+    "nst4": {"constexpr int NST = 5;": "constexpr int NST = 4;"},
+    "reg232": {r"setmaxnreg\.inc\.sync\.aligned\.u32 240": "setmaxnreg.inc.sync.aligned.u32 232",
+               r"setmaxnreg\.dec\.sync\.aligned\.u32 24": "setmaxnreg.dec.sync.aligned.u32 40"},
+    "no_mma": _ENC_NO_MMA,
+    "no_mma_no_load": {**_ENC_NO_MMA, r"tma_load_2d\(st(, | \+ BOX_BYTES)[^;]*;": ";",
+                       r"it\+\+, STAGE,": "it++, 0,"},
+    "half_load": {r"it\+\+, STAGE,(\s*\[&\]\(unsigned char\* st, uint64_t\* bar\) \{"
+                  r"\s*tma_load_2d\(st, map, bar, ncol, krow\);)"
+                  r"\s*tma_load_2d\(st \+ BOX_BYTES, map, bar,\s*ncol \+ 64, krow\);":
+                  r"it++, BOX_BYTES,\1"},
 }
 
 
@@ -129,19 +174,51 @@ def encoder_cases(g):
          r(c1, c2, std=c1 ** -0.5).bfloat16(), r(c2, std=0.1),
          r(2 * c2, c3, std=(2 * c2) ** -0.5).bfloat16(), r(c3, std=0.1), bn(c3),
          r(c3, c4, std=c3 ** -0.5).bfloat16(), r(c4, std=0.1))
-    nb = r(64, 512, 32, 3, std=0.1).bfloat16()
     m1, i1, s1 = _bn_fold(w[2], 1e-5)
     m2, i2, s2 = _bn_fold(w[7], 1e-5)
-    out = torch.empty(64, 512, c4, dtype=torch.bfloat16, device="cuda")
+    cases = []
+    for m in (32, 48):
+        nb = r(64, 512, m, 3, std=0.1).bfloat16()
+        out = torch.empty(64, 512, c4, dtype=torch.bfloat16, device="cuda")
 
-    def call(fn):
-        return fn(nb.data_ptr(), w[0].data_ptr(), w[1].data_ptr(), m1.data_ptr(),
-                  i1.data_ptr(), s1.data_ptr(), w[3].data_ptr(), w[4].data_ptr(),
-                  w[5].data_ptr(), w[6].data_ptr(), m2.data_ptr(), i2.data_ptr(),
-                  s2.data_ptr(), w[8].data_ptr(), w[9].data_ptr(), out.data_ptr(),
-                  64 * 512, 32, c1, c2, c3, c4, _stream())
+        def call(fn, nb=nb, out=out, m=m):
+            return fn(nb.data_ptr(), w[0].data_ptr(), w[1].data_ptr(), m1.data_ptr(),
+                      i1.data_ptr(), s1.data_ptr(), w[3].data_ptr(), w[4].data_ptr(),
+                      w[5].data_ptr(), w[6].data_ptr(), m2.data_ptr(), i2.data_ptr(),
+                      s2.data_ptr(), w[8].data_ptr(), w[9].data_ptr(), out.data_ptr(),
+                      64 * 512, m, c1, c2, c3, c4, _stream())
 
-    return [("[64,512,32,3]", call, point_encoder_reference(nb, *w), out)]
+        cases.append((f"[64,512,{m},3]", call, point_encoder_reference(nb, *w), out))
+    return cases
+
+
+# The in-place design (A normalised in shared memory inside the GEMM, its
+# source under tools/ln_proj_variants/), against which the committed
+# two-launch kernel was chosen.
+LNPROJ_VARIANTS = {
+    "inplace": {"@source": "tools/ln_proj_variants/fused_ln_proj_inplace.cu"}}
+
+
+def lnproj_cases(g):
+    """The trunk's qkv shapes: M = 49344 (B64 x 3 clips) and 16448 (B64),
+    D 1024, N 3072."""
+    from vitlens_tpu_torch.ops.fused_ln_proj import ln_proj_reference
+
+    cases = []
+    for m in (49344, 16448):
+        d, n = 1024, 3072
+        x, lnw, lnb, w, b = chip_smoke.ln_proj_inputs(torch, g, m, d, n)
+        y = torch.empty(m, d, dtype=torch.bfloat16, device="cuda")
+        out = torch.empty(m, n, dtype=torch.bfloat16, device="cuda")
+
+        def call(fn, x=x, lnw=lnw, lnb=lnb, w=w, b=b, y=y, out=out, m=m):
+            return fn(x.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), w.data_ptr(),
+                      b.data_ptr(), y.data_ptr(), out.data_ptr(), m, d, n, 1e-5,
+                      _stream())
+
+        cases.append((f"M={m} D={d} N={n}", call,
+                      ln_proj_reference(x, lnw, lnb, w, b), out))
+    return cases
 
 
 ATTN_SHAPES = (("trunk", 192, 16, 257, 257, 64), ("lens cross", 192, 1, 256, 600, 64),
@@ -290,6 +367,8 @@ def _stream():
 KERNELS = {  # source, entry point, cases, default variants
     "encoder": ("fused_point_encoder.cu", "vitlens_point_encoder_fwd",
                 encoder_cases, ENCODER_VARIANTS),
+    "lnproj": ("fused_ln_proj.cu", "vitlens_fused_ln_proj_fwd", lnproj_cases,
+               LNPROJ_VARIANTS),
     "attn": ("flash_attention.cu", "vitlens_flash_attention_fwd", attn_cases,
              ATTN_VARIANTS),
     "mlp": ("fused_mlp.cu", "vitlens_fused_mlp_fwd", mlp_cases, {}),

@@ -115,8 +115,9 @@ class PointTokenizer(nn.Module):
         FPS starts at point 0, as JAX does in eval."""
         cfg, e = self.cfg, self.encoder
         nb, center = group_points(pts, cfg.num_group, cfg.group_size)
-        encoder = (fused_point_encoder if point_encoder_applicable(nb)
-                   else point_encoder_reference)
+        takes = point_encoder_applicable(nb, e.conv1.w, e.conv2.w, e.conv3.w,
+                                         e.conv4.w)
+        encoder = fused_point_encoder if takes else point_encoder_reference
         feat = encoder(
             nb, e.conv1.w, e.conv1.b, e.bn1.stats(), e.conv2.w, e.conv2.b,
             e.conv3.w, e.conv3.b, e.bn2.stats(), e.conv4.w, e.conv4.b,

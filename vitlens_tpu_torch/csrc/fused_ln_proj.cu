@@ -6,93 +6,73 @@
 // `_kernel`): the resblock front half, ln_1 + the packed qkv projection
 // (N = 3D). Numerics follow that kernel: per-row mean, then the mean of the
 // squared deviations (two passes, not E[x^2] - mean^2), in fp32;
-// y = ((x - mean) * rsqrt(var + eps)) * w + b in fp32, rounded to bf16; the
-// product accumulated in fp32 and the bias added in fp32 before the one
-// rounding of the output.
+// y = ((x - mean) * rsqrt(var + eps)) * w + b in fp32 with no FMA
+// contraction, rounded to bf16; the product accumulated in fp32 and the bias
+// added in fp32 before the one rounding of the output.
 //
 // What bounds it on an H100: at the audio encode's B64 x 3 clips shape
 // (M = 49344, D = 1024, N = 3072) it does 2*M*D*N = 310 GFLOP (0.314 ms at
 // 989 TFLOP/s) against ~0.41 GB of x/out/W bytes (0.122 ms at 3.35 TB/s):
-// the operations bound it.
+// the operations bound it, and only wgmma reaches the tensor cores' rate.
 //
-// Design (first, simple and correct): two launches on the caller's stream.
-//   1. ln_stats: one warp per row -> mean [M], rstd [M] fp32 (8 bytes a
-//      row; x is read once more by the GEMM).
-//   2. gemm (gemm_bf16.cuh): each A tile is normalised in
-//      shared memory as it lands, before the mma.sync, so LN(x) never
-//      reaches HBM; the epilogue adds b in fp32 and rounds once.
-// A CTA re-reads its rows' statistics and the LN affine from L2; wgmma and
-// TMA are later work.
+// Design: two launches on the caller's stream.
+//   1. ln_rows (layer_norm.cuh, the fused MLP's LN pass): one warp per row
+//      -> y = LN(x) [M, D] bf16 (0.1 GB written and read back at M = 49344).
+//   2. sm90::gemm_tma<EPI_BIAS> (gemm_sm90.cuh), the fused MLP's GEMM: a TMA
+//      producer warpgroup feeds a 4-stage ring of 48 KB stages (A [128, 64]
+//      of y, W [64, 256] read as stored through the MN-major descriptor),
+//      two consumer warpgroups run wgmma m64n256k16, and the epilogue adds
+//      b in fp32 and rounds once. Ragged M and N (bigG's N = 4992 = 19.5 x
+//      256) as the GEMM handles them: zero-filled loads, masked stores.
+// The design that keeps LN(x) out of HBM, consumers that normalise each A
+// tile of x in shared memory inside the GEMM
+// (tools/ln_proj_variants/fused_ln_proj_inplace.cu), reads the same numbers
+// but is slower on an H100 (0.91 against 0.76 ms at M = 49344, N = 3072;
+// tools/kernel_variants.py lnproj times both): each of the N / 256 column
+// tiles of a row block normalises its A tiles again (12 times at N = 3072),
+// and that scalar work (~0.2 ms) does not hide under the products, while y
+// costs ~0.06 ms of HBM traffic.
 //
 // Requirements checked by the Python wrapper: bf16 x/W, fp32 LN params and
-// bias, everything contiguous, D and N multiples of 128, D <= 8192.
+// bias, everything contiguous and 16-byte aligned, D and N multiples of
+// 128, D <= 8192.
 
-#include "gemm_bf16.cuh"
+#include "gemm_sm90.cuh"
+#include "layer_norm.cuh"
 
 namespace {
 
-// mean[row], rstd[row] of x[row] in fp32. One warp per row.
-__global__ void ln_stats(const __nv_bfloat16* __restrict__ x,
-                         float* __restrict__ mean_out,
-                         float* __restrict__ rstd_out, int M, int D,
-                         float eps) {
-  int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  int row = blockIdx.x * (blockDim.x / 32) + warp;
-  if (row >= M) return;
-  const __nv_bfloat16* xr = x + static_cast<size_t>(row) * D;
-  float sum = 0.f;
-  for (int c = lane * 8; c < D; c += 256) {
-    uint4 u = *reinterpret_cast<const uint4*>(xr + c);
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&u);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) sum += __bfloat162float(e[i]);
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-  const float mean = sum / D;
-  float sq = 0.f;
-  for (int c = lane * 8; c < D; c += 256) {
-    uint4 u = *reinterpret_cast<const uint4*>(xr + c);
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&u);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float d = __bfloat162float(e[i]) - mean;
-      sq += d * d;
-    }
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
-  if (lane == 0) {
-    mean_out[row] = mean;
-    rstd_out[row] = rsqrtf(sq / D + eps);
-  }
+constexpr int LN_ROWS_PER_BLOCK = 8;
+
+sm90::Params bias_params(const void* b, void* out, int M, int D, int N) {
+  sm90::Params p{};
+  p.bias = static_cast<const float*>(b);
+  p.C = static_cast<__nv_bfloat16*>(out);
+  p.M = M;
+  p.N = N;
+  p.K = D;
+  return p;
 }
 
 }  // namespace
 
 // x [M, D] bf16; lnw, lnb [D] fp32; w [D, N] bf16; b [N] fp32; scratch
-// mean, rstd [M] fp32; out [M, N] bf16.
+// y [M, D] bf16; out [M, N] bf16.
 // Returns cudaGetLastError() after the launches (0 on success).
 extern "C" int vitlens_fused_ln_proj_fwd(const void* x, const void* lnw,
                                          const void* lnb, const void* w,
-                                         const void* b, void* mean, void* rstd,
-                                         void* out, int M, int D, int N,
-                                         float eps, void* stream) {
+                                         const void* b, void* y, void* out,
+                                         int M, int D, int N, float eps,
+                                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rows_per_block = 8;
-  ln_stats<<<(M + rows_per_block - 1) / rows_per_block, 32 * rows_per_block, 0,
-             s>>>(static_cast<const __nv_bfloat16*>(x),
-                  static_cast<float*>(mean), static_cast<float*>(rstd), M, D,
-                  eps);
+  ln_rows<<<(M + LN_ROWS_PER_BLOCK - 1) / LN_ROWS_PER_BLOCK,
+            32 * LN_ROWS_PER_BLOCK, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(lnw),
+      static_cast<const float*>(lnb), static_cast<__nv_bfloat16*>(y), M, D, eps);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const LnPrologue ln{static_cast<const float*>(mean),
-                      static_cast<const float*>(rstd),
-                      static_cast<const float*>(lnw),
-                      static_cast<const float*>(lnb)};
-  err = launch_gemm(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-      static_cast<const float*>(b), static_cast<__nv_bfloat16*>(out), ln, M, N,
-      D, s);
+  err = sm90::launch_gemm<sm90::EPI_BIAS>(
+      static_cast<const __nv_bfloat16*>(y), static_cast<const __nv_bfloat16*>(w),
+      bias_params(b, out, M, D, N), s);
   return static_cast<int>(err);
 }

@@ -83,7 +83,9 @@ __device__ __forceinline__ float act_fn(float v) {
 
 // acc[2][NT] (+)= a[32, 16] @ b[16, NT*8]: a points at the k offset of a
 // [32, a_ld] tile, b at (k row 0, the warp's first column) of a [16, b_ld]
-// slab. ldmatrix addressing as in gemm_bf16.cuh.
+// slab. ldmatrix addressing: A (x4) lanes 0-15 give rows 0-15 at k 0,
+// lanes 16-31 rows 0-15 at k 8; B (x4.trans) lane%8 + 8*((lane/8)%2) is the
+// k row, 8*(lane/16) the n offset.
 template <int NT>
 __device__ __forceinline__ void mma_k16(float (&acc)[2][NT][4],
                                         const __nv_bfloat16* a, int a_ld,

@@ -1,4 +1,5 @@
-// Hopper bf16 GEMM for the fused MLP (fused_mlp.cu):
+// Hopper bf16 GEMM for the fused MLP (fused_mlp.cu) and the fused LayerNorm
+// + projection (fused_ln_proj.cu):
 //
 //     C[M, N] = epilogue(A[M, K] @ B[K, N])     (row-major bf16, fp32 sums)
 //
@@ -33,6 +34,7 @@
 //       EPI_BIAS_ACT        C = bf16(act(acc + bias))            (fp32 act)
 //       EPI_BIAS_ACT_PREACT as above, and C2 = bf16(acc + bias)
 //       EPI_BIAS_RESIDUAL   C = bf16(resid + bias + acc), summed in that order
+//       EPI_BIAS            C = bf16(acc + bias)
 // Ragged edges: TMA zero-fills rows of A past M and columns of B past N; B
 // boxes wholly past N are not loaded (their stale columns only reach masked
 // outputs); stores past M or N are skipped. K must be a multiple of 64 and N
@@ -70,6 +72,7 @@ enum Epilogue {
   EPI_BIAS_ACT = 0,         // C = act(acc + bias)
   EPI_BIAS_RESIDUAL = 1,    // C = resid + bias + acc
   EPI_BIAS_ACT_PREACT = 2,  // C = act(acc + bias), C2 = acc + bias
+  EPI_BIAS = 3,             // C = acc + bias
 };
 
 struct Params {
@@ -209,6 +212,83 @@ __device__ __forceinline__ void wgmma_m64n256k16(float* d, uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// As wgmma_m64n256k16, 128 columns wide (64 accumulators a thread).
+__device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t desc_a,
+                                                 uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// As wgmma_m64n128k16 with scale-d 0: d = A * B. Its accumulators are
+// outputs only, so their old values are not kept alive up to the call.
+__device__ __forceinline__ void wgmma_m64n128k16_first(float* d, uint64_t desc_a,
+                                                       uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
+        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
+        "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]),
+        "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
+        "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]),
+        "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]),
+        "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]),
+        "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
+        "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]),
+        "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(0));
+}
+
 template <int EPI>
 __global__ void __launch_bounds__(THREADS, 1)
     gemm_tma(const __grid_constant__ CUtensorMap map_a,
@@ -307,8 +387,12 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
           const float a = part[e] + p.bias[gc + e];
-          oe[e] = __float2bfloat16(act_fn(a, p.act));
-          o2e[e] = __float2bfloat16(a);
+          if constexpr (EPI == EPI_BIAS) {
+            oe[e] = __float2bfloat16(a);
+          } else {
+            oe[e] = __float2bfloat16(act_fn(a, p.act));
+            o2e[e] = __float2bfloat16(a);
+          }
         }
         if constexpr (EPI == EPI_BIAS_ACT_PREACT)
           *reinterpret_cast<uint4*>(p.C2 + off) = o2;

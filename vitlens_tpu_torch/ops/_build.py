@@ -39,7 +39,7 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "vitlens_fused_mlp_fwd": [_P] * 10 + [_I, _I, _I, _I, _F, _P],
     "vitlens_fused_mlp_fwd_save_preact": [_P] * 11 + [_I, _I, _I, _I, _F, _P],
-    "vitlens_fused_ln_proj_fwd": [_P] * 8 + [_I, _I, _I, _F, _P],
+    "vitlens_fused_ln_proj_fwd": [_P] * 7 + [_I, _I, _I, _F, _P],
     "vitlens_flash_attention_fwd": [_P] * 4 + [_I] * 5 + [_L] * 9 + [_F, _P],
     "vitlens_fps_fwd": [_P] * 3 + [_I] * 3 + [_P],
     "vitlens_point_encoder_fwd": [_P] * 16 + [_I] * 6 + [_P],

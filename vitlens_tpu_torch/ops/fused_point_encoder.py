@@ -22,7 +22,13 @@ from typing import Sequence
 import torch
 
 BN_EPS = 1e-5
-GROUP_SIZES = (16, 32, 64)  # the kernel tiles 64 points: whole groups only
+# What the kernel takes (csrc/fused_point_encoder.cu): whole groups of M
+# points in 128-row tiles, M a multiple of 16 (a warp's 16 rows then belong
+# to one group) from 16 to 128; the tokenizer's widths C1..C3 (compile-time
+# constants of its products) and an output width C4 (the tokenizer's
+# encoder_dims) that is a multiple of 128, taken 256 or 128 columns a pass.
+MAX_GROUP_SIZE = 128
+WIDTHS = (128, 256, 512)
 
 
 def _bn_fold(bn: Sequence[torch.Tensor], eps: float):
@@ -32,12 +38,27 @@ def _bn_fold(bn: Sequence[torch.Tensor], eps: float):
     return mean.float(), inv, bias.float()
 
 
-def point_encoder_applicable(nb: torch.Tensor) -> bool:
-    """The dtype gate of the tokenizer, as in JAX's
-    ``point_encoder_applicable``: the kernel takes bf16 groups; groups in any
-    other dtype (the fp32 default) take :func:`point_encoder_reference`. The
-    wrapper itself still raises on a non-bf16 CUDA tensor."""
-    return nb.dtype == torch.bfloat16
+def _kernel_takes(m: int, widths) -> bool:
+    return (m % 16 == 0 and 16 <= m <= MAX_GROUP_SIZE
+            and tuple(widths[:3]) == WIDTHS and widths[3] % 128 == 0
+            and widths[3] > 0)
+
+
+def point_encoder_applicable(nb: torch.Tensor, w1, w2, w3, w4) -> bool:
+    """The gate of the tokenizer, JAX's ``point_encoder_applicable`` with
+    the kernel's own caps in place of the TPU's VMEM cap: bf16 groups
+    [B, G, M, 3] with M a multiple of 16, at most 128; C1, C2, C3 = 128, 256,
+    512 (the tokenizer's fixed widths) and C4 a multiple of 128; w3
+    [2 * C2, C3]. (JAX takes any M that is a multiple of 16 and any widths
+    that are multiples of 128 within 48 MB of VMEM; the port's kernel keeps
+    whole groups in a 128-row tile and compiles C1..C3 in, hence its caps.)
+    Everything else, the fp32 default among it,
+    takes :func:`point_encoder_reference`, as JAX sends it to XLA. The
+    wrapper itself raises on what its kernel does not take."""
+    if nb.dtype != torch.bfloat16 or nb.dim() != 4 or nb.shape[-1] != 3:
+        return False
+    widths = (w1.shape[-1], w2.shape[-1], w3.shape[-1], w4.shape[-1])
+    return w3.shape[0] == 2 * widths[1] and _kernel_takes(nb.shape[2], widths)
 
 
 def point_encoder_reference(nb, w1, b1, bn1, w2, b2, w3, b3, bn2, w4, b4,
@@ -68,13 +89,10 @@ def _check_cuda_args(nb, w1, b1, bn1, w2, b2, w3, b3, bn2, w4, b4):
         raise ValueError(f"fused_point_encoder: nb must be [B, G, M, 3], "
                          f"got {tuple(nb.shape)}")
     m = nb.shape[2]
-    if m not in GROUP_SIZES:
-        raise ValueError(f"fused_point_encoder: group size M={m} must be one "
-                         f"of {GROUP_SIZES}")
+    if m % 16 or not 16 <= m <= MAX_GROUP_SIZE:
+        raise ValueError(f"fused_point_encoder: group size M={m} must be a "
+                         f"multiple of 16 from 16 to {MAX_GROUP_SIZE}")
     c1, c2, c3, c4 = w1.shape[-1], w2.shape[-1], w3.shape[-1], w4.shape[-1]
-    if any(c % 64 for c in (c1, c2, c3, c4)):
-        raise ValueError(f"fused_point_encoder: widths {(c1, c2, c3, c4)} "
-                         "must be multiples of 64")
     tensors = [("nb", nb, tuple(nb.shape), torch.bfloat16),
                ("w1", w1, (3, c1), torch.bfloat16),
                ("w2", w2, (c1, c2), torch.bfloat16),
@@ -98,6 +116,9 @@ def _check_cuda_args(nb, w1, b1, bn1, w2, b2, w3, b3, bn2, w4, b4):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"fused_point_encoder: {name} must be contiguous "
                              "and 16-byte aligned")
+    if not _kernel_takes(m, (c1, c2, c3, c4)):
+        raise ValueError(f"fused_point_encoder: widths {(c1, c2, c3, c4)} "
+                         f"must be {WIDTHS} and C4 a multiple of 128")
 
 
 def fused_point_encoder(nb, w1, b1, bn1, w2, b2, w3, b3, bn2, w4, b4,
@@ -106,7 +127,8 @@ def fused_point_encoder(nb, w1, b1, bn1, w2, b2, w3, b3, bn2, w4, b4,
 
     CPU tensors take :func:`point_encoder_reference`. CUDA tensors launch the
     kernel: nb and w1..w4 bf16, biases and BN tensors fp32, all contiguous,
-    M in (16, 32, 64), C1..C4 multiples of 64. Anything else raises."""
+    M a multiple of 16 from 16 to 128, C1..C3 = 128, 256, 512 and C4 a
+    multiple of 128. Anything else raises."""
     if not nb.is_cuda:
         return point_encoder_reference(nb, w1, b1, bn1, w2, b2, w3, b3, bn2,
                                        w4, b4, eps)
