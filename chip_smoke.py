@@ -18,8 +18,12 @@ Phases, one printed line each (or more); any failure exits non-zero:
      and on the packed-qkv views), fused LN + projection (bf16, <= 1e-2
      relative; ragged M at D/N 768/2304, 1024/3072 and 1664/4992, bigG's
      ragged N), FPS
-     (index-exact, at B64/N 8192 with zero starts and B8/N 10000 with random
-     starts) and the point encoder (bf16, <= 2e-2 relative; at the pc
+     (index-exact, FPS_CASES: B in {1, 2, 64, 65, 133} and N in {1, 31,
+     8192, 10000, 16384, 16385, 100000, 300000}, which cross every cluster
+     size the wrapper picks (1 to 16) and every tier of a partition
+     (registers, shared memory, global memory), npoint in {1, 512, N + 5}, zero and random
+     starts, random clouds and clouds with exact ties: a lattice, duplicated
+     points) and the point encoder (bf16, <= 2e-2 relative; at the pc
      path's [64, 512, 32] and at every group size M in {16, 32, 48, 64,
      128} with 21 groups, a count no tile size divides but 1; at M = 48,
      80 and 128 over more tiles than two a CTA, groups straddling its two
@@ -34,8 +38,10 @@ Phases, one printed line each (or more); any failure exits non-zero:
      gather (bit-equal, [49408, 512] table, 9856 ids with repeated and
      boundary ids),
      the chained fused MLP with and without the out-projection (both
-     activations, bf16, <= 2.5e-2 relative, M = 16448 and a ragged M) and the
-     fused LN + projection at the LN + qkv prototype's shape; then the
+     activations, bf16, <= 2.5e-2 relative, D = 1024 at M = 16448 and a
+     ragged M, D = 256 and 128), kernel 1's outputs at both of its
+     activations bit-identical to the parent build's (KERNEL1_DIGESTS), and
+     the fused LN + projection at the LN + qkv prototype's shape; then the
      gradients of each kernel-backed autograd Function
      (fused MLP, attention, LN + projection) against torch autograd of its
      plain version on the card, in bf16 (<= 2e-2 relative for the fused MLP
@@ -110,8 +116,9 @@ Phases, one printed line each (or more); any failure exits non-zero:
      torch._int_mm, the quantise kernel beside its bound, the row gather's
      device time and, through its wrapper, its time back to back and host
      time a call, beside index_select's, the chained MLPs beside the
-     three-launch fused MLP on the same function and today's split; the B64
-     quantized audio encode rate
+     three-launch fused MLP on the same function and today's split; FPS at
+     B64 and B = 1 (N 8192, npoint 512); the host-timed latency of a B = 1 pc
+     encode; the B64 quantized audio encode rate
      beside the float one; a torch.profiler breakdown of one B64 audio (float
      and quantized) and one B64 pc encode and one B64 train step with the
      device's busy and idle share. Every time is printed beside the card's name and
@@ -231,8 +238,9 @@ def ln_proj_bound(m, d, n):  # x, out, W bf16; LN params and bias fp32
 
 
 def fps_bound(b, n, npoint):
-    # per step and point: 3 sub, 3 mul, 2 add, min, compare (fp32 cores)
-    return bound(10 * b * n * npoint, 12 * b * n + 4 * b + 4 * b * npoint,
+    # per distance update (npoint - 1 of them) and point: 3 sub, 3 mul, 2 add,
+    # min, compare (fp32 cores)
+    return bound(10 * b * n * (npoint - 1), 12 * b * n + 4 * b + 4 * b * npoint,
                  PEAK_FP32)
 
 
@@ -298,6 +306,83 @@ def mlp_inputs(torch, g, m, d, h):
             r(d, std=0.1, dtype=f32), r(d, h, std=d ** -0.5),
             r(h, std=0.1, dtype=f32), r(h, d, std=h ** -0.5),
             r(d, std=0.1, dtype=f32))
+
+
+def fps_inputs(torch, g, b, n, cloud="random", starts="zero"):
+    """xyz [b, n, 3] fp32 on the card and start [b] int32 (zero or uniform
+    in [0, n)). Clouds: "random" (normal, std 0.3); "lattice" (a 16 x 16 x k
+    grid of step 0.125 in point order, so that equal distances meet inside a
+    warp, across warps and across the cluster's partitions); "duplicates"
+    (37 distinct points repeated, so that every distance reaches 0 and index
+    0 repeats once the 37 are taken)."""
+    i = torch.arange(n, device="cuda")
+    if cloud == "random":
+        xyz = torch.randn(b, n, 3, generator=g, device="cuda") * 0.3
+    elif cloud == "lattice":
+        grid = torch.stack((i % 16, (i // 16) % 16, i // 256), -1).float() * 0.125
+        xyz = grid.expand(b, n, 3).contiguous()
+    else:
+        base = torch.randn(b, 37, 3, generator=g, device="cuda")
+        xyz = base[:, i % 37].contiguous()
+    start = (torch.randint(0, n, (b,), generator=g, device="cuda", dtype=torch.int32)
+             if starts == "random" else torch.zeros(b, dtype=torch.int32, device="cuda"))
+    return xyz, start
+
+
+# (B, N, npoint, cloud, starts) of phase 3's FPS checks; the first two are
+# timed in phase 5.
+FPS_CASES = ((B, 8192, 512, "random", "zero"), (1, 8192, 512, "random", "zero"),
+             (1, 1, 1, "random", "zero"), (2, 1, 6, "random", "zero"),
+             (2, 31, 36, "random", "random"), (65, 31, 1, "random", "random"),
+             (65, 10000, 512, "random", "random"),
+             (133, 16384, 512, "random", "zero"),
+             (64, 16385, 512, "random", "random"),
+             (2, 16385, 512, "lattice", "random"),
+             (1, 100000, 512, "random", "random"),
+             (1, 300000, 64, "random", "random"),
+             (64, 100000, 64, "random", "zero"),
+             (133, 100000, 16, "lattice", "random"),
+             (1, 8192, 512, "lattice", "zero"), (B, 8192, 512, "lattice", "random"),
+             (65, 10000, 512, "duplicates", "random"),
+             (2, 31, 36, "duplicates", "zero"),
+             (133, 8192, 512, "duplicates", "zero"))
+
+
+# sha256 (first 16 hex digits) of kernel 1's outputs on kernel1_digests'
+# inputs, from the build of the parent commit on an H100: the tanh GELU added
+# to gemm_sm90.cuh's act_fn (for the chained MLPs) leaves acts 0 and 1
+# bit-identical.
+KERNEL1_DIGESTS = {
+    "gelu": ("8ea59f0450c38bb8", "8ea59f0450c38bb8", "b202cffe3b1788aa"),
+    "quick_gelu": ("9a789c45de3cbca6", "9a789c45de3cbca6", "b202cffe3b1788aa")}
+
+
+def kernel1_digests(torch, np):
+    """Digests of kernel 1's outputs (out of the plain variant, out and a of
+    the save-preact variant) at acts 0 and 1 on inputs made with numpy from
+    SEED, [1001, 1024] x [1024, 4096]."""
+    import hashlib
+
+    from vitlens_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_save_preact
+
+    rng = np.random.RandomState(SEED)
+    m, d, h = 1001, 1024, 4096
+    arrays = (rng.randn(m, d) * 0.5, 1 + 0.1 * rng.randn(d), 0.1 * rng.randn(d),
+              rng.randn(d, h) * d ** -0.5, 0.1 * rng.randn(h),
+              rng.randn(h, d) * h ** -0.5, 0.1 * rng.randn(d))
+    args = [torch.tensor(a, dtype=torch.float32, device="cuda") for a in arrays]
+    for i in (0, 3, 5):
+        args[i] = args[i].bfloat16()
+
+    def digest(t):
+        return hashlib.sha256(t.view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]
+
+    out = {}
+    for act in ("gelu", "quick_gelu"):
+        y = fused_mlp(*args, act=act)
+        y2, a = fused_mlp_save_preact(*args, act=act)
+        out[act] = (digest(y), digest(y2), digest(a))
+    return out
 
 
 def ln_proj_inputs(torch, g, m, d, n):
@@ -642,6 +727,22 @@ def encode_rate(torch, card, label, encode, samples, rows_note=""):
     return samples / best
 
 
+def encode_latency(torch, card, label, encode, runs=5):
+    """Host-timed latency of one request: the best of ``runs`` calls, each
+    ending in torch.cuda.synchronize(). Returns ms."""
+    encode()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        encode()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f"[5 timing] {card} | {label}: latency best of {runs} "
+          f"{min(times):.2f} ms, all ms {[round(t, 2) for t in times]}", flush=True)
+    return min(times)
+
+
 def train_rate(torch, card, label, step, samples, runs=3):
     step()
     torch.cuda.synchronize()
@@ -848,9 +949,10 @@ def check_new_kernels(torch, g, err, checks):
     if n_diff:
         fail(f"row_gather: {n_diff} elements differ bitwise from table[ids]")
     err["fused_mlp_chunked"] = err["fused_attnout_mlp"] = 0.0
-    for m in (16448, 1001):
-        x, *mlp = mlp_inputs(torch, g, m, 1024, 4096)
-        proj = outproj_inputs(torch, g, m, 1024)
+    for m, d, h in ((16448, 1024, 4096), (1001, 1024, 4096), (777, 256, 1024),
+                    (300, 128, 512)):
+        x, *mlp = mlp_inputs(torch, g, m, d, h)
+        proj = outproj_inputs(torch, g, m, d)
         for act in ("gelu_tanh", "gelu"):
             for name, got, want in (
                     ("fused_mlp_chunked", fused_mlp_chunked(x, *mlp, act=act),
@@ -861,9 +963,9 @@ def check_new_kernels(torch, g, err, checks):
                 torch.cuda.synchronize()
                 e = rel_err(got, want)
                 err[name] = max(err[name], abs_err(got, want))
-                checks.append(f"{name} M{m}/{act}={e:.2e}")
+                checks.append(f"{name} M{m}xD{d}/{act}={e:.2e}")
                 if not (torch.isfinite(got).all() and e <= CHAIN_TOL):
-                    fail(f"{name} M={m} {act}: rel err {e} > {CHAIN_TOL}")
+                    fail(f"{name} M={m} D={d} {act}: rel err {e} > {CHAIN_TOL}")
         del x, mlp, proj
     a = ln_proj_inputs(torch, g, 16448, 1024, 3072)
     got = fused_ln_proj(*a)
@@ -1325,24 +1427,21 @@ def main() -> int:
             fail(f"flash_attention {b}x{h}x{nq}x{nk}: rel err {e} > {ATTN_TOL}")
     check_attention_edges(torch, g, err, checks)
     check_head_dims(torch, g, err, checks)
-    fps_inputs = {}
-    for b, n, starts in ((B, 8192, "zero"), (8, 10000, "random")):
-        xyz = torch.randn(b, n, 3, generator=g, device="cuda") * 0.3
-        if starts == "zero":
-            start = torch.zeros(b, dtype=torch.int32, device="cuda")
-        else:
-            start = torch.randint(0, n, (b,), generator=g, device="cuda",
-                                  dtype=torch.int32)
-        fps_inputs[(b, n)] = (xyz, start)
-        got = fps_indices(xyz, 512, start)
+    fps_timed = {}
+    for b, n, npoint, cloud, starts in FPS_CASES:
+        xyz, start = fps_inputs(torch, g, b, n, cloud, starts)
+        if (n, npoint, cloud, starts) == (8192, 512, "random", "zero"):
+            fps_timed[b] = (xyz, start)
+        got = fps_indices(xyz, npoint, start)
         torch.cuda.synchronize()
-        want = fps_indices_reference(xyz, 512, start)
+        want = fps_indices_reference(xyz, npoint, start)
         n_diff = (got != want).sum().item()
         err["fps"] = max(err["fps"], abs_err(got, want))
-        checks.append(f"fps{b}x{n}/{starts}:{n_diff}-differ")
+        checks.append(f"fps{b}x{n}/{npoint}/{cloud}/{starts}:{n_diff}-differ")
         if n_diff:
-            fail(f"fps_indices B{b} N{n} {starts} starts: {n_diff} indices "
-                 "differ from the plain version")
+            fail(f"fps_indices B{b} N{n} npoint {npoint} {cloud} cloud, {starts} "
+                 f"starts: {n_diff} indices differ from the plain version")
+        del xyz, start, got, want
     err["point_encoder"] = 0.0
     # Every M on 21 groups (a ragged last tile); then many tiles a CTA (more
     # than 2 x 132) with groups straddling the two consumers (M = 48, 80,
@@ -1395,6 +1494,11 @@ def main() -> int:
             fail(f"fused_ln_proj {m}x{d}x{n}: rel err {e} > {LNP_TOL}")
     check_new_kernels(torch, g, err, checks)
     check_int8_epilogues(torch, g, err, checks)
+    digests = kernel1_digests(torch, np)
+    if digests != {k: tuple(v) for k, v in KERNEL1_DIGESTS.items()}:
+        fail(f"kernel 1's outputs changed: digests {digests}, the parent "
+             f"build's {KERNEL1_DIGESTS}")
+    checks.append("kernel1-acts0,1-bit-identical-to-parent")
     print(f"[3 kernels] all within bound (mlp <= {MLP_TOL}, save-preact a <= "
           f"{PREACT_TOL}, attn <= {ATTN_TOL} at head dims 64 and {OTHER_HEAD_DIMS}, "
           f"ln_proj <= {LNP_TOL}, encoder <= {ENC_TOL}, chained mlp <= "
@@ -1623,14 +1727,15 @@ def main() -> int:
             del qkv, qv, kv_, vv
         timings["flash_attention"].append(row)
         del q, k, v
-    xyz, start = fps_inputs[(B, 8192)]
-    k_ms, p_ms = paired_ms(lambda: fps_indices(xyz, 512, start),
-                           lambda: fps_indices_reference(xyz, 512, start),
-                           plain_iters=3)
-    bd, by = fps_bound(B, 8192, 512)
-    timings["fps"].append({"shape": f"B{B} N8192 npoint512", "ms": k_ms,
-                           "plain_ms": p_ms, "bound_ms": bd, "bound_by": by,
-                           "library_ms": None})
+    for b in (B, 1):  # the pc encode's batch (C = 2), and one request (C = 4)
+        xyz, start = fps_timed[b]
+        k_ms, p_ms = paired_ms(lambda: fps_indices(xyz, 512, start),
+                               lambda: fps_indices_reference(xyz, 512, start),
+                               plain_iters=3)
+        bd, by = fps_bound(b, 8192, 512)
+        timings["fps"].append({"shape": f"B{b} N8192 npoint512", "ms": k_ms,
+                               "plain_ms": p_ms, "bound_ms": bd, "bound_by": by,
+                               "library_ms": None})
     k_ms, p_ms = paired_ms(lambda: fused_point_encoder(*enc_args),
                            lambda: point_encoder_reference(*enc_args),
                            plain_iters=5)
@@ -1638,7 +1743,7 @@ def main() -> int:
     timings["point_encoder"].append(
         {"shape": f"[{B},512,32,3] -> [{B},512,256]", "ms": k_ms,
          "plain_ms": p_ms, "bound_ms": bd, "bound_by": by, "library_ms": None})
-    del enc_args, fps_inputs
+    del enc_args, fps_timed
     time_new_kernels(torch, g, timings)
     timings["fused_ln_qkv"] = [timings["fused_ln_proj"][1]]  # M=16448, 1024->3072
     for name, rows in timings.items():
@@ -1686,6 +1791,9 @@ def main() -> int:
                              audio64, B, rows_note=f" ({B * 3} clips per call)")
     pc_rate = encode_rate(torch, card, f"pc encode B{B} x {npts} points bf16",
                           pc64_encode, B)
+    pc1_ms = encode_latency(
+        torch, card, f"pc encode B=1 x {npts} points bf16 (one request)",
+        lambda: model.encode({"pc": clouds[1]}, preprocessed=True)["pc"])
     os.environ["VITLENS_ENABLE_FUSED_LNQKV"] = "1"
     try:
         encode_rate(torch, card, f"audio encode B{B} x 3 clips bf16, opt-in "
@@ -1748,7 +1856,7 @@ def main() -> int:
                "int8_matmul_dequant": "int8_matmul.cu",
                "int8_quantize": "int8_matmul.cu",
                "row_gather": "row_gather.cu",
-               "fused_mlp_chunked": "fused_mlp_chain.cu",
+               "fused_mlp_chunked": "fused_mlp.cu",
                "fused_attnout_mlp": "fused_mlp_chain.cu",
                "fused_ln_qkv": "fused_ln_proj.cu"}
     # kernel 1's count is both variants'; the split is beside it
@@ -1776,7 +1884,7 @@ def main() -> int:
           f"{audio_again:.2f} samples/s float bf16, {q_rates[0]:.2f} and "
           f"{q_rates[1]:.2f} int8 quantized "
           f"({max(q_rates) / max(audio_rate, audio_again):.3f}x); pc encode "
-          f"B{B}: {pc_rate:.2f} samples/s; audio "
+          f"B{B}: {pc_rate:.2f} samples/s, B=1 latency {pc1_ms:.2f} ms; audio "
           f"train step B{B}: {max(train_rates[False]):.2f} samples/s, opt-in "
           f"{max(train_rates[True]):.2f}; whole run {time.time() - t_start:.1f} s",
           flush=True)

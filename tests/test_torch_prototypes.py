@@ -138,6 +138,20 @@ def test_fused_mlp_chunked_exact_gelu_matches_fused_mlp_reference():
            PFM.fused_mlp_reference(*t32, act="gelu").numpy(), tol=1e-5)
 
 
+def test_chain_act_codes_are_kernel_1s():
+    """On the card the chunked MLP calls kernel 1's entry point
+    (vitlens_fused_mlp_fwd) with the chain's act code: the exact GELU is
+    kernel 1's own code, and the tanh GELU the one past kernel 1's acts,
+    which gemm_sm90.cuh's act_fn computes with tanhf."""
+    assert PC._GEMM_ACT["gelu"] == PFM.ACTS.index("gelu")
+    assert PC._GEMM_ACT["gelu_tanh"] == len(PFM.ACTS) == 2
+    src = open(os.path.join(REPO, "vitlens_tpu_torch", "csrc", "gemm_sm90.cuh"),
+               encoding="utf-8").read()
+    body = src[src.index("float act_fn("):]
+    body = body[:body.index("\n}\n")]
+    assert "if (act == 1)" in body and "tanhf(" in body.split("if (act == 1)")[1]
+
+
 def test_fused_ln_qkv_matches_prototype(prototype):
     """Prototype #8 has the body of the fused LN + projection kernel: the
     port's ``fused_ln_proj`` is its counterpart."""
@@ -197,12 +211,13 @@ def test_chain_kernel_argument_checks():
             torch.zeros(256, 256, dtype=torch.bfloat16), torch.zeros(256))
     PC._check_cuda_args(*_chain(), "gelu", None)
     PC._check_cuda_args(*_chain(), "gelu_tanh", proj)
+    PC._check_cuda_args(*_chain(d=128, h=192), "gelu", None)
     with pytest.raises(ValueError, match="bfloat16"):
         PC._check_cuda_args(*_chain(dtype=torch.float32), "gelu", None)
-    with pytest.raises(ValueError, match="one of"):
-        PC._check_cuda_args(*_chain(d=512), "gelu", None)
-    with pytest.raises(ValueError, match="multiple of 128"):
-        PC._check_cuda_args(*_chain(h=192), "gelu", None)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        PC._check_cuda_args(*_chain(d=100), "gelu", None)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        PC._check_cuda_args(*_chain(h=96), "gelu", None)
     with pytest.raises(ValueError, match="act"):
         PC._check_cuda_args(*_chain(), "quick_gelu", None)
     with pytest.raises(ValueError, match="wo must be"):

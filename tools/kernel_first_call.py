@@ -40,7 +40,8 @@ import chip_smoke  # noqa: E402
 from vitlens_tpu_torch.ops import _build  # noqa: E402
 from vitlens_tpu_torch.ops.flash_attention import (  # noqa: E402
     attention_reference, flash_attention)
-from vitlens_tpu_torch.ops.fps import fps_indices, fps_indices_reference  # noqa: E402
+from vitlens_tpu_torch.ops.fps import (  # noqa: E402
+    cluster_size, fps_indices, fps_indices_reference)
 from vitlens_tpu_torch.ops.fused_ln_proj import (  # noqa: E402
     fused_ln_proj, ln_proj_reference)
 from vitlens_tpu_torch.ops.fused_mlp_chain import (  # noqa: E402
@@ -84,8 +85,16 @@ def encoder_inputs(g, shape, widths):
             r(c4, std=0.1))
 
 
-FPS_CASES = ((64, 8192, 512, False), (8, 10000, 512, True),
-             (3, 100, 64, True), (2, 16384, 512, False))
+# (B, N, npoint, cloud, start): the pc encode's shape, one row (a cluster of
+# 4), N past 16384 (B64: a partition of 8193 points puts one in shared
+# memory; 100000 points reach the global-memory tier at B = 1 and B64, 30000
+# at B = 133, one CTA a row), npoint past N, and clouds with exact ties.
+FPS_CASES = ((64, 8192, 512, "random", "zero"), (1, 8192, 512, "random", "zero"),
+             (8, 10000, 512, "random", "random"), (3, 100, 64, "random", "random"),
+             (2, 31, 36, "random", "random"), (64, 16385, 512, "random", "zero"),
+             (1, 100000, 512, "random", "random"), (64, 100000, 32, "random", "zero"),
+             (133, 30000, 16, "random", "random"), (1, 8192, 512, "lattice", "zero"),
+             (64, 8192, 512, "lattice", "random"), (2, 5000, 300, "duplicates", "random"))
 # (groups shape with M, widths): every M the kernel takes at a group count
 # that fills no whole last tile, C4 = 128, 384 and 512 (conv4 in passes),
 # many tiles a CTA with groups straddling its two consumers, then the pc
@@ -409,7 +418,7 @@ def check_chain(g):
     its plain version, bf16, 2.5e-2 relative."""
     ok = True
     for m, d, h in ((16448, 1024, 4096), (1001, 1024, 4096), (1, 1024, 128),
-                    (77, 256, 1024)):
+                    (77, 256, 1024), (300, 128, 512), (129, 192, 320)):
         def r(*shape, std=1.0, dtype=torch.bfloat16):
             return (torch.randn(*shape, generator=g, device="cuda") * std).to(dtype)
 
@@ -476,15 +485,15 @@ def main() -> int:
         ok &= check_gather(g)
     if "chain" in which:
         ok &= check_chain(g)
-    for b, n, npoint, random_start in FPS_CASES if "fps" in which else ():
-        xyz = torch.randn(b, n, 3, generator=g, device="cuda") * 0.3
-        start = (torch.randint(0, n, (b,), generator=g, device="cuda", dtype=torch.int32)
-                 if random_start else torch.zeros(b, dtype=torch.int32, device="cuda"))
+    for b, n, npoint, cloud, starts in FPS_CASES if "fps" in which else ():
+        xyz, start = chip_smoke.fps_inputs(torch, g, b, n, cloud, starts)
         got = fps_indices(xyz, npoint, start)
         torch.cuda.synchronize()
         n_diff = (got != fps_indices_reference(xyz, npoint, start)).sum().item()
         ok &= n_diff == 0
-        print(f"fps B{b} N{n} npoint{npoint}: {n_diff} indices differ; kernel "
+        print(f"fps B{b} N{n} npoint{npoint} {cloud} {starts} starts (C = "
+              f"{cluster_size(b, torch.cuda.get_device_properties(0).multi_processor_count, n)}"
+              f"): {n_diff} indices differ; kernel "
               f"{ms(lambda: fps_indices(xyz, npoint, start)):.4f} ms, plain "
               f"{ms(lambda: fps_indices_reference(xyz, npoint, start), 2):.4f} ms",
               flush=True)

@@ -2,6 +2,7 @@
 """Times variants of a kernel against the committed source, in one process on
 one card, at its main path's shapes.
 
+    python3 tools/kernel_variants.py fps         # FPS at B = 1 and B64 (N 8192, npoint 512), every cluster size C, its exchanges and floor
     python3 tools/kernel_variants.py encoder     # the point encoder, [64, 512, 32, 3] and M = 48
     python3 tools/kernel_variants.py lnproj      # the fused LN + projection beside its in-place design (tools/ln_proj_variants/)
     python3 tools/kernel_variants.py lnproj '{"inplace_no_norm": {"@source": "tools/ln_proj_variants/fused_ln_proj_inplace.cu", "ln_normalise\\(smem \\+ s \\* STAGE_BYTES[^;]*;": ";"}}'
@@ -360,11 +361,77 @@ def gather_cases(g):
     return [("[49408,512] bf16, 9856 ids", call, table[ids.long()], out)]
 
 
+# FPS: the two other exchanges, plain stores
+# (st.shared::cluster) in place of st.async followed by a cluster barrier
+# ("cluster_barrier") or each by a remote mbarrier arrive, release at cluster
+# scope ("remote_arrive"); a CTA of 512 threads instead of 256; 16 register
+# points a thread at most instead of 32 (the B = 133 row then puts half of
+# each partition in shared memory); and each exchange with the distance
+# update cut out: the chain of 511 row-wide argmaxes alone, the kernel's
+# dependency floor (the indices are then wrong).
+_FPS_PLAIN_STORES = {
+    r"st\.async\.shared::cluster\.mbarrier::complete_tx::bytes\.v4\.b32 "
+    r"(\[%0(?:\+16)?\]), (\{[^}]*\}), \[%1\];": r"st.shared::cluster.v4.b32 \1, \2;",
+    r"if \(tid == 0\) arm_tx\([^;]*;": ""}
+_FPS_EXCHANGES = {
+    "st_async": {},
+    "cluster_barrier": {**_FPS_PLAIN_STORES,
+                        r"mbar_wait\(&bar\[p\], \(s >> 1\) & 1\);": "cluster_sync();"},
+    "remote_arrive": {**_FPS_PLAIN_STORES,
+                      r'(st\.shared::cluster\.v4\.b32 \[%0\+16\], [^"]*")':
+                      r'\1\n      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%1];\\n"',
+                      r"const int arrivals = 1;": "const int arrivals = slots;"}}
+_FPS_NO_UPDATE = {r"\n\s*lower\(\);": "\n"}
+FPS_VARIANTS = {"cluster_barrier": _FPS_EXCHANGES["cluster_barrier"],
+                "remote_arrive": _FPS_EXCHANGES["remote_arrive"],
+                "threads512": {r"constexpr int THREADS = 256;": "constexpr int THREADS = 512;"},
+                "kr16": {r"constexpr int MAX_KR = 32;": "constexpr int MAX_KR = 16;"},
+                **{f"{name}_exchange_only": {**subs, **_FPS_NO_UPDATE}
+                   for name, subs in _FPS_EXCHANGES.items()}}
+
+
+def fps_cases(g):
+    """B = 1 and B64 rows of 8192 points, 512 samples, at every cluster size
+    C the kernel takes (the wrapper picks 16 and 2 on 132 SMs); then B = 133
+    at C = 1."""
+    from vitlens_tpu_torch.ops.fps import fps_indices_reference
+
+    cases = []
+    for b in (1, 64):
+        n = 8192
+        xyz = torch.randn(b, n, 3, generator=g, device="cuda") * 0.3
+        start = torch.zeros(b, dtype=torch.int32, device="cuda")
+        want = fps_indices_reference(xyz, 512, start)
+        work = torch.empty(b, n, device="cuda")
+        for c in (1, 2, 4, 8, 16):
+            out = torch.empty(b, 512, dtype=torch.int32, device="cuda")
+
+            def call(fn, xyz=xyz, start=start, work=work, out=out, b=b, c=c):
+                return fn(xyz.data_ptr(), start.data_ptr(), out.data_ptr(),
+                          work.data_ptr(), b, n, 512, c, _stream())
+
+            cases.append((f"B{b} N{n} C{c}", call, want, out))
+    b, n, c = 133, 8192, 1  # past the SMs: one CTA a row, 8192 points each
+    xyz = torch.randn(b, n, 3, generator=g, device="cuda") * 0.3
+    start = torch.zeros(b, dtype=torch.int32, device="cuda")
+    want = fps_indices_reference(xyz, 512, start)
+    work = torch.empty(b, n, device="cuda")
+    out = torch.empty(b, 512, dtype=torch.int32, device="cuda")
+
+    def call(fn):
+        return fn(xyz.data_ptr(), start.data_ptr(), out.data_ptr(), work.data_ptr(),
+                  b, n, 512, c, _stream())
+
+    cases.append((f"B{b} N{n} C{c}", call, want, out))
+    return cases
+
+
 def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
 KERNELS = {  # source, entry point, cases, default variants
+    "fps": ("fps.cu", "vitlens_fps_fwd", fps_cases, FPS_VARIANTS),
     "encoder": ("fused_point_encoder.cu", "vitlens_point_encoder_fwd",
                 encoder_cases, ENCODER_VARIANTS),
     "lnproj": ("fused_ln_proj.cu", "vitlens_fused_ln_proj_fwd", lnproj_cases,

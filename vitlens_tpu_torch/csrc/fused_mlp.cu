@@ -33,6 +33,11 @@
 // an SM cannot hold 16.8 MB of weights, so this design writes h (~0.4 GB at
 // B64) to HBM and reads it back, about 0.25 ms of the call's bytes.
 //
+// The chained-MLP prototypes (fused_mlp_chain.cu, ops/fused_mlp_chain.py) run
+// these same launches: the chunked MLP through vitlens_fused_mlp_fwd with the
+// tanh GELU, the attention out-projection + MLP on its fp32 row through
+// vitlens_fused_mlp_f32_rows.
+//
 // Requirements checked by the Python wrapper: bf16 x/W1/W2, fp32 LN params and
 // biases, everything contiguous and 16-byte aligned (TMA's base and row
 // strides), D and H multiples of 64.
@@ -42,15 +47,18 @@
 
 namespace {
 
-int fused_mlp(const void* x, const void* lnw, const void* lnb, const void* w1,
+// out = bf16(x + b2 + act(LN(x) @ W1 + b1) @ W2) for bf16 rows x (the
+// residual epilogue EPI_BIAS_RESIDUAL) or fp32 rows (EPI_BIAS_RESIDUAL_F32).
+template <class T>
+int fused_mlp(const T* x, const void* lnw, const void* lnb, const void* w1,
               const void* b1, const void* w2, const void* b2, void* y, void* h,
               void* a, void* out, int M, int D, int H, int act, float eps,
               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rows_per_block = 8;
   ln_rows<<<(M + rows_per_block - 1) / rows_per_block, 32 * rows_per_block, 0,
-            s>>>(static_cast<const __nv_bfloat16*>(x),
-                 static_cast<const float*>(lnw), static_cast<const float*>(lnb),
+            s>>>(x, static_cast<const float*>(lnw),
+                 static_cast<const float*>(lnb),
                  static_cast<__nv_bfloat16*>(y), M, D, eps);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -64,11 +72,16 @@ int fused_mlp(const void* x, const void* lnw, const void* lnb, const void* w1,
             : sm90::launch_gemm<sm90::EPI_BIAS_ACT>(
                   yb, static_cast<const __nv_bfloat16*>(w1), fc, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  sm90::Params proj{static_cast<const float*>(b2),
-                    static_cast<const __nv_bfloat16*>(x),
+  sm90::Params proj{static_cast<const float*>(b2), nullptr,
                     static_cast<__nv_bfloat16*>(out), nullptr, M, D, H, act};
-  err = sm90::launch_gemm<sm90::EPI_BIAS_RESIDUAL>(
-      hb, static_cast<const __nv_bfloat16*>(w2), proj, s);
+  const auto* w2b = static_cast<const __nv_bfloat16*>(w2);
+  if constexpr (sizeof(T) == 4) {
+    proj.resid32 = x;
+    err = sm90::launch_gemm<sm90::EPI_BIAS_RESIDUAL_F32>(hb, w2b, proj, s);
+  } else {
+    proj.resid = x;
+    err = sm90::launch_gemm<sm90::EPI_BIAS_RESIDUAL>(hb, w2b, proj, s);
+  }
   return static_cast<int>(err);
 }
 
@@ -76,7 +89,9 @@ int fused_mlp(const void* x, const void* lnw, const void* lnb, const void* w1,
 
 // x [M, D] bf16; lnw, lnb [D] fp32; w1 [D, H] bf16; b1 [H] fp32;
 // w2 [H, D] bf16; b2 [D] fp32; scratch y [M, D] and h [M, H] bf16;
-// out [M, D] bf16. act: 0 = exact GELU, 1 = QuickGELU.
+// out [M, D] bf16. act: 0 = exact GELU, 1 = QuickGELU, 2 = tanh GELU (the
+// chained-MLP prototype scripts/fused_mlp_pallas.py::fused_mlp, whose port is
+// ops/fused_mlp_chain.py::fused_mlp_chunked).
 // Returns cudaGetLastError() after the launches (0 on success).
 extern "C" int vitlens_fused_mlp_fwd(const void* x, const void* lnw,
                                      const void* lnb, const void* w1,
@@ -84,8 +99,8 @@ extern "C" int vitlens_fused_mlp_fwd(const void* x, const void* lnw,
                                      const void* b2, void* y, void* h,
                                      void* out, int M, int D, int H, int act,
                                      float eps, void* stream) {
-  return fused_mlp(x, lnw, lnb, w1, b1, w2, b2, y, h, nullptr, out, M, D, H,
-                   act, eps, stream);
+  return fused_mlp(static_cast<const __nv_bfloat16*>(x), lnw, lnb, w1, b1, w2,
+                   b2, y, h, nullptr, out, M, D, H, act, eps, stream);
 }
 
 // As vitlens_fused_mlp_fwd, and also writes the pre-activation a [M, H] bf16.
@@ -93,6 +108,17 @@ extern "C" int vitlens_fused_mlp_fwd_save_preact(
     const void* x, const void* lnw, const void* lnb, const void* w1,
     const void* b1, const void* w2, const void* b2, void* y, void* h, void* a,
     void* out, int M, int D, int H, int act, float eps, void* stream) {
-  return fused_mlp(x, lnw, lnb, w1, b1, w2, b2, y, h, a, out, M, D, H, act,
-                   eps, stream);
+  return fused_mlp(static_cast<const __nv_bfloat16*>(x), lnw, lnb, w1, b1, w2,
+                   b2, y, h, a, out, M, D, H, act, eps, stream);
+}
+
+// As vitlens_fused_mlp_fwd on fp32 rows x [M, D]: the attention
+// out-projection's row of fused_mlp_chain.cu, which both the LayerNorm and
+// the residual read unrounded. Called from that source, not bound.
+int vitlens_fused_mlp_f32_rows(
+    const float* x, const void* lnw, const void* lnb, const void* w1,
+    const void* b1, const void* w2, const void* b2, void* y, void* h,
+    void* out, int M, int D, int H, int act, float eps, void* stream) {
+  return fused_mlp(x, lnw, lnb, w1, b1, w2, b2, y, h, nullptr, out, M, D, H,
+                   act, eps, stream);
 }

@@ -1,5 +1,6 @@
-// Hopper bf16 GEMM for the fused MLP (fused_mlp.cu) and the fused LayerNorm
-// + projection (fused_ln_proj.cu):
+// Hopper bf16 GEMM for the fused MLP (fused_mlp.cu), the fused LayerNorm
+// + projection (fused_ln_proj.cu) and the chained-MLP prototypes
+// (fused_mlp_chain.cu):
 //
 //     C[M, N] = epilogue(A[M, K] @ B[K, N])     (row-major bf16, fp32 sums)
 //
@@ -35,6 +36,8 @@
 //       EPI_BIAS_ACT_PREACT as above, and C2 = bf16(acc + bias)
 //       EPI_BIAS_RESIDUAL   C = bf16(resid + bias + acc), summed in that order
 //       EPI_BIAS            C = bf16(acc + bias)
+//       EPI_BIAS_RESIDUAL_F32  as EPI_BIAS_RESIDUAL with an fp32 resid32
+//       EPI_ROW_F32         C32 = (resid + acc) + bias in fp32, no rounding
 // Ragged edges: TMA zero-fills rows of A past M and columns of B past N; B
 // boxes wholly past N are not loaded (their stale columns only reach masked
 // outputs); stores past M or N are skipped. K must be a multiple of 64 and N
@@ -73,19 +76,25 @@ enum Epilogue {
   EPI_BIAS_RESIDUAL = 1,    // C = resid + bias + acc
   EPI_BIAS_ACT_PREACT = 2,  // C = act(acc + bias), C2 = acc + bias
   EPI_BIAS = 3,             // C = acc + bias
+  EPI_BIAS_RESIDUAL_F32 = 4,  // C = resid32 + bias + acc
+  EPI_ROW_F32 = 5,          // C32 = resid + acc + bias (fp32 out)
 };
 
 struct Params {
   const float* bias;           // [N]
-  const __nv_bfloat16* resid;  // [M, N] (EPI_BIAS_RESIDUAL)
+  const __nv_bfloat16* resid;  // [M, N] (EPI_BIAS_RESIDUAL, EPI_ROW_F32)
   __nv_bfloat16* C;            // [M, N]
   __nv_bfloat16* C2;           // [M, N] (EPI_BIAS_ACT_PREACT)
-  int M, N, K, act;            // act: 0 exact GELU, 1 QuickGELU
+  int M, N, K, act;            // act: 0 exact GELU, 1 QuickGELU, 2 tanh GELU
+  const float* resid32;        // [M, N] (EPI_BIAS_RESIDUAL_F32)
+  float* C32;                  // [M, N] (EPI_ROW_F32)
 };
 
 __device__ __forceinline__ float act_fn(float v, int act) {
   if (act == 0) return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
-  return v / (1.0f + __expf(-1.702f * v));
+  if (act == 1) return v / (1.0f + __expf(-1.702f * v));
+  return 0.5f * v *
+         (1.0f + tanhf(0.7978845608028654f * (v + 0.044715f * v * v * v)));
 }
 
 // wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
@@ -374,13 +383,31 @@ __global__ void __launch_bounds__(THREADS, 1)
       const size_t off = static_cast<size_t>(gr) * p.N + gc;
       uint4 o;
       __nv_bfloat16* oe = reinterpret_cast<__nv_bfloat16*>(&o);
-      if constexpr (EPI == EPI_BIAS_RESIDUAL) {  // x + b2 + part, in order
+      if constexpr (EPI == EPI_ROW_F32) {  // (x + part) + bo, kept in fp32
+        const uint4 xr = *reinterpret_cast<const uint4*>(p.resid + off);
+        const __nv_bfloat16* xe = reinterpret_cast<const __nv_bfloat16*>(&xr);
+        float y[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          y[e] = __bfloat162float(xe[e]) + part[e] + p.bias[gc + e];
+        *reinterpret_cast<float4*>(p.C32 + off) = make_float4(y[0], y[1], y[2], y[3]);
+        *reinterpret_cast<float4*>(p.C32 + off + 4) =
+            make_float4(y[4], y[5], y[6], y[7]);
+        continue;
+      } else if constexpr (EPI == EPI_BIAS_RESIDUAL) {  // x + b2 + part, in order
         const uint4 xr = *reinterpret_cast<const uint4*>(p.resid + off);
         const __nv_bfloat16* xe = reinterpret_cast<const __nv_bfloat16*>(&xr);
 #pragma unroll
         for (int e = 0; e < 8; ++e)
           oe[e] = __float2bfloat16(__bfloat162float(xe[e]) + p.bias[gc + e] +
                                    part[e]);
+      } else if constexpr (EPI == EPI_BIAS_RESIDUAL_F32) {  // the same, fp32 rows
+        const float4 r0 = *reinterpret_cast<const float4*>(p.resid32 + off);
+        const float4 r1 = *reinterpret_cast<const float4*>(p.resid32 + off + 4);
+        const float re[8] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.z, r1.w};
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          oe[e] = __float2bfloat16(re[e] + p.bias[gc + e] + part[e]);
       } else {
         uint4 o2;
         __nv_bfloat16* o2e = reinterpret_cast<__nv_bfloat16*>(&o2);

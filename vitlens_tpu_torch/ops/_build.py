@@ -41,14 +41,13 @@ _SIGNATURES = {
     "vitlens_fused_mlp_fwd_save_preact": [_P] * 11 + [_I, _I, _I, _I, _F, _P],
     "vitlens_fused_ln_proj_fwd": [_P] * 7 + [_I, _I, _I, _F, _P],
     "vitlens_flash_attention_fwd": [_P] * 4 + [_I] * 5 + [_L] * 9 + [_F, _P],
-    "vitlens_fps_fwd": [_P] * 3 + [_I] * 3 + [_P],
+    "vitlens_fps_fwd": [_P] * 4 + [_I] * 4 + [_P],
     "vitlens_point_encoder_fwd": [_P] * 16 + [_I] * 6 + [_P],
     "vitlens_int8_matmul_fwd": [_P] * 3 + [_I] * 3 + [_P],
     "vitlens_int8_matmul_dequant_fwd": [_P] * 6 + [_I] * 4 + [_P],
     "vitlens_int8_quantize_fwd": [_P] * 3 + [_I] * 3 + [_P],
     "vitlens_row_gather_fwd": [_P] * 3 + [_I] * 3 + [_P],
-    "vitlens_fused_mlp_chunked_fwd": [_P] * 8 + [_I, _I, _I, _I, _F, _P],
-    "vitlens_fused_attnout_mlp_fwd": [_P] * 11 + [_I, _I, _I, _I, _F, _P],
+    "vitlens_fused_attnout_mlp_fwd": [_P] * 12 + [_I, _I, _I, _I, _F, _P],
 }
 
 

@@ -2,7 +2,8 @@
 
 On a CUDA tensor :func:`fps_indices` launches the hand-written Hopper kernel in
 ``csrc/fps.cu`` (the port of both ``_fps_indices_pallas_batched`` and
-``_fps_indices_pallas``) or raises on what the kernel does not take. On a CPU
+``_fps_indices_pallas``), a thread-block cluster of :func:`cluster_size` CTAs
+a row, or raises on what the kernel does not take. On a CPU
 tensor it runs :func:`fps_indices_reference`, the plain PyTorch version, which
 mirrors the JAX package's ``_fps_indices_xla`` step for step. Both are
 index-exact: the distance is ``(dx*dx + dy*dy) + dz*dz`` rounded after every
@@ -14,11 +15,37 @@ gathers are plain ``torch.gather``.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 
-MAX_POINTS = 16384  # the kernel keeps a row's xyz in shared memory (12 B/point)
+# CTAs a row at most for a partition that fits on chip. The kernel takes up to
+# 16, but every warp of a cluster sends its winner to every CTA, so the
+# exchange grows with C: on an H100, one row of 8192 points took 0.32 ms at
+# C = 4 and 0.46 at C = 16 (tools/kernel_variants.py fps).
+MAX_CLUSTER = 4
+# Points a CTA holds on chip: csrc/fps.cu's REG_POINTS + SMEM_POINTS. Past
+# them a partition reads global memory each step, which costs more than a
+# larger cluster (one row of 100000 points: 3.35 ms at C = 4, 0.69 at 16).
+ON_CHIP_POINTS = 8192 + 7680
+
+
+def cluster_size(batch: int, sm_count: int, n: int) -> int:
+    """CTAs a row: floor(SMs / rows) rounded down to a power of two, at most
+    MAX_CLUSTER and at least 1 (132 SMs: B64 takes 2, one row 4); then
+    doubled, up to 16 and while the rows still fit the SMs, until a
+    partition of the ``n`` points fits on chip."""
+    c = min(sm_count // max(batch, 1), MAX_CLUSTER)
+    c = 1 << (c.bit_length() - 1) if c >= 1 else 1
+    while c < 16 and -(-n // c) > ON_CHIP_POINTS and batch * 2 * c <= sm_count:
+        c *= 2
+    return c
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
@@ -61,8 +88,8 @@ def _check_cuda_args(xyz, start, npoint):
     if not xyz.is_contiguous():
         raise ValueError("fps_indices: xyz must be contiguous")
     B, N, _ = xyz.shape
-    if not 1 <= N <= MAX_POINTS:
-        raise ValueError(f"fps_indices: N={N} must be in [1, {MAX_POINTS}]")
+    if not 1 <= N < 2 ** 31:
+        raise ValueError(f"fps_indices: N={N} must be in [1, 2**31)")
     if npoint < 1:
         raise ValueError(f"fps_indices: npoint={npoint} must be >= 1")
     if start.device != xyz.device:
@@ -82,7 +109,7 @@ def fps_indices(xyz: torch.Tensor, npoint: int,
     The start is 0 for every row, or ``start`` [B], or uniform in [0, N) from
     ``generator``. xyz is cast to fp32 first, as in JAX. CPU tensors take
     :func:`fps_indices_reference`; CUDA tensors launch the kernel (contiguous
-    xyz, N <= 16384) or raise. Start indices must lie in [0, N)."""
+    xyz, any N >= 1) or raise. Start indices must lie in [0, N)."""
     if xyz.dim() != 3 or xyz.shape[-1] != 3:
         raise ValueError(
             f"fps_indices expects xyz [B, N, 3]; got {tuple(xyz.shape)} — pass "
@@ -104,9 +131,14 @@ def fps_indices(xyz: torch.Tensor, npoint: int,
     idx = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
     if B == 0:
         return idx
-    stream = _build.stream_of(xyz)
+    c = cluster_size(B, _sm_count(xyz.device.index), N)
+    # distance scratch for the points of a partition past the on-chip tiers
+    work = (torch.empty((B, N), dtype=torch.float32, device=xyz.device)
+            if -(-N // c) > ON_CHIP_POINTS else None)
     err = _build.library().vitlens_fps_fwd(
-        xyz.data_ptr(), start.data_ptr(), idx.data_ptr(), B, N, npoint, stream)
+        xyz.data_ptr(), start.data_ptr(), idx.data_ptr(),
+        None if work is None else work.data_ptr(), B, N, npoint, c,
+        _build.stream_of(xyz))
     _build.check(err, "fps_indices")
     fps_indices.launches += 1
     return idx

@@ -1,15 +1,18 @@
-"""The residual MLP half of a block in one kernel that never writes the hidden
-activation, optionally with the attention out-projection in front of it.
+"""The residual MLP half of a block, optionally with the attention
+out-projection in front of it.
 
     chunked MLP:   row32 = x
-    attn-out+MLP:  row32 = x + ctx @ Wo + bo        (fp32, never written)
+    attn-out+MLP:  row32 = x + ctx @ Wo + bo        (fp32, never rounded)
     out = (row32 + b2 + act(LN(row32) @ W1 + b1) @ W2) rounded once
 
 On CUDA tensors :func:`fused_mlp_chunked` and :func:`fused_attnout_mlp` launch
-the hand-written Hopper kernel in ``csrc/fused_mlp_chain.cu`` (the port of
-``scripts/fused_mlp_pallas.py::fused_mlp`` and
-``scripts/fused_attnout_mlp_pallas.py::fused``) or raise on what the kernel does
-not take. On CPU tensors they run :func:`fused_mlp_chain_reference`.
+hand-written Hopper kernels or raise on what the kernels do not take.
+:func:`fused_mlp_chunked` (the port of ``scripts/fused_mlp_pallas.py::fused_mlp``)
+runs kernel 1's launches in ``csrc/fused_mlp.cu`` with the tanh GELU;
+:func:`fused_attnout_mlp` (the port of
+``scripts/fused_attnout_mlp_pallas.py::fused``) runs ``csrc/fused_mlp_chain.cu``:
+the out-projection on ``gemm_sm90.cuh`` with an epilogue that writes the fp32
+row, then kernel 1's launches on that row. On CPU tensors they run :func:`fused_mlp_chain_reference`.
 
 ``act`` is ``"gelu_tanh"``, which both TPU prototypes compute (Mosaic has no
 erf), or ``"gelu"``, the exact GELU that the resblock means and that
@@ -26,8 +29,7 @@ import torch
 import torch.nn.functional as F
 
 ACTS = ("gelu", "gelu_tanh")
-WIDTHS = (256, 1024)  # the D the kernel is instantiated for
-H_CHUNK = 128
+_GEMM_ACT = {"gelu": 0, "gelu_tanh": 2}  # gemm_sm90.cuh's act_fn codes
 
 
 def _act(a32: torch.Tensor, act: str) -> torch.Tensor:
@@ -89,9 +91,9 @@ def _check_cuda_args(x, lnw, lnb, w1, b1, w2, b2, act, outproj):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"fused_mlp_chain: {name} must be contiguous and "
                              "16-byte aligned")
-    if d not in WIDTHS or h == 0 or h % H_CHUNK:
-        raise ValueError(f"fused_mlp_chain: D={d} must be one of {WIDTHS} and "
-                         f"H={h} a multiple of {H_CHUNK}")
+    if d == 0 or h == 0 or d % 64 or h % 64:
+        raise ValueError(f"fused_mlp_chain: D={d} and H={h} must be nonzero "
+                         "multiples of 64")
 
 
 def _launch(x, lnw, lnb, w1, b1, w2, b2, act, eps, outproj):
@@ -99,32 +101,37 @@ def _launch(x, lnw, lnb, w1, b1, w2, b2, act, eps, outproj):
     from vitlens_tpu_torch.ops import _build
 
     m, d = x.shape
+    h = w1.shape[1]
     out = torch.empty_like(x)
     if m == 0:
         return out
     lib = _build.library()
-    stream = _build.stream_of(x)
-    mlp = [lnw.data_ptr(), lnb.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-           w2.data_ptr(), b2.data_ptr(), out.data_ptr()]
-    tail = (m, d, w1.shape[1], ACTS.index(act), float(eps), stream)
-    if outproj is None:
-        err = lib.vitlens_fused_mlp_chunked_fwd(x.data_ptr(), *mlp, *tail)
-    else:
+    params = [lnw.data_ptr(), lnb.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+              w2.data_ptr(), b2.data_ptr()]
+    tail = (m, d, h, _GEMM_ACT[act], float(eps), _build.stream_of(x))
+    if outproj is None:  # kernel 1's entry point: scratch y [M, D], h [M, H]
+        y = torch.empty((m, d), dtype=x.dtype, device=x.device)
+        hid = torch.empty((m, h), dtype=x.dtype, device=x.device)
+        err = lib.vitlens_fused_mlp_fwd(x.data_ptr(), *params, y.data_ptr(),
+                                        hid.data_ptr(), out.data_ptr(), *tail)
+    else:  # y [M, D] and h [M, H] bf16, then row32 [M, D] fp32
+        work = torch.empty(2 * m * (d + h) + 4 * m * d, dtype=torch.uint8,
+                           device=x.device)
         err = lib.vitlens_fused_attnout_mlp_fwd(
-            x.data_ptr(), *(t.data_ptr() for t in outproj), *mlp, *tail)
+            x.data_ptr(), *(t.data_ptr() for t in outproj), *params,
+            work.data_ptr(), out.data_ptr(), *tail)
     _build.check(err, "fused_mlp_chain")
     return out
 
 
 def fused_mlp_chunked(x, lnw, lnb, w1, b1, w2, b2, act: str = "gelu_tanh",
                       eps: float = 1e-5) -> torch.Tensor:
-    """x [M, D] -> x + b2 + act(LN(x) @ w1 + b1) @ w2, the hidden activation
-    kept on the chip.
+    """x [M, D] -> x + b2 + act(LN(x) @ w1 + b1) @ w2.
 
     CPU tensors take :func:`fused_mlp_chain_reference`. CUDA tensors launch
-    the kernel (counted in ``fused_mlp_chunked.launches``): x, w1, w2 bf16;
-    lnw, lnb, b1, b2 fp32; all contiguous; D 256 or 1024, H a multiple of
-    128. Anything else raises."""
+    the kernels (counted in ``fused_mlp_chunked.launches``): x, w1, w2 bf16;
+    lnw, lnb, b1, b2 fp32; all contiguous; D and H multiples of 64. Anything
+    else raises."""
     if not x.is_cuda:
         return fused_mlp_chain_reference(x, lnw, lnb, w1, b1, w2, b2, act, eps)
     out = _launch(x, lnw, lnb, w1, b1, w2, b2, act, eps, None)
@@ -135,10 +142,10 @@ def fused_mlp_chunked(x, lnw, lnb, w1, b1, w2, b2, act: str = "gelu_tanh",
 def fused_attnout_mlp(x, ctx, wo, bo, lnw, lnb, w1, b1, w2, b2,
                       act: str = "gelu_tanh", eps: float = 1e-5) -> torch.Tensor:
     """(x, ctx) [M, D] -> y + b2 + act(LN(y) @ w1 + b1) @ w2 with
-    y = x + ctx @ wo + bo kept in fp32 on the chip.
+    y = x + ctx @ wo + bo kept in fp32.
 
     CPU tensors take :func:`fused_mlp_chain_reference`. CUDA tensors launch
-    the kernel (counted in ``fused_attnout_mlp.launches``): as
+    the kernels (counted in ``fused_attnout_mlp.launches``): as
     :func:`fused_mlp_chunked`, with ctx and wo bf16 and bo fp32."""
     if not x.is_cuda:
         return fused_mlp_chain_reference(x, lnw, lnb, w1, b1, w2, b2, act, eps,

@@ -1,5 +1,5 @@
-"""The attention out-projection, its residual and the resblock MLP in one
-kernel (counterpart of scripts/fused_attnout_mlp_pallas.py).
+"""The attention out-projection, its residual and the resblock MLP with the
+fp32 row kept between them (counterpart of scripts/fused_attnout_mlp_pallas.py).
 
     python -m vitlens_tpu_torch.scripts.fused_attnout_mlp [--device cpu]
 

@@ -1,10 +1,10 @@
-"""The resblock MLP in one kernel that keeps the hidden activation on the chip
-(counterpart of scripts/fused_mlp_pallas.py).
+"""The resblock MLP as the chained-MLP prototype computes it (counterpart of
+scripts/fused_mlp_pallas.py; on the card, kernel 1's launches with its tanh GELU).
 
     python -m vitlens_tpu_torch.scripts.fused_mlp_chunked [--device cpu]
 
 At the ViT-L shape of the prototype (M = 64 * 257 rows, D = 1024, H = 4096):
-the chunked kernel against its plain version with the tanh GELU the prototype
+the chained kernels against their plain version with the tanh GELU the prototype
 computes and with the exact GELU of the resblock, then its time beside the
 three-launch fused MLP kernel (``ops.fused_mlp``, the same function with the
 exact GELU) and the plain PyTorch MLP. Prints one JSON line per row and a
