@@ -62,6 +62,29 @@ Phases, one printed line each (or more); any failure exits non-zero:
      pc request again with the tokenizer's group size set to 24, which the
      point-encoder kernel does not take: the plain encoder runs (1 FPS, 0
      point-encoder launches) and the cosine against the CPU holds.
+  4v. served from files: writes WAV files (16 kHz mono 5 s, 44.1 kHz stereo
+     12 s, 8 kHz 1.5 s), a FLAC file (tools/reference_layout.py's writer),
+     PNG and JPEG images (320 x 240, RGB and gray), .npy clouds of 9000
+     points, and reference-layout checkpoints made from a seed by
+     tools/reference_layout.py (a merged export with vitlens.audio. and
+     vitlens.pc. keys, a CLIP file with visual. and text keys; fp16).
+     ViTLens("vitlensL", ("image", "tactile", "audio", "pc", "text"),
+     checkpoints=..., batch_buckets=(1, 4, 8)) on the card in bf16 and the
+     same in fp32 on the CPU: loaded tensors equal the files' after the cast;
+     B = 1 encodes from files (and one B = 3 audio request: WAV, the 8 kHz
+     WAV, the FLAC) with the launches per request (image and tactile 24 fused
+     MLP + 24 attention, audio 24 + 32, pc 24 + 32 + 1 FPS + 1 point encoder,
+     text 12) and cosine >= 0.99 against the CPU. The on-device fbank of
+     [3, 80000] waveforms (the tower's waveform branch) against the host
+     AudioProcessor's of the same samples: max |d| <= 1e-3 on the normalised
+     fbank, tower features cosine >= 0.99. Then
+     make_server(model, max_batch=8, max_wait_ms=50) answers 12 concurrent
+     HTTP requests mixing the five modalities (paths, captions, numeric pc
+     items): each reply cosine >= 0.999 against a direct encode, fewer
+     batches than requests, /healthz names the card, both workers gone after
+     shutdown and close. Last, `python -m vitlens_tpu_torch.cli.serve
+     --modalities text --max-batch 2 --port 0` answers one caption and
+     drains on SIGTERM with exit 0.
   4f. fp32 default: ViTLens("vitlensL", ("audio", "pc", "text")) with its
      default compute dtype (fp32, as in JAX) encodes B = 2 of each on the
      card through the plain paths (the kernels take bf16, as JAX's gates
@@ -121,8 +144,12 @@ Phases, one printed line each (or more); any failure exits non-zero:
      encode; the B64 quantized audio encode rate
      beside the float one; a torch.profiler breakdown of one B64 audio (float
      and quantized) and one B64 pc encode and one B64 train step with the
-     device's busy and idle share. Every time is printed beside the card's name and
-     power limit.
+     device's busy and idle share; the served path (phase 4v's model): the
+     B64 image encode rate, the host AudioProcessor per 10 s WAV and
+     ImageProcessor per image, the on-device fbank at [192, 80000], and a
+     closed-loop served run (64 audio requests of one 5 s WAV from 16 client
+     threads at max_batch 64: requests/s, p50 and p95 from /healthz). Every
+     time is printed beside the card's name and power limit.
 The last lines are {"kernels": [...]}, the card's name and power limit, then
 {"ok": true, "device": {...}}.
 """
@@ -133,6 +160,7 @@ import copy
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -1337,6 +1365,429 @@ def time_new_kernels(torch, g, timings):
              **({"today_split_ms": cuda_ms(today)} if act == "gelu" else {})})
 
 
+SERVE_COS_MIN = 0.999  # a served reply against a direct encode of the same items
+FBANK_TOL = 1e-3       # cuFFT against pocketfft, on the normalised fbank
+
+
+def _tone(np, rate, seconds, channels, seed):
+    """A tone over noise 30 dB down: float64 [channels, T] in [-1, 1)."""
+    rng = np.random.RandomState(seed)
+    t = np.arange(int(rate * seconds)) / rate
+    f = 220.0 * (1 + seed % 5) + 110.0 * np.arange(channels)[:, None]
+    return 0.4 * np.sin(2 * np.pi * f * t) + 0.013 * rng.randn(channels, t.size)
+
+
+def write_inputs(torch, np, root):
+    """Phase 4v's files: WAV (16 kHz mono 5 s, 44.1 kHz stereo 12 s, 8 kHz
+    1.5 s), one FLAC (the tests' minimal writer), PNG and JPEG images at
+    320 x 240 in RGB and grayscale, .npy clouds of 9000 points, and the
+    reference-layout checkpoints: a merged export (vitlens.audio.*,
+    vitlens.pc.*) and a CLIP file (visual.* and the text keys), fp16, from a
+    seeded generator."""
+    from PIL import Image
+
+    from tools.reference_layout import (clip_state_dict, merged_state_dict,
+                                        pcm_from_float, vision_tower_state_dict,
+                                        write_flac, write_wav)
+    from vitlens_tpu_torch.config import make_model_config
+
+    f = {}
+    for name, (rate, secs, ch) in {"wav16k": (16000, 5.0, 1),
+                                   "wav44k": (44100, 12.0, 2),
+                                   "wav8k": (8000, 1.5, 1),
+                                   "wav10s": (16000, 10.0, 1)}.items():
+        f[name] = os.path.join(root, name + ".wav")
+        write_wav(f[name], pcm_from_float(_tone(np, rate, secs, ch, len(f)), 16), rate)
+    f["flac"] = os.path.join(root, "a.flac")
+    write_flac(f["flac"], pcm_from_float(_tone(np, 16000, 3.0, 2, 7), 16), 16000,
+               16, "fixed", 2, "mid_side")
+    rng = np.random.RandomState(SEED)
+    yy, xx = np.mgrid[0:240, 0:320]
+    rgb = np.stack([xx / 320, yy / 240, (xx + yy) / 560], -1) * 200
+    rgb = np.clip(rgb + rng.randint(0, 55, rgb.shape), 0, 255).astype(np.uint8)
+    for ext in ("png", "jpg"):
+        for mode in ("RGB", "L"):
+            f[f"{ext}_{mode}"] = os.path.join(root, f"im_{mode}.{ext}")
+            Image.fromarray(rgb, "RGB").convert(mode).save(f[f"{ext}_{mode}"])
+    for i in range(2):
+        f[f"npy{i}"] = os.path.join(root, f"cloud{i}.npy")
+        np.save(f[f"npy{i}"], (rng.randn(9000, 3) * 0.3).astype(np.float32))
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    half = torch.float16
+    towers = {m: vision_tower_state_dict(make_model_config("ViT-L-14", m).tower,
+                                         g, half) for m in ("audio", "pc")}
+    merged = merged_state_dict(towers)
+    clip = clip_state_dict(make_model_config("ViT-L-14", "image"), g, half)
+    f["all"] = os.path.join(root, "vitlensL_merged.pt")
+    f["clip"] = os.path.join(root, "clip_vitl14.pt")
+    torch.save({"epoch": 1, "state_dict": merged}, f["all"])
+    torch.save(clip, f["clip"])
+    return f, merged, clip
+
+
+def _post(port, payload, timeout=600):
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/encode", data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def _healthz(port):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                timeout=60) as r:
+        return json.loads(r.read())
+
+
+def _serve(make_server, model, max_batch, max_wait_ms):
+    import threading
+
+    srv = make_server(model, port=0, max_batch=max_batch, max_wait_ms=max_wait_ms)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    return srv, th
+
+
+def _stop(srv, th):
+    """Stop accepting, drain, close; both workers must have exited."""
+    srv.shutdown()
+    srv.encoder.close()
+    srv.server_close()
+    th.join(30)
+    enc = srv.encoder
+    alive = [t.name for t in (enc._worker, enc._pre_worker, th)
+             if t is not None and t.is_alive()]
+    if alive:
+        fail(f"threads still alive after the drain: {alive}")
+
+
+def served_phase(torch, np, counters, totals, card):
+    """Phase 4v: vitlensL with every ported modality, loaded from
+    reference-layout checkpoints, encodes raw files on the card and is
+    served over HTTP. Returns what phase 5 times."""
+    import tempfile
+    import threading
+
+    from vitlens_tpu_torch.api import ViTLens
+    from vitlens_tpu_torch.ops.fbank import fbank_fixed_length
+    from vitlens_tpu_torch.serve import make_server
+
+    t0 = time.time()
+    root = tempfile.mkdtemp(prefix="vitlens_4v_")
+    files, merged, clip = write_inputs(torch, np, root)
+    t_files = time.time() - t0
+    mods = ("image", "tactile", "audio", "pc", "text")
+    ckpts = {"all": files["all"], "image": files["clip"],
+             "tactile": files["clip"], "text": files["clip"]}
+    t0 = time.time()
+    model = ViTLens("vitlensL", mods, device="cuda", compute_dtype=torch.bfloat16,
+                    seed=SEED, checkpoints=ckpts, batch_buckets=(1, 4, 8))
+    torch.cuda.synchronize()
+    t_card = time.time() - t0
+    t0 = time.time()
+    ref = ViTLens("vitlensL", mods, device="cpu", seed=SEED, checkpoints=ckpts)
+    t_cpu = time.time() - t0
+
+    # a handful of loaded tensors against the file's, after the cast
+    t = model.towers
+    p = "transformer.resblocks.0."
+    last = f"transformer.resblocks.{len(t['text'].trunk.blocks) - 1}."
+    dim = t["text"].text_projection.shape[1]
+    pairs = {
+        "image conv1": (t["image"].adapter.conv1.w,
+                        clip["visual.conv1.weight"].float().flatten(1).T),
+        "tactile ln_pre": (t["tactile"].ln_pre.scale, clip["visual.ln_pre.weight"]),
+        "audio qkv_w[0]": (t["audio"].trunk.blocks[0].attn.qkv_w,
+                           merged["vitlens.audio." + p + "attn.in_proj_weight"].float().T),
+        "audio latents": (t["audio"].perceiver.latents,
+                          merged["vitlens.audio.perceiver.latents"]),
+        "pc bn1 mean": (t["pc"].adapter.encoder.bn1.mean,
+                        merged["vitlens.pc.visual_adapter.encoder.first_conv.1.running_mean"]),
+        "text token_embedding": (t["text"].token_embedding,
+                                 clip["token_embedding.weight"]),
+        "text fc w[last]": (t["text"].trunk.blocks[-1].mlp.fc.w,
+                            clip[last + "mlp.c_fc.weight"].float().T)}
+    for name, (got, want) in pairs.items():
+        if not torch.equal(got.cpu(), want.float().to(got.dtype)):
+            fail(f"4v: loaded {name} differs from the checkpoint's")
+    del merged, clip
+
+    # B = 1 (and one B = 3 audio) encodes from files, counted
+    def n_attn(cfg):
+        p = cfg.perceiver
+        return cfg.arch.layers + (p.depth * (1 + p.self_per_cross_attn) if p else 0)
+
+    n_text = t["text"].cfg.layers
+    want = {m: launch_counts(fused_mlp=t[m].cfg.arch.layers,
+                             flash_attention=n_attn(t[m].cfg))
+            for m in ("image", "tactile", "audio")}
+    want["pc"] = launch_counts(fused_mlp=t["pc"].cfg.arch.layers,
+                               flash_attention=n_attn(t["pc"].cfg), fps=1,
+                               point_encoder=1)
+    want["text"] = launch_counts(fused_mlp=n_text)
+    requests = [("image", [files["png_RGB"]]), ("tactile", [files["jpg_L"]]),
+                ("audio", [files["wav44k"]]),
+                ("audio", [files["wav16k"], files["wav8k"], files["flac"]]),
+                ("pc", [files["npy0"]]),
+                ("text", ["a dog barking in the rain"])]
+    per_req, cos = [], {}
+    for m, items in requests:
+        emb, counts = run_counted(torch, counters, totals,
+                                  lambda: model.encode({m: items})[m])
+        per_req.append((m, len(items), counts["fused_mlp"], counts["flash_attention"],
+                        counts["fps"], counts["point_encoder"]))
+        if counts != want[m]:
+            fail(f"4v {m} from files: launches {counts}, expected {want[m]}")
+        if (tuple(emb.shape) != (len(items), dim) or not torch.isfinite(emb).all()
+                or (emb.float().norm(dim=-1) - 1).abs().max() > 1e-3):
+            fail(f"4v {m} from files: shape {tuple(emb.shape)}, non-finite "
+                 "values or norms off 1")
+        if m == "pc":  # the card's tower rounds the cloud to bf16 before FPS
+            x = torch.from_numpy(model.processors["pc"](items))
+            want_emb = ref.encode({"pc": x.bfloat16().float()}, preprocessed=True)["pc"]
+        else:
+            want_emb = ref.encode({m: items})[m]
+        cos[f"{m} B={len(items)}"] = cos_min(torch, emb, want_emb)
+    del ref
+    if min(cos.values()) < COS_MIN:
+        fail(f"4v: card bf16 vs CPU fp32 from files: min cosine {cos} < {COS_MIN}")
+    print(f"[4v files] vitlensL {mods} from reference-layout checkpoints "
+          f"(merged vitlens.{{audio,pc}}. export, CLIP visual. + text file; "
+          f"files written in {t_files:.1f} s, card model built and loaded in "
+          f"{t_card:.1f} s, CPU fp32 copy in {t_cpu:.1f} s); {len(pairs)} loaded "
+          f"tensors equal the files'; requests from files (modality, B, mlp, "
+          f"attn, fps, encoder) {per_req}; min cosine vs CPU fp32: "
+          + " ".join(f"{k} {v:.6f}" for k, v in cos.items()), flush=True)
+
+    # the on-device fbank against the host processor's, same samples
+    proc, tower = model.processors["audio"], t["audio"]
+    from vitlens_tpu_torch.data.audio_decode import load_audio_file
+
+    clips = proc.clips(*load_audio_file(files["wav44k"]))  # [3, 80000]
+    host = torch.from_numpy(proc.fbank(clips))
+    a = tower.cfg.audio
+    wave = torch.from_numpy(clips).cuda()
+    dev = fbank_fixed_length(wave, target_length=a.target_length,
+                             sample_frequency=float(a.sampling_rate),
+                             num_mel_bins=a.mel_bins).cpu()
+    d = (dev - host).abs().max().item()
+    if d > FBANK_TOL:
+        fail(f"4v: on-device fbank vs host: max |d| {d} > {FBANK_TOL}")
+    with torch.inference_mode():
+        f_wave = tower(wave, torch.bfloat16)
+        f_host = tower(host.cuda(), torch.bfloat16)
+    fcos = cos_min(torch, f_wave, f_host)
+    if fcos < COS_MIN:
+        fail(f"4v: waveform-branch features vs host-fbank features: cosine {fcos}")
+    print(f"[4v fbank] {card} | [3, 80000] waveforms: on-device fbank (cuFFT) "
+          f"vs the host AudioProcessor's (CPU): max |d| {d:.3e} (<= "
+          f"{FBANK_TOL}) on the normalised fbank; tower features from the "
+          f"waveform vs from the host fbank: min cosine {fcos:.6f}", flush=True)
+
+    # served: about 12 concurrent requests mixing the five modalities
+    srv, th = _serve(make_server, model, 8, 50)
+    port = srv.server_address[1]
+    clouds = [np.load(files[f"npy{i}"]) for i in range(2)]
+    reqs = [("text", ["a bird singing"]), ("text", ["rain", "a siren wailing"]),
+            ("text", ["an old car"]),
+            ("image", [files["png_RGB"]]), ("image", [files["jpg_RGB"], files["png_L"]]),
+            ("tactile", [files["jpg_L"]]), ("tactile", [files["png_RGB"]]),
+            ("audio", [files["wav16k"]]), ("audio", [files["flac"]]),
+            ("audio", [files["wav8k"]]),
+            ("pc", [clouds[0].tolist()]), ("pc", [clouds[1].tolist()])]
+    replies = [None] * len(reqs)
+
+    def ask(i):
+        m, items = reqs[i]
+        try:
+            replies[i] = _post(port, {"inputs": {m: items}})
+        except Exception as e:  # noqa: BLE001 - reported below
+            replies[i] = e
+
+    for c in counters.values():
+        c.launches = 0
+    threads = []
+    t0 = time.time()
+    for m in ("text", "image", "tactile", "audio", "pc"):
+        # one burst a modality, the bursts further apart than the window
+        for i, (rm, _) in enumerate(reqs):
+            if rm == m:
+                threads.append(threading.Thread(target=ask, args=(i,)))
+                threads[-1].start()
+        time.sleep(0.15)
+    for th_ in threads:
+        th_.join(600)
+    served_s = time.time() - t0
+    served_counts = {name: c.launches for name, c in counters.items()}
+    for name, n in served_counts.items():
+        totals[name] += n
+    health = _healthz(port)
+    _stop(srv, th)
+    scos = []
+    for (m, items), reply in zip(reqs, replies):
+        if not isinstance(reply, dict):
+            fail(f"4v serve: {m} request failed: {reply!r}")
+        got = torch.tensor(reply["embeddings"][m])
+        direct = [np.asarray(x, np.float32) for x in items] if m == "pc" else items
+        scos.append(cos_min(torch, got, model.encode({m: direct})[m]))
+    stats = health["stats"]
+    if min(scos) < SERVE_COS_MIN:
+        fail(f"4v serve: replies vs direct encodes: cosines {scos} < {SERVE_COS_MIN}")
+    if not stats["batches"] < len(reqs):
+        fail(f"4v serve: {stats['batches']} batches for {len(reqs)} requests: "
+             "nothing was coalesced")
+    if (health["device_name"] != torch.cuda.get_device_name(0)
+            or not health["device"].startswith("cuda")):
+        fail(f"4v serve: /healthz names {health['device']} {health['device_name']}")
+    print(f"[4v serve] {card} | {len(reqs)} concurrent HTTP requests (text, "
+          f"image, tactile, audio paths, pc numeric items) in {served_s:.2f} s: "
+          f"{stats['batches']} batches, {stats['items']} items; min cosine of a "
+          f"reply vs a direct encode {min(scos):.6f} (>= {SERVE_COS_MIN}); "
+          f"launches {dict((k, v) for k, v in served_counts.items() if v)}; "
+          f"/healthz device {health['device']} ({health['device_name']}), "
+          f"latency {health['latency']}; after shutdown and close both "
+          f"workers have exited", flush=True)
+
+    print(f"[4v cli] {card} | {run_cli(root)}", flush=True)
+    return {"model": model, "files": files, "root": root}
+
+
+def run_cli(tmp):
+    """python -m vitlens_tpu_torch.cli.serve for text on the card: answers
+    one caption, drains on SIGTERM and exits 0. Its log goes to ``tmp``."""
+    import re
+    import signal
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    log = os.path.join(tmp, "serve_cli.log")
+    cmd = [sys.executable, "-m", "vitlens_tpu_torch.cli.serve", "--modalities",
+           "text", "--max-batch", "2", "--port", "0"]
+    t0 = time.time()
+    with open(log, "w") as out:
+        p = subprocess.Popen(cmd, cwd=root, stdout=out, stderr=subprocess.STDOUT)
+        try:
+            port = None
+            while time.time() - t0 < 300 and port is None:
+                m = re.search(r"listening on http://[^:]+:(\d+)", open(log).read())
+                if m:
+                    port = int(m.group(1))
+                elif p.poll() is not None:
+                    fail(f"serve CLI exited {p.returncode}: {open(log).read()[-1500:]}")
+                else:
+                    time.sleep(0.5)
+            if port is None:
+                fail("serve CLI never printed its port")
+            t_up = time.time() - t0
+            reply = _post(port, {"inputs": {"text": ["a dog"]}})
+            if len(reply["embeddings"]["text"]) != 1 or reply["dim"] != 768:
+                fail(f"serve CLI reply: {str(reply)[:200]}")
+            p.send_signal(signal.SIGTERM)
+            rc = p.wait(timeout=120)
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    text = open(log).read()
+    drained = re.search(r"vitlens-serve: drained, exiting \(served 1 items.*", text)
+    if rc != 0 or "draining" not in text or not drained:
+        fail(f"serve CLI: exit {rc}, log {text[-1500:]}")
+    return (f"{' '.join(cmd[1:])}: up (warmed) in {t_up:.1f} s, answered one "
+            f"caption, exit {rc} on SIGTERM: {drained.group(0)!r}")
+
+
+def served_timings(torch, np, card, ctx):
+    """Phase 5's timings of the served path: the B64 image encode, the host
+    processors, the on-device fbank at [192, 80000], and a closed-loop
+    served run (64 audio requests of one 5 s WAV each from 16 client
+    threads at max_batch 64)."""
+    import threading
+
+    from vitlens_tpu_torch.data.processors import AudioProcessor, ImageProcessor
+    from vitlens_tpu_torch.ops.fbank import fbank_fixed_length
+    from vitlens_tpu_torch.serve import make_server
+
+    model, files = ctx["model"], ctx["files"]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    hw = model.towers["image"].cfg.arch.image_size
+    img64 = torch.randn(B, 3, hw, hw, generator=g, device="cuda")
+    def image64():
+        return model.encode({"image": img64}, preprocessed=True)["image"]
+
+    rates = {"image": encode_rate(
+        torch, card, f"image encode B{B} bf16 (preprocessed [B, 3, {hw}, {hw}])",
+        image64, B)}
+    profile_encode(torch, card, f"B{B} image encode", image64)
+
+    def host_ms(fn, runs=5):
+        fn()
+        times = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return min(times), times
+
+    aud, img = AudioProcessor(), ImageProcessor()
+    a_ms, a_all = host_ms(lambda: aud([files["wav10s"]]))
+    i_ms, i_all = host_ms(lambda: img([files["jpg_RGB"]]), runs=20)
+    print(f"[5 timing] {card} | host AudioProcessor, one 10 s 16 kHz WAV -> "
+          f"[1, 3, 512, 128] (decode, 3 clips, CPU fbank; torch "
+          f"{torch.get_num_threads()} threads): {a_ms:.2f} ms best of 5, all "
+          f"{[round(x, 2) for x in a_all]}; host ImageProcessor, one 320 x 240 "
+          f"JPEG -> [1, 3, 224, 224]: {i_ms:.3f} ms best of 20", flush=True)
+    w192 = torch.randn(3 * B, 80000, generator=g, device="cuda") * 0.1
+    fb_ms = cuda_ms(lambda: fbank_fixed_length(w192))
+    # the bound: each waveform read and the fbank written once, or the
+    # operations (a 512-point real FFT ~2.5 N log2 N, the power spectrum
+    # and the mel product) at the fp32 peak
+    frames = 1 + (80000 - 400) // 160
+    fb_ops = 3 * B * frames * (2.5 * 512 * 9 + 3 * 256 + 2 * 256 * 128)
+    fb_bound, fb_by = bound(fb_ops, w192.numel() * 4 + 3 * B * 512 * 128 * 4,
+                            PEAK_FP32)
+    print(f"[5 timing] {card} | on-device fbank [{3 * B}, 80000] -> "
+          f"[{3 * B}, 512, 128] fp32 (plain PyTorch: unfold, cuFFT rfft, the "
+          f"mel matmul): {fb_ms:.4f} ms, bound {fb_bound:.4f} ms ({fb_by})",
+          flush=True)
+
+    srv, th = _serve(make_server, model, B, 50)
+    port = srv.server_address[1]
+    _post(port, {"inputs": {"audio": [files["wav16k"]]}})  # warm the path
+    errors = []
+
+    def client():
+        for _ in range(4):
+            try:
+                _post(port, {"inputs": {"audio": [files["wav16k"]]}})
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append(e)
+
+    clients = [threading.Thread(target=client) for _ in range(16)]
+    t0 = time.perf_counter()
+    for c in clients:
+        c.start()
+    for c in clients:
+        c.join(600)
+    wall = time.perf_counter() - t0
+    health = _healthz(port)
+    _stop(srv, th)
+    if errors:
+        fail(f"served run: {len(errors)} requests failed: {errors[0]!r}")
+    st, lat = health["stats"], health["latency"]
+    print(f"[5 timing] {card} | served closed loop: 64 audio requests (one 5 s "
+          f"16 kHz WAV each, 3 clips) from 16 client threads, max_batch {B}, "
+          f"max_wait 50 ms: {64 / wall:.2f} requests/s ({wall:.2f} s), "
+          f"{st['batches'] - 1} batches (mean {63 / max(1, st['batches'] - 1):.1f} "
+          f"items, the warm request aside), latency p50 {lat['p50_ms']} ms, "
+          f"p95 {lat['p95_ms']} ms (/healthz, the warm request included)",
+          flush=True)
+    rates["served_rps"] = 64 / wall
+    return rates
+
+
 def main() -> int:
     import torch
 
@@ -1634,6 +2085,9 @@ def main() -> int:
           f"{tuple(counts24[k] for k in ('fused_mlp', 'flash_attention', 'fps', 'point_encoder'))}",
           flush=True)
 
+    # -- 4v: served from files -------------------------------------------------
+    served = served_phase(torch, np, counters, launches, card)
+
     # -- 4f: the fp32 default; 4h: head dims other than 64 --------------------
     fp32_phase(torch, counters, launches, fbanks[4][:2], clouds[4][:2],
                captions[:2])
@@ -1834,6 +2288,9 @@ def main() -> int:
         finally:
             os.environ.pop("VITLENS_ENABLE_FUSED_LNQKV", None)
     profile_encode(torch, card, f"B{B} audio train step", step64)
+    served_rates = served_timings(torch, np, card, served)
+    shutil.rmtree(served["root"], ignore_errors=True)
+    del served
 
     replaces = {
         "fused_mlp": "vitlens_tpu/ops/fused_mlp.py:105",
@@ -1886,7 +2343,10 @@ def main() -> int:
           f"({max(q_rates) / max(audio_rate, audio_again):.3f}x); pc encode "
           f"B{B}: {pc_rate:.2f} samples/s, B=1 latency {pc1_ms:.2f} ms; audio "
           f"train step B{B}: {max(train_rates[False]):.2f} samples/s, opt-in "
-          f"{max(train_rates[True]):.2f}; whole run {time.time() - t_start:.1f} s",
+          f"{max(train_rates[True]):.2f}; image encode B{B}: "
+          f"{served_rates['image']:.2f} samples/s; served audio closed loop: "
+          f"{served_rates['served_rps']:.2f} requests/s; whole run "
+          f"{time.time() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": line}))
     print(card)

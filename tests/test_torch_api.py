@@ -70,7 +70,8 @@ def test_encode_matches_jax(jax_params, dtype, min_cos):
 
 def test_batch_buckets_and_single_clip():
     """Padding to a bucket leaves the real rows unchanged; a [B, T, F] fbank
-    (one clip) is accepted; unported modalities and host audio raise."""
+    (one clip) is accepted; the modalities still unported (depth, video)
+    raise."""
     pm = ViTLens("vitlensB", ("audio",), device="cpu", seed=1)
     pm.towers["audio"].trunk.blocks = pm.towers["audio"].trunk.blocks[:2]
     bucketed = ViTLens("vitlensB", ("audio",), device="cpu", seed=1,
@@ -81,7 +82,6 @@ def test_batch_buckets_and_single_clip():
     got = bucketed.encode({"audio": fb}, preprocessed=True)["audio"]
     assert tuple(got.shape) == (2, 512)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        pm.encode({"audio": fb})
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ViTLens("vitlensB", ("image",), device="cpu")
+    for unported in ("depth", "video"):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            ViTLens("vitlensB", (unported,), device="cpu")

@@ -31,8 +31,11 @@ def test_port_imports_no_jax():
         "          'ops.fused_ln_proj', 'train.losses', 'train.schedules', 'train.freeze', 'train.step',\n"
         "          'quant', 'ops.int8_matmul', 'ops.row_gather', 'ops.fused_mlp_chain', 'scripts.fused_mlp_chunked',\n"
         "          'scripts.fused_ln_qkv', 'scripts.fused_attnout_mlp', 'scripts.bench_int8_native',\n"
-        "          'scripts.bench_dma_gather', 'scripts.bench_int8_encode'):\n"
+        "          'scripts.bench_dma_gather', 'scripts.bench_int8_encode', 'ops.fbank',\n"
+        "          'data.audio_decode', 'weights.torch_convert', 'serve', 'cli.serve'):\n"
         "    assert 'vitlens_tpu_torch.' + n in names, n\n"
+        "sys.path.insert(0, '.')\n"
+        "import tools.reference_layout\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'vitlens_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n")
@@ -43,16 +46,24 @@ def test_port_imports_no_jax():
 
 
 def test_port_sources_never_name_jax():
+    """No import of jax or the JAX package in any module of the port, in
+    tools/reference_layout.py or in chip_smoke.py."""
     root = os.path.join(REPO, "vitlens_tpu_torch")
-    for dirpath, _, files in os.walk(root):
-        for f in files:
-            if f.endswith(".py"):
-                src = open(os.path.join(dirpath, f), encoding="utf-8").read()
-                for line in src.splitlines():
-                    s = line.strip()
-                    if s.startswith(("import ", "from ")):
-                        mod = s.split()[1].split(".")[0]
-                        assert mod not in ("jax", "jaxlib", "vitlens_tpu"), (f, s)
+    paths = [os.path.join(dirpath, f) for dirpath, _, files in os.walk(root)
+             for f in files if f.endswith(".py")]
+    names = {os.path.relpath(p, root) for p in paths}
+    for new in ("ops/fbank.py", "data/audio_decode.py", "weights/torch_convert.py",
+                "serve.py", "cli/serve.py"):
+        assert new in names, new
+    paths += [os.path.join(REPO, "tools", "reference_layout.py"),
+              os.path.join(REPO, "chip_smoke.py")]
+    for path in paths:
+        src = open(path, encoding="utf-8").read()
+        for line in src.splitlines():
+            s = line.strip()
+            if s.startswith(("import ", "from ")):
+                mod = s.split()[1].split(".")[0]
+                assert mod not in ("jax", "jaxlib", "vitlens_tpu"), (path, s)
 
 
 def test_build_raises_without_nvcc(monkeypatch):

@@ -1,8 +1,8 @@
 """Modality adapters (port of vitlens_tpu/adapters/tokenizers.py).
 
-Ported: the AST-style audio adapter and the PointBERT point tokenizer (eval
-mode). The PNSA point tokenizer and the other modalities' adapters are not
-yet ported.
+Ported: the image/tactile patch embedding, the AST-style audio adapter and
+the PointBERT point tokenizer (eval mode). The PNSA point tokenizer and the
+other modalities' adapters are not yet ported.
 """
 
 from __future__ import annotations
@@ -19,6 +19,36 @@ from vitlens_tpu_torch.ops.fps import group_points
 from vitlens_tpu_torch.ops.fused_point_encoder import (
     BN_EPS, fused_point_encoder, point_encoder_applicable,
     point_encoder_reference)
+
+
+def patchify_2d(x: torch.Tensor, patch: int) -> torch.Tensor:
+    """[B, C, H, W] -> [B, (H/p)*(W/p), C*p*p], flattened in (c, ph, pw)
+    order: the same as a conv with kernel = stride = patch."""
+    B, C, H, W = x.shape
+    gh, gw = H // patch, W // patch
+    x = x.reshape(B, C, gh, patch, gw, patch).permute(0, 2, 4, 1, 3, 5)
+    return x.reshape(B, gh * gw, C * patch * patch)
+
+
+class ImageAdapter(nn.Module):
+    """Patch embedding of the image and tactile towers as patchify + one
+    product. ``conv1.w`` keeps the JAX layout [C*p*p, width], so
+    ``weights/from_jax.py`` copies it unchanged. No adapter positional
+    embedding: the ViT's own covers the image path."""
+
+    def __init__(self, cfg: TowerConfig, device=None):
+        super().__init__()
+        self.patch = cfg.arch.patch_size
+        self.conv1 = nn.Module()
+        self.conv1.w = _param(3 * self.patch ** 2, cfg.arch.width,
+                              device=device)
+
+    def init_(self, g: torch.Generator) -> None:
+        normal_(self.conv1.w, self.conv1.w.shape[0] ** -0.5, g)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, None]:
+        """x [B, 3, H, W] -> (tokens [B, grid^2, width], None)."""
+        return patchify_2d(x, self.patch) @ self.conv1.w.to(x.dtype), None
 
 
 class AudioAdapter(nn.Module):

@@ -1,16 +1,21 @@
-"""One-stop inference API (port of vitlens_tpu/api.py::ViTLens): audio, point
-clouds and text.
+"""One-stop inference API (port of vitlens_tpu/api.py::ViTLens): images,
+tactile frames, audio, point clouds and text.
 
 ``ViTLens(...).encode({modality: inputs})`` -> {modality: [B, embed_dim]}.
-Audio inputs are fbank arrays, [B, n_clip, T, F] (clip embeddings are
-mean-pooled) or [B, T, F], passed with ``preprocessed=True``; point-cloud
-inputs are raw clouds (arrays [N, C] or ``.npy`` paths, sampled to the
-tower's point count by the host processor) or, with ``preprocessed=True``,
-[B, npoints, 3]; text inputs are caption strings (or token ids with
-``preprocessed=True``). The host fbank processor, the image tower and the
-other modalities are not yet ported.
+Raw inputs go through the host processors (``data/processors.py``): image
+and tactile paths or PIL images, WAV/FLAC paths (3 clips a file, their
+embeddings mean-pooled), clouds (arrays [N, C] or ``.npy`` paths, sampled to
+the tower's point count) and captions. With ``preprocessed=True`` the inputs
+are model-ready arrays: images [B, 3, H, W]; audio as raw 16 kHz waveforms
+[B, samples] (the fbank then runs inside the tower, on the model's device),
+an fbank [B, T, F] or clips [B, n_clip, T, F]; points [B, npoints, C]; token
+ids [B, 77].
 
-The model is built on the card unless ``device`` names another device.
+``checkpoints={modality: path, "all": path}`` loads reference-layout state
+dicts (the released per-modality files, a merged file with
+``vitlens.{modality}.`` keys, or a CLIP file). The model is built on the card
+unless ``device`` names another device. The depth, EEG and video towers are
+not yet ported.
 """
 
 from __future__ import annotations
@@ -21,14 +26,15 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from vitlens_tpu_torch.config import make_model_config
-from vitlens_tpu_torch.data.processors import PointCloudProcessor, TextProcessor
+from vitlens_tpu_torch.config import image_tower_config, make_model_config
+from vitlens_tpu_torch.data.processors import default_processors
 from vitlens_tpu_torch.factory import (cast_matmul_weights_, make_generator,
                                        resolve_device)
 from vitlens_tpu_torch.models.text import TextTower
 from vitlens_tpu_torch.models.vit import VisionTower
 
-PORTED_MODALITIES = ("audio", "pc", "text")
+PORTED_MODALITIES = ("image", "tactile", "audio", "pc", "text")
+VISUAL_MODALITIES = ("pc", "audio", "depth", "tactile", "eeg", "video")
 _TRUNKS = {"vitlensL": "ViT-L-14", "vitlensB": "ViT-B-16",
            "vitlensG": "ViT-bigG-14"}
 
@@ -45,20 +51,33 @@ def _as_tensor(data, dtype: torch.dtype) -> torch.Tensor:
     return torch.as_tensor(np.asarray(data), dtype=dtype)
 
 
+def _read_checkpoint(path: str) -> dict:
+    from vitlens_tpu_torch.weights.torch_convert import (load_torch_checkpoint,
+                                                         strip_prefixes)
+
+    return strip_prefixes(load_torch_checkpoint(path))
+
+
 class ViTLens(nn.Module):
     """Multi-modal encoder bound to one trunk (default ViT-L-14).
 
     Weights are made on ``device`` (default: the CUDA device; pass
-    ``device="cpu"`` for the host) from a generator seeded with ``seed``;
-    matmul weights are cast to ``compute_dtype`` once. ``batch_buckets`` pads
-    each encode batch up to the next bucket with zero rows, which are sliced
-    off (rows are computed independently)."""
+    ``device="cpu"`` for the host) from a generator seeded with ``seed``, or
+    loaded from ``checkpoints`` where given: {modality: path} for the
+    released per-modality files and/or "all" for one merged file. Matmul
+    weights are cast to ``compute_dtype`` once; ``param_dtype`` instead casts
+    every floating parameter at load (bf16 halves the memory of the vitlensG
+    trunk), and the weights are cast to the compute dtype at use.
+    ``batch_buckets`` pads each encode batch up to the next bucket with zero
+    rows, which are sliced off (rows are computed independently)."""
 
     def __init__(self, model_var: str = "vitlensL",
-                 modality_loaded: Sequence[str] = ("audio", "text"),
+                 modality_loaded: Sequence[str] = ("image", "text"),
                  device=None, compute_dtype: torch.dtype = torch.float32,
                  seed: int = 0,
-                 batch_buckets: Optional[Sequence[int]] = None):
+                 batch_buckets: Optional[Sequence[int]] = None,
+                 checkpoints: Optional[Dict[str, str]] = None,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.model_var = model_var
         self.trunk = _TRUNKS[model_var]
@@ -71,31 +90,88 @@ class ViTLens(nn.Module):
                 "the vitlensG pc tower (PNSA tokenizer) is not yet ported")
         device = resolve_device(device)
         self.compute_dtype = compute_dtype
+        self.param_dtype = param_dtype
         self.batch_buckets = (tuple(sorted(batch_buckets))
                               if batch_buckets else None)
+        self.processors = default_processors(self.modalities)
         self.towers = nn.ModuleDict()
+        checkpoints = checkpoints or {}
+        state_dicts: Dict[str, dict] = {}  # each file is read once
         g = make_generator(seed, device)
         for m in self.modalities:
-            cfg = make_model_config(self.trunk, m if m != "text" else "image")
+            cfg = make_model_config(self.trunk,
+                                    m if m in VISUAL_MODALITIES else "image")
             if m == "text":
                 tower = TextTower(cfg.text, cfg.embed_dim, cfg.quick_gelu,
                                   device=device)
+            elif m == "image":
+                tower = VisionTower(image_tower_config(cfg), device=device)
             else:
                 tower = VisionTower(cfg.tower, device=device)
-            tower.init_(g)
-            self.towers[m] = cast_matmul_weights_(tower, compute_dtype)
-        self.processors = {}
-        if "text" in self.modalities:
-            self.processors["text"] = TextProcessor()
+            path = checkpoints.get(m) or checkpoints.get("all")
+            if path:  # a strict load: every parameter comes from the file
+                if path not in state_dicts:
+                    state_dicts[path] = _read_checkpoint(path)
+                self._load_ckpt(tower, m, path, state_dicts[path])
+            else:
+                tower.init_(g)
+            if param_dtype is None:
+                cast_matmul_weights_(tower, compute_dtype)
+            else:
+                for p in tower.parameters():
+                    if p.is_floating_point():
+                        p.data = p.data.to(param_dtype)
+            self.towers[m] = tower
         if "pc" in self.modalities:
             # the processor samples to the tower's point count and width
             pt = self.towers["pc"].cfg.point
-            self.processors["pc"] = PointCloudProcessor(
-                n_sample_points=pt.npoints, channels=pt.in_channel)
+            self.processors["pc"].n = pt.npoints
+            self.processors["pc"].channels = pt.in_channel
 
     @property
     def device(self) -> torch.device:
         return next(self.parameters()).device
+
+    # -- construction ------------------------------------------------------
+
+    @staticmethod
+    def _load_ckpt(tower: nn.Module, m: str, path: str,
+                   sd: Optional[dict] = None) -> None:
+        """Copy the reference-layout checkpoint at ``path`` (or its state
+        dict ``sd``, already read) into ``tower``; strict: the file must
+        hold the whole tower."""
+        from vitlens_tpu_torch.weights.from_jax import load_params, load_state
+        from vitlens_tpu_torch.weights.torch_convert import (
+            convert_text_tower, convert_vision_tower, sub)
+
+        if sd is None:
+            sd = _read_checkpoint(path)
+        # a merged multi-modality checkpoint: keys vitlens.{modality}.{...}
+        if any(k.startswith(f"vitlens.{m}.") for k in sd):
+            sd = sub(sd, f"vitlens.{m}.")
+        if m == "text":
+            layers = tower.cfg.layers
+            if "token_embedding.weight" in sd:
+                params = convert_text_tower(sd, layers)
+            elif any(k.startswith("text.") for k in sd):
+                params = convert_text_tower(sub(sd, "text."), layers)
+            else:
+                # loud: returning here would serve the random text weights,
+                # whose normalised embeddings look plausible
+                raise ValueError(
+                    f"checkpoint {path!r} matches no known text-tower layout "
+                    f"(no 'token_embedding.weight', no 'text.' prefix); first "
+                    f"keys: {sorted(sd)[:5]}")
+            load_params(tower, params)
+            return
+        prefix = ("image." if m == "image"
+                  and any(k.startswith("image.") for k in sd) else "visual.")
+        tower_sd = sub(sd, prefix) if any(k.startswith(prefix) for k in sd) else sd
+        params, state = convert_vision_tower(tower_sd, tower.cfg)
+        load_params(tower, params)
+        load_state(tower, state)
+
+    # -- encoding ----------------------------------------------------------
 
     def _pad_to_bucket(self, x: torch.Tensor) -> torch.Tensor:
         if self.batch_buckets is None:
@@ -110,26 +186,16 @@ class ViTLens(nn.Module):
     @torch.inference_mode()
     def encode(self, inputs, normalize: bool = True,
                preprocessed: bool = False) -> Dict[str, torch.Tensor]:
-        """inputs: {modality: captions (text), clouds (pc) or fbank arrays
-        (audio, with ``preprocessed=True``)}. Returns {modality: [B,
-        embed_dim]} on the model's device (fp32 when normalized)."""
+        """inputs: {modality: paths, PIL images, clouds or captions (or
+        model-ready arrays with ``preprocessed=True``)}. Returns {modality:
+        [B, embed_dim]} on the model's device (fp32 when normalized)."""
         out: Dict[str, torch.Tensor] = {}
         dev, dt = self.device, self.compute_dtype
         for m, data in inputs.items():
             if m not in self.towers:
                 raise KeyError(f"modality {m!r} not loaded; have {self.modalities}")
-            if m == "text":
-                x = _as_tensor(data if preprocessed
-                               else self.processors["text"](data), torch.long)
-            elif m == "pc":
-                x = _as_tensor(data if preprocessed
-                               else self.processors["pc"](data), torch.float32)
-            else:
-                if not preprocessed:
-                    raise NotImplementedError(
-                        "the host audio processor (waveform -> fbank) is not "
-                        "yet ported; pass fbank arrays with preprocessed=True")
-                x = _as_tensor(data, torch.float32)
+            x = data if preprocessed else self.processors[m](data)
+            x = _as_tensor(x, torch.long if m == "text" else torch.float32)
             x = x.to(dev)
             B = x.shape[0]
             x = self._pad_to_bucket(x)
@@ -143,3 +209,40 @@ class ViTLens(nn.Module):
             feats = feats[:B]
             out[m] = _l2n(feats) if normalize else feats
         return out
+
+    # -- warmup (serving cold start) ---------------------------------------
+
+    def _warmup_sample(self, m: str, b: int, n_clips: int = 3) -> np.ndarray:
+        """A zero input of the processor's output shape for one modality."""
+        tower = self.towers[m]
+        if m == "text":
+            return np.zeros((b, tower.cfg.context_length), np.int64)
+        t = tower.cfg
+        hw = t.arch.image_size
+        shapes = {
+            "image": (3, hw, hw),
+            "tactile": (3, hw, hw),
+            "pc": (t.point.npoints, t.point.in_channel) if t.point else None,
+            "audio": ((n_clips, t.audio.target_length, t.audio.mel_bins)
+                      if t.audio else None),
+        }
+        shape = shapes.get(m)
+        if shape is None:
+            raise ValueError(f"no warmup shape for modality {m!r}")
+        return np.zeros((b,) + shape, np.float32)
+
+    def warmup(self, batch_sizes=None, log=None) -> None:
+        """Run every (modality, batch bucket) encode once on zero inputs, so
+        that the first real request pays no one-time cost: on the card the
+        first call builds the kernels (nvcc, or the build cache) and each
+        bucket's first call sets up its launches and the allocator's
+        blocks."""
+        sizes = list(batch_sizes if batch_sizes is not None
+                     else (self.batch_buckets or [1]))
+        for m in self.modalities:
+            for b in sizes:
+                feats = self.encode({m: self._warmup_sample(m, b)},
+                                    normalize=True, preprocessed=True)
+                feats[m].cpu()  # waits for the device
+                if log:
+                    log(f"warmup {m} b{b} done")

@@ -1,16 +1,34 @@
-"""Host-side processors (port of vitlens_tpu/data/processors.py).
+"""Host-side processors: raw files -> model-ready arrays (port of
+vitlens_tpu/data/processors.py).
 
-Ported: ``TextProcessor`` (caption cleanup plus CLIP BPE) and
+Ported: ``TextProcessor`` (caption cleanup plus CLIP BPE),
+``ImageProcessor`` (bicubic resize of the smaller edge, center crop, OpenAI
+mean/std), ``TactileProcessor`` (resize 256, crop 224), ``AudioProcessor``
+(decode, resample, constant clip grid, Kaldi fbank) and
 ``PointCloudProcessor`` (host FPS to the tower's point count, unit-sphere
-normalisation), the latter on its numpy path only.
+normalisation), the latter on its numpy path only. Decoding is numpy, PIL
+and the stdlib.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Optional
+from fractions import Fraction
+from typing import List, Optional, Sequence
 
 import numpy as np
+import torch
+from PIL import Image
+
+from vitlens_tpu_torch.config import OPENAI_DATASET_MEAN, OPENAI_DATASET_STD
+
+AST_MEAN = -4.2677393
+AST_STD = 4.5689974
+# the AudioSet + VGGSound audio variant's statistics
+AS_VGGS_MEAN = -5.081
+AS_VGGS_STD = 4.485
+AUDIO_STATS = {"audioset": (AST_MEAN, AST_STD),
+               "as_vggs": (AS_VGGS_MEAN, AS_VGGS_STD)}
 
 
 def _wrap_list(x):
@@ -41,6 +59,66 @@ class TextProcessor:
     def __call__(self, captions) -> np.ndarray:
         caps = [self.prompt + self.pre_caption(c) for c in _wrap_list(captions)]
         return self.tokenizer(caps, self.context_length)
+
+
+def _resize_smaller_edge(img: Image.Image, size: int) -> Image.Image:
+    w, h = img.size
+    if w <= h:
+        new = (size, max(1, round(h * size / w)))
+    else:
+        new = (max(1, round(w * size / h)), size)
+    return img.resize(new, Image.BICUBIC)
+
+
+def _center_crop(arr: np.ndarray, size: int) -> np.ndarray:
+    h, w = arr.shape[-2:]
+    top = max(0, (h - size) // 2)
+    left = max(0, (w - size) // 2)
+    return arr[..., top:top + size, left:left + size]
+
+
+def _normalize_chw(arr: np.ndarray, mean, std) -> np.ndarray:
+    mean = np.asarray(mean, np.float32)[:, None, None]
+    std = np.asarray(std, np.float32)[:, None, None]
+    return (arr - mean) / std
+
+
+class ImageProcessor:
+    """Eval transform: resize the smaller edge to ``resize_size`` (bicubic),
+    center-crop ``image_size``, scale to [0, 1], OpenAI mean/std. Takes paths
+    or PIL images -> [B, 3, image_size, image_size] float32."""
+
+    def __init__(self, image_size: int = 224, mean=None, std=None,
+                 resize_size: Optional[int] = None):
+        self.image_size = image_size
+        self.resize_size = resize_size or image_size
+        self.mean = mean or OPENAI_DATASET_MEAN
+        self.std = std or OPENAI_DATASET_STD
+
+    def process_pil(self, img: Image.Image) -> np.ndarray:
+        img = _resize_smaller_edge(img.convert("RGB"), self.resize_size)
+        arr = np.asarray(img, np.float32).transpose(2, 0, 1) / 255.0
+        arr = _center_crop(arr, self.image_size)
+        return _normalize_chw(arr, self.mean, self.std)
+
+    def __call__(self, paths) -> np.ndarray:
+        out = []
+        for p in _wrap_list(paths):
+            if isinstance(p, Image.Image):
+                out.append(self.process_pil(p))
+            else:
+                with open(p, "rb") as f:
+                    out.append(self.process_pil(Image.open(f)))
+        return np.stack(out)
+
+
+class TactileProcessor(ImageProcessor):
+    """GelSight frames: resize the smaller edge to 256, center-crop 224 (the
+    resize edge scales with ``image_size``)."""
+
+    def __init__(self, mean=None, std=None, image_size: int = 224):
+        super().__init__(image_size=image_size, mean=mean, std=std,
+                         resize_size=round(image_size * 256 / 224))
 
 
 def farthest_point_sample_np(points: np.ndarray, npoint: int,
@@ -104,3 +182,139 @@ class PointCloudProcessor:
         return np.stack([self.process_array(
             c if isinstance(c, np.ndarray) else np.load(c))
             for c in _wrap_list(clouds)])
+
+
+def constant_clip_timepoints(duration: float, clip_duration: float,
+                             n_clip: int) -> List[tuple]:
+    """Evenly spaced clip starts: start_i = i * (duration - clip) / n_clip,
+    stopping early past the last valid start."""
+    maxs = Fraction(max(duration - clip_duration, 0))
+    step = Fraction(maxs, n_clip)
+    pts = []
+    for i in range(n_clip):
+        if i > 0 and step * i > maxs:
+            break
+        s = float(step * i)
+        pts.append((s, s + clip_duration))
+    return pts
+
+
+def audio_get_clip(wf: np.ndarray, sr: int, target_duration: float,
+                   start=None, end=None, sub_mean: bool = True,
+                   rng: Optional[np.random.RandomState] = None) -> np.ndarray:
+    """Slice, repeat-pad or crop one clip of ``wf`` [C, T]."""
+    orig_duration = wf.shape[1] / sr
+    if start is not None and end is not None:
+        if start < orig_duration and end <= orig_duration and end - start > 0.5:
+            wf = wf[:, int(start * sr):int(end * sr)]
+    target_t = int(sr * target_duration)
+    reps = 0
+    while wf.shape[1] < target_t and reps <= 5:
+        wf = np.concatenate([wf, wf], axis=1)
+        reps += 1
+    if reps > 5:
+        raise ValueError(f"audio too short ({orig_duration}s)")
+    if wf.shape[1] > target_t:
+        hi = wf.shape[1] - 1 - target_t
+        s = (rng.randint(0, hi + 1) if rng is not None and hi > 0 else 0)
+        wf = wf[:, s:s + target_t]
+    if sub_mean:
+        wf = wf - wf.mean()
+    return wf
+
+
+class AudioProcessor:
+    """WAV/FLAC paths -> [B, n_clip, target_length, mel_bins] normalised
+    fbank.
+
+    The fbank runs on host CPU tensors on purpose, as the JAX package pins it
+    to the CPU: the data path never sends per-sample work to the accelerator.
+    This mirrors the reference; it is not a fallback. The on-device fbank is
+    the tower's waveform branch (a [B, samples] input to ``ViTLens.encode``
+    with ``preprocessed=True``)."""
+
+    def __init__(self, sampling_rate: int = 16000, clip_duration: float = 5.0,
+                 n_clip: int = 3, target_length: int = 512,
+                 mel_bins: int = 128, mean: float = AST_MEAN,
+                 std: float = AST_STD, seed: Optional[int] = 0):
+        self.sr = sampling_rate
+        self.clip_duration = clip_duration
+        self.n_clip = n_clip
+        self.target_length = target_length
+        self.mel_bins = mel_bins
+        self.mean = mean
+        self.std = std
+        self.seed = seed
+
+    def clips(self, wf: np.ndarray, sr: int,
+              rng: Optional[np.random.RandomState] = None,
+              random_clip: bool = False) -> np.ndarray:
+        """Resample to the processor's rate and cut the clips: -> [n_clip,
+        clip samples] mono float32. ``random_clip`` samples uniformly random
+        windows (the train path); the default is the eval-time constant
+        grid."""
+        from vitlens_tpu_torch.data.audio_decode import resample
+
+        if wf.ndim == 1:
+            wf = wf[None]
+        if sr != self.sr:
+            wf = resample(wf, sr, self.sr)
+        duration = wf.shape[1] / self.sr
+        if rng is None:
+            rng = np.random.RandomState(self.seed) if self.seed is not None else None
+        if duration <= self.clip_duration:
+            clips = [audio_get_clip(wf, self.sr, self.clip_duration, rng=rng)
+                     ] * self.n_clip
+        elif random_clip and rng is not None:
+            starts = rng.uniform(0.0, duration - self.clip_duration,
+                                 size=self.n_clip)
+            clips = [audio_get_clip(wf, self.sr, self.clip_duration, s,
+                                    s + self.clip_duration, rng=rng)
+                     for s in starts]
+        else:
+            clips = [audio_get_clip(wf, self.sr, self.clip_duration, s, e, rng=rng)
+                     for s, e in constant_clip_timepoints(
+                         duration, self.clip_duration, self.n_clip)]
+            while len(clips) < self.n_clip:
+                clips.append(clips[-1])
+        return np.stack([c[0] for c in clips]).astype(np.float32)
+
+    def fbank(self, batch: np.ndarray) -> np.ndarray:
+        """[n, samples] at the processor's rate -> [n, target_length,
+        mel_bins], computed on the host."""
+        from vitlens_tpu_torch.ops.fbank import fbank_fixed_length
+
+        fb = fbank_fixed_length(
+            torch.from_numpy(np.ascontiguousarray(batch, np.float32)),
+            target_length=self.target_length, mean=self.mean, std=self.std,
+            sample_frequency=float(self.sr), num_mel_bins=self.mel_bins)
+        return fb.numpy()
+
+    def process_waveform(self, wf: np.ndarray, sr: int,
+                         rng: Optional[np.random.RandomState] = None,
+                         random_clip: bool = False) -> np.ndarray:
+        return self.fbank(self.clips(wf, sr, rng, random_clip))
+
+    def __call__(self, paths) -> np.ndarray:
+        from vitlens_tpu_torch.data.audio_decode import load_audio_file
+
+        out = []
+        for p in _wrap_list(paths):
+            wf, sr = load_audio_file(p)
+            out.append(self.process_waveform(wf, sr))
+        return np.stack(out)  # [B, n_clip, T, F]
+
+
+def default_processors(modalities: Optional[Sequence[str]] = None):
+    """{modality: processor} for the ported modalities (all of them by
+    default); a modality that is not yet ported raises."""
+    all_procs = {"image": ImageProcessor, "text": TextProcessor,
+                 "pc": PointCloudProcessor, "audio": AudioProcessor,
+                 "tactile": TactileProcessor}
+    if modalities is None:
+        modalities = list(all_procs)
+    for m in modalities:
+        if m not in all_procs:
+            raise NotImplementedError(
+                f"the {m!r} processor is not yet ported")
+    return {m: all_procs[m]() for m in modalities}

@@ -16,6 +16,8 @@ no CUDA device they raise unless the caller passes ``device="cpu"``.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn as nn
 
@@ -65,11 +67,27 @@ def make_trainable_(model: nn.Module, mask, dtype: torch.dtype) -> nn.Module:
 def create_model(model: str = "ViT-L-14", modality: str = "audio", *,
                  seed: int = 0, quick_gelu: bool = False, device=None,
                  dtype: torch.dtype = torch.float32,
+                 checkpoint_path: Optional[str] = None,
                  **tower_overrides) -> TriModel:
-    """Build the Lens + text model for ``modality`` on trunk ``model``."""
+    """Build the Lens + text model for ``modality`` on trunk ``model``.
+
+    ``checkpoint_path`` names a reference (TriCLIP or CLIP) state dict,
+    merged non-strictly over the initial weights, as in JAX: what the file
+    holds is loaded, the rest keeps its initial values. Its image tower is
+    dropped: the port's ``TriModel`` has none yet."""
     device = resolve_device(device)
     cfg = make_model_config(model, modality, quick_gelu=quick_gelu,
                             **tower_overrides)
     m = TriModel(cfg, device=device)
     m.init_(make_generator(seed, device))
+    if checkpoint_path is not None:
+        from vitlens_tpu_torch.weights.from_jax import merge_params
+        from vitlens_tpu_torch.weights.torch_convert import (
+            convert_tri_state_dict, load_torch_checkpoint)
+
+        params, state = convert_tri_state_dict(
+            load_torch_checkpoint(checkpoint_path), cfg)
+        params.pop("image", None)
+        state.pop("image", None)
+        merge_params(m, params, state)
     return cast_matmul_weights_(m, dtype)

@@ -1,13 +1,14 @@
-"""Lens-aware vision tower (port of vitlens_tpu/models/vit.py): audio and
-point clouds.
+"""Lens-aware vision tower (port of vitlens_tpu/models/vit.py): images,
+tactile frames, audio and point clouds.
 
-    fbank or points -> adapter (+ adapter pos) -> Perceiver Lens -> prepend
-    CLS -> + positional embedding -> ln_pre -> trunk -> CLS pool -> ln_post
-    -> @ proj
+    image, fbank or points -> adapter (+ adapter pos) -> Perceiver Lens (not
+    on the image and tactile towers) -> prepend CLS -> + positional embedding
+    -> ln_pre -> trunk -> CLS pool -> ln_post -> @ proj
 
-Raw waveforms (the JAX package's on-device fbank), the PNSA point tokenizer
-and the other modalities are not yet ported and raise
-``NotImplementedError``.
+A raw waveform [B, samples] into the audio tower goes through the Kaldi
+fbank on its own device, in fp32, before the cast to the compute dtype. The
+PNSA point tokenizer and the depth, EEG and video towers are not yet ported
+and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -15,31 +16,35 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from vitlens_tpu_torch.adapters.tokenizers import AudioAdapter, PointTokenizer
+from vitlens_tpu_torch.adapters.tokenizers import (AudioAdapter, ImageAdapter,
+                                                  PointTokenizer)
 from vitlens_tpu_torch.config import TowerConfig
 from vitlens_tpu_torch.models.layers import (LayerNorm, Transformer, _param,
                                              normal_)
 from vitlens_tpu_torch.models.perceiver import Perceiver
+from vitlens_tpu_torch.ops.fbank import fbank_fixed_length
 
 
 class VisionTower(nn.Module):
     def __init__(self, cfg: TowerConfig, device=None):
         super().__init__()
-        if cfg.modality not in ("audio", "pc"):
+        if cfg.modality not in ("image", "tactile", "audio", "pc"):
             raise NotImplementedError(
                 f"the {cfg.modality!r} tower is not yet ported")
         p = cfg.perceiver
-        if p is None or p.as_identity or p.as_transformer:
+        if p is not None and (p.as_identity or p.as_transformer):
             raise NotImplementedError(
-                "only the cross-attending perceiver Lens is ported")
+                "the identity and transformer Lens are not yet ported")
         self.cfg = cfg
         arch = cfg.arch
         width = arch.width
         if cfg.modality == "audio":
             self.adapter = AudioAdapter(cfg, device=device)
-        else:
+        elif cfg.modality == "pc":
             self.adapter = PointTokenizer(cfg.point, device=device)
-        self.perceiver = Perceiver(p, device=device)
+        else:
+            self.adapter = ImageAdapter(cfg, device=device)
+        self.perceiver = Perceiver(p, device=device) if p is not None else None
         self.class_embedding = _param(width, device=device)
         self.positional_embedding = _param(cfg.num_tokens + 1, width,
                                            device=device)
@@ -53,7 +58,8 @@ class VisionTower(nn.Module):
     def init_(self, g: torch.Generator) -> None:
         scale = self.cfg.arch.width ** -0.5
         self.adapter.init_(g)
-        self.perceiver.init_(g)
+        if self.perceiver is not None:
+            self.perceiver.init_(g)
         normal_(self.class_embedding, scale, g)
         normal_(self.positional_embedding, scale, g)
         self.ln_pre.init_(g)
@@ -63,17 +69,20 @@ class VisionTower(nn.Module):
 
     def forward(self, x: torch.Tensor, compute_dtype=torch.float32, *,
                 train: bool = False, remat: bool = False):
-        """x: fbank [B, target_length, mel_bins] or points [B, N, 3] ->
-        features [B, embed_dim]. The input is cast to ``compute_dtype`` first,
-        so FPS sees the rounded coordinates, as in JAX. ``remat`` recomputes
-        the trunk's blocks in the backward pass. ``train`` marks a training
-        pass: train-time patch dropout and the point tokenizer's batch
-        BatchNorm and random FPS starts are not ported and raise."""
-        if self.cfg.modality == "audio" and x.dim() != 3:
-            raise NotImplementedError(
-                "raw-waveform audio input (on-device fbank) is not yet ported; "
-                "pass a [B, target_length, mel_bins] fbank")
+        """x: images [B, 3, H, W], fbank [B, target_length, mel_bins], raw
+        waveforms [B, samples] or points [B, N, 3] -> features [B,
+        embed_dim]. A waveform goes through the fbank in fp32 on its own
+        device first; then the input is cast to ``compute_dtype``, so FPS
+        sees the rounded coordinates, as in JAX. ``remat`` recomputes the
+        trunk's blocks in the backward pass. ``train`` marks a training pass:
+        train-time patch dropout and the point tokenizer's batch BatchNorm
+        and random FPS starts are not ported and raise."""
         cfg = self.cfg
+        if cfg.modality == "audio" and x.dim() == 2:
+            a = cfg.audio
+            x = fbank_fixed_length(x.float(), target_length=a.target_length,
+                                   sample_frequency=float(a.sampling_rate),
+                                   num_mel_bins=a.mel_bins)
         if train and cfg.patch_dropout > 0:
             raise NotImplementedError(
                 "train-time patch dropout (patch_dropout > 0) is not yet ported")
@@ -83,9 +92,10 @@ class VisionTower(nn.Module):
                 "not yet ported")
         x = x.to(compute_dtype)
         tokens, pos = self.adapter(x)
-        if cfg.use_adapter_pos:
+        if pos is not None and cfg.use_adapter_pos:
             tokens = tokens + pos.to(tokens.dtype)
-        tokens = self.perceiver(tokens)
+        if self.perceiver is not None:
+            tokens = self.perceiver(tokens)
         B, _, width = tokens.shape
         cls = self.class_embedding.to(tokens.dtype).expand(B, 1, width)
         h = torch.cat([cls, tokens], dim=1)

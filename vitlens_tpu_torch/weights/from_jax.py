@@ -19,7 +19,9 @@ of the tree that the module lacks, a module parameter the tree lacks, or a
 shape mismatch raises. :func:`load_tri_params` loads a whole JAX
 ``tri_model_init`` tree but its ``image`` tower. :func:`load_state` does the same for the JAX state
 tree (the point tokenizer's BatchNorm running statistics) and the module's
-buffers. Values are copied into the existing parameters, so
+buffers. :func:`merge_params` is the non-strict load of a checkpoint: it
+copies the leaves the trees have and leaves the module's other parameters
+as they are. Values are copied into the existing parameters, so
 they take each parameter's dtype and device (matmul weights already cast to
 the compute dtype stay so).
 """
@@ -54,16 +56,16 @@ def flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
 
 
 def _copy_into(module: nn.Module, tree: Any, targets: Dict[str, torch.Tensor],
-               what: str) -> nn.Module:
+               what: str, strict: bool = True) -> nn.Module:
     flat = flatten(tree)
     unknown = sorted(set(flat) - set(targets))
-    missing = sorted(set(targets) - set(flat))
+    missing = sorted(set(targets) - set(flat)) if strict else []
     if unknown or missing:
         raise KeyError(f"JAX {what} do not match {type(module).__name__}: "
                        f"unknown {unknown[:8]}, missing {missing[:8]}")
     with torch.no_grad():
-        for name, p in targets.items():
-            arr = flat[name]
+        for name, arr in flat.items():
+            p = targets[name]
             if tuple(arr.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: JAX shape {tuple(arr.shape)}, "
                                  f"port shape {tuple(p.shape)}")
@@ -104,3 +106,17 @@ def load_state(module: nn.Module, tree: Any) -> nn.Module:
     quant = _quant_buffers(module)
     targets = {n: b for n, b in module.named_buffers() if n not in quant}
     return _copy_into(module, tree, targets, "state")
+
+
+def merge_params(module: nn.Module, params: Any, state: Any = None) -> nn.Module:
+    """Non-strict load (the JAX factory's ``_merge`` of a converted
+    checkpoint over the initial tree): copy every leaf of ``params`` and
+    ``state`` into the parameter or buffer of the same name. Parameters the
+    trees lack keep their values; a leaf the module lacks, or of another
+    shape, raises."""
+    _copy_into(module, params, dict(module.named_parameters()), "params",
+               strict=False)
+    if state is not None:
+        _copy_into(module, state, dict(module.named_buffers()), "state",
+                   strict=False)
+    return module
