@@ -11,7 +11,9 @@ Phases, one printed line each (or more); any failure exits non-zero:
      the shapes of the main paths and at edge shapes: fused MLP, both
      variants and both activations (out and the save-preact output a; bf16,
      <= 2.5e-2 and 1e-2 relative; also a ragged M = 4100 and D/H = 768/3072
-     and 1664/8192), attention (bf16, <= 1e-2 relative; also every NQ, NK in
+     and 1664/8192), attention (bf16, <= 1e-2 relative; at the video Lens
+     cross [64, 1, 256, 2048, 64], a ragged NK of 2040 beside it and the EEG
+     and pc Lens cross [64, 1, 256, 512, 64]; also every NQ, NK in
      {1, 7, 77, 257, 600}, NK past the K/V-resident limit, and the packed-qkv
      and Lens views bit-equal to contiguous copies; and head dims 32, 80,
      88, 104, 112 and 128 at every NQ, NK in {1, 77, 257, 600}, contiguous
@@ -65,26 +67,35 @@ Phases, one printed line each (or more); any failure exits non-zero:
   4v. served from files: writes WAV files (16 kHz mono 5 s, 44.1 kHz stereo
      12 s, 8 kHz 1.5 s), a FLAC file (tools/reference_layout.py's writer),
      PNG and JPEG images (320 x 240, RGB and gray), .npy clouds of 9000
-     points, and reference-layout checkpoints made from a seed by
-     tools/reference_layout.py (a merged export with vitlens.audio. and
-     vitlens.pc. keys, a CLIP file with visual. and text keys; fp16).
-     ViTLens("vitlensL", ("image", "tactile", "audio", "pc", "text"),
-     checkpoints=..., batch_buckets=(1, 4, 8)) on the card in bf16 and the
-     same in fp32 on the CPU: loaded tensors equal the files' after the cast;
-     B = 1 encodes from files (and one B = 3 audio request: WAV, the 8 kHz
-     WAV, the FLAC) with the launches per request (image and tactile 24 fused
-     MLP + 24 attention, audio 24 + 32, pc 24 + 32 + 1 FPS + 1 point encoder,
-     text 12) and cosine >= 0.99 against the CPU. The on-device fbank of
+     points, disparity maps (.npy and a 16-bit .png), an EEG .pt [128, 500],
+     a directory of 12 JPEG frames, and reference-layout checkpoints made
+     from a seed by tools/reference_layout.py (a merged export with
+     vitlens.{audio, pc, depth, eeg, video}. keys, a CLIP file with visual.
+     and text keys; fp16). ViTLens("vitlensL", ("image", "tactile",
+     "depth", "audio", "eeg", "video", "pc", "text"), checkpoints=...,
+     batch_buckets=(1, 4, 8)) on the card in bf16 and the same in fp32 on
+     the CPU: loaded tensors equal the files' after the cast; B = 1 encodes
+     from files (and one B = 3 audio request: WAV, the 8 kHz WAV, the FLAC;
+     one B = 2 depth request: the .npy and the .png) with the launches per
+     request derived from the config (image, tactile and depth 24 fused MLP
+     + 24 attention, EEG 24 + 26, video 24 + 28, audio 24 + 32, pc 24 + 32 +
+     1 FPS + 1 point encoder, text 12) and cosine >= 0.99 against the CPU. The on-device fbank of
      [3, 80000] waveforms (the tower's waveform branch) against the host
      AudioProcessor's of the same samples: max |d| <= 1e-3 on the normalised
      fbank, tower features cosine >= 0.99. Then
-     make_server(model, max_batch=8, max_wait_ms=50) answers 12 concurrent
-     HTTP requests mixing the five modalities (paths, captions, numeric pc
-     items): each reply cosine >= 0.999 against a direct encode, fewer
-     batches than requests, /healthz names the card, both workers gone after
-     shutdown and close. Last, `python -m vitlens_tpu_torch.cli.serve
-     --modalities text --max-batch 2 --port 0` answers one caption and
-     drains on SIGTERM with exit 0.
+     make_server(model, max_batch=8, max_wait_ms=50) answers 16 concurrent
+     HTTP requests mixing the eight modalities (paths, a frame directory,
+     captions, numeric pc items): each reply cosine >= 0.999 against a
+     direct encode, fewer batches than requests, /healthz names the card and
+     the eight modalities, both workers gone after shutdown and close.
+     Last, `python -m vitlens_tpu_torch.cli.serve --modalities depth eeg
+     video text --ckpt all=... --ckpt text=... --max-batch 2 --port 0`
+     answers one request of each (cosine >= 0.999 against the in-process
+     model's direct encode) and drains on SIGTERM with exit 0.
+  4t. transformer Lens: a vitlensL depth tower whose Lens is 2 trunk-width
+     blocks (as_transformer) at full width and depth, a B = 2 bf16 encode
+     with 26 fused MLP + 26 attention launches and cosine >= 0.99 against
+     the fp32 CPU copy.
   4f. fp32 default: ViTLens("vitlensL", ("audio", "pc", "text")) with its
      default compute dtype (fp32, as in JAX) encodes B = 2 of each on the
      card through the plain paths (the kernels take bf16, as JAX's gates
@@ -144,9 +155,13 @@ Phases, one printed line each (or more); any failure exits non-zero:
      encode; the B64 quantized audio encode rate
      beside the float one; a torch.profiler breakdown of one B64 audio (float
      and quantized) and one B64 pc encode and one B64 train step with the
-     device's busy and idle share; the served path (phase 4v's model): the
-     B64 image encode rate, the host AudioProcessor per 10 s WAV and
-     ImageProcessor per image, the on-device fbank at [192, 80000], and a
+     device's busy and idle share; the Lens-cross attention of video [64, 1,
+     256, 2048, 64] and of EEG and pc [64, 1, 256, 512, 64] beside SDPA;
+     the served path (phase 4v's model): the B64 image, depth, EEG and video
+     encode rates (arrays given; a profile of the video encode), the host
+     AudioProcessor per 10 s WAV, ImageProcessor per image, DepthProcessor
+     per .npy and per .png, EEGProcessor per .pt and VideoProcessor per
+     12-frame directory, the on-device fbank at [192, 80000], and a
      closed-loop served run (64 audio requests of one 5 s WAV from 16 client
      threads at max_batch 64: requests/s, p50 and p95 from /healthz). Every
      time is printed beside the card's name and power limit.
@@ -522,6 +537,20 @@ COUNTED = ("fused_mlp", "fused_mlp_save_preact", "flash_attention", "fps",
 def launch_counts(**counts):
     """Expected launches by counter: the named ones, every other 0."""
     return {**dict.fromkeys(COUNTED, 0), **counts}
+
+
+def tower_launches(cfg, **more):
+    """Expected launches of one bf16 encode of a vision tower, derived from
+    its config: kernel 1 and kernel 2 once a trunk block; a Perceiver Lens
+    adds one attention a cross and a self block; a transformer Lens adds
+    its blocks' MLP and attention; the identity Lens adds nothing."""
+    p = cfg.perceiver
+    mlp = attn = cfg.arch.layers
+    if p is not None and p.as_transformer:
+        mlp, attn = mlp + p.depth, attn + p.depth
+    elif p is not None and not p.as_identity:
+        attn += p.depth * (1 + p.self_per_cross_attn)
+    return launch_counts(fused_mlp=mlp, flash_attention=attn, **more)
 
 
 def train_launches(cfg, text_layers, accum, remat, opt_in):
@@ -1028,6 +1057,43 @@ def cos_min(torch, a, b):
 FP32_COS_MIN = 0.999  # fp32 on the card against fp32 on the CPU
 
 
+def transformer_lens_phase(torch, counters, totals):
+    """Phase 4t: a vitlensL depth tower whose Lens is the transformer Lens
+    (2 trunk-width blocks; no released config uses it) at full width and
+    depth, random weights from a seeded generator: a B = 2 bf16 encode on
+    the card with the launches derived from the config (26 fused MLP + 26
+    attention) and cosine >= 0.99 against the same tower in fp32 on the
+    CPU."""
+    from vitlens_tpu_torch.config import make_model_config
+    from vitlens_tpu_torch.factory import cast_matmul_weights_, make_generator
+    from vitlens_tpu_torch.models.vit import VisionTower
+
+    t0 = time.time()
+    cfg = make_model_config("ViT-L-14", "depth").tower
+    cfg = dataclasses.replace(cfg, perceiver=dataclasses.replace(
+        cfg.perceiver, as_identity=False, as_transformer=True, depth=2))
+    tower = VisionTower(cfg, device="cuda")
+    tower.init_(make_generator(SEED, "cuda"))
+    ref = copy.deepcopy(tower).to(device="cpu")
+    cast_matmul_weights_(tower, torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    x = torch.randn(2, 1, 224, 224, generator=g, device="cuda")
+    with torch.inference_mode():
+        emb, counts = run_counted(torch, counters, totals,
+                                  lambda: tower(x, torch.bfloat16))
+        want = ref(x.cpu())
+    if counts != tower_launches(cfg) or counts["fused_mlp"] != 26:
+        fail(f"4t transformer Lens: launches {counts}, expected "
+             f"{tower_launches(cfg)}")
+    cos = cos_min(torch, emb, want)
+    if cos < COS_MIN or not torch.isfinite(emb).all():
+        fail(f"4t transformer Lens: cosine vs CPU fp32 {cos} < {COS_MIN}")
+    print(f"[4t transformer Lens] vitlensL depth tower with a 2-block "
+          f"transformer Lens, B=2 bf16: launches (fused MLP, attention) "
+          f"{counts['fused_mlp']}, {counts['flash_attention']}; cosine vs CPU "
+          f"fp32 {cos:.6f}; phase took {time.time() - t0:.1f} s", flush=True)
+
+
 def fp32_phase(torch, counters, totals, fb2, clouds2, captions2):
     """Phase 4f: the default ViTLens (compute fp32, as in JAX) encodes B = 2
     of each modality on the card through the plain paths (the kernels take
@@ -1366,6 +1432,7 @@ def time_new_kernels(torch, g, timings):
 
 
 SERVE_COS_MIN = 0.999  # a served reply against a direct encode of the same items
+LENS_FILE = ("audio", "pc", "depth", "eeg", "video")  # the merged export's towers
 FBANK_TOL = 1e-3       # cuFFT against pocketfft, on the normalised fbank
 
 
@@ -1380,10 +1447,12 @@ def _tone(np, rate, seconds, channels, seed):
 def write_inputs(torch, np, root):
     """Phase 4v's files: WAV (16 kHz mono 5 s, 44.1 kHz stereo 12 s, 8 kHz
     1.5 s), one FLAC (the tests' minimal writer), PNG and JPEG images at
-    320 x 240 in RGB and grayscale, .npy clouds of 9000 points, and the
-    reference-layout checkpoints: a merged export (vitlens.audio.*,
-    vitlens.pc.*) and a CLIP file (visual.* and the text keys), fp16, from a
-    seeded generator."""
+    320 x 240 in RGB and grayscale, .npy clouds of 9000 points, disparity
+    maps (a 240 x 320 .npy, a 300 x 200 16-bit .png), an EEG recording [128,
+    500] as .pt, a directory of 12 JPEG frames at 320 x 240, and the
+    reference-layout checkpoints: a merged export (vitlens.{audio, pc,
+    depth, eeg, video}.*) and a CLIP file (visual.* and the text keys),
+    fp16, from a seeded generator."""
     from PIL import Image
 
     from tools.reference_layout import (clip_state_dict, merged_state_dict,
@@ -1412,10 +1481,25 @@ def write_inputs(torch, np, root):
     for i in range(2):
         f[f"npy{i}"] = os.path.join(root, f"cloud{i}.npy")
         np.save(f[f"npy{i}"], (rng.randn(9000, 3) * 0.3).astype(np.float32))
+    # disparity: a ramp across the clamp range (0.01 .. 75) with noise
+    f["depth_npy"] = os.path.join(root, "disparity.npy")
+    np.save(f["depth_npy"], (80 * (xx / 320) * (yy / 240)
+                             + 3 * rng.rand(240, 320)).astype(np.float32))
+    f["depth_png"] = os.path.join(root, "disparity.png")
+    Image.fromarray((rng.rand(300, 200) * 5e4).astype(np.uint16)).save(f["depth_png"])
+    f["eeg_pt"] = os.path.join(root, "eeg.pt")
+    t = np.arange(500) / 1000.0
+    eeg = np.sin(2 * np.pi * (5 + np.arange(128))[:, None] * t) + 0.3 * rng.randn(128, 500)
+    torch.save(torch.from_numpy(eeg.astype(np.float32)), f["eeg_pt"])
+    f["frames"] = os.path.join(root, "clip_frames")
+    os.makedirs(f["frames"])
+    for i in range(12):  # the image above, drifting a few pixels a frame
+        Image.fromarray(np.roll(rgb, 7 * i, axis=1), "RGB").save(
+            os.path.join(f["frames"], f"{i:04d}.jpg"))
     g = torch.Generator(device="cuda").manual_seed(SEED)
     half = torch.float16
     towers = {m: vision_tower_state_dict(make_model_config("ViT-L-14", m).tower,
-                                         g, half) for m in ("audio", "pc")}
+                                         g, half) for m in LENS_FILE}
     merged = merged_state_dict(towers)
     clip = clip_state_dict(make_model_config("ViT-L-14", "image"), g, half)
     f["all"] = os.path.join(root, "vitlensL_merged.pt")
@@ -1480,7 +1564,7 @@ def served_phase(torch, np, counters, totals, card):
     root = tempfile.mkdtemp(prefix="vitlens_4v_")
     files, merged, clip = write_inputs(torch, np, root)
     t_files = time.time() - t0
-    mods = ("image", "tactile", "audio", "pc", "text")
+    mods = ("image", "tactile", "depth", "audio", "eeg", "video", "pc", "text")
     ckpts = {"all": files["all"], "image": files["clip"],
              "tactile": files["clip"], "text": files["clip"]}
     t0 = time.time()
@@ -1507,6 +1591,16 @@ def served_phase(torch, np, counters, totals, card):
                           merged["vitlens.audio.perceiver.latents"]),
         "pc bn1 mean": (t["pc"].adapter.encoder.bn1.mean,
                         merged["vitlens.pc.visual_adapter.encoder.first_conv.1.running_mean"]),
+        "depth conv1": (t["depth"].adapter.conv1.w,
+                        merged["vitlens.depth.visual_adapter.conv1.weight"]
+                        .float().flatten(1).T),
+        "eeg proj w": (t["eeg"].adapter.proj.w,
+                       merged["vitlens.eeg.visual_adapter.proj.weight"]
+                       .float().flatten(1).T),
+        "video ltpos": (t["video"].adapter.ltpos,
+                        merged["vitlens.video.ltpos.weight"]),
+        "video conv1": (t["video"].adapter.conv1.w,
+                        merged["vitlens.video.conv1.weight"].float().flatten(1).T),
         "text token_embedding": (t["text"].token_embedding,
                                  clip["token_embedding.weight"]),
         "text fc w[last]": (t["text"].trunk.blocks[-1].mlp.fc.w,
@@ -1516,22 +1610,20 @@ def served_phase(torch, np, counters, totals, card):
             fail(f"4v: loaded {name} differs from the checkpoint's")
     del merged, clip
 
-    # B = 1 (and one B = 3 audio) encodes from files, counted
-    def n_attn(cfg):
-        p = cfg.perceiver
-        return cfg.arch.layers + (p.depth * (1 + p.self_per_cross_attn) if p else 0)
-
+    # B = 1 (and one B = 3 audio, one B = 2 depth) encodes from files, counted
     n_text = t["text"].cfg.layers
-    want = {m: launch_counts(fused_mlp=t[m].cfg.arch.layers,
-                             flash_attention=n_attn(t[m].cfg))
-            for m in ("image", "tactile", "audio")}
-    want["pc"] = launch_counts(fused_mlp=t["pc"].cfg.arch.layers,
-                               flash_attention=n_attn(t["pc"].cfg), fps=1,
-                               point_encoder=1)
+    want = {m: tower_launches(t[m].cfg) for m in mods if m not in ("pc", "text")}
+    want["pc"] = tower_launches(t["pc"].cfg, fps=1, point_encoder=1)
     want["text"] = launch_counts(fused_mlp=n_text)
+    derived = {m: (want[m]["fused_mlp"], want[m]["flash_attention"])
+               for m in ("depth", "eeg", "video")}
+    if derived != {"depth": (24, 24), "eeg": (24, 26), "video": (24, 28)}:
+        fail(f"4v: launches derived from the vitlensL configs {derived}")
     requests = [("image", [files["png_RGB"]]), ("tactile", [files["jpg_L"]]),
+                ("depth", [files["depth_npy"], files["depth_png"]]),
                 ("audio", [files["wav44k"]]),
                 ("audio", [files["wav16k"], files["wav8k"], files["flac"]]),
+                ("eeg", [files["eeg_pt"]]), ("video", [files["frames"]]),
                 ("pc", [files["npy0"]]),
                 ("text", ["a dog barking in the rain"])]
     per_req, cos = [], {}
@@ -1556,7 +1648,8 @@ def served_phase(torch, np, counters, totals, card):
     if min(cos.values()) < COS_MIN:
         fail(f"4v: card bf16 vs CPU fp32 from files: min cosine {cos} < {COS_MIN}")
     print(f"[4v files] vitlensL {mods} from reference-layout checkpoints "
-          f"(merged vitlens.{{audio,pc}}. export, CLIP visual. + text file; "
+          f"(merged vitlens.{{{','.join(LENS_FILE)}}}. export, CLIP visual. + "
+          f"text file; "
           f"files written in {t_files:.1f} s, card model built and loaded in "
           f"{t_card:.1f} s, CPU fp32 copy in {t_cpu:.1f} s); {len(pairs)} loaded "
           f"tensors equal the files'; requests from files (modality, B, mlp, "
@@ -1596,8 +1689,10 @@ def served_phase(torch, np, counters, totals, card):
             ("text", ["an old car"]),
             ("image", [files["png_RGB"]]), ("image", [files["jpg_RGB"], files["png_L"]]),
             ("tactile", [files["jpg_L"]]), ("tactile", [files["png_RGB"]]),
+            ("depth", [files["depth_npy"]]), ("depth", [files["depth_png"]]),
             ("audio", [files["wav16k"]]), ("audio", [files["flac"]]),
             ("audio", [files["wav8k"]]),
+            ("eeg", [files["eeg_pt"]]), ("video", [files["frames"]]),
             ("pc", [clouds[0].tolist()]), ("pc", [clouds[1].tolist()])]
     replies = [None] * len(reqs)
 
@@ -1612,7 +1707,7 @@ def served_phase(torch, np, counters, totals, card):
         c.launches = 0
     threads = []
     t0 = time.time()
-    for m in ("text", "image", "tactile", "audio", "pc"):
+    for m in mods:
         # one burst a modality, the bursts further apart than the window
         for i, (rm, _) in enumerate(reqs):
             if rm == m:
@@ -1643,8 +1738,11 @@ def served_phase(torch, np, counters, totals, card):
     if (health["device_name"] != torch.cuda.get_device_name(0)
             or not health["device"].startswith("cuda")):
         fail(f"4v serve: /healthz names {health['device']} {health['device_name']}")
+    if health["modalities"] != list(mods):
+        fail(f"4v serve: /healthz lists {health['modalities']}, not {list(mods)}")
     print(f"[4v serve] {card} | {len(reqs)} concurrent HTTP requests (text, "
-          f"image, tactile, audio paths, pc numeric items) in {served_s:.2f} s: "
+          f"image, tactile, depth .npy/.png, audio, EEG .pt paths, a video "
+          f"frame directory, pc numeric items) in {served_s:.2f} s: "
           f"{stats['batches']} batches, {stats['items']} items; min cosine of a "
           f"reply vs a direct encode {min(scos):.6f} (>= {SERVE_COS_MIN}); "
           f"launches {dict((k, v) for k, v in served_counts.items() if v)}; "
@@ -1652,20 +1750,27 @@ def served_phase(torch, np, counters, totals, card):
           f"latency {health['latency']}; after shutdown and close both "
           f"workers have exited", flush=True)
 
-    print(f"[4v cli] {card} | {run_cli(root)}", flush=True)
+    print(f"[4v cli] {card} | {run_cli(torch, model, files, root)}", flush=True)
     return {"model": model, "files": files, "root": root}
 
 
-def run_cli(tmp):
-    """python -m vitlens_tpu_torch.cli.serve for text on the card: answers
-    one caption, drains on SIGTERM and exits 0. Its log goes to ``tmp``."""
+def run_cli(torch, model, files, tmp):
+    """python -m vitlens_tpu_torch.cli.serve on the card with the depth,
+    EEG, video and text towers loaded from phase 4v's reference-layout
+    checkpoints: answers one request of each (a disparity .npy, an EEG .pt,
+    a frame directory, a caption) at cosine >= SERVE_COS_MIN against
+    ``model``'s direct encode of the same items (the same files' weights),
+    drains on SIGTERM and exits 0. Its log goes to ``tmp``."""
     import re
     import signal
 
     root = os.path.dirname(os.path.abspath(__file__))
     log = os.path.join(tmp, "serve_cli.log")
     cmd = [sys.executable, "-m", "vitlens_tpu_torch.cli.serve", "--modalities",
-           "text", "--max-batch", "2", "--port", "0"]
+           "depth", "eeg", "video", "text", "--ckpt", f"all={files['all']}",
+           "--ckpt", f"text={files['clip']}", "--max-batch", "2", "--port", "0"]
+    items = {"depth": [files["depth_npy"]], "eeg": [files["eeg_pt"]],
+             "video": [files["frames"]], "text": ["a dog"]}
     t0 = time.time()
     with open(log, "w") as out:
         p = subprocess.Popen(cmd, cwd=root, stdout=out, stderr=subprocess.STDOUT)
@@ -1682,31 +1787,43 @@ def run_cli(tmp):
             if port is None:
                 fail("serve CLI never printed its port")
             t_up = time.time() - t0
-            reply = _post(port, {"inputs": {"text": ["a dog"]}})
-            if len(reply["embeddings"]["text"]) != 1 or reply["dim"] != 768:
-                fail(f"serve CLI reply: {str(reply)[:200]}")
+            cos = {}
+            for m, x in items.items():
+                reply = _post(port, {"inputs": {m: x}})
+                if len(reply["embeddings"][m]) != 1 or reply["dim"] != 768:
+                    fail(f"serve CLI {m} reply: {str(reply)[:200]}")
+                cos[m] = cos_min(torch, torch.tensor(reply["embeddings"][m]),
+                                 model.encode({m: x})[m])
             p.send_signal(signal.SIGTERM)
             rc = p.wait(timeout=120)
         finally:
             if p.poll() is None:
                 p.kill()
                 p.wait()
+    if min(cos.values()) < SERVE_COS_MIN:
+        fail(f"serve CLI replies vs direct encodes: cosines {cos} < {SERVE_COS_MIN}")
     text = open(log).read()
-    drained = re.search(r"vitlens-serve: drained, exiting \(served 1 items.*", text)
+    drained = re.search(r"vitlens-serve: drained, exiting \(served 4 items.*", text)
     if rc != 0 or "draining" not in text or not drained:
         fail(f"serve CLI: exit {rc}, log {text[-1500:]}")
-    return (f"{' '.join(cmd[1:])}: up (warmed) in {t_up:.1f} s, answered one "
-            f"caption, exit {rc} on SIGTERM: {drained.group(0)!r}")
+    return (f"{' '.join(cmd[1:6])} ... (merged and CLIP files): up (warmed) in "
+            f"{t_up:.1f} s, answered one depth, EEG, video and text request, "
+            f"cosine vs a direct encode "
+            + " ".join(f"{m} {c:.6f}" for m, c in cos.items())
+            + f", exit {rc} on SIGTERM: {drained.group(0)!r}")
 
 
 def served_timings(torch, np, card, ctx):
-    """Phase 5's timings of the served path: the B64 image encode, the host
-    processors, the on-device fbank at [192, 80000], and a closed-loop
-    served run (64 audio requests of one 5 s WAV each from 16 client
-    threads at max_batch 64)."""
+    """Phase 5's timings of the served path: the B64 image, depth, EEG and
+    video encodes (arrays given), the host processors, the on-device fbank
+    at [192, 80000], and a closed-loop served run (64 audio requests of one
+    5 s WAV each from 16 client threads at max_batch 64)."""
     import threading
 
-    from vitlens_tpu_torch.data.processors import AudioProcessor, ImageProcessor
+    from vitlens_tpu_torch.data.processors import (AudioProcessor,
+                                                   DepthProcessor, EEGProcessor,
+                                                   ImageProcessor)
+    from vitlens_tpu_torch.data.video_processors import VideoProcessor
     from vitlens_tpu_torch.ops.fbank import fbank_fixed_length
     from vitlens_tpu_torch.serve import make_server
 
@@ -1721,6 +1838,19 @@ def served_timings(torch, np, card, ctx):
         torch, card, f"image encode B{B} bf16 (preprocessed [B, 3, {hw}, {hw}])",
         image64, B)}
     profile_encode(torch, card, f"B{B} image encode", image64)
+    del img64
+    for m in ("depth", "eeg", "video"):
+        x = torch.randn((B,) + model._warmup_sample(m, 1).shape[1:], generator=g,
+                        device="cuda")
+
+        def encode(m=m, x=x):
+            return model.encode({m: x}, preprocessed=True)[m]
+
+        rates[m] = encode_rate(torch, card, f"{m} encode B{B} bf16 (preprocessed "
+                               f"{list(x.shape)})", encode, B)
+        if m == "video":
+            profile_encode(torch, card, f"B{B} video encode", encode)
+        del x, encode
 
     def host_ms(fn, runs=5):
         fn()
@@ -1739,6 +1869,18 @@ def served_timings(torch, np, card, ctx):
           f"{torch.get_num_threads()} threads): {a_ms:.2f} ms best of 5, all "
           f"{[round(x, 2) for x in a_all]}; host ImageProcessor, one 320 x 240 "
           f"JPEG -> [1, 3, 224, 224]: {i_ms:.3f} ms best of 20", flush=True)
+    host = {"DepthProcessor, one 240 x 320 .npy disparity -> [1, 1, 224, 224]":
+            (DepthProcessor(), files["depth_npy"], 20),
+            "DepthProcessor, one 300 x 200 16-bit .png -> [1, 1, 224, 224]":
+            (DepthProcessor(), files["depth_png"], 20),
+            "EEGProcessor, one [128, 500] .pt -> [1, 128, 512]":
+            (EEGProcessor(), files["eeg_pt"], 20),
+            "VideoProcessor, one directory of 12 320 x 240 JPEG frames -> "
+            "[1, 8, 3, 224, 224]": (VideoProcessor(), files["frames"], 5)}
+    for label, (proc, path, runs) in host.items():
+        ms, _ = host_ms(lambda: proc([path]), runs=runs)
+        print(f"[5 timing] {card} | host {label}: {ms:.3f} ms best of {runs}",
+              flush=True)
     w192 = torch.randn(3 * B, 80000, generator=g, device="cuda") * 0.1
     fb_ms = cuda_ms(lambda: fbank_fixed_length(w192))
     # the bound: each waveform read and the fbank written once, or the
@@ -1865,8 +2007,11 @@ def main() -> int:
             checks.append(f"mlp{m}x{d}x{h}/{act}={e:.2e}")
             if not (torch.isfinite(got).all() and e <= MLP_TOL):
                 fail(f"fused_mlp {m}x{d}x{h} {act}: rel err {e} > {MLP_TOL}")
+    # the main paths' shapes, then the video Lens cross (8 frames x 256
+    # tokens), a ragged NK beside it and the EEG (and pc) Lens cross at B64
     for b, h, nq, nk in ((12, 16, 257, 257), (12, 1, 256, 600),
-                         (12, 16, 256, 256), (8, 1, 256, 512)):
+                         (12, 16, 256, 256), (8, 1, 256, 512),
+                         (B, 1, 256, 2048), (B, 1, 256, 2040), (B, 1, 256, 512)):
         q, k, v = qkv_inputs(torch, g, b, h, nq, nk)
         got = flash_attention(q, k, v)
         torch.cuda.synchronize()
@@ -1994,17 +2139,9 @@ def main() -> int:
     acfg, pcfg = model.towers["audio"].cfg, model.towers["pc"].cfg
     n_layers, n_text = acfg.arch.layers, model.towers["text"].cfg.layers
 
-    def n_attn(cfg):
-        return cfg.arch.layers + cfg.perceiver.depth * (
-            1 + cfg.perceiver.self_per_cross_attn)
-
-    def expected(mlp, attn, fps=0, enc=0):
-        return launch_counts(fused_mlp=mlp, flash_attention=attn, fps=fps,
-                             point_encoder=enc)
-
-    want_launches = {"audio": expected(n_layers, n_attn(acfg)),
-                     "pc": expected(n_layers, n_attn(pcfg), 1, 1),
-                     "text": expected(n_text, 0)}
+    want_launches = {"audio": tower_launches(acfg),
+                     "pc": tower_launches(pcfg, fps=1, point_encoder=1),
+                     "text": launch_counts(fused_mlp=n_text)}
     captions = ["a dog barking in the distance", "rain on a tin roof",
                 "an orchestra tuning up", "a car engine starting",
                 "birds singing at dawn", "a crowd cheering in a stadium",
@@ -2062,7 +2199,7 @@ def main() -> int:
         want24 = ref.encode({"pc": clouds[1].cpu()}, preprocessed=True)["pc"]
     finally:
         tok_card.cfg, tok_ref.cfg = saved
-    if counts24 != expected(n_layers, n_attn(pcfg), 1, 0):
+    if counts24 != tower_launches(pcfg, fps=1):
         fail(f"pc B=1 at group size 24: launches {counts24}, expected no "
              "point-encoder launch")
     cos["pc group size 24"] = torch.nn.functional.cosine_similarity(
@@ -2087,6 +2224,7 @@ def main() -> int:
 
     # -- 4v: served from files -------------------------------------------------
     served = served_phase(torch, np, counters, launches, card)
+    transformer_lens_phase(torch, counters, launches)
 
     # -- 4f: the fp32 default; 4h: head dims other than 64 --------------------
     fp32_phase(torch, counters, launches, fbanks[4][:2], clouds[4][:2],
@@ -2100,7 +2238,8 @@ def main() -> int:
         torch, model, counters, launches, fbanks[1], fb64, captions,
         {"audio": launch_counts(int8_matmul_dequant=4 * n_layers,
                                 int8_quantize=4 * n_layers,
-                                flash_attention=n_attn(acfg)),
+                                flash_attention=want_launches["audio"][
+                                    "flash_attention"]),
          "text": want_launches["text"],
          "text_int8": launch_counts(int8_matmul_dequant=4 * n_text,
                                     int8_quantize=4 * n_text)})
@@ -2159,7 +2298,8 @@ def main() -> int:
     for label, (b, h, nq, nk, dh) in (("audio trunk", (B * 3, 16, 257, 257, 64)),
                                       ("audio lens cross", (B * 3, 1, 256, 600, 64)),
                                       ("audio lens self", (B * 3, 16, 256, 256, 64)),
-                                      ("pc lens cross", (B, 1, 256, 512, 64)),
+                                      ("pc and EEG lens cross", (B, 1, 256, 512, 64)),
+                                      ("video lens cross", (B, 1, 256, 2048, 64)),
                                       ("bigG trunk", (B * 3, 16, 257, 257, 104))):
         q, k, v = qkv_inputs(torch, g, b, h, nq, nk, dh)
         k_ms, p_ms = paired_ms(lambda: flash_attention(q, k, v),
@@ -2343,8 +2483,9 @@ def main() -> int:
           f"({max(q_rates) / max(audio_rate, audio_again):.3f}x); pc encode "
           f"B{B}: {pc_rate:.2f} samples/s, B=1 latency {pc1_ms:.2f} ms; audio "
           f"train step B{B}: {max(train_rates[False]):.2f} samples/s, opt-in "
-          f"{max(train_rates[True]):.2f}; image encode B{B}: "
-          f"{served_rates['image']:.2f} samples/s; served audio closed loop: "
+          f"{max(train_rates[True]):.2f}; image, depth, EEG, video encode B{B}: "
+          + ", ".join(f"{served_rates[m]:.2f}" for m in ("image", "depth", "eeg", "video"))
+          + f" samples/s; served audio closed loop: "
           f"{served_rates['served_rps']:.2f} requests/s; whole run "
           f"{time.time() - t_start:.1f} s",
           flush=True)

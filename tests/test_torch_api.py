@@ -70,8 +70,8 @@ def test_encode_matches_jax(jax_params, dtype, min_cos):
 
 def test_batch_buckets_and_single_clip():
     """Padding to a bucket leaves the real rows unchanged; a [B, T, F] fbank
-    (one clip) is accepted; the modalities still unported (depth, video)
-    raise."""
+    (one clip) is accepted; a modality the port does not know raises, and
+    the depth and video towers (ported since) build."""
     pm = ViTLens("vitlensB", ("audio",), device="cpu", seed=1)
     pm.towers["audio"].trunk.blocks = pm.towers["audio"].trunk.blocks[:2]
     bucketed = ViTLens("vitlensB", ("audio",), device="cpu", seed=1,
@@ -82,6 +82,7 @@ def test_batch_buckets_and_single_clip():
     got = bucketed.encode({"audio": fb}, preprocessed=True)["audio"]
     assert tuple(got.shape) == (2, 512)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
-    for unported in ("depth", "video"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            ViTLens("vitlensB", (unported,), device="cpu")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        ViTLens("vitlensB", ("thermal",), device="cpu")
+    both = ViTLens("vitlensB", ("depth", "video"), device="cpu")
+    assert sorted(both.towers) == ["depth", "video"]

@@ -387,6 +387,58 @@ def test_http_audio_file_items_match_direct(server):
     np.testing.assert_allclose(got, want, atol=1e-5)
 
 
+def test_http_depth_eeg_video_items_match_direct(tmp_path):
+    """One served request of each new modality, items as a user sends them:
+    a depth .npy and a 16-bit .png, an EEG .pt and a numeric EEG item, a
+    video frame directory; each reply equals the direct encode of the same
+    items, and /healthz lists the three modalities."""
+    from PIL import Image
+
+    from vitlens_tpu_torch.api import ViTLens
+
+    model = ViTLens("vitlensB", ("depth", "eeg", "video"), device="cpu")
+    for tower in model.towers.values():
+        tower.trunk.blocks = tower.trunk.blocks[:2]
+    rng = np.random.RandomState(1)
+    npy, png, pt = (str(tmp_path / n) for n in ("d.npy", "d.png", "e.pt"))
+    np.save(npy, (rng.rand(240, 320) * 80).astype(np.float32))
+    Image.fromarray((rng.rand(200, 300) * 5e4).astype(np.uint16)).save(png)
+    torch.save(torch.from_numpy(rng.randn(128, 480).astype(np.float32)), pt)
+    frames = tmp_path / "clip"
+    frames.mkdir()
+    for i in range(10):
+        Image.fromarray(rng.randint(0, 255, (240, 320, 3), np.uint8)).save(
+            frames / f"{i:03d}.jpg")
+    eeg = rng.randn(128, 500).astype(np.float32)
+    items = {"depth": [npy, png], "eeg": [pt, eeg.tolist()],
+             "video": [str(frames)]}
+    direct = {"depth": [npy, png], "eeg": [pt, eeg], "video": [str(frames)]}
+    srv = make_server(model, port=0, max_batch=8, max_wait_ms=5)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    try:
+        port = srv.server_address[1]
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz") as r:
+            assert json.loads(r.read())["modalities"] == ["depth", "eeg", "video"]
+        for m in ("depth", "eeg", "video"):
+            if m == "eeg":  # a path, then a numeric item: one request each
+                got = np.concatenate([np.asarray(_post(port, {"inputs": {m: [x]}})
+                                                 ["embeddings"][m], np.float32)
+                                      for x in items[m]])
+            else:
+                got = np.asarray(_post(port, {"inputs": {m: items[m]}})
+                                 ["embeddings"][m], np.float32)
+            want = model.encode({m: direct[m]})[m].numpy()
+            assert got.shape == want.shape == (len(items[m]), 512)
+            np.testing.assert_allclose(got, want, atol=1e-5)
+    finally:
+        srv.shutdown()
+        srv.encoder.close()
+        srv.server_close()
+        th.join(30)
+    assert not th.is_alive()
+
+
 def test_http_keepalive_connection_reuse(server):
     """HTTP/1.1 with Content-Length: many requests down one persistent
     connection, on the same socket throughout."""

@@ -8,8 +8,11 @@ State dicts in the reference's key layout (what
     the tower: the open_clip trunk (``conv1.weight`` for the image and
     tactile towers, ``class_embedding``, ``positional_embedding``,
     ``ln_pre``, ``transformer.resblocks.{i}.*``, ``ln_post``, ``proj``), the
-    Lens (``perceiver.latents``, ``perceiver.layers.{i}.{0,1,2}.*``) and the
-    adapters (``visual_adapter.conv1.weight`` / ``pos_emb`` of AST audio,
+    Lens (``perceiver.latents``, ``perceiver.layers.{i}.{0,1,2}.*``; the
+    transformer Lens's ``perceiver.resblocks.{i}.*``; no key for the
+    identity Lens) and the adapters (``conv1.weight`` and ``ltpos.weight`` of
+    video, ``visual_adapter.conv1.weight`` / ``pos_emb`` of depth and AST
+    audio, ``visual_adapter.proj.*`` / ``pos_emb`` of EEG,
     ``visual_adapter.encoder.first_conv.*`` ... of PointBERT);
   * :func:`text_tower_state_dict`: the CLIP text keys (``token_embedding``,
     ``positional_embedding``, ``transformer.resblocks.{i}.*``,
@@ -127,9 +130,24 @@ def _perceiver(mk: _Maker, sd: StateDict, cfg: PerceiverConfig) -> None:
 
 def _adapter(mk: _Maker, sd: StateDict, cfg: TowerConfig) -> None:
     width, m = cfg.arch.width, cfg.modality
-    if m in ("image", "tactile"):
+    if m in ("image", "tactile", "video"):
         p = cfg.arch.patch_size
         sd["conv1.weight"] = mk.normal((width, 3, p, p), (3 * p * p) ** -0.5)
+        if m == "video" and cfg.video.use_ltpos:
+            sd["ltpos.weight"] = mk.normal((cfg.video.n_frames, width), 0.02)
+    elif m == "depth":
+        p = cfg.arch.patch_size
+        sd["visual_adapter.conv1.weight"] = mk.normal((width, 1, p, p), 1.0 / p)
+        sd["visual_adapter.pos_emb"] = mk.normal((cfg.arch.num_patches, width),
+                                                 width ** -0.5)
+    elif m == "eeg":
+        e = cfg.eeg
+        fan_in = e.chans * e.window_size
+        sd["visual_adapter.proj.weight"] = mk.normal(
+            (width, e.chans, e.window_size), fan_in ** -0.5)
+        sd["visual_adapter.proj.bias"] = mk.normal((width,), 0.02)
+        sd["visual_adapter.pos_emb"] = mk.normal((e.num_patches, width),
+                                                 width ** -0.5)
     elif m == "audio":
         a = cfg.audio
         sd["visual_adapter.conv1.weight"] = mk.normal(
@@ -173,8 +191,12 @@ def vision_tower_state_dict(cfg: TowerConfig, gen: torch.Generator,
                arch.ls_init_value)
     mk.ln(sd, "ln_post", width)
     sd["proj"] = mk.normal((width, cfg.embed_dim), width ** -0.5)
-    if cfg.perceiver is not None:
-        _perceiver(mk, sd, cfg.perceiver)
+    perc = cfg.perceiver
+    if perc is not None and perc.as_transformer:
+        _resblocks(mk, sd, "perceiver.", width, perc.depth, arch.mlp_ratio,
+                   arch.ls_init_value)
+    elif perc is not None and not perc.as_identity:
+        _perceiver(mk, sd, perc)
     return sd
 
 

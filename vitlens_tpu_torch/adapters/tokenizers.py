@@ -1,8 +1,9 @@
 """Modality adapters (port of vitlens_tpu/adapters/tokenizers.py).
 
-Ported: the image/tactile patch embedding, the AST-style audio adapter and
-the PointBERT point tokenizer (eval mode). The PNSA point tokenizer and the
-other modalities' adapters are not yet ported.
+Ported: the image/tactile patch embedding (and the video tower's, with its
+learned temporal positions), the 1-channel depth patch embedding, the EEG
+Conv1d patch embedding, the AST-style audio adapter and the PointBERT point
+tokenizer (eval mode). The PNSA point tokenizer is not yet ported.
 """
 
 from __future__ import annotations
@@ -49,6 +50,74 @@ class ImageAdapter(nn.Module):
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, None]:
         """x [B, 3, H, W] -> (tokens [B, grid^2, width], None)."""
         return patchify_2d(x, self.patch) @ self.conv1.w.to(x.dtype), None
+
+
+class VideoAdapter(ImageAdapter):
+    """The image patch embedding applied frame by frame, plus the learned
+    temporal position ``ltpos`` [n_frames, width] (JAX keeps it in the
+    adapter's tree; absent when ``use_ltpos`` is off). The tower adds
+    ``ltpos`` and the spatial positions per frame (``VisionTower``)."""
+
+    def __init__(self, cfg: TowerConfig, device=None):
+        super().__init__(cfg, device=device)
+        self.ltpos = (_param(cfg.video.n_frames, cfg.arch.width, device=device)
+                      if cfg.video.use_ltpos else None)
+
+    def init_(self, g: torch.Generator) -> None:
+        super().init_(g)
+        if self.ltpos is not None:
+            normal_(self.ltpos, 0.02, g)
+
+
+class DepthAdapter(nn.Module):
+    """1-channel patch embedding (patchify + one product, ``conv1.w``
+    [p*p, width]) with its own positional embedding ``pos_emb``
+    [num_patches, width]."""
+
+    def __init__(self, cfg: TowerConfig, device=None):
+        super().__init__()
+        self.patch = cfg.arch.patch_size
+        self.conv1 = nn.Module()
+        self.conv1.w = _param(self.patch ** 2, cfg.arch.width, device=device)
+        self.pos_emb = _param(cfg.arch.num_patches, cfg.arch.width,
+                              device=device)
+
+    def init_(self, g: torch.Generator) -> None:
+        normal_(self.conv1.w, self.conv1.w.shape[0] ** -0.5, g)
+        normal_(self.pos_emb, self.pos_emb.shape[1] ** -0.5, g)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x [B, 1, H, W] -> (tokens [B, grid^2, width], pos_emb)."""
+        return patchify_2d(x, self.patch) @ self.conv1.w.to(x.dtype), self.pos_emb
+
+
+class EEGAdapter(nn.Module):
+    """Conv1d patch embedding over time, as a product: ``proj.w``
+    [chans * window, width] flattened chans-major (the layout of torch's
+    Conv1d weight [width, chans, window] reshaped), plus ``pos_emb``
+    [num_patches, width]. With the released window 1 and stride 1 it is one
+    product over the channels."""
+
+    def __init__(self, cfg: TowerConfig, device=None):
+        super().__init__()
+        e = self.eeg = cfg.eeg
+        self.proj = Linear(e.chans * e.window_size, cfg.arch.width,
+                           device=device)
+        self.pos_emb = _param(e.num_patches, cfg.arch.width, device=device)
+
+    def init_(self, g: torch.Generator) -> None:
+        self.proj.init_(g)
+        normal_(self.pos_emb, self.pos_emb.shape[1] ** -0.5, g)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x [B, chans, time] -> (tokens [B, num_patches, width], pos_emb)."""
+        e = self.eeg
+        if e.window_size == 1 and e.stride == 1:
+            return self.proj(x.transpose(1, 2)), self.pos_emb
+        # windows [B, chans, n, window] -> [B, n, chans * window], chans-major
+        w = x[..., :(e.num_patches - 1) * e.stride + e.window_size]
+        w = w.unfold(2, e.window_size, e.stride).permute(0, 2, 1, 3)
+        return self.proj(w.reshape(x.shape[0], e.num_patches, -1)), self.pos_emb
 
 
 class AudioAdapter(nn.Module):

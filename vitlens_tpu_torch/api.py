@@ -1,21 +1,24 @@
 """One-stop inference API (port of vitlens_tpu/api.py::ViTLens): images,
-tactile frames, audio, point clouds and text.
+tactile frames, depth maps, audio, EEG, video, point clouds and text.
 
 ``ViTLens(...).encode({modality: inputs})`` -> {modality: [B, embed_dim]}.
-Raw inputs go through the host processors (``data/processors.py``): image
-and tactile paths or PIL images, WAV/FLAC paths (3 clips a file, their
-embeddings mean-pooled), clouds (arrays [N, C] or ``.npy`` paths, sampled to
-the tower's point count) and captions. With ``preprocessed=True`` the inputs
-are model-ready arrays: images [B, 3, H, W]; audio as raw 16 kHz waveforms
-[B, samples] (the fbank then runs inside the tower, on the model's device),
-an fbank [B, T, F] or clips [B, n_clip, T, F]; points [B, npoints, C]; token
-ids [B, 77].
+Raw inputs go through the host processors (``data/processors.py``,
+``data/video_processors.py``): image and tactile paths or PIL images,
+disparity maps (arrays or ``.npy``/``.npz``, 16-bit ``.png`` and ``.pt``
+paths), WAV/FLAC paths (3 clips a file, their embeddings mean-pooled), EEG
+(arrays [chans, T] or ``.pt`` paths), video (frame directories or frame
+arrays), clouds (arrays [N, C] or ``.npy`` paths, sampled to the tower's
+point count) and captions. With ``preprocessed=True`` the inputs are
+model-ready arrays: images [B, 3, H, W]; depth [B, 1, H, W]; audio as raw 16
+kHz waveforms [B, samples] (the fbank then runs inside the tower, on the
+model's device), an fbank [B, T, F] or clips [B, n_clip, T, F]; EEG [B,
+chans, time_len]; video [B, n_frames, 3, H, W]; points [B, npoints, C];
+token ids [B, 77].
 
 ``checkpoints={modality: path, "all": path}`` loads reference-layout state
 dicts (the released per-modality files, a merged file with
 ``vitlens.{modality}.`` keys, or a CLIP file). The model is built on the card
-unless ``device`` names another device. The depth, EEG and video towers are
-not yet ported.
+unless ``device`` names another device.
 """
 
 from __future__ import annotations
@@ -33,7 +36,8 @@ from vitlens_tpu_torch.factory import (cast_matmul_weights_, make_generator,
 from vitlens_tpu_torch.models.text import TextTower
 from vitlens_tpu_torch.models.vit import VisionTower
 
-PORTED_MODALITIES = ("image", "tactile", "audio", "pc", "text")
+PORTED_MODALITIES = ("image", "tactile", "depth", "audio", "eeg", "video",
+                     "pc", "text")
 VISUAL_MODALITIES = ("pc", "audio", "depth", "tactile", "eeg", "video")
 _TRUNKS = {"vitlensL": "ViT-L-14", "vitlensB": "ViT-B-16",
            "vitlensG": "ViT-bigG-14"}
@@ -222,9 +226,12 @@ class ViTLens(nn.Module):
         shapes = {
             "image": (3, hw, hw),
             "tactile": (3, hw, hw),
+            "depth": (1, hw, hw),
             "pc": (t.point.npoints, t.point.in_channel) if t.point else None,
             "audio": ((n_clips, t.audio.target_length, t.audio.mel_bins)
                       if t.audio else None),
+            "eeg": (t.eeg.chans, t.eeg.time_len) if t.eeg else None,
+            "video": (t.video.n_frames, 3, hw, hw) if t.video else None,
         }
         shape = shapes.get(m)
         if shape is None:

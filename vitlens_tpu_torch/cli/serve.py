@@ -24,7 +24,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--precision", default="bf16", choices=["bf16", "fp32"],
                    help="encode compute dtype (bf16 runs the hand-written "
                         "kernels; vitlensG also stores its weights in bf16)")
-    p.add_argument("--modalities", nargs="+", default=["image", "text"])
+    p.add_argument("--modalities", nargs="+", default=["image", "text"],
+                   help="towers to load: image, tactile, depth, audio, eeg, "
+                        "video, pc, text (items: image/tactile paths, depth "
+                        ".npy/.png/.pt, WAV/FLAC, EEG .pt, video frame "
+                        "directories, .npy clouds or numeric items, captions)")
     p.add_argument("--ckpt", action="append", default=[],
                    help="modality=path (repeatable); use all=path for merged")
     p.add_argument("--device", default=None,

@@ -3,11 +3,14 @@ vitlens_tpu/data/processors.py).
 
 Ported: ``TextProcessor`` (caption cleanup plus CLIP BPE),
 ``ImageProcessor`` (bicubic resize of the smaller edge, center crop, OpenAI
-mean/std), ``TactileProcessor`` (resize 256, crop 224), ``AudioProcessor``
-(decode, resample, constant clip grid, Kaldi fbank) and
+mean/std), ``TactileProcessor`` (resize 256, crop 224), ``DepthProcessor``
+(disparity clamp and scale, mode-F bicubic resize, center crop, depth
+mean/std), ``AudioProcessor`` (decode, resample, constant clip grid, Kaldi
+fbank), ``EEGProcessor`` (crop t[20:460], linear resample to 512) and
 ``PointCloudProcessor`` (host FPS to the tower's point count, unit-sphere
-normalisation), the latter on its numpy path only. Decoding is numpy, PIL
-and the stdlib.
+normalisation), the latter on its numpy path only; the video processor is in
+``data/video_processors.py``. Decoding is numpy, PIL, ``torch.load`` (the
+``.pt`` depth and EEG files) and the stdlib.
 """
 
 from __future__ import annotations
@@ -184,6 +187,57 @@ class PointCloudProcessor:
             for c in _wrap_list(clouds)])
 
 
+def _load_pt(path: str) -> np.ndarray:
+    """A tensor saved with ``torch.save`` -> fp32 numpy."""
+    return torch.load(path, map_location="cpu").float().numpy()
+
+
+class DepthProcessor:
+    """Disparity map -> normalised depth channel [1, S, S]: clamp below at
+    0.01 and above at 75, / 75, resize the smaller edge to 224 (bicubic),
+    center crop, then (x - 0.0418) / 0.0295. Takes arrays [H, W] or [1, H,
+    W] and ``.npy``/``.npz``, 16-bit ``.png`` and ``.pt`` paths."""
+
+    def __init__(self, depth_mean: float = 0.0418, depth_std: float = 0.0295,
+                 max_depth: float = 75.0, clamp_max_before_scale: bool = True,
+                 min_depth: float = 0.01, image_size: int = 224):
+        self.depth_mean = depth_mean
+        self.depth_std = depth_std
+        self.max_depth = max_depth
+        self.clamp_max = clamp_max_before_scale
+        self.min_depth = min_depth
+        self.image_size = image_size
+
+    def process_array(self, disparity: np.ndarray) -> np.ndarray:
+        d = np.asarray(disparity, np.float32)
+        if d.ndim == 3:
+            d = d[0]
+        d = np.maximum(d, self.min_depth)
+        if self.clamp_max:
+            d = np.minimum(d, self.max_depth)
+        d = d / self.max_depth
+        # a float32 [H, W] array is a mode-F image: bicubic in float32
+        d = np.asarray(_resize_smaller_edge(Image.fromarray(d), self.image_size),
+                       np.float32)
+        d = _center_crop(d[None], self.image_size)
+        return (d - self.depth_mean) / self.depth_std
+
+    def __call__(self, paths) -> np.ndarray:
+        out = []
+        for p in _wrap_list(paths):
+            if isinstance(p, np.ndarray):
+                arr = p
+            elif p.endswith((".npy", ".npz")):
+                arr = np.load(p)
+            elif p.endswith(".png"):  # a 16-bit disparity PNG
+                with Image.open(p) as img:
+                    arr = np.asarray(img, np.float32)
+            else:
+                arr = _load_pt(p)
+            out.append(self.process_array(arr))
+        return np.stack(out)
+
+
 def constant_clip_timepoints(duration: float, clip_duration: float,
                              n_clip: int) -> List[tuple]:
     """Evenly spaced clip starts: start_i = i * (duration - clip) / n_clip,
@@ -305,16 +359,44 @@ class AudioProcessor:
         return np.stack(out)  # [B, n_clip, T, F]
 
 
+class EEGProcessor:
+    """Raw EEG [channels, time] -> crop t[20:460] -> linear resample of each
+    channel to 512 samples. Takes arrays and ``.pt`` paths."""
+
+    def __init__(self, time_low: int = 20, time_high: int = 460,
+                 data_len: int = 512):
+        self.time_low = time_low
+        self.time_high = time_high
+        self.data_len = data_len
+
+    def process_array(self, eeg: np.ndarray) -> np.ndarray:
+        eeg = np.asarray(eeg, np.float32)[:, self.time_low:self.time_high]
+        x = np.linspace(0, 1, eeg.shape[-1])
+        x2 = np.linspace(0, 1, self.data_len)
+        out = np.empty((eeg.shape[0], self.data_len), np.float32)
+        for c in range(eeg.shape[0]):
+            out[c] = np.interp(x2, x, eeg[c])
+        return out
+
+    def __call__(self, paths) -> np.ndarray:
+        return np.stack([self.process_array(
+            p if isinstance(p, np.ndarray) else _load_pt(p))
+            for p in _wrap_list(paths)])
+
+
+def _video_processor():
+    from vitlens_tpu_torch.data.video_processors import VideoProcessor
+
+    return VideoProcessor(train=False)
+
+
 def default_processors(modalities: Optional[Sequence[str]] = None):
-    """{modality: processor} for the ported modalities (all of them by
-    default); a modality that is not yet ported raises."""
+    """{modality: processor} for the given modalities (by default all but
+    video, as in JAX)."""
     all_procs = {"image": ImageProcessor, "text": TextProcessor,
-                 "pc": PointCloudProcessor, "audio": AudioProcessor,
-                 "tactile": TactileProcessor}
+                 "pc": PointCloudProcessor, "depth": DepthProcessor,
+                 "audio": AudioProcessor, "tactile": TactileProcessor,
+                 "eeg": EEGProcessor, "video": _video_processor}
     if modalities is None:
-        modalities = list(all_procs)
-    for m in modalities:
-        if m not in all_procs:
-            raise NotImplementedError(
-                f"the {m!r} processor is not yet ported")
+        modalities = [m for m in all_procs if m != "video"]
     return {m: all_procs[m]() for m in modalities}

@@ -1,14 +1,20 @@
 """Lens-aware vision tower (port of vitlens_tpu/models/vit.py): images,
-tactile frames, audio and point clouds.
+tactile frames, depth maps, audio, EEG, video and point clouds.
 
-    image, fbank or points -> adapter (+ adapter pos) -> Perceiver Lens (not
-    on the image and tactile towers) -> prepend CLS -> + positional embedding
-    -> ln_pre -> trunk -> CLS pool -> ln_post -> @ proj
+    input -> adapter (+ adapter pos) -> Lens -> prepend CLS -> + positional
+    embedding -> ln_pre -> trunk -> CLS pool -> ln_post -> @ proj
+
+The Lens is a Perceiver (cross-attention onto latents), a plain transformer
+at trunk width (``as_transformer``), the identity (``as_identity``: tokens
+pass straight through) or absent (the image and tactile towers). Video
+frames [B, T, 3, H, W] go through the image patch embedding frame by frame;
+each frame's tokens get the learned temporal position of their frame and,
+whenever a Lens is configured (the identity included), the spatial
+positional embedding; the frames are then flattened into one sequence.
 
 A raw waveform [B, samples] into the audio tower goes through the Kaldi
 fbank on its own device, in fp32, before the cast to the compute dtype. The
-PNSA point tokenizer and the depth, EEG and video towers are not yet ported
-and raise ``NotImplementedError``.
+PNSA point tokenizer is not yet ported and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -16,8 +22,9 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from vitlens_tpu_torch.adapters.tokenizers import (AudioAdapter, ImageAdapter,
-                                                  PointTokenizer)
+from vitlens_tpu_torch.adapters.tokenizers import (AudioAdapter, DepthAdapter,
+                                                  EEGAdapter, ImageAdapter,
+                                                  PointTokenizer, VideoAdapter)
 from vitlens_tpu_torch.config import TowerConfig
 from vitlens_tpu_torch.models.layers import (LayerNorm, Transformer, _param,
                                              normal_)
@@ -25,26 +32,29 @@ from vitlens_tpu_torch.models.perceiver import Perceiver
 from vitlens_tpu_torch.ops.fbank import fbank_fixed_length
 
 
+_ADAPTERS = {"image": ImageAdapter, "tactile": ImageAdapter,
+             "video": VideoAdapter, "depth": DepthAdapter,
+             "audio": AudioAdapter, "eeg": EEGAdapter}
+
+
 class VisionTower(nn.Module):
     def __init__(self, cfg: TowerConfig, device=None):
         super().__init__()
-        if cfg.modality not in ("image", "tactile", "audio", "pc"):
-            raise NotImplementedError(
-                f"the {cfg.modality!r} tower is not yet ported")
-        p = cfg.perceiver
-        if p is not None and (p.as_identity or p.as_transformer):
-            raise NotImplementedError(
-                "the identity and transformer Lens are not yet ported")
         self.cfg = cfg
         arch = cfg.arch
         width = arch.width
-        if cfg.modality == "audio":
-            self.adapter = AudioAdapter(cfg, device=device)
-        elif cfg.modality == "pc":
+        if cfg.modality == "pc":
             self.adapter = PointTokenizer(cfg.point, device=device)
         else:
-            self.adapter = ImageAdapter(cfg, device=device)
-        self.perceiver = Perceiver(p, device=device) if p is not None else None
+            self.adapter = _ADAPTERS[cfg.modality](cfg, device=device)
+        p = cfg.perceiver
+        self.perceiver = self.perceiver_transformer = None
+        if p is not None and p.as_transformer:
+            self.perceiver_transformer = Transformer(
+                width, p.depth, arch.heads, arch.mlp_ratio, arch.ls_init_value,
+                cfg.quick_gelu, device=device)
+        elif p is not None and not p.as_identity:
+            self.perceiver = Perceiver(p, device=device)
         self.class_embedding = _param(width, device=device)
         self.positional_embedding = _param(cfg.num_tokens + 1, width,
                                            device=device)
@@ -58,8 +68,9 @@ class VisionTower(nn.Module):
     def init_(self, g: torch.Generator) -> None:
         scale = self.cfg.arch.width ** -0.5
         self.adapter.init_(g)
-        if self.perceiver is not None:
-            self.perceiver.init_(g)
+        for lens in (self.perceiver, self.perceiver_transformer):
+            if lens is not None:
+                lens.init_(g)
         normal_(self.class_embedding, scale, g)
         normal_(self.positional_embedding, scale, g)
         self.ln_pre.init_(g)
@@ -69,14 +80,16 @@ class VisionTower(nn.Module):
 
     def forward(self, x: torch.Tensor, compute_dtype=torch.float32, *,
                 train: bool = False, remat: bool = False):
-        """x: images [B, 3, H, W], fbank [B, target_length, mel_bins], raw
-        waveforms [B, samples] or points [B, N, 3] -> features [B,
-        embed_dim]. A waveform goes through the fbank in fp32 on its own
+        """x: images [B, 3, H, W], depth maps [B, 1, H, W], fbank [B,
+        target_length, mel_bins], raw waveforms [B, samples], EEG [B, chans,
+        time], video frames [B, T, 3, H, W] or points [B, N, 3] -> features
+        [B, embed_dim]. A waveform goes through the fbank in fp32 on its own
         device first; then the input is cast to ``compute_dtype``, so FPS
         sees the rounded coordinates, as in JAX. ``remat`` recomputes the
-        trunk's blocks in the backward pass. ``train`` marks a training pass:
-        train-time patch dropout and the point tokenizer's batch BatchNorm
-        and random FPS starts are not ported and raise."""
+        trunk's blocks (and the transformer Lens's) in the backward pass.
+        ``train`` marks a training pass: train-time patch dropout and the
+        point tokenizer's batch BatchNorm and random FPS starts are not
+        ported and raise."""
         cfg = self.cfg
         if cfg.modality == "audio" and x.dim() == 2:
             a = cfg.audio
@@ -91,11 +104,16 @@ class VisionTower(nn.Module):
                 "point-cloud training (batch BatchNorm, random FPS starts) is "
                 "not yet ported")
         x = x.to(compute_dtype)
-        tokens, pos = self.adapter(x)
-        if pos is not None and cfg.use_adapter_pos:
-            tokens = tokens + pos.to(tokens.dtype)
+        if cfg.modality == "video":
+            tokens = self._video_tokens(x)
+        else:
+            tokens, pos = self.adapter(x)
+            if pos is not None and cfg.use_adapter_pos:
+                tokens = tokens + pos.to(tokens.dtype)
         if self.perceiver is not None:
             tokens = self.perceiver(tokens)
+        elif self.perceiver_transformer is not None:
+            tokens = self.perceiver_transformer(tokens, remat=remat)
         B, _, width = tokens.shape
         cls = self.class_embedding.to(tokens.dtype).expand(B, 1, width)
         h = torch.cat([cls, tokens], dim=1)
@@ -106,3 +124,19 @@ class VisionTower(nn.Module):
         pooled = h.mean(dim=1) if cfg.arch.global_average_pool else h[:, 0]
         pooled = self.ln_post(pooled)
         return pooled @ self.proj.to(pooled.dtype)
+
+    def _video_tokens(self, x: torch.Tensor) -> torch.Tensor:
+        """Frames [B, T, 3, H, W] -> tokens [B, T * L, width]: the patch
+        embedding of each frame, + ltpos of its frame, + the spatial
+        positions ``positional_embedding[1:]`` whenever a Lens is configured,
+        in that order (two adds in the compute dtype, as in JAX)."""
+        B, T = x.shape[:2]
+        ftokens, _ = self.adapter(x.reshape((B * T,) + tuple(x.shape[2:])))
+        L = ftokens.shape[1]
+        if self.adapter.ltpos is not None:
+            lt = self.adapter.ltpos.to(ftokens.dtype)
+            ftokens = (ftokens.reshape(B, T, L, -1) + lt[None, :, None, :]
+                       ).reshape(B * T, L, -1)
+        if self.cfg.perceiver is not None:
+            ftokens = ftokens + self.positional_embedding[1:].to(ftokens.dtype)
+        return ftokens.reshape(B, T * L, -1)

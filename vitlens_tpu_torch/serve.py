@@ -17,8 +17,9 @@ Endpoints (JSON):
                         "device_name": ..., "stats": ..., "latency": ...}
   POST /v1/encode   -> body {"inputs": {modality: [item, ...]},
                              "normalize": true}
-                       item: a string (caption or file path) or a nested
-                       list (a raw array, e.g. a cloud, which the modality's
+                       item: a string (a caption, a file path or a video
+                       frame directory) or a nested list (a raw array, e.g. a
+                       cloud or an EEG recording, which the modality's
                        processor takes).
                        reply {"embeddings": {modality: [[...], ...]},
                               "dim": D}

@@ -16,8 +16,11 @@ the JAX package's trees by the tests.
   * the CLIP positional-embedding grid resized to the Lens latents by
     :func:`resize_pos_embed`.
 
-``_convert_adapter`` takes the image/tactile patch embedding, the AST audio
-adapter and the PointBERT tokenizer; the other adapters are not yet ported.
+``_convert_adapter`` takes the image/tactile/video patch embedding (and the
+video tower's ``ltpos``), the depth patch embedding, the EEG Conv1d, the AST
+audio adapter and the PointBERT tokenizer; the PNSA tokenizer is not yet
+ported. The identity Lens has no keys; the transformer Lens is a plain
+``perceiver.resblocks.*`` stack.
 """
 
 from __future__ import annotations
@@ -97,7 +100,9 @@ def _stack(layers):
 
 
 def _patch_conv(sd: Mapping[str, Any], name: str) -> np.ndarray:
-    w = _j(sd[name])  # [W, C, p, p]
+    """A conv weight [W, C, *kernel] -> [C * prod(kernel), W], flattened in
+    (c, kernel) order: the 2-D patch convs and the EEG Conv1d."""
+    w = _j(sd[name])
     return np.ascontiguousarray(w.reshape(w.shape[0], -1).T)
 
 
@@ -172,8 +177,21 @@ def convert_perceiver(sd: Mapping[str, Any], cfg: PerceiverConfig) -> Params:
 
 def _convert_adapter(sd: Mapping[str, Any], cfg: TowerConfig) -> Tuple[Params, State]:
     m = cfg.modality
-    if m in ("image", "tactile"):
-        return {"conv1": {"w": _patch_conv(sd, "conv1.weight")}}, {}
+    if m in ("image", "tactile", "video"):
+        p: Params = {"conv1": {"w": _patch_conv(sd, "conv1.weight")}}
+        if "ltpos.weight" in sd:  # the video tower's learned temporal pos
+            p["ltpos"] = _j(sd["ltpos.weight"])
+        return p, {}
+    if m == "depth":
+        a = sub(sd, "visual_adapter.")
+        return {"conv1": {"w": _patch_conv(a, "conv1.weight")},
+                "pos_emb": _j(a["pos_emb"])}, {}
+    if m == "eeg":
+        a = sub(sd, "visual_adapter.")
+        # Conv1d [W, chans, window] -> [chans * window, W], chans-major
+        return {"proj": {"w": _patch_conv(a, "proj.weight"),
+                         "b": _j(a["proj.bias"])},
+                "pos_emb": _j(a["pos_emb"])}, {}
     if m == "audio":
         a = sub(sd, "visual_adapter.")
         return {"conv1": {"w": _j(a["conv1.weight"])},
@@ -264,10 +282,11 @@ def convert_vision_tower(sd: Mapping[str, Any],
         "proj": _j(sd["proj"]),
     }
     perc = cfg.perceiver
-    if perc is not None and (perc.as_identity or perc.as_transformer):
-        raise NotImplementedError(
-            "converting the identity and transformer Lens is not yet ported")
-    if perc is not None:
+    if perc is not None and perc.as_transformer:
+        # a plain Transformer stored under the Lens's name
+        p["perceiver_transformer"] = convert_transformer_blocks(
+            sub(sd, "perceiver."), perc.depth)
+    elif perc is not None and not perc.as_identity:
         p["perceiver"] = convert_perceiver(sub(sd, "perceiver."), perc)
     return p, {"adapter": adapter_s}
 
