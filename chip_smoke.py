@@ -10,10 +10,12 @@ Phases, one printed line each (or more); any failure exits non-zero:
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the shapes of the main paths and at edge shapes: fused MLP, both
      variants and both activations (out and the save-preact output a; bf16,
-     <= 2.5e-2 and 1e-2 relative; also a ragged M = 4100 and D/H = 768/3072
-     and 1664/8192), attention (bf16, <= 1e-2 relative; at the video Lens
-     cross [64, 1, 256, 2048, 64], a ragged NK of 2040 beside it and the EEG
-     and pc Lens cross [64, 1, 256, 512, 64]; also every NQ, NK in
+     <= 2.5e-2 and 1e-2 relative; also a ragged M = 4100, D/H = 768/3072
+     and 1664/8192, and the plain variant at the video distill step's B64
+     image tower, M = 131584), attention (bf16, <= 1e-2 relative; at the
+     video Lens cross [64, 1, 256, 2048, 64], a ragged NK of 2040 beside it,
+     the EEG and pc Lens cross [64, 1, 256, 512, 64] and the distill step's
+     image tower [512, 16, 257, 257, 64]; also every NQ, NK in
      {1, 7, 77, 257, 600}, NK past the K/V-resident limit, and the packed-qkv
      and Lens views bit-equal to contiguous copies; and head dims 32, 80,
      88, 104, 112 and 128 at every NQ, NK in {1, 77, 257, 600}, contiguous
@@ -137,6 +139,25 @@ Phases, one printed line each (or more); any failure exits non-zero:
      projection 24 times per audio tower pass and 12 per text pass; the
      encode and the B = 2 gradients hold cosine >= 0.99 against the CPU fp32
      path.
+  4d. tri train: the vitlensL depth model (create_model("ViT-L-14",
+     "depth")) at full width and depth with its frozen ViT-L-14 image tower,
+     fp32 trainable masters, frozen weights in bf16, bf16 compute, the
+     published depth recipe (image, text and visual towers locked, the first
+     4 trunk blocks unlocked, n_tower=3). The gradients of one B = 2 pass
+     against the same pass on the CPU in fp32 (loss within 5e-2, grad_norm
+     within 1e-1 relative, cosine >= 0.99); 3 steps at B = 8 and 2 with
+     accum_freq 4, each with its launches per kernel variant against
+     tri_train_launches (the image and text towers only kernel 1's plain
+     variant, the Lens tower's trunk the save-preact one); every frozen
+     parameter, the whole image tower included, bit-identical, every
+     trainable one changed.
+  4e. video distill: the vitlensL video model with video_distill=True and
+     the distill-token loss (the image tower over the 8 frames of each clip,
+     its features and tokens averaged over the frames, distilled into the
+     video Lens tower; image, text and visual towers locked, so the Lens
+     and the adapter train): the B = 2 gradients against the CPU in fp32,
+     then 2 steps at B = 4 with accum_freq 2 (the cached tokens spliced in),
+     with launches, frozen and trained checks as in 4d.
   5. timing: each kernel against its plain version (and, where one PyTorch
      call computes the same function, that call) at the B64 shapes of the
      main paths, beside each kernel's bound, with cuBLAS's two products
@@ -144,7 +165,10 @@ Phases, one printed line each (or more); any failure exits non-zero:
      fused LN + projection, the trunk attention also on the packed-qkv views; the audio (64 samples x 3 clips)
      and pc (64 clouds) encode rates at B64 in bf16, the audio encode also
      with the opt-in; the audio train-step rate at B64 with and without the
-     opt-in, with the peak device memory; attention at the bigG trunk's
+     opt-in, with the peak device memory; the 4d depth tri step's rate at
+     B64 and the 4e video distill step's at the largest B in (64, 32) that
+     fits, each with its peak device memory and one step under the
+     profiler (busy and idle share); attention at the bigG trunk's
      head dim 104 beside SDPA; the int8 product's INT32 and DEQUANT
      epilogues at 4096^3 and the quantized encode's four shapes beside
      torch._int_mm, the quantise kernel beside its bound, the row gather's
@@ -741,6 +765,140 @@ def train_phase(torch, np, counters, totals):
     return model, state, tx, mask, sc, batch
 
 
+def tri_train_launches(cfg, accum):
+    """Launches per kernel variant of one tri or video-distill train step,
+    derived from the config: each pass with grad runs the frozen image
+    tower (once over every frame of a clip) and the frozen text tower
+    through kernel 1's plain variant and the Lens tower, whose Lens trains,
+    through the save-preact variant; accum_freq > 1 adds a cached pass of
+    the three towers without grad. Attention: the image tower's trunk and
+    the Lens tower's trunk and Lens (the text tower's is plain)."""
+    li, lt = cfg.vision.layers, cfg.text.layers
+    lens = tower_launches(cfg.tower)
+    la_mlp, la_attn = lens["fused_mlp"], lens["flash_attention"]
+    cached = accum if accum > 1 else 0
+    return launch_counts(
+        fused_mlp=accum * (li + lt) + cached * (li + lt + la_mlp),
+        fused_mlp_save_preact=accum * la_mlp,
+        flash_attention=(accum + cached) * (li + la_attn))
+
+
+def tri_batch(torch, np, cfg, b, rng, frames=0):
+    """A seeded tri batch on the host: token ids, images (``frames`` > 0:
+    clips [B, frames, 3, 224, 224], also the Lens tower's input) and the
+    Lens tower's input."""
+    text = rng.randint(1, 49000, size=(b, 77))
+    text[:, 0], text[:, -1] = 49406, 49407
+    shape = (b, frames, 3, 224, 224) if frames else (b, 3, 224, 224)
+    image = torch.from_numpy(rng.randn(*shape).astype(np.float32))
+    if frames:
+        visual = image
+    else:
+        visual = torch.from_numpy(
+            rng.randn(b, 1, 224, 224).astype(np.float32))  # depth maps
+    return {"text": torch.from_numpy(text).long(), "image": image,
+            "visual": visual}
+
+
+def tri_train_phase(torch, np, counters, totals, tag, modality, flags, sc,
+                    runs, frames=0):
+    """Phase 4d or 4e: a tri-shaped recipe on the vitlensL ``modality``
+    model at full width and depth (fp32 trainable masters, frozen weights
+    in bf16, bf16 compute). The gradients of one B = 2 pass against the
+    same pass on the CPU in fp32 (loss, grad_norm, cosine); then ``runs``
+    [(label, B, accum_freq)] steps, each with its launches per kernel
+    variant against tri_train_launches; every frozen parameter (the whole
+    image tower too) bit-identical, every trainable one changed. Returns
+    what phase 5 times."""
+    from dataclasses import replace
+
+    from vitlens_tpu_torch.factory import create_model, make_trainable_
+    from vitlens_tpu_torch.train.freeze import count_trainable, tri_model_mask
+    from vitlens_tpu_torch.train.losses import make_loss_fn
+    from vitlens_tpu_torch.train.step import (OptimizerConfig, init_train_state,
+                                              make_optimizer, make_train_step,
+                                              micro_grads)
+
+    t0 = time.time()
+    model = create_model("ViT-L-14", modality, seed=SEED, device="cuda",
+                         dtype=torch.float32)
+    cfg = model.cfg
+    mask = tri_model_mask(model, cfg, **flags)
+    tx, mask = make_optimizer(model, OptimizerConfig(
+        lr=1e-4, warmup=10, total_steps=1000, grad_clip_norm=1.0), mask)
+    make_trainable_(model, mask, torch.bfloat16)
+    names = [n for n, t in mask.items() if t]
+    loss_fn = make_loss_fn(sc.n_tower, sc.contra_loss_type)
+    rng = np.random.RandomState(SEED)
+
+    def grads_of(m, step_cfg, bt):
+        params = {n: p for n, p in m.named_parameters() if mask[n]}
+        dev = m.logit_scale.device
+        loss, gr = micro_grads(m, {k: v.to(dev) for k, v in bt.items()},
+                               step_cfg, params, loss_fn)
+        return float(loss), torch.cat([gr[n].float().flatten().cpu()
+                                       for n in names]).double()
+
+    b2 = tri_batch(torch, np, cfg, 2, rng, frames)
+    ref = copy.deepcopy(model).to(device="cpu", dtype=torch.float32)
+    t_cpu = time.time()
+    loss_cpu, g_cpu = grads_of(ref, replace(sc, compute_dtype=torch.float32), b2)
+    t_cpu = time.time() - t_cpu
+    del ref
+    (loss_card, g_card), counts = run_counted(
+        torch, counters, totals, lambda: grads_of(model, sc, b2))
+    if counts != tri_train_launches(cfg, 1):
+        fail(f"{tag} B=2 gradients: launches {counts}, expected "
+             f"{tri_train_launches(cfg, 1)}")
+    cos_g = (g_card @ g_cpu / (g_card.norm() * g_cpu.norm())).item()
+    norm_card, norm_cpu = g_card.norm().item(), g_cpu.norm().item()
+    if not (cos_g >= COS_MIN and abs(loss_card - loss_cpu) <= LOSS_TOL
+            and abs(norm_card / norm_cpu - 1) <= NORM_TOL):
+        fail(f"{tag} B=2 gradients vs CPU fp32: cosine {cos_g}, loss "
+             f"{loss_card} vs {loss_cpu}, grad_norm {norm_card} vs {norm_cpu}")
+
+    frozen0 = {n: p.detach().clone() for n, p in model.named_parameters()
+               if not mask[n]}
+    train0 = {n: p.detach().clone() for n, p in model.named_parameters()
+              if mask[n]}
+    state = init_train_state(model, tx)
+    per_step = []
+    for label, b, accum in runs:
+        step = make_train_step(cfg, tx, mask, replace(sc, accum_freq=accum))
+        bt = tri_batch(torch, np, cfg, b, rng, frames)
+        (state, m), counts = run_counted(torch, counters, totals,
+                                         lambda: step(state, bt))
+        if counts != tri_train_launches(cfg, accum):
+            fail(f"{tag} {label}: launches {counts}, expected "
+                 f"{tri_train_launches(cfg, accum)}")
+        m = {k: float(v) for k, v in m.items()}
+        if not all(np.isfinite(v) for v in m.values()):
+            fail(f"{tag} {label}: metrics {m}")
+        per_step.append((label, round(m["loss"], 5), counts["fused_mlp"],
+                         counts["fused_mlp_save_preact"],
+                         counts["flash_attention"]))
+    moved = [n for n, p in model.named_parameters() if not mask[n]
+             and not torch.equal(p, frozen0[n])]
+    still = [n for n, p in model.named_parameters() if mask[n]
+             and torch.equal(p, train0[n])]
+    if moved or still:
+        fail(f"{tag}: frozen parameters that changed {moved[:5]}, trainable "
+             f"ones that did not {still[:5]}")
+    n_image = sum(1 for n in frozen0 if n.startswith("image."))
+    del frozen0, train0
+    print(f"[{tag}] vitlensL {modality} tri model, {flags}, {sc.n_tower} "
+          f"towers, video_distill {sc.video_distill}, loss "
+          f"{sc.contra_loss_type}: {count_trainable(model, mask)} trainable "
+          f"parameters in {len(names)} tensors; B=2 vs CPU fp32: gradient "
+          f"cosine {cos_g:.6f}, loss {loss_card:.5f} vs {loss_cpu:.5f}, "
+          f"grad_norm {norm_card:.5f} vs {norm_cpu:.5f} (the CPU pass took "
+          f"{t_cpu:.1f} s); steps (label, loss, launches plain, save-preact, "
+          f"attention) {per_step}; frozen parameters bit-identical ({n_image} "
+          f"tensors of the image tower among them), every trainable one "
+          f"changed; phase took {time.time() - t0:.1f} s", flush=True)
+    return model, state, tx, mask, sc
+
+
 def profile_encode(torch, card, label, encode):
     """One call under torch.profiler: the top kernels by device time and the
     device's busy and idle share."""
@@ -803,6 +961,7 @@ def encode_latency(torch, card, label, encode, runs=5):
 def train_rate(torch, card, label, step, samples, runs=3):
     step()
     torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     times = []
     for _ in range(runs):
@@ -814,8 +973,45 @@ def train_rate(torch, card, label, step, samples, runs=3):
     print(f"[5 timing] {card} | {label}: {samples / best:.2f} samples/s, best "
           f"of {runs}: {best * 1e3:.2f} ms, all ms "
           f"{[round(t * 1e3, 2) for t in times]}; peak allocated "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB ({resident / 1e9:.2f} "
+          f"GB resident between steps)", flush=True)
     return samples / best
+
+
+def tri_timings(torch, np, card, *trained):
+    """Phase 5's rates of the 4d depth tri step at B64 and the 4e video
+    distill step at the largest B in (64, 32) that fits, each with its peak
+    memory and one step under the profiler. Returns {name: (B, rate)}."""
+    from vitlens_tpu_torch.train.step import make_train_step
+
+    rng = np.random.RandomState(SEED)
+    rates = {}
+    for (model, state, tx, mask, sc), frames in zip(trained, (0, 8)):
+        name = "video distill" if sc.video_distill else "depth tri"
+        step = make_train_step(model.cfg, tx, mask, sc)
+        for b in (B, 32) if frames else (B,):
+            bt = {k: v.cuda() for k, v in
+                  tri_batch(torch, np, model.cfg, b, rng, frames).items()}
+            try:
+                rate = train_rate(torch, card, f"{name} train step B{b} bf16 "
+                                  f"(frozen image tower in bf16"
+                                  + (f", {b * frames} frames a step" if frames
+                                     else "") + ")",
+                                  lambda: step(state, bt), b)
+            except torch.cuda.OutOfMemoryError:
+                del bt
+                torch.cuda.empty_cache()
+                print(f"[5 timing] {card} | {name} train step B{b}: out of "
+                      "device memory", flush=True)
+                continue
+            profile_encode(torch, card, f"B{b} {name} train step",
+                           lambda: step(state, bt))
+            rates[name] = (b, rate)
+            del bt
+            break
+        else:
+            fail(f"{name} train step: no batch size fits")
+    return rates
 
 
 def check_attention_edges(torch, g, err, checks):
@@ -1995,8 +2191,11 @@ def main() -> int:
     g = torch.Generator(device="cuda").manual_seed(SEED)
     err = {name: 0.0 for name in kernels}
     checks = []
+    # the last: the video distill step's image tower at B64 (8 frames of
+    # 257 tokens a sample), the largest M on any path
     for m, d, h in ((6168, 1024, 4096), (616, 768, 3072), (1001, 1024, 4096),
-                    (4100, 1024, 4096), (4100, 1664, 8192)):
+                    (4100, 1024, 4096), (4100, 1664, 8192),
+                    (B * 8 * 257, 1024, 4096)):
         for act in ("gelu", "quick_gelu"):
             a = mlp_inputs(torch, g, m, d, h)
             got = fused_mlp(*a, act=act)
@@ -2008,10 +2207,12 @@ def main() -> int:
             if not (torch.isfinite(got).all() and e <= MLP_TOL):
                 fail(f"fused_mlp {m}x{d}x{h} {act}: rel err {e} > {MLP_TOL}")
     # the main paths' shapes, then the video Lens cross (8 frames x 256
-    # tokens), a ragged NK beside it and the EEG (and pc) Lens cross at B64
+    # tokens), a ragged NK beside it, the EEG (and pc) Lens cross at B64 and
+    # the video distill step's image tower at B64 (512 frames)
     for b, h, nq, nk in ((12, 16, 257, 257), (12, 1, 256, 600),
                          (12, 16, 256, 256), (8, 1, 256, 512),
-                         (B, 1, 256, 2048), (B, 1, 256, 2040), (B, 1, 256, 512)):
+                         (B, 1, 256, 2048), (B, 1, 256, 2040), (B, 1, 256, 512),
+                         (B * 8, 16, 257, 257)):
         q, k, v = qkv_inputs(torch, g, b, h, nq, nk)
         got = flash_attention(q, k, v)
         torch.cuda.synchronize()
@@ -2249,6 +2450,23 @@ def main() -> int:
     trainer, state, tx, mask, sc, train_batch = train_phase(torch, np, counters,
                                                             launches)
 
+    # -- 4d: the depth tri step; 4e: the video distill-tokens step ----------
+    from vitlens_tpu_torch.train.step import StepConfig
+
+    tri_depth = tri_train_phase(
+        torch, np, counters, launches, "4d tri train", "depth",
+        dict(lock_image=True, lock_text=True, lock_visual=True,
+             unlock_trans_first_n_layers=4),
+        StepConfig(n_tower=3, compute_dtype=torch.bfloat16),
+        [("B=8", 8, 1)] * 3 + [("B=8 accum_freq 4", 8, 4)] * 2)
+    tri_video = tri_train_phase(
+        torch, np, counters, launches, "4e video distill", "video",
+        dict(lock_image=True, lock_text=True, lock_visual=True),
+        StepConfig(n_tower=3, video_distill=True,
+                   contra_loss_type="distill_token",
+                   compute_dtype=torch.bfloat16),
+        [("B=4 accum_freq 2", 4, 2)] * 2, frames=8)
+
     # -- 5: timing at the B64 shapes -----------------------------------------
     timings = {name: [] for name in kernels}
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -2428,6 +2646,9 @@ def main() -> int:
         finally:
             os.environ.pop("VITLENS_ENABLE_FUSED_LNQKV", None)
     profile_encode(torch, card, f"B{B} audio train step", step64)
+    del trainer, state, train_step, batch64
+    tri_rates = tri_timings(torch, np, card, tri_depth, tri_video)
+    del tri_depth, tri_video
     served_rates = served_timings(torch, np, card, served)
     shutil.rmtree(served["root"], ignore_errors=True)
     del served
@@ -2483,7 +2704,10 @@ def main() -> int:
           f"({max(q_rates) / max(audio_rate, audio_again):.3f}x); pc encode "
           f"B{B}: {pc_rate:.2f} samples/s, B=1 latency {pc1_ms:.2f} ms; audio "
           f"train step B{B}: {max(train_rates[False]):.2f} samples/s, opt-in "
-          f"{max(train_rates[True]):.2f}; image, depth, EEG, video encode B{B}: "
+          f"{max(train_rates[True]):.2f}; "
+          + "; ".join(f"{k} train step B{b}: {r:.2f} samples/s"
+                      for k, (b, r) in tri_rates.items())
+          + f"; image, depth, EEG, video encode B{B}: "
           + ", ".join(f"{served_rates[m]:.2f}" for m in ("image", "depth", "eeg", "video"))
           + f" samples/s; served audio closed loop: "
           f"{served_rates['served_rps']:.2f} requests/s; whole run "

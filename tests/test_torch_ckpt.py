@@ -271,7 +271,8 @@ def test_create_model_checkpoint_path_matches_jax(tmp_path):
 def test_create_model_plain_clip_is_a_non_strict_merge(tmp_path):
     """A plain CLIP file into the audio Lens model: the shared trunk subset
     loads (equal to JAX's merged tree), the adapter and the Lens keep their
-    seeded values, and the image subtree is dropped."""
+    seeded values, and the file's visual keys fill the image tower, equal to
+    JAX's image subtree."""
     cfg = PC.make_model_config(TRUNK, "audio")
     sd = RL.clip_state_dict(cfg, torch.Generator().manual_seed(8))
     path = str(tmp_path / "clip.pt")
@@ -288,3 +289,7 @@ def test_create_model_plain_clip_is_a_non_strict_merge(tmp_path):
         assert torch.equal(named[k], dict(seeded.visual.named_parameters())[k])
     np.testing.assert_array_equal(pm.text.token_embedding.numpy(),
                                   sd["token_embedding.weight"].numpy())
+    image = flatten(jm.params["image"])
+    assert set(image) == {n for n, _ in pm.image.named_parameters()}
+    for k, p in pm.image.named_parameters():
+        np.testing.assert_array_equal(p.numpy(), np.asarray(image[k]), err_msg=k)

@@ -262,8 +262,9 @@ def test_video_processor_bit_equal(tmp_path, three_crop):
 def test_video_sampling_and_refusals(tmp_path):
     """Frame indices equal JAX's at every clip length around n_frames (and
     with fix_start); a video file with no decode_fn raises RuntimeError as
-    in JAX, and decode_fn output is taken; train=True is not yet ported;
-    the thread-local RNG's first stream is RandomState(seed)."""
+    in JAX, and decode_fn output is taken, by the train transforms too
+    (bit for bit against JAX's, from the same seed); the thread-local RNG's
+    first stream is RandomState(seed)."""
     for total in (1, 3, 7, 8, 9, 16, 31, 300):
         np.testing.assert_array_equal(PV.sample_frame_indices(total, 8),
                                       JV.sample_frame_indices(total, 8))
@@ -279,8 +280,9 @@ def test_video_sampling_and_refusals(tmp_path):
     frames = _frames(10, seed=5)
     got = PV.VideoProcessor(decode_fn=lambda p: frames)([path])
     np.testing.assert_array_equal(got, JV.VideoProcessor()([frames]))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        PV.VideoProcessor(train=True)
+    got = PV.VideoProcessor(train=True, seed=3, decode_fn=lambda p: frames)([path])
+    np.testing.assert_array_equal(
+        got, JV.VideoProcessor(train=True, seed=3, decode_fn=lambda p: frames)([path]))
     rng = ThreadLocalRNG(7)
     np.testing.assert_array_equal(rng.randint(0, 100, 5),
                                   np.random.RandomState(7).randint(0, 100, 5))

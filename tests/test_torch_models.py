@@ -124,15 +124,15 @@ def test_from_jax_unstacks_blocks_and_rejects_mismatch():
 
 def test_unported_modalities_raise():
     """What is still unported raises: the PNSA point tokenizer (the vitlensG
-    pc tower) and the video train transforms. The depth tower (its identity
-    Lens) and the EEG tower, ported since, build."""
+    pc tower). The depth tower (its identity Lens), the EEG tower and the
+    video train transforms, ported since, build."""
     pc = PC.make_model_config("ViT-Tiny-Test", "pc").tower
     with pytest.raises(NotImplementedError, match="not yet ported"):
         VisionTower(PC.replace(pc, point=PC.replace(pc.point, tokenizer="pnsa")))
     from vitlens_tpu_torch.data.video_processors import VideoProcessor
 
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        VideoProcessor(train=True)
+    train = VideoProcessor(train=True)
+    assert train.train and train.rand_aug is not None
     depth = VisionTower(PC.make_model_config("ViT-Tiny-Test", "depth").tower)
     assert depth.perceiver is None and depth.perceiver_transformer is None
     eeg = VisionTower(PC.make_model_config("ViT-Tiny-Test", "eeg").tower)

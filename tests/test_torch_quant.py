@@ -180,7 +180,7 @@ def test_quantize_model_returns_a_copy_and_is_quantized():
     parameter of the quantized copy asks for a gradient."""
     *_, model = _tiny_models(())
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    qmodel = PQ.quantize_model(model, towers=("visual", "image"))
+    qmodel = PQ.quantize_model(model, towers=("visual", "sketch"))
     assert PQ.is_quantized(qmodel.visual) and not PQ.is_quantized(qmodel.text)
     assert not PQ.is_quantized(model.visual)
     assert not PQ.is_quantized(model.visual.adapter)  # no trunk: False

@@ -3,7 +3,8 @@ vitlens_tpu/data/processors.py).
 
 Ported: ``TextProcessor`` (caption cleanup plus CLIP BPE),
 ``ImageProcessor`` (bicubic resize of the smaller edge, center crop, OpenAI
-mean/std), ``TactileProcessor`` (resize 256, crop 224), ``DepthProcessor``
+mean/std), ``TrainImageProcessor`` (the random train crop and its extras),
+``TactileProcessor`` (resize 256, crop 224), ``DepthProcessor``
 (disparity clamp and scale, mode-F bicubic resize, center crop, depth
 mean/std), ``AudioProcessor`` (decode, resample, constant clip grid, Kaldi
 fbank), ``EEGProcessor`` (crop t[20:460], linear resample to 512) and
@@ -24,6 +25,9 @@ import torch
 from PIL import Image
 
 from vitlens_tpu_torch.config import OPENAI_DATASET_MEAN, OPENAI_DATASET_STD
+from vitlens_tpu_torch.data.augment import (AugmentationCfg,
+                                            train_image_transform)
+from vitlens_tpu_torch.data.rng import ThreadLocalRNG
 
 AST_MEAN = -4.2677393
 AST_STD = 4.5689974
@@ -113,6 +117,26 @@ class ImageProcessor:
                 with open(p, "rb") as f:
                     out.append(self.process_pil(Image.open(f)))
         return np.stack(out)
+
+
+class TrainImageProcessor(ImageProcessor):
+    """Train transform (reference transform.py:90-137, the is_train branch):
+    RandomResizedCrop and normalise, with the timm-style extras of
+    ``AugmentationCfg(use_timm=True)`` (random interpolation, colour jitter,
+    pixel-mode random erasing) from ``data/augment.py``. Draws come from a
+    ``ThreadLocalRNG(seed)``: single-threaded, the same stream as JAX's."""
+
+    def __init__(self, image_size: int = 224, mean=None, std=None,
+                 aug_cfg=None, seed: int = 0):
+        super().__init__(image_size=image_size, mean=mean, std=std)
+        if isinstance(aug_cfg, dict):
+            aug_cfg = AugmentationCfg(**aug_cfg)
+        self.aug = aug_cfg or AugmentationCfg()
+        self.rng = ThreadLocalRNG(seed)  # loader threads share this dataset
+
+    def process_pil(self, img: Image.Image) -> np.ndarray:
+        return train_image_transform(img, self.rng, self.image_size,
+                                     self.mean, self.std, self.aug)
 
 
 class TactileProcessor(ImageProcessor):

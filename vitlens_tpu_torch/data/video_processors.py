@@ -1,17 +1,17 @@
-"""Video frame sampling and the eval transforms, on the host (port of the
-eval path of vitlens_tpu/data/video_processors.py).
+"""Video frame sampling and transforms, on the host (port of
+vitlens_tpu/data/video_processors.py).
 
-Frame indices: uniform segments, each segment's centre. Each sampled frame:
-resize of the smaller edge (bicubic), centre crop (or three crops along the
-long edge), scale to [0, 1], OpenAI mean/std. There is no video decoder:
-clips come as directories of pre-extracted frames (jpg/png per frame, in
-file-name order), as frame arrays [T, H, W, 3] uint8, lists of PIL images,
-or video files through a caller's ``decode_fn(path) -> [T, H, W, 3]``.
-
-The train transforms (one RandomResizedCrop box and one flip coin a clip,
-clip-level RandAugment) come with the training slice (ROADMAP Queue 1 item
-8's train half, with ``video_randaugment.py`` and ``augment.py``):
-``train=True`` raises.
+Frame indices: uniform segments, each segment's centre (eval) or a uniform
+draw within it (train). Eval, each sampled frame: resize of the smaller
+edge (bicubic), centre crop (or three crops along the long edge), scale to
+[0, 1], OpenAI mean/std. Train (the reference lavis train processor,
+vt_processors.py:756-772): ONE RandomResizedCrop box a clip at scale (0.5,
+1.0), ONE horizontal-flip coin a clip (p = 0.5), clip-level RandAugment (n
+= 2, m = 5) over the reference's 10-op list, then the same normalisation.
+There is no video decoder: clips come as directories of pre-extracted
+frames (jpg/png per frame, in file-name order), as frame arrays [T, H, W, 3]
+uint8, lists of PIL images, or video files through a caller's
+``decode_fn(path) -> [T, H, W, 3]``.
 """
 
 from __future__ import annotations
@@ -23,9 +23,12 @@ import numpy as np
 from PIL import Image
 
 from vitlens_tpu_torch.config import OPENAI_DATASET_MEAN, OPENAI_DATASET_STD
+from vitlens_tpu_torch.data.augment import random_resized_crop_params
 from vitlens_tpu_torch.data.processors import (_normalize_chw,
                                                _resize_smaller_edge)
 from vitlens_tpu_torch.data.rng import ThreadLocalRNG
+from vitlens_tpu_torch.data.video_randaugment import (VIDEO_TRAIN_AUG_LIST,
+                                                      VideoRandAugment)
 
 
 def sample_frame_indices(total: int, n_frames: int, train: bool = False,
@@ -82,24 +85,30 @@ class VideoProcessor:
     """Clips -> [B, n_frames, 3, S, S] float32 (``three_crop``: [B, 3,
     n_frames, 3, S, S], grouped by crop). A clip is a frame directory, a
     frame array [T, H, W, 3] uint8, a list of PIL images, or a video file
-    read by ``decode_fn``; a file with no ``decode_fn`` raises, as in JAX."""
+    read by ``decode_fn``; a file with no ``decode_fn`` raises, as in JAX.
+    ``train`` takes the train transforms; ``rand_aug=False`` and
+    ``hflip=False`` turn off their RandAugment and flip."""
 
     def __init__(self, n_frames: int = 8, size: int = 224,
                  mean=None, std=None, train: bool = False, seed: int = 0,
                  decode_fn: Optional[Callable] = None,
-                 three_crop: bool = False):
-        if train:
-            raise NotImplementedError(
-                "the video train transforms (random resized crop, flip, "
-                "RandAugment) are not yet ported: they come with the training "
-                "slice (ROADMAP Queue 1 item 8's train half)")
+                 three_crop: bool = False,
+                 rand_aug: bool = True, rand_aug_n: int = 2,
+                 rand_aug_m: float = 5.0, hflip: bool = True,
+                 crop_scale=(0.5, 1.0)):
         self.n_frames = n_frames
         self.size = size
         self.mean = mean or OPENAI_DATASET_MEAN
         self.std = std or OPENAI_DATASET_STD
+        self.train = train
         self.rng = ThreadLocalRNG(seed)  # loader and server threads share it
         self.decode_fn = decode_fn
         self.three_crop = three_crop
+        self.hflip = hflip
+        self.crop_scale = tuple(crop_scale)
+        self.rand_aug = (VideoRandAugment(n=rand_aug_n, m=rand_aug_m,
+                                          aug_list=VIDEO_TRAIN_AUG_LIST)
+                         if train and rand_aug else None)
 
     def _get_frames(self, src) -> List[Image.Image]:
         if isinstance(src, str):
@@ -116,8 +125,11 @@ class VideoProcessor:
 
     def process_one(self, src) -> np.ndarray:
         frames = self._get_frames(src)
-        idx = sample_frame_indices(len(frames), self.n_frames, rng=self.rng)
+        idx = sample_frame_indices(len(frames), self.n_frames,
+                                   train=self.train, rng=self.rng)
         picked = [frames[i] for i in idx]
+        if self.train:
+            return self._train_clip(picked)
         if self.three_crop:
             # resize and crop each frame once, then group by crop
             per_frame = [[_to_chw_norm(c, self.mean, self.std)
@@ -133,6 +145,24 @@ class VideoProcessor:
             f = f.crop((left, top, left + self.size, top + self.size))
             out.append(_to_chw_norm(f, self.mean, self.std))
         return np.stack(out)
+
+    def _train_clip(self, picked: List[Image.Image]) -> np.ndarray:
+        """One crop box and one flip coin for the whole clip (its frames
+        share one size, as decoded video does), then RandAugment."""
+        w, h = picked[0].size
+        left, top, cw, ch = random_resized_crop_params(
+            w, h, self.rng, scale=self.crop_scale)
+        clip = np.stack([np.asarray(f.resize((self.size, self.size),
+                                             Image.BICUBIC,
+                                             box=(left, top, left + cw, top + ch)),
+                                    np.uint8)
+                         for f in picked])  # [T, S, S, 3] uint8
+        if self.hflip and self.rng.rand() < 0.5:
+            clip = clip[:, :, ::-1]
+        if self.rand_aug is not None:
+            clip = self.rand_aug(np.ascontiguousarray(clip), self.rng)
+        arr = clip.astype(np.float32).transpose(0, 3, 1, 2) / 255.0
+        return _normalize_chw(arr, self.mean, self.std)
 
     def __call__(self, srcs) -> np.ndarray:
         if not isinstance(srcs, (list, tuple)):

@@ -73,8 +73,9 @@ def create_model(model: str = "ViT-L-14", modality: str = "audio", *,
 
     ``checkpoint_path`` names a reference (TriCLIP or CLIP) state dict,
     merged non-strictly over the initial weights, as in JAX: what the file
-    holds is loaded, the rest keeps its initial values. Its image tower is
-    dropped: the port's ``TriModel`` has none yet."""
+    holds is loaded, the rest keeps its initial values. A file with no
+    ``image.`` keys (a plain CLIP file) serves its ``visual.`` keys to the
+    image tower too."""
     device = resolve_device(device)
     cfg = make_model_config(model, modality, quick_gelu=quick_gelu,
                             **tower_overrides)
@@ -87,7 +88,5 @@ def create_model(model: str = "ViT-L-14", modality: str = "audio", *,
 
         params, state = convert_tri_state_dict(
             load_torch_checkpoint(checkpoint_path), cfg)
-        params.pop("image", None)
-        state.pop("image", None)
         merge_params(m, params, state)
     return cast_matmul_weights_(m, dtype)

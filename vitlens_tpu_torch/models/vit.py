@@ -79,7 +79,8 @@ class VisionTower(nn.Module):
         normal_(self.proj, scale, g)
 
     def forward(self, x: torch.Tensor, compute_dtype=torch.float32, *,
-                train: bool = False, remat: bool = False):
+                train: bool = False, remat: bool = False,
+                output_tokens: bool = False):
         """x: images [B, 3, H, W], depth maps [B, 1, H, W], fbank [B,
         target_length, mel_bins], raw waveforms [B, samples], EEG [B, chans,
         time], video frames [B, T, 3, H, W] or points [B, N, 3] -> features
@@ -89,7 +90,9 @@ class VisionTower(nn.Module):
         trunk's blocks (and the transformer Lens's) in the backward pass.
         ``train`` marks a training pass: train-time patch dropout and the
         point tokenizer's batch BatchNorm and random FPS starts are not
-        ported and raise."""
+        ported and raise. ``output_tokens`` returns ``(features, tokens)``:
+        the trunk's output before ``ln_post`` without the CLS token ([B,
+        N, width]), or all of it under global average pooling."""
         cfg = self.cfg
         if cfg.modality == "audio" and x.dim() == 2:
             a = cfg.audio
@@ -121,9 +124,13 @@ class VisionTower(nn.Module):
             h = h + self.positional_embedding.to(h.dtype)
         h = self.ln_pre(h)
         h = self.trunk(h, skip_first_n=cfg.skip_first_n_layers, remat=remat)
-        pooled = h.mean(dim=1) if cfg.arch.global_average_pool else h[:, 0]
+        if cfg.arch.global_average_pool:
+            pooled, toks = h.mean(dim=1), h
+        else:
+            pooled, toks = h[:, 0], h[:, 1:]
         pooled = self.ln_post(pooled)
-        return pooled @ self.proj.to(pooled.dtype)
+        feats = pooled @ self.proj.to(pooled.dtype)
+        return (feats, toks) if output_tokens else feats
 
     def _video_tokens(self, x: torch.Tensor) -> torch.Tensor:
         """Frames [B, T, 3, H, W] -> tokens [B, T * L, width]: the patch

@@ -5,9 +5,7 @@ VisionTransformer.lock, model.py:448-502 TriCLIP.lock_*_tower) as 0/1 masks
 over its parameter pytree, with a leading [layers] axis for the stacked
 trunk. The port's trunk blocks are separate modules, so a mask here is a
 ``{parameter name: trainable}`` dict over ``named_parameters()``, one bool per
-Parameter, and :func:`apply_mask` makes it real as ``requires_grad``. The
-image tower is not ported, so :func:`tri_model_mask` covers the Lens tower,
-the text tower and the logit scale.
+Parameter, and :func:`apply_mask` makes it real as ``requires_grad``.
 """
 
 from __future__ import annotations
@@ -71,15 +69,34 @@ def vision_tower_mask(tower: nn.Module, n_layers: int, *, locked: bool = True,
     return mask
 
 
-def tri_model_mask(model: nn.Module, cfg, *, lock_text: bool = True,
-                   lock_visual: bool = True, visual_unlocked_groups: int = 0,
+def image_tower_image_mask(tower: nn.Module, n_layers: int, *,
+                           locked: bool = True, unlocked_groups: int = 0,
+                           unlock_cls: bool = False,
+                           unlock_pos_emb: bool = False) -> Mask:
+    """The image tower's lock (model.py:458-468): its patch embedding (the
+    adapter) belongs to group 0 and stays locked unless group 0 is
+    unlocked."""
+    return vision_tower_mask(tower, n_layers, locked=locked,
+                             unlocked_groups=unlocked_groups,
+                             unlock_cls=unlock_cls,
+                             unlock_pos_emb=unlock_pos_emb,
+                             lens_always_unlocked=False)
+
+
+def tri_model_mask(model: nn.Module, cfg, *, lock_image: bool = True,
+                   lock_text: bool = True, lock_visual: bool = True,
+                   image_unlocked_groups: int = 0,
+                   visual_unlocked_groups: int = 0,
                    unlock_from_head: bool = False, unlock_cls: bool = False,
                    unlock_pos_emb: bool = False,
                    unlock_trans_first_n_layers: Optional[int] = None,
                    train_logit_scale: bool = True) -> Mask:
     """Trainability of a ``TriModel``'s parameters, mirroring the reference
-    flags (--lock-text/--lock-visual and the unlock-* flags)."""
-    mask: Mask = {}
+    flags (--lock-image/--lock-text/--lock-visual and the unlock-* flags)."""
+    image = image_tower_image_mask(model.image, cfg.vision.layers,
+                                   locked=lock_image,
+                                   unlocked_groups=image_unlocked_groups)
+    mask: Mask = {f"image.{k}": v for k, v in image.items()}
     visual = vision_tower_mask(
         model.visual, cfg.tower.arch.layers, locked=lock_visual,
         unlocked_groups=visual_unlocked_groups,

@@ -2,7 +2,7 @@
 no mesh axis).
 
 The reference loss zoo (ClipLoss/ClipLossGeneral, TriClipLoss, the label and
-similarity masks, DistillClipLoss, CoCaLoss) on one device: the JAX
+similarity masks, TriClipDistillTokenLoss, DistillClipLoss, CoCaLoss) on one device: the JAX
 package's ``axis_name=None`` branch. All loss math runs in fp32 whatever the
 feature dtype. The embedding all-gather over a data mesh waits for the
 parallelism work (ROADMAP Queue 1, item 12).
@@ -73,6 +73,21 @@ def sim_mask(teacher_features: Tensor, sim_thres: float = 0.9) -> Tensor:
     return ((~(sim >= sim_thres)) | eye).float()
 
 
+def distill_token_loss(visual_tokens: Tensor, image_tokens: Tensor,
+                       loss_type: str = "mse") -> Tensor:
+    """Token-level distillation (reference TriClipDistillTokenLoss,
+    loss.py:192-231): the mean squared error, or the negative mean cosine,
+    of the Lens tower's tokens against the image tower's."""
+    v, t = visual_tokens.float(), image_tokens.float()
+    if loss_type == "mse":
+        return (v - t).square().mean()
+    if loss_type == "cos":
+        vn = v / v.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+        tn = t / t.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+        return -(vn * tn).sum(-1).mean()
+    raise ValueError(loss_type)
+
+
 def distill_clip_loss(image_features: Tensor, text_features: Tensor,
                       logit_scale: Tensor, dist_image_features: Tensor,
                       dist_text_features: Tensor, dist_logit_scale: Tensor
@@ -105,15 +120,11 @@ def caption_loss(logits: Tensor, labels: Tensor, pad_id: int = 0,
 def make_loss_fn(n_tower: int = 3, contra_loss_type: str = "general", *,
                  sim_thres: float = 0.9) -> Callable[..., Tensor]:
     """The training loss keyed as the reference CLI (--n_tower,
-    --contra_loss_type {general, label_mask, sim_mask}). The distill-token
-    objective needs the video-distill forward and the image tower, which are
-    not yet ported."""
-    if contra_loss_type == "distill_token":
-        raise NotImplementedError(
-            "contra_loss_type='distill_token' needs the video-distill forward "
-            "and the image tower, which are not yet ported (ROADMAP Queue 1, "
-            "item 5)")
-    known = ("general", "label_mask", "sim_mask")
+    --contra_loss_type {general, label_mask, sim_mask, distill_token}).
+    The distill-token objective is the tri loss plus the token distillation
+    (both weights 1), whatever ``n_tower``: only the video-distill forward
+    feeds it, and that forward gives every tri key."""
+    known = ("general", "label_mask", "sim_mask", "distill_token")
     if contra_loss_type not in known:
         raise ValueError(f"unknown contra_loss_type {contra_loss_type!r}; "
                          f"expected one of {known}")
@@ -125,11 +136,15 @@ def make_loss_fn(n_tower: int = 3, contra_loss_type: str = "general", *,
             return sim_mask(anchor, sim_thres)
         return None
 
-    if n_tower == 3:
+    if n_tower == 3 or contra_loss_type == "distill_token":
         def tri_fn(out: Dict[str, Tensor], labels=None) -> Tensor:
-            return tri_clip_loss(out["image_features"], out["text_features"],
+            loss = tri_clip_loss(out["image_features"], out["text_features"],
                                  out["visual_features"], out["logit_scale"],
                                  mask=mask_for(out["image_features"], labels))
+            if contra_loss_type == "distill_token":
+                loss = loss + distill_token_loss(out["visual_tokens"],
+                                                 out["image_tokens"])
+            return loss
 
         return tri_fn
 

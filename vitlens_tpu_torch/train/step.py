@@ -12,9 +12,13 @@ max_norm``. Unlike JAX's pure step, the port updates the parameters and the
 optimizer state in place (it keeps one copy of each), and returns the same
 ``TrainState`` with its step advanced.
 
-Only the dual objective aligned to text trains here: ``n_tower=3`` and
-``align_to`` image, video or clip need the image tower (ROADMAP Queue 1,
-item 5), and a mesh needs the parallelism work (item 12).
+Every objective of the JAX package's single-device step trains here: the
+tri loss (``n_tower=3``), the dual loss anchored to text, images, video
+frames (``align_to`` image or video: the frozen image tower, frames
+averaged) or the classic CLIP pair (``align_to="clip"``: image against
+text, no Lens tower), and the video distill-tokens step
+(``video_distill``). A mesh needs the parallelism work (ROADMAP Queue 1,
+item 12).
 """
 
 from __future__ import annotations
@@ -149,19 +153,49 @@ class StepConfig:
     accum_freq: int = 1
     compute_dtype: torch.dtype = torch.bfloat16
     remat: bool = False               # True: recompute each trunk block
+    # the video distill-tokens step (reference vid_distill_tokens,
+    # model.py:545-585): the frame-mean image tower over the clip as the
+    # anchor, plus token distillation into the video Lens tower
+    video_distill: bool = False
+
+    def __post_init__(self):
+        # only the video-distill forward gives the tokens that the
+        # distill-token loss reads
+        if self.contra_loss_type == "distill_token" and not self.video_distill:
+            raise ValueError(
+                "contra_loss_type='distill_token' needs the video-distill "
+                "forward (it is the only one emitting visual_tokens/"
+                "image_tokens): set video_distill=True "
+                f"(got n_tower={self.n_tower}, video_distill=False)")
 
 
 def _forward_features(model, batch, sc: StepConfig) -> Dict[str, torch.Tensor]:
-    """The dual step's towers: the text anchor and the Lens tower."""
-    dt = sc.compute_dtype
-    return {
-        "logit_scale": model.logit_scale.exp().float(),
-        "anchor_features": tri.encode_text(model, batch["text"], normalize=True,
-                                           compute_dtype=dt, remat=sc.remat),
-        "visual_features": tri.encode_visual(model, batch["visual"],
-                                             normalize=True, train=True,
-                                             compute_dtype=dt, remat=sc.remat),
-    }
+    """Encode the towers the step's objective reads: ``batch["image"]``
+    (images, or frames [B, T, 3, H, W]) through the image tower,
+    ``batch["text"]`` through the text tower and ``batch["visual"]``
+    through the Lens tower."""
+    kw = dict(normalize=True, compute_dtype=sc.compute_dtype, remat=sc.remat)
+    if sc.video_distill:
+        return tri.tri_forward_video_distill(
+            model, video_frames=batch["image"], text=batch["text"],
+            visual_x=batch["visual"], train=True,
+            compute_dtype=sc.compute_dtype, remat=sc.remat)
+    out = {"logit_scale": model.logit_scale.exp().float()}
+    if sc.n_tower == 2 and sc.align_to == "clip":
+        # the classic CLIP pair: images against text, no Lens tower
+        out["anchor_features"] = tri.encode_image(model, batch["image"], **kw)
+        out["visual_features"] = tri.encode_text(model, batch["text"], **kw)
+        return out
+    if sc.n_tower == 3:
+        out["image_features"] = tri.encode_image(model, batch["image"], **kw)
+        out["text_features"] = tri.encode_text(model, batch["text"], **kw)
+    elif sc.align_to in ("image", "video"):
+        out["anchor_features"] = tri.encode_image(model, batch["image"], **kw)
+    else:
+        out["anchor_features"] = tri.encode_text(model, batch["text"], **kw)
+    out["visual_features"] = tri.encode_visual(model, batch["visual"],
+                                               train=True, **kw)
+    return out
 
 
 def _grads(loss, params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -184,14 +218,16 @@ def accum_grads(model, batch, sc: StepConfig, params, loss_fn):
     of the pass gradients is the full-batch gradient (no 1/accum scaling);
     the loss is averaged for logging."""
     A = sc.accum_freq
-    b = batch["visual"].shape[0]
+    b = next(iter(batch.values())).shape[0]
     if b % A:
         raise ValueError(f"batch {b} is not divisible by accum_freq {A}")
     micro = [{k: v[i * (b // A):(i + 1) * (b // A)] for k, v in batch.items()}
              for i in range(A)]
     with torch.no_grad():
         cached = [_forward_features(model, mb, sc) for mb in micro]
-    keys = [k for k in cached[0] if k.endswith("_features")]
+    # the tokens too: the distill-token loss is a mean over samples, so
+    # splicing the other micro-batches' cached tokens is exact
+    keys = [k for k in cached[0] if k.endswith(("_features", "_tokens"))]
     loss_total, grads_total = 0.0, None
     for i, mb in enumerate(micro):
         out_i = _forward_features(model, mb, sc)
@@ -211,20 +247,18 @@ def make_train_step(model_cfg, tx: AdamW, trainable_mask: Mask,
                     sc: StepConfig = StepConfig(), mesh=None,
                     partition: str = "ddp"):
     """Build the single-device step: ``step(state, batch) -> (state,
-    metrics)`` with batch ``{"text": [B, 77] ids, "visual": [B, T, F] fbank,
-    optional "label"}`` and metrics ``loss``, ``logit_scale`` (after the
-    update) and ``grad_norm`` (before the clip), 0-dim tensors. The towers
-    come from the state's model; ``model_cfg`` is the JAX signature's and
-    is not read."""
+    metrics)`` with batch ``{"text": [B, 77] ids, "visual": the Lens
+    tower's input, "image": images [B, 3, H, W] or frames [B, T, 3, H, W],
+    optional "label"}`` (the keys the objective reads) and metrics
+    ``loss``, ``logit_scale`` (after the update) and ``grad_norm`` (before
+    the clip), 0-dim tensors. The towers come from the state's model;
+    ``model_cfg`` is the JAX signature's and is not read."""
     if mesh is not None or partition != "ddp":
         raise NotImplementedError(
             "the data-parallel and FSDP train steps (mesh, partition) are not "
             "yet ported: ROADMAP Queue 1, item 12 (parallelism)")
-    if sc.n_tower == 3 or sc.align_to in ("image", "video", "clip"):
-        raise NotImplementedError(
-            f"n_tower={sc.n_tower}, align_to={sc.align_to!r} needs the image "
-            "tower, which is not yet ported: ROADMAP Queue 1, item 5")
-    if sc.n_tower != 2 or sc.align_to != "text":
+    if sc.n_tower not in (2, 3) or sc.align_to not in ("text", "image",
+                                                       "video", "clip"):
         raise ValueError(f"unknown step: n_tower={sc.n_tower}, "
                          f"align_to={sc.align_to!r}")
     loss_fn = losses_lib.make_loss_fn(sc.n_tower, sc.contra_loss_type,

@@ -17,7 +17,7 @@ reads (``*_qt``) are remade from them.
 Layouts are unchanged ([in, out] matmul weights, the OIHW audio conv). A key
 of the tree that the module lacks, a module parameter the tree lacks, or a
 shape mismatch raises. :func:`load_tri_params` loads a whole JAX
-``tri_model_init`` tree but its ``image`` tower. :func:`load_state` does the same for the JAX state
+``tri_model_init`` tree. :func:`load_state` does the same for the JAX state
 tree (the point tokenizer's BatchNorm running statistics) and the module's
 buffers. :func:`merge_params` is the non-strict load of a checkpoint: it
 copies the leaves the trees have and leaves the module's other parameters
@@ -95,9 +95,9 @@ def load_params(module: nn.Module, tree: Any) -> nn.Module:
 
 
 def load_tri_params(model: nn.Module, params: Any) -> nn.Module:
-    """Copy a JAX ``tri_model_init`` param tree into the port's ``TriModel``,
-    leaving out the image tower, which the port does not have."""
-    return load_params(model, {k: v for k, v in params.items() if k != "image"})
+    """Copy a JAX ``tri_model_init`` param tree (image, visual and text
+    towers, logit scale) into the port's ``TriModel``."""
+    return load_params(model, params)
 
 
 def load_state(module: nn.Module, tree: Any) -> nn.Module:
