@@ -11,7 +11,8 @@ Phases, one printed line each (or more); any failure exits non-zero:
      the shapes of the main paths and at edge shapes: fused MLP, both
      variants and both activations (out and the save-preact output a; bf16,
      <= 2.5e-2 and 1e-2 relative; also a ragged M = 4100, D/H = 768/3072
-     and 1664/8192, and the plain variant at the video distill step's B64
+     and 1664/8192, the bigG text tower's 1280/5120 at M = 154, and the
+     plain variant at the video distill step's B64
      image tower, M = 131584), attention (bf16, <= 1e-2 relative; at the
      video Lens cross [64, 1, 256, 2048, 64], a ragged NK of 2040 beside it,
      the EEG and pc Lens cross [64, 1, 256, 512, 64] and the distill step's
@@ -110,6 +111,20 @@ Phases, one printed line each (or more); any failure exits non-zero:
      104) and a ViT-H-14 audio tower (80), each trunk cut to 4 blocks so that
      the CPU run stays short: launches derived from the config (4 fused MLP,
      4 + the Lens's attention), cosine >= 0.99 against the CPU in fp32.
+  4g. vitlensG pc: ViTLens("vitlensG", ("pc", "text")) at full ViT-bigG-14
+     width and depth (the first 16 of 48 trunk blocks skipped, as published)
+     with the PNSA tokenizer over 10000 xyz + rgb points, bf16 compute and
+     bf16 weights (the serve CLI's vitlensG setting), loaded from
+     reference-layout fp16 checkpoints written by tools/reference_layout.py
+     (a loaded PNSA weight and a skipped block's weight equal the file's);
+     B = 1 and B = 2 encodes of raw .npy clouds of 10000 x 6 and of
+     xyz-only clouds (the processor fills 0.4 grey), each with 1 FPS, 32
+     fused MLP and 40 attention launches and no point-encoder launch
+     (tower_launches), and a text request (32 fused MLP); cosine >= 0.99
+     against the same weights in fp32 on the CPU, which gets the
+     processor's clouds rounded through bf16 as the card sees them; then one
+     HTTP request of two clouds and a caption through make_server, cosine
+     >= 0.999 against the direct encodes.
   4q. quantized: the audio tower of that model quantized to int8 (W8A8) on
      the card by quant.quantize_model, at full width and depth: w_q and w_s
      made on the card equal to those made on the CPU; a B = 1 and a B = 64 x
@@ -158,6 +173,23 @@ Phases, one printed line each (or more); any failure exits non-zero:
      and the adapter train): the B = 2 gradients against the CPU in fp32,
      then 2 steps at B = 4 with accum_freq 2 (the cached tokens spliced in),
      with launches, frozen and trained checks as in 4d.
+  4p. pc tri train: the vitlensL pc model (create_model("ViT-L-14", "pc"):
+     the PointBERT tokenizer over 8192 points, the Lens of depth 4) at full
+     width and depth with the published pc recipe (image, text and visual
+     towers locked: the tokenizer and the Lens train, n_tower=3). The B = 2
+     pass against the CPU fp32 pass as in 4d, FPS started at the same given
+     points on both, the clouds rounded through bf16 once and the CPU pass
+     given the card pass's kNN groups (bf16 distances, rounded as JAX's
+     are, pick other neighbours than fp32 in most groups: the share is
+     printed), with the
+     moves of the tokenizer's BatchNorm running statistics held to the
+     CPU's (cosine >= 0.99); 2 steps at B = 8 and 2 with accum_freq 4, FPS
+     starts drawn from a CUDA generator, each with its launches against
+     tri_train_launches (FPS once a pass that runs the tokenizer, the point
+     encoder never: it is eval-only, as in JAX), the frozen and trained
+     checks of 4d, and each BatchNorm run in train mode once a pass with
+     its running statistics after the step those its accum_freq cached
+     passes left (the grad passes' updates dropped).
   5. timing: each kernel against its plain version (and, where one PyTorch
      call computes the same function, that call) at the B64 shapes of the
      main paths, beside each kernel's bound, with cuBLAS's two products
@@ -166,9 +198,12 @@ Phases, one printed line each (or more); any failure exits non-zero:
      and pc (64 clouds) encode rates at B64 in bf16, the audio encode also
      with the opt-in; the audio train-step rate at B64 with and without the
      opt-in, with the peak device memory; the 4d depth tri step's rate at
-     B64 and the 4e video distill step's at the largest B in (64, 32) that
-     fits, each with its peak device memory and one step under the
-     profiler (busy and idle share); attention at the bigG trunk's
+     B64, the 4e video distill step's and the 4p pc tri step's at the
+     largest B in (64, 32) that fits, each with its peak device memory and
+     one step under the profiler (busy and idle share); the 4g vitlensG pc
+     encode at B16 (arrays given) with its peak memory and a profile, and
+     the ball query at its shape [16, 512, 10000], 64 a ball, beside its
+     bound; attention at the bigG trunk's
      head dim 104 beside SDPA; the int8 product's INT32 and DEQUANT
      epilogues at 4096^3 and the quantized encode's four shapes beside
      torch._int_mm, the quantise kernel beside its bound, the row gather's
@@ -565,11 +600,12 @@ def launch_counts(**counts):
 
 def tower_launches(cfg, **more):
     """Expected launches of one bf16 encode of a vision tower, derived from
-    its config: kernel 1 and kernel 2 once a trunk block; a Perceiver Lens
-    adds one attention a cross and a self block; a transformer Lens adds
-    its blocks' MLP and attention; the identity Lens adds nothing."""
+    its config: kernel 1 and kernel 2 once a trunk block that runs (the
+    first skip_first_n_layers are skipped); a Perceiver Lens adds one
+    attention a cross and a self block; a transformer Lens adds its blocks'
+    MLP and attention; the identity Lens adds nothing."""
     p = cfg.perceiver
-    mlp = attn = cfg.arch.layers
+    mlp = attn = cfg.arch.layers - (cfg.skip_first_n_layers or 0)
     if p is not None and p.as_transformer:
         mlp, attn = mlp + p.depth, attn + p.depth
     elif p is not None and not p.as_identity:
@@ -772,7 +808,10 @@ def tri_train_launches(cfg, accum):
     through kernel 1's plain variant and the Lens tower, whose Lens trains,
     through the save-preact variant; accum_freq > 1 adds a cached pass of
     the three towers without grad. Attention: the image tower's trunk and
-    the Lens tower's trunk and Lens (the text tower's is plain)."""
+    the Lens tower's trunk and Lens (the text tower's is plain). A point
+    cloud's tokenizer launches FPS once a pass, and the point encoder never
+    (it is eval-only, as in JAX: training runs the plain mini-PointNet with
+    batch statistics)."""
     li, lt = cfg.vision.layers, cfg.text.layers
     lens = tower_launches(cfg.tower)
     la_mlp, la_attn = lens["fused_mlp"], lens["flash_attention"]
@@ -780,19 +819,25 @@ def tri_train_launches(cfg, accum):
     return launch_counts(
         fused_mlp=accum * (li + lt) + cached * (li + lt + la_mlp),
         fused_mlp_save_preact=accum * la_mlp,
-        flash_attention=(accum + cached) * (li + la_attn))
+        flash_attention=(accum + cached) * (li + la_attn),
+        fps=accum + cached if cfg.tower.modality == "pc" else 0)
 
 
 def tri_batch(torch, np, cfg, b, rng, frames=0):
     """A seeded tri batch on the host: token ids, images (``frames`` > 0:
     clips [B, frames, 3, 224, 224], also the Lens tower's input) and the
-    Lens tower's input."""
+    Lens tower's input: depth maps, or point clouds [B, npoints, 3] rounded
+    through bf16 once (so that an fp32 run on the CPU gives FPS the
+    coordinates the card's bf16 run sees)."""
     text = rng.randint(1, 49000, size=(b, 77))
     text[:, 0], text[:, -1] = 49406, 49407
     shape = (b, frames, 3, 224, 224) if frames else (b, 3, 224, 224)
     image = torch.from_numpy(rng.randn(*shape).astype(np.float32))
     if frames:
         visual = image
+    elif cfg.tower.modality == "pc":
+        visual = torch.from_numpy((rng.randn(b, cfg.tower.point.npoints, 3)
+                                   * 0.3).astype(np.float32)).bfloat16().float()
     else:
         visual = torch.from_numpy(
             rng.randn(b, 1, 224, 224).astype(np.float32))  # depth maps
@@ -800,16 +845,112 @@ def tri_batch(torch, np, cfg, b, rng, frames=0):
             "visual": visual}
 
 
+def shared_knn_groups(torch, first, second):
+    """(first(), second(), a note): second() replays, in order, the kNN
+    groups (ops.fps.knn_indices) that first() selected, so that the B = 2
+    card-against-CPU comparison holds both to the same neighbourhoods, as
+    it holds them to the same FPS starts. In bf16 the distances round as
+    JAX's do (the product form, |q|^2 + |p|^2 - 2 q.p, in bf16), which picks
+    other neighbours than fp32 in most groups; the note gives that share."""
+    from vitlens_tpu_torch.ops import fps as F
+
+    knn, made = F.knn_indices, []
+
+    def record(xyz, query, k):
+        made.append((xyz, query, knn(xyz, query, k)))
+        return made[-1][2]
+
+    F.knn_indices = record
+    try:
+        a = first()
+        replay = iter([idx for _, _, idx in made])
+        F.knn_indices = lambda xyz, query, k: next(replay).to(xyz.device)
+        b = second()
+    finally:
+        F.knn_indices = knn
+    note = ""
+    for xyz, query, idx in made:
+        exact = knn(xyz.float(), query.float(), idx.shape[-1])
+        differ = (exact.sort(-1).values != idx.sort(-1).values).any(-1)
+        note += (f"; kNN groups replayed from the card's pass ({xyz.dtype}: "
+                 f"{differ.float().mean().item():.3f} of them differ from fp32 "
+                 f"distances' on the same centers)")
+    return a, b, note
+
+
+def batch_norm_stats(torch, model):
+    """{buffer name: fp32 copy on the CPU} of every BatchNorm running mean
+    and var of ``model`` (empty where it has none)."""
+    return {n: b.detach().float().cpu().clone()
+            for n, b in model.named_buffers()
+            if n.endswith((".mean", ".var")) and ".bn" in n}
+
+
+class batch_norm_trace:
+    """Within the block, every train-mode BatchNorm call records its
+    running mean right after its update: {module: [tensor, ...]}."""
+
+    def __init__(self, torch):
+        from vitlens_tpu_torch.adapters.tokenizers import BatchNorm
+
+        self.cls, self.calls = BatchNorm, {}
+
+    def __enter__(self):
+        forward, calls = self.cls.forward, self.calls
+        self.forward = forward
+
+        def traced(bn, x, train=False):
+            y = forward(bn, x, train)
+            if train:
+                calls.setdefault(bn, []).append(bn.mean.detach().clone())
+            return y
+
+        self.cls.forward = traced
+        return self.calls
+
+    def __exit__(self, *exc):
+        self.cls.forward = self.forward
+
+
+def check_running_stats(torch, label, model, calls, before, accum):
+    """A step's BatchNorms ran in train mode once a pass (accum_freq 1: one
+    pass; otherwise accum_freq cached passes, then accum_freq grad passes),
+    and each one's running mean after the step is the one its last cached
+    pass left: updated accum_freq times, the grad passes' updates dropped.
+    Every running mean and var moved."""
+    want_calls = 1 if accum == 1 else 2 * accum
+    for bn, means in calls.items():
+        if len(means) != want_calls:
+            fail(f"{label}: a BatchNorm ran {len(means)} times in train mode, "
+                 f"expected {want_calls}")
+        if not torch.equal(bn.mean, means[accum - 1]):
+            fail(f"{label}: a BatchNorm's running mean is not the one its "
+                 f"{accum} cached pass(es) left")
+        if accum > 1 and torch.equal(bn.mean, means[-1]):
+            fail(f"{label}: the grad passes' running-statistic updates stayed")
+    now = batch_norm_stats(torch, model)
+    still = [k for k in before if torch.equal(now[k], before[k])]
+    if 2 * len(calls) != len(before) or still:
+        fail(f"{label}: {len(calls)} BatchNorms ran in train mode for "
+             f"{len(before)} running tensors; unmoved {still}")
+
+
 def tri_train_phase(torch, np, counters, totals, tag, modality, flags, sc,
                     runs, frames=0):
-    """Phase 4d or 4e: a tri-shaped recipe on the vitlensL ``modality``
+    """Phase 4d, 4e or 4p: a tri-shaped recipe on the vitlensL ``modality``
     model at full width and depth (fp32 trainable masters, frozen weights
     in bf16, bf16 compute). The gradients of one B = 2 pass against the
     same pass on the CPU in fp32 (loss, grad_norm, cosine); then ``runs``
     [(label, B, accum_freq)] steps, each with its launches per kernel
     variant against tri_train_launches; every frozen parameter (the whole
-    image tower too) bit-identical, every trainable one changed. Returns
-    what phase 5 times."""
+    image tower too) bit-identical, every trainable one changed. A point
+    cloud's B = 2 passes start FPS at the same given points on both, the
+    CPU pass takes the card pass's kNN groups (shared_knn_groups), and
+    their BatchNorm running statistics move alike (cosine of the moves);
+    its steps draw the starts from a CUDA generator, and each step leaves
+    every BatchNorm's running statistics as its cached passes left them
+    (accum_freq of them; the grad passes' updates dropped). Returns what
+    phase 5 times."""
     from dataclasses import replace
 
     from vitlens_tpu_torch.factory import create_model, make_trainable_
@@ -830,23 +971,32 @@ def tri_train_phase(torch, np, counters, totals, tag, modality, flags, sc,
     names = [n for n, t in mask.items() if t]
     loss_fn = make_loss_fn(sc.n_tower, sc.contra_loss_type)
     rng = np.random.RandomState(SEED)
+    pc = modality == "pc"
+    starts2 = torch.tensor([17, 4242], dtype=torch.int32) if pc else None
 
     def grads_of(m, step_cfg, bt):
         params = {n: p for n, p in m.named_parameters() if mask[n]}
         dev = m.logit_scale.device
         loss, gr = micro_grads(m, {k: v.to(dev) for k, v in bt.items()},
-                               step_cfg, params, loss_fn)
+                               step_cfg, params, loss_fn,
+                               None if starts2 is None else starts2.to(dev))
         return float(loss), torch.cat([gr[n].float().flatten().cpu()
                                        for n in names]).double()
 
     b2 = tri_batch(torch, np, cfg, 2, rng, frames)
     ref = copy.deepcopy(model).to(device="cpu", dtype=torch.float32)
-    t_cpu = time.time()
-    loss_cpu, g_cpu = grads_of(ref, replace(sc, compute_dtype=torch.float32), b2)
-    t_cpu = time.time() - t_cpu
+    bn0 = batch_norm_stats(torch, model)
+
+    def cpu_pass():
+        t = time.time()
+        out = grads_of(ref, replace(sc, compute_dtype=torch.float32), b2)
+        return out, time.time() - t
+
+    ((loss_card, g_card), counts), ((loss_cpu, g_cpu), t_cpu), knn_line = \
+        shared_knn_groups(torch, lambda: run_counted(
+            torch, counters, totals, lambda: grads_of(model, sc, b2)), cpu_pass)
+    bn_cpu = batch_norm_stats(torch, ref)
     del ref
-    (loss_card, g_card), counts = run_counted(
-        torch, counters, totals, lambda: grads_of(model, sc, b2))
     if counts != tri_train_launches(cfg, 1):
         fail(f"{tag} B=2 gradients: launches {counts}, expected "
              f"{tri_train_launches(cfg, 1)}")
@@ -856,27 +1006,43 @@ def tri_train_phase(torch, np, counters, totals, tag, modality, flags, sc,
             and abs(norm_card / norm_cpu - 1) <= NORM_TOL):
         fail(f"{tag} B=2 gradients vs CPU fp32: cosine {cos_g}, loss "
              f"{loss_card} vs {loss_cpu}, grad_norm {norm_card} vs {norm_cpu}")
+    bn_line = ""
+    if bn0:  # the running statistics' moves, card against CPU
+        bn_card = batch_norm_stats(torch, model)
+        moves = {k: cos_min(torch, (bn_card[k] - bn0[k])[None],
+                            (bn_cpu[k] - bn0[k])[None]) for k in bn0}
+        if min(moves.values()) < COS_MIN:
+            fail(f"{tag} B=2: running statistics moved unlike the CPU's: "
+                 f"cosines {moves}")
+        bn_line = (f"; running statistics after the B=2 pass, cosine of "
+                   f"their moves vs CPU fp32: " + ", ".join(
+                       f"{k} {v:.6f}" for k, v in moves.items()))
 
     frozen0 = {n: p.detach().clone() for n, p in model.named_parameters()
                if not mask[n]}
     train0 = {n: p.detach().clone() for n, p in model.named_parameters()
               if mask[n]}
     state = init_train_state(model, tx)
+    gen = torch.Generator(device="cuda").manual_seed(SEED) if pc else None
     per_step = []
     for label, b, accum in runs:
         step = make_train_step(cfg, tx, mask, replace(sc, accum_freq=accum))
         bt = tri_batch(torch, np, cfg, b, rng, frames)
-        (state, m), counts = run_counted(torch, counters, totals,
-                                         lambda: step(state, bt))
+        before = batch_norm_stats(torch, model)
+        with batch_norm_trace(torch) as trace:
+            (state, m), counts = run_counted(
+                torch, counters, totals, lambda: step(state, bt, fps_generator=gen))
         if counts != tri_train_launches(cfg, accum):
             fail(f"{tag} {label}: launches {counts}, expected "
                  f"{tri_train_launches(cfg, accum)}")
+        check_running_stats(torch, f"{tag} {label}", model, trace, before, accum)
         m = {k: float(v) for k, v in m.items()}
         if not all(np.isfinite(v) for v in m.values()):
             fail(f"{tag} {label}: metrics {m}")
         per_step.append((label, round(m["loss"], 5), counts["fused_mlp"],
                          counts["fused_mlp_save_preact"],
-                         counts["flash_attention"]))
+                         counts["flash_attention"], counts["fps"],
+                         counts["point_encoder"]))
     moved = [n for n, p in model.named_parameters() if not mask[n]
              and not torch.equal(p, frozen0[n])]
     still = [n for n, p in model.named_parameters() if mask[n]
@@ -892,10 +1058,13 @@ def tri_train_phase(torch, np, counters, totals, tag, modality, flags, sc,
           f"parameters in {len(names)} tensors; B=2 vs CPU fp32: gradient "
           f"cosine {cos_g:.6f}, loss {loss_card:.5f} vs {loss_cpu:.5f}, "
           f"grad_norm {norm_card:.5f} vs {norm_cpu:.5f} (the CPU pass took "
-          f"{t_cpu:.1f} s); steps (label, loss, launches plain, save-preact, "
-          f"attention) {per_step}; frozen parameters bit-identical ({n_image} "
-          f"tensors of the image tower among them), every trainable one "
-          f"changed; phase took {time.time() - t0:.1f} s", flush=True)
+          f"{t_cpu:.1f} s){knn_line}{bn_line}; steps (label, loss, launches plain, "
+          f"save-preact, attention, FPS, point encoder) {per_step}; frozen "
+          f"parameters bit-identical ({n_image} tensors of the image tower "
+          f"among them), every trainable one changed"
+          + (f"; each step's BatchNorm running statistics those of its "
+             f"accum_freq cached passes ({len(bn0)} tensors)" if bn0 else "")
+          + f"; phase took {time.time() - t0:.1f} s", flush=True)
     return model, state, tx, mask, sc
 
 
@@ -923,7 +1092,7 @@ def profile_encode(torch, card, label, encode):
           f"{max(0.0, 1 - busy_ms / wall_ms):.3f})", flush=True)
 
 
-def encode_rate(torch, card, label, encode, samples, rows_note=""):
+def encode_rate(torch, card, label, encode, samples, rows_note="", dim=768):
     encode()
     torch.cuda.synchronize()
     runs = []
@@ -932,7 +1101,7 @@ def encode_rate(torch, card, label, encode, samples, rows_note=""):
         emb = encode()
         torch.cuda.synchronize()
         runs.append(time.perf_counter() - t0)
-    if tuple(emb.shape) != (samples, 768) or not torch.isfinite(emb).all():
+    if tuple(emb.shape) != (samples, dim) or not torch.isfinite(emb).all():
         fail(f"{label}: bad output")
     best = min(runs)
     print(f"[5 timing] {card} | {label}: {samples / best:.2f} samples/s"
@@ -978,18 +1147,22 @@ def train_rate(torch, card, label, step, samples, runs=3):
     return samples / best
 
 
-def tri_timings(torch, np, card, *trained):
-    """Phase 5's rates of the 4d depth tri step at B64 and the 4e video
-    distill step at the largest B in (64, 32) that fits, each with its peak
-    memory and one step under the profiler. Returns {name: (B, rate)}."""
+def tri_timings(torch, np, card, runs):
+    """Phase 5's train-step rates: for each (trained phase, frames, batch
+    sizes) of ``runs``, the step at the first size that fits, with its peak
+    memory and one step under the profiler; a point-cloud step draws its
+    FPS starts from a CUDA generator. Returns {name: (B, rate)}."""
     from vitlens_tpu_torch.train.step import make_train_step
 
     rng = np.random.RandomState(SEED)
     rates = {}
-    for (model, state, tx, mask, sc), frames in zip(trained, (0, 8)):
-        name = "video distill" if sc.video_distill else "depth tri"
+    for (model, state, tx, mask, sc), frames, sizes in runs:
+        modality = model.cfg.tower.modality
+        name = ("video distill" if sc.video_distill else f"{modality} tri")
         step = make_train_step(model.cfg, tx, mask, sc)
-        for b in (B, 32) if frames else (B,):
+        gen = (torch.Generator(device="cuda").manual_seed(SEED)
+               if modality == "pc" else None)
+        for b in sizes:
             bt = {k: v.cuda() for k, v in
                   tri_batch(torch, np, model.cfg, b, rng, frames).items()}
             try:
@@ -997,7 +1170,7 @@ def tri_timings(torch, np, card, *trained):
                                   f"(frozen image tower in bf16"
                                   + (f", {b * frames} frames a step" if frames
                                      else "") + ")",
-                                  lambda: step(state, bt), b)
+                                  lambda: step(state, bt, fps_generator=gen), b)
             except torch.cuda.OutOfMemoryError:
                 del bt
                 torch.cuda.empty_cache()
@@ -1005,13 +1178,56 @@ def tri_timings(torch, np, card, *trained):
                       "device memory", flush=True)
                 continue
             profile_encode(torch, card, f"B{b} {name} train step",
-                           lambda: step(state, bt))
+                           lambda: step(state, bt, fps_generator=gen))
             rates[name] = (b, rate)
             del bt
             break
         else:
             fail(f"{name} train step: no batch size fits")
+        torch.cuda.empty_cache()
     return rates
+
+
+def ball_query_bound(b, s, n, k):
+    """Per (query, point) pair: the distance in the matmul form (3 products
+    and 3 adds of the dot, 2 adds of the norms), the radius compare and the
+    candidate select, then at least one compare of the k-smallest
+    selection, on the fp32 cores; bytes: the bf16 points and queries read
+    once, the int32 indices written once."""
+    pairs = b * s * n
+    return bound(11 * pairs, 2 * 3 * (b * n + b * s) + 4 * b * s * k, PEAK_FP32)
+
+
+def vitlensG_timings(torch, card, model, b=16):
+    """Phase 5's vitlensG pc encode: B16 clouds of 10000 x 6 (arrays given)
+    with its peak memory and a profile; then the ball query at that
+    encode's shape ([16, 512, 10000], 64 a ball, bf16 points) beside its
+    bound. Returns the encode rate."""
+    from vitlens_tpu_torch.ops.fps import ball_query, fps
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    pt = model.towers["pc"].cfg.point
+    pc = torch.cat([torch.randn(b, pt.npoints, 3, generator=g, device="cuda") * 0.4,
+                    torch.rand(b, pt.npoints, 3, generator=g, device="cuda")], -1)
+
+    def encode():
+        return model.encode({"pc": pc}, preprocessed=True)["pc"]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rate = encode_rate(torch, card, f"vitlensG pc encode B{b} x {pt.npoints} "
+                       f"points x 6 bf16 (PNSA, bigG trunk, 32 of 48 blocks)",
+                       encode, b, dim=1280)
+    profile_encode(torch, card, f"B{b} vitlensG pc encode", encode)
+    xyz = pc[..., :3].bfloat16().contiguous()
+    centers = fps(xyz, pt.num_group)
+    ms = cuda_ms(lambda: ball_query(xyz, centers, pt.radius, pt.group_size))
+    bd, by = ball_query_bound(b, pt.num_group, pt.npoints, pt.group_size)
+    print(f"[5 timing] {card} | ball query (plain PyTorch: the distance "
+          f"product, torch.topk over int32 candidates) [{b}, {pt.num_group}, "
+          f"{pt.npoints}] k {pt.group_size} bf16 points: {ms:.4f} ms, bound "
+          f"{bd:.4f} ms ({by})", flush=True)
+    return rate
 
 
 def check_attention_edges(torch, g, err, checks):
@@ -1745,6 +1961,133 @@ def _stop(srv, th):
         fail(f"threads still alive after the drain: {alive}")
 
 
+def vitlensG_phase(torch, np, counters, totals):
+    """Phase 4g: ViTLens("vitlensG", ("pc", "text")) on the card in bf16
+    (weights stored in bf16, as the serve CLI stores vitlensG's), loaded
+    from reference-layout checkpoints that tools/reference_layout.py writes
+    (fp16): the PNSA tokenizer over 10000 xyz + rgb points, the bigG Lens
+    and the ViT-bigG-14 trunk with its first 16 of 48 blocks skipped (they
+    still hold the file's weights), and the bigG text tower. B = 1 and B = 2
+    encodes of raw .npy clouds of 10000 x 6 and of xyz-only clouds
+    (OpenShape's 0.4 grey fills their rgb), with the launches per request
+    from tower_launches (1 FPS, 32 trunk blocks, 4 Lens layers; no point
+    encoder) and cosine >= 0.99 against the same weights in fp32 on the CPU,
+    given the processor's clouds rounded through bf16 as the card sees
+    them; a text request (32 fused MLP); then one HTTP request of two
+    clouds and a caption through make_server, cosine >= 0.999 against the
+    direct encodes. Returns the model, for phase 5."""
+    import tempfile
+
+    from tools.reference_layout import (text_tower_state_dict,
+                                        vision_tower_state_dict)
+    from vitlens_tpu_torch.api import ViTLens
+    from vitlens_tpu_torch.config import make_model_config
+    from vitlens_tpu_torch.serve import make_server
+    from vitlens_tpu_torch.train.openshape import vitlensG_tower_config
+
+    t0 = time.time()
+    root = tempfile.mkdtemp(prefix="vitlens_4g_")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    tcfg, cfg = vitlensG_tower_config(), make_model_config("ViT-bigG-14", "image")
+    files = {"pc": os.path.join(root, "vitlensG_pc.pt"),
+             "text": os.path.join(root, "bigG_text.pt")}
+    sd = vision_tower_state_dict(tcfg, g, torch.float16)
+    torch.save(sd, files["pc"])
+    want_w = {"sa.0.conv.w": sd["visual_adapter.sa.mlp_convs.0.weight"][..., 0, 0].T,
+              "trunk.blocks.0.attn.qkv_w":  # a skipped block
+                  sd["transformer.resblocks.0.attn.in_proj_weight"].T}
+    del sd
+    torch.save(text_tower_state_dict(cfg.text, cfg.embed_dim, g, torch.float16),
+               files["text"])
+    rng = np.random.RandomState(SEED + 7)
+    for i in range(2):
+        files[f"npy{i}"] = os.path.join(root, f"cloud{i}.npy")
+        np.save(files[f"npy{i}"], np.concatenate(
+            [rng.randn(10000, 3) * 0.4, rng.rand(10000, 3)], 1).astype(np.float32))
+    files["xyz"] = os.path.join(root, "xyz_only.npy")
+    np.save(files["xyz"], (rng.randn(10000, 3) * 0.4).astype(np.float32))
+    t_files = time.time() - t0
+
+    t0 = time.time()
+    model = ViTLens("vitlensG", ("pc", "text"), device="cuda",
+                    compute_dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                    seed=SEED, checkpoints={"pc": files["pc"],
+                                            "text": files["text"]})
+    torch.cuda.synchronize()
+    t_load = time.time() - t0
+    tower = model.towers["pc"]
+    got_w = {"sa.0.conv.w": tower.adapter.sa[0].conv.w,
+             "trunk.blocks.0.attn.qkv_w": tower.trunk.blocks[0].attn.qkv_w}
+    for name, want in want_w.items():
+        if not torch.equal(got_w[name].cpu(), want.float().to(torch.bfloat16)):
+            fail(f"4g: loaded {name} differs from the checkpoint's")
+    proc = model.processors["pc"]
+    if (proc.n, proc.channels) != (10000, 6) or tower.cfg.point.tokenizer != "pnsa":
+        fail(f"4g: pc processor {proc.n} x {proc.channels}, tokenizer "
+             f"{tower.cfg.point.tokenizer}")
+    n_text = model.towers["text"].cfg.layers
+    want = {"pc": tower_launches(tower.cfg, fps=1),
+            "text": launch_counts(fused_mlp=n_text)}
+    if (want["pc"]["fused_mlp"], want["pc"]["flash_attention"]) != (32, 40):
+        fail(f"4g: launches derived from the vitlensG pc config {want['pc']}")
+    requests = [("pc", [files["npy0"]]), ("pc", [files["npy0"], files["npy1"]]),
+                ("pc", [files["xyz"]]), ("pc", [files["npy1"], files["xyz"]]),
+                ("text", ["a wooden chair with four legs"])]
+    outs, per_req = [], []
+    for m, items in requests:
+        emb, counts = run_counted(torch, counters, totals,
+                                  lambda: model.encode({m: items})[m])
+        if counts != want[m]:
+            fail(f"4g {m} B={len(items)}: launches {counts}, expected {want[m]}")
+        if (tuple(emb.shape) != (len(items), 1280)
+                or not torch.isfinite(emb).all()):
+            fail(f"4g {m} B={len(items)}: shape {tuple(emb.shape)} or "
+                 "non-finite values")
+        outs.append((m, items, emb))
+        per_req.append((m, len(items), counts["fused_mlp"],
+                        counts["flash_attention"], counts["fps"]))
+
+    t0 = time.time()
+    ref = copy.deepcopy(model).to(device="cpu", dtype=torch.float32)
+    ref.compute_dtype = torch.float32
+    cos = {}
+    for m, items, emb in outs:
+        if m == "pc":  # the processor's clouds as the card's bf16 cast sees them
+            x = torch.from_numpy(proc(items)).bfloat16().float()
+            ref_emb = ref.encode({"pc": x}, preprocessed=True)["pc"]
+        else:
+            ref_emb = ref.encode({m: items})[m]
+        label = f"{m} B={len(items)}" + (" xyz-only" if files["xyz"] in items else "")
+        cos[label] = cos_min(torch, emb, ref_emb)
+    t_cpu = time.time() - t0
+    del ref
+    if min(cos.values()) < COS_MIN:
+        fail(f"4g: card bf16 vs CPU fp32 cosines {cos} < {COS_MIN}")
+
+    srv, th = _serve(make_server, model, 4, 20)
+    try:
+        items = [files["npy0"], files["xyz"]]
+        out = _post(srv.server_address[1], {"inputs": {
+            "pc": items, "text": ["a wooden chair with four legs"]}})
+    finally:
+        _stop(srv, th)
+    served = {m: cos_min(torch, torch.tensor(out["embeddings"][m]),
+                         model.encode({m: v})[m])
+              for m, v in (("pc", items), ("text", ["a wooden chair with four legs"]))}
+    if min(served.values()) < 0.999:
+        fail(f"4g: served replies vs direct encodes: cosines {served}")
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"[4g vitlensG pc] ViTLens('vitlensG', ('pc', 'text')) bf16, weights "
+          f"bf16, from reference-layout fp16 checkpoints (written in "
+          f"{t_files:.1f} s, loaded in {t_load:.1f} s; the skipped block 0 "
+          f"holds the file's weights): requests (modality, B, launches "
+          f"(mlp, attn, fps)) {per_req}; cosine vs CPU fp32 (took "
+          f"{t_cpu:.1f} s): " + " ".join(f"{k} {v:.6f}" for k, v in cos.items())
+          + "; one HTTP request (2 clouds, one xyz-only, and a caption): "
+          + " ".join(f"{k} {v:.6f}" for k, v in served.items()), flush=True)
+    return model
+
+
 def served_phase(torch, np, counters, totals, card):
     """Phase 4v: vitlensL with every ported modality, loaded from
     reference-layout checkpoints, encodes raw files on the card and is
@@ -2194,7 +2537,7 @@ def main() -> int:
     # the last: the video distill step's image tower at B64 (8 frames of
     # 257 tokens a sample), the largest M on any path
     for m, d, h in ((6168, 1024, 4096), (616, 768, 3072), (1001, 1024, 4096),
-                    (4100, 1024, 4096), (4100, 1664, 8192),
+                    (4100, 1024, 4096), (4100, 1664, 8192), (154, 1280, 5120),
                     (B * 8 * 257, 1024, 4096)):
         for act in ("gelu", "quick_gelu"):
             a = mlp_inputs(torch, g, m, d, h)
@@ -2432,6 +2775,9 @@ def main() -> int:
                captions[:2])
     head_dim_phase(torch, counters, launches, fbanks[1])
 
+    # -- 4g: the vitlensG pc encode (PNSA, bigG) from files, and served -------
+    g_model = vitlensG_phase(torch, np, counters, launches)
+
     # -- 4q: the int8 quantized audio encode; 4s: the bench entry points -----
     fb64 = torch.randn(B, 3, acfg.audio.target_length, acfg.audio.mel_bins,
                        generator=g, device="cuda") * 0.5
@@ -2466,6 +2812,12 @@ def main() -> int:
                    contra_loss_type="distill_token",
                    compute_dtype=torch.bfloat16),
         [("B=4 accum_freq 2", 4, 2)] * 2, frames=8)
+    # -- 4p: the pc tri step (batch BatchNorm, random FPS starts) -----------
+    tri_pc = tri_train_phase(
+        torch, np, counters, launches, "4p pc tri train", "pc",
+        dict(lock_image=True, lock_text=True, lock_visual=True),
+        StepConfig(n_tower=3, compute_dtype=torch.bfloat16),
+        [("B=8", 8, 1)] * 2 + [("B=8 accum_freq 4", 8, 4)] * 2)
 
     # -- 5: timing at the B64 shapes -----------------------------------------
     timings = {name: [] for name in kernels}
@@ -2647,8 +2999,12 @@ def main() -> int:
             os.environ.pop("VITLENS_ENABLE_FUSED_LNQKV", None)
     profile_encode(torch, card, f"B{B} audio train step", step64)
     del trainer, state, train_step, batch64
-    tri_rates = tri_timings(torch, np, card, tri_depth, tri_video)
-    del tri_depth, tri_video
+    tri_rates = tri_timings(torch, np, card, [(tri_depth, 0, (B,)),
+                                              (tri_video, 8, (B, 32)),
+                                              (tri_pc, 0, (B, 32))])
+    del tri_depth, tri_video, tri_pc
+    g_rate = vitlensG_timings(torch, card, g_model)
+    del g_model
     served_rates = served_timings(torch, np, card, served)
     shutil.rmtree(served["root"], ignore_errors=True)
     del served
@@ -2707,6 +3063,7 @@ def main() -> int:
           f"{max(train_rates[True]):.2f}; "
           + "; ".join(f"{k} train step B{b}: {r:.2f} samples/s"
                       for k, (b, r) in tri_rates.items())
+          + f"; vitlensG pc encode B16: {g_rate:.2f} samples/s"
           + f"; image, depth, EEG, video encode B{B}: "
           + ", ".join(f"{served_rates[m]:.2f}" for m in ("image", "depth", "eeg", "video"))
           + f" samples/s; served audio closed loop: "

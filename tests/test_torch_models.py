@@ -123,12 +123,18 @@ def test_from_jax_unstacks_blocks_and_rejects_mismatch():
 
 
 def test_unported_modalities_raise():
-    """What is still unported raises: the PNSA point tokenizer (the vitlensG
-    pc tower). The depth tower (its identity Lens), the EEG tower and the
-    video train transforms, ported since, build."""
+    """What is unknown or still unported raises: a point tokenizer other
+    than PointBERT and PNSA, train-time patch dropout. The PNSA tower (the
+    vitlensG pc tower), the depth tower (its identity Lens), the EEG tower
+    and the video train transforms, ported since, build."""
     pc = PC.make_model_config("ViT-Tiny-Test", "pc").tower
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        VisionTower(PC.replace(pc, point=PC.replace(pc.point, tokenizer="pnsa")))
+    with pytest.raises(ValueError, match="unknown point tokenizer"):
+        VisionTower(PC.replace(pc, point=PC.replace(pc.point, tokenizer="pointnet")))
+    pnsa = VisionTower(PC.replace(pc, point=PC.replace(pc.point, tokenizer="pnsa")))
+    assert len(pnsa.adapter.sa) == 3
+    dropping = VisionTower(PC.replace(pc, patch_dropout=0.5))
+    with pytest.raises(NotImplementedError, match="patch dropout"):
+        dropping(torch.zeros(1, 64, 3), train=True)
     from vitlens_tpu_torch.data.video_processors import VideoProcessor
 
     train = VideoProcessor(train=True)

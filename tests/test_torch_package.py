@@ -34,7 +34,7 @@ def test_port_imports_no_jax():
         "          'scripts.bench_dma_gather', 'scripts.bench_int8_encode', 'ops.fbank',\n"
         "          'data.audio_decode', 'weights.torch_convert', 'serve', 'cli.serve',\n"
         "          'data.rng', 'data.video_processors', 'data.augment',\n"
-        "          'data.video_randaugment'):\n"
+        "          'data.video_randaugment', 'train.openshape'):\n"
         "    assert 'vitlens_tpu_torch.' + n in names, n\n"
         "sys.path.insert(0, '.')\n"
         "import tools.reference_layout\n"
@@ -57,7 +57,7 @@ def test_port_sources_never_name_jax():
     for new in ("ops/fbank.py", "data/audio_decode.py", "weights/torch_convert.py",
                 "serve.py", "cli/serve.py", "data/rng.py",
                 "data/video_processors.py", "data/augment.py",
-                "data/video_randaugment.py"):
+                "data/video_randaugment.py", "train/openshape.py"):
         assert new in names, new
     paths += [os.path.join(REPO, "tools", "reference_layout.py"),
               os.path.join(REPO, "chip_smoke.py")]

@@ -186,8 +186,10 @@ def test_encode_matches_jax(jax_model, dtype, min_cos):
 
 def test_raw_clouds_and_device_default(monkeypatch):
     """Raw clouds go through the processor (set to the tower's point count);
-    the vitlensG pc tower is not yet ported; with no CUDA device and no
-    device given, the entry points raise."""
+    the vitlensG pc tower builds from its own config, its processor set to
+    that config's point count and width (tests/test_torch_pnsa.py encodes
+    through it); with no CUDA device and no device given, the entry points
+    raise."""
     pm = ViTLens("vitlensB", ("pc",), device="cpu", seed=1)
     pm.towers["pc"].trunk.blocks = pm.towers["pc"].trunk.blocks[:1]
     assert pm.processors["pc"].n == 8192 and pm.processors["pc"].channels == 3
@@ -196,8 +198,16 @@ def test_raw_clouds_and_device_default(monkeypatch):
     want = pm.encode({"pc": JaxPointProcessor()(raw)}, preprocessed=True)["pc"]
     assert tuple(got.shape) == (1, 512)
     np.testing.assert_array_equal(got.numpy(), want.numpy())
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ViTLens("vitlensG", ("pc",), device="cpu")
+    import vitlens_tpu_torch.api as api
+
+    tiny = PC.replace(PC.make_model_config("ViT-Tiny-Test", "pc").tower,
+                      point=PC.PointAdapterConfig(tokenizer="pnsa", npoints=300,
+                                                  num_group=8, group_size=8,
+                                                  in_channel=6))
+    monkeypatch.setattr(api, "vitlensG_tower_config", lambda: tiny)
+    g = ViTLens("vitlensG", ("pc",), device="cpu")
+    assert g.towers["pc"].cfg is tiny
+    assert (g.processors["pc"].n, g.processors["pc"].channels) == (300, 6)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ViTLens("vitlensB", ("pc",))

@@ -245,9 +245,10 @@ def test_train_step_matches_jax(tiny, accum, remat, clip, unlock):
 
 
 def test_train_step_refuses_the_unported(tiny):
-    """What still raises: a mesh or FSDP, point-cloud training, train-time
-    patch dropout, "dots" remat, a mask that was never applied and a
-    trainable parameter that is no fp32 master."""
+    """What still raises: a mesh or FSDP, train-time patch dropout, "dots"
+    remat, a mask that was never applied and a trainable parameter that is
+    no fp32 master. Point-cloud training, which raised here too, runs: a
+    train pass moves the tokenizer's running statistics."""
     jcfg, pcfg, params, _ = tiny
     model = _port_model(pcfg, params)
     mask = PF.tri_model_mask(model, pcfg, unlock_cls=True)
@@ -258,8 +259,10 @@ def test_train_step_refuses_the_unported(tiny):
     with pytest.raises(NotImplementedError, match="item 12"):
         PStep.make_train_step(pcfg, tx, mask, two, partition="fsdp")
     pc = TriModel(PC.make_model_config("ViT-Tiny-Test", "pc"), device="cpu")
-    with pytest.raises(NotImplementedError, match="point-cloud"):
-        pc.visual(torch.zeros(1, 64, 3), train=True)
+    pc.init_(torch.Generator().manual_seed(0))
+    feats = pc.visual(torch.randn(2, 64, 3), train=True)
+    assert torch.isfinite(feats).all()
+    assert pc.visual.adapter.encoder.bn1.mean.abs().max() > 0
     dropping = PC.replace(pcfg, tower=PC.replace(pcfg.tower, patch_dropout=0.5))
     with pytest.raises(NotImplementedError, match="patch dropout"):
         TriModel(dropping, device="cpu").visual(torch.zeros(1, 48, 32), train=True)

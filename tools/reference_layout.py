@@ -13,7 +13,9 @@ State dicts in the reference's key layout (what
     identity Lens) and the adapters (``conv1.weight`` and ``ltpos.weight`` of
     video, ``visual_adapter.conv1.weight`` / ``pos_emb`` of depth and AST
     audio, ``visual_adapter.proj.*`` / ``pos_emb`` of EEG,
-    ``visual_adapter.encoder.first_conv.*`` ... of PointBERT);
+    ``visual_adapter.encoder.first_conv.*`` ... of PointBERT,
+    ``visual_adapter.sa.mlp_convs.*`` / ``sa.mlp_bns.*`` / ``lift.*`` of
+    PNSA);
   * :func:`text_tower_state_dict`: the CLIP text keys (``token_embedding``,
     ``positional_embedding``, ``transformer.resblocks.{i}.*``,
     ``ln_final``, ``text_projection``);
@@ -154,6 +156,19 @@ def _adapter(mk: _Maker, sd: StateDict, cfg: TowerConfig) -> None:
             (width, 1, a.patch_size, a.patch_size), a.patch_size ** -1.0)
         sd["visual_adapter.pos_emb"] = mk.normal((a.num_patches, width),
                                                  width ** -0.5)
+    elif m == "pc" and cfg.point.tokenizer == "pnsa":
+        pt = cfg.point
+        last = pt.in_channel + 3
+        for i, out in enumerate((64, 64, pt.encoder_dims)):
+            name = f"visual_adapter.sa.mlp_convs.{i}"
+            sd[f"{name}.weight"] = mk.normal((out, last, 1, 1), last ** -0.5)
+            sd[f"{name}.bias"] = mk.normal((out,), 0.02)
+            mk.bn(sd, f"visual_adapter.sa.mlp_bns.{i}", out)
+            last = out
+        sd["visual_adapter.lift.0.weight"] = mk.normal(
+            (pt.trans_dim, pt.encoder_dims + 3, 1), (pt.encoder_dims + 3) ** -0.5)
+        sd["visual_adapter.lift.0.bias"] = mk.normal((pt.trans_dim,), 0.02)
+        mk.ln(sd, "visual_adapter.lift.2", pt.trans_dim)
     elif m == "pc":
         pt = cfg.point
         e = "visual_adapter.encoder."

@@ -1,25 +1,32 @@
 """Modality adapters (port of vitlens_tpu/adapters/tokenizers.py).
 
-Ported: the image/tactile patch embedding (and the video tower's, with its
-learned temporal positions), the 1-channel depth patch embedding, the EEG
-Conv1d patch embedding, the AST-style audio adapter and the PointBERT point
-tokenizer (eval mode). The PNSA point tokenizer is not yet ported.
+The image/tactile patch embedding (and the video tower's, with its learned
+temporal positions), the 1-channel depth patch embedding, the EEG Conv1d
+patch embedding, the AST-style audio adapter, the PointBERT point tokenizer
+and the PNSA point tokenizer (OpenShape's set abstraction, the vitlensG pc
+tower's). Both point tokenizers take JAX's ``train`` flag: batch statistics
+in their BatchNorms (the running ones updated in place) and FPS from the
+given starts or generator.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from vitlens_tpu_torch.config import PointAdapterConfig, TowerConfig
-from vitlens_tpu_torch.models.layers import Linear, _param, gelu, normal_
-from vitlens_tpu_torch.ops.fps import group_points
+from vitlens_tpu_torch.models.layers import (LayerNorm, Linear, _param, gelu,
+                                             normal_)
+from vitlens_tpu_torch.ops.fps import ball_query, fps, group_points, take_points
 from vitlens_tpu_torch.ops.fused_point_encoder import (
-    BN_EPS, fused_point_encoder, point_encoder_applicable,
+    BN_EPS, fused_point_encoder, mini_pointnet, point_encoder_applicable,
     point_encoder_reference)
+
+BN_MOMENTUM = 0.1  # JAX's batch_norm default; no caller sets another
 
 
 def patchify_2d(x: torch.Tensor, patch: int) -> torch.Tensor:
@@ -148,9 +155,9 @@ class AudioAdapter(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over the last axis: ``scale`` and ``bias`` are
-    parameters, the running ``mean`` and ``var`` buffers (JAX keeps them in
-    the state tree; ``weights.from_jax.load_state`` copies them)."""
+    """BatchNorm over the last axis: ``scale`` and ``bias`` are parameters,
+    the running ``mean`` and ``var`` buffers (JAX keeps them in the state
+    tree; ``weights.from_jax.load_state`` copies them)."""
 
     def __init__(self, dim: int, eps: float = BN_EPS, device=None):
         super().__init__()
@@ -170,26 +177,43 @@ class BatchNorm(nn.Module):
     def stats(self) -> Tuple[torch.Tensor, ...]:
         return self.mean, self.var, self.scale, self.bias
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        inv = torch.rsqrt(self.var.float() + self.eps) * self.scale.float()
-        y = (x.float() - self.mean.float()) * inv + self.bias.float()
-        return y.to(x.dtype)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """Eval: the running statistics. Train: JAX's ``batch_norm(train=
+        True)``, the fp32 mean and E[x^2] over every axis but the last (the
+        gradient flows through both), var = E[x^2] - mean^2; the running
+        mean and var move by BN_MOMENTUM towards the batch's mean and
+        unbiased var (var * n / (n - 1)). Both in fp32, rounded back to x's
+        dtype."""
+        x32 = x.float()
+        if not train:
+            mean, var = self.mean.float(), self.var.float()
+        else:
+            axes = tuple(range(x.dim() - 1))
+            mean = x32.mean(dim=axes)
+            var = x32.square().mean(dim=axes) - mean.square()
+            n = x.numel() // x.shape[-1]
+            m = BN_MOMENTUM
+            with torch.no_grad():
+                self.mean.copy_((1 - m) * self.mean + m * mean)
+                self.var.copy_((1 - m) * self.var + m * (var * (n / max(n - 1, 1))))
+        inv = torch.rsqrt(var + self.eps) * self.scale.float()
+        return ((x32 - mean) * inv + self.bias.float()).to(x.dtype)
 
 
 class PointTokenizer(nn.Module):
-    """PointBERT tokenizer, eval mode: FPS centers and kNN groups, the
-    mini-PointNet per group (``ops.fused_point_encoder``, the kernel on CUDA,
-    for bf16 groups; other dtypes take its plain version, as in JAX),
-    ``reduce_dim`` to the token width, and an MLP of the centers as the
-    adapter's positional embedding. Module names follow the JAX param tree
-    (``encoder.conv1..4``, ``encoder.bn1/bn2``, ``reduce_dim``,
-    ``pos_embed.fc1/fc2``)."""
+    """PointBERT tokenizer: FPS centers and kNN groups, the mini-PointNet
+    per group, ``reduce_dim`` to the token width, and an MLP of the centers
+    as the adapter's positional embedding. Module names follow the JAX param
+    tree (``encoder.conv1..4``, ``encoder.bn1/bn2``, ``reduce_dim``,
+    ``pos_embed.fc1/fc2``).
+
+    Eval: the mini-PointNet is ``ops.fused_point_encoder`` (the kernel on
+    CUDA) for the groups its gate takes, else its plain version, as in JAX.
+    Train: the plain mini-PointNet with batch BatchNorm; the kernel is
+    eval-only, as JAX's is."""
 
     def __init__(self, cfg: PointAdapterConfig, device=None):
         super().__init__()
-        if cfg.tokenizer != "pointbert":
-            raise NotImplementedError(
-                f"the {cfg.tokenizer!r} point tokenizer is not yet ported")
         self.cfg = cfg
         e = self.encoder = nn.Module()
         e.conv1 = Linear(3, 128, device=device)
@@ -209,18 +233,85 @@ class PointTokenizer(nn.Module):
                   self.pos_embed.fc1, self.pos_embed.fc2, e.bn1, e.bn2):
             m.init_(g)
 
-    def forward(self, pts: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, pts: torch.Tensor, train: bool = False,
+                start: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """pts [B, N, 3] -> (tokens [B, G, trans_dim], pos [B, G, trans_dim]).
-        FPS starts at point 0, as JAX does in eval."""
+        FPS starts at ``start`` [B], or draws from ``generator``, or starts
+        at point 0 (JAX's eval)."""
         cfg, e = self.cfg, self.encoder
-        nb, center = group_points(pts, cfg.num_group, cfg.group_size)
-        takes = point_encoder_applicable(nb, e.conv1.w, e.conv2.w, e.conv3.w,
-                                         e.conv4.w)
-        encoder = fused_point_encoder if takes else point_encoder_reference
-        feat = encoder(
-            nb, e.conv1.w, e.conv1.b, e.bn1.stats(), e.conv2.w, e.conv2.b,
-            e.conv3.w, e.conv3.b, e.bn2.stats(), e.conv4.w, e.conv4.b,
-            e.bn1.eps)
+        nb, center = group_points(pts, cfg.num_group, cfg.group_size,
+                                  start=start, generator=generator)
+        if train:
+            feat = mini_pointnet(
+                nb, e.conv1.w, e.conv1.b, functools.partial(e.bn1, train=True),
+                e.conv2.w, e.conv2.b, e.conv3.w, e.conv3.b,
+                functools.partial(e.bn2, train=True), e.conv4.w, e.conv4.b)
+        else:
+            takes = point_encoder_applicable(nb, e.conv1.w, e.conv2.w,
+                                             e.conv3.w, e.conv4.w)
+            encoder = fused_point_encoder if takes else point_encoder_reference
+            feat = encoder(
+                nb, e.conv1.w, e.conv1.b, e.bn1.stats(), e.conv2.w, e.conv2.b,
+                e.conv3.w, e.conv3.b, e.bn2.stats(), e.conv4.w, e.conv4.b,
+                e.bn1.eps)
         tokens = self.reduce_dim(feat)
         fc1, fc2 = self.pos_embed.fc1, self.pos_embed.fc2
         return tokens, fc2(gelu(fc1(center.to(tokens.dtype))))
+
+
+class PNSATokenizer(nn.Module):
+    """PNSA tokenizer (OpenShape's set abstraction, the vitlensG pc tower):
+    FPS centers, ball-query groups of ``group_size`` within ``radius``,
+    [grouped xyz - center ; grouped features] through a shared MLP (three
+    pointwise products of widths 64, 64 and ``encoder_dims``, each with
+    BatchNorm and ReLU), a max-pool over the group, then ``lift``: a
+    pointwise product of [center ; feature] to ``trans_dim`` and a
+    LayerNorm. Plain PyTorch: JAX has no kernel on this path but FPS. Module
+    names follow the JAX tree (``sa.{i}.conv``, ``sa.{i}.bn``,
+    ``lift.conv``, ``lift.ln``)."""
+
+    def __init__(self, cfg: PointAdapterConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.sa = nn.ModuleList()
+        last = cfg.in_channel + 3
+        for out in (64, 64, cfg.encoder_dims):
+            layer = nn.Module()
+            layer.conv = Linear(last, out, device=device)
+            layer.bn = BatchNorm(out, device=device)
+            self.sa.append(layer)
+            last = out
+        self.lift = nn.Module()
+        self.lift.conv = Linear(cfg.encoder_dims + 3, cfg.trans_dim,
+                                device=device)
+        self.lift.ln = LayerNorm(cfg.trans_dim, device=device)
+
+    def init_(self, g: torch.Generator) -> None:
+        for layer in self.sa:
+            layer.conv.init_(g)
+            layer.bn.init_(g)
+        self.lift.conv.init_(g)
+        self.lift.ln.init_(g)
+
+    def forward(self, features: torch.Tensor, xyz: torch.Tensor,
+                train: bool = False, start: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, None]:
+        """features [B, N, in_channel] (xyz + rgb for vitlensG), xyz [B, N, 3]
+        -> (tokens [B, G, trans_dim], None). FPS starts as in
+        :class:`PointTokenizer`."""
+        cfg = self.cfg
+        center = fps(xyz, cfg.num_group, start=start, generator=generator)
+        idx = ball_query(xyz, center, cfg.radius, cfg.group_size)
+        # one gather over [xyz ; features], as JAX takes it
+        dt = torch.promote_types(xyz.dtype, features.dtype)
+        grouped = take_points(torch.cat([xyz.to(dt), features.to(dt)], -1), idx)
+        h = torch.cat([grouped[..., :3] - center[:, :, None, :],
+                       grouped[..., 3:]], -1)
+        for layer in self.sa:
+            h = torch.relu(layer.bn(layer.conv(h), train=train))
+        feat = h.amax(dim=2)
+        lifted = self.lift.conv(torch.cat([center.to(feat.dtype), feat], -1))
+        return self.lift.ln(lifted), None

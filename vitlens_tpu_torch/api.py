@@ -15,6 +15,10 @@ model's device), an fbank [B, T, F] or clips [B, n_clip, T, F]; EEG [B,
 chans, time_len]; video [B, n_frames, 3, H, W]; points [B, npoints, C];
 token ids [B, 77].
 
+The vitlensG pc tower is the published OpenShape recipe's: the PNSA
+tokenizer over 10000 xyz + rgb points (xyz-only clouds get OpenShape's 0.4
+grey) and the ViT-bigG-14 trunk with its first 16 blocks skipped.
+
 ``checkpoints={modality: path, "all": path}`` loads reference-layout state
 dicts (the released per-modality files, a merged file with
 ``vitlens.{modality}.`` keys, or a CLIP file). The model is built on the card
@@ -23,6 +27,7 @@ unless ``device`` names another device.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -35,6 +40,7 @@ from vitlens_tpu_torch.factory import (cast_matmul_weights_, make_generator,
                                        resolve_device)
 from vitlens_tpu_torch.models.text import TextTower
 from vitlens_tpu_torch.models.vit import VisionTower
+from vitlens_tpu_torch.train.openshape import vitlensG_tower_config
 
 PORTED_MODALITIES = ("image", "tactile", "depth", "audio", "eeg", "video",
                      "pc", "text")
@@ -89,9 +95,6 @@ class ViTLens(nn.Module):
         for m in self.modalities:
             if m not in PORTED_MODALITIES:
                 raise NotImplementedError(f"modality {m!r} is not yet ported")
-        if model_var == "vitlensG" and "pc" in self.modalities:
-            raise NotImplementedError(
-                "the vitlensG pc tower (PNSA tokenizer) is not yet ported")
         device = resolve_device(device)
         self.compute_dtype = compute_dtype
         self.param_dtype = param_dtype
@@ -105,6 +108,11 @@ class ViTLens(nn.Module):
         for m in self.modalities:
             cfg = make_model_config(self.trunk,
                                     m if m in VISUAL_MODALITIES else "image")
+            if model_var == "vitlensG" and m == "pc":
+                # the published vitlensG pc recipe (OpenShape-Triplets): the
+                # PNSA tokenizer, 10000 xyz + rgb points, the bigG trunk with
+                # its first 16 blocks skipped
+                cfg = dataclasses.replace(cfg, tower=vitlensG_tower_config())
             if m == "text":
                 tower = TextTower(cfg.text, cfg.embed_dim, cfg.quick_gelu,
                                   device=device)

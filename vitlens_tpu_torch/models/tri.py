@@ -1,7 +1,8 @@
 """Tri-tower model: the frozen CLIP image tower, the Lens ("visual") tower,
 the CLIP text tower and the shared logit scale (port of
 vitlens_tpu/models/tri.py). ``train`` and ``remat`` thread through the
-encode helpers as in JAX.
+encode helpers as in JAX; so do the point tokenizer's FPS starts
+(``fps_start`` [B] or ``fps_generator``, where JAX passes ``fps_key``).
 """
 
 from __future__ import annotations
@@ -68,8 +69,11 @@ def encode_image(model: TriModel, images: torch.Tensor, *,
 
 def encode_visual(model: TriModel, x: torch.Tensor, *, normalize: bool = False,
                   train: bool = False, compute_dtype=torch.float32,
-                  remat: bool = False) -> torch.Tensor:
-    feats = model.visual(x, compute_dtype, train=train, remat=remat)
+                  remat: bool = False, fps_start: Optional[torch.Tensor] = None,
+                  fps_generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
+    feats = model.visual(x, compute_dtype, train=train, remat=remat,
+                         fps_start=fps_start, fps_generator=fps_generator)
     return _l2_normalize(feats) if normalize else feats
 
 
@@ -107,8 +111,10 @@ def tri_forward_video_distill(model: TriModel, *, video_frames: torch.Tensor,
 def tri_forward(model: TriModel, *, images: Optional[torch.Tensor] = None,
                 text: Optional[torch.Tensor] = None,
                 visual_x: Optional[torch.Tensor] = None, train: bool = False,
-                compute_dtype=torch.float32,
-                remat: bool = False) -> Dict[str, torch.Tensor]:
+                compute_dtype=torch.float32, remat: bool = False,
+                fps_start: Optional[torch.Tensor] = None,
+                fps_generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
     """The normalised features of whichever inputs are given, and the logit
     scale."""
     out = {"logit_scale": model.logit_scale.exp().float()}
@@ -118,5 +124,7 @@ def tri_forward(model: TriModel, *, images: Optional[torch.Tensor] = None,
     if text is not None:
         out["text_features"] = encode_text(model, text, **kw)
     if visual_x is not None:
-        out["visual_features"] = encode_visual(model, visual_x, train=train, **kw)
+        out["visual_features"] = encode_visual(
+            model, visual_x, train=train, fps_start=fps_start,
+            fps_generator=fps_generator, **kw)
     return out

@@ -13,18 +13,24 @@ whenever a Lens is configured (the identity included), the spatial
 positional embedding; the frames are then flattened into one sequence.
 
 A raw waveform [B, samples] into the audio tower goes through the Kaldi
-fbank on its own device, in fp32, before the cast to the compute dtype. The
-PNSA point tokenizer is not yet ported and raises ``NotImplementedError``.
+fbank on its own device, in fp32, before the cast to the compute dtype. A
+point cloud goes through the PointBERT tokenizer (vitlensL) or the PNSA
+tokenizer (vitlensG), whose features are the whole cloud when its width is
+the tokenizer's ``in_channel`` (OpenShape feeds xyz + rgb) and the channels
+after xyz otherwise, as in JAX.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn as nn
 
 from vitlens_tpu_torch.adapters.tokenizers import (AudioAdapter, DepthAdapter,
                                                   EEGAdapter, ImageAdapter,
-                                                  PointTokenizer, VideoAdapter)
+                                                  PNSATokenizer, PointTokenizer,
+                                                  VideoAdapter)
 from vitlens_tpu_torch.config import TowerConfig
 from vitlens_tpu_torch.models.layers import (LayerNorm, Transformer, _param,
                                              normal_)
@@ -44,7 +50,10 @@ class VisionTower(nn.Module):
         arch = cfg.arch
         width = arch.width
         if cfg.modality == "pc":
-            self.adapter = PointTokenizer(cfg.point, device=device)
+            tokenizers = {"pointbert": PointTokenizer, "pnsa": PNSATokenizer}
+            if cfg.point.tokenizer not in tokenizers:
+                raise ValueError(f"unknown point tokenizer {cfg.point.tokenizer!r}")
+            self.adapter = tokenizers[cfg.point.tokenizer](cfg.point, device=device)
         else:
             self.adapter = _ADAPTERS[cfg.modality](cfg, device=device)
         p = cfg.perceiver
@@ -80,17 +89,22 @@ class VisionTower(nn.Module):
 
     def forward(self, x: torch.Tensor, compute_dtype=torch.float32, *,
                 train: bool = False, remat: bool = False,
-                output_tokens: bool = False):
+                output_tokens: bool = False,
+                fps_start: Optional[torch.Tensor] = None,
+                fps_generator: Optional[torch.Generator] = None):
         """x: images [B, 3, H, W], depth maps [B, 1, H, W], fbank [B,
         target_length, mel_bins], raw waveforms [B, samples], EEG [B, chans,
-        time], video frames [B, T, 3, H, W] or points [B, N, 3] -> features
+        time], video frames [B, T, 3, H, W] or points [B, N, C] -> features
         [B, embed_dim]. A waveform goes through the fbank in fp32 on its own
         device first; then the input is cast to ``compute_dtype``, so FPS
         sees the rounded coordinates, as in JAX. ``remat`` recomputes the
         trunk's blocks (and the transformer Lens's) in the backward pass.
-        ``train`` marks a training pass: train-time patch dropout and the
-        point tokenizer's batch BatchNorm and random FPS starts are not
-        ported and raise. ``output_tokens`` returns ``(features, tokens)``:
+        ``train`` marks a training pass: the point tokenizers normalise with
+        batch statistics and update their running ones; train-time patch
+        dropout is not ported and raises. A point tokenizer's FPS starts at
+        ``fps_start`` [B], or draws the starts from ``fps_generator``, or
+        starts at point 0 (JAX's ``fps_key``: given, or None).
+        ``output_tokens`` returns ``(features, tokens)``:
         the trunk's output before ``ln_post`` without the CLS token ([B,
         N, width]), or all of it under global average pooling."""
         cfg = self.cfg
@@ -102,15 +116,18 @@ class VisionTower(nn.Module):
         if train and cfg.patch_dropout > 0:
             raise NotImplementedError(
                 "train-time patch dropout (patch_dropout > 0) is not yet ported")
-        if train and cfg.modality == "pc":
-            raise NotImplementedError(
-                "point-cloud training (batch BatchNorm, random FPS starts) is "
-                "not yet ported")
         x = x.to(compute_dtype)
         if cfg.modality == "video":
             tokens = self._video_tokens(x)
         else:
-            tokens, pos = self.adapter(x)
+            if cfg.modality != "pc":
+                tokens, pos = self.adapter(x)
+            elif cfg.point.tokenizer == "pnsa":
+                feats = x if cfg.point.in_channel == x.shape[-1] else x[..., 3:]
+                tokens, pos = self.adapter(feats, x[..., :3], train, fps_start,
+                                           fps_generator)
+            else:
+                tokens, pos = self.adapter(x, train, fps_start, fps_generator)
             if pos is not None and cfg.use_adapter_pos:
                 tokens = tokens + pos.to(tokens.dtype)
         if self.perceiver is not None:

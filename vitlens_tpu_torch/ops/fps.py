@@ -9,8 +9,9 @@ mirrors the JAX package's ``_fps_indices_xla`` step for step. Both are
 index-exact: the distance is ``(dx*dx + dy*dy) + dz*dz`` rounded after every
 operation, and ties go to the smallest index.
 
-kNN is the exact branch only (a pairwise-distance matmul and ``torch.topk``);
-gathers are plain ``torch.gather``.
+kNN and the ball query are the exact branches only (a pairwise-distance
+matmul and ``torch.topk``; JAX's ``approx_min_k`` is a TPU workaround and is
+not ported); gathers are plain ``torch.gather``.
 """
 
 from __future__ import annotations
@@ -155,10 +156,13 @@ def take_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out.reshape(*idx.shape, C)
 
 
-def fps(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
-    """The sampled points [B, npoint, C], starting at point 0; distances use
-    xyz[..., :3] and the other channels ride along."""
-    idx = fps_indices(xyz[..., :3].contiguous(), npoint)
+def fps(xyz: torch.Tensor, npoint: int, start: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """The sampled points [B, npoint, C]; distances use xyz[..., :3] and the
+    other channels ride along. The start is 0, or ``start`` [B], or drawn
+    from ``generator`` (see :func:`fps_indices`)."""
+    idx = fps_indices(xyz[..., :3].contiguous(), npoint, start=start,
+                      generator=generator)
     return take_points(xyz, idx)
 
 
@@ -168,10 +172,39 @@ def knn_indices(xyz: torch.Tensor, query: torch.Tensor, k: int) -> torch.Tensor:
     return torch.topk(-square_distance(query, xyz), k, dim=-1).indices
 
 
-def group_points(xyz: torch.Tensor, num_group: int, group_size: int
+def group_points(xyz: torch.Tensor, num_group: int, group_size: int,
+                 start: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """FPS centers and their kNN neighbourhoods, center-normalised:
-    (neighborhood [B, G, M, C], center [B, G, C])."""
-    center = fps(xyz, num_group)
+    (neighborhood [B, G, M, C], center [B, G, C]). FPS starts as in
+    :func:`fps`."""
+    center = fps(xyz, num_group, start=start, generator=generator)
     idx = knn_indices(xyz, center, group_size)
     return take_points(xyz, idx) - center[:, :, None, :], center
+
+
+def ball_query(xyz: torch.Tensor, query: torch.Tensor, radius: float,
+               nsample: int) -> torch.Tensor:
+    """Up to ``nsample`` points within ``radius`` of each query point, the
+    first by index; xyz [B, N, 3], query [B, S, 3] -> [B, S, nsample] int32.
+
+    The exact branch of JAX's ``ball_query``: a candidate is the point's
+    index when it lies in the ball (squared distance <= radius**2, in the
+    inputs' dtype) and N otherwise; the k = min(nsample, N) smallest
+    candidates are taken, slots that hold N take the first in-ball index
+    (clamped to N - 1 for an empty ball), and columns past N repeat it.
+    Candidates are distinct but for the N's, so the selection has no ties
+    to break."""
+    B, N, _ = xyz.shape
+    S = query.shape[1]
+    in_ball = square_distance(query, xyz) <= radius ** 2
+    arange = torch.arange(N, dtype=torch.int32, device=xyz.device)
+    cand = torch.where(in_ball, arange, torch.full_like(arange, N))
+    k = min(nsample, N)
+    sel = torch.topk(cand, k, dim=-1, largest=False, sorted=True).values
+    first = sel[..., :1].clamp_max(N - 1)
+    sel = torch.where(sel == N, first, sel)
+    if k < nsample:
+        sel = torch.cat([sel, first.expand(B, S, nsample - k)], dim=-1)
+    return sel

@@ -61,27 +61,36 @@ def point_encoder_applicable(nb: torch.Tensor, w1, w2, w3, w4) -> bool:
     return w3.shape[0] == 2 * widths[1] and _kernel_takes(nb.shape[2], widths)
 
 
-def point_encoder_reference(nb, w1, b1, bn1, w2, b2, w3, b3, bn2, w4, b4,
-                            eps: float = BN_EPS) -> torch.Tensor:
-    """Plain version: nb [..., M, 3] -> [..., C4] in nb's dtype. Matmuls
-    rounded once, biases added in nb's dtype, BN in fp32 rounded back, conv3
-    accumulated in fp32 and rounded once."""
+def mini_pointnet(nb, w1, b1, bn1, w2, b2, w3, b3, bn2, w4, b4) -> torch.Tensor:
+    """The mini-PointNet with each BatchNorm given as a function of its input
+    (eval BN in :func:`point_encoder_reference`, batch BN in the tokenizer's
+    train pass): nb [..., M, 3] -> [..., C4] in nb's dtype. Matmuls rounded
+    once, biases added in nb's dtype, conv3 accumulated in fp32 and rounded
+    once; both max-pools are ``amax``, whose gradient splits evenly among
+    ties, as JAX's ``max`` does."""
     dt = nb.dtype
-
-    def bn(x, stats):
-        mean, inv, bias = _bn_fold(stats, eps)
-        return ((x.float() - mean) * inv + bias).to(dt)
-
     h = nb @ w1.to(dt) + b1.to(dt)
-    h = torch.relu(bn(h, bn1))
+    h = torch.relu(bn1(h))
     h = h @ w2.to(dt) + b2.to(dt)
     g = h.amax(dim=-2, keepdim=True)
     w3 = w3.to(dt).float()
     c2 = h.shape[-1]
     h32 = (h.float() @ w3[c2:] + g.float() @ w3[:c2]) + b3.float()
-    h = torch.relu(bn(h32.to(dt), bn2))
+    h = torch.relu(bn2(h32.to(dt)))
     h = h @ w4.to(dt) + b4.to(dt)
     return h.amax(dim=-2)
+
+
+def point_encoder_reference(nb, w1, b1, bn1, w2, b2, w3, b3, bn2, w4, b4,
+                            eps: float = BN_EPS) -> torch.Tensor:
+    """Plain version: :func:`mini_pointnet` with eval BN, in fp32 rounded
+    back to nb's dtype."""
+    def eval_bn(stats):
+        mean, inv, bias = _bn_fold(stats, eps)
+        return lambda x: ((x.float() - mean) * inv + bias).to(x.dtype)
+
+    return mini_pointnet(nb, w1, b1, eval_bn(bn1), w2, b2, w3, b3,
+                         eval_bn(bn2), w4, b4)
 
 
 def _check_cuda_args(nb, w1, b1, bn1, w2, b2, w3, b3, bn2, w4, b4):

@@ -17,19 +17,26 @@ tri loss (``n_tower=3``), the dual loss anchored to text, images, video
 frames (``align_to`` image or video: the frozen image tower, frames
 averaged) or the classic CLIP pair (``align_to="clip"``: image against
 text, no Lens tower), and the video distill-tokens step
-(``video_distill``). A mesh needs the parallelism work (ROADMAP Queue 1,
-item 12).
+(``video_distill``). A point-cloud tower trains with batch BatchNorm and
+random FPS starts: the step draws one start a cloud for each micro-batch,
+once, from the generator it is given (JAX folds ``fps_key`` with the
+micro-batch's index), and both passes of that micro-batch use them. The
+running statistics move once a micro-batch, in the cached pass when
+``accum_freq`` > 1 (JAX keeps the state of its no-grad pass and drops the
+grad pass's). A mesh needs the parallelism work (ROADMAP Queue 1, item 12).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 
+from vitlens_tpu_torch.adapters.tokenizers import BatchNorm
 from vitlens_tpu_torch.models import tri
 from vitlens_tpu_torch.train import losses as losses_lib
 from vitlens_tpu_torch.train.freeze import Mask
@@ -169,11 +176,13 @@ class StepConfig:
                 f"(got n_tower={self.n_tower}, video_distill=False)")
 
 
-def _forward_features(model, batch, sc: StepConfig) -> Dict[str, torch.Tensor]:
+def _forward_features(model, batch, sc: StepConfig,
+                      fps_start: Optional[torch.Tensor] = None
+                      ) -> Dict[str, torch.Tensor]:
     """Encode the towers the step's objective reads: ``batch["image"]``
     (images, or frames [B, T, 3, H, W]) through the image tower,
     ``batch["text"]`` through the text tower and ``batch["visual"]``
-    through the Lens tower."""
+    through the Lens tower (a point cloud's FPS from ``fps_start``)."""
     kw = dict(normalize=True, compute_dtype=sc.compute_dtype, remat=sc.remat)
     if sc.video_distill:
         return tri.tri_forward_video_distill(
@@ -193,8 +202,8 @@ def _forward_features(model, batch, sc: StepConfig) -> Dict[str, torch.Tensor]:
         out["anchor_features"] = tri.encode_image(model, batch["image"], **kw)
     else:
         out["anchor_features"] = tri.encode_text(model, batch["text"], **kw)
-    out["visual_features"] = tri.encode_visual(model, batch["visual"],
-                                               train=True, **kw)
+    out["visual_features"] = tri.encode_visual(
+        model, batch["visual"], train=True, fps_start=fps_start, **kw)
     return out
 
 
@@ -204,54 +213,94 @@ def _grads(loss, params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
             for (n, p), g in zip(params.items(), got)}
 
 
-def micro_grads(model, batch, sc: StepConfig, params, loss_fn):
+@contextlib.contextmanager
+def running_stats_kept(model: nn.Module):
+    """Restores every BatchNorm's running statistics on exit: the passes
+    inside run in train mode, and their updates are dropped."""
+    saved = [(bn, bn.mean.clone(), bn.var.clone()) for bn in model.modules()
+             if isinstance(bn, BatchNorm)]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for bn, mean, var in saved:
+                bn.mean.copy_(mean)
+                bn.var.copy_(var)
+
+
+def micro_grads(model, batch, sc: StepConfig, params, loss_fn,
+                fps_start: Optional[torch.Tensor] = None):
     """(loss, {name: grad}) of one pass over the whole batch, for the
     trainable ``params`` only."""
-    loss = loss_fn(_forward_features(model, batch, sc), batch.get("label"))
+    loss = loss_fn(_forward_features(model, batch, sc, fps_start),
+                   batch.get("label"))
     return loss.detach(), _grads(loss, params)
 
 
-def accum_grads(model, batch, sc: StepConfig, params, loss_fn):
+def accum_grads(model, batch, sc: StepConfig, params, loss_fn,
+                fps_starts: Optional[Sequence[torch.Tensor]] = None):
     """--accum-freq replay (reference train.py:154-210): features of every
     micro-batch cached without grad, then per micro-batch a pass with grad,
     with the cached features of the others spliced in as negatives. The sum
     of the pass gradients is the full-batch gradient (no 1/accum scaling);
-    the loss is averaged for logging."""
+    the loss is averaged for logging. Micro-batch i's two passes take
+    ``fps_starts[i]``; the BatchNorm running statistics move in the cached
+    passes only."""
     A = sc.accum_freq
     b = next(iter(batch.values())).shape[0]
     if b % A:
         raise ValueError(f"batch {b} is not divisible by accum_freq {A}")
     micro = [{k: v[i * (b // A):(i + 1) * (b // A)] for k, v in batch.items()}
              for i in range(A)]
+    starts = list(fps_starts) if fps_starts is not None else [None] * A
     with torch.no_grad():
-        cached = [_forward_features(model, mb, sc) for mb in micro]
+        cached = [_forward_features(model, mb, sc, st)
+                  for mb, st in zip(micro, starts)]
     # the tokens too: the distill-token loss is a mean over samples, so
     # splicing the other micro-batches' cached tokens is exact
     keys = [k for k in cached[0] if k.endswith(("_features", "_tokens"))]
     loss_total, grads_total = 0.0, None
-    for i, mb in enumerate(micro):
-        out_i = _forward_features(model, mb, sc)
-        merged = {"logit_scale": out_i["logit_scale"]}
-        for k in keys:
-            merged[k] = torch.cat([out_i[k] if j == i else cached[j][k]
-                                   for j in range(A)])
-        loss = loss_fn(merged, batch.get("label"))
-        grads = _grads(loss, params)
-        loss_total = loss_total + loss.detach()
-        grads_total = grads if grads_total is None else {
-            n: grads_total[n] + g for n, g in grads.items()}
+    with running_stats_kept(model):
+        for i, mb in enumerate(micro):
+            out_i = _forward_features(model, mb, sc, starts[i])
+            merged = {"logit_scale": out_i["logit_scale"]}
+            for k in keys:
+                merged[k] = torch.cat([out_i[k] if j == i else cached[j][k]
+                                       for j in range(A)])
+            loss = loss_fn(merged, batch.get("label"))
+            grads = _grads(loss, params)
+            loss_total = loss_total + loss.detach()
+            grads_total = grads if grads_total is None else {
+                n: grads_total[n] + g for n, g in grads.items()}
     return loss_total / A, grads_total
+
+
+def draw_fps_starts(model, batch, accum_freq: int,
+                    generator: Optional[torch.Generator]):
+    """One FPS start a cloud for each of the ``accum_freq`` micro-batches,
+    uniform in [0, N) from ``generator``, on its device; None where the Lens
+    tower is no point-cloud tower or no generator is given (FPS then starts
+    at point 0, as JAX's does without ``fps_key``)."""
+    if generator is None or model.visual.cfg.modality != "pc":
+        return None
+    b, n = batch["visual"].shape[:2]
+    return [torch.randint(0, n, (b // accum_freq,), generator=generator,
+                          device=generator.device, dtype=torch.int32)
+            for _ in range(accum_freq)]
 
 
 def make_train_step(model_cfg, tx: AdamW, trainable_mask: Mask,
                     sc: StepConfig = StepConfig(), mesh=None,
                     partition: str = "ddp"):
-    """Build the single-device step: ``step(state, batch) -> (state,
-    metrics)`` with batch ``{"text": [B, 77] ids, "visual": the Lens
-    tower's input, "image": images [B, 3, H, W] or frames [B, T, 3, H, W],
-    optional "label"}`` (the keys the objective reads) and metrics
-    ``loss``, ``logit_scale`` (after the update) and ``grad_norm`` (before
-    the clip), 0-dim tensors. The towers come from the state's model;
+    """Build the single-device step: ``step(state, batch, fps_generator=None,
+    fps_starts=None) -> (state, metrics)`` with batch ``{"text": [B, 77] ids,
+    "visual": the Lens tower's input, "image": images [B, 3, H, W] or frames
+    [B, T, 3, H, W], optional "label"}`` (the keys the objective reads) and
+    metrics ``loss``, ``logit_scale`` (after the update) and ``grad_norm``
+    (before the clip), 0-dim tensors. A point-cloud Lens tower's FPS starts
+    are drawn from ``fps_generator`` (:func:`draw_fps_starts`), or given as
+    ``fps_starts``, one int tensor [B / accum_freq] a micro-batch; with
+    neither, FPS starts at point 0. The towers come from the state's model;
     ``model_cfg`` is the JAX signature's and is not read."""
     if mesh is not None or partition != "ddp":
         raise NotImplementedError(
@@ -264,16 +313,31 @@ def make_train_step(model_cfg, tx: AdamW, trainable_mask: Mask,
     loss_fn = losses_lib.make_loss_fn(sc.n_tower, sc.contra_loss_type,
                                       sim_thres=sc.sim_thres)
     names = [n for n, t in trainable_mask.items() if t]
-    grads_fn = accum_grads if sc.accum_freq > 1 else micro_grads
+    A = sc.accum_freq
 
-    def step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    def step(state: TrainState, batch,
+             fps_generator: Optional[torch.Generator] = None,
+             fps_starts: Optional[Sequence[torch.Tensor]] = None
+             ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         model = state.model
         dev = model.logit_scale.device
         batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
         batch["text"] = batch["text"].long()
+        if fps_starts is None:
+            fps_starts = draw_fps_starts(model, batch, A, fps_generator)
+        if fps_starts is not None:
+            if len(fps_starts) != A:
+                raise ValueError(f"{len(fps_starts)} sets of FPS starts for "
+                                 f"accum_freq {A}")
+            fps_starts = [torch.as_tensor(s).to(dev) for s in fps_starts]
         all_params = dict(model.named_parameters())
         params = {n: all_params[n] for n in names}
-        loss, grads = grads_fn(model, batch, sc, params, loss_fn)
+        if A > 1:
+            loss, grads = accum_grads(model, batch, sc, params, loss_fn,
+                                      fps_starts)
+        else:
+            loss, grads = micro_grads(model, batch, sc, params, loss_fn,
+                                      None if fps_starts is None else fps_starts[0])
         grad_norm = global_norm(grads)
         tx.update_(params, grads, state.opt_state)
         clamp_logit_scale(model)

@@ -18,10 +18,12 @@ Layouts are unchanged ([in, out] matmul weights, the OIHW audio conv). A key
 of the tree that the module lacks, a module parameter the tree lacks, or a
 shape mismatch raises. :func:`load_tri_params` loads a whole JAX
 ``tri_model_init`` tree. :func:`load_state` does the same for the JAX state
-tree (the point tokenizer's BatchNorm running statistics) and the module's
-buffers. :func:`merge_params` is the non-strict load of a checkpoint: it
-copies the leaves the trees have and leaves the module's other parameters
-as they are. Values are copied into the existing parameters, so
+tree (the point tokenizers' BatchNorm running statistics: PointBERT's
+``encoder.bn1/bn2``, PNSA's ``sa.{i}.bn``) and the module's buffers;
+:func:`read_state` reads the buffers back into the layout of a JAX state
+tree (a train step's ``model_state``). :func:`merge_params` is the
+non-strict load of a checkpoint: it copies the leaves the trees have and
+leaves the module's other parameters as they are. Values are copied into the existing parameters, so
 they take each parameter's dtype and device (matmul weights already cast to
 the compute dtype stay so).
 """
@@ -106,6 +108,22 @@ def load_state(module: nn.Module, tree: Any) -> nn.Module:
     quant = _quant_buffers(module)
     targets = {n: b for n, b in module.named_buffers() if n not in quant}
     return _copy_into(module, tree, targets, "state")
+
+
+def read_state(module: nn.Module, like: Any) -> Any:
+    """The module's buffers as a tree of fp32 numpy arrays with the structure
+    of the JAX state tree ``like`` (dicts and lists; its leaves only name
+    the buffers)."""
+    buffers = dict(module.named_buffers())
+
+    def build(tree, prefix):
+        if isinstance(tree, dict):
+            return {k: build(v, f"{prefix}{k}.") for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [build(v, f"{prefix}{i}.") for i, v in enumerate(tree)]
+        return buffers[prefix[:-1]].detach().float().cpu().numpy()
+
+    return build(like, "")
 
 
 def merge_params(module: nn.Module, params: Any, state: Any = None) -> nn.Module:

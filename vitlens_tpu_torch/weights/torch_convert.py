@@ -18,9 +18,10 @@ the JAX package's trees by the tests.
 
 ``_convert_adapter`` takes the image/tactile/video patch embedding (and the
 video tower's ``ltpos``), the depth patch embedding, the EEG Conv1d, the AST
-audio adapter and the PointBERT tokenizer; the PNSA tokenizer is not yet
-ported. The identity Lens has no keys; the transformer Lens is a plain
-``perceiver.resblocks.*`` stack.
+audio adapter, the PointBERT tokenizer and the PNSA tokenizer (OpenShape's
+``sa.mlp_convs.{i}`` Conv2d [out, in, 1, 1], ``sa.mlp_bns.{i}``, ``lift.0``
+Conv1d and ``lift.2`` LayerNorm). The identity Lens has no keys; the
+transformer Lens is a plain ``perceiver.resblocks.*`` stack.
 """
 
 from __future__ import annotations
@@ -216,6 +217,19 @@ def _convert_adapter(sd: Mapping[str, Any], cfg: TowerConfig) -> Tuple[Params, S
             },
         }
         return p, {"encoder": {"bn1": bn1_s, "bn2": bn2_s}}
+    if m == "pc" and cfg.point.tokenizer == "pnsa":
+        a = sub(sd, "visual_adapter.")
+        convs, states = [], []
+        for i in range(3):
+            bn_p, bn_s = _bn(a, f"sa.mlp_bns.{i}")
+            w = _j(a[f"sa.mlp_convs.{i}.weight"])  # Conv2d [out, in, 1, 1]
+            convs.append({"conv": {"w": np.ascontiguousarray(w[..., 0, 0].T),
+                                   "b": _j(a[f"sa.mlp_convs.{i}.bias"])},
+                          "bn": bn_p})
+            states.append({"bn": bn_s})
+        return ({"sa": convs, "lift": {"conv": _conv1x1(a, "lift.0"),
+                                       "ln": _ln(a, "lift.2")}},
+                {"sa": states})
     what = (f"the {cfg.point.tokenizer!r} point tokenizer" if m == "pc"
             else f"the {m!r} adapter")
     raise NotImplementedError(f"converting {what} is not yet ported")
