@@ -190,6 +190,26 @@ Phases, one printed line each (or more); any failure exits non-zero:
      checks of 4d, and each BatchNorm run in train mode once a pass with
      its running statistics after the step those its accum_freq cached
      passes left (the grad passes' updates dropped).
+  4x. train CLI: `python -m vitlens_tpu_torch.cli.train` as a child
+     process on the card, the published vitlensL audio recipe (--n-tower 2
+     --align-to text --unlock-cls --precision bf16, ViT-L-14 at full width
+     and depth, B = 8, accum_freq 2) from files written here: 24
+     AudioSet-style clips of 5-10 s (every fourth a FLAC, decoded by the
+     native host library), an ESC50-style fold of 8 clips over 4 classes, an
+     AudioCaps-style test set of 6 rows, and a reference-layout vitlensL tri
+     file (fp16, tools/reference_layout.py) as --pretrained. Run (a): 2
+     epochs, exit 0, a finite loss and grad_norm > 0 every step, val lines
+     with ESC50 accuracy, AudioCaps r_mean and the primary metric, epoch_1,
+     epoch_2, epoch_latest and checkpoint_best written. Run (b): --resume
+     latest --epochs 3 continues at epoch 2 with the step count; every
+     trainable tensor moved, every frozen one bit-identical to the
+     pretrained file's after the bf16 cast. In this process, through
+     cli.train's functions: the AdamW moments loaded from epoch_2 bit-equal
+     to the file's; one train step (the batch through the DevicePrefetcher)
+     with its launches against train_launches; one eval batch (8 x 3 clips)
+     with tower_launches; checkpoint_best's eval features (loaded with
+     load_checkpoint) cosine >= 0.99 against the same weights in fp32 on the
+     CPU. Run (c): --visual-stat-flops prints its JSON line.
   5. timing: each kernel against its plain version (and, where one PyTorch
      call computes the same function, that call) at the B64 shapes of the
      main paths, beside each kernel's bound, with cuBLAS's two products
@@ -222,8 +242,14 @@ Phases, one printed line each (or more); any failure exits non-zero:
      per .npy and per .png, EEGProcessor per .pt and VideoProcessor per
      12-frame directory, the on-device fbank at [192, 80000], and a
      closed-loop served run (64 audio requests of one 5 s WAV from 16 client
-     threads at max_batch 64: requests/s, p50 and p95 from /healthz). Every
-     time is printed beside the card's name and power limit.
+     threads at max_batch 64: requests/s, p50 and p95 from /healthz); the
+     native host library: PointCloudProcessor on raw .npy clouds of 9000
+     and 10000 points (FPS through the library) beside the plain numpy FPS
+     loop, a 10 s FLAC decoded by the library beside the pure-Python
+     decoder, and the closed loop again with one 5 s FLAC a request; phase
+     4x's train step (host-timed) and the host ms a clip of its AudioSet
+     pipeline. Every time is printed beside the card's name and power
+     limit.
 The last lines are {"kernels": [...]}, the card's name and power limit, then
 {"ok": true, "device": {...}}.
 """
@@ -2469,6 +2495,372 @@ def served_timings(torch, np, card, ctx):
     return rates
 
 
+# -- phase 4x: the training CLI ------------------------------------------------
+
+CLI_CLIPS = 24      # AudioSet-style train clips of 5-10 s (every fourth FLAC)
+CLI_EPOCHS = 2      # run (a); run (b) resumes into a third
+CLI_ARGS = ("--modality", "audio", "--model", "ViT-L-14", "--train-data",
+            "audioset@train", "--val-data", "esc50@fold-1::audiocaps@test",
+            "--n-tower", "2", "--align-to", "text", "--unlock-cls",
+            "--precision", "bf16", "--batch-size", "8", "--accum-freq", "2",
+            "--log-every-n-steps", "1", "--seed", "0", "--warmup", "2",
+            "--lr", "1e-4")
+
+
+def write_cli_inputs(torch, np, root):
+    """Phase 4x's files under ``root``: CLI_CLIPS AudioSet-style clips (16
+    kHz mono, 5-10 s, every fourth one FLAC) with audioset_train.json and the
+    class CSV (4 classes); an ESC50-style fold of 8 clips over 4 classes with
+    its label JSON; an AudioCaps-style test tsv of 6 rows with its texts
+    JSON; and a reference-layout vitlensL tri file from a seeded generator
+    (the audio tower under visual., the image tower under image., the text
+    tower, logit_scale; fp16). -> (env, path of the pretrained file)."""
+    from tools.reference_layout import (pcm_from_float, text_tower_state_dict,
+                                        vision_tower_state_dict, write_flac,
+                                        write_wav)
+    from vitlens_tpu_torch.config import image_tower_config, make_model_config
+
+    meta = os.path.join(root, "meta", "modal_audio", "data")
+    os.makedirs(meta)
+    os.makedirs(os.path.join(root, "audio"))
+    rng = np.random.RandomState(SEED + 13)
+    paths = []
+    for i in range(CLI_CLIPS):
+        secs = 5.0 + 5.0 * rng.rand()
+        pcm = pcm_from_float(_tone(np, 16000, secs, 1, i), 16)
+        name = f"audio/clip{i:02d}." + ("flac" if i % 4 == 3 else "wav")
+        (write_flac if name.endswith("flac") else write_wav)(
+            os.path.join(root, name), pcm, 16000)
+        paths.append(name)
+    classes = ["dog", "rain", "siren", "engine"]
+
+    def dump(name, obj):
+        with open(os.path.join(meta, name), "w") as f:
+            json.dump(obj, f) if not isinstance(obj, str) else f.write(obj)
+
+    dump("audioset_train.json", [{"uniq_id": i, "audio_path": p,
+                                  "labels": [i % 4] + ([(i + 1) % 4] if i % 3 == 0 else [])}
+                                 for i, p in enumerate(paths)])
+    dump("audioset_class_labels_indices.csv", "index,mid,display_name\n" + "".join(
+        f"{c},/m/{c},{n}\n" for c, n in enumerate(classes)))
+    dump("esc50_fold-1.json", [{"uniq_id": i, "audio_path": paths[i],
+                                "text": classes[i % 4], "class_label": i % 4}
+                               for i in range(8)])
+    dump("esc50_label.json", {str(c): [n] for c, n in enumerate(classes)})
+    dump("audiocaps_test_new.tsv", "uniq_id\taudio\ttext\tduration\n" + "".join(
+        f"{100 + i}\t{paths[8 + i]}\tthe sound of {classes[i % 4]} {i}\t5.0\n"
+        for i in range(6)))
+    dump("audiocaps_test_texts.json", {str(100 + i): [
+        f"the sound of {classes[i % 4]} {i}", f"a recording of {classes[i % 4]}"]
+        for i in range(6)})
+    cfg = make_model_config(CLI_ARGS[CLI_ARGS.index("--model") + 1], "audio")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    half = torch.float16
+    sd = {"visual." + k: v for k, v in vision_tower_state_dict(cfg.tower, g, half).items()}
+    sd.update({"image." + k: v for k, v in vision_tower_state_dict(
+        image_tower_config(cfg), g, half).items()})
+    sd.update(text_tower_state_dict(cfg.text, cfg.embed_dim, g, half))
+    sd["logit_scale"] = torch.tensor(float(np.log(1 / 0.07)))
+    pre = os.path.join(root, "vitlensL_audio_tri.pt")
+    torch.save({k: v.cpu() for k, v in sd.items()}, pre)
+    env = dict(os.environ, VITLENS_AUDIO_DATA_DIR=root,
+               VITLENS_METADATA_DIR=os.path.join(root, "meta"))
+    return env, pre
+
+
+def _cli(env, argv, log, timeout=900):
+    """python -m vitlens_tpu_torch.cli.train ``argv`` as a child process on
+    the card, its output into ``log``; -> (exit code, seconds, stdout)."""
+    cmd = [sys.executable, "-m", "vitlens_tpu_torch.cli.train", *argv]
+    t0 = time.time()
+    with open(log, "w") as err:
+        p = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                           env=env, stdout=subprocess.PIPE, stderr=err,
+                           text=True, timeout=timeout)
+    return p.returncode, time.time() - t0, p.stdout
+
+
+def _records(run_dir):
+    with open(os.path.join(run_dir, "results.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _tree(path):
+    import torch
+
+    return torch.load(os.path.join(path, "tree.pt"), map_location="cpu",
+                      weights_only=True)
+
+
+def train_cli_phase(torch, np, counters, totals, card):
+    """Phase 4x: the published vitlensL audio recipe through ``python -m
+    vitlens_tpu_torch.cli.train`` on the card at full ViT-L-14 width and
+    depth, from audio files (see write_cli_inputs); run (a) trains 2 epochs
+    with zero-shot eval (ESC50 accuracy, AudioCaps recall) at each end and
+    writes epoch_1, epoch_2, epoch_latest and checkpoint_best; run (b)
+    resumes from --resume latest into epoch 3; run (c) prints
+    --visual-stat-flops. In this process, through cli.train's functions: the
+    AdamW moments loaded from epoch_2 bit-equal to the file's, one train step
+    and one eval batch with their launches, and checkpoint_best's eval
+    features against the same weights in fp32 on the CPU. Returns what
+    phase 5 prints."""
+    import tempfile
+
+    from vitlens_tpu_torch.cli import train as T
+    from vitlens_tpu_torch.cli.args import parse_args
+    from vitlens_tpu_torch.data.loader import DevicePrefetcher
+    from vitlens_tpu_torch.models import tri
+    from vitlens_tpu_torch.train import checkpoint as C
+
+    t0 = time.time()
+    torch.cuda.empty_cache()  # the children allocate on the same card
+    root = tempfile.mkdtemp(prefix="vitlens_4x_")
+    env, pre = write_cli_inputs(torch, np, root)
+    t_files = time.time() - t0
+    logs = os.path.join(root, "logs")
+    argv = [*CLI_ARGS, "--pretrained", pre, "--logs", logs, "--name", "a"]
+    run, ckpts = os.path.join(logs, "a"), os.path.join(logs, "a", "checkpoints")
+
+    # -- run (a): 2 epochs ------------------------------------------------------
+    rc, t_a, _ = _cli(env, argv + ["--epochs", str(CLI_EPOCHS)],
+                      os.path.join(root, "run_a.log"))
+    if rc != 0:
+        fail(f"4x run (a): exit {rc}: {open(os.path.join(root, 'run_a.log')).read()[-2000:]}")
+    recs = _records(run)
+    train = [r for r in recs if "train/loss" in r]
+    val = [r for r in recs if "val/primary" in r]
+    steps_a = len(train)
+    per_epoch = CLI_CLIPS // 8
+    if [r["step"] for r in train] != list(range(1, per_epoch * CLI_EPOCHS + 1)):
+        fail(f"4x run (a): train steps {[r['step'] for r in train]}")
+    bad = [r for r in train if not (np.isfinite(r["train/loss"])
+                                    and r["train/grad_norm"] > 0)]
+    if bad:
+        fail(f"4x run (a): steps without a finite loss and a gradient: {bad}")
+    want_keys = ("val/esc50@fold-1/accuracy", "val/audiocaps@test/r_mean",
+                 "val/primary")
+    if len(val) != CLI_EPOCHS or not all(k in r for r in val for k in want_keys):
+        fail(f"4x run (a): val lines {val}")
+    names = sorted(os.listdir(ckpts))
+    for n in ("epoch_1", "epoch_2", "epoch_latest", "checkpoint_best", "best.json"):
+        if n not in names:
+            fail(f"4x run (a): {n} missing from {names}")
+    ep2 = _tree(os.path.join(ckpts, "epoch_2"))
+
+    # -- run (b): --resume latest into epoch 3 ------------------------------------
+    rc, t_b, _ = _cli(env, argv + ["--epochs", str(CLI_EPOCHS + 1), "--resume",
+                                   "latest"], os.path.join(root, "run_b.log"))
+    out_log = open(os.path.join(run, "out.log")).read()
+    if rc != 0 or f"(epoch {CLI_EPOCHS})" not in out_log:
+        fail(f"4x run (b): exit {rc}: {open(os.path.join(root, 'run_b.log')).read()[-2000:]}")
+    resumed = [r for r in _records(run) if "train/loss" in r][steps_a:]
+    if ([r["step"] for r in resumed] != list(range(steps_a + 1, steps_a + per_epoch + 1))
+            or any(r["train/epoch"] != CLI_EPOCHS for r in resumed)
+            or not all(np.isfinite(r["train/loss"]) for r in resumed)):
+        fail(f"4x run (b): resumed steps {resumed}")
+    ep3 = _tree(os.path.join(ckpts, f"epoch_{CLI_EPOCHS + 1}"))
+    if ep3["step"] != ep2["step"] + per_epoch:
+        fail(f"4x run (b): step {ep3['step']} after epoch 3, epoch 2 ended at {ep2['step']}")
+
+    # -- in this process, through cli.train's functions ---------------------------
+    args = parse_args(argv + ["--epochs", str(CLI_EPOCHS + 1), "--device", "cuda"])
+    os.environ.update({k: env[k] for k in ("VITLENS_AUDIO_DATA_DIR",
+                                           "VITLENS_METADATA_DIR")})
+    cfg, tok, model, mask = T.build_model(args, "cuda")
+    info = T.build_train_data(args, tok, 1, cfg)
+    step, ts = T.build_step(args, model, cfg, mask, info.num_batches * args.epochs)
+    # frozen: the pretrained file's weights after the bf16 cast, untouched by
+    # runs (a) and (b); trainable: moved by run (b)
+    frozen_moved = [n for n, p in model.named_parameters()
+                    if not mask[n] and not torch.equal(p.cpu(), ep3["params"][n])]
+    unmoved = [n for n, p in model.named_parameters()
+               if mask[n] and torch.equal(ep3["params"][n], ep2["params"][n])]
+    if frozen_moved or unmoved:
+        fail(f"4x: frozen tensors that differ from the pretrained file's "
+             f"{frozen_moved[:5]}, trainable ones run (b) left {unmoved[:5]}")
+    C.load_checkpoint(os.path.join(ckpts, "epoch_2"), ts)
+    moments = [(m, n) for m in ("mu", "nu") for n, t in ts.opt_state[m].items()
+               if not torch.equal(t.cpu(), ep2["opt_state"][m][n])]
+    if (moments or ts.step != ep2["step"]
+            or ts.opt_state["count"] != ep2["opt_state"]["count"]):
+        fail(f"4x: AdamW state loaded from epoch_2 differs from the file's: "
+             f"{moments[:5]}, step {ts.step} vs {ep2['step']}")
+    n_moments = sum(t.numel() for t in ts.opt_state["mu"].values())
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    raw = next(iter(info.dataloader))
+    batch = next(iter(DevicePrefetcher(
+        [raw], device="cuda", map_fn=lambda r: T._prep_batch(r, args, tok))))
+    if not (batch["visual"].is_cuda and batch["text"].is_cuda):
+        fail("4x: the prefetcher handed out host tensors")
+    _, counts = run_counted(torch, counters, totals,
+                            lambda: step(ts, batch, fps_generator=gen))
+    want = train_launches(cfg.tower, cfg.text.layers, args.accum_freq, False, False)
+    if counts != want:
+        fail(f"4x train step: launches {counts}, expected {want}")
+    step_s = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        _, m = step(ts, batch, fps_generator=gen)
+        float(m["loss"])
+        step_s.append(time.perf_counter() - t1)
+    # one ESC50 eval batch (8 clips x 3) and checkpoint_best's features
+    enc_visual, _ = T.eval_encoders(args, model)
+    esc = T._build_real_dataset(args, "esc50@fold-1", train=False, cfg=cfg)
+    x = np.stack([esc[i]["audio"] for i in range(8)])
+    C.load_checkpoint(os.path.join(ckpts, "checkpoint_best"), ts, ckpt_only=True)
+    flat = x.reshape((-1,) + x.shape[2:])
+    feats, ecounts = run_counted(torch, counters, totals, lambda: enc_visual(flat))
+    if ecounts != tower_launches(cfg.tower):
+        fail(f"4x eval batch: launches {ecounts}, expected {tower_launches(cfg.tower)}")
+    # the CPU fp32 copy on one sample's 3 clips (ViT-L in fp32 on the host)
+    ref = copy.deepcopy(model.visual).to(device="cpu", dtype=torch.float32)
+    with torch.no_grad():
+        want_feats = ref(torch.from_numpy(flat[:3]), torch.float32)
+    del ref
+    ecos = cos_min(torch, torch.from_numpy(feats[:3]), want_feats)
+    if not (np.isfinite(feats).all() and ecos >= COS_MIN):
+        fail(f"4x: checkpoint_best's eval features vs CPU fp32: cosine {ecos}")
+    # the host pipeline a clip: decode, mixup, fbank, SpecAugment
+    ds = info.dataloader.dataset
+    clip_ms = []
+    for i in range(8):
+        t1 = time.perf_counter()
+        ds[i]
+        clip_ms.append((time.perf_counter() - t1) * 1e3)
+    del model, ts, step, batch
+
+    # -- run (c): --visual-stat-flops ---------------------------------------------
+    rc, t_c, out = _cli(env, [*CLI_ARGS[:4], "--visual-stat-flops", "--logs",
+                              logs, "--name", "f"],
+                        os.path.join(root, "run_c.log"))
+    try:
+        flops = json.loads(out.strip().splitlines()[-1])
+    except (ValueError, IndexError):
+        flops = None
+    if rc != 0 or not flops or not flops["params_M"] > 0 or not flops[
+            "gflops_per_sample"] > 0:
+        fail(f"4x run (c): exit {rc}, stdout {out[-500:]!r}")
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"[4x train CLI] {card} | python -m vitlens_tpu_torch.cli.train "
+          f"{' '.join(CLI_ARGS)} --pretrained <reference-layout vitlensL tri "
+          f"file, fp16> on {CLI_CLIPS} AudioSet-style clips (6 FLAC) with ESC50 "
+          f"(8 clips) and AudioCaps (6 rows) val: run (a) {CLI_EPOCHS} epochs, "
+          f"{steps_a} steps, exit 0 in {t_a:.1f} s, losses "
+          f"{[round(r['train/loss'], 4) for r in train]}, grad_norm "
+          f"{[round(r['train/grad_norm'], 4) for r in train]}, val "
+          + "; ".join(f"epoch {i + 1}: accuracy {r[want_keys[0]]:.4f} r_mean "
+                      f"{r[want_keys[1]]:.4f} primary {r[want_keys[2]]:.4f}"
+                      for i, r in enumerate(val))
+          + f"; checkpoints {names}; run (b) --resume latest: epoch "
+          f"{CLI_EPOCHS} steps {[r['step'] for r in resumed]}, exit 0 in "
+          f"{t_b:.1f} s; frozen tensors bit-identical to the pretrained file's "
+          f"after the bf16 cast, every trainable one moved by run (b); AdamW "
+          f"moments ({n_moments} elements each) loaded from epoch_2 bit-equal "
+          f"to the file's; in-process B = 8 accum_freq 2 step launches "
+          f"{dict((k, v) for k, v in counts.items() if v)}, eval batch (8 x 3 "
+          f"clips) {dict((k, v) for k, v in ecounts.items() if v)}; "
+          f"checkpoint_best eval features vs CPU fp32 min cosine {ecos:.6f}; "
+          f"run (c) --visual-stat-flops {flops} in {t_c:.1f} s; files written "
+          f"in {t_files:.1f} s; phase took {time.time() - t0:.1f} s", flush=True)
+    return {"step_s": step_s, "clip_ms": clip_ms, "flops": flops}
+
+
+def train_cli_timings(card, ctx):
+    """Phase 5's lines of phase 4x: the host-timed seconds of the B = 8
+    accum_freq 2 train step of the recipe through cli.train's step, and the
+    host ms a clip of the AudioSet train pipeline (decode, mixup, fbank,
+    SpecAugment), one thread."""
+    s = ctx["step_s"]
+    print(f"[5 timing] {card} | train CLI step (vitlensL audio recipe, B = 8 "
+          f"accum_freq 2, bf16; batch on the card): {min(s):.4f} s best of "
+          f"{len(s)}, all {[round(x, 4) for x in s]}; host AudioSet train "
+          f"pipeline a clip (decode, mixup, fbank, SpecAugment): "
+          f"{min(ctx['clip_ms']):.2f} ms best, all "
+          f"{[round(x, 2) for x in ctx['clip_ms']]}", flush=True)
+
+
+def host_library_timings(torch, np, card, ctx):
+    """Phase 5's native host library lines: PointCloudProcessor (8192
+    points) on raw .npy clouds of 9000 and 10000 points with FPS through the
+    library beside the plain numpy loop; a 10 s FLAC decoded by the library
+    beside the pure-Python decoder; and a closed served loop of FLAC
+    requests (64 requests of one 5 s FLAC from 16 client threads)."""
+    import tempfile
+    import threading
+
+    from tools.reference_layout import pcm_from_float, write_flac
+    from vitlens_tpu_torch.data import processors as P
+    from vitlens_tpu_torch.data.audio_decode import decode_flac, load_audio_file
+    from vitlens_tpu_torch.serve import make_server
+
+    def best_ms(fn, runs):
+        fn()
+        times = []
+        for _ in range(runs):
+            t1 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t1) * 1e3)
+        return min(times)
+
+    files, root = ctx["files"], tempfile.mkdtemp(prefix="vitlens_5h_")
+    rng = np.random.RandomState(SEED + 21)
+    cloud10k = os.path.join(root, "cloud10k.npy")
+    np.save(cloud10k, (rng.randn(10000, 3) * 0.3).astype(np.float32))
+    proc = P.PointCloudProcessor(n_sample_points=8192)
+    for label, path in (("9000", files["npy0"]), ("10000", cloud10k)):
+        pc = np.load(path)
+        nat = best_ms(lambda: proc([path]), 5)
+        plain = best_ms(lambda: P.farthest_point_sample_plain(pc, 8192), 1)
+        same = np.array_equal(P.farthest_point_sample_np(pc, 8192),
+                              P.farthest_point_sample_plain(pc, 8192))
+        print(f"[5 timing] {card} | host PointCloudProcessor, one .npy cloud of "
+              f"{label} points -> [1, 8192, 3] (FPS through the native "
+              f"library): {nat:.2f} ms best of 5; the plain numpy FPS loop "
+              f"alone on the same cloud: {plain:.2f} ms; same points: {same}",
+              flush=True)
+    flac10 = os.path.join(root, "ten.flac")
+    write_flac(flac10, pcm_from_float(_tone(np, 16000, 10.0, 1, 3), 16), 16000)
+    nat = best_ms(lambda: load_audio_file(flac10), 5)
+    py = best_ms(lambda: decode_flac(flac10), 1)
+    if not np.array_equal(load_audio_file(flac10)[0], decode_flac(flac10)[0]):
+        fail("5: the native FLAC decode differs from the pure-Python one")
+    print(f"[5 timing] {card} | FLAC decode of a 10 s 16 kHz mono file: native "
+          f"library {nat:.3f} ms best of 5, pure-Python decoder {py:.1f} ms "
+          f"(bit-equal)", flush=True)
+    flac5 = os.path.join(root, "five.flac")
+    write_flac(flac5, pcm_from_float(_tone(np, 16000, 5.0, 1, 4), 16), 16000)
+    srv, th = _serve(make_server, ctx["model"], B, 50)
+    port = srv.server_address[1]
+    _post(port, {"inputs": {"audio": [flac5]}})
+    errors = []
+
+    def client():
+        for _ in range(4):
+            try:
+                _post(port, {"inputs": {"audio": [flac5]}})
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append(e)
+
+    clients = [threading.Thread(target=client) for _ in range(16)]
+    t1 = time.perf_counter()
+    for c in clients:
+        c.start()
+    for c in clients:
+        c.join(600)
+    wall = time.perf_counter() - t1
+    health = _healthz(port)
+    _stop(srv, th)
+    shutil.rmtree(root, ignore_errors=True)
+    if errors:
+        fail(f"FLAC served run: {len(errors)} requests failed: {errors[0]!r}")
+    lat = health["latency"]
+    print(f"[5 timing] {card} | served closed loop, FLAC: 64 audio requests "
+          f"(one 5 s 16 kHz FLAC each, decoded by the native library) from 16 "
+          f"client threads, max_batch {B}, max_wait 50 ms: {64 / wall:.2f} "
+          f"requests/s ({wall:.2f} s), latency p50 {lat['p50_ms']} ms, p95 "
+          f"{lat['p95_ms']} ms (/healthz, the warm request included)", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2818,6 +3210,8 @@ def main() -> int:
         dict(lock_image=True, lock_text=True, lock_visual=True),
         StepConfig(n_tower=3, compute_dtype=torch.bfloat16),
         [("B=8", 8, 1)] * 2 + [("B=8 accum_freq 4", 8, 4)] * 2)
+    # -- 4x: the training CLI (files, eval, checkpoints, resume) ----------
+    cli = train_cli_phase(torch, np, counters, launches, card)
 
     # -- 5: timing at the B64 shapes -----------------------------------------
     timings = {name: [] for name in kernels}
@@ -3006,6 +3400,8 @@ def main() -> int:
     g_rate = vitlensG_timings(torch, card, g_model)
     del g_model
     served_rates = served_timings(torch, np, card, served)
+    host_library_timings(torch, np, card, served)
+    train_cli_timings(card, cli)
     shutil.rmtree(served["root"], ignore_errors=True)
     del served
 

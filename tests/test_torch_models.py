@@ -123,18 +123,20 @@ def test_from_jax_unstacks_blocks_and_rejects_mismatch():
 
 
 def test_unported_modalities_raise():
-    """What is unknown or still unported raises: a point tokenizer other
-    than PointBERT and PNSA, train-time patch dropout. The PNSA tower (the
-    vitlensG pc tower), the depth tower (its identity Lens), the EEG tower
-    and the video train transforms, ported since, build."""
+    """What is unknown raises: a point tokenizer other than PointBERT and
+    PNSA. The PNSA tower (the vitlensG pc tower), the depth tower (its
+    identity Lens), the EEG tower, the video train transforms and train-time
+    patch dropout, ported since, build and run."""
     pc = PC.make_model_config("ViT-Tiny-Test", "pc").tower
     with pytest.raises(ValueError, match="unknown point tokenizer"):
         VisionTower(PC.replace(pc, point=PC.replace(pc.point, tokenizer="pointnet")))
     pnsa = VisionTower(PC.replace(pc, point=PC.replace(pc.point, tokenizer="pnsa")))
     assert len(pnsa.adapter.sa) == 3
     dropping = VisionTower(PC.replace(pc, patch_dropout=0.5))
-    with pytest.raises(NotImplementedError, match="patch dropout"):
-        dropping(torch.zeros(1, 64, 3), train=True)
+    dropping.init_(torch.Generator().manual_seed(0))
+    keep = torch.arange(dropping.cfg.num_tokens // 2)[None]
+    assert torch.isfinite(dropping(torch.randn(1, 64, 3), train=True,
+                                   patch_keep=keep)).all()
     from vitlens_tpu_torch.data.video_processors import VideoProcessor
 
     train = VideoProcessor(train=True)

@@ -34,7 +34,10 @@ def test_port_imports_no_jax():
         "          'scripts.bench_dma_gather', 'scripts.bench_int8_encode', 'ops.fbank',\n"
         "          'data.audio_decode', 'weights.torch_convert', 'serve', 'cli.serve',\n"
         "          'data.rng', 'data.video_processors', 'data.augment',\n"
-        "          'data.video_randaugment', 'train.openshape'):\n"
+        "          'data.video_randaugment', 'train.openshape', 'data.native',\n"
+        "          'data.loader', 'data.datasets', 'data.lmdb_reader', 'eval.metadata',\n"
+        "          'eval.metrics', 'eval.zero_shot', 'train.checkpoint', 'utils.logging',\n"
+        "          'utils.flops', 'cli.args', 'cli.train'):\n"
         "    assert 'vitlens_tpu_torch.' + n in names, n\n"
         "sys.path.insert(0, '.')\n"
         "import tools.reference_layout\n"
@@ -57,7 +60,11 @@ def test_port_sources_never_name_jax():
     for new in ("ops/fbank.py", "data/audio_decode.py", "weights/torch_convert.py",
                 "serve.py", "cli/serve.py", "data/rng.py",
                 "data/video_processors.py", "data/augment.py",
-                "data/video_randaugment.py", "train/openshape.py"):
+                "data/video_randaugment.py", "train/openshape.py",
+                "data/native.py", "data/loader.py", "data/datasets.py",
+                "data/lmdb_reader.py", "eval/metrics.py", "eval/zero_shot.py",
+                "eval/metadata.py", "train/checkpoint.py", "utils/logging.py",
+                "utils/flops.py", "cli/args.py", "cli/train.py"):
         assert new in names, new
     paths += [os.path.join(REPO, "tools", "reference_layout.py"),
               os.path.join(REPO, "chip_smoke.py")]

@@ -245,10 +245,12 @@ def test_train_step_matches_jax(tiny, accum, remat, clip, unlock):
 
 
 def test_train_step_refuses_the_unported(tiny):
-    """What still raises: a mesh or FSDP, train-time patch dropout, "dots"
-    remat, a mask that was never applied and a trainable parameter that is
-    no fp32 master. Point-cloud training, which raised here too, runs: a
-    train pass moves the tokenizer's running statistics."""
+    """What still raises: a mesh or FSDP, an unknown remat tag, a mask that
+    was never applied and a trainable parameter that is no fp32 master.
+    Point-cloud training, train-time patch dropout and the "dots" remat,
+    which raised here too, run: a train pass moves the tokenizer's running
+    statistics, a dropping tower keeps CLS and the drawn patches, "dots"
+    recomputes the block as full remat does."""
     jcfg, pcfg, params, _ = tiny
     model = _port_model(pcfg, params)
     mask = PF.tri_model_mask(model, pcfg, unlock_cls=True)
@@ -264,12 +266,20 @@ def test_train_step_refuses_the_unported(tiny):
     assert torch.isfinite(feats).all()
     assert pc.visual.adapter.encoder.bn1.mean.abs().max() > 0
     dropping = PC.replace(pcfg, tower=PC.replace(pcfg.tower, patch_dropout=0.5))
-    with pytest.raises(NotImplementedError, match="patch dropout"):
-        TriModel(dropping, device="cpu").visual(torch.zeros(1, 48, 32), train=True)
+    tower = TriModel(dropping, device="cpu").visual
+    tower.init_(torch.Generator().manual_seed(0))
+    from vitlens_tpu_torch.models.vit import draw_patch_keep
+
+    keep = draw_patch_keep(dropping.tower, 1, torch.Generator().manual_seed(1))
+    assert keep.shape == (1, max(1, int(dropping.tower.num_tokens * 0.5)))
+    assert torch.isfinite(tower(torch.zeros(1, 48, 32), train=True,
+                                patch_keep=keep)).all()
     with pytest.raises(ValueError, match="make_trainable_"):
         PStep.init_train_state(model, tx)  # the mask was never applied
-    with pytest.raises(NotImplementedError, match="dots"):
-        model.visual.trunk(torch.zeros(1, 5, 32), remat="dots")
+    with pytest.raises(ValueError, match="unknown remat"):
+        model.visual.trunk(torch.zeros(1, 5, 32), remat="everything")
+    x = torch.randn(1, 5, 32)
+    assert torch.equal(model.visual.trunk(x, remat="dots"), model.visual.trunk(x))
     half = copy.deepcopy(model)
     half.visual.proj.data = half.visual.proj.data.bfloat16()
     with pytest.raises(ValueError, match="fp32"):

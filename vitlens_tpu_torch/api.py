@@ -261,3 +261,48 @@ class ViTLens(nn.Module):
                 feats[m].cpu()  # waits for the device
                 if log:
                     log(f"warmup {m} b{b} done")
+
+    # -- checkpoint export (reference vitlens.py:153-159) ------------------
+
+    def export_params(self, merge_lora: bool = True) -> Dict[str, Dict[str, torch.Tensor]]:
+        """{modality: {parameter name: tensor}} of every loaded tower (the
+        live tensors). ``merge_lora`` is the JAX signature's: the port's
+        towers carry no LoRA factors yet (ROADMAP Queue 1, item 11), so
+        there is nothing to merge."""
+        del merge_lora
+        return {m: dict(self.towers[m].named_parameters())
+                for m in self.modalities}
+
+    def _ckpt_tree(self):
+        state = {m: dict(self.towers[m].named_buffers()) for m in self.modalities}
+        return {"params": self.export_params(),
+                "state": {m: b for m, b in state.items() if b}}
+
+    def export_checkpoint(self, save_path: str) -> str:
+        """Save a multi-modality checkpoint (parameters and buffers, e.g.
+        BatchNorm statistics) with ``vitlens_meta.json``, loadable with
+        :meth:`load_checkpoint`. The format is the port's
+        (``train/checkpoint.py``: ``torch.save``), not JAX's orbax tree."""
+        import json
+        import os
+
+        from vitlens_tpu_torch.train import checkpoint as C
+
+        C._save_tree(save_path, C.snapshot(self._ckpt_tree()))
+        with open(os.path.join(save_path, "vitlens_meta.json"), "w") as f:
+            json.dump({"model_var": self.model_var,
+                       "modalities": list(self.modalities)}, f)
+        return save_path
+
+    def load_checkpoint(self, path: str) -> None:
+        """Restore a checkpoint written by :meth:`export_checkpoint` into the
+        loaded towers, each tensor cast to the live one's dtype."""
+        from vitlens_tpu_torch.train import checkpoint as C
+
+        live = self._ckpt_tree()
+        restored = C.load_checkpoint(path, live)
+        with torch.no_grad():
+            for kind in ("params", "state"):
+                for m, tensors in live[kind].items():
+                    for n, t in tensors.items():
+                        t.copy_(restored[kind][m][n])

@@ -2,9 +2,11 @@
 vitlens_tpu/data/audio_decode.py), numpy and the stdlib ``wave`` only:
 
   * WAV: stdlib ``wave`` (8-, 16- and 32-bit PCM)
-  * FLAC: a minimal pure-Python decoder (constant, verbatim, fixed and LPC
-    subframes, every standard block size, 8- to 32-bit, mono and stereo with
-    left/right/mid-side decorrelation).
+  * FLAC: the native host library (``data/native.py``) in
+    :func:`load_audio_file`, and a minimal pure-Python decoder, its plain
+    version (constant, verbatim, fixed and LPC subframes, every standard
+    block size, 8- to 32-bit, mono and stereo with left/right/mid-side
+    decorrelation).
 
 Also windowed-sinc polyphase resampling equal to
 torchaudio.functional.resample's default (Hann-windowed sinc,
@@ -273,15 +275,27 @@ def decode_wav(path: str) -> Tuple[np.ndarray, int]:
     return x.reshape(-1, ch).T.copy(), rate
 
 
+def flac_declared_samples(head: bytes) -> int:
+    """The sample count in a FLAC file's STREAMINFO (0: not declared), from
+    its first 26 bytes: STREAMINFO is always the first metadata block."""
+    return int.from_bytes(head[18:26], "big") & ((1 << 36) - 1)
+
+
 def load_audio_file(path: str) -> Tuple[np.ndarray, int]:
     """-> (float32 [channels, samples], sample_rate), by the file's magic
-    bytes. FLAC goes through the Python decoder: the port has no binding of
-    the native host library."""
+    bytes. FLAC goes through the native host library (``data/native.py``,
+    bit-identical to :func:`decode_flac`), which sizes its output from
+    STREAMINFO's sample count; a stream that declares none (0, allowed by
+    the format) is decoded by :func:`decode_flac`."""
     with open(path, "rb") as f:
-        magic = f.read(4)
-    if magic == b"fLaC":
-        return decode_flac(path)
-    if magic == b"RIFF":
+        head = f.read(26)
+    if head[:4] == b"fLaC":
+        if flac_declared_samples(head) == 0:
+            return decode_flac(path)
+        from vitlens_tpu_torch.data.native import decode_flac_native
+
+        return decode_flac_native(path)
+    if head[:4] == b"RIFF":
         return decode_wav(path)
     raise ValueError(f"unsupported audio container for {path!r}")
 

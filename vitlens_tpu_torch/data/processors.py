@@ -150,12 +150,26 @@ class TactileProcessor(ImageProcessor):
 
 def farthest_point_sample_np(points: np.ndarray, npoint: int,
                              seed: Optional[int] = None) -> np.ndarray:
-    """Host FPS of one cloud [N, >=3] -> [npoint, C]. The start is 0, or
-    random from ``seed``; distances use xyz only."""
+    """Host FPS of one cloud [N, >=3] -> [npoint, C], through the native host
+    library (``data/native.py``: fp32 distances). The start is 0, or random
+    from ``seed``; distances use xyz only."""
+    from vitlens_tpu_torch.data.native import fps_indices
+
+    return points[fps_indices(points, npoint, _fps_start(points, seed))]
+
+
+def _fps_start(points: np.ndarray, seed: Optional[int]) -> int:
+    return (int(np.random.RandomState(seed).randint(0, points.shape[0]))
+            if seed is not None else 0)
+
+
+def farthest_point_sample_plain(points: np.ndarray, npoint: int,
+                                seed: Optional[int] = None) -> np.ndarray:
+    """The plain version of :func:`farthest_point_sample_np`: a numpy loop of
+    ``npoint`` passes with float64 distances."""
     n = points.shape[0]
     xyz = points[:, :3]
-    farthest = int(np.random.RandomState(seed).randint(0, n)) \
-        if seed is not None else 0
+    farthest = _fps_start(points, seed)
     dist = np.full(n, 1e10, dtype=np.float64)
     idxs = np.zeros(npoint, dtype=np.int64)
     for i in range(npoint):

@@ -274,18 +274,61 @@ class Transformer(nn.Module):
             b.init_(g)
 
     def forward(self, x, mask: Optional[torch.Tensor] = None,
-                skip_first_n: Optional[int] = None, remat: bool = False):
+                skip_first_n: Optional[int] = None, remat=False):
         """``skip_first_n`` drops the first N blocks (the vitlensG recipe).
-        ``remat=True`` recomputes each block's activations in the backward
-        pass (JAX ``jax.checkpoint`` of the scan body) with non-reentrant
-        ``torch.utils.checkpoint``; it only acts while autograd records."""
-        if remat not in (False, True):
-            raise NotImplementedError(
-                f"remat={remat!r}: only full remat (True) is ported; the "
-                "'dots' policy is not")
+        ``remat`` recomputes each block in the backward pass with
+        non-reentrant ``torch.utils.checkpoint`` (JAX ``jax.checkpoint`` of
+        the scan body); it only acts while autograd records. See
+        :func:`remat_policy` for its values."""
+        policy = remat_policy(remat)
         for b in self.blocks[skip_first_n or 0:]:
-            if remat and torch.is_grad_enabled():
-                x = checkpoint(b, x, mask, use_reentrant=False)
-            else:
+            if policy is None or not torch.is_grad_enabled():
                 x = b(x, mask)
+            elif policy == "dots":
+                x = checkpoint(b, x, mask, use_reentrant=False,
+                               context_fn=_save_2d_products_context)
+            else:
+                x = checkpoint(b, x, mask, use_reentrant=False)
         return x
+
+
+# The 2-D products of a block: the qkv and out projections and the plain
+# MLP's two products (``x @ w`` on [B, N, D] dispatches as ``mm`` on a view,
+# with the bias added after it), and ``addmm`` where a bias is fused.
+_2D_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_2d_products(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return (CheckpointPolicy.MUST_SAVE if op in _2D_PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _save_2d_products_context():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    return create_selective_checkpoint_contexts(_save_2d_products)
+
+
+def remat_policy(remat) -> Optional[str]:
+    """The remat setting of a train step: False/None -> None (no remat);
+    True or "full" -> "full" (recompute the whole block); a tag holding
+    "dots" -> "dots": JAX's ``dots_with_no_batch_dims_saveable``, here a
+    selective checkpoint that saves the outputs of the 2-D products
+    (``aten.mm``/``aten.addmm``: qkv, out and the plain MLP) and recomputes
+    the rest, the batched ``bmm`` of attention included. The hand kernels
+    (fused MLP, attention) launch inside autograd Functions through ctypes,
+    where no policy sees a product, so they are recomputed, as JAX
+    recomputes a ``pallas_call`` (it is no ``dot_general``). "nocse" is a
+    JAX-only tag (no CSE guard inside a scan) and means full remat here."""
+    if remat is None or remat is False:
+        return None
+    if remat is True:
+        return "full"
+    tag = str(remat)
+    if "dots" in tag:
+        return "dots"
+    if tag in ("full", "nocse", "full_nocse"):
+        return "full"
+    raise ValueError(f"unknown remat setting {remat!r}")

@@ -2,7 +2,8 @@
 the CLIP text tower and the shared logit scale (port of
 vitlens_tpu/models/tri.py). ``train`` and ``remat`` thread through the
 encode helpers as in JAX; so do the point tokenizer's FPS starts
-(``fps_start`` [B] or ``fps_generator``, where JAX passes ``fps_key``).
+(``fps_start`` [B] or ``fps_generator``, where JAX passes ``fps_key``), and
+the Lens tower's train-time patch dropout (``patch_keep``).
 """
 
 from __future__ import annotations
@@ -70,10 +71,11 @@ def encode_image(model: TriModel, images: torch.Tensor, *,
 def encode_visual(model: TriModel, x: torch.Tensor, *, normalize: bool = False,
                   train: bool = False, compute_dtype=torch.float32,
                   remat: bool = False, fps_start: Optional[torch.Tensor] = None,
-                  fps_generator: Optional[torch.Generator] = None
-                  ) -> torch.Tensor:
+                  fps_generator: Optional[torch.Generator] = None,
+                  patch_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
     feats = model.visual(x, compute_dtype, train=train, remat=remat,
-                         fps_start=fps_start, fps_generator=fps_generator)
+                         fps_start=fps_start, fps_generator=fps_generator,
+                         patch_keep=patch_keep)
     return _l2_normalize(feats) if normalize else feats
 
 

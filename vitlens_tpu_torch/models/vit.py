@@ -38,6 +38,27 @@ from vitlens_tpu_torch.models.perceiver import Perceiver
 from vitlens_tpu_torch.ops.fbank import fbank_fixed_length
 
 
+def draw_patch_keep(cfg: TowerConfig, batch: int,
+                    generator: torch.Generator) -> torch.Tensor:
+    """Train-time patch dropout's draw (reference transformer.py:53-90, JAX
+    ``vision_tower_apply``): the indices [batch, keep] of the patches each
+    sample keeps, ``keep = max(1, int(n * (1 - patch_dropout)))`` of the
+    tower's ``n`` patch tokens, the top ``keep`` of a standard normal draw
+    from ``generator`` (on its device): distinct, ordered by their draws,
+    the largest first, as ``lax.top_k`` orders them."""
+    n = cfg.num_tokens
+    keep = max(1, int(n * (1.0 - cfg.patch_dropout)))
+    rand = torch.randn((batch, n), generator=generator, device=generator.device)
+    return torch.topk(rand, keep, dim=1).indices
+
+
+def apply_patch_dropout(h: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """h [B, 1 + n, D] (CLS first) -> [B, 1 + keep, D]: CLS, then the patches
+    at ``keep`` [B, keep] in that order (JAX's ``take_along_axis``)."""
+    idx = keep.to(h.device, torch.long)[..., None].expand(-1, -1, h.shape[-1])
+    return torch.cat([h[:, :1], torch.gather(h[:, 1:], 1, idx)], dim=1)
+
+
 _ADAPTERS = {"image": ImageAdapter, "tactile": ImageAdapter,
              "video": VideoAdapter, "depth": DepthAdapter,
              "audio": AudioAdapter, "eeg": EEGAdapter}
@@ -91,7 +112,8 @@ class VisionTower(nn.Module):
                 train: bool = False, remat: bool = False,
                 output_tokens: bool = False,
                 fps_start: Optional[torch.Tensor] = None,
-                fps_generator: Optional[torch.Generator] = None):
+                fps_generator: Optional[torch.Generator] = None,
+                patch_keep: Optional[torch.Tensor] = None):
         """x: images [B, 3, H, W], depth maps [B, 1, H, W], fbank [B,
         target_length, mel_bins], raw waveforms [B, samples], EEG [B, chans,
         time], video frames [B, T, 3, H, W] or points [B, N, C] -> features
@@ -100,8 +122,11 @@ class VisionTower(nn.Module):
         sees the rounded coordinates, as in JAX. ``remat`` recomputes the
         trunk's blocks (and the transformer Lens's) in the backward pass.
         ``train`` marks a training pass: the point tokenizers normalise with
-        batch statistics and update their running ones; train-time patch
-        dropout is not ported and raises. A point tokenizer's FPS starts at
+        batch statistics and update their running ones, and with
+        ``patch_keep`` ([B, keep] from :func:`draw_patch_keep`) and
+        ``patch_dropout`` > 0 each sample keeps CLS and those patches after
+        the positional embedding (JAX applies it where ``fps_key`` is
+        given). A point tokenizer's FPS starts at
         ``fps_start`` [B], or draws the starts from ``fps_generator``, or
         starts at point 0 (JAX's ``fps_key``: given, or None).
         ``output_tokens`` returns ``(features, tokens)``:
@@ -113,9 +138,6 @@ class VisionTower(nn.Module):
             x = fbank_fixed_length(x.float(), target_length=a.target_length,
                                    sample_frequency=float(a.sampling_rate),
                                    num_mel_bins=a.mel_bins)
-        if train and cfg.patch_dropout > 0:
-            raise NotImplementedError(
-                "train-time patch dropout (patch_dropout > 0) is not yet ported")
         x = x.to(compute_dtype)
         if cfg.modality == "video":
             tokens = self._video_tokens(x)
@@ -139,6 +161,8 @@ class VisionTower(nn.Module):
         h = torch.cat([cls, tokens], dim=1)
         if cfg.use_orig_pos:
             h = h + self.positional_embedding.to(h.dtype)
+        if train and cfg.patch_dropout > 0 and patch_keep is not None:
+            h = apply_patch_dropout(h, patch_keep)
         h = self.ln_pre(h)
         h = self.trunk(h, skip_first_n=cfg.skip_first_n_layers, remat=remat)
         if cfg.arch.global_average_pool:

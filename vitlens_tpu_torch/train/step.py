@@ -38,6 +38,7 @@ import torch.nn as nn
 
 from vitlens_tpu_torch.adapters.tokenizers import BatchNorm
 from vitlens_tpu_torch.models import tri
+from vitlens_tpu_torch.models.vit import draw_patch_keep
 from vitlens_tpu_torch.train import losses as losses_lib
 from vitlens_tpu_torch.train.freeze import Mask
 from vitlens_tpu_torch.train.schedules import get_schedule
@@ -159,7 +160,9 @@ class StepConfig:
     sim_thres: float = 0.9
     accum_freq: int = 1
     compute_dtype: torch.dtype = torch.bfloat16
-    remat: bool = False               # True: recompute each trunk block
+    # True or "full": recompute each trunk block; "dots": save its 2-D
+    # products, recompute the rest (models.layers.remat_policy)
+    remat: Any = False
     # the video distill-tokens step (reference vid_distill_tokens,
     # model.py:545-585): the frame-mean image tower over the clip as the
     # anchor, plus token distillation into the video Lens tower
@@ -177,12 +180,14 @@ class StepConfig:
 
 
 def _forward_features(model, batch, sc: StepConfig,
-                      fps_start: Optional[torch.Tensor] = None
+                      fps_start: Optional[torch.Tensor] = None,
+                      patch_keep: Optional[torch.Tensor] = None
                       ) -> Dict[str, torch.Tensor]:
     """Encode the towers the step's objective reads: ``batch["image"]``
     (images, or frames [B, T, 3, H, W]) through the image tower,
     ``batch["text"]`` through the text tower and ``batch["visual"]``
-    through the Lens tower (a point cloud's FPS from ``fps_start``)."""
+    through the Lens tower (a point cloud's FPS from ``fps_start``, the
+    train-time patch dropout's kept patches ``patch_keep``)."""
     kw = dict(normalize=True, compute_dtype=sc.compute_dtype, remat=sc.remat)
     if sc.video_distill:
         return tri.tri_forward_video_distill(
@@ -203,7 +208,8 @@ def _forward_features(model, batch, sc: StepConfig,
     else:
         out["anchor_features"] = tri.encode_text(model, batch["text"], **kw)
     out["visual_features"] = tri.encode_visual(
-        model, batch["visual"], train=True, fps_start=fps_start, **kw)
+        model, batch["visual"], train=True, fps_start=fps_start,
+        patch_keep=patch_keep, **kw)
     return out
 
 
@@ -229,23 +235,25 @@ def running_stats_kept(model: nn.Module):
 
 
 def micro_grads(model, batch, sc: StepConfig, params, loss_fn,
-                fps_start: Optional[torch.Tensor] = None):
+                fps_start: Optional[torch.Tensor] = None,
+                patch_keep: Optional[torch.Tensor] = None):
     """(loss, {name: grad}) of one pass over the whole batch, for the
     trainable ``params`` only."""
-    loss = loss_fn(_forward_features(model, batch, sc, fps_start),
+    loss = loss_fn(_forward_features(model, batch, sc, fps_start, patch_keep),
                    batch.get("label"))
     return loss.detach(), _grads(loss, params)
 
 
 def accum_grads(model, batch, sc: StepConfig, params, loss_fn,
-                fps_starts: Optional[Sequence[torch.Tensor]] = None):
+                fps_starts: Optional[Sequence[torch.Tensor]] = None,
+                patch_keeps: Optional[Sequence[torch.Tensor]] = None):
     """--accum-freq replay (reference train.py:154-210): features of every
     micro-batch cached without grad, then per micro-batch a pass with grad,
     with the cached features of the others spliced in as negatives. The sum
     of the pass gradients is the full-batch gradient (no 1/accum scaling);
     the loss is averaged for logging. Micro-batch i's two passes take
-    ``fps_starts[i]``; the BatchNorm running statistics move in the cached
-    passes only."""
+    ``fps_starts[i]`` and ``patch_keeps[i]``; the BatchNorm running
+    statistics move in the cached passes only."""
     A = sc.accum_freq
     b = next(iter(batch.values())).shape[0]
     if b % A:
@@ -253,16 +261,17 @@ def accum_grads(model, batch, sc: StepConfig, params, loss_fn,
     micro = [{k: v[i * (b // A):(i + 1) * (b // A)] for k, v in batch.items()}
              for i in range(A)]
     starts = list(fps_starts) if fps_starts is not None else [None] * A
+    keeps = list(patch_keeps) if patch_keeps is not None else [None] * A
     with torch.no_grad():
-        cached = [_forward_features(model, mb, sc, st)
-                  for mb, st in zip(micro, starts)]
+        cached = [_forward_features(model, mb, sc, st, kp)
+                  for mb, st, kp in zip(micro, starts, keeps)]
     # the tokens too: the distill-token loss is a mean over samples, so
     # splicing the other micro-batches' cached tokens is exact
     keys = [k for k in cached[0] if k.endswith(("_features", "_tokens"))]
     loss_total, grads_total = 0.0, None
     with running_stats_kept(model):
         for i, mb in enumerate(micro):
-            out_i = _forward_features(model, mb, sc, starts[i])
+            out_i = _forward_features(model, mb, sc, starts[i], keeps[i])
             merged = {"logit_scale": out_i["logit_scale"]}
             for k in keys:
                 merged[k] = torch.cat([out_i[k] if j == i else cached[j][k]
@@ -289,6 +298,21 @@ def draw_fps_starts(model, batch, accum_freq: int,
             for _ in range(accum_freq)]
 
 
+def draw_patch_keeps(model, batch, sc: StepConfig,
+                     generator: Optional[torch.Generator]):
+    """The Lens tower's train-time patch dropout, drawn once for each of the
+    ``accum_freq`` micro-batches from ``generator`` (after the FPS starts),
+    shared by both passes of a micro-batch (JAX folds ``fps_key`` with the
+    micro-batch's index); None where the tower has no patch dropout, no
+    generator is given or the step is the video distill one (JAX gives that
+    forward no ``fps_key``)."""
+    cfg = model.visual.cfg
+    if generator is None or cfg.patch_dropout <= 0 or sc.video_distill:
+        return None
+    b = batch["visual"].shape[0] // sc.accum_freq
+    return [draw_patch_keep(cfg, b, generator) for _ in range(sc.accum_freq)]
+
+
 def make_train_step(model_cfg, tx: AdamW, trainable_mask: Mask,
                     sc: StepConfig = StepConfig(), mesh=None,
                     partition: str = "ddp"):
@@ -300,7 +324,10 @@ def make_train_step(model_cfg, tx: AdamW, trainable_mask: Mask,
     (before the clip), 0-dim tensors. A point-cloud Lens tower's FPS starts
     are drawn from ``fps_generator`` (:func:`draw_fps_starts`), or given as
     ``fps_starts``, one int tensor [B / accum_freq] a micro-batch; with
-    neither, FPS starts at point 0. The towers come from the state's model;
+    neither, FPS starts at point 0. ``fps_generator`` is the step's
+    generator, as JAX's ``fps_key`` is its key: the Lens tower's train-time
+    patch dropout is drawn from it too (:func:`draw_patch_keeps`), and
+    without it no patch is dropped. The towers come from the state's model;
     ``model_cfg`` is the JAX signature's and is not read."""
     if mesh is not None or partition != "ddp":
         raise NotImplementedError(
@@ -330,14 +357,17 @@ def make_train_step(model_cfg, tx: AdamW, trainable_mask: Mask,
                 raise ValueError(f"{len(fps_starts)} sets of FPS starts for "
                                  f"accum_freq {A}")
             fps_starts = [torch.as_tensor(s).to(dev) for s in fps_starts]
+        patch_keeps = draw_patch_keeps(model, batch, sc, fps_generator)
         all_params = dict(model.named_parameters())
         params = {n: all_params[n] for n in names}
         if A > 1:
             loss, grads = accum_grads(model, batch, sc, params, loss_fn,
-                                      fps_starts)
+                                      fps_starts, patch_keeps)
         else:
-            loss, grads = micro_grads(model, batch, sc, params, loss_fn,
-                                      None if fps_starts is None else fps_starts[0])
+            loss, grads = micro_grads(
+                model, batch, sc, params, loss_fn,
+                None if fps_starts is None else fps_starts[0],
+                None if patch_keeps is None else patch_keeps[0])
         grad_norm = global_norm(grads)
         tx.update_(params, grads, state.opt_state)
         clamp_logit_scale(model)
