@@ -11,11 +11,13 @@ Phases, one printed line each (or more); any failure exits non-zero:
      the shapes of the main paths and at edge shapes: fused MLP, both
      variants and both activations (out and the save-preact output a; bf16,
      <= 2.5e-2 and 1e-2 relative; also a ragged M = 4100, D/H = 768/3072
-     and 1664/8192, the bigG text tower's 1280/5120 at M = 154, and the
-     plain variant at the video distill step's B64
+     and 1664/8192, the bigG text tower's 1280/5120 at M = 154, the
+     PointTransformer's 384/1536 at M = 4104, and the plain variant at the
+     video distill step's B64
      image tower, M = 131584), attention (bf16, <= 1e-2 relative; at the
      video Lens cross [64, 1, 256, 2048, 64], a ragged NK of 2040 beside it,
-     the EEG and pc Lens cross [64, 1, 256, 512, 64] and the distill step's
+     the EEG and pc Lens cross [64, 1, 256, 512, 64], the PointTransformer's
+     [8, 6, 513, 513, 64] and the distill step's
      image tower [512, 16, 257, 257, 64]; also every NQ, NK in
      {1, 7, 77, 257, 600}, NK past the K/V-resident limit, and the packed-qkv
      and Lens views bit-equal to contiguous copies; and head dims 32, 80,
@@ -50,7 +52,10 @@ Phases, one printed line each (or more); any failure exits non-zero:
      gradients of each kernel-backed autograd Function
      (fused MLP, attention, LN + projection) against torch autograd of its
      plain version on the card, in bf16 (<= 2e-2 relative for the fused MLP
-     and LN + projection, 1e-2 for attention).
+     and LN + projection, 1e-2 for attention), also at the CLIPBind step's
+     shapes: the fused MLP at D 1664 / H 8192 (M = 16 x 257) and attention
+     at head dim 104 in the bigG trunk [16, 16, 257, 257], the Lens cross
+     [16, 1, 256, 512] and the Lens self [16, 16, 256, 256].
   4. slice: ViTLens("vitlensL", ("audio", "pc", "text")) at full ViT-L width
      and depth with random weights from a seeded CUDA generator, bf16
      compute, answers audio requests (B = 1, 4, 8, 3 clips each), point-cloud
@@ -210,6 +215,33 @@ Phases, one printed line each (or more); any failure exits non-zero:
      with tower_launches; checkpoint_best's eval features (loaded with
      load_checkpoint) cosine >= 0.99 against the same weights in fp32 on the
      CPU. Run (c): --visual-stat-flops prints its JSON line.
+  4o. OpenShape: the vitlensG CLIPBind (train/openshape.py: PNSA over
+     10000 xyz + rgb points, the bigG Lens, 16 of 48 trunk blocks skipped,
+     out 1280) at full width, bf16 compute, fp32 masters, JAX's optimizer
+     (clip 1.0, AdamW with optax's defaults, the ndim >= 2 decay mask, 0.1
+     on the trunk): 3 steps at B16 on fixture triplets (every other cloud
+     xyz-only), finite metrics, launches a step from tower_launches (32
+     save-preact kernel 1, 40 kernel 2, 1 FPS), the skipped blocks at p *
+     prod(1 - lr_t * wd * 0.1) (their moments 0), logit_scale moved, an
+     eval batch (32 plain kernel 1, 40, 1) and the peak memory; the B = 2
+     gradients of a bigG-width tower of 8 trunk blocks (4 skipped) and a
+     Lens of depth 1, bf16 on the card against fp32 on the CPU (cosine >=
+     0.99, the CPU given the card's ball-query groups); the baselines at
+     the CLI's widths in fp32 (PointBERT/PPAT, DGCNN and PointNet at
+     scaling 3): a train step each at B16 (FPS once for PPAT), a B = 2
+     forward against the CPU from the same starts and groups (1e-3 without
+     TF32), a PointNet2 forward (2 FPS launches); the PointTransformer
+     (8192 points, 12 blocks) in bf16 eval at B8 (1 FPS, 1 point encoder,
+     12 kernel 1, 12 kernel 2; cosine >= 0.99 against fp32 on the CPU);
+     then `python -m vitlens_tpu_torch.cli.train_openshape` at full width
+     in this process on 32 fixture triplets at --batch-size 16: one epoch
+     with eval, --resume latest to epoch 2 (from the file's weights, the
+     optimizer's count restarted), eval-only from epoch_latest, with
+     launches, checkpoints, meta.json epochs and eval keys checked, the
+     free disk and the bytes written printed. Its phase-5 timings (the
+     CLIPBind step's rate, peak and profile with kernel 2's share, each
+     baseline's step, the PointTransformer encode at B64, the CLI's step
+     seconds) run inside the phase, on its models.
   5. timing: each kernel against its plain version (and, where one PyTorch
      call computes the same function, that call) at the B64 shapes of the
      main paths, beside each kernel's bound, with cuBLAS's two products
@@ -871,36 +903,47 @@ def tri_batch(torch, np, cfg, b, rng, frames=0):
             "visual": visual}
 
 
-def shared_knn_groups(torch, first, second):
-    """(first(), second(), a note): second() replays, in order, the kNN
-    groups (ops.fps.knn_indices) that first() selected, so that the B = 2
-    card-against-CPU comparison holds both to the same neighbourhoods, as
-    it holds them to the same FPS starts. In bf16 the distances round as
-    JAX's do (the product form, |q|^2 + |p|^2 - 2 q.p, in bf16), which picks
-    other neighbours than fp32 in most groups; the note gives that share."""
+def shared_knn_groups(torch, first, second, sites=None):
+    """(first(), second(), a note): second() replays, in order, the groups
+    that first() selected at each of ``sites`` ((module, name) of a group
+    selection; default ops.fps.knn_indices), so that a card-against-CPU
+    comparison holds both to the same neighbourhoods, as it holds them to
+    the same FPS starts. In bf16 the distances round as JAX's do (the
+    product form, |q|^2 + |p|^2 - 2 q.p, in bf16), which picks other
+    neighbours than fp32 in most groups; the note gives that share."""
     from vitlens_tpu_torch.ops import fps as F
 
-    knn, made = F.knn_indices, []
+    sites = sites or [(F, "knn_indices")]
+    originals = [getattr(mod, name) for mod, name in sites]
+    made = []
 
-    def record(xyz, query, k):
-        made.append((xyz, query, knn(xyz, query, k)))
-        return made[-1][2]
+    def recorder(fn):
+        def record(xyz, query, *args):
+            made.append((fn, xyz, query, args, fn(xyz, query, *args)))
+            return made[-1][-1]
+        return record
 
-    F.knn_indices = record
     try:
+        for (mod, name), fn in zip(sites, originals):
+            setattr(mod, name, recorder(fn))
         a = first()
-        replay = iter([idx for _, _, idx in made])
-        F.knn_indices = lambda xyz, query, k: next(replay).to(xyz.device)
+        replay = iter([idx for *_, idx in made])
+        for mod, name in sites:
+            setattr(mod, name, lambda xyz, *_: next(replay).to(xyz.device))
         b = second()
     finally:
-        F.knn_indices = knn
-    note = ""
-    for xyz, query, idx in made:
-        exact = knn(xyz.float(), query.float(), idx.shape[-1])
+        for (mod, name), fn in zip(sites, originals):
+            setattr(mod, name, fn)
+    shares = {}
+    for fn, xyz, query, args, idx in made:
+        exact = fn(xyz.float(), query.float(), *args)
         differ = (exact.sort(-1).values != idx.sort(-1).values).any(-1)
-        note += (f"; kNN groups replayed from the card's pass ({xyz.dtype}: "
-                 f"{differ.float().mean().item():.3f} of them differ from fp32 "
-                 f"distances' on the same centers)")
+        shares.setdefault((fn.__name__, xyz.dtype), []).append(
+            differ.float().mean().item())
+    note = "".join(
+        f"; {name} groups of {len(v)} call(s) replayed from the card's pass "
+        f"({dtype}: {sum(v) / len(v):.3f} of them differ from fp32 distances' "
+        f"on the same centers)" for (name, dtype), v in shares.items())
     return a, b, note
 
 
@@ -1096,7 +1139,8 @@ def tri_train_phase(torch, np, counters, totals, tag, modality, flags, sc,
 
 def profile_encode(torch, card, label, encode):
     """One call under torch.profiler: the top kernels by device time and the
-    device's busy and idle share."""
+    device's busy and idle share. Returns (the kernels' profiler rows,
+    busy ms)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1116,6 +1160,7 @@ def profile_encode(torch, card, label, encode):
     print(f"[5 profile] {card} | {label} under the profiler: device busy "
           f"{busy_ms:.2f} ms of {wall_ms:.2f} ms wall (idle share "
           f"{max(0.0, 1 - busy_ms / wall_ms):.3f})", flush=True)
+    return kernels, busy_ms
 
 
 def encode_rate(torch, card, label, encode, samples, rows_note="", dim=768):
@@ -2861,6 +2906,481 @@ def host_library_timings(torch, np, card, ctx):
           f"{lat['p95_ms']} ms (/healthz, the warm request included)", flush=True)
 
 
+# -- phase 4o: the OpenShape trainer (vitlensG, the pc baselines) ----------------
+
+OS_B = 16             # the OpenShape CLI's default batch
+OS_STEPS = 3          # full-width CLIPBind steps
+OS_CLI_OBJECTS = 32   # fixture triplets of the CLI runs (2 steps an epoch)
+OS_DISK_GB = 40       # epoch_1, epoch_2 and epoch_latest (+ its tmp copy) of ~8.6 GB
+# fp32 baselines on the card against the CPU: cuBLAS and the CPU sum in other
+# orders (1e-6 a product); TF32 products (10-bit mantissas) would read ~1e-3
+BASELINE_TOL = {False: 1e-3, True: 2e-2}
+
+
+def openshape_batch(torch, g, b, n=10000, width=1280):
+    """Fixture triplets on the card: clouds [b, n, 6] (xyz ~ N(0, 0.4), rgb
+    in [0, 1]; every other cloud xyz-only, its rgb OpenShape's 0.4 grey)
+    and random CLIP text and image features."""
+    xyz = torch.randn(b, n, 3, generator=g, device="cuda") * 0.4
+    rgb = torch.rand(b, n, 3, generator=g, device="cuda")
+    rgb[1::2] = 0.4
+    return {"xyz_features": torch.cat([xyz, rgb], -1),
+            "text_feat": torch.randn(b, width, generator=g, device="cuda"),
+            "img_feat": torch.randn(b, width, generator=g, device="cuda")}
+
+
+def openshape_launches(cfg, train):
+    """Launches of one bf16 CLIPBind pass, from tower_launches: kernel 1 in
+    each trunk block that runs (the save-preact variant where autograd
+    records), kernel 2 there and in the Lens, FPS once (PNSA)."""
+    want = tower_launches(cfg, fps=1)
+    if train:
+        want["fused_mlp_save_preact"], want["fused_mlp"] = want["fused_mlp"], 0
+    return want
+
+
+def bind_optimizer(torch, model, trunk=True, warmup=2):
+    """make_openshape_optimizer with the CLI's defaults (lr 5e-4, wd 0.2,
+    the ndim >= 2 mask, 0.1 on the trunk), every parameter trained."""
+    from vitlens_tpu_torch.train import openshape as OS
+    from vitlens_tpu_torch.train.step import make_openshape_optimizer
+
+    model.requires_grad_(True)
+    scale = (OS.trunk_lr_scale(model) if trunk
+             else {n: 1.0 for n, _ in model.named_parameters()})
+    tx = make_openshape_optimizer(model, lr=5e-4, warmup=warmup,
+                                  total_steps=1000, weight_decay=0.2,
+                                  decay=OS.ndim_wd_mask(model), lr_scale=scale)
+    return tx, tx.init(model), OS.make_openshape_step(
+        tx, compute_dtype=torch.bfloat16)
+
+
+def peak_gb(torch):
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def openshape_phase(torch, np, counters, totals, card):
+    """Phase 4o and its phase-5 timings: the CLIPBind step at full vitlensG
+    width (3 steps at B16: launches, the skipped blocks' decay-only closed
+    form, logit_scale moved, an eval batch), the B = 2 gradients of a
+    bigG-width tower of 8 trunk blocks against the CPU in fp32, the three
+    baselines (a train step each, a B = 2 forward against the CPU) and a
+    PointNet2 forward, the PointTransformer's bf16 eval against the CPU,
+    then the CLI's train, resume and eval-only runs at full width."""
+    from vitlens_tpu_torch.train import openshape as OS
+
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated() / 1e9
+    g = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    fps_gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cfg = OS.vitlensG_tower_config()
+    model = OS.CLIPBind(cfg, 1280, device="cuda")
+    model.init_(torch.Generator(device="cuda").manual_seed(SEED))
+    tx, opt, step = bind_optimizer(torch, model)
+    n_params = sum(p.numel() for p in model.parameters())
+    skip = cfg.skip_first_n_layers
+    # on the host: the step's peak leaves the card ~7 GB when the earlier
+    # phases' models stay resident
+    skipped = {n: p.detach().cpu() for n, p in model.named_parameters()
+               if n.startswith("backbone.trunk.blocks.")
+               and int(n.split(".")[3]) < skip}
+    if not all(tx.decay[n] and tx.lr_scale[n] == 0.1 for n in skipped):
+        fail("4o: a skipped block's tensor is not decayed at the trunk's scale")
+    scale0 = model.logit_scale.item()
+    want_train, want_eval = openshape_launches(cfg, True), openshape_launches(cfg, False)
+    if (want_train["fused_mlp_save_preact"], want_train["flash_attention"],
+            want_train["fps"]) != (32, 40, 1):
+        fail(f"4o: launches derived from the vitlensG config {want_train}")
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for i in range(OS_STEPS):
+        batch = openshape_batch(torch, g, OS_B)
+        m, counts = run_counted(torch, counters, totals,
+                                lambda: step(model, opt, batch, fps_generator=fps_gen))
+        if counts != want_train:
+            fail(f"4o step {i}: launches {counts}, expected {want_train}")
+        m = {k: float(v) for k, v in m.items()}
+        if not all(np.isfinite(v) for v in m.values()):
+            fail(f"4o step {i}: metrics {m}")
+        losses.append(round(m["loss"], 5))
+    step_peak = peak_gb(torch)
+    factor = 1.0
+    for c in range(OS_STEPS):
+        factor *= 1 - tx.schedule(c) * 0.2 * 0.1
+    decay_err = max(rel_err(model.get_parameter(n).detach().cpu(), p0 * factor)
+                    for n, p0 in skipped.items())
+    moments = max(max(opt["mu"][n].abs().max().item(),
+                      opt["nu"][n].abs().max().item()) for n in skipped)
+    if decay_err > 2e-6 or moments != 0:  # fp32 rounding of 3 updates
+        fail(f"4o: skipped blocks off p * prod(1 - lr_t wd 0.1) by {decay_err} "
+             f"(moments {moments})")
+    del skipped
+    if model.logit_scale.item() == scale0:
+        fail("4o: logit_scale did not move")
+    with torch.no_grad():
+        emb, counts = run_counted(torch, counters, totals, lambda: model(
+            batch["xyz_features"], torch.bfloat16))
+    if counts != want_eval or tuple(emb.shape) != (OS_B, 1280) or \
+            not torch.isfinite(emb).all():
+        fail(f"4o eval batch: launches {counts} (expected {want_eval}), shape "
+             f"{tuple(emb.shape)}")
+    print(f"[4o openshape] CLIPBind (vitlensG: PNSA 10000 x 6, bigG Lens, "
+          f"{skip} of 48 trunk blocks skipped, out 1280) bf16 compute, fp32 "
+          f"masters, {n_params} parameters ({resident:.2f} GB resident before): "
+          f"{OS_STEPS} steps at B{OS_B}, losses {losses}, launches a step "
+          f"{want_train['fused_mlp_save_preact']} save-preact kernel 1, "
+          f"{want_train['flash_attention']} kernel 2, {want_train['fps']} FPS; "
+          f"peak {step_peak:.2f} GB; skipped blocks at p * prod(1 - lr_t * "
+          f"wd * 0.1) within {decay_err:.2e} (moments 0); logit_scale "
+          f"{scale0:.6f} -> {model.logit_scale.item():.6f}; eval batch "
+          f"{want_eval['fused_mlp']} plain kernel 1, {want_eval['flash_attention']} "
+          f"kernel 2, 1 FPS", flush=True)
+    step_rate = train_rate(torch, card, f"CLIPBind (vitlensG) train step B{OS_B} "
+                           "bf16, fp32 masters and AdamW", lambda: step(
+                               model, opt, batch, fps_generator=fps_gen), OS_B)
+    kernels, busy = profile_encode(torch, card, f"B{OS_B} CLIPBind train step",
+                                   lambda: step(model, opt, batch,
+                                                fps_generator=fps_gen))
+    attn_ms = sum(e.self_device_time_total for e in kernels
+                  if "flash_fwd" in e.key) / 1e3
+    mlp_ms = sum(e.self_device_time_total for e in kernels
+                 if "gemm_tma" in e.key or "fused_mlp" in e.key) / 1e3
+    print(f"[5 timing] {card} | CLIPBind step B{OS_B}: kernel 2 (head dim "
+          f"104) {attn_ms:.2f} ms = {attn_ms / busy:.3f} of {busy:.2f} ms "
+          f"busy; kernel 1 {mlp_ms:.2f} ms = {mlp_ms / busy:.3f}", flush=True)
+    del model, opt, tx, step, batch, emb
+    torch.cuda.empty_cache()
+
+    grad_line = openshape_grad_parity(torch, np, cfg, g)
+    base_rates = openshape_baselines(torch, np, counters, totals, card, g)
+    pt_rate = point_transformer_phase(torch, np, counters, totals, card, g)
+    cli = openshape_cli_phase(torch, np, counters, totals, card)
+    print(f"[4o openshape] {grad_line}; phase took {time.time() - t0:.1f} s",
+          flush=True)
+    return {"step": step_rate, **base_rates, "point_transformer": pt_rate,
+            **cli}
+
+
+def openshape_grad_parity(torch, np, cfg, g):
+    """The B = 2 gradients of a bigG-width CLIPBind cut to 8 trunk blocks
+    (the first 4 skipped) and a Lens of depth 1 (a full fp32 copy does not
+    fit the host), bf16 on the card against fp32 on the CPU: FPS from the
+    same starts, the CPU pass given the card's ball-query groups, clouds
+    rounded through bf16 once. Gradient cosine >= COS_MIN, loss within
+    LOSS_TOL."""
+    from vitlens_tpu_torch.adapters import tokenizers as T
+    from vitlens_tpu_torch.train import openshape as OS
+    from vitlens_tpu_torch.train.step import _grads
+
+    small = dataclasses.replace(
+        cfg, arch=dataclasses.replace(cfg.arch, layers=8), skip_first_n_layers=4,
+        perceiver=dataclasses.replace(cfg.perceiver, depth=1))
+    model = OS.CLIPBind(small, 1280, device="cuda")
+    model.init_(torch.Generator(device="cuda").manual_seed(SEED + 1))
+    model.requires_grad_(True)
+    batch = openshape_batch(torch, g, 2)
+    batch["xyz_features"] = batch["xyz_features"].bfloat16().float()
+    starts = torch.tensor([17, 4242], dtype=torch.int32) % batch[
+        "xyz_features"].shape[1]
+    ref = copy.deepcopy(model).cpu()
+
+    def grads_of(m, dt):
+        dev = m.logit_scale.device
+        loss, _ = OS.openshape_loss(m, {k: v.to(dev) for k, v in batch.items()},
+                                    compute_dtype=dt, fps_start=starts.to(dev))
+        gr = _grads(loss, dict(m.named_parameters()))
+        return loss.item(), torch.cat([t.float().flatten().cpu()
+                                       for t in gr.values()]).double()
+
+    t0 = time.time()
+    (loss_card, g_card), (loss_cpu, g_cpu), note = shared_knn_groups(
+        torch, lambda: grads_of(model, torch.bfloat16),
+        lambda: grads_of(ref, torch.float32), sites=[(T, "ball_query")])
+    cos = (g_card @ g_cpu / (g_card.norm() * g_cpu.norm())).item()
+    ratio = g_card.norm().item() / g_cpu.norm().item()
+    del model, ref
+    torch.cuda.empty_cache()
+    if cos < COS_MIN or abs(loss_card - loss_cpu) > LOSS_TOL:
+        fail(f"4o gradients vs CPU fp32: cosine {cos}, loss {loss_card} vs "
+             f"{loss_cpu}")
+    return (f"B=2 gradients of a bigG-width CLIPBind (8 trunk blocks, 4 "
+            f"skipped; Lens depth 1) bf16 on the card vs fp32 on the CPU: "
+            f"cosine {cos:.6f}, loss {loss_card:.5f} vs {loss_cpu:.5f}, "
+            f"grad norm ratio {ratio:.4f} ({time.time() - t0:.1f} s){note}")
+
+
+def openshape_baselines(torch, np, counters, totals, card, g):
+    """The --pc-model baselines at the CLI's widths (scaling 3, 6 channels
+    in, 1280 out), fp32: one train step each at B16 (FPS once for
+    PointBERT, never for DGCNN and PointNet), the peak memory, a B = 2
+    eval forward against the CPU from the same FPS starts and groups
+    (BASELINE_TOL by the TF32 setting), the step timed; then a PointNet2
+    forward at B16 x 10000 (FPS at both MSG levels). Returns the rates."""
+    from vitlens_tpu_torch.models.pc_baselines import PointNet2
+    from vitlens_tpu_torch.ops import fps as F
+    from vitlens_tpu_torch.train import openshape as OS
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    tol = BASELINE_TOL[tf32]
+    lines, rates = [], {}
+    for name in ("PointBERT", "DGCNN", "PointNet"):
+        model = OS.BaselineBind(name, scaling=3, device="cuda")
+        model.init_(torch.Generator(device="cuda").manual_seed(SEED))
+        tx, opt, step = bind_optimizer(torch, model, trunk=False)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        for b in (OS_B, 8, 4):  # the largest batch that fits (DGCNN's
+            # edge features: [B, 10000, 20, 768] fp32 a tensor at scaling 3)
+            batch = openshape_batch(torch, g, b)
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                m, counts = run_counted(torch, counters, totals, lambda: step(
+                    model, opt, batch, fps_generator=gen))
+                break
+            except torch.cuda.OutOfMemoryError:
+                del batch
+                torch.cuda.empty_cache()
+                print(f"[4o baselines] {name} train step B{b}: out of device "
+                      "memory", flush=True)
+        else:
+            fail(f"4o {name}: no batch size fits")
+        want = launch_counts(fps=1 if name == "PointBERT" else 0)
+        if counts != want or not all(np.isfinite(float(v)) for v in m.values()):
+            fail(f"4o {name} step: launches {counts} (expected {want}), "
+                 f"metrics {m}")
+        peak = peak_gb(torch)
+        x2 = batch["xyz_features"][:2]
+        starts = torch.tensor([17, 4242], dtype=torch.int32) % x2.shape[1]
+        ref = copy.deepcopy(model).cpu()
+        with torch.no_grad():
+            got, want_x, note = shared_knn_groups(
+                torch, lambda: model(x2, fps_start=starts.cuda()),
+                lambda: ref(x2.cpu(), fps_start=starts),
+                sites=[(F, "knn_indices"), (F, "ball_query")])
+        err = rel_err(got.cpu(), want_x)
+        del ref
+        if not (err <= tol and torch.isfinite(got).all()):
+            fail(f"4o {name} B=2 vs CPU fp32: rel err {err} > {tol}")
+        lines.append(f"{name}: {sum(p.numel() for p in model.parameters())} "
+                     f"parameters, B{b} step loss {float(m['loss']):.5f}, "
+                     f"launches (fps) {counts['fps']}, peak {peak:.2f} GB, "
+                     f"B=2 vs CPU rel err {err:.2e}{note}")
+        rates[name] = (b, train_rate(
+            torch, card, f"{name} baseline train step B{b} fp32 (scaling 3)",
+            lambda: step(model, opt, batch, fps_generator=gen), b))
+        del model, opt, tx, step, batch
+        torch.cuda.empty_cache()
+    net2 = PointNet2(40, device="cuda")
+    net2.init_(torch.Generator(device="cuda").manual_seed(SEED))
+    x = openshape_batch(torch, g, OS_B)["xyz_features"]
+    with torch.no_grad():
+        (logp, feat), counts = run_counted(torch, counters, totals,
+                                           lambda: net2(x))
+    if counts != launch_counts(fps=2) or not torch.isfinite(logp).all() or \
+            tuple(feat.shape) != (OS_B, 1024):
+        fail(f"4o PointNet2 forward: launches {counts}, shapes "
+             f"{tuple(logp.shape)} {tuple(feat.shape)}")
+    del net2, x
+    torch.cuda.empty_cache()
+    print(f"[4o baselines] fp32 (matmul TF32 {tf32}, cuDNN TF32 "
+          f"{torch.backends.cudnn.allow_tf32}; tolerance {tol}) at B{OS_B} x "
+          f"10000 points: " + "; ".join(lines) + f"; PointNet2 (40 classes) "
+          f"forward B{OS_B}: 2 FPS launches", flush=True)
+    return rates
+
+
+def point_transformer_phase(torch, np, counters, totals, card, g):
+    """The PointBERT classifier (PointTransformerConfig(): 8192 points, 512
+    groups of 32, width 384, 12 blocks of 6 heads) in bf16 eval: B8 with 1
+    FPS, 1 point encoder, 12 kernel 1 and 12 kernel 2 launches, cosine >=
+    COS_MIN against fp32 on the CPU given the card's kNN groups; the B64
+    encode timed. Returns its rate."""
+    from vitlens_tpu_torch.factory import cast_matmul_weights_
+    from vitlens_tpu_torch.models.point_transformer import (
+        PointTransformer, PointTransformerConfig)
+
+    cfg = PointTransformerConfig()
+    model = PointTransformer(cfg, device="cuda")
+    model.init_(torch.Generator(device="cuda").manual_seed(SEED))
+    ref = copy.deepcopy(model).cpu()
+    cast_matmul_weights_(model, torch.bfloat16)
+    x = (torch.randn(8, cfg.point.npoints, 3, generator=g, device="cuda")
+         * 0.3).bfloat16().float()
+    want = launch_counts(fps=1, point_encoder=1, fused_mlp=cfg.depth,
+                         flash_attention=cfg.depth)
+    with torch.no_grad():
+        (emb, counts), want_x, note = shared_knn_groups(
+            torch, lambda: run_counted(torch, counters, totals, lambda: model(
+                x, compute_dtype=torch.bfloat16)),
+            lambda: ref(x.cpu()))
+    if counts != want:
+        fail(f"4o PointTransformer: launches {counts}, expected {want}")
+    cos = cos_min(torch, emb, want_x)
+    if cos < COS_MIN:
+        fail(f"4o PointTransformer bf16 vs CPU fp32: cosine {cos}")
+    print(f"[4o point transformer] B8 x {cfg.point.npoints} points bf16 eval: "
+          f"launches (fps, encoder, mlp, attn) {counts['fps']}, "
+          f"{counts['point_encoder']}, {counts['fused_mlp']}, "
+          f"{counts['flash_attention']}; cosine vs CPU fp32 {cos:.6f}{note}",
+          flush=True)
+    del ref
+    x64 = torch.randn(B, cfg.point.npoints, 3, generator=g, device="cuda") * 0.3
+
+    def encode():
+        with torch.no_grad():
+            return model(x64, compute_dtype=torch.bfloat16)
+
+    rate = encode_rate(torch, card, f"PointTransformer encode B{B} x "
+                       f"{cfg.point.npoints} points bf16", encode, B,
+                       dim=tuple(emb.shape)[1])
+    del model
+    torch.cuda.empty_cache()
+    return rate
+
+
+def write_openshape_inputs(np, root, n_objects):
+    """Triplet blobs as OpenShape stores them (xyz, rgb for every other one,
+    text_feat [1, 1280], img_feat [1280]; 9000 to 12000 points, so the
+    dataset both resamples and subsamples), 8 eval objects of 4 classes and
+    their per-class text embeddings."""
+    rng = np.random.RandomState(SEED + 14)
+    for split, n in (("train", n_objects), ("eval", 8)):
+        os.makedirs(os.path.join(root, split))
+        for i in range(n):
+            pts = 9000 + 1000 * (i % 4)
+            blob = {"xyz": (rng.randn(pts, 3) * 0.4).astype(np.float32),
+                    "text_feat": rng.randn(1, 1280).astype(np.float32),
+                    "img_feat": rng.randn(1280).astype(np.float32)}
+            if i % 2:
+                blob["rgb"] = rng.rand(pts, 3).astype(np.float32)
+            np.save(os.path.join(root, split, f"obj{i:03d}.npy"), blob)
+    np.save(os.path.join(root, "cls_feats.npy"),
+            rng.randn(4, 1280).astype(np.float32))
+    np.save(os.path.join(root, "labels.npy"), np.arange(8) % 4)
+
+
+def openshape_cli_phase(torch, np, counters, totals, card):
+    """`python -m vitlens_tpu_torch.cli.train_openshape` at full vitlensG
+    width, in this process, from OS_CLI_OBJECTS fixture triplets at
+    --batch-size 16: (a) --epochs 1 with eval, (b) --resume latest --epochs
+    2 (starts at epoch 1 with the file's weights; the optimizer's count
+    restarts), (c) eval-only from epoch_latest. Launches per run derived
+    from the config; checkpoints, meta.json epochs and the eval keys
+    checked; the free disk before and the bytes written printed; the
+    directory deleted after. Returns the CLI's step seconds."""
+    import tempfile
+
+    from vitlens_tpu_torch.cli import train_openshape as CLI
+    from vitlens_tpu_torch.train import checkpoint as C
+    from vitlens_tpu_torch.train.openshape import vitlensG_tower_config
+
+    root = tempfile.mkdtemp(prefix="vitlens_4o_")
+    free_gb = shutil.disk_usage(root).free / 1e9
+    if free_gb < OS_DISK_GB:
+        shutil.rmtree(root, ignore_errors=True)
+        fail(f"4o CLI: {free_gb:.1f} GB free under {root}, the runs write "
+             f"~{OS_DISK_GB} GB of checkpoints")
+    try:
+        write_openshape_inputs(np, root, OS_CLI_OBJECTS)
+        logs = os.path.join(root, "logs")
+        ev = ["--eval-feats", os.path.join(root, "cls_feats.npy"),
+              "--eval-labels", os.path.join(root, "labels.npy"),
+              "--eval-files", os.path.join(root, "eval", "*.npy")]
+        base = ["--batch-size", str(OS_B), "--log-every-n-steps", "1",
+                "--name", "run", "--warmup", "2"]
+        train = ["--train-files", os.path.join(root, "train", "*.npy")]
+        cfg = vitlensG_tower_config()
+        steps = OS_CLI_OBJECTS // OS_B
+        per_train = {k: steps * v for k, v in openshape_launches(cfg, True).items()}
+        per_eval = openshape_launches(cfg, False)  # 8 eval objects: one batch
+        want_ab = {k: per_train[k] + per_eval[k] for k in per_train}
+        ckpt = os.path.join(logs, "run", "checkpoints")
+        times = {}
+        t = time.time()
+        rc, counts = run_counted(torch, counters, totals, lambda: CLI.main(
+            base + train + ["--logs", logs, "--epochs", "1"] + ev))
+        times["a"] = time.time() - t
+        if rc != 0 or counts != want_ab:
+            fail(f"4o CLI run (a): rc {rc}, launches {counts}, expected {want_ab}")
+        if sorted(os.listdir(ckpt)) != ["epoch_1", "epoch_latest"] or \
+                C.load_meta(os.path.join(ckpt, "epoch_1"))["epoch"] != 1:
+            fail(f"4o CLI run (a): checkpoints {sorted(os.listdir(ckpt))}")
+        seen = {}
+        build = CLI.build_optimizer
+
+        def spy(args, model, total_steps):  # the weights the resumed run starts from
+            saved = torch.load(os.path.join(ckpt, "epoch_latest", C.TREE_FILE),
+                               map_location="cpu", weights_only=True)
+            seen["equal"] = all(
+                torch.equal(p.detach().cpu(), saved["params"][n])
+                for n, p in model.named_parameters()) and all(
+                torch.equal(b.cpu(), saved["state"][n])
+                for n, b in model.named_buffers())
+            del saved
+            out = build(args, model, total_steps)
+            seen["opt"] = out[1]
+            return out
+
+        CLI.build_optimizer = spy
+        try:
+            t = time.time()
+            rc, counts = run_counted(torch, counters, totals, lambda: CLI.main(
+                base + train + ["--logs", logs, "--epochs", "2", "--resume",
+                                "latest"] + ev))
+            times["b"] = time.time() - t
+        finally:
+            CLI.build_optimizer = build
+        if rc != 0 or counts != want_ab or not seen.get("equal") or \
+                seen["opt"]["count"] != steps:
+            fail(f"4o CLI run (b): rc {rc}, launches {counts}, weights equal "
+                 f"the file's {seen.get('equal')}, optimizer count "
+                 f"{seen.get('opt', {}).get('count')}")
+        if C.load_meta(os.path.join(ckpt, "epoch_latest"))["epoch"] != 2:
+            fail("4o CLI run (b): epoch_latest is not epoch 2")
+        with open(os.path.join(logs, "run", "results.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        train_steps = [r["step"] for r in recs if "train/loss" in r]
+        vals = [r for r in recs if "val/top1" in r]
+        if train_steps != list(range(1, 2 * steps + 1)) or len(vals) != 2 or \
+                not all({"val/top3", "val/top5", "val/class_top1"} <= set(r)
+                        for r in vals):
+            fail(f"4o CLI: train steps {train_steps}, val records {vals}")
+        written = sum(os.path.getsize(os.path.join(d, f))
+                      for d, _, fs in os.walk(ckpt) for f in fs)
+        t = time.time()
+        rc, counts = run_counted(torch, counters, totals, lambda: CLI.main(
+            base + ["--logs", os.path.join(root, "eval_logs"),
+                    "--resume", os.path.join(ckpt, "epoch_latest")] + ev))
+        times["c"] = time.time() - t
+        with open(os.path.join(root, "eval_logs", "run", "results.jsonl")) as f:
+            ev_recs = [json.loads(line) for line in f]
+        if rc != 0 or counts != per_eval or len(ev_recs) != 1:
+            fail(f"4o CLI run (c): rc {rc}, launches {counts}, records {ev_recs}")
+        step_s = [OS_B / r["train/samples_per_s"] for r in recs
+                  if "train/samples_per_s" in r]
+        print(f"[4o CLI] python -m vitlens_tpu_torch.cli.train_openshape at "
+              f"full vitlensG width, {OS_CLI_OBJECTS} triplets, --batch-size "
+              f"{OS_B}: {free_gb:.1f} GB free before; run (a) 1 epoch "
+              f"{times['a']:.1f} s, (b) --resume latest to epoch 2 "
+              f"{times['b']:.1f} s (started at epoch 1 from the file's "
+              f"weights, optimizer count restarted: {seen['opt']['count']} "
+              f"after its {steps} steps), (c) eval-only {times['c']:.1f} s; "
+              f"launches (a), (b) {want_ab['fused_mlp_save_preact']} "
+              f"save-preact + {want_ab['fused_mlp']} plain kernel 1, "
+              f"{want_ab['flash_attention']} kernel 2, {want_ab['fps']} FPS; "
+              f"losses {[round(r['train/loss'], 4) for r in recs if 'train/loss' in r]}; "
+              f"eval {[{k[4:]: round(v, 3) for k, v in r.items() if k != 'step'} for r in vals]}, "
+              f"eval-only {ev_recs[0]}; checkpoints {sorted(os.listdir(ckpt))}, "
+              f"{written / 1e9:.2f} GB written", flush=True)
+        print(f"[5 timing] {card} | OpenShape CLI step B{OS_B} (host clock "
+              f"between logged steps, the loader and prefetcher included): "
+              f"{[round(s, 4) for s in step_s]} s", flush=True)
+        return {"cli_step_s": min(step_s)}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -2928,9 +3448,10 @@ def main() -> int:
     checks = []
     # the last: the video distill step's image tower at B64 (8 frames of
     # 257 tokens a sample), the largest M on any path
+    # (8 * 513, 384, 1536): the PointTransformer's blocks at B8 (phase 4o)
     for m, d, h in ((6168, 1024, 4096), (616, 768, 3072), (1001, 1024, 4096),
                     (4100, 1024, 4096), (4100, 1664, 8192), (154, 1280, 5120),
-                    (B * 8 * 257, 1024, 4096)):
+                    (8 * 513, 384, 1536), (B * 8 * 257, 1024, 4096)):
         for act in ("gelu", "quick_gelu"):
             a = mlp_inputs(torch, g, m, d, h)
             got = fused_mlp(*a, act=act)
@@ -2947,7 +3468,7 @@ def main() -> int:
     for b, h, nq, nk in ((12, 16, 257, 257), (12, 1, 256, 600),
                          (12, 16, 256, 256), (8, 1, 256, 512),
                          (B, 1, 256, 2048), (B, 1, 256, 2040), (B, 1, 256, 512),
-                         (B * 8, 16, 257, 257)):
+                         (8, 6, 513, 513), (B * 8, 16, 257, 257)):
         q, k, v = qkv_inputs(torch, g, b, h, nq, nk)
         got = flash_attention(q, k, v)
         torch.cuda.synchronize()
@@ -3053,7 +3574,21 @@ def main() -> int:
         "attention [2,1,256,600]": (
             flash_attention, attention_reference,
             qkv_inputs(torch, g, 2, 1, 256, 600), ATTN_GRAD_TOL,
-            ("dq", "dk", "dv"))}
+            ("dq", "dk", "dv")),
+        # the CLIPBind step's (phase 4o): kernel 1 at bigG's D 1664 / H 8192
+        # (B16 x 257 rows) and kernel 2 at head dim 104 in the trunk and the
+        # Lens's cross and self blocks
+        "fused_mlp M4112 1664->8192 gelu": (
+            fused_mlp, fused_mlp_reference,
+            mlp_inputs(torch, g, OS_B * 257, 1664, 8192), GRAD_TOL,
+            ("dx", "dlnw", "dlnb", "dw1", "db1", "dw2", "db2")),
+        **{f"attention {label} [{b},{h},{nq},{nk},104]": (
+            flash_attention, attention_reference,
+            qkv_inputs(torch, g, b, h, nq, nk, 104), ATTN_GRAD_TOL,
+            ("dq", "dk", "dv"))
+           for label, (b, h, nq, nk) in (("bigG trunk", (OS_B, 16, 257, 257)),
+                                         ("Lens cross", (OS_B, 1, 256, 512)),
+                                         ("Lens self", (OS_B, 16, 256, 256)))}}
     lines = []
     for label, (fn, plain, args, tol, names) in grad_checks.items():
         errs = grad_errs(torch, g, fn, plain, args)
@@ -3212,6 +3747,9 @@ def main() -> int:
         [("B=8", 8, 1)] * 2 + [("B=8 accum_freq 4", 8, 4)] * 2)
     # -- 4x: the training CLI (files, eval, checkpoints, resume) ----------
     cli = train_cli_phase(torch, np, counters, launches, card)
+    # -- 4o: the OpenShape trainer (vitlensG, the baselines, the PointBERT
+    # classifier, the CLI); its phase-5 timings run inside, on its models
+    os_rates = openshape_phase(torch, np, counters, launches, card)
 
     # -- 5: timing at the B64 shapes -----------------------------------------
     timings = {name: [] for name in kernels}
@@ -3460,6 +3998,13 @@ def main() -> int:
           + "; ".join(f"{k} train step B{b}: {r:.2f} samples/s"
                       for k, (b, r) in tri_rates.items())
           + f"; vitlensG pc encode B16: {g_rate:.2f} samples/s"
+          + f"; CLIPBind (vitlensG) train step B{OS_B}: {os_rates['step']:.2f} "
+          f"samples/s; baseline steps " + ", ".join(
+              f"{k} {os_rates[k][1]:.2f} at B{os_rates[k][0]}"
+              for k in ("PointBERT", "DGCNN", "PointNet"))
+          + f" samples/s; PointTransformer encode B{B}: "
+          f"{os_rates['point_transformer']:.2f} samples/s; OpenShape CLI step "
+          f"{os_rates['cli_step_s']:.4f} s"
           + f"; image, depth, EEG, video encode B{B}: "
           + ", ".join(f"{served_rates[m]:.2f}" for m in ("image", "depth", "eeg", "video"))
           + f" samples/s; served audio closed loop: "

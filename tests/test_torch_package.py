@@ -37,7 +37,8 @@ def test_port_imports_no_jax():
         "          'data.video_randaugment', 'train.openshape', 'data.native',\n"
         "          'data.loader', 'data.datasets', 'data.lmdb_reader', 'eval.metadata',\n"
         "          'eval.metrics', 'eval.zero_shot', 'train.checkpoint', 'utils.logging',\n"
-        "          'utils.flops', 'cli.args', 'cli.train'):\n"
+        "          'utils.flops', 'cli.args', 'cli.train', 'models.pc_baselines',\n"
+        "          'models.point_transformer', 'cli.train_openshape'):\n"
         "    assert 'vitlens_tpu_torch.' + n in names, n\n"
         "sys.path.insert(0, '.')\n"
         "import tools.reference_layout\n"
@@ -64,7 +65,9 @@ def test_port_sources_never_name_jax():
                 "data/native.py", "data/loader.py", "data/datasets.py",
                 "data/lmdb_reader.py", "eval/metrics.py", "eval/zero_shot.py",
                 "eval/metadata.py", "train/checkpoint.py", "utils/logging.py",
-                "utils/flops.py", "cli/args.py", "cli/train.py"):
+                "utils/flops.py", "cli/args.py", "cli/train.py",
+                "models/pc_baselines.py", "models/point_transformer.py",
+                "cli/train_openshape.py"):
         assert new in names, new
     paths += [os.path.join(REPO, "tools", "reference_layout.py"),
               os.path.join(REPO, "chip_smoke.py")]

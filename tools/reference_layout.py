@@ -21,7 +21,10 @@ State dicts in the reference's key layout (what
     ``ln_final``, ``text_projection``);
   * :func:`clip_state_dict`: a two-tower CLIP file (``visual.*`` + the text
     keys at the top level + ``logit_scale``); :func:`merged_state_dict`: a
-    merged ViT-Lens export (``vitlens.{modality}.*``).
+    merged ViT-Lens export (``vitlens.{modality}.*``);
+  * the OpenShape pc baselines' files, :func:`ppat_state_dict`,
+    :func:`dgcnn_state_dict` and :func:`pointnet2_state_dict`, and the
+    PointBERT classifier's, :func:`point_transformer_state_dict`.
 
 Values come from a ``torch.Generator`` at open_clip's init scales (LayerNorm
 and BatchNorm parameters perturbed from 1 and 0, so that a load that drops
@@ -247,6 +250,151 @@ def merged_state_dict(towers: Dict[str, StateDict]) -> StateDict:
     ``vitlens.{modality}.``."""
     return {f"vitlens.{m}.{k}": v for m, sd in towers.items()
             for k, v in sd.items()}
+
+
+# ---------------------------------------------------------------------------
+# OpenShape pc baselines and the PointBERT classifier
+# ---------------------------------------------------------------------------
+
+
+def _conv2d(mk: _Maker, sd: StateDict, name: str, n_in: int, n_out: int,
+            bias: bool = True) -> None:
+    sd[f"{name}.weight"] = mk.normal((n_out, n_in, 1, 1), n_in ** -0.5)
+    if bias:
+        sd[f"{name}.bias"] = mk.normal((n_out,), 0.02)
+
+
+def _conv1d(mk: _Maker, sd: StateDict, name: str, n_in: int,
+            n_out: int) -> None:
+    sd[f"{name}.weight"] = mk.normal((n_out, n_in, 1), n_in ** -0.5)
+    sd[f"{name}.bias"] = mk.normal((n_out,), 0.02)
+
+
+def _set_abstraction(mk: _Maker, sd: StateDict, prefix: str, n_in: int,
+                     mlp) -> None:
+    """PointNetSetAbstraction's ``mlp_convs.{i}`` / ``mlp_bns.{i}``."""
+    for i, out in enumerate(mlp):
+        _conv2d(mk, sd, f"{prefix}mlp_convs.{i}", n_in, out)
+        mk.bn(sd, f"{prefix}mlp_bns.{i}", out)
+        n_in = out
+
+
+def ppat_state_dict(scaling: int, gen: torch.Generator, in_channel: int = 6,
+                    out_channel: int = 1280,
+                    dtype: torch.dtype = torch.float32) -> StateDict:
+    """OpenShape's Projected(PointPatchTransformer, Linear) keys
+    (ppat.py:86-156): ``ppat.sa.*``, ``ppat.lift.{0,2}``,
+    ``ppat.cls_token``, ``ppat.transformer.layers.{l}.{0,1}.*`` and
+    ``proj``."""
+    from vitlens_tpu_torch.models.pc_baselines import (PPAT_DIM_HEAD,
+                                                       PPAT_SCALINGS)
+
+    mk, cfg = _Maker(gen, dtype), PPAT_SCALINGS[scaling]
+    dim, inner = cfg["dim"], cfg["heads"] * PPAT_DIM_HEAD
+    sd: StateDict = {}
+    _set_abstraction(mk, sd, "ppat.sa.", in_channel + 3,
+                     (64, 64, cfg["sa_dim"]))
+    _conv1d(mk, sd, "ppat.lift.0", cfg["sa_dim"] + 3, dim)
+    mk.ln(sd, "ppat.lift.2", dim)
+    sd["ppat.cls_token"] = mk.normal((dim,), 1.0)
+    for layer in range(cfg["depth"]):
+        p = f"ppat.transformer.layers.{layer}."
+        mk.ln(sd, p + "0.norm", dim)
+        mk.linear(sd, p + "0.fn.to_qkv", dim, 3 * inner, bias=False)
+        mk.linear(sd, p + "0.fn.to_out.0", inner, dim)
+        mk.ln(sd, p + "1.norm", dim)
+        mk.linear(sd, p + "1.fn.net.0", dim, cfg["mlp_dim"])
+        mk.linear(sd, p + "1.fn.net.3", cfg["mlp_dim"], dim)
+    mk.linear(sd, "proj", dim, out_channel)
+    return sd
+
+
+def dgcnn_state_dict(gen: torch.Generator, in_channel: int = 6,
+                     out_channel: int = 1280, scaling: float = 1,
+                     dtype: torch.dtype = torch.float32) -> StateDict:
+    """DGCNN's keys (dgcnn.py:67-101): bias-free ``conv{1..4}.0`` (Conv2d)
+    and ``conv5.0`` (Conv1d), BatchNorms under ``bn{i}.bn``, ``linear1``
+    (no bias), ``bn6``, ``linear2``."""
+    mk, base = _Maker(gen, dtype), int(64 * scaling)
+    dims = [(in_channel * 2, base), (base * 2, base), (base * 2, base * 2),
+            (base * 4, base * 4), (base * 8, base * 16)]
+    sd: StateDict = {}
+    for i, (n_in, n_out) in enumerate(dims, 1):
+        if i < 5:
+            _conv2d(mk, sd, f"conv{i}.0", n_in, n_out, bias=False)
+        else:
+            sd["conv5.0.weight"] = mk.normal((n_out, n_in, 1), n_in ** -0.5)
+        mk.bn(sd, f"bn{i}.bn", n_out)
+    mk.linear(sd, "linear1", base * 32, base * 8, bias=False)
+    mk.bn(sd, "bn6", base * 8)
+    mk.linear(sd, "linear2", base * 8, out_channel)
+    return sd
+
+
+def pointnet2_state_dict(gen: torch.Generator, num_class: int = 40,
+                         normal_channel: bool = True,
+                         dtype: torch.dtype = torch.float32) -> StateDict:
+    """pointnet2.get_model's keys (pointnet2.py:6-20): the MSG levels'
+    ``sa{1,2}.conv_blocks.{i}.{j}`` / ``bn_blocks.{i}.{j}``, ``sa3``'s
+    ``mlp_convs`` / ``mlp_bns``, ``fc{1,2,3}``, ``bn{1,2}``."""
+    from vitlens_tpu_torch.weights.torch_convert import POINTNET2_MSG
+
+    mk = _Maker(gen, dtype)
+    sd: StateDict = {}
+    for level, n_in, mlps in (("sa1", 3 if normal_channel else 0,
+                               POINTNET2_MSG[0]),
+                              ("sa2", 320, POINTNET2_MSG[1])):
+        for i, mlp in enumerate(mlps):
+            last = n_in + 3
+            for j, out in enumerate(mlp):
+                _conv2d(mk, sd, f"{level}.conv_blocks.{i}.{j}", last, out)
+                mk.bn(sd, f"{level}.bn_blocks.{i}.{j}", out)
+                last = out
+    _set_abstraction(mk, sd, "sa3.", 640 + 3, (256, 512, 1024))
+    for i, (n_in, n_out) in enumerate(((1024, 512), (512, 256),
+                                       (256, num_class)), 1):
+        mk.linear(sd, f"fc{i}", n_in, n_out)
+        if i < 3:
+            mk.bn(sd, f"bn{i}", n_out)
+    return sd
+
+
+def point_transformer_state_dict(cfg, gen: torch.Generator,
+                                 qkv_bias: bool = False,
+                                 dtype: torch.dtype = torch.float32) -> StateDict:
+    """The reference PointTransformer's keys (point_encoder.py:170-295) for
+    a ``PointTransformerConfig``: the PointBERT ``encoder.*``,
+    ``reduce_dim``, ``pos_embed``, ``cls_token`` / ``cls_pos`` [1, 1, d],
+    ``blocks.blocks.{i}.*`` (timm blocks; the qkv has no bias unless
+    ``qkv_bias``), ``norm`` and, with ``output_dim``, ``proj`` [cat * d,
+    output_dim]."""
+    mk, pt = _Maker(gen, dtype), cfg.point
+    d = pt.trans_dim
+    sd: StateDict = {}
+    for name, n_in, n_out in (("first_conv.0", 3, 128), ("first_conv.3", 128, 256),
+                              ("second_conv.0", 512, 512),
+                              ("second_conv.3", 512, pt.encoder_dims)):
+        _conv1d(mk, sd, f"encoder.{name}", n_in, n_out)
+    mk.bn(sd, "encoder.first_conv.1", 128)
+    mk.bn(sd, "encoder.second_conv.1", 512)
+    mk.linear(sd, "reduce_dim", pt.encoder_dims, d)
+    mk.linear(sd, "pos_embed.0", 3, 128)
+    mk.linear(sd, "pos_embed.2", 128, d)
+    sd["cls_token"] = mk.normal((1, 1, d), 0.02)
+    sd["cls_pos"] = mk.normal((1, 1, d), 0.02)
+    for i in range(cfg.depth):
+        p = f"blocks.blocks.{i}."
+        mk.ln(sd, p + "norm1", d)
+        mk.linear(sd, p + "attn.qkv", d, 3 * d, bias=qkv_bias)
+        mk.linear(sd, p + "attn.proj", d, d)
+        mk.ln(sd, p + "norm2", d)
+        mk.linear(sd, p + "mlp.fc1", d, 4 * d)
+        mk.linear(sd, p + "mlp.fc2", 4 * d, d)
+    mk.ln(sd, "norm", d)
+    if cfg.output_dim is not None:
+        cat = 2 if cfg.do_cat else 1
+        sd["proj"] = mk.normal((cat * d, cfg.output_dim), cfg.output_dim ** -0.5)
+    return sd
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Perceiver "Lens" (port of vitlens_tpu/models/perceiver.py).
+"""Perceiver "Lens" and the PointPerceiver head (port of
+vitlens_tpu/models/perceiver.py).
 
 depth x [cross-attention(latents <- tokens) + GEGLU FF
          + self_per_cross_attn x (self-attention + GEGLU FF)]
@@ -172,3 +173,26 @@ class Perceiver(nn.Module):
         for i in range(self.cfg.depth):
             x = self.layers[0 if self.cfg.weight_tie_layers else i](x, tokens)
         return x
+
+
+class PointPerceiver(nn.Module):
+    """The standalone point-cloud head (JAX ``point_perceiver_init`` /
+    ``point_perceiver_apply``; reference PointPerceiver, perceiver.py:335-
+    366): the Perceiver, the mean over its latents, a LayerNorm and
+    ``@ proj``. The tokens come from a point tokenizer run separately."""
+
+    def __init__(self, cfg: PerceiverConfig, embed_dim: int, device=None):
+        super().__init__()
+        self.perceiver = Perceiver(cfg, device=device)
+        self.layer_norm = LayerNorm(cfg.latent_dim, device=device)
+        self.proj = _param(cfg.latent_dim, embed_dim, device=device)
+
+    def init_(self, g: torch.Generator) -> None:
+        self.perceiver.init_(g)
+        self.layer_norm.init_(g)
+        normal_(self.proj, self.proj.shape[0] ** -0.5, g)
+
+    def forward(self, tokens):
+        """tokens [B, N, input_dim] -> [B, embed_dim]."""
+        x = self.layer_norm(self.perceiver(tokens).mean(dim=1))
+        return x @ self.proj.to(x.dtype)

@@ -65,7 +65,11 @@ _ADAPTERS = {"image": ImageAdapter, "tactile": ImageAdapter,
 
 
 class VisionTower(nn.Module):
-    def __init__(self, cfg: TowerConfig, device=None):
+    """The Lens tower. ``proj=False`` builds it without its final
+    projection (OpenShape's CLIPBind drops it for its own ``proj_layer``):
+    the features are then the pooled ``ln_post`` output."""
+
+    def __init__(self, cfg: TowerConfig, device=None, proj: bool = True):
         super().__init__()
         self.cfg = cfg
         arch = cfg.arch
@@ -93,7 +97,7 @@ class VisionTower(nn.Module):
                                  arch.ls_init_value, cfg.quick_gelu,
                                  device=device)
         self.ln_post = LayerNorm(width, device=device)
-        self.proj = _param(width, cfg.embed_dim, device=device)
+        self.proj = _param(width, cfg.embed_dim, device=device) if proj else None
 
     def init_(self, g: torch.Generator) -> None:
         scale = self.cfg.arch.width ** -0.5
@@ -106,7 +110,8 @@ class VisionTower(nn.Module):
         self.ln_pre.init_(g)
         self.trunk.init_(g)
         self.ln_post.init_(g)
-        normal_(self.proj, scale, g)
+        if self.proj is not None:
+            normal_(self.proj, scale, g)
 
     def forward(self, x: torch.Tensor, compute_dtype=torch.float32, *,
                 train: bool = False, remat: bool = False,
@@ -170,7 +175,7 @@ class VisionTower(nn.Module):
         else:
             pooled, toks = h[:, 0], h[:, 1:]
         pooled = self.ln_post(pooled)
-        feats = pooled @ self.proj.to(pooled.dtype)
+        feats = pooled if self.proj is None else pooled @ self.proj.to(pooled.dtype)
         return (feats, toks) if output_tokens else feats
 
     def _video_tokens(self, x: torch.Tensor) -> torch.Tensor:

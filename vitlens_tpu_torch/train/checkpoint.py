@@ -147,9 +147,21 @@ def load_checkpoint(path: str, target: Any, *, ckpt_only: bool = False) -> Any:
     model's parameters and buffers (--resume-ckpt-only), not the optimizer
     state or the step. Any other target (a nested dict of tensors) is
     returned as a new tree of the loaded tensors, each cast to its target's
-    dtype and device."""
+    dtype and device. An ``nn.Module`` target takes a ``{"params": {name:
+    tensor}, "state": {buffer name: tensor}}`` checkpoint (the OpenShape
+    trainer's, which holds no optimizer state) in place, every parameter
+    and buffer present."""
     raw = torch.load(os.path.join(path, TREE_FILE), map_location="cpu",
                      weights_only=True)
+    if isinstance(target, torch.nn.Module):
+        with torch.no_grad():
+            for kind, live in (("params", target.named_parameters()),
+                               ("state", target.named_buffers())):
+                for name, t in live:
+                    if name not in raw[kind]:
+                        raise KeyError(f"checkpoint missing leaf {kind}.{name!r}")
+                    t.copy_(raw[kind][name])
+        return target
     if not isinstance(target, TrainState):
         return _graft(raw, target, "")
     model = target.model

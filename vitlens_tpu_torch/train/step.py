@@ -79,14 +79,22 @@ def global_norm(grads: Dict[str, torch.Tensor]) -> torch.Tensor:
 class AdamW:
     """``optax.masked(chain(clip_by_global_norm?, adamw), trainable)`` over
     named parameters. State: ``{"count": int, "mu": {name: t}, "nu": {name:
-    t}}`` for the trainable names only."""
+    t}}`` for the trainable names only.
 
-    def __init__(self, cfg: OptimizerConfig, trainable: Mask, decay: Mask):
+    ``lr_scale`` ({name: scale}, every trainable name) multiplies each
+    parameter's whole update, weight decay included, after AdamW, and leaves
+    the moments as they are: the OpenShape trainer's ``updates * lr_scale``
+    (vitlens_tpu/cli/train_openshape.py), so ``p -= lr_t * scale * (adam +
+    wd * p)``."""
+
+    def __init__(self, cfg: OptimizerConfig, trainable: Mask, decay: Mask,
+                 lr_scale: Optional[Dict[str, float]] = None):
         self.cfg = cfg
         self.schedule = get_schedule(cfg.schedule, cfg.lr, cfg.warmup,
                                      cfg.total_steps)
         self.names = [n for n, t in trainable.items() if t]
         self.decay = decay
+        self.lr_scale = lr_scale
 
     def init(self, model: nn.Module) -> Dict[str, Any]:
         params = dict(model.named_parameters())
@@ -115,8 +123,26 @@ class AdamW:
             u = (mu / bc1) / ((nu / bc2).sqrt() + cfg.eps)
             if self.decay[name]:
                 u = u + cfg.weight_decay * p
-            p.add_(u, alpha=-lr)
+            scale = 1.0 if self.lr_scale is None else self.lr_scale[name]
+            p.add_(u, alpha=-lr * scale)
         state["count"] = t
+
+
+def make_openshape_optimizer(model: nn.Module, *, lr: float, warmup: int,
+                             total_steps: int, weight_decay: float,
+                             decay: Mask, lr_scale: Dict[str, float]) -> AdamW:
+    """The OpenShape trainer's optimizer, as JAX's CLI builds it
+    (vitlens_tpu/cli/train_openshape.py): ``chain(clip_by_global_norm(1.0),
+    adamw(cosine schedule, weight_decay, mask=decay))`` with optax's
+    defaults (b1 0.9, b2 0.999, eps 1e-8), every parameter trained, each
+    update times ``lr_scale``. ``decay`` is JAX's ``ndim >= 2`` mask
+    (``train.openshape.ndim_wd_mask``)."""
+    cfg = OptimizerConfig(lr=lr, beta1=0.9, beta2=0.999, eps=1e-8,
+                          weight_decay=weight_decay, grad_clip_norm=1.0,
+                          warmup=warmup, total_steps=total_steps,
+                          schedule="cosine")
+    return AdamW(cfg, {n: True for n, _ in model.named_parameters()}, decay,
+                 lr_scale)
 
 
 def make_optimizer(model: nn.Module, cfg: OptimizerConfig,

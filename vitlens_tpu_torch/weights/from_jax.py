@@ -4,7 +4,10 @@ The port's parameter names are the JAX key paths joined with dots, with two
 structural differences handled here:
 
 * a transformer's stacked ``blocks`` (every leaf with a leading [layers]
-  axis) becomes ``blocks.<i>.<leaf path>``, one entry per layer;
+  axis) becomes ``blocks.<i>.<leaf path>``, one entry per layer (the
+  trunks, PPAT's blocks; a ``blocks`` that holds a ``blocks`` of its own,
+  as the PointTransformer's ``{"blocks": transformer_init(...)}`` does,
+  is a plain subtree);
 * lists (the perceiver's ``layers`` and ``self_blocks``) are indexed
   ``<name>.<i>``.
 
@@ -43,7 +46,7 @@ def flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
     if isinstance(tree, dict):
         for k, v in tree.items():
             name = f"{prefix}{k}"
-            if k == "blocks" and isinstance(v, dict):
+            if k == "blocks" and isinstance(v, dict) and "blocks" not in v:
                 for path, leaf in flatten(v).items():
                     for i in range(leaf.shape[0]):
                         out[f"{name}.{i}.{path}"] = leaf[i]

@@ -22,6 +22,12 @@ audio adapter, the PointBERT tokenizer and the PNSA tokenizer (OpenShape's
 ``sa.mlp_convs.{i}`` Conv2d [out, in, 1, 1], ``sa.mlp_bns.{i}``, ``lift.0``
 Conv1d and ``lift.2`` LayerNorm). The identity Lens has no keys; the
 transformer Lens is a plain ``perceiver.resblocks.*`` stack.
+
+The OpenShape baselines' files (``convert_ppat_state_dict``,
+``convert_dgcnn_state_dict``, ``convert_pointnet2_state_dict``) and the
+PointBERT classifier's (``convert_point_transformer``) give the trees of
+``models/pc_baselines.py`` and ``models/point_transformer.py``, PPAT's and
+the classifier's blocks stacked as JAX keeps them.
 """
 
 from __future__ import annotations
@@ -399,3 +405,156 @@ def load_torch_checkpoint(path: str):
     if isinstance(ckpt, dict) and "model" in ckpt and isinstance(ckpt["model"], dict):
         return ckpt["model"]
     return ckpt
+
+
+# ---------------------------------------------------------------------------
+# OpenShape pc baselines (VitLens-OpenShape/src/models/{ppat, dgcnn,
+# pointnet2}.py) and the PointBERT classifier -> the trees of
+# models/pc_baselines.py and models/point_transformer.py
+# ---------------------------------------------------------------------------
+
+
+def _conv1x1_2d(sd: Mapping[str, Any], name: str) -> Params:
+    """Conv2d kernel 1x1 [out, in, 1, 1] -> matmul params."""
+    w = _j(sd[f"{name}.weight"])
+    p = {"w": np.ascontiguousarray(w[..., 0, 0].T)}
+    if f"{name}.bias" in sd:
+        p["b"] = _j(sd[f"{name}.bias"])
+    return p
+
+
+def _convert_sa(sd: Mapping[str, Any], n_layers: int) -> Tuple[Params, State]:
+    """PointNetSetAbstraction mlp_convs/mlp_bns (pointnet_util.py:171-184)."""
+    ps, ss = [], []
+    for i in range(n_layers):
+        bn_p, bn_s = _bn(sd, f"mlp_bns.{i}")
+        ps.append({"conv": _conv1x1_2d(sd, f"mlp_convs.{i}"), "bn": bn_p})
+        ss.append({"bn": bn_s})
+    return {"mlp": ps}, {"mlp": ss}
+
+
+def _convert_sa_msg(sd: Mapping[str, Any], mlp_list) -> Tuple[Params, State]:
+    """PointNetSetAbstractionMsg conv_blocks/bn_blocks
+    (pointnet_util.py:216-231)."""
+    branches, states = [], []
+    for i, mlp in enumerate(mlp_list):
+        ps, ss = [], []
+        for j in range(len(mlp)):
+            bn_p, bn_s = _bn(sd, f"bn_blocks.{i}.{j}")
+            ps.append({"conv": _conv1x1_2d(sd, f"conv_blocks.{i}.{j}"),
+                       "bn": bn_p})
+            ss.append({"bn": bn_s})
+        branches.append(ps)
+        states.append(ss)
+    return {"branches": branches}, {"branches": states}
+
+
+def convert_ppat_state_dict(sd: Mapping[str, Any],
+                            depth: int) -> Tuple[Params, State]:
+    """Projected(PointPatchTransformer, Linear) weights (ppat.py:86-124);
+    the blocks stacked on a leading [depth] axis, as JAX keeps them."""
+    sd = strip_prefixes(sd)
+    sa_p, sa_s = _convert_sa(sub(sd, "ppat.sa."), 3)
+    layers = []
+    for layer in range(depth):
+        pre = f"ppat.transformer.layers.{layer}"
+        layers.append({
+            "attn": {"ln": _ln(sd, f"{pre}.0.norm"),
+                     "qkv": _linear(sd, f"{pre}.0.fn.to_qkv"),
+                     "out": _linear(sd, f"{pre}.0.fn.to_out.0")},
+            "ff": {"ln": _ln(sd, f"{pre}.1.norm"),
+                   "fc": _linear(sd, f"{pre}.1.fn.net.0"),
+                   "proj": _linear(sd, f"{pre}.1.fn.net.3")},
+        })
+    params: Params = {
+        "sa": sa_p,
+        "lift": {"conv": _conv1x1(sd, "ppat.lift.0"),
+                 "ln": _ln(sd, "ppat.lift.2")},
+        "cls_token": _j(sd["ppat.cls_token"]),
+        "blocks": _stack(layers),
+        "proj": _linear(sd, "proj"),
+    }
+    return params, {"sa": sa_s}
+
+
+def convert_dgcnn_state_dict(sd: Mapping[str, Any]) -> Tuple[Params, State]:
+    """DGCNN weights (dgcnn.py:67-101): BatchNorms under ``bn{i}.bn`` (the
+    NoCuDNN wrappers), convs at Sequential index 0 (conv5 a Conv1d)."""
+    sd = strip_prefixes(sd)
+    params: Params = {}
+    state: State = {}
+    for i in range(1, 6):
+        bn_p, bn_s = _bn(sd, f"bn{i}.bn")
+        conv = (_conv1x1_2d(sd, f"conv{i}.0") if i < 5
+                else _conv1x1(sd, f"conv{i}.0"))
+        params[f"conv{i}"] = {"conv": conv, "bn": bn_p}
+        state[f"conv{i}"] = {"bn": bn_s}
+    params["linear1"] = _linear(sd, "linear1")
+    params["bn6"], state["bn6"] = _bn(sd, "bn6")
+    params["linear2"] = _linear(sd, "linear2")
+    return params, state
+
+
+POINTNET2_MSG = ([[32, 32, 64], [64, 64, 128], [64, 96, 128]],
+                 [[64, 64, 128], [128, 128, 256], [128, 128, 256]])
+
+
+def convert_pointnet2_state_dict(
+        sd: Mapping[str, Any]) -> Tuple[Params, State]:
+    """pointnet2.get_model weights (pointnet2.py:6-20)."""
+    sd = strip_prefixes(sd)
+    params: Params = {}
+    state: State = {}
+    for name, mlps in zip(("sa1", "sa2"), POINTNET2_MSG):
+        params[name], state[name] = _convert_sa_msg(sub(sd, f"{name}."), mlps)
+    params["sa3"], state["sa3"] = _convert_sa(sub(sd, "sa3."), 3)
+    for i in (1, 2):
+        params[f"fc{i}"] = _linear(sd, f"fc{i}")
+        params[f"bn{i}"], state[f"bn{i}"] = _bn(sd, f"bn{i}")
+    params["fc3"] = _linear(sd, "fc3")
+    return params, state
+
+
+def convert_point_transformer(sd: Mapping[str, Any], cfg) -> Tuple[Params, State]:
+    """A reference PointTransformer state dict (point_encoder.py:170-295)
+    -> the tree of ``models.point_transformer.PointTransformer`` (``cfg`` a
+    ``PointTransformerConfig``); a qkv without bias gets zeros."""
+    bn1_p, bn1_s = _bn(sd, "encoder.first_conv.1")
+    bn2_p, bn2_s = _bn(sd, "encoder.second_conv.1")
+    tok_p = {
+        "encoder": {
+            "conv1": _conv1x1(sd, "encoder.first_conv.0"), "bn1": bn1_p,
+            "conv2": _conv1x1(sd, "encoder.first_conv.3"),
+            "conv3": _conv1x1(sd, "encoder.second_conv.0"), "bn2": bn2_p,
+            "conv4": _conv1x1(sd, "encoder.second_conv.3"),
+        },
+        "reduce_dim": _linear(sd, "reduce_dim"),
+        "pos_embed": {"fc1": _linear(sd, "pos_embed.0"),
+                      "fc2": _linear(sd, "pos_embed.2")},
+    }
+    blocks = []
+    for i in range(cfg.depth):
+        pre = f"blocks.blocks.{i}."
+        qkv_w = np.ascontiguousarray(_j(sd[f"{pre}attn.qkv.weight"]).T)
+        qkv_b = (_j(sd[f"{pre}attn.qkv.bias"]) if f"{pre}attn.qkv.bias" in sd
+                 else np.zeros((qkv_w.shape[1],), np.float32))
+        blocks.append({
+            "ln_1": _ln(sd, f"{pre}norm1"),
+            "attn": {"qkv_w": qkv_w, "qkv_b": qkv_b,
+                     "out_w": np.ascontiguousarray(
+                         _j(sd[f"{pre}attn.proj.weight"]).T),
+                     "out_b": _j(sd[f"{pre}attn.proj.bias"])},
+            "ln_2": _ln(sd, f"{pre}norm2"),
+            "mlp": {"fc": _linear(sd, f"{pre}mlp.fc1"),
+                    "proj": _linear(sd, f"{pre}mlp.fc2")},
+        })
+    params: Params = {
+        "tokenizer": tok_p,
+        "cls_token": _j(sd["cls_token"]).reshape(-1),
+        "cls_pos": _j(sd["cls_pos"]).reshape(-1),
+        "blocks": {"blocks": _stack(blocks)},
+        "norm": _ln(sd, "norm"),
+    }
+    if "proj" in sd:
+        params["proj"] = _j(sd["proj"])
+    return params, {"tokenizer": {"encoder": {"bn1": bn1_s, "bn2": bn2_s}}}
