@@ -242,6 +242,49 @@ Phases, one printed line each (or more); any failure exits non-zero:
      CLIPBind step's rate, peak and profile with kernel 2's share, each
      baseline's step, the PointTransformer encode at B64, the CLI's step
      seconds) run inside the phase, on its models.
+  4ev. EVA-g: the Perceiver-EVA pc tower of vitlensG's MLLM plug-in at full
+     width and depth (models.eva.make_eva_tower: PointBERT over 8192
+     points, a Perceiver of depth 4 over 256 latents of 1408, 39 EVA blocks
+     of 1408 with 16 heads of 88, MLP 6144, LayerNorm eps 1e-6, head to
+     1024), random weights from a seeded CUDA generator, bf16: B16 and B64
+     encodes with launches exactly tower_launches(cfg) (39 kernel 1, 47
+     kernel 2, 1 FPS, 1 point encoder); a B = 2 encode against the same
+     weights in fp32 on the CPU (clouds rounded through bf16, the card's kNN
+     groups replayed), cosine >= 0.99; B16 and B64 rates, peak memory and a
+     profile. Phase 3 holds kernel 1 at D 1408 / H 6144 with eps 1e-6 (M =
+     16 x 257 and 64 x 257, both variants; gradients at the smaller) and
+     kernel 2 at [64, 16, 257, 257, 88], [64, 22, 256, 256, 64] and the RN50
+     pool [64, 32, 50, 50, 64] (gradients at head dim 88); phase 5 times
+     them beside their bounds, the plain versions and SDPA or cuBLAS.
+  4l. LoRA: the vitlensL audio+text model with rank-8 factors on the four
+     targets of the audio trunk, the factors alone trained (the trainer's
+     --lora-* recipe), bf16 compute, the b's drawn nonzero: a B = 2
+     gradient pass and step against the same model in fp32 on the CPU (loss,
+     cosine of the a's and the b's gradients >= 0.99, grad_norm), then 3
+     steps at B = 8 with train_launches' counts, every base weight bit-equal
+     and every factor moved; the tower in a ViTLens: export_checkpoint holds
+     merged weights (their change from the base ones = scale * a @ b,
+     computed apart) and no factor, a second model with its own factors
+     reloads it (b's zeroed) to the same encode, quant.quantize_model
+     refuses the unmerged tower.
+  4rb. RoBERTa: create_model("roberta-ViT-B-32", "image") at full width,
+     bf16: the text tower on token ids given directly (no launch: post-LN,
+     masked) and the image tower (12 + 12 launches), cosine >= 0.99 against
+     fp32 on the CPU; the text B64 rate.
+  4r. RN50: models.resnet.make_modified_resnet("RN50") at 224, bf16, one
+     attention launch a forward, cosine >= 0.99 against fp32 on the CPU;
+     the B64 rate.
+  4lp. linear probe: `python -m vitlens_tpu_torch.cli.train_linprobe` as a
+     child process on written GelSight frames at full ViT-L width, B = 8,
+     2 epochs of LARS steps and an eval each; exit 0, an accuracy a val
+     epoch, the step seconds printed.
+  4i. infer: `python -m vitlens_tpu_torch.cli.infer --precision bf16` as a
+     child process on WAV, .npy and PNG files and captions: the printed
+     matrices' rows sum to 1 and equal the API's encode in this process.
+  4ex. export: utils.export.export_encoder of the vitlensL audio tower in
+     bf16, load_exported; the loaded program's run advances the kernels'
+     counters by tower_launches and equals the eager encode; the host cost
+     a call of the custom ops against the wrappers' own dispatch.
   5. timing: each kernel against its plain version (and, where one PyTorch
      call computes the same function, that call) at the B64 shapes of the
      main paths, beside each kernel's bound, with cuBLAS's two products
@@ -3381,6 +3424,713 @@ def openshape_cli_phase(torch, np, counters, totals, card):
         torch.cuda.empty_cache()
 
 
+# -- ROADMAP Queue 1 item 11: EVA-g, LoRA, the BERT-family text towers, RN50,
+# the linear probe, the infer CLI and export ------------------------------------
+
+EVA_LN_EPS = 1e-6
+# (label, (M, D, H)) of kernel 1 on the EVA-g trunk (D 1408, H 6144, eps 1e-6)
+EVA_MLP = (("EVA-g trunk B16", (16 * 257, 1408, 6144)),
+           ("EVA-g trunk B64", (64 * 257, 1408, 6144)))
+# (label, (B, H, NQ, NK, Dh)) of kernel 2 on this slice's paths
+ITEM11_ATTN = (("EVA-g trunk", (64, 16, 257, 257, 88)),
+               ("Perceiver-EVA self", (64, 22, 256, 256, 64)),
+               ("Perceiver-EVA cross", (64, 1, 256, 512, 64)),
+               ("RN50 attention pool", (64, 32, 50, 50, 64)))
+EVA_B = (16, 64)
+LORA_RANK = 8
+LORA_STEPS = 3
+LORA_B_STD = 2e-3  # the b's before the B = 2 comparison: scale * a @ b ~ 2e-3
+LP_IMAGES = 16  # tactile frames the linear probe trains on (2 steps an epoch at B8)
+
+
+def check_item11_kernels(torch, g, err, checks):
+    """Phase 3's shapes of this slice: kernel 1 at EVA-g's D 1408 / H 6144
+    with eps 1e-6 (both variants), kernel 2 at the EVA trunk's head dim 88,
+    the Perceiver-EVA self block's 22 heads and the RN50 pool."""
+    from vitlens_tpu_torch.ops.flash_attention import (attention_reference,
+                                                       flash_attention)
+    from vitlens_tpu_torch.ops.fused_mlp import (fused_mlp, fused_mlp_reference,
+                                                 fused_mlp_save_preact)
+
+    for label, (m, d, h) in EVA_MLP:
+        a = mlp_inputs(torch, g, m, d, h)
+        got = fused_mlp(*a, eps=EVA_LN_EPS)
+        got2, pre = fused_mlp_save_preact(*a, eps=EVA_LN_EPS)
+        torch.cuda.synchronize()
+        want, want_pre = fused_mlp_reference(*a, eps=EVA_LN_EPS, save_preact=True)
+        e, e2, e_pre = rel_err(got, want), rel_err(got2, want), rel_err(pre, want_pre)
+        err["fused_mlp"] = max(err["fused_mlp"], abs_err(got, want),
+                               abs_err(got2, want), abs_err(pre, want_pre))
+        checks.append(f"mlp{m}x{d}x{h}/eps1e-6={e:.2e},preact out {e2:.2e},a {e_pre:.2e}")
+        if not (torch.isfinite(got).all() and max(e, e2) <= MLP_TOL
+                and e_pre <= PREACT_TOL):
+            fail(f"fused_mlp {label} eps 1e-6: rel err {e}, {e2}, a {e_pre}")
+        del a, got, got2, pre, want, want_pre
+    for label, (b, h, nq, nk, dh) in ITEM11_ATTN:
+        q, k, v = qkv_inputs(torch, g, b, h, nq, nk, dh)
+        got = flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        want = attention_reference(q, k, v)
+        e = rel_err(got, want)
+        err["flash_attention"] = max(err["flash_attention"], abs_err(got, want))
+        checks.append(f"attn{b}x{h}x{nq}x{nk}x{dh}={e:.2e}")
+        if not (torch.isfinite(got).all() and e <= ATTN_TOL):
+            fail(f"flash_attention {label} [{b},{h},{nq},{nk},{dh}]: rel err {e}")
+        del q, k, v, got, want
+
+
+def item11_grad_checks(torch, g):
+    """Phase 3's gradient checks of this slice: kernel 1 at EVA-g's widths
+    with eps 1e-6 (B16 x 257 rows), kernel 2 at the EVA trunk's head dim 88."""
+    from vitlens_tpu_torch.ops.flash_attention import (attention_reference,
+                                                       flash_attention)
+    from vitlens_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_reference
+
+    def mlp(*a):
+        return fused_mlp(*a, eps=EVA_LN_EPS)
+
+    def mlp_plain(*a):
+        return fused_mlp_reference(*a, eps=EVA_LN_EPS)
+
+    m, d, h = EVA_MLP[0][1]
+    return {
+        f"fused_mlp M{m} {d}->{h} eps 1e-6 gelu": (
+            mlp, mlp_plain, mlp_inputs(torch, g, m, d, h), GRAD_TOL,
+            ("dx", "dlnw", "dlnb", "dw1", "db1", "dw2", "db2")),
+        "attention EVA-g trunk [4,16,257,257,88]": (
+            flash_attention, attention_reference,
+            qkv_inputs(torch, g, 4, 16, 257, 257, 88), ATTN_GRAD_TOL,
+            ("dq", "dk", "dv"))}
+
+
+def time_item11_kernels(torch, g, timings):
+    """Phase 5's rows of this slice's shapes: kernel 1 at EVA-g's B64 trunk
+    (with cuBLAS's two products beside it), kernel 2 at the EVA trunk, the
+    Perceiver-EVA blocks and the RN50 pool (SDPA beside it)."""
+    from vitlens_tpu_torch.ops.attention import plain_attention
+    from vitlens_tpu_torch.ops.flash_attention import (attention_reference,
+                                                       flash_attention)
+    from vitlens_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_reference
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    label, (m, d, h) = EVA_MLP[1]
+    a = mlp_inputs(torch, g, m, d, h)
+    k_ms, p_ms = paired_ms(lambda: fused_mlp(*a, eps=EVA_LN_EPS),
+                           lambda: fused_mlp_reference(*a, eps=EVA_LN_EPS))
+    bd, by = mlp_bound(m, d, h)
+    x, lnw, lnb, w1, b1, w2, b2 = a
+    y = torch.nn.functional.layer_norm(x.float(), (d,), lnw, lnb, EVA_LN_EPS).bfloat16()
+    hid = torch.empty(m, h, dtype=torch.bfloat16, device="cuda")
+    b1h, b2h = b1.bfloat16(), b2.bfloat16()
+    gemm_ms = cuda_ms(lambda: (torch.addmm(b1h, y, w1, out=hid),
+                               torch.addmm(b2h, hid, w2)))
+    timings["fused_mlp"].append(
+        {"shape": f"{label} M={m} D={d} H={h} eps 1e-6", "ms": k_ms,
+         "plain_ms": p_ms, "gemm_only_ms": gemm_ms, "bound_ms": bd,
+         "bound_by": by, "library_ms": None, "tflops": 4 * m * d * h / k_ms / 1e9})
+    del a, x, y, hid
+    for label, (b, h, nq, nk, dh) in ITEM11_ATTN:
+        q, k, v = qkv_inputs(torch, g, b, h, nq, nk, dh)
+        k_ms, p_ms = paired_ms(lambda: flash_attention(q, k, v),
+                               lambda: attention_reference(q, k, v))
+        bd, by = attn_bound(b, h, nq, nk, dh)
+        timings["flash_attention"].append(
+            {"shape": f"{label} [{b},{h},{nq},{nk},{dh}]", "ms": k_ms,
+             "device_ms": device_ms(torch, lambda: flash_attention(q, k, v)),
+             "plain_ms": p_ms,
+             "plain_bf16_ms": cuda_ms(lambda: plain_attention(q, k, v, None, dh ** -0.5)),
+             "bound_ms": bd, "bound_by": by,
+             "library_ms": cuda_ms(lambda: sdpa(q, k, v))})
+        del q, k, v
+
+
+def eva_phase(torch, np, counters, totals, card):
+    """Phase 4ev: the Perceiver-EVA pc tower (vitlensG's MLLM plug-in) at
+    full width and depth: PointBERT over 8192 points, a Perceiver of depth 4
+    (256 latents of 1408), 39 EVA blocks (1408, 16 heads of 88, MLP 6144,
+    LayerNorm eps 1e-6), the head to 1024; random weights from a seeded CUDA
+    generator, bf16. B16 and B64 encodes with launches tower_launches(cfg);
+    a B = 2 encode against the same weights in fp32 on the CPU (the clouds
+    rounded through bf16, the card's kNN groups replayed); rates, peak
+    memory and a profile. Returns {B: samples/s}."""
+    from vitlens_tpu_torch.models.eva import make_eva_tower
+
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    tower = make_eva_tower("pc", device="cuda", seed=SEED, dtype=torch.bfloat16)
+    build_s = time.time() - t0
+    cfg = tower.cfg
+    n_trunk = sum(p.numel() for p in tower.eva.trunk.parameters())
+    n_all = sum(p.numel() for p in tower.parameters())
+    want = tower_launches(cfg, fps=1, point_encoder=1)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    npts = cfg.point.npoints
+
+    def clouds(b):  # rounded through bf16, so the CPU sees what the card sees
+        return (torch.randn(b, npts, 3, generator=g, device="cuda") * 0.3
+                ).bfloat16().float()
+
+    per_b = []
+    with torch.no_grad():
+        for b in EVA_B:
+            xb = clouds(b)
+            emb, counts = run_counted(torch, counters, totals,
+                                      lambda: tower(xb, torch.bfloat16))
+            if counts != want:
+                fail(f"4ev EVA-g B{b}: launches {counts}, expected {want}")
+            if tuple(emb.shape) != (b, 1024) or not torch.isfinite(emb).all():
+                fail(f"4ev EVA-g B{b}: shape {tuple(emb.shape)} or non-finite")
+            per_b.append((b, tuple(counts[k] for k in (
+                "fused_mlp", "flash_attention", "fps", "point_encoder"))))
+            del xb, emb
+        x2 = clouds(2)
+        t1 = time.time()
+        ref = copy.deepcopy(tower).to(device="cpu", dtype=torch.float32)
+        (card2, _), cpu2, note = shared_knn_groups(
+            torch, lambda: run_counted(torch, counters, totals,
+                                       lambda: tower(x2, torch.bfloat16)),
+            lambda: ref(x2.cpu()))
+        cpu_s = time.time() - t1
+        del ref
+    cos = cos_min(torch, card2, cpu2)
+    if cos < COS_MIN:
+        fail(f"4ev EVA-g B=2 vs CPU fp32: cosine {cos} < {COS_MIN}")
+    torch.cuda.reset_peak_memory_stats()
+    rates = {}
+    for b in EVA_B:
+        xb = clouds(b)
+        rates[b] = encode_rate(
+            torch, card, f"EVA-g (Perceiver-EVA) pc encode B{b} x {npts} points "
+            "bf16", lambda: tower(xb, torch.bfloat16), b, dim=1024)
+    x64 = clouds(64)
+    profile_encode(torch, card, "B64 EVA-g pc encode",
+                   lambda: tower(x64, torch.bfloat16))
+    print(f"[4ev eva-g] {card} | Perceiver-EVA pc tower at full width and "
+          f"depth ({n_all / 1e9:.3f} B parameters, trunk {n_trunk / 1e9:.3f} B; "
+          f"built in {build_s:.1f} s): launches (B, (mlp, attn, fps, encoder)) "
+          f"{per_b}, expected {tuple(want[k] for k in ('fused_mlp', 'flash_attention', 'fps', 'point_encoder'))}; "
+          f"B=2 cosine vs CPU fp32 {cos:.6f} (CPU run {cpu_s:.1f} s){note}; "
+          f"rates B16 {rates[16]:.2f}, B64 {rates[64]:.2f} samples/s; peak "
+          f"allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; phase "
+          f"took {time.time() - t0:.1f} s", flush=True)
+    del tower
+    torch.cuda.empty_cache()
+    return rates
+
+
+def lora_phase(torch, np, counters, totals, card):
+    """Phase 4l: the trainer's LoRA recipe on the vitlensL audio tower at
+    full width and depth (rank 8, the four targets, the factors alone
+    trained: the LoRA mask overrides the tower's lock flags), dual loss
+    aligned to text, bf16 compute, fp32 masters. The b's are drawn nonzero
+    first, so that the merged weights differ from the base ones. One B = 2
+    gradient pass and one B = 2 step against the same model in fp32 on the
+    CPU: loss within LOSS_TOL, the cosine of the a's and of the b's
+    gradients >= COS_MIN, the step's grad_norm within NORM_TOL (the cosine
+    of each factor's change in the step is printed: Adam's first step is
+    about lr * sign(g), so it measures the signs of near-zero gradients, not
+    the merge). Then 3 steps at B = 8 with the launches of train_launches;
+    every base weight bit-equal after, every factor moved. Then the tower in
+    a ViTLens: export_checkpoint carries merged weights (no lora.* name)
+    whose change from the base weights is scale * a @ b, computed here
+    apart from the port's merge; a second model with its own factors
+    reloads it (its b's zeroed) to the same encode, and quant refuses the
+    unmerged tower."""
+    import copy
+    import tempfile
+    from dataclasses import replace
+
+    from vitlens_tpu_torch import quant
+    from vitlens_tpu_torch.api import ViTLens
+    from vitlens_tpu_torch.factory import (create_model, make_generator,
+                                           make_trainable_)
+    from vitlens_tpu_torch.models.lora import Factors
+    from vitlens_tpu_torch.train.freeze import tri_model_mask
+    from vitlens_tpu_torch.train.lora import lora_init, lora_mask
+    from vitlens_tpu_torch.train.losses import make_loss_fn
+    from vitlens_tpu_torch.train.step import (OptimizerConfig, StepConfig,
+                                              init_train_state, make_optimizer,
+                                              make_train_step, micro_grads)
+
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    model = create_model("ViT-L-14", "audio", seed=SEED, device="cuda",
+                         dtype=torch.float32)
+    cfg = model.cfg
+    acfg, n_text = cfg.tower, cfg.text.layers
+    mask = tri_model_mask(model, cfg, lock_visual=True, lock_text=True)
+    lora_init(model.visual, LORA_RANK, make_generator(SEED + 17, "cuda"))
+    mask.update({f"visual.{k}": v for k, v in lora_mask(model.visual).items()})
+    mask = {n: mask[n] for n, _ in model.named_parameters()}
+    tx, mask = make_optimizer(model, OptimizerConfig(lr=1e-3, warmup=1,
+                                                     total_steps=10), mask)
+    make_trainable_(model, mask, torch.bfloat16)
+    factors = [n for n, t in mask.items() if t and ".lora." in n]
+    g_b = make_generator(SEED + 19, "cuda")
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if n in factors and n.endswith(".b"):
+                p.normal_(0.0, LORA_B_STD, generator=g_b)
+    base0 = {n: p.detach().clone() for n, p in model.named_parameters()
+             if not mask[n]}
+    fac0 = {n: p.detach().clone() for n, p in model.named_parameters()
+            if n in factors}
+    sc = StepConfig(n_tower=2, align_to="text", compute_dtype=torch.bfloat16)
+    sc_cpu = replace(sc, compute_dtype=torch.float32)
+    state = init_train_state(model, tx)
+    step = make_train_step(cfg, tx, mask, sc)
+    rng = np.random.RandomState(SEED + 21)
+
+    def batch(b):
+        text = rng.randint(1, 49000, size=(b, 77))
+        text[:, 0], text[:, -1] = 49406, 49407
+        fb = rng.randn(b, acfg.audio.target_length, acfg.audio.mel_bins) * 0.5
+        return {"text": torch.from_numpy(text).long(),
+                "visual": torch.from_numpy(fb.astype(np.float32))}
+
+    want = train_launches(acfg, n_text, 1, False, False)
+
+    # -- B = 2 against the same model in fp32 on the CPU ---------------------
+    ref = copy.deepcopy(model).to(device="cpu", dtype=torch.float32)
+    a_names = [n for n in factors if n.endswith(".a")]
+    b_names = [n for n in factors if n.endswith(".b")]
+    loss_fn = make_loss_fn(2)
+
+    def grads_of(m, step_cfg, bt):
+        params = {n: p for n, p in m.named_parameters() if mask[n]}
+        dev = m.logit_scale.device
+        loss, gr = micro_grads(m, {k: v.to(dev) for k, v in bt.items()},
+                               step_cfg, params, loss_fn)
+        return float(loss), {n: gr[n].detach().double().cpu() for n in factors}
+
+    def cosine(x, y, names):  # in float64, over the named tensors together
+        x = torch.cat([x[n].double().flatten().cpu() for n in names])
+        y = torch.cat([y[n].double().flatten().cpu() for n in names])
+        return (x @ y / (x.norm() * y.norm())).item()
+
+    b2 = batch(2)
+    loss_cpu, g_cpu = grads_of(ref, sc_cpu, b2)
+    (loss_card, g_card), counts = run_counted(
+        torch, counters, totals, lambda: grads_of(model, sc, b2))
+    if counts != want:
+        fail(f"4l LoRA B=2 gradients: launches {counts}, expected {want}")
+    cos_ga, cos_gb = cosine(g_card, g_cpu, a_names), cosine(g_card, g_cpu, b_names)
+    if not (abs(loss_card - loss_cpu) <= LOSS_TOL and min(cos_ga, cos_gb) >= COS_MIN):
+        fail(f"4l LoRA B=2 gradients vs CPU fp32: loss {loss_card} vs {loss_cpu}, "
+             f"cosine a {cos_ga}, b {cos_gb}")
+    del g_card, g_cpu
+    state_cpu = init_train_state(ref, tx)
+    state_cpu, m_cpu = make_train_step(cfg, tx, mask, sc_cpu)(state_cpu, b2)
+    (state, m_card), counts = run_counted(torch, counters, totals,
+                                          lambda: step(state, b2))
+    if counts != want:
+        fail(f"4l LoRA B=2 step: launches {counts}, expected {want}")
+    m_card = {k: float(v) for k, v in m_card.items()}
+    m_cpu = {k: float(v) for k, v in m_cpu.items()}
+    if (abs(m_card["loss"] - m_cpu["loss"]) > LOSS_TOL
+            or abs(m_card["grad_norm"] / m_cpu["grad_norm"] - 1) > NORM_TOL):
+        fail(f"4l LoRA B=2 step vs CPU fp32: card {m_card}, CPU {m_cpu}")
+    live = dict(model.named_parameters())
+    live_cpu = dict(ref.named_parameters())
+    d_card = {n: live[n].detach() - fac0[n] for n in factors}
+    d_cpu = {n: live_cpu[n].detach() - fac0[n].cpu() for n in factors}
+    cos_da, cos_db = cosine(d_card, d_cpu, a_names), cosine(d_card, d_cpu, b_names)
+    del ref, state_cpu, live, live_cpu, d_card, d_cpu
+    b2_line = (f"B=2 vs CPU fp32 (b's drawn N(0, {LORA_B_STD})): loss "
+               f"{loss_card:.5f} vs {loss_cpu:.5f}, gradient cosine a "
+               f"{cos_ga:.6f}, b {cos_gb:.6f}; one step: loss "
+               f"{m_card['loss']:.5f} vs {m_cpu['loss']:.5f}, grad_norm "
+               f"{m_card['grad_norm']:.5f} vs {m_cpu['grad_norm']:.5f}, cosine "
+               f"of the change a {cos_da:.6f}, b {cos_db:.6f} (not gated)")
+
+    steps, step_s = [], []
+    for _ in range(LORA_STEPS):
+        bt = batch(8)
+        t1 = time.perf_counter()
+        (state, m), counts = run_counted(torch, counters, totals,
+                                         lambda: step(state, bt))
+        step_s.append(round(time.perf_counter() - t1, 4))
+        if counts != want:
+            fail(f"4l LoRA step: launches {counts}, expected {want}")
+        m = {k: float(v) for k, v in m.items()}
+        if not all(np.isfinite(v) for v in m.values()):
+            fail(f"4l LoRA step: metrics {m}")
+        steps.append(round(m["loss"], 5))
+    moved = [n for n, p in model.named_parameters() if n in base0
+             and not torch.equal(p, base0[n])]
+    still = [n for n in factors if torch.equal(dict(model.named_parameters())[n],
+                                               fac0[n])]
+    if moved or still:
+        fail(f"4l LoRA: base weights that changed {moved[:5]}, factors that did "
+             f"not {still[:5]}")
+    n_fac = sum(fac0[n].numel() for n in factors)
+    del base0, fac0, state, step
+
+    # the tower served, exported merged, reloaded
+    vl = ViTLens("vitlensL", ("audio",), device="cuda", seed=SEED,
+                 compute_dtype=torch.bfloat16)
+    lora_init(vl.towers["audio"], LORA_RANK, make_generator(SEED, "cuda"))
+    vl.towers["audio"].load_state_dict(model.visual.state_dict())
+    del model
+    fb = torch.from_numpy((rng.randn(2, acfg.audio.target_length,
+                                     acfg.audio.mel_bins) * 0.5).astype(np.float32)).cuda()
+    e1, counts = run_counted(torch, counters, totals, lambda: vl.encode(
+        {"audio": fb}, preprocessed=True)["audio"])
+    if counts != tower_launches(acfg):
+        fail(f"4l LoRA encode: launches {counts}, expected {tower_launches(acfg)}")
+    try:
+        quant.quantize_model(vl, towers=("towers.audio",))
+        fail("4l: quant.quantize_model took an unmerged LoRA tower")
+    except ValueError:
+        pass
+    root = tempfile.mkdtemp(prefix="vitlens_4l_")
+    try:
+        path = vl.export_checkpoint(os.path.join(root, "export"))
+        saved = torch.load(os.path.join(path, "tree.pt"), map_location="cpu",
+                           weights_only=True)["params"]["audio"]
+        if any(n.startswith("lora.") for n in saved):
+            fail("4l: the exported checkpoint holds LoRA factors")
+        # the export's change from the base weights against scale * a @ b,
+        # computed here in fp32 apart from the port's merge
+        tower = vl.towers["audio"]
+        live = dict(tower.named_parameters())
+        scale = float(tower.lora.scale)
+        got_d, want_d = [], []
+        for w, f in tower.lora.named_modules():
+            if not isinstance(f, Factors):
+                continue
+            # w is trunk.blocks.<i>.<target path>: the weight's own name
+            got_d.append((saved[w].float() - live[w].detach().float().cpu()).flatten())
+            want_d.append((scale * (f.a.detach().float() @ f.b.detach().float()))
+                          .cpu().flatten())
+        got_d, want_d = torch.cat(got_d).double(), torch.cat(want_d).double()
+        cos_m = (got_d @ want_d / (got_d.norm() * want_d.norm())).item()
+        ratio_m = (got_d.norm() / want_d.norm()).item()
+        if not (len(want_d) and cos_m >= COS_MIN and abs(ratio_m - 1) <= NORM_TOL):
+            fail(f"4l: the export's merged weights: cosine {cos_m}, norm ratio "
+                 f"{ratio_m} against base + scale * a @ b")
+        del got_d, want_d, live
+        vl2 = ViTLens("vitlensL", ("audio",), device="cuda", seed=SEED + 1,
+                      compute_dtype=torch.bfloat16)
+        lora_init(vl2.towers["audio"], LORA_RANK, make_generator(SEED + 2, "cuda"))
+        vl2.load_checkpoint(path)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    zeroed = all(p.abs().max().item() == 0 for n, p in
+                 vl2.towers["audio"].lora.named_parameters() if n.endswith(".b"))
+    e2 = vl2.encode({"audio": fb}, preprocessed=True)["audio"]
+    d = (e1.float() - e2.float()).abs().max().item()
+    cos = cos_min(torch, e1, e2)
+    if not zeroed or cos < 0.9999:
+        fail(f"4l: reload of the merged export: b's zeroed {zeroed}, cosine {cos}")
+    print(f"[4l lora] {card} | vitlensL audio+text, LoRA rank {LORA_RANK} on the "
+          f"four targets of the audio trunk ({n_fac} factor parameters in "
+          f"{len(factors)} tensors; logit_scale trains too): {b2_line}; "
+          f"{LORA_STEPS} steps "
+          f"at B=8, losses {steps}, host-timed seconds {step_s} (the first "
+          f"builds the launches), launches a step as train_launches "
+          f"({tuple(want[k] for k in ('fused_mlp', 'fused_mlp_save_preact', 'flash_attention'))} "
+          f"plain, save-preact, attention); base weights bit-equal, every factor "
+          f"moved; the export holds {len(saved)} merged tensors, no factor, "
+          f"its change from the base weights against scale * a @ b: cosine "
+          f"{cos_m:.6f}, norm ratio {ratio_m:.6f}, and "
+          f"reloads (b's zeroed) to the same encode (max |d| {d:.3e}, cosine "
+          f"{cos:.6f}); quant refuses the unmerged tower; phase took "
+          f"{time.time() - t0:.1f} s", flush=True)
+    del vl, vl2
+    torch.cuda.empty_cache()
+
+
+def hf_text_phase(torch, np, counters, totals, card):
+    """Phase 4rb: create_model("roberta-ViT-B-32", "image") at full width,
+    bf16: the RoBERTa text tower on token ids given directly (the card has
+    no HF tokenizer; post-LN with a pad mask, so the plain path: no launch)
+    and the ViT-B-32 image tower (quick GELU; 12 fused MLP + 12 attention),
+    each against the same weights in fp32 on the CPU by cosine."""
+    from vitlens_tpu_torch.config import image_tower_config
+    from vitlens_tpu_torch.factory import create_model
+    from vitlens_tpu_torch.models import tri
+
+    t0 = time.time()
+    model = create_model("roberta-ViT-B-32", "image", seed=SEED, device="cuda",
+                         dtype=torch.bfloat16)
+    cfg = model.cfg
+    ref = copy.deepcopy(model).to(device="cpu", dtype=torch.float32)
+    rng = np.random.RandomState(SEED + 30)
+    ids = rng.randint(3, cfg.text.vocab_size, size=(4, cfg.text.context_length))
+    for i, n in enumerate((77, 40, 12, 5)):  # <s> ... </s>, then pads
+        ids[i, 0], ids[i, n - 1], ids[i, n:] = 0, 2, cfg.text.hf_pad_id
+    ids = torch.from_numpy(ids).long()
+    images = torch.from_numpy(rng.randn(2, 3, 224, 224).astype(np.float32))
+    bf = torch.bfloat16
+    with torch.no_grad():
+        temb, tc = run_counted(torch, counters, totals, lambda: tri.encode_text(
+            model, ids.cuda(), normalize=True, compute_dtype=bf))
+        iemb, ic = run_counted(torch, counters, totals, lambda: tri.encode_image(
+            model, images.cuda(), normalize=True, compute_dtype=bf))
+        cos = {"text": cos_min(torch, temb, tri.encode_text(ref, ids, normalize=True)),
+               "image": cos_min(torch, iemb, tri.encode_image(ref, images,
+                                                              normalize=True))}
+    del ref
+    want_i = tower_launches(image_tower_config(cfg))
+    if tc != launch_counts() or ic != want_i:
+        fail(f"4rb: launches text {tc} (expected none), image {ic}, expected {want_i}")
+    if min(cos.values()) < COS_MIN or not (torch.isfinite(temb).all()
+                                           and torch.isfinite(iemb).all()):
+        fail(f"4rb: cosine vs CPU fp32 {cos}")
+    ids64 = ids.repeat(16, 1).cuda()
+    rate = encode_rate(torch, card, "roberta-ViT-B-32 text encode B64 bf16 "
+                       "(RoBERTa-base, plain path)",
+                       lambda: tri.encode_text(model, ids64, compute_dtype=bf),
+                       64, dim=cfg.embed_dim)
+    print(f"[4rb roberta] {card} | roberta-ViT-B-32 at full width, bf16: text "
+          f"B=4 (lengths 77, 40, 12, 5) no kernel launch, image B=2 launches "
+          f"(mlp, attn) ({ic['fused_mlp']}, {ic['flash_attention']}); cosine vs "
+          f"CPU fp32 " + " ".join(f"{k} {v:.6f}" for k, v in cos.items())
+          + f"; text B64 {rate:.2f} samples/s; phase took {time.time() - t0:.1f} s",
+          flush=True)
+    del model
+    torch.cuda.empty_cache()
+
+
+def resnet_phase(torch, np, counters, totals, card):
+    """Phase 4r: ModifiedResNet RN50 at 224, bf16 (cuDNN convolutions, the
+    attention pool through kernel 2: one launch a forward), against the same
+    weights in fp32 on the CPU by cosine; the B64 rate."""
+    from vitlens_tpu_torch.models.resnet import make_modified_resnet
+
+    t0 = time.time()
+    m = make_modified_resnet("RN50", device="cuda", seed=SEED, dtype=torch.bfloat16)
+    ref = copy.deepcopy(m).to(device="cpu", dtype=torch.float32)
+    x = torch.from_numpy(np.random.RandomState(SEED + 31).randn(2, 3, 224, 224)
+                         .astype(np.float32))
+    with torch.no_grad():
+        emb, counts = run_counted(torch, counters, totals,
+                                  lambda: m(x.cuda(), torch.bfloat16))
+        cos = cos_min(torch, emb, ref(x))
+    del ref
+    if counts != launch_counts(flash_attention=1):
+        fail(f"4r RN50: launches {counts}, expected one attention launch")
+    if cos < COS_MIN or tuple(emb.shape) != (2, 1024):
+        fail(f"4r RN50: cosine vs CPU fp32 {cos}, shape {tuple(emb.shape)}")
+    x64 = torch.randn(64, 3, 224, 224, device="cuda")
+    with torch.no_grad():
+        rate = encode_rate(torch, card, "RN50 image encode B64 bf16",
+                           lambda: m(x64, torch.bfloat16), 64, dim=1024)
+    print(f"[4r rn50] {card} | ModifiedResNet RN50 at 224, bf16: launches "
+          f"(attention) {counts['flash_attention']}; cosine vs CPU fp32 "
+          f"{cos:.6f}; B64 {rate:.2f} samples/s; phase took "
+          f"{time.time() - t0:.1f} s", flush=True)
+    del m
+    torch.cuda.empty_cache()
+
+
+def _module_cli(module, argv, env, log, timeout=900):
+    """python -m ``module`` ``argv`` as a child process on the card, its
+    stderr into ``log``; -> (exit code, seconds, stdout)."""
+    t0 = time.time()
+    with open(log, "w") as err:
+        p = subprocess.run([sys.executable, "-m", module, *argv],
+                           cwd=os.path.dirname(os.path.abspath(__file__)),
+                           env=env, stdout=subprocess.PIPE, stderr=err,
+                           text=True, timeout=timeout)
+    return p.returncode, time.time() - t0, p.stdout
+
+
+def linprobe_phase(torch, np, card):
+    """Phase 4lp: `python -m vitlens_tpu_torch.cli.train_linprobe` as a
+    child process on the card: the tactile probe at full ViT-L width
+    (random backbone from the seed, bf16), LP_IMAGES written GelSight frames
+    at 320 x 240 with rough/smooth labels, B = 8, 2 epochs (4 LARS steps),
+    an eval of 8 frames after each; exit 0, an accuracy a val epoch; the
+    host-timed step seconds from its log."""
+    import re
+    import tempfile
+
+    from PIL import Image
+
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="vitlens_4lp_")
+    meta = os.path.join(root, "meta", "modal_tactile", "data")
+    os.makedirs(meta)
+    rng = np.random.RandomState(SEED + 50)
+    anno = []
+    for i in range(LP_IMAGES):
+        rough = i % 2
+        img = rng.randint(0, 255, (240, 320, 3)).astype(np.float64)
+        img = img if rough else np.full_like(img, img.mean())  # textured or flat
+        Image.fromarray(img.astype(np.uint8)).save(os.path.join(root, f"g{i}.jpg"))
+        anno.append({"gel_path": f"g{i}.jpg", "image_path": "", "sr_label": rough})
+    for name, rows in (("train_rough.json", anno), ("test_rough.json", anno[:8])):
+        with open(os.path.join(meta, name), "w") as f:
+            json.dump(rows, f)
+    env = dict(os.environ, VITLENS_TACTILE_DATA_DIR=root,
+               VITLENS_METADATA_DIR=os.path.join(root, "meta"))
+    logs = os.path.join(root, "logs")
+    try:
+        rc, secs, _ = _module_cli(
+            "vitlens_tpu_torch.cli.train_linprobe",
+            ["--modality", "tactile", "--model", "ViT-L-14", "--train-split",
+             "train_rough", "--val-split", "test_rough", "--num-classes", "2",
+             "--batch-size", "8", "--epochs", "2", "--warmup", "1", "--workers",
+             "2", "--precision", "bf16", "--log-every-n-steps", "1", "--logs",
+             logs, "--name", "lp"], env, os.path.join(root, "lp.log"))
+        if rc != 0:
+            fail(f"4lp: exit {rc}: {open(os.path.join(root, 'lp.log')).read()[-2000:]}")
+        recs = _records(os.path.join(logs, "lp"))
+        accs = [r for r in recs if any(k.endswith("accuracy") for k in r)]
+        out_log = open(os.path.join(logs, "lp", "out.log")).read()
+        step_s = [float(v) for v in re.findall(r"loss [-\d.]+ \(([\d.]+) s\)", out_log)]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if len(accs) != 2 or len(step_s) != 4:
+        fail(f"4lp: val records {accs}, step times {step_s}")
+    print(f"[4lp linprobe] {card} | cli.train_linprobe, tactile probe on ViT-L-14 "
+          f"at full width, bf16, B=8, LARS: exit 0 in {secs:.1f} s (the child's "
+          f"start and model build included); step seconds (host-timed, the first "
+          f"builds the launches) {step_s}; val {accs}; phase took "
+          f"{time.time() - t0:.1f} s", flush=True)
+    return step_s
+
+
+def infer_phase(torch, np, card):
+    """Phase 4i: `python -m vitlens_tpu_torch.cli.infer --precision bf16` as
+    a child process on the card, on written WAV, .npy cloud and PNG files and
+    three captions (ViT-L, weights from the seed): its six printed softmax
+    matrices have rows summing to 1 and equal those of the API's encode of
+    the same files in this process (the same seed and modality order)."""
+    import re
+    import tempfile
+
+    from PIL import Image
+
+    from tools.reference_layout import pcm_from_float, write_wav
+    from vitlens_tpu_torch.api import ViTLens
+    from vitlens_tpu_torch.cli.infer import similarity_matrices
+
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="vitlens_4i_")
+    rng = np.random.RandomState(SEED + 60)
+    files = {"audio": [], "pc": [], "image": []}
+    for i in range(2):
+        files["audio"].append(os.path.join(root, f"a{i}.wav"))
+        write_wav(files["audio"][-1], pcm_from_float(_tone(np, 16000, 4.0, 1, i), 16),
+                  16000)
+        files["pc"].append(os.path.join(root, f"c{i}.npy"))
+        np.save(files["pc"][-1], (rng.randn(9000, 3) * 0.3).astype(np.float32))
+        files["image"].append(os.path.join(root, f"i{i}.png"))
+        Image.fromarray(rng.randint(0, 255, (240, 320, 3)).astype(np.uint8)).save(
+            files["image"][-1])
+    captions = ["a dog barking", "a chair", "waves on rocks"]
+    argv = ["--precision", "bf16", "--image", *files["image"], "--audio",
+            *files["audio"], "--pc", *files["pc"], "--text", *captions]
+    try:
+        rc, secs, out = _module_cli("vitlens_tpu_torch.cli.infer", argv,
+                                    dict(os.environ), os.path.join(root, "infer.log"))
+        if rc != 0:
+            fail(f"4i: exit {rc}: {open(os.path.join(root, 'infer.log')).read()[-2000:]}")
+        blocks = re.split(r"\n(\w+) x (\w+) softmax\([^)]*\):\n", "\n" + out)
+        got = {(a, b): np.asarray([float(v) for v in re.findall(
+            r"[-+]?\d*\.\d+(?:e[-+]?\d+)?", body)])
+            for a, b, body in zip(blocks[1::3], blocks[2::3], blocks[3::3])}
+        vl = ViTLens("vitlensL", ["image", "audio", "pc", "text"], device="cuda",
+                     seed=0, compute_dtype=torch.bfloat16)
+        emb = vl.encode({"image": files["image"], "audio": files["audio"],
+                         "pc": files["pc"], "text": captions})  # the CLI's order
+        want = similarity_matrices({m: v.float().cpu().numpy() for m, v in emb.items()},
+                                   100.0)
+        del vl
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if list(got) != list(want):
+        fail(f"4i: printed pairs {list(got)}, expected {list(want)}")
+    d = max(np.abs(got[k] - want[k].ravel()).max() for k in want)
+    rows = max(np.abs(want[k].sum(-1) - 1).max() for k in want)
+    if d > 1e-3 or rows > 1e-9 or any(got[k].size != want[k].size for k in want):
+        fail(f"4i: printed matrices differ from the API's by {d}, rows off 1 by {rows}")
+    print(f"[4i infer] {card} | cli.infer --precision bf16 on 2 WAV, 2 .npy "
+          f"clouds, 2 PNG and 3 captions (ViT-L): exit 0 in {secs:.1f} s; "
+          f"{len(got)} matrices {[k for k in got]}, rows summing to 1, max |d| "
+          f"{d:.2e} against the API's encode in this process (5 printed "
+          f"digits); phase took {time.time() - t0:.1f} s", flush=True)
+
+
+def export_phase(torch, model, counters, totals, card, fb):
+    """Phase 4ex: utils.export.export_encoder of the vitlensL audio tower in
+    bf16 on the card (the kernels recorded as custom ops), load_exported,
+    then the loaded program on the same B = 2 fbank: the kernels' launch
+    counters advance by the tower's counts (tower_launches) and its output
+    equals the eager normalised encode. Then :func:`op_overhead_us`."""
+    from vitlens_tpu_torch.utils.export import export_encoder, load_exported
+
+    t0 = time.time()
+    tower = model.towers["audio"]
+    x = fb[:, 0].contiguous()
+    blob = export_encoder(tower, x, torch.bfloat16)
+    t_export, n_bytes = time.time() - t0, len(blob)
+    prog = load_exported(blob)
+    ops = {}
+    for n in prog.program.graph.nodes:
+        if str(n.target).startswith("vitlens."):
+            ops[str(n.target)] = ops.get(str(n.target), 0) + 1
+    got, counts = run_counted(torch, counters, totals, lambda: prog.call(x))
+    want = model.encode({"audio": x}, preprocessed=True)["audio"]
+    if counts != tower_launches(tower.cfg):
+        fail(f"4ex: the loaded program's launches {counts}, expected "
+             f"{tower_launches(tower.cfg)}")
+    d = (got.float() - want.float()).abs().max().item()
+    if d > 1e-6:
+        fail(f"4ex: the loaded program differs from the eager encode by {d}")
+    del prog, blob
+    over = op_overhead_us(torch)
+    print(f"[4ex export] {card} | export_encoder(vitlensL audio tower, bf16) in "
+          f"{t_export:.1f} s, {n_bytes / 1e9:.3f} GB, "
+          f"ops in the graph {ops}; "
+          f"the loaded program launched (mlp, attn) ({counts['fused_mlp']}, "
+          f"{counts['flash_attention']}), max |d| vs the eager encode {d:.2e}; "
+          f"host-timed us a call, the wrapper's own dispatch vs its custom op, "
+          f"at a small shape (launch-bound) {over}; "
+          f"phase took {time.time() - t0:.1f} s", flush=True)
+
+
+def op_overhead_us(torch, n=300):
+    """{kernel: (wrapper us, custom op us)} a call, host-timed over ``n``
+    calls without gradients at a small, launch-bound shape, best of two
+    rounds run wrapper, op, op, wrapper: what routing the wrappers through
+    ``torch.ops.vitlens.*`` would cost each launch."""
+    from vitlens_tpu_torch.ops.flash_attention import flash_attention
+    from vitlens_tpu_torch.ops.fused_mlp import fused_mlp
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    q = torch.randn(1, 1, 64, 64, generator=g, device="cuda").to(torch.bfloat16)
+    a = mlp_inputs(torch, g, 64, 64, 256)
+    pairs = {"flash_attention": (lambda: flash_attention(q, q, q),
+                                 lambda: torch.ops.vitlens.flash_attention(q, q, q, 0.125)),
+             "fused_mlp": (lambda: fused_mlp(*a),
+                           lambda: torch.ops.vitlens.fused_mlp(*a, "gelu", 1e-5))}
+
+    def per_call(fn):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / n * 1e6
+
+    out = {}
+    with torch.no_grad():
+        for name, (direct, op) in pairs.items():
+            if not torch.equal(direct(), op()):
+                fail(f"4ex: torch.ops.vitlens.{name} differs from its wrapper")
+            times = [per_call(f) for f in (direct, op, op, direct)]
+            out[name] = (round(min(times[0], times[3]), 2),
+                         round(min(times[1], times[2]), 2))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3389,6 +4139,10 @@ def main() -> int:
               "an NVIDIA GPU", file=sys.stderr)
         return 1
     t_start = time.time()
+
+    def mark(label):  # where the run's time goes, phase by phase
+        print(f"[time] {label} done at {time.time() - t_start:.1f} s", flush=True)
+
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
 
@@ -3546,6 +4300,7 @@ def main() -> int:
         if not (torch.isfinite(got).all() and e <= LNP_TOL):
             fail(f"fused_ln_proj {m}x{d}x{n}: rel err {e} > {LNP_TOL}")
     check_new_kernels(torch, g, err, checks)
+    check_item11_kernels(torch, g, err, checks)
     check_int8_epilogues(torch, g, err, checks)
     digests = kernel1_digests(torch, np)
     if digests != {k: tuple(v) for k, v in KERNEL1_DIGESTS.items()}:
@@ -3559,6 +4314,7 @@ def main() -> int:
           f"epilogues), quantise and row gather bit-equal): {' '.join(checks)}",
           flush=True)
 
+    mark("3 kernels")
     grad_checks = {
         "fused_mlp M1001 gelu": (
             fused_mlp, fused_mlp_reference, mlp_inputs(torch, g, 1001, 1024, 4096),
@@ -3588,7 +4344,8 @@ def main() -> int:
             ("dq", "dk", "dv"))
            for label, (b, h, nq, nk) in (("bigG trunk", (OS_B, 16, 257, 257)),
                                          ("Lens cross", (OS_B, 1, 256, 512)),
-                                         ("Lens self", (OS_B, 16, 256, 256)))}}
+                                         ("Lens self", (OS_B, 16, 256, 256)))},
+        **item11_grad_checks(torch, g)}
     lines = []
     for label, (fn, plain, args, tol, names) in grad_checks.items():
         errs = grad_errs(torch, g, fn, plain, args)
@@ -3601,6 +4358,7 @@ def main() -> int:
           f"plain version, bf16 (<= {GRAD_TOL}, attention <= {ATTN_GRAD_TOL} "
           f"relative): " + "; ".join(lines), flush=True)
 
+    mark("3 gradients")
     # -- 4: the slices through the port's entry point -----------------------
     t0 = time.time()
     model = ViTLens("vitlensL", ("audio", "pc", "text"), device="cuda",
@@ -3694,18 +4452,22 @@ def main() -> int:
           flush=True)
 
     # -- 4v: served from files -------------------------------------------------
+    mark("4")
     served = served_phase(torch, np, counters, launches, card)
     transformer_lens_phase(torch, counters, launches)
 
     # -- 4f: the fp32 default; 4h: head dims other than 64 --------------------
+    mark("4v, 4t")
     fp32_phase(torch, counters, launches, fbanks[4][:2], clouds[4][:2],
                captions[:2])
     head_dim_phase(torch, counters, launches, fbanks[1])
 
     # -- 4g: the vitlensG pc encode (PNSA, bigG) from files, and served -------
+    mark("4f, 4h")
     g_model = vitlensG_phase(torch, np, counters, launches)
 
     # -- 4q: the int8 quantized audio encode; 4s: the bench entry points -----
+    mark("4g")
     fb64 = torch.randn(B, 3, acfg.audio.target_length, acfg.audio.mel_bins,
                        generator=g, device="cuda") * 0.5
     qmodel = quant_phase(
@@ -3720,10 +4482,12 @@ def main() -> int:
     by_script = scripts_phase(torch, counters, launches)
 
     # -- 4b, 4c: the audio train step -----------------------------------------
+    mark("4q, 4s")
     trainer, state, tx, mask, sc, train_batch = train_phase(torch, np, counters,
                                                             launches)
 
     # -- 4d: the depth tri step; 4e: the video distill-tokens step ----------
+    mark("4b, 4c")
     from vitlens_tpu_torch.train.step import StepConfig
 
     tri_depth = tri_train_phase(
@@ -3746,11 +4510,25 @@ def main() -> int:
         StepConfig(n_tower=3, compute_dtype=torch.bfloat16),
         [("B=8", 8, 1)] * 2 + [("B=8 accum_freq 4", 8, 4)] * 2)
     # -- 4x: the training CLI (files, eval, checkpoints, resume) ----------
+    mark("4d, 4e, 4p")
     cli = train_cli_phase(torch, np, counters, launches, card)
     # -- 4o: the OpenShape trainer (vitlensG, the baselines, the PointBERT
     # classifier, the CLI); its phase-5 timings run inside, on its models
+    mark("4x")
     os_rates = openshape_phase(torch, np, counters, launches, card)
 
+    # -- ROADMAP item 11: 4ev EVA-g, 4l LoRA, 4rb RoBERTa, 4r RN50, 4lp the
+    # linear probe, 4i the infer CLI, 4ex export ------------------------------
+    mark("4o")
+    eva_rates = eva_phase(torch, np, counters, launches, card)
+    lora_phase(torch, np, counters, launches, card)
+    hf_text_phase(torch, np, counters, launches, card)
+    resnet_phase(torch, np, counters, launches, card)
+    lp_steps = linprobe_phase(torch, np, card)
+    infer_phase(torch, np, card)
+    export_phase(torch, model, counters, launches, card, fbanks[4][:2])
+
+    mark("4ev, 4l, 4rb, 4r, 4lp, 4i, 4ex")
     # -- 5: timing at the B64 shapes -----------------------------------------
     timings = {name: [] for name in kernels}
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -3841,6 +4619,7 @@ def main() -> int:
          "plain_ms": p_ms, "bound_ms": bd, "bound_by": by, "library_ms": None})
     del enc_args, fps_timed
     time_new_kernels(torch, g, timings)
+    time_item11_kernels(torch, g, timings)
     timings["fused_ln_qkv"] = [timings["fused_ln_proj"][1]]  # M=16448, 1024->3072
     for name, rows in timings.items():
         for r in rows:
@@ -3872,6 +4651,7 @@ def main() -> int:
                      if "today_split_ms" in r else ""),
                   flush=True)
 
+    mark("5 kernels")
     pc64 = torch.randn(B, npts, 3, generator=g, device="cuda") * 0.3
 
     def audio64():
@@ -3943,6 +4723,7 @@ def main() -> int:
     shutil.rmtree(served["root"], ignore_errors=True)
     del served
 
+    mark("5 rates")
     replaces = {
         "fused_mlp": "vitlens_tpu/ops/fused_mlp.py:105",
         "flash_attention": "vitlens_tpu/ops/flash_attention.py:53",
@@ -4005,6 +4786,8 @@ def main() -> int:
           + f" samples/s; PointTransformer encode B{B}: "
           f"{os_rates['point_transformer']:.2f} samples/s; OpenShape CLI step "
           f"{os_rates['cli_step_s']:.4f} s"
+          + f"; EVA-g pc encode B16 {eva_rates[16]:.2f}, B64 {eva_rates[64]:.2f} "
+          f"samples/s; linear probe step (host) {min(lp_steps[1:]):.4f} s"
           + f"; image, depth, EEG, video encode B{B}: "
           + ", ".join(f"{served_rates[m]:.2f}" for m in ("image", "depth", "eeg", "video"))
           + f" samples/s; served audio closed loop: "

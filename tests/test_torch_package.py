@@ -38,7 +38,10 @@ def test_port_imports_no_jax():
         "          'data.loader', 'data.datasets', 'data.lmdb_reader', 'eval.metadata',\n"
         "          'eval.metrics', 'eval.zero_shot', 'train.checkpoint', 'utils.logging',\n"
         "          'utils.flops', 'cli.args', 'cli.train', 'models.pc_baselines',\n"
-        "          'models.point_transformer', 'cli.train_openshape'):\n"
+        "          'models.point_transformer', 'cli.train_openshape', 'models.eva',\n"
+        "          'train.lora', 'models.bert_text', 'models.hf_text', 'models.linear_probe',\n"
+        "          'cli.train_linprobe', 'cli.infer', 'utils.export', 'utils.hub',\n"
+        "          'models.resnet', 'ops.custom', 'models.lora'):\n"
         "    assert 'vitlens_tpu_torch.' + n in names, n\n"
         "sys.path.insert(0, '.')\n"
         "import tools.reference_layout\n"
@@ -67,7 +70,11 @@ def test_port_sources_never_name_jax():
                 "eval/metadata.py", "train/checkpoint.py", "utils/logging.py",
                 "utils/flops.py", "cli/args.py", "cli/train.py",
                 "models/pc_baselines.py", "models/point_transformer.py",
-                "cli/train_openshape.py"):
+                "cli/train_openshape.py", "models/eva.py", "train/lora.py",
+                "models/bert_text.py", "models/hf_text.py",
+                "models/linear_probe.py", "cli/train_linprobe.py",
+                "cli/infer.py", "utils/export.py", "utils/hub.py",
+                "models/resnet.py", "ops/custom.py", "models/lora.py"):
         assert new in names, new
     paths += [os.path.join(REPO, "tools", "reference_layout.py"),
               os.path.join(REPO, "chip_smoke.py")]
@@ -78,6 +85,21 @@ def test_port_sources_never_name_jax():
             if s.startswith(("import ", "from ")):
                 mod = s.split()[1].split(".")[0]
                 assert mod not in ("jax", "jaxlib", "vitlens_tpu"), (path, s)
+
+
+def test_models_never_import_train():
+    """The model layer depends on no training code: no module under
+    vitlens_tpu_torch/models/ imports vitlens_tpu_torch.train (the LoRA
+    merge a forward runs lives in models/lora.py)."""
+    root = os.path.join(REPO, "vitlens_tpu_torch", "models")
+    for f in sorted(os.listdir(root)):
+        if not f.endswith(".py"):
+            continue
+        for line in open(os.path.join(root, f), encoding="utf-8"):
+            s = line.strip()
+            if s.startswith(("import ", "from ")):
+                assert not s.split()[1].startswith(
+                    "vitlens_tpu_torch.train"), (f, s)
 
 
 def test_build_raises_without_nvcc(monkeypatch):

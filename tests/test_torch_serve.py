@@ -679,5 +679,5 @@ def test_serve_cli_parser():
          "--device", "cpu", "--batch-buckets", "1", "8"])
     assert args.ckpt == ["all=/x.pt", "text=/y.pt"] and not args.warmup
     assert args.batch_buckets == [1, 8] and args.device == "cpu"
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(NotImplementedError, match="not yet ported.*item 12"):
         S.main(["--data-parallel", "4"])

@@ -24,7 +24,10 @@ State dicts in the reference's key layout (what
     merged ViT-Lens export (``vitlens.{modality}.*``);
   * the OpenShape pc baselines' files, :func:`ppat_state_dict`,
     :func:`dgcnn_state_dict` and :func:`pointnet2_state_dict`, and the
-    PointBERT classifier's, :func:`point_transformer_state_dict`.
+    PointBERT classifier's, :func:`point_transformer_state_dict`;
+  * :func:`eva_state_dict` (BLIP-2's EVA ViT-g), :func:`modified_resnet_state_dict`
+    (open_clip's ModifiedResNet) and :func:`hf_bert_state_dict` (transformers'
+    BertModel / RobertaModel).
 
 Values come from a ``torch.Generator`` at open_clip's init scales (LayerNorm
 and BatchNorm parameters perturbed from 1 and 0, so that a load that drops
@@ -394,6 +397,110 @@ def point_transformer_state_dict(cfg, gen: torch.Generator,
     if cfg.output_dim is not None:
         cat = 2 if cfg.do_cat else 1
         sd["proj"] = mk.normal((cat * d, cfg.output_dim), cfg.output_dim ** -0.5)
+    return sd
+
+
+def eva_state_dict(arch, gen: torch.Generator, head: bool = True,
+                   dtype: torch.dtype = torch.float32) -> StateDict:
+    """BLIP-2's ``eva_vit_g.pth`` keys for an ``models.eva.EVAArch``:
+    ``patch_embed.proj`` (a conv [W, 3, p, p]), ``cls_token`` [1, 1, W],
+    ``pos_embed`` [1, N + 1, W], ``blocks.{i}.{norm1, attn.qkv (no bias),
+    attn.q_bias, attn.v_bias, attn.proj, norm2, mlp.fc1, mlp.fc2}``,
+    ``norm`` and, with ``head``, ``head`` [proj_dim, W]."""
+    mk, w = _Maker(gen, dtype), arch.width
+    hidden = int(w * arch.mlp_ratio)
+    sd: StateDict = {}
+    sd["patch_embed.proj.weight"] = mk.normal(
+        (w, 3, arch.patch_size, arch.patch_size), (3 * arch.patch_size ** 2) ** -0.5)
+    sd["patch_embed.proj.bias"] = mk.normal((w,), 0.02)
+    sd["cls_token"] = mk.normal((1, 1, w), 0.02)
+    sd["pos_embed"] = mk.normal((1, arch.num_patches + 1, w), 0.02)
+    for i in range(arch.layers):
+        p = f"blocks.{i}."
+        mk.ln(sd, p + "norm1", w)
+        mk.linear(sd, p + "attn.qkv", w, 3 * w, bias=False)
+        sd[p + "attn.q_bias"] = mk.normal((w,), 0.02)
+        sd[p + "attn.v_bias"] = mk.normal((w,), 0.02)
+        mk.linear(sd, p + "attn.proj", w, w)
+        mk.ln(sd, p + "norm2", w)
+        mk.linear(sd, p + "mlp.fc1", w, hidden)
+        mk.linear(sd, p + "mlp.fc2", hidden, w)
+    mk.ln(sd, "norm", w)
+    if head:
+        mk.linear(sd, "head", w, arch.proj_dim)
+    return sd
+
+
+def modified_resnet_state_dict(arch, gen: torch.Generator,
+                               dtype: torch.dtype = torch.float32) -> StateDict:
+    """open_clip ModifiedResNet keys for a ``models.resnet.ResNetArch``: the
+    stem's ``conv{1,2,3}`` / ``bn{1,2,3}``, ``layer{1..4}.{j}.{conv1..3,
+    bn1..3, downsample.0 (conv), downsample.1 (bn)}`` and ``attnpool.
+    {positional_embedding, q_proj, k_proj, v_proj, c_proj}``."""
+    mk, width = _Maker(gen, dtype), arch.width
+    sd: StateDict = {}
+
+    def conv(name, n_in, n_out, k):
+        sd[f"{name}.weight"] = mk.normal((n_out, n_in, k, k), (n_in * k * k) ** -0.5)
+
+    conv("conv1", 3, width // 2, 3)
+    mk.bn(sd, "bn1", width // 2)
+    conv("conv2", width // 2, width // 2, 3)
+    mk.bn(sd, "bn2", width // 2)
+    conv("conv3", width // 2, width, 3)
+    mk.bn(sd, "bn3", width)
+    inplanes = width
+    for li, n_blocks in enumerate(arch.layers):
+        planes = width * 2 ** li
+        for bi in range(n_blocks):
+            p = f"layer{li + 1}.{bi}."
+            stride = (1 if li == 0 else 2) if bi == 0 else 1
+            conv(p + "conv1", inplanes, planes, 1)
+            mk.bn(sd, p + "bn1", planes)
+            conv(p + "conv2", planes, planes, 3)
+            mk.bn(sd, p + "bn2", planes)
+            conv(p + "conv3", planes, planes * 4, 1)
+            mk.bn(sd, p + "bn3", planes * 4)
+            if stride > 1 or inplanes != planes * 4:
+                conv(p + "downsample.0", inplanes, planes * 4, 1)
+                mk.bn(sd, p + "downsample.1", planes * 4)
+            inplanes = planes * 4
+    embed = width * 32
+    grid = arch.image_size // 32
+    sd["attnpool.positional_embedding"] = mk.normal((grid * grid + 1, embed),
+                                                    embed ** -0.5)
+    for n in ("q_proj", "k_proj", "v_proj"):
+        mk.linear(sd, f"attnpool.{n}", embed, embed)
+    mk.linear(sd, "attnpool.c_proj", embed, arch.embed_dim)
+    return sd
+
+
+def hf_bert_state_dict(gen: torch.Generator, vocab_size: int, hidden: int,
+                       layers: int, intermediate: int, max_positions: int,
+                       type_vocab_size: int = 2, pooler: bool = True,
+                       prefix: str = "",
+                       dtype: torch.dtype = torch.float32) -> StateDict:
+    """transformers BertModel / RobertaModel keys (``embeddings.*``,
+    ``encoder.layer.{i}.*``, ``pooler.dense`` with ``pooler``) under
+    ``prefix`` (e.g. ``"text.transformer."`` in an open_clip file)."""
+    mk = _Maker(gen, dtype)
+    sd: StateDict = {}
+    e = prefix + "embeddings."
+    sd[e + "word_embeddings.weight"] = mk.normal((vocab_size, hidden), 0.02)
+    sd[e + "position_embeddings.weight"] = mk.normal((max_positions, hidden), 0.02)
+    sd[e + "token_type_embeddings.weight"] = mk.normal((type_vocab_size, hidden), 0.02)
+    mk.ln(sd, e + "LayerNorm", hidden)
+    for i in range(layers):
+        p = f"{prefix}encoder.layer.{i}."
+        for n in ("query", "key", "value"):
+            mk.linear(sd, p + f"attention.self.{n}", hidden, hidden)
+        mk.linear(sd, p + "attention.output.dense", hidden, hidden)
+        mk.ln(sd, p + "attention.output.LayerNorm", hidden)
+        mk.linear(sd, p + "intermediate.dense", hidden, intermediate)
+        mk.linear(sd, p + "output.dense", intermediate, hidden)
+        mk.ln(sd, p + "output.LayerNorm", hidden)
+    if pooler:
+        mk.linear(sd, prefix + "pooler.dense", hidden, hidden)
     return sd
 
 

@@ -266,17 +266,23 @@ class ViTLens(nn.Module):
 
     def export_params(self, merge_lora: bool = True) -> Dict[str, Dict[str, torch.Tensor]]:
         """{modality: {parameter name: tensor}} of every loaded tower (the
-        live tensors). ``merge_lora`` is the JAX signature's: the port's
-        towers carry no LoRA factors yet (ROADMAP Queue 1, item 11), so
-        there is nothing to merge."""
-        del merge_lora
-        return {m: dict(self.towers[m].named_parameters())
+        live tensors). ``merge_lora`` folds the LoRA factors a fine-tuned
+        tower carries (``train/lora.py``) into its weights and leaves them
+        out: the plain tower's layout, which converters and checkpoints
+        expect. Without it a LoRA tower's factors are listed too."""
+        from vitlens_tpu_torch.train.lora import merge_lora as _merge
+
+        return {m: (_merge(self.towers[m]) if merge_lora
+                    else dict(self.towers[m].named_parameters()))
                 for m in self.modalities}
 
-    def _ckpt_tree(self):
+    def _tower_buffers(self):
         state = {m: dict(self.towers[m].named_buffers()) for m in self.modalities}
-        return {"params": self.export_params(),
-                "state": {m: b for m, b in state.items() if b}}
+        return {m: b for m, b in state.items() if b}
+
+    def _ckpt_tree(self):
+        return {"params": self.export_params(merge_lora=True),
+                "state": self._tower_buffers()}
 
     def export_checkpoint(self, save_path: str) -> str:
         """Save a multi-modality checkpoint (parameters and buffers, e.g.
@@ -296,13 +302,23 @@ class ViTLens(nn.Module):
 
     def load_checkpoint(self, path: str) -> None:
         """Restore a checkpoint written by :meth:`export_checkpoint` into the
-        loaded towers, each tensor cast to the live one's dtype."""
+        loaded towers, each tensor cast to the live one's dtype. Exports
+        carry merged weights: a tower with LoRA factors restores them into
+        its base weights and zeroes every ``b`` of its factors, so that it
+        equals the export and can go on fine-tuning from it."""
         from vitlens_tpu_torch.train import checkpoint as C
+        from vitlens_tpu_torch.train.lora import has_lora, reset_lora
 
-        live = self._ckpt_tree()
+        live = {"params": {m: {n: p for n, p in self.towers[m].named_parameters()
+                               if not n.startswith("lora.")}
+                           for m in self.modalities},
+                "state": self._tower_buffers()}
         restored = C.load_checkpoint(path, live)
         with torch.no_grad():
             for kind in ("params", "state"):
                 for m, tensors in live[kind].items():
                     for n, t in tensors.items():
                         t.copy_(restored[kind][m][n])
+        for m in self.modalities:
+            if has_lora(self.towers[m]):
+                reset_lora(self.towers[m])

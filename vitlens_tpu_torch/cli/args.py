@@ -4,9 +4,8 @@ flags and validation, plus ``--device``).
 One typed surface replacing the reference's ~170-flag argparse
 (training/params.py:1-1013). Flags keep the reference names where they
 exist so recipes translate 1:1; defaults follow params.py. The parallel
-flags (``--fsdp``, ``--tp`` > 1, ``--n-devices`` > 1) and LoRA
-(``--lora-rank`` > 0) parse as in JAX; the trainer raises on them, naming
-their ROADMAP Queue 1 item.
+flags (``--fsdp``, ``--tp`` > 1, ``--n-devices`` > 1) parse as in JAX;
+the trainer raises on them, naming their ROADMAP Queue 1 item.
 """
 
 from __future__ import annotations

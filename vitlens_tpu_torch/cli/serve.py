@@ -48,8 +48,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "of 2 up to --max-batch, so every coalesced batch "
                         "lands on a warmed size")
     p.add_argument("--data-parallel", type=int, default=0, metavar="N",
-                   help="shard device batches over N cards (not yet ported; "
-                        "0 = one device)")
+                   help="shard device batches over N cards (not yet ported: "
+                        "ROADMAP Queue 1, item 12; 0 = one device)")
     p.add_argument("--request-timeout", type=float, default=600.0,
                    help="per-request default timeout in seconds; without "
                         "warmup it must cover the first call's kernel build")
@@ -82,7 +82,8 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.data_parallel:
         raise NotImplementedError(
-            "--data-parallel: serving over several cards is not yet ported")
+            "--data-parallel: serving over several cards is not yet ported "
+            "(ROADMAP Queue 1, item 12, parallelism)")
 
     ckpts = {}
     for spec in args.ckpt:

@@ -16,8 +16,10 @@ Usage:
 The step's randomness (FPS starts, train-time patch dropout) comes from one
 ``torch.Generator`` on the device, seeded with --seed. The data-parallel and
 sharded flags (--fsdp, --tp > 1, --n-devices > 1) wait for the parallel work
-(ROADMAP Queue 1, item 12), LoRA (--lora-rank > 0) and pretrained names
-resolved through the hub for item 11; each raises, naming its item.
+(ROADMAP Queue 1, item 12) and raise, naming it. --lora-rank > 0 trains
+rank-r factors on the --lora-towers' trunks alone (train/lora.py); a
+--pretrained tag that is no file resolves through the local cache
+(utils/hub.py).
 """
 
 from __future__ import annotations
@@ -177,15 +179,12 @@ def _build_real_dataset(args: TrainArgs, spec: str, train: bool,
 
 
 def _tokenizer(cfg=None):
-    """The CLIP BPE tokenizer; hf-text archs (roberta-ViT-B-32 etc.) need
-    their HF tokenizer, not yet ported (ROADMAP Queue 1, item 11)."""
+    """The CLIP BPE tokenizer; hf-text archs (roberta-ViT-B-32 etc.)
+    tokenize with their HF tokenizer."""
     from vitlens_tpu_torch.text.tokenizer import get_tokenizer
 
-    if cfg is not None and cfg.text.hf_tokenizer_name:
-        raise NotImplementedError(
-            f"the hf-text tokenizer {cfg.text.hf_tokenizer_name!r} is not yet "
-            "ported: ROADMAP Queue 1, item 11")
-    return get_tokenizer()
+    return get_tokenizer(hf_tokenizer_name=(
+        cfg.text.hf_tokenizer_name if cfg is not None else None))
 
 
 def _prep_batch(raw: Dict[str, Any], args: TrainArgs, tokenizer) -> Dict[str, Any]:
@@ -380,15 +379,6 @@ def check_supported(args: TrainArgs) -> None:
         raise NotImplementedError(
             "--fsdp, --tp > 1 and --n-devices > 1 need the parallel train "
             "step, not yet ported: ROADMAP Queue 1, item 12 (parallelism)")
-    if args.lora_rank > 0:
-        raise NotImplementedError(
-            "--lora-rank > 0 needs LoRA, not yet ported: ROADMAP Queue 1, "
-            "item 11")
-    if args.pretrained and not os.path.exists(args.pretrained):
-        raise FileNotFoundError(
-            f"--pretrained {args.pretrained!r} is no file; resolving a "
-            "pretrained name through the hub is not yet ported: ROADMAP "
-            "Queue 1, item 11")
 
 
 def build_model(args: TrainArgs, device):
@@ -418,8 +408,12 @@ def build_model(args: TrainArgs, device):
         from vitlens_tpu_torch.weights.torch_convert import (
             convert_tri_state_dict, load_torch_checkpoint)
 
-        params, state = convert_tri_state_dict(
-            load_torch_checkpoint(args.pretrained), cfg)
+        path = args.pretrained
+        if not os.path.exists(path):  # a pretrained tag: the local cache
+            from vitlens_tpu_torch.utils.hub import resolve_pretrained
+
+            path = resolve_pretrained(args.model, args.pretrained)
+        params, state = convert_tri_state_dict(load_torch_checkpoint(path), cfg)
         merge_params(model, params, state)
         logging.info(f"loaded pretrained {args.pretrained}")
     mask = tri_model_mask(
@@ -431,7 +425,35 @@ def build_model(args: TrainArgs, device):
         unlock_pos_emb=args.unlock_pos_emb,
         unlock_trans_first_n_layers=args.unlock_trans_first_n_layers,
     )
+    if args.lora_rank > 0:
+        mask = attach_lora(args, model, mask)
     return cfg, tokenizer, model, mask
+
+
+def attach_lora(args: TrainArgs, model, mask):
+    """--lora-rank > 0: rank-r factors on the trunks of the --lora-towers,
+    each drawn from --seed + 17 + its index; those towers train their
+    factors alone (the mask overrides their lock flags), as in JAX."""
+    from vitlens_tpu_torch.factory import make_generator
+    from vitlens_tpu_torch.train.lora import lora_init, lora_mask
+
+    mask = dict(mask)
+    towers = list(dict.fromkeys(  # strip + dedup, order-preserving
+        t.strip() for t in args.lora_towers.split(",") if t.strip()))
+    targets = tuple(t.strip() for t in args.lora_targets.split(",") if t.strip())
+    device = next(model.parameters()).device
+    for i, tower in enumerate(towers):
+        if tower not in ("visual", "text"):
+            raise SystemExit(f"--lora-towers: unknown tower {tower!r}")
+        module = getattr(model, tower)
+        lora_init(module, args.lora_rank,
+                  make_generator(args.seed + 17 + i, device),
+                  alpha=args.lora_alpha, targets=targets)
+        for k in [k for k in mask if k.startswith(tower + ".")]:
+            del mask[k]
+        mask.update({f"{tower}.{k}": v for k, v in lora_mask(module).items()})
+    # the model's parameter order: the optimizer and the step walk it
+    return {n: mask[n] for n, _ in model.named_parameters()}
 
 
 def build_step(args: TrainArgs, model, cfg, mask, total_steps: int):

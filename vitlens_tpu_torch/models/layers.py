@@ -23,12 +23,14 @@ Each module's ``init_(g)`` fills its parameters from the ``torch.Generator``
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from vitlens_tpu_torch.ops.attention import dot_product_attention
@@ -37,6 +39,7 @@ from vitlens_tpu_torch.ops.fused_ln_proj import (fused_ln_proj_applicable,
                                                  fused_ln_qkv)
 from vitlens_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_applicable
 from vitlens_tpu_torch.quant import int8_matmul
+from vitlens_tpu_torch.models.lora import merged_block_weights
 
 # Leaf names of the parameters that feed a matmul or a convolution: the
 # factory casts exactly these to the compute dtype once, at load.
@@ -208,16 +211,17 @@ class ResBlock(nn.Module):
     packed qkv projection) goes through ``ops.fused_ln_proj`` where it
     applies (bf16, widths multiples of 128), as in JAX. A quantized block
     (``quant.quantize_resblocks``) takes the plain composition for both
-    halves, as in JAX: neither kernel reads int8 weights."""
+    halves, as in JAX: neither kernel reads int8 weights. ``ln_eps`` is
+    both LayerNorms' eps (EVA's 1e-6), which the kernels take too."""
 
     def __init__(self, dim: int, heads: int, mlp_ratio: float = 4.0,
                  ls_init_value: Optional[float] = None,
-                 quick: bool = False, device=None):
+                 quick: bool = False, device=None, ln_eps: float = 1e-5):
         super().__init__()
         self.act = "quick_gelu" if quick else "gelu"
-        self.ln_1 = LayerNorm(dim, device=device)
+        self.ln_1 = LayerNorm(dim, ln_eps, device=device)
         self.attn = MHA(dim, heads, device=device)
-        self.ln_2 = LayerNorm(dim, device=device)
+        self.ln_2 = LayerNorm(dim, ln_eps, device=device)
         self.mlp = MLP(dim, int(dim * mlp_ratio), device=device)
         if ls_init_value is not None:
             self.ls_1 = LayerScale(dim, ls_init_value, device=device)
@@ -263,10 +267,11 @@ class Transformer(nn.Module):
 
     def __init__(self, dim: int, layers: int, heads: int,
                  mlp_ratio: float = 4.0, ls_init_value: Optional[float] = None,
-                 quick: bool = False, device=None):
+                 quick: bool = False, device=None, ln_eps: float = 1e-5):
         super().__init__()
         self.blocks = nn.ModuleList(
-            ResBlock(dim, heads, mlp_ratio, ls_init_value, quick, device=device)
+            ResBlock(dim, heads, mlp_ratio, ls_init_value, quick, device=device,
+                     ln_eps=ln_eps)
             for _ in range(layers))
 
     def init_(self, g: torch.Generator) -> None:
@@ -274,14 +279,19 @@ class Transformer(nn.Module):
             b.init_(g)
 
     def forward(self, x, mask: Optional[torch.Tensor] = None,
-                skip_first_n: Optional[int] = None, remat=False):
+                skip_first_n: Optional[int] = None, remat=False, lora=None):
         """``skip_first_n`` drops the first N blocks (the vitlensG recipe).
         ``remat`` recomputes each block in the backward pass with
         non-reentrant ``torch.utils.checkpoint`` (JAX ``jax.checkpoint`` of
         the scan body); it only acts while autograd records. See
-        :func:`remat_policy` for its values."""
+        :func:`remat_policy` for its values. ``lora`` (``models/lora.py``)
+        runs each block on its merged weights, merged inside the block's
+        checkpoint."""
         policy = remat_policy(remat)
-        for b in self.blocks[skip_first_n or 0:]:
+        first = skip_first_n or 0
+        for i, b in enumerate(self.blocks[first:], start=first):
+            if lora is not None:
+                b = functools.partial(_lora_block, lora, i, b)
             if policy is None or not torch.is_grad_enabled():
                 x = b(x, mask)
             elif policy == "dots":
@@ -290,6 +300,12 @@ class Transformer(nn.Module):
             else:
                 x = checkpoint(b, x, mask, use_reentrant=False)
         return x
+
+
+def _lora_block(lora, i, block, x, mask):
+    """Block ``i`` on W + scale * a @ b for each weight ``lora`` adapts."""
+    return functional_call(block, merged_block_weights(lora, i, block),
+                           (x, mask))
 
 
 # The 2-D products of a block: the qkv and out projections and the plain

@@ -3,7 +3,9 @@
 Token + positional embedding -> causal transformer -> ln_final -> EOT pooling
 (argmax of the token ids: EOT is the highest id in CLIP BPE) -> @
 text_projection. The causal mask sends the trunk's attention down the plain
-path; the MLP halves go through the fused-MLP kernel on CUDA.
+path; the MLP halves go through the fused-MLP kernel on CUDA. The
+hf-text archs (``TextArch.hf_style``) take ``models/bert_text.py``'s
+``HFTextTower`` instead: :func:`make_text_tower` picks the one of the arch.
 """
 
 from __future__ import annotations
@@ -22,8 +24,8 @@ class TextTower(nn.Module):
                  device=None):
         super().__init__()
         if cfg.hf_style:
-            raise NotImplementedError(
-                f"the hf-style ({cfg.hf_style}) text tower is not yet ported")
+            raise ValueError(f"an hf-style ({cfg.hf_style}) text arch builds "
+                             "models.bert_text.HFTextTower (make_text_tower)")
         self.cfg = cfg
         width = cfg.width
         self.token_embedding = _param(cfg.vocab_size, width, device=device)
@@ -33,6 +35,7 @@ class TextTower(nn.Module):
                                  cfg.ls_init_value, quick_gelu, device=device)
         self.ln_final = LayerNorm(width, device=device)
         self.text_projection = _param(width, embed_dim, device=device)
+        self.lora = None  # train/lora.py::lora_init attaches one
 
     def init_(self, g: torch.Generator) -> None:
         normal_(self.token_embedding, 0.02, g)
@@ -48,7 +51,18 @@ class TextTower(nn.Module):
         x = self.token_embedding[text].to(compute_dtype)
         x = x + self.positional_embedding.to(compute_dtype)
         mask = causal_mask(self.cfg.context_length, device=x.device)
-        x = self.ln_final(self.trunk(x, mask=mask, remat=remat))
+        x = self.ln_final(self.trunk(x, mask=mask, remat=remat, lora=self.lora))
         eot = text.argmax(dim=-1)
         pooled = x[torch.arange(x.shape[0], device=x.device), eot]
         return pooled @ self.text_projection.to(pooled.dtype)
+
+
+def make_text_tower(cfg: TextArch, embed_dim: int, quick_gelu: bool = False,
+                    device=None) -> nn.Module:
+    """The CLIP text tower, or the BERT-family one of an hf-text arch (JAX
+    ``tri_model_init``'s dispatch on ``hf_style``)."""
+    if cfg.hf_style:
+        from vitlens_tpu_torch.models.bert_text import HFTextTower
+
+        return HFTextTower(cfg, embed_dim, device=device)
+    return TextTower(cfg, embed_dim, quick_gelu, device=device)

@@ -1,5 +1,6 @@
 """Tri-tower model: the frozen CLIP image tower, the Lens ("visual") tower,
-the CLIP text tower and the shared logit scale (port of
+the text tower (CLIP's, or the BERT family's of an hf-text arch) and the
+shared logit scale (port of
 vitlens_tpu/models/tri.py). ``train`` and ``remat`` thread through the
 encode helpers as in JAX; so do the point tokenizer's FPS starts
 (``fps_start`` [B] or ``fps_generator``, where JAX passes ``fps_key``), and
@@ -15,7 +16,7 @@ import torch
 import torch.nn as nn
 
 from vitlens_tpu_torch.config import ModelConfig, image_tower_config
-from vitlens_tpu_torch.models.text import TextTower
+from vitlens_tpu_torch.models.text import make_text_tower
 from vitlens_tpu_torch.models.vit import VisionTower
 
 
@@ -38,8 +39,8 @@ class TriModel(nn.Module):
         self.cfg = cfg
         self.image = VisionTower(image_tower_config(cfg), device=device)
         self.visual = VisionTower(cfg.tower, device=device)
-        self.text = TextTower(cfg.text, cfg.embed_dim, cfg.quick_gelu,
-                              device=device)
+        self.text = make_text_tower(cfg.text, cfg.embed_dim, cfg.quick_gelu,
+                                    device=device)
         self.logit_scale = nn.Parameter(torch.empty((), device=device),
                                         requires_grad=False)
 

@@ -64,6 +64,43 @@ _ADAPTERS = {"image": ImageAdapter, "tactile": ImageAdapter,
              "audio": AudioAdapter, "eeg": EEGAdapter}
 
 
+def make_adapter(cfg: TowerConfig, device=None) -> nn.Module:
+    """The modality adapter of a tower (JAX ``_adapter_init``)."""
+    if cfg.modality == "pc":
+        tokenizers = {"pointbert": PointTokenizer, "pnsa": PNSATokenizer}
+        if cfg.point.tokenizer not in tokenizers:
+            raise ValueError(f"unknown point tokenizer {cfg.point.tokenizer!r}")
+        return tokenizers[cfg.point.tokenizer](cfg.point, device=device)
+    return _ADAPTERS[cfg.modality](cfg, device=device)
+
+
+def adapter_tokens(adapter: nn.Module, cfg: TowerConfig, x: torch.Tensor,
+                   compute_dtype, train: bool = False,
+                   fps_start: Optional[torch.Tensor] = None,
+                   fps_generator: Optional[torch.Generator] = None
+                   ) -> torch.Tensor:
+    """Any input but video frames -> the adapter's tokens, plus its
+    positions where ``use_adapter_pos`` (JAX ``_adapter_apply`` and the add
+    after it). A waveform goes through the fbank in fp32 first; then the
+    input is cast to ``compute_dtype``."""
+    if cfg.modality == "audio" and x.dim() == 2:
+        a = cfg.audio
+        x = fbank_fixed_length(x.float(), target_length=a.target_length,
+                               sample_frequency=float(a.sampling_rate),
+                               num_mel_bins=a.mel_bins)
+    x = x.to(compute_dtype)
+    if cfg.modality != "pc":
+        tokens, pos = adapter(x)
+    elif cfg.point.tokenizer == "pnsa":
+        feats = x if cfg.point.in_channel == x.shape[-1] else x[..., 3:]
+        tokens, pos = adapter(feats, x[..., :3], train, fps_start, fps_generator)
+    else:
+        tokens, pos = adapter(x, train, fps_start, fps_generator)
+    if pos is not None and cfg.use_adapter_pos:
+        tokens = tokens + pos.to(tokens.dtype)
+    return tokens
+
+
 class VisionTower(nn.Module):
     """The Lens tower. ``proj=False`` builds it without its final
     projection (OpenShape's CLIPBind drops it for its own ``proj_layer``):
@@ -74,13 +111,7 @@ class VisionTower(nn.Module):
         self.cfg = cfg
         arch = cfg.arch
         width = arch.width
-        if cfg.modality == "pc":
-            tokenizers = {"pointbert": PointTokenizer, "pnsa": PNSATokenizer}
-            if cfg.point.tokenizer not in tokenizers:
-                raise ValueError(f"unknown point tokenizer {cfg.point.tokenizer!r}")
-            self.adapter = tokenizers[cfg.point.tokenizer](cfg.point, device=device)
-        else:
-            self.adapter = _ADAPTERS[cfg.modality](cfg, device=device)
+        self.adapter = make_adapter(cfg, device)
         p = cfg.perceiver
         self.perceiver = self.perceiver_transformer = None
         if p is not None and p.as_transformer:
@@ -98,6 +129,7 @@ class VisionTower(nn.Module):
                                  device=device)
         self.ln_post = LayerNorm(width, device=device)
         self.proj = _param(width, cfg.embed_dim, device=device) if proj else None
+        self.lora = None  # train/lora.py::lora_init attaches one
 
     def init_(self, g: torch.Generator) -> None:
         scale = self.cfg.arch.width ** -0.5
@@ -138,25 +170,11 @@ class VisionTower(nn.Module):
         the trunk's output before ``ln_post`` without the CLS token ([B,
         N, width]), or all of it under global average pooling."""
         cfg = self.cfg
-        if cfg.modality == "audio" and x.dim() == 2:
-            a = cfg.audio
-            x = fbank_fixed_length(x.float(), target_length=a.target_length,
-                                   sample_frequency=float(a.sampling_rate),
-                                   num_mel_bins=a.mel_bins)
-        x = x.to(compute_dtype)
         if cfg.modality == "video":
-            tokens = self._video_tokens(x)
+            tokens = self._video_tokens(x.to(compute_dtype))
         else:
-            if cfg.modality != "pc":
-                tokens, pos = self.adapter(x)
-            elif cfg.point.tokenizer == "pnsa":
-                feats = x if cfg.point.in_channel == x.shape[-1] else x[..., 3:]
-                tokens, pos = self.adapter(feats, x[..., :3], train, fps_start,
-                                           fps_generator)
-            else:
-                tokens, pos = self.adapter(x, train, fps_start, fps_generator)
-            if pos is not None and cfg.use_adapter_pos:
-                tokens = tokens + pos.to(tokens.dtype)
+            tokens = adapter_tokens(self.adapter, cfg, x, compute_dtype, train,
+                                    fps_start, fps_generator)
         if self.perceiver is not None:
             tokens = self.perceiver(tokens)
         elif self.perceiver_transformer is not None:
@@ -169,7 +187,8 @@ class VisionTower(nn.Module):
         if train and cfg.patch_dropout > 0 and patch_keep is not None:
             h = apply_patch_dropout(h, patch_keep)
         h = self.ln_pre(h)
-        h = self.trunk(h, skip_first_n=cfg.skip_first_n_layers, remat=remat)
+        h = self.trunk(h, skip_first_n=cfg.skip_first_n_layers, remat=remat,
+                       lora=self.lora)
         if cfg.arch.global_average_pool:
             pooled, toks = h.mean(dim=1), h
         else:

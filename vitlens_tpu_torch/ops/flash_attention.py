@@ -21,6 +21,8 @@ from typing import Optional
 
 import torch
 
+from vitlens_tpu_torch.ops.custom import through_ops
+
 # Head dims the kernel takes: multiples of 8 from 8 to 128 (it pads to 64
 # or 128 columns in shared memory and stores only the true ones).
 HEAD_DIMS = range(8, 129, 8)
@@ -150,6 +152,8 @@ def flash_attention(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
     requires grad, this is :class:`FlashAttentionFunction`."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    if through_ops():  # a trace (ops/custom.py): the op, run forward only
+        return torch.ops.vitlens.flash_attention(q, k, v, float(scale))
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttentionFunction.apply(q, k, v, scale)
@@ -157,3 +161,15 @@ def flash_attention(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
 
 
 flash_attention.launches = 0
+
+
+@torch.library.custom_op("vitlens::flash_attention", mutates_args=())
+def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        scale: float) -> torch.Tensor:
+    return _forward(q, k, v, scale)
+
+
+@_flash_attention_op.register_fake
+def _(q, k, v, scale):
+    B, H, NQ, dh = q.shape  # the kernel's [B, NQ, H, Dh] seen as [B, H, NQ, Dh]
+    return q.new_empty((B, NQ, H, dh)).transpose(1, 2)

@@ -21,6 +21,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from vitlens_tpu_torch.ops.custom import through_ops
+
 # CTAs a row at most for a partition that fits on chip. The kernel takes up to
 # 16, but every warp of a cluster sends its winner to every CTA, so the
 # exchange grows with C: on an H100, one row of 8192 points took 0.32 ms at
@@ -124,6 +126,8 @@ def fps_indices(xyz: torch.Tensor, npoint: int,
             start = torch.zeros((B,), dtype=torch.int32, device=xyz.device)
     start = start.to(torch.int32)
     xyz = xyz.float()
+    if through_ops():  # a trace (ops/custom.py): the op
+        return torch.ops.vitlens.fps_indices(xyz, npoint, start)
     if not xyz.is_cuda:
         return fps_indices_reference(xyz, npoint, start)
     _check_cuda_args(xyz, start, npoint)
@@ -146,6 +150,17 @@ def fps_indices(xyz: torch.Tensor, npoint: int,
 
 
 fps_indices.launches = 0
+
+
+@torch.library.custom_op("vitlens::fps_indices", mutates_args=())
+def _fps_indices_op(xyz: torch.Tensor, npoint: int,
+                    start: torch.Tensor) -> torch.Tensor:
+    return fps_indices(xyz, npoint, start)
+
+
+@_fps_indices_op.register_fake
+def _(xyz, npoint, start):
+    return xyz.new_empty((xyz.shape[0], npoint), dtype=torch.int32)
 
 
 def take_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

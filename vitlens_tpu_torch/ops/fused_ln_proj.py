@@ -25,6 +25,8 @@ import os
 
 import torch
 
+from vitlens_tpu_torch.ops.custom import through_ops
+
 from vitlens_tpu_torch.ops.fused_mlp import _layer_norm32
 
 MAX_D = 8192  # the widest LN the kernel is held to (bigG's D is 1664)
@@ -131,12 +133,26 @@ def fused_ln_proj(x, lnw, lnb, w, b, eps: float = 1e-5) -> torch.Tensor:
     When autograd records and an input requires grad, this is
     :class:`FusedLnProjFunction`."""
     args = (x, lnw, lnb, w, b)
+    if through_ops():  # a trace (ops/custom.py): the op, run forward only
+        return torch.ops.vitlens.fused_ln_proj(*args, eps)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return FusedLnProjFunction.apply(*args, eps)
     return _forward(*args, eps)
 
 
 fused_ln_proj.launches = 0
+
+
+@torch.library.custom_op("vitlens::fused_ln_proj", mutates_args=())
+def _fused_ln_proj_op(x: torch.Tensor, lnw: torch.Tensor, lnb: torch.Tensor,
+                      w: torch.Tensor, b: torch.Tensor,
+                      eps: float) -> torch.Tensor:
+    return _forward(x, lnw, lnb, w, b, eps)
+
+
+@_fused_ln_proj_op.register_fake
+def _(x, lnw, lnb, w, b, eps):
+    return x.new_empty((x.shape[0], w.shape[1]))
 
 
 def fused_ln_proj_available() -> bool:

@@ -22,6 +22,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from vitlens_tpu_torch.ops.custom import through_ops
+
 ACTS = ("gelu", "quick_gelu")
 
 
@@ -205,6 +207,8 @@ def fused_mlp(x, lnw, lnb, w1, b1, w2, b2, act: str = "gelu",
     b1, b2 fp32; all contiguous; D and H multiples of 64. Anything else
     raises."""
     args = (x, lnw, lnb, w1, b1, w2, b2)
+    if through_ops():  # a trace (ops/custom.py): the op, run forward only
+        return torch.ops.vitlens.fused_mlp(*args, act, eps)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return FusedMLPFunction.apply(*args, act, eps)
     if not x.is_cuda:
@@ -216,3 +220,15 @@ def fused_mlp(x, lnw, lnb, w1, b1, w2, b2, act: str = "gelu",
 
 fused_mlp.launches = 0
 fused_mlp_save_preact.launches = 0
+
+
+@torch.library.custom_op("vitlens::fused_mlp", mutates_args=())
+def _fused_mlp_op(x: torch.Tensor, lnw: torch.Tensor, lnb: torch.Tensor,
+                  w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                  b2: torch.Tensor, act: str, eps: float) -> torch.Tensor:
+    return fused_mlp(x, lnw, lnb, w1, b1, w2, b2, act, eps)
+
+
+@_fused_mlp_op.register_fake
+def _(x, lnw, lnb, w1, b1, w2, b2, act, eps):
+    return torch.empty_like(x)

@@ -17,9 +17,11 @@ A BatchNorm is given as ``(mean, var, scale, bias)``; eval BN is
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Sequence
 
 import torch
+
+from vitlens_tpu_torch.ops.custom import through_ops
 
 BN_EPS = 1e-5
 # What the kernel takes (csrc/fused_point_encoder.cu): whole groups of M
@@ -138,6 +140,9 @@ def fused_point_encoder(nb, w1, b1, bn1, w2, b2, w3, b3, bn2, w4, b4,
     kernel: nb and w1..w4 bf16, biases and BN tensors fp32, all contiguous,
     M a multiple of 16 from 16 to 128, C1..C3 = 128, 256, 512 and C4 a
     multiple of 128. Anything else raises."""
+    if through_ops():  # a trace (ops/custom.py): the op
+        return torch.ops.vitlens.fused_point_encoder(
+            nb, w1, b1, list(bn1), w2, b2, w3, b3, list(bn2), w4, b4, eps)
     if not nb.is_cuda:
         return point_encoder_reference(nb, w1, b1, bn1, w2, b2, w3, b3, bn2,
                                        w4, b4, eps)
@@ -164,3 +169,18 @@ def fused_point_encoder(nb, w1, b1, bn1, w2, b2, w3, b3, bn2, w4, b4,
 
 
 fused_point_encoder.launches = 0
+
+
+@torch.library.custom_op("vitlens::fused_point_encoder", mutates_args=())
+def _point_encoder_op(nb: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                      bn1: List[torch.Tensor], w2: torch.Tensor,
+                      b2: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,
+                      bn2: List[torch.Tensor], w4: torch.Tensor,
+                      b4: torch.Tensor, eps: float) -> torch.Tensor:
+    return fused_point_encoder(nb, w1, b1, tuple(bn1), w2, b2, w3, b3,
+                               tuple(bn2), w4, b4, eps)
+
+
+@_point_encoder_op.register_fake
+def _(nb, w1, b1, bn1, w2, b2, w3, b3, bn2, w4, b4, eps):
+    return nb.new_empty(tuple(nb.shape[:2]) + (w4.shape[1],))

@@ -119,8 +119,13 @@ def quantize_tower_params(
         trunk_keys: Sequence[str] = ("trunk", "perceiver_transformer")) -> nn.Module:
     """Quantize, in place, every transformer trunk of one tower (a
     ``VisionTower`` or a ``TextTower``: both keep theirs under ``trunk``).
-    The JAX package rejects a LoRA-adapted tower here; the port has no LoRA
-    yet (``train/lora.py`` is not ported), so there is nothing to reject."""
+    A LoRA-adapted tower is rejected, as in JAX: quantizing the base weights
+    would drop the adaptation; merge it first."""
+    if getattr(tower, "lora", None) is not None:
+        raise ValueError(
+            "cannot quantize a LoRA-adapted tower: merge the adapters into "
+            "plain weights first (ViTLens.export_params() / "
+            "ViTLens.export_checkpoint(), or train/lora.py::merge_lora)")
     for key in trunk_keys:
         trunk = getattr(tower, key, None)
         if isinstance(trunk, nn.Module):

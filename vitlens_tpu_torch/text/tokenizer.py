@@ -475,9 +475,42 @@ class SimpleTokenizer:
         return result
 
 
+class HFTokenizer:
+    """The hf-text archs' tokenizer (reference open_clip HFTokenizer):
+    transformers' AutoTokenizer, padded and truncated to the context length.
+    ``name_or_path`` is a local save_pretrained directory, or a hub name whose
+    files are already in the local cache; transformers is imported here,
+    at construction."""
+
+    def __init__(self, name_or_path: str):
+        try:
+            from transformers import AutoTokenizer
+
+            self.tokenizer = AutoTokenizer.from_pretrained(name_or_path)
+        except Exception as e:  # noqa: BLE001
+            raise RuntimeError(
+                f"could not load HF tokenizer {name_or_path!r}: hf-text "
+                "archs need the tokenizer files locally (set the name to a "
+                "local save_pretrained directory in offline environments)"
+            ) from e
+
+    def __call__(self, texts, context_length: int = CONTEXT_LENGTH) -> np.ndarray:
+        if isinstance(texts, str):
+            texts = [texts]
+        # the reference HFTokenizer cleans before tokenizing
+        texts = [_whitespace_clean(_basic_clean(t)) for t in texts]
+        out = self.tokenizer(list(texts), padding="max_length", truncation=True,
+                             max_length=context_length, return_tensors="np")
+        return out["input_ids"].astype(np.int32)
+
+
 @functools.lru_cache()
-def get_tokenizer(vocab_path: str | None = None):
-    """The CLIP BPE tokenizer (hf-text archs are not ported)."""
+def get_tokenizer(vocab_path: str | None = None,
+                  hf_tokenizer_name: str | None = None):
+    """CLIP BPE by default; the HF wrapper when the model's TextArch names
+    an hf tokenizer."""
+    if hf_tokenizer_name:
+        return HFTokenizer(hf_tokenizer_name)
     return SimpleTokenizer(vocab_path)
 
 

@@ -55,6 +55,8 @@ def flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
             out.update(flatten(v, f"{prefix}{i}."))
+    elif tree is None:  # an absent module (a BERT tree without its pooler)
+        pass
     else:
         out[prefix[:-1]] = np.asarray(tree)
     return out

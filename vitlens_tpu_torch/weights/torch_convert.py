@@ -333,6 +333,22 @@ def convert_shared_vision_subset(sd: Mapping[str, Any],
     return p
 
 
+def convert_hf_text_tower(sd: Mapping[str, Any]) -> Params:
+    """An open_clip HFTextEncoder subtree (keys under ``text.``:
+    ``transformer.*`` the HF module, ``proj`` a Linear or Sequential(Linear,
+    GELU, Linear)) -> the tree of ``models/bert_text.py``'s HFTextTower; a
+    tree whose ``encoder.pooler`` is None loads through
+    ``bert_text.load_hf_text_tower``."""
+    from vitlens_tpu_torch.models.bert_text import convert_hf_bert_state_dict
+
+    out: Params = {"encoder": convert_hf_bert_state_dict(sub(sd, "transformer."))}
+    if "proj.0.weight" in sd:  # mlp
+        out["proj"] = {"fc1": _linear(sd, "proj.0"), "fc2": _linear(sd, "proj.2")}
+    elif "proj.weight" in sd:  # linear
+        out["proj"] = {"fc": _linear(sd, "proj")}
+    return out
+
+
 def convert_text_tower(sd: Mapping[str, Any], n_layers: int) -> Params:
     """Text keys (TriCLIP inline, token_embedding.* at the top level, or a
     TextTransformer subtree) -> params."""
@@ -377,9 +393,10 @@ def convert_tri_state_dict(sd: Mapping[str, Any],
             params["visual"], state["visual"] = convert_vision_tower(vis_sd, cfg.tower)
 
     if cfg.text.hf_style and any(k.startswith("text.transformer.") for k in sd):
-        raise NotImplementedError(
-            "converting the hf-style text tower is not yet ported")
-    if "token_embedding.weight" in sd:
+        # open_clip CustomTextCLIP with HFTextEncoder: the HF module under
+        # text.transformer.*, the mlp proj as text.proj.{0,2}.weight
+        params["text"] = convert_hf_text_tower(sub(sd, "text."))
+    elif "token_embedding.weight" in sd:
         params["text"] = convert_text_tower(sd, cfg.text.layers)
     elif any(k.startswith("text.") for k in sd):
         params["text"] = convert_text_tower(sub(sd, "text."), cfg.text.layers)
