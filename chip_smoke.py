@@ -21,7 +21,8 @@ Phases, one printed line each (or more); any failure exits non-zero:
      image tower [512, 16, 257, 257, 64]; also every NQ, NK in
      {1, 7, 77, 257, 600}, NK past the K/V-resident limit, and the packed-qkv
      and Lens views bit-equal to contiguous copies; and head dims 32, 80,
-     88, 104, 112 and 128 at every NQ, NK in {1, 77, 257, 600}, contiguous
+     88, 96 (CoCa's pooler), 104, 112 and 128 at every NQ, NK in {1, 77,
+     257, 600}, contiguous
      and on the packed-qkv views), fused LN + projection (bf16, <= 1e-2
      relative; ragged M at D/N 768/2304, 1024/3072 and 1664/4992, bigG's
      ragged N), FPS
@@ -285,11 +286,38 @@ Phases, one printed line each (or more); any failure exits non-zero:
      bf16, load_exported; the loaded program's run advances the kernels'
      counters by tower_launches and equals the eager encode; the host cost
      a call of the custom ops against the wrappers' own dispatch.
+  4co. CoCa: models.coca.make_coca("coca_ViT-L-14") at full width and depth
+     (0.64 B parameters) in bf16 against the same weights in fp32 on the
+     CPU: a B = 2 encode and forward (captions with a pad tail; cosine of
+     the image and text features and the caption logits >= 0.999, the
+     contrastive and caption losses within 1e-2 relative), a B = 2 backward
+     of their sum on fp32 masters (gradient cosine >= 0.99 on the pooler,
+     the decoder's cross blocks and the vision trunk's last block), beam
+     search (6 beams, 3 groups, seq_len 20) twice: identical, SOT first,
+     pad after the end; width-1 beam equal to top_k=1 sampling up to the
+     first EOS or top-logit tie; the card's tokens teacher-forced on the
+     CPU (width-1 beam: the CPU's argmax or within 0.05 of its max; beam
+     search: within 0.05 of the CPU's top 4, the width a step draws from);
+     launches of the encode, forward and beam search as coca_launches
+     derives them. coca_ViT-B-32 at full width: a B = 2 encode and forward,
+     cosines and launches. Then the L-14 image encode at B64, the forward +
+     backward at B16 (every parameter an fp32 master) and beam-search
+     captions at B = 8 (seq_len 30), with profiles of the forward +
+     backward and of a seq_len-10 captioning.
+     Phase 3 holds kernel 2 at CoCa's shapes first: the L-14 pooler's head
+     dim 96 (forward and gradients), the B-32 pooler's 50 keys, the
+     decoder's cross shapes (NQ 1, 29, 76 by NK 256, 257, 12 and 8 heads;
+     on the cross block's views, bit-equal to contiguous copies; gradients
+     at [12, 12, 76, 256, 64]), and a broadcast query (batch stride 0)
+     refused by the wrapper, its contiguous copy within bound.
   5. timing: each kernel against its plain version (and, where one PyTorch
      call computes the same function, that call) at the B64 shapes of the
-     main paths, beside each kernel's bound, with cuBLAS's two products
-     (torch.addmm on the normalised input) beside the fused MLP and the
-     fused LN + projection, the trunk attention also on the packed-qkv views; the audio (64 samples x 3 clips)
+     main paths, beside each kernel's bound, with cuBLAS's products alone
+     (torch.addmm on the normalised input) beside the fused MLP, the
+     chained MLPs (two, and three with the out-projection) and the fused LN
+     + projection, the trunk attention also on the packed-qkv views; kernel
+     2 at CoCa's pooler [64, 8, 257, 257, 96], B-32 pooler [64, 8, 257, 50,
+     64] and decoder cross [64, 12, 76, 256, 64] shapes beside SDPA; the audio (64 samples x 3 clips)
      and pc (64 clouds) encode rates at B64 in bf16, the audio encode also
      with the opt-in; the audio train-step rate at B64 with and without the
      opt-in, with the peak device memory; the 4d depth tri step's rate at
@@ -712,6 +740,25 @@ def tower_launches(cfg, **more):
     elif p is not None and not p.as_identity:
         attn += p.depth * (1 + p.self_per_cross_attn)
     return launch_counts(fused_mlp=mlp, flash_attention=attn, **more)
+
+
+def coca_launches(cfg, what, steps=0):
+    """Expected launches of a bf16 CoCa call, derived from its config: an
+    image encode (``what="encode"``) runs kernel 1 once a vision block and
+    kernel 2 once a vision block and once in the pooler; the forward adds
+    kernel 1 once a text and a decoder self block and kernel 2 once a
+    decoder cross block (the text tower's and the self blocks' attention are
+    masked, the cross blocks' MLP plain); a generate (``what="generate"``)
+    is one encode and ``steps`` decodes of the text tower and the decoder."""
+    v, t, m = cfg.vision.layers, cfg.text.layers, cfg.multimodal.layers
+    if what == "encode":
+        return launch_counts(fused_mlp=v, flash_attention=v + 1)
+    if what == "forward":
+        return launch_counts(fused_mlp=v + t + m, flash_attention=v + 1 + m)
+    if what == "generate":
+        return launch_counts(fused_mlp=v + steps * (t + m),
+                             flash_attention=v + 1 + steps * m)
+    raise ValueError(what)
 
 
 def train_launches(cfg, text_layers, accum, remat, opt_in):
@@ -1388,7 +1435,8 @@ def check_attention_edges(torch, g, err, checks):
         checks.append(f"attn-{label}-views{b}x{h}x{nq}x{nk}=bit-equal")
 
 
-OTHER_HEAD_DIMS = (32, 80, 88, 104, 112, 128)  # the trunks' head dims besides 64
+# the trunks' head dims besides 64, and the CoCa L-14 pooler's 96
+OTHER_HEAD_DIMS = (32, 80, 88, 96, 104, 112, 128)
 
 
 def check_head_dims(torch, g, err, checks):
@@ -1930,6 +1978,19 @@ def time_new_kernels(torch, g, timings):
     x, *mlp = mlp_inputs(torch, g, m, d, h)
     proj = outproj_inputs(torch, g, m, d)
     ctx, wo, bo = proj
+    # cuBLAS's products alone (the LayerNorm, the activation and the adds
+    # left out), as kernel 1's rows give them: the MLP's two, and with the
+    # out-projection three
+    lnw, lnb, w1, b1, w2, b2 = mlp
+    y = torch.nn.functional.layer_norm(x.float(), (d,), lnw, lnb).bfloat16()
+    hid = torch.empty(m, h, dtype=torch.bfloat16, device="cuda")
+    b1h, b2h, boh = b1.bfloat16(), b2.bfloat16(), bo.to(x.dtype)
+    two_ms = cuda_ms(lambda: (torch.addmm(b1h, y, w1, out=hid),
+                              torch.addmm(b2h, hid, w2)))
+    three_ms = cuda_ms(lambda: (torch.addmm(boh, ctx, wo),
+                                torch.addmm(b1h, y, w1, out=hid),
+                                torch.addmm(b2h, hid, w2)))
+    del y, hid
 
     def today():  # the library's out-projection + residual, then kernel 1
         return fused_mlp(x + (ctx @ wo + bo.to(x.dtype)), *mlp, act="gelu")
@@ -1941,8 +2002,8 @@ def time_new_kernels(torch, g, timings):
         bd, by = chain_bound(m, d, h, False)
         timings["fused_mlp_chunked"].append(
             {"shape": f"M={m} D={d} H={h} {act}", "ms": k_ms, "plain_ms": p_ms,
-             "bound_ms": bd, "bound_by": by, "library_ms": None,
-             "tflops": 4 * m * d * h / k_ms / 1e9,
+             "gemm_only_ms": two_ms, "bound_ms": bd, "bound_by": by,
+             "library_ms": None, "tflops": 4 * m * d * h / k_ms / 1e9,
              **({"three_launch_ms": cuda_ms(lambda: fused_mlp(x, *mlp, act="gelu"))}
                 if act == "gelu" else {})})
         k_ms, p_ms = paired_ms(
@@ -1952,7 +2013,8 @@ def time_new_kernels(torch, g, timings):
         bd, by = chain_bound(m, d, h, True)
         timings["fused_attnout_mlp"].append(
             {"shape": f"M={m} D={d} H={h} {act}", "ms": k_ms, "plain_ms": p_ms,
-             "bound_ms": bd, "bound_by": by, "library_ms": None,
+             "gemm_only_ms": three_ms, "bound_ms": bd, "bound_by": by,
+             "library_ms": None,
              "tflops": (2 * m * d * d + 4 * m * d * h) / k_ms / 1e9,
              **({"today_split_ms": cuda_ms(today)} if act == "gelu" else {})})
 
@@ -4095,6 +4157,416 @@ def export_phase(torch, model, counters, totals, card, fb):
           f"phase took {time.time() - t0:.1f} s", flush=True)
 
 
+COCA_SOT, COCA_EOS = 49406, 49407
+COCA_BEAM = dict(num_beams=6, num_beam_groups=3)
+COCA_SEQ = 20           # the decoding checks' seq_len
+COCA_TIME_SEQ = 30      # the timed beam search's (coca_generate's default)
+COCA_MIN_LEN = 5        # coca_generate's min_seq_len
+COCA_PROFILE_SEQ = 10   # the profiled beam search's seq_len
+COCA_COS_MIN = 0.999    # bf16 card against fp32 CPU: features and logits
+COCA_LOSS_TOL = 1e-2    # relative, each of the two loss terms
+COCA_MARGIN = 0.05      # a teacher-forced token's logit below the CPU's bar
+# kernel 2 at CoCa's shapes: the L-14 pooler (8 heads of 96 over the 257
+# trunk tokens, its queries broadcast over the batch), the B-32 pooler (8 of
+# 64 over 50) and the decoder's cross blocks (12 heads of 64; NQ 1..76 over
+# the 256 image tokens, B x beams rows)
+COCA_ATTN = (("CoCa L-14 pooler", (64, 8, 257, 257, 96)),
+             ("CoCa L-14 decoder cross", (64, 12, 76, 256, 64)),
+             ("CoCa B-32 pooler", (64, 8, 257, 50, 64)))
+
+
+def check_coca_kernels(torch, g, err, checks):
+    """Phase 3's shapes of CoCa: kernel 2 at the pooler's head dim 96 and
+    the B-32 pooler's 50 keys, the decoder's cross shapes (NQ in {1, 29, 76}
+    by NK in {256, 257} at 12 and 8 heads, on the cross block's q and k/v
+    views too, bit-equal to contiguous copies), and a broadcast query (batch
+    stride 0, as ``expand`` gives it) refused by the wrapper while its
+    contiguous copy runs."""
+    from vitlens_tpu_torch.ops.flash_attention import (attention_reference,
+                                                       flash_attention)
+
+    worst = 0.0
+    cases = [(b, h, nq, nk, dh) for _, (b, h, nq, nk, dh) in COCA_ATTN]
+    cases += [(12, h, nq, nk, 64) for h in (12, 8) for nq in (1, 29, 76)
+              for nk in (256, 257)]
+    for b, h, nq, nk, dh in cases:
+        q, k, v = qkv_inputs(torch, g, b, h, nq, nk, dh)
+        got = flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        want = attention_reference(q, k, v)
+        e = rel_err(got, want)
+        worst = max(worst, e)
+        err["flash_attention"] = max(err["flash_attention"], abs_err(got, want))
+        if not (torch.isfinite(got).all() and e <= ATTN_TOL):
+            fail(f"flash_attention CoCa [{b},{h},{nq},{nk},{dh}]: rel err {e}")
+    checks.append(f"attn-coca(pooler D96, B-32 pooler, cross NQ 1/29/76 x NK "
+                  f"256/257)<={worst:.2e}")
+    for nq, nk in ((29, 256), (76, 257)):  # the cross block's views
+        b, h, d = 12, 12, 768
+        q = torch.randn(b, nq, d, generator=g, device="cuda").bfloat16()
+        k = torch.randn(b, nk, d, generator=g, device="cuda").bfloat16()
+        v = torch.randn(b, nk, d, generator=g, device="cuda").bfloat16()
+        q, k, v = (t.view(b, -1, h, 64).transpose(1, 2) for t in (q, k, v))
+        got = flash_attention(q, k, v)
+        want = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"flash_attention on the cross block's views NQ{nq} NK{nk}: "
+                 "differs from the call on contiguous copies")
+        checks.append(f"attn-cross-views{b}x{h}x{nq}x{nk}=bit-equal")
+    q1, k, v = qkv_inputs(torch, g, 1, 8, 257, 257, 96)
+    k, v = k.expand(4, -1, -1, -1).contiguous(), v.repeat(4, 1, 1, 1)
+    q = q1.expand(4, -1, -1, -1)
+    try:
+        flash_attention(q, k, v)
+        fail("flash_attention took a broadcast (batch stride 0) query")
+    except ValueError as e:
+        if "broadcast view" not in str(e):
+            raise
+    got = flash_attention(q.contiguous(), k, v)
+    torch.cuda.synchronize()
+    e = rel_err(got, attention_reference(q, k, v))
+    if not (torch.isfinite(got).all() and e <= ATTN_TOL):
+        fail(f"flash_attention on the pooler's contiguous broadcast query: {e}")
+    checks.append(f"attn-broadcast-query=refused,contiguous-copy {e:.2e}")
+
+
+def coca_grad_checks(torch, g):
+    """Phase 3's gradient checks of CoCa's kernel-2 shapes: the L-14 pooler
+    at head dim 96 and a decoder cross block over 12 beam rows."""
+    from vitlens_tpu_torch.ops.flash_attention import (attention_reference,
+                                                       flash_attention)
+
+    return {f"attention {label} [{b},{h},{nq},{nk},{dh}]": (
+        flash_attention, attention_reference,
+        qkv_inputs(torch, g, b, h, nq, nk, dh), ATTN_GRAD_TOL,
+        ("dq", "dk", "dv"))
+        for label, (b, h, nq, nk, dh) in (("CoCa pooler", (2, 8, 257, 257, 96)),
+                                          ("CoCa cross", (12, 12, 76, 256, 64)))}
+
+
+def time_coca_kernels(torch, g, timings):
+    """Phase 5's kernel-2 rows at CoCa's shapes, beside plain, SDPA and the
+    bound."""
+    from vitlens_tpu_torch.ops.attention import plain_attention
+    from vitlens_tpu_torch.ops.flash_attention import (attention_reference,
+                                                       flash_attention)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for label, (b, h, nq, nk, dh) in COCA_ATTN:
+        q, k, v = qkv_inputs(torch, g, b, h, nq, nk, dh)
+        k_ms, p_ms = paired_ms(lambda: flash_attention(q, k, v),
+                               lambda: attention_reference(q, k, v))
+        bd, by = attn_bound(b, h, nq, nk, dh)
+        timings["flash_attention"].append(
+            {"shape": f"{label} [{b},{h},{nq},{nk},{dh}]", "ms": k_ms,
+             "device_ms": device_ms(torch, lambda: flash_attention(q, k, v)),
+             "plain_ms": p_ms,
+             "plain_bf16_ms": cuda_ms(lambda: plain_attention(q, k, v, None, dh ** -0.5)),
+             "bound_ms": bd, "bound_by": by,
+             "library_ms": cuda_ms(lambda: sdpa(q, k, v))})
+        del q, k, v
+
+
+def coca_captions(torch, np, rng, lengths, context_length):
+    """Token ids [len(lengths), context_length + 1]: SOT, random tokens,
+    EOT at each length, then a pad (0) tail."""
+    text = np.zeros((len(lengths), context_length + 1), np.int64)
+    for i, n in enumerate(lengths):
+        text[i, 0], text[i, n - 1] = COCA_SOT, COCA_EOS
+        text[i, 1:n - 1] = rng.randint(1, COCA_SOT, n - 2)
+    return torch.from_numpy(text)
+
+
+def coca_tf_logits(torch, model, image_embs, seqs, dtype):
+    """Teacher-forced vocab logits [N, L, V] of token buffers [N, L] (the
+    decode step's computation over the whole buffer), fp32."""
+    with torch.no_grad():
+        _, toks = model.encode_text(seqs, dtype)
+        return model.text_decoder(image_embs, toks).float()
+
+
+def coca_ended(seqs, np):
+    """Per row: SOT first, and nothing but pad after the first EOS or pad
+    (a finished beam hypothesis is stored without its EOS)."""
+    for row in seqs.cpu().numpy():
+        if row[0] != COCA_SOT:
+            return False
+        end = np.nonzero((row[1:] == COCA_EOS) | (row[1:] == 0))[0]
+        if len(end) and (row[end[0] + 2:] != 0).any():
+            return False
+    return True
+
+
+def coca_tf_check(torch, seqs, logits, rank, min_seq_len=COCA_MIN_LEN):
+    """Each token t at position p (up to its row's first EOS or pad) against
+    the logits at p - 1 with the min-length mask: within COCA_MARGIN of the
+    ``rank``-th largest or above. Returns (positions checked, positions
+    below the rank-th largest, worst shortfall)."""
+    n = below = 0
+    worst = 0.0
+    for b, row in enumerate(seqs.cpu().tolist()):
+        for p in range(1, len(row)):
+            t = row[p]
+            if t == 0:
+                break
+            lg = logits[b, p - 1].clone()
+            if p < min_seq_len:
+                lg[COCA_EOS] = float("-inf")
+            bar = torch.topk(lg, rank).values[-1].item()
+            short = bar - lg[t].item()
+            n += 1
+            if short > 0:
+                below += 1
+                worst = max(worst, short)
+            if t == COCA_EOS:
+                break
+    return n, below, worst
+
+
+def coca_phase(torch, np, counters, totals, card):
+    """Phase 4co: CoCa at full width and depth, seeded weights, bf16 on the
+    card against the same weights in fp32 on the CPU. coca_ViT-L-14 (0.64 B
+    parameters): a B = 2 encode and forward (cosine of the image and text
+    features and the caption logits >= COCA_COS_MIN, the two loss terms
+    within COCA_LOSS_TOL relative), launches as coca_launches; a B = 2
+    backward of contrastive + caption on fp32 masters (gradient cosine >=
+    COS_MIN on the pooler, the decoder's cross blocks and the vision trunk's
+    last block); beam search (6 beams, 3 groups, seq_len COCA_SEQ, B = 2)
+    twice, identical, SOT first and pad after the end, launches as
+    coca_launches; width-1 beam against top_k=1 sampling, equal up to the
+    first EOS or the first tie of the card's top logits; the card's tokens
+    teacher-forced on the CPU in fp32: each width-1 beam token the CPU's
+    argmax or within COCA_MARGIN of its max, each beam-search token within
+    COCA_MARGIN of the CPU's top 2 x (beams / groups), the width a beam
+    step draws from. coca_ViT-B-32: a B = 2 encode and forward, cosines
+    and launches. Then the L-14 image encode at B64, the forward + backward
+    at B16 and beam-search captions at B = 8 (seq_len COCA_TIME_SEQ), with
+    profiles of the pass and of a shorter captioning. Returns the rates."""
+    from vitlens_tpu_torch.models.coca import coca_generate, make_coca
+    from vitlens_tpu_torch.train.losses import coca_loss
+
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    bf = torch.bfloat16
+    model = make_coca("coca_ViT-L-14", device="cuda", seed=SEED, dtype=bf)
+    cfg = model.cfg
+    n_params = sum(p.numel() for p in model.parameters())
+    ref = copy.deepcopy(model).to(device="cpu", dtype=torch.float32)
+    rng = np.random.RandomState(SEED + 50)
+    # rounded through bf16, so the CPU sees the pixels the card sees
+    images = torch.from_numpy(rng.randn(2, 3, 224, 224).astype(np.float32)
+                              ).bfloat16().float()
+    text = coca_captions(torch, np, rng, (18, 51), cfg.text.context_length)
+    im_c, text_c = images.cuda(), text.cuda()
+    lines = []
+    with torch.no_grad():
+        (_, embs_card), n_enc = run_counted(
+            torch, counters, totals, lambda: model.encode_image(im_c, bf))
+        out, n_fwd = run_counted(torch, counters, totals,
+                                 lambda: model(im_c, text_c, bf))
+        want = ref(images, text)
+    for label, got, exp in (("encode", n_enc, coca_launches(cfg, "encode")),
+                            ("forward", n_fwd, coca_launches(cfg, "forward"))):
+        if got != exp:
+            fail(f"4co L-14 {label}: launches {got}, expected {exp}")
+    cos = {k: cos_min(torch, out[k], want[k])
+           for k in ("image_features", "text_features", "logits")}
+    losses = [(float(a), float(b)) for a, b in zip(coca_loss(out, cfg),
+                                                   coca_loss(want, cfg))]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in losses)
+    if min(cos.values()) < COCA_COS_MIN or loss_rel > COCA_LOSS_TOL:
+        fail(f"4co L-14 B=2 vs CPU fp32: cosine {cos}, losses (card, CPU) "
+             f"{losses}")
+    lines.append(f"L-14 B=2 launches (mlp, attn) encode ({n_enc['fused_mlp']}, "
+                 f"{n_enc['flash_attention']}), forward ({n_fwd['fused_mlp']}, "
+                 f"{n_fwd['flash_attention']}); cosine vs CPU fp32 "
+                 + " ".join(f"{k} {v:.6f}" for k, v in cos.items())
+                 + f"; contrastive {losses[0][0]:.5f} vs {losses[0][1]:.5f}, "
+                 f"caption {losses[1][0]:.5f} vs {losses[1][1]:.5f}")
+    del out, want
+
+    # -- gradients of contrastive + caption on fp32 masters ------------------
+    last = f"visual.trunk.blocks.{cfg.vision.layers - 1}."
+    groups = {"pooler": "visual.attn_pool.",
+              "decoder cross blocks": "text_decoder.cross_attn.",
+              "vision trunk last block": last}
+    gm = copy.deepcopy(ref).to("cuda")
+    for m in (gm, ref):
+        for n, p in m.named_parameters():
+            p.requires_grad_(n.startswith(tuple(groups.values())))
+
+    def grads(m, dtype, dev):
+        params = {n: p for n, p in m.named_parameters() if p.requires_grad}
+        c, cap = coca_loss(m(images.to(dev), text.to(dev), dtype), cfg)
+        gr = torch.autograd.grad(c + cap, list(params.values()))
+        return float((c + cap).detach()), {n: t.detach().double().cpu()
+                                for n, t in zip(params, gr)}
+
+    (loss_card, g_card), n_bwd = run_counted(torch, counters, totals,
+                                             lambda: grads(gm, bf, "cuda"))
+    loss_cpu, g_cpu = grads(ref, torch.float32, "cpu")
+    gcos = {}
+    for label, prefix in groups.items():
+        a = torch.cat([g_card[n].flatten() for n in g_card if n.startswith(prefix)])
+        b = torch.cat([g_cpu[n].flatten() for n in g_cpu if n.startswith(prefix)])
+        gcos[label] = (a @ b / (a.norm() * b.norm())).item()
+    if min(gcos.values()) < COS_MIN or abs(loss_card - loss_cpu) > COCA_LOSS_TOL * abs(loss_cpu):
+        fail(f"4co L-14 B=2 gradients vs CPU fp32: loss {loss_card} vs "
+             f"{loss_cpu}, cosine {gcos}")
+    for p in ref.parameters():
+        p.requires_grad_(False)
+    lines.append(f"B=2 backward (loss {loss_card:.5f} vs {loss_cpu:.5f}; "
+                 f"launches plain, save-preact, attn ({n_bwd['fused_mlp']}, "
+                 f"{n_bwd['fused_mlp_save_preact']}, {n_bwd['flash_attention']})) "
+                 "gradient cosine " + ", ".join(f"{k} {v:.6f}"
+                                                 for k, v in gcos.items()))
+    del g_card, g_cpu
+
+    # -- decoding in bf16 ------------------------------------------------------
+    kw = dict(seq_len=COCA_SEQ, min_seq_len=COCA_MIN_LEN, compute_dtype=bf)
+    beam, n_gen = run_counted(torch, counters, totals, lambda: coca_generate(
+        model, im_c, **COCA_BEAM, **kw))
+    beam2 = coca_generate(model, im_c, **COCA_BEAM, **kw)
+    want_gen = coca_launches(cfg, "generate", steps=COCA_SEQ - 1)
+    if n_gen != want_gen:
+        fail(f"4co beam search: launches {n_gen}, expected {want_gen}")
+    if not torch.equal(beam, beam2) or not coca_ended(beam, np):
+        fail(f"4co beam search: runs differ ({torch.equal(beam, beam2)}) or "
+             f"rows malformed: {beam.tolist()}")
+    beam1 = coca_generate(model, im_c, num_beams=1, num_beam_groups=1, **kw)
+    top1 = coca_generate(model, im_c, generation_type="top_k", top_k=1,
+                         generator=torch.Generator("cuda").manual_seed(SEED),
+                         **kw)
+    tf_card = coca_tf_logits(torch, model, embs_card, beam1, bf)
+    agree, cut = [], []
+    for b_, (r1, rk) in enumerate(zip(beam1.tolist(), top1.tolist())):
+        stop = COCA_SEQ - 1  # the sampler forces EOS at the last position
+        if COCA_EOS in r1:
+            stop = min(stop, r1.index(COCA_EOS))
+        for p in range(1, stop):  # a tie at the top: the two may part
+            lg = tf_card[b_, p - 1].clone()
+            if p < COCA_MIN_LEN:
+                lg[COCA_EOS] = float("-inf")
+            top2 = torch.topk(lg, 2).values
+            if top2[0] == top2[1]:
+                stop = p
+                cut.append((b_, p))
+                break
+        agree.append(stop)
+        if r1[:stop] != rk[:stop]:
+            fail(f"4co width-1 beam vs top_k=1 row {b_}: {r1} vs {rk} "
+                 f"(compared up to {stop})")
+    # the card's tokens teacher-forced on the CPU in fp32
+    with torch.no_grad():
+        _, embs_cpu = ref.encode_image(images)
+    n1, below1, worst1 = coca_tf_check(torch, beam1, coca_tf_logits(
+        torch, ref, embs_cpu, beam1.cpu(), torch.float32), 1)
+    width = 2 * COCA_BEAM["num_beams"] // COCA_BEAM["num_beam_groups"]
+    nb, belowb, worstb = coca_tf_check(torch, beam, coca_tf_logits(
+        torch, ref, embs_cpu, beam.cpu(), torch.float32), width)
+    if max(worst1, worstb) > COCA_MARGIN:
+        fail(f"4co teacher-forced on the CPU: width-1 beam worst shortfall "
+             f"{worst1}, beam search {worstb} > {COCA_MARGIN}")
+    lines.append(
+        f"beam search (6 beams, 3 groups, seq_len {COCA_SEQ}) launches (mlp, "
+        f"attn) ({n_gen['fused_mlp']}, {n_gen['flash_attention']}), two runs "
+        f"identical, tokens {beam.tolist()}; width-1 beam = top_k=1 over the "
+        f"first {agree} positions (ties cut at {cut}); teacher-forced on the "
+        f"CPU fp32: width-1 beam {n1} tokens, {below1} below the CPU's argmax "
+        f"(worst {worst1:.4f}), beam search {nb} tokens, {belowb} below the "
+        f"CPU's top {width} (worst {worstb:.4f}; margin {COCA_MARGIN})")
+    del ref, gm, tf_card
+
+    # -- coca_ViT-B-32 at full width -------------------------------------------
+    b32 = make_coca("coca_ViT-B-32", device="cuda", seed=SEED + 1, dtype=bf)
+    ref32 = copy.deepcopy(b32).to(device="cpu", dtype=torch.float32)
+    with torch.no_grad():
+        _, n_enc32 = run_counted(torch, counters, totals,
+                                 lambda: b32.encode_image(im_c, bf))
+        out32, n_fwd32 = run_counted(torch, counters, totals,
+                                     lambda: b32(im_c, text_c, bf))
+        want32 = ref32(images, text)
+    for label, got, exp in (("encode", n_enc32, coca_launches(b32.cfg, "encode")),
+                            ("forward", n_fwd32, coca_launches(b32.cfg, "forward"))):
+        if got != exp:
+            fail(f"4co B-32 {label}: launches {got}, expected {exp}")
+    cos32 = {k: cos_min(torch, out32[k], want32[k])
+             for k in ("image_features", "text_features", "logits")}
+    if min(cos32.values()) < COCA_COS_MIN:
+        fail(f"4co B-32 B=2 vs CPU fp32: cosine {cos32}")
+    lines.append(f"B-32 B=2 launches encode ({n_enc32['fused_mlp']}, "
+                 f"{n_enc32['flash_attention']}), forward ({n_fwd32['fused_mlp']}, "
+                 f"{n_fwd32['flash_attention']}); cosine "
+                 + " ".join(f"{k} {v:.6f}" for k, v in cos32.items()))
+    del b32, ref32, out32, want32
+    check_s = time.time() - t0
+
+    # -- phase 5: rates ------------------------------------------------------
+    g = torch.Generator(device="cuda").manual_seed(SEED + 51)
+    x64 = torch.randn(64, 3, 224, 224, generator=g, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        enc_rate = encode_rate(torch, card, "CoCa L-14 image encode B64 bf16",
+                               lambda: model.encode_image(x64, bf)[0], 64)
+    del x64
+    t_enc = time.time()
+    tm = copy.deepcopy(model)
+    for p in tm.parameters():  # fp32 masters, every one trained
+        p.data = p.data.float()
+        p.requires_grad_(True)
+    x16 = torch.randn(16, 3, 224, 224, generator=g, device="cuda")
+    t16 = coca_captions(torch, np, rng, [int(n) for n in rng.randint(8, 78, 16)],
+                        cfg.text.context_length).cuda()
+    params = list(tm.parameters())
+
+    def fwd_bwd():
+        c, cap = coca_loss(tm(x16, t16, bf), cfg)
+        torch.autograd.grad(c + cap, params)
+
+    train_b16 = train_rate(torch, card, "CoCa L-14 forward + backward B16 bf16 "
+                           "(fp32 masters, every parameter)", fwd_bwd, 16)
+    profile_encode(torch, card, "CoCa L-14 forward + backward B16", fwd_bwd)
+    del tm, params, x16, t16
+    t_train = time.time()
+    x8 = torch.randn(8, 3, 224, 224, generator=g, device="cuda")
+
+    def caption8():
+        return coca_generate(model, x8, **COCA_BEAM, seq_len=COCA_TIME_SEQ,
+                             compute_dtype=bf)
+
+    caption8()
+    runs = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        caption8()
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t1)
+    cap_rate = 8 / min(runs)
+    print(f"[5 timing] {card} | CoCa L-14 beam-search captions B=8 (6 beams, "
+          f"3 groups, seq_len {COCA_TIME_SEQ}) bf16: {cap_rate:.2f} captions/s, "
+          f"best of 3: {min(runs) * 1e3:.2f} ms, all ms "
+          f"{[round(r * 1e3, 2) for r in runs]}", flush=True)
+    # the profile's own cost grows with the events: a shorter decode
+    profile_encode(torch, card, f"CoCa L-14 beam-search captions B=8, seq_len "
+                   f"{COCA_PROFILE_SEQ}", lambda: coca_generate(
+                       model, x8, **COCA_BEAM, seq_len=COCA_PROFILE_SEQ,
+                       compute_dtype=bf))
+    print(f"[4co coca] {card} | coca_ViT-L-14 at full width and depth "
+          f"({n_params / 1e9:.3f} B parameters), bf16 on the card against fp32 "
+          f"on the CPU: " + "; ".join(lines)
+          + f"; checks took {check_s:.1f} s, the encode rate "
+          f"{t_enc - t0 - check_s:.1f}, the forward + backward's "
+          f"{t_train - t_enc:.1f}, the captions' {time.time() - t_train:.1f}; "
+          f"rates: image encode B64 "
+          f"{enc_rate:.2f} samples/s, forward + backward B16 "
+          f"{16 / train_b16:.4f} s a pass, captions B=8 {cap_rate:.2f}/s; "
+          f"phase took {time.time() - t0:.1f} s", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return {"encode": enc_rate, "pass_s": 16 / train_b16, "captions": cap_rate}
+
+
 def op_overhead_us(torch, n=300):
     """{kernel: (wrapper us, custom op us)} a call, host-timed over ``n``
     calls without gradients at a small, launch-bound shape, best of two
@@ -4301,6 +4773,7 @@ def main() -> int:
             fail(f"fused_ln_proj {m}x{d}x{n}: rel err {e} > {LNP_TOL}")
     check_new_kernels(torch, g, err, checks)
     check_item11_kernels(torch, g, err, checks)
+    check_coca_kernels(torch, g, err, checks)
     check_int8_epilogues(torch, g, err, checks)
     digests = kernel1_digests(torch, np)
     if digests != {k: tuple(v) for k, v in KERNEL1_DIGESTS.items()}:
@@ -4345,7 +4818,7 @@ def main() -> int:
            for label, (b, h, nq, nk) in (("bigG trunk", (OS_B, 16, 257, 257)),
                                          ("Lens cross", (OS_B, 1, 256, 512)),
                                          ("Lens self", (OS_B, 16, 256, 256)))},
-        **item11_grad_checks(torch, g)}
+        **item11_grad_checks(torch, g), **coca_grad_checks(torch, g)}
     lines = []
     for label, (fn, plain, args, tol, names) in grad_checks.items():
         errs = grad_errs(torch, g, fn, plain, args)
@@ -4528,7 +5001,11 @@ def main() -> int:
     infer_phase(torch, np, card)
     export_phase(torch, model, counters, launches, card, fbanks[4][:2])
 
+    # -- 4co: CoCa (coca_ViT-L-14 and coca_ViT-B-32); its phase-5 rates run
+    # inside, on its model
     mark("4ev, 4l, 4rb, 4r, 4lp, 4i, 4ex")
+    coca_rates = coca_phase(torch, np, counters, launches, card)
+    mark("4co")
     # -- 5: timing at the B64 shapes -----------------------------------------
     timings = {name: [] for name in kernels}
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -4620,6 +5097,7 @@ def main() -> int:
     del enc_args, fps_timed
     time_new_kernels(torch, g, timings)
     time_item11_kernels(torch, g, timings)
+    time_coca_kernels(torch, g, timings)
     timings["fused_ln_qkv"] = [timings["fused_ln_proj"][1]]  # M=16448, 1024->3072
     for name, rows in timings.items():
         for r in rows:
@@ -4631,7 +5109,7 @@ def main() -> int:
                      if "plain_bf16_ms" in r else "")
                   + (f", plain variant {r['plain_variant_ms']:.4f} ms"
                      if "plain_variant_ms" in r else "")
-                  + (f", cuBLAS addmm on the normalised input (GEMM only) "
+                  + (f", cuBLAS addmm products alone (GEMM only) "
                      f"{r['gemm_only_ms']:.4f} ms" if "gemm_only_ms" in r else "")
                   + (f", kernel on the packed-qkv views {r['packed_views_ms']:.4f} ms"
                      if "packed_views_ms" in r else "")
@@ -4788,6 +5266,9 @@ def main() -> int:
           f"{os_rates['cli_step_s']:.4f} s"
           + f"; EVA-g pc encode B16 {eva_rates[16]:.2f}, B64 {eva_rates[64]:.2f} "
           f"samples/s; linear probe step (host) {min(lp_steps[1:]):.4f} s"
+          + f"; CoCa L-14 image encode B64 {coca_rates['encode']:.2f} samples/s, "
+          f"forward + backward B16 {coca_rates['pass_s']:.4f} s a pass, beam-search "
+          f"captions B=8 {coca_rates['captions']:.2f}/s"
           + f"; image, depth, EEG, video encode B{B}: "
           + ", ".join(f"{served_rates[m]:.2f}" for m in ("image", "depth", "eeg", "video"))
           + f" samples/s; served audio closed loop: "

@@ -41,7 +41,7 @@ def test_port_imports_no_jax():
         "          'models.point_transformer', 'cli.train_openshape', 'models.eva',\n"
         "          'train.lora', 'models.bert_text', 'models.hf_text', 'models.linear_probe',\n"
         "          'cli.train_linprobe', 'cli.infer', 'utils.export', 'utils.hub',\n"
-        "          'models.resnet', 'ops.custom', 'models.lora'):\n"
+        "          'models.resnet', 'ops.custom', 'models.lora', 'models.coca'):\n"
         "    assert 'vitlens_tpu_torch.' + n in names, n\n"
         "sys.path.insert(0, '.')\n"
         "import tools.reference_layout\n"
@@ -74,7 +74,8 @@ def test_port_sources_never_name_jax():
                 "models/bert_text.py", "models/hf_text.py",
                 "models/linear_probe.py", "cli/train_linprobe.py",
                 "cli/infer.py", "utils/export.py", "utils/hub.py",
-                "models/resnet.py", "ops/custom.py", "models/lora.py"):
+                "models/resnet.py", "ops/custom.py", "models/lora.py",
+                "models/coca.py"):
         assert new in names, new
     paths += [os.path.join(REPO, "tools", "reference_layout.py"),
               os.path.join(REPO, "chip_smoke.py")]
@@ -266,6 +267,20 @@ def test_flash_attention_kernel_rejects_unreadable_views():
                                                            (4 * 64, 68, 64, 1))
     PFA._check_cuda_args(one, one, one)
     assert PFA._strides(one) == (64, 64, 64)
+
+
+def test_flash_attention_kernel_rejects_broadcast_views():
+    """A stride of 0 on a dim of more than one entry (an ``expand``ed
+    query, as CoCa's pooler broadcasts its queries) raises; the contiguous
+    copy is taken."""
+    q = torch.zeros(1, 2, 5, 64, dtype=torch.bfloat16).expand(3, 2, 5, 64)
+    k = torch.zeros(3, 2, 7, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="broadcast view"):
+        PFA._check_cuda_args(q, k, k)
+    PFA._check_cuda_args(q.contiguous(), k, k)
+    heads = torch.zeros(3, 1, 7, 64, dtype=torch.bfloat16).expand(3, 2, 7, 64)
+    with pytest.raises(ValueError, match="broadcast view"):
+        PFA._check_cuda_args(q.contiguous(), heads, heads)
 
 
 def _declarations():

@@ -7,8 +7,10 @@ group sizes and widths), the fused MLP, both variants (a small square
 product first, ragged M, both trunk widths, bigG's D = 1664, and the audio
 trunk's M = 49344 beside cuBLAS), attention (NQ and NK from 1 to 600, NK past
 the resident limit, the packed-qkv and Lens views bit-equal to contiguous
-copies, the four main shapes beside SDPA), attention at head dims other than
-64 (8 to 128: NQ, NK in {1, 77, 257, 600}, the packed-qkv views, and
+copies, the four main shapes beside SDPA; CoCa's pooler at head dim 96, the
+decoder's cross NQ 1/29/76 by NK 256/257 and their gradients, a broadcast
+query refused, the three CoCa shapes beside SDPA), attention at head dims
+other than 64 (8 to 128: NQ, NK in {1, 77, 257, 600}, the packed-qkv views, and
 [192, 16, 257, 257] at D = 104 beside SDPA), the fused LN + projection
 (ragged M, both trunk widths), the int8 product's two epilogues (INT32 and
 DEQUANT, bit-equal: ragged M, the smallest legal K and N, a K that is not a
@@ -235,6 +237,22 @@ def check_attn(g):
             line += (f", kernel on the packed-qkv views "
                      f"{ms(lambda: flash_attention(qv, kv_, vv), 20):.4f} ms")
         print(line, flush=True)
+    # CoCa's shapes: the pooler's head dim 96, the decoder's cross NQ/NK, the
+    # broadcast query refused (chip_smoke.py phase 3's checks; they raise)
+    err, checks = {"flash_attention": 0.0}, []
+    chip_smoke.check_coca_kernels(torch, g, err, checks)
+    print("attn CoCa: " + " ".join(checks), flush=True)
+    for label, (fn, plain, args, tol, names) in chip_smoke.coca_grad_checks(
+            torch, g).items():
+        errs = chip_smoke.grad_errs(torch, g, fn, plain, args)
+        ok &= max(errs) <= tol
+        print(f"{label} gradients: " + ", ".join(
+            f"{n} {e:.2e}" for n, e in zip(names, errs)), flush=True)
+    for label, (b, h, nq, nk, d) in chip_smoke.COCA_ATTN:
+        q, k, v = chip_smoke.qkv_inputs(torch, g, b, h, nq, nk, d)
+        print(f"attn {label} [{b},{h},{nq},{nk},{d}]: kernel "
+              f"{ms(lambda: flash_attention(q, k, v), 20):.4f} ms, SDPA "
+              f"{ms(lambda: sdpa(q, k, v), 20):.4f} ms", flush=True)
     return ok
 
 
@@ -247,7 +265,7 @@ def check_attn_hd(g):
     to contiguous copies; the bigG trunk's shape at D = 104 timed beside
     SDPA."""
     ok = True
-    for d in (8, 32, 80, 88, 104, 112, 128):
+    for d in (8, 32, 80, 88, 96, 104, 112, 128):
         worst = 0.0
         for b, h, nq, nk in HD_CASES:
             q, k, v = (torch.randn(b, h, n, d, generator=g, device="cuda").bfloat16()

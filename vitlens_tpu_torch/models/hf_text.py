@@ -7,7 +7,10 @@ there is no network; construction raises a clear error otherwise.
 transformers is imported at construction. The encoder runs on ``device``
 (the card unless the caller passes ``device="cpu"``) and returns numpy; the
 projection is drawn from a ``torch.Generator`` seeded with ``seed``, with
-``nn.Linear``'s default distribution. The BERT family also runs as a native
+``nn.Linear``'s default distribution. What the build draws from the global
+generators (with ``pretrained=False`` the transformer's fresh weights) is
+drawn inside ``torch.random.fork_rng`` from generators seeded with ``seed``:
+the caller's RNG state is left as it was. The BERT family also runs as a native
 tower through ``models/bert_text.py``.
 """
 
@@ -30,13 +33,40 @@ class HFTextEncoder:
         try:
             import torch
             import torch.nn as nn
-            from transformers import AutoConfig, AutoModel
+            import transformers  # noqa: F401
         except ImportError as e:  # pragma: no cover
             raise ImportError("transformers required for HFTextEncoder") from e
         from vitlens_tpu_torch.factory import make_generator, resolve_device
 
         self.torch = torch
         self.device = resolve_device(device)
+        # transformers draws fresh weights (all of them with
+        # pretrained=False) and nn.Linear its default init from the global
+        # generators: seed them from ``seed`` inside a fork, so the build is
+        # reproducible and leaves the caller's RNG state as it was
+        cuda = ([self.device.index if self.device.index is not None
+                 else torch.cuda.current_device()]
+                if self.device.type == "cuda" else [])
+        with torch.random.fork_rng(devices=cuda):
+            torch.random.default_generator.manual_seed(seed)
+            for i in cuda:
+                torch.cuda.default_generators[i].manual_seed(seed)
+            self._build(model_name_or_path, output_dim, proj, pretrained)
+        self.pooler_type = pooler_type
+        g = make_generator(seed, self.device)
+        with torch.no_grad():
+            for m in self.proj.modules():
+                if isinstance(m, nn.Linear):
+                    bound = 1.0 / math.sqrt(m.in_features)
+                    m.weight.uniform_(-bound, bound, generator=g)
+        self.proj.eval()
+
+    def _build(self, model_name_or_path, output_dim, proj, pretrained):
+        """The transformer (on ``self.device``, in eval mode) and the
+        projection, as constructed (the caller redraws the projection)."""
+        import torch.nn as nn
+        from transformers import AutoConfig, AutoModel
+
         if pretrained:
             try:
                 self.transformer = AutoModel.from_pretrained(model_name_or_path)
@@ -49,7 +79,6 @@ class HFTextEncoder:
             cfg = AutoConfig.from_pretrained(model_name_or_path)
             self.transformer = AutoModel.from_config(cfg)
         self.transformer.to(self.device).eval()
-        self.pooler_type = pooler_type
         d_model = self.transformer.config.hidden_size
         if proj == "linear":
             self.proj = nn.Linear(d_model, output_dim, bias=False,
@@ -61,13 +90,6 @@ class HFTextEncoder:
                 nn.GELU(),
                 nn.Linear(hidden, output_dim, bias=False, device=self.device),
             )
-        g = make_generator(seed, self.device)
-        with torch.no_grad():
-            for m in self.proj.modules():
-                if isinstance(m, nn.Linear):
-                    bound = 1.0 / math.sqrt(m.in_features)
-                    m.weight.uniform_(-bound, bound, generator=g)
-        self.proj.eval()
 
     def _pool(self, out, attention_mask):
         h = out.last_hidden_state

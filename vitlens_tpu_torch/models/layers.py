@@ -42,8 +42,10 @@ from vitlens_tpu_torch.quant import int8_matmul
 from vitlens_tpu_torch.models.lora import merged_block_weights
 
 # Leaf names of the parameters that feed a matmul or a convolution: the
-# factory casts exactly these to the compute dtype once, at load.
-MATMUL_WEIGHTS = frozenset({"w", "qkv_w", "out_w", "proj", "text_projection"})
+# factory casts exactly these to the compute dtype once, at load (q_w, k_w and
+# v_w are CoCa's attentional pooler's).
+MATMUL_WEIGHTS = frozenset({"w", "qkv_w", "out_w", "proj", "text_projection",
+                            "q_w", "k_w", "v_w"})
 
 
 def _param(*shape, device=None) -> nn.Parameter:

@@ -48,9 +48,10 @@ def _check_cuda_args(q, k, v, scale: Optional[float] = None):
     """Raises on what the kernel does not take. q, k, v may be views (the
     packed qkv projection's, a transposed [B, N, H, Dh]): the last dim must be
     contiguous, every other stride a multiple of 8 elements (16 bytes, as
-    TMA reads rows) and each base 16-byte aligned. The scale must be > 0
-    (the kernel takes the row max of the unscaled scores); it defaults to
-    the head dim ** -0.5."""
+    TMA reads rows) and not 0 on a dim of more than one entry (a broadcast
+    view, such as an ``expand``ed query), and each base 16-byte aligned.
+    The scale must be > 0 (the kernel takes the row max of the unscaled
+    scores); it defaults to the head dim ** -0.5."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if not scale > 0:
@@ -72,6 +73,10 @@ def _check_cuda_args(q, k, v, scale: Optional[float] = None):
         if t.stride(3) != 1:
             raise ValueError(f"flash_attention: {name}'s last dim must be "
                              f"contiguous, got stride {t.stride(3)}")
+        if 0 in _strides(t):
+            raise ValueError(f"flash_attention: {name} is a broadcast view "
+                             f"(strides {tuple(t.stride())}): the kernel does "
+                             "not read a stride of 0; pass a contiguous copy")
         if any(st % 8 for st in _strides(t)):
             raise ValueError(f"flash_attention: {name}'s strides "
                              f"{tuple(t.stride())} must be multiples of 8 "

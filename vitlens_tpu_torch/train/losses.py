@@ -117,6 +117,21 @@ def caption_loss(logits: Tensor, labels: Tensor, pad_id: int = 0,
     return weight * ((lse - picked) * valid).sum() / valid.sum().clamp_min(1.0)
 
 
+def coca_loss(out: Dict[str, Tensor], cfg, axis_name=None) -> Tuple[Tensor, Tensor]:
+    """CoCaLoss (loss.py:168-231): (contrastive, caption) of a
+    ``models.coca.CoCa`` forward's output, weighted by ``cfg``'s
+    ``contrastive_loss_weight`` and ``caption_loss_weight``."""
+    if axis_name is not None:
+        raise NotImplementedError(
+            "the CoCa loss over a data mesh (axis_name) is not yet ported: "
+            "ROADMAP Queue 1, item 12a (data parallelism)")
+    contrastive = cfg.contrastive_loss_weight * clip_loss(
+        out["image_features"], out["text_features"], out["logit_scale"])
+    caption = caption_loss(out["logits"], out["labels"], pad_id=cfg.pad_id,
+                           weight=cfg.caption_loss_weight)
+    return contrastive, caption
+
+
 def make_loss_fn(n_tower: int = 3, contra_loss_type: str = "general", *,
                  sim_thres: float = 0.9) -> Callable[..., Tensor]:
     """The training loss keyed as the reference CLI (--n_tower,

@@ -85,8 +85,10 @@ PRETRAINED_REGISTRY: Dict[str, Dict[str, Any]] = {
         quick_gelu=True),
     # --- remaining reference registry tags (pretrained.py:24-398):
     # RN family -> models/resnet.py; ViT-B variants; roberta/xlm CLIP
-    # (text via models/bert_text.py); CoCa -> models/coca.py. convnext
-    # tags are NOT carried (timm tower absent from this image). ---
+    # (text via models/bert_text.py); CoCa -> models/coca.py
+    # (make_coca; no converter for the released CoCa files, as in the JAX
+    # package). convnext tags are NOT carried (timm tower absent from this
+    # image). ---
     "RN50/yfcc15m": dict(
         url="https://github.com/mlfoundations/open_clip/releases/download/v0.2-weights/rn50-quickgelu-yfcc15m-455df137.pt",
         quick_gelu=True),

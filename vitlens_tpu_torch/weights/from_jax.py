@@ -20,7 +20,8 @@ reads (``*_qt``) are remade from them.
 Layouts are unchanged ([in, out] matmul weights, the OIHW audio conv). A key
 of the tree that the module lacks, a module parameter the tree lacks, or a
 shape mismatch raises. :func:`load_tri_params` loads a whole JAX
-``tri_model_init`` tree. :func:`load_state` does the same for the JAX state
+``tri_model_init`` tree, :func:`load_coca_params` a ``coca_init`` pair.
+:func:`load_state` does the same for the JAX state
 tree (the point tokenizers' BatchNorm running statistics: PointBERT's
 ``encoder.bn1/bn2``, PNSA's ``sa.{i}.bn``) and the module's buffers;
 :func:`read_state` reads the buffers back into the layout of a JAX state
@@ -105,6 +106,15 @@ def load_tri_params(model: nn.Module, params: Any) -> nn.Module:
     """Copy a JAX ``tri_model_init`` param tree (image, visual and text
     towers, logit scale) into the port's ``TriModel``."""
     return load_params(model, params)
+
+
+def load_coca_params(model: nn.Module, params: Any, state: Any = None) -> nn.Module:
+    """Copy a JAX ``coca_init`` (params, state) pair into the port's
+    ``models.coca.CoCa``: the stacked ``resblocks.blocks`` and
+    ``cross_attn.blocks`` unstack into its blocks; the state tree holds no
+    leaf (the image adapter keeps no statistics)."""
+    load_params(model, params)
+    return model if state is None else load_state(model, state)
 
 
 def load_state(module: nn.Module, tree: Any) -> nn.Module:
