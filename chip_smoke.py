@@ -310,6 +310,28 @@ Phases, one printed line each (or more); any failure exits non-zero:
      on the cross block's views, bit-equal to contiguous copies; gradients
      at [12, 12, 76, 256, 64]), and a broadcast query (batch stride 0)
      refused by the wrapper, its contiguous copy within bound.
+  4dp. data parallel (vitlens_tpu_torch/parallel/mesh.py): (a) inside phase
+     5, a world-size-1 NCCL group on a localhost store, and phase 4b's B64
+     audio step through make_train_step(mesh=make_mesh()) against the
+     mesh=None step from the same state and batch (loss, grad_norm, every
+     gradient and updated parameter within 1e-6 relative; launches as
+     train_launches); (b) after phase 5, two rank processes sharing the
+     card over gloo (NCCL refuses two ranks on one device; `python3
+     chip_smoke.py --dp-rank DIR` is a rank), each running the audio step
+     and the pc tri step with synced BatchNorm and pinned FPS starts at
+     B32, rank 0 then the B64 steps on the whole batch (plain, accum_freq
+     2, and the halves swapped): loss within 1e-3 relative, the gradient
+     cosine a trainable group (audio: >= 0.999 against accum_freq 2, whose
+     passes have the ranks' shapes; both: >= COS_MIN and the one-process
+     floor less 2e-3 against the plain B64 step), grad_norm within 1e-2
+     relative (the cosine cannot see a factor of world in the gradients),
+     each BatchNorm running statistic within 1e-4 relative (unsynced
+     BatchNorm normalises over 32 rows), launches as train_launches and
+     tri_train_launches, and each rank's peak memory; (c) ViTLens("vitlensL",
+     ("audio", "text"), mesh=make_mesh(devices=["cuda:0", "cuda:0"]))
+     against one device (B = 5 audio requests, padded to 6, and 3
+     captions: cosine >= 0.9999, launches twice a chunk's) and a served
+     closed loop on the --data-parallel 1 mesh of the serve CLI.
   5. timing: each kernel against its plain version (and, where one PyTorch
      call computes the same function, that call) at the B64 shapes of the
      main paths, beside each kernel's bound, with cuBLAS's products alone
@@ -3011,6 +3033,527 @@ def host_library_timings(torch, np, card, ctx):
           f"{lat['p95_ms']} ms (/healthz, the warm request included)", flush=True)
 
 
+# -- phase 4dp: data parallelism (ROADMAP Queue 1 item 12a) ----------------------
+
+DP_REL = 1e-6        # (a) the world-1 NCCL step against the mesh=None step
+DP_LOSS_REL = 1e-3   # (b) two B32 ranks against one B64 step: bf16, other shapes
+# (b) gradient cosine a trainable group of the audio step against the B64
+# step with accum_freq 2: its two passes run the towers at the ranks' B32
+# shapes, so the bf16 roundings are the ranks' and what differs is the
+# data-parallel arithmetic. Against the plain B64 step the bf16 products
+# round at other shapes and in another order: a gradient that comes back
+# through the 24 frozen bf16 trunk blocks (the class embedding's, the pc
+# tokenizer's and Lens's) reads a cosine near 0.998 there, one process
+# against one process. So against the plain B64 step each group is held
+# to COS_MIN and to that one-process noise floor less DP_FLOOR_SLACK: the
+# plain B64 step against its accum_freq 2 twin (the same function at the
+# ranks' shapes) where the model has no BatchNorm; with BatchNorm the twin
+# normalises over 32 rows, another function, and the floor is the B64
+# step against itself on the batch with its halves swapped.
+DP_COS_MIN = 0.999
+DP_FLOOR_SLACK = 2e-3
+# (b) grad_norm after the ranks' average against the B64 step's: summed
+# rather than averaged gradients read a factor of world here, which no
+# cosine sees; and each BatchNorm running statistic against the B64 step's:
+# BatchNorm left unsynced updates them from a rank's 32 rows.
+DP_NORM_REL = 1e-2
+DP_BN_REL = 1e-4
+DP_ENCODE_COS = 0.9999  # (c) the mesh encode against one device, row for row
+
+
+def launch_counters():
+    """{counter name: wrapper} of every kernel wrapper, in COUNTED's order."""
+    from vitlens_tpu_torch.ops.flash_attention import flash_attention
+    from vitlens_tpu_torch.ops.fps import fps_indices
+    from vitlens_tpu_torch.ops.fused_ln_proj import fused_ln_proj
+    from vitlens_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_save_preact
+    from vitlens_tpu_torch.ops.fused_mlp_chain import (fused_attnout_mlp,
+                                                       fused_mlp_chunked)
+    from vitlens_tpu_torch.ops.fused_point_encoder import fused_point_encoder
+    from vitlens_tpu_torch.ops.int8_matmul import (int8_matmul,
+                                                   int8_matmul_dequant,
+                                                   int8_quantize)
+    from vitlens_tpu_torch.ops.row_gather import row_gather
+
+    counters = dict(zip(COUNTED, (fused_mlp, fused_mlp_save_preact,
+                                  flash_attention, fps_indices,
+                                  fused_point_encoder, fused_ln_proj,
+                                  int8_matmul, int8_matmul_dequant,
+                                  int8_quantize, row_gather, fused_mlp_chunked,
+                                  fused_attnout_mlp)))
+    if len(counters) != len(COUNTED):
+        fail("a launch counter is missing")
+    return counters
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def grabbed_step(torch, tx, step, *args, **kw):
+    """step(*args, **kw) with the gradients AdamW was given (after the
+    ranks' average) copied out: (step's output, {name: gradient})."""
+    grads = {}
+    update = tx.update_
+
+    def grabbing(params, g, st):
+        grads.update({n: t.detach().float().clone() for n, t in g.items()})
+        return update(params, g, st)
+
+    tx.update_ = grabbing
+    try:
+        return step(*args, **kw), grads
+    finally:
+        del tx.update_
+
+
+def grad_groups(names):
+    """Trainable tensors grouped by their first two name components."""
+    groups = {}
+    for n in names:
+        groups.setdefault(".".join(n.split(".")[:2]), []).append(n)
+    return groups
+
+
+def group_cosines(torch, a, b, names):
+    out = {}
+    for g, ns in grad_groups(names).items():
+        x = torch.cat([a[n].double().flatten() for n in ns])
+        y = torch.cat([b[n].double().flatten() for n in ns])
+        out[g] = (x @ y / (x.norm() * y.norm()).clamp_min(1e-300)).item()
+    return out
+
+
+def dp_nccl_phase(torch, np, counters, totals, model, state, tx, mask, sc,
+                  batch_fn):
+    """Phase 4dp (a): a world-size-1 NCCL group on a localhost TCP store, and
+    the audio train step (phase 4b's model, at B64) through
+    make_train_step(mesh=make_mesh()) against the mesh=None step from the
+    same state and batch: loss, grad_norm, every gradient and every updated
+    trainable parameter within DP_REL relative (the collectives run: the
+    feature gather and its reduce-scatter, the bucketed all-reduce);
+    launches those of train_launches, the collectives adding none of ours."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from vitlens_tpu_torch.parallel import mesh as PM
+    from vitlens_tpu_torch.train.step import make_train_step
+
+    t0 = time.time()
+    cfg = model.cfg
+    names = [n for n, t in mask.items() if t]
+    params = dict(model.named_parameters())
+    snap = ({n: params[n].detach().clone() for n in names},
+            {k: {n: t.clone() for n, t in state.opt_state[k].items()}
+             for k in ("mu", "nu")}, state.opt_state["count"], state.step)
+    bt = {k: v.cuda() for k, v in batch_fn(B).items()}
+    want = train_launches(cfg.tower, cfg.text.layers, 1, False, False)
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+        rank=0, timeout=datetime.timedelta(seconds=120))
+    runs = {}
+    try:
+        if PM.init_distributed(device="cuda:0") != 0:
+            fail("4dp (a): init_distributed did not no-op in the group")
+        mesh = PM.make_mesh()
+        if (mesh.data, mesh.rank, mesh.backend, str(mesh.device)) != (
+                1, 0, "nccl", "cuda:0"):
+            fail(f"4dp (a): mesh {mesh}")
+        for label, m in (("mesh=None", None), ("world-1 NCCL", mesh)):
+            with torch.no_grad():
+                for n in names:
+                    params[n].copy_(snap[0][n])
+                for k in ("mu", "nu"):
+                    for n, t in snap[1][k].items():
+                        state.opt_state[k][n].copy_(t)
+            state.opt_state["count"], state.step = snap[2], snap[3]
+            step = make_train_step(cfg, tx, mask, sc, mesh=m)
+            ((_, met), grads), counts = run_counted(
+                torch, counters, totals,
+                lambda: grabbed_step(torch, tx, step, state, bt))
+            if counts != want:
+                fail(f"4dp (a) {label}: launches {counts}, expected {want}")
+            runs[label] = ({k: float(v) for k, v in met.items()}, grads,
+                           {n: params[n].detach().float().clone() for n in names})
+    finally:
+        dist.destroy_process_group()
+    (m0, g0, p0), (m1, g1, p1) = runs["mesh=None"], runs["world-1 NCCL"]
+    d = {"loss": abs(m1["loss"] / m0["loss"] - 1),
+         "grad_norm": abs(m1["grad_norm"] / m0["grad_norm"] - 1),
+         "gradients": max(rel_err(g1[n], g0[n]) for n in names),
+         "parameters": max(rel_err(p1[n], p0[n]) for n in names)}
+    if max(d.values()) > DP_REL:
+        fail(f"4dp (a) world-1 NCCL step vs mesh=None: relative differences {d}")
+    print(f"[4dp (a) NCCL world 1] vitlensL audio+text train step B{B} through "
+          f"make_train_step(mesh=make_mesh()) on a world-size-1 NCCL group vs "
+          f"mesh=None from the same state and batch: loss {m1['loss']:.6f} vs "
+          f"{m0['loss']:.6f}, grad_norm {m1['grad_norm']:.6f} vs "
+          f"{m0['grad_norm']:.6f}; largest relative differences "
+          + ", ".join(f"{k} {v:.3e}" for k, v in d.items())
+          + f" (bar {DP_REL}); launches {counts} each, as train_launches; "
+          f"phase {time.time() - t0:.1f} s", flush=True)
+
+
+def dp_rank_recipe(torch, np, counters, mesh, modality):
+    """One rank of phase 4dp (b): the vitlensL ``modality`` recipe's DP step
+    at B32 (this rank's half of a seeded B64 batch; the pc tri step with
+    synced BatchNorm and pinned FPS starts), then on rank 0 the mesh=None
+    step at B64 on the whole batch from the same initial state. Returns
+    what the parent prints and checks."""
+    from vitlens_tpu_torch.factory import create_model, make_trainable_
+    from vitlens_tpu_torch.train.freeze import tri_model_mask
+    from vitlens_tpu_torch.train.step import (OptimizerConfig, StepConfig,
+                                              init_train_state, make_optimizer,
+                                              make_train_step)
+
+    t0 = time.time()
+    model = create_model("ViT-L-14", modality, seed=SEED, device="cuda",
+                         dtype=torch.float32)
+    cfg = model.cfg
+    rng = np.random.RandomState(SEED)  # the same B64 batch on every rank
+    starts = None
+    if modality == "audio":
+        flags = dict(lock_visual=True, lock_text=True, unlock_cls=True)
+        sc = StepConfig(n_tower=2, align_to="text", compute_dtype=torch.bfloat16)
+        text = rng.randint(1, 49000, size=(B, 77))
+        text[:, 0], text[:, -1] = 49406, 49407
+        a = cfg.tower.audio
+        fb = rng.randn(B, a.target_length, a.mel_bins) * 0.5
+        batch = {"text": torch.from_numpy(text).long(),
+                 "visual": torch.from_numpy(fb.astype(np.float32))}
+        want = train_launches(cfg.tower, cfg.text.layers, 1, False, False)
+    else:
+        flags = dict(lock_image=True, lock_text=True, lock_visual=True)
+        sc = StepConfig(n_tower=3, sync_bn=True, compute_dtype=torch.bfloat16)
+        batch = tri_batch(torch, np, cfg, B, rng)
+        starts = torch.from_numpy(rng.randint(0, cfg.tower.point.npoints, B)
+                                  .astype(np.int32))
+        want = tri_train_launches(cfg, 1)
+    mask = tri_model_mask(model, cfg, **flags)
+    tx, mask = make_optimizer(model, OptimizerConfig(
+        lr=1e-4, warmup=10, total_steps=1000, grad_clip_norm=1.0), mask)
+    make_trainable_(model, mask, torch.bfloat16)
+    names = [n for n, t in mask.items() if t]
+    params = dict(model.named_parameters())
+    init = {n: params[n].detach().clone() for n in names}
+    bufs = {n: b for n, b in model.named_buffers() if n.endswith((".mean", ".var"))}
+    bn0 = {n: b.clone() for n, b in bufs.items()}
+
+    def run(bt, st, m, accum=1):
+        state = init_train_state(model, tx)
+        step = make_train_step(cfg, tx, mask, dataclasses.replace(
+            sc, accum_freq=accum), mesh=m)
+        bt = {k: v.cuda() for k, v in bt.items()}
+        st = None if st is None else list(st.cuda().chunk(accum))
+        torch.cuda.synchronize()
+        t = time.time()
+        ((_, met), grads), counts = run_counted(
+            torch, counters, dict.fromkeys(counters, 0),
+            lambda: grabbed_step(torch, tx, step, state, bt, fps_starts=st))
+        return ({k: float(v) for k, v in met.items()}, grads, counts,
+                time.time() - t)
+
+    def reset():
+        with torch.no_grad():
+            for n in names:
+                params[n].copy_(init[n])
+            for n, b in bufs.items():
+                b.copy_(bn0[n])
+
+    r, half = mesh.rank, B // mesh.data
+    local = {k: v[r * half:(r + 1) * half] for k, v in batch.items()}
+    met, grads, counts, secs = run(
+        local, None if starts is None else starts[r * half:(r + 1) * half], mesh)
+    out = {"metrics": met, "launches": counts, "want": want, "step_s": secs,
+           "ok_launches": counts == want}
+    if r == 0:
+        bn_dp = {n: b.clone() for n, b in bufs.items()}
+        reset()
+        met1, grads1, counts1, secs1 = run(batch, starts, None)
+        bn_rel = {n: rel_err(bn_dp[n], bufs[n]) for n in bufs}
+        reset()
+        met2, grads2, counts2, _ = run(batch, starts, None, accum=2)
+        swap = torch.cat([torch.arange(half, B), torch.arange(half)])
+        reset()
+        met3, grads3, counts3, _ = run({k: v[swap] for k, v in batch.items()},
+                                       None if starts is None else starts[swap],
+                                       None)
+        out.update(
+            single=met1, single_launches={k: counts1[k] + counts2[k] + counts3[k]
+                                          for k in counts1},
+            swapped=met3, cosines_floor=group_cosines(torch, grads3, grads1, names),
+            single_s=secs1, accum2=met2,
+            ok_single=counts1 == want == counts3 and counts2 == (
+                train_launches(cfg.tower, cfg.text.layers, 2, False, False)
+                if modality == "audio" else tri_train_launches(cfg, 2)),
+            loss_rel=abs(met["loss"] / met1["loss"] - 1),
+            grad_norm_rel=abs(met["grad_norm"] / met1["grad_norm"] - 1),
+            cosines=group_cosines(torch, grads, grads2, names),
+            cosines_b64=group_cosines(torch, grads, grads1, names),
+            cosines_b64_accum2=group_cosines(torch, grads1, grads2, names),
+            bn_rel=bn_rel)
+    del model, params, init, bufs, bn0, grads
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.time() - t0
+    return out
+
+
+def dp_rank_main(out_dir) -> int:
+    """A rank process of phase 4dp (b), started by dp_ranks_phase with
+    torchrun's variables: a gloo group sharing the card with the other
+    rank (the phase sets it up; init_distributed then no-ops), the audio
+    and the pc recipe (dp_rank_recipe), results to rank{r}.json."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from vitlens_tpu_torch.parallel import mesh as PM
+
+    env = os.environ
+    rank, world = int(env["RANK"]), int(env["WORLD_SIZE"])
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://{env['MASTER_ADDR']}:{env['MASTER_PORT']}",
+        world_size=world, rank=rank, timeout=datetime.timedelta(seconds=300))
+    if PM.init_distributed(device="cuda:0") != rank:
+        fail("init_distributed did not no-op in the gloo group")
+    mesh = PM.make_mesh(device="cuda:0")
+    if (mesh.data, mesh.rank, mesh.backend, str(mesh.device)) != (
+            world, rank, "gloo", "cuda:0"):
+        fail(f"mesh {mesh}")
+    counters = launch_counters()
+    res = {"rank": rank}
+    for modality in ("audio", "pc"):
+        res[modality] = dp_rank_recipe(torch, np, counters, mesh, modality)
+        dist.barrier()
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def dp_ranks_phase(torch, totals, card, rank_argv=None):
+    """Phase 4dp (b): two rank processes sharing the card over gloo (NCCL
+    refuses two ranks on one device), each running the audio step and the
+    pc tri step with synced BatchNorm at B32 (dp_rank_recipe); rank 0 then
+    runs the mesh=None B64 step on the whole batch. Their output goes to
+    files; a rank that fails or outlives the join's limit fails the phase.
+    Checks the loss (DP_LOSS_REL), the gradient cosine a trainable group
+    (DP_COS_MIN and the one-process floor), grad_norm (DP_NORM_REL), each
+    BatchNorm running statistic (DP_BN_REL), each rank's launches against
+    train_launches and tri_train_launches; prints each rank's peak memory
+    beside this process's. ``rank_argv``: the command of a rank before its
+    output directory (default: this script's ``--dp-rank``)."""
+    import tempfile
+
+    t0 = time.time()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated() / 1e9
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    port = str(free_port())
+    procs, logs = [], []
+    for r in range(2):
+        env = dict(os.environ, WORLD_SIZE="2", RANK=str(r), LOCAL_RANK="0",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=port)
+        logs.append(os.path.join(out_dir, f"rank{r}.log"))
+        with open(logs[-1], "w") as f:
+            procs.append(subprocess.Popen(
+                (rank_argv or [sys.executable, os.path.abspath(__file__),
+                               "--dp-rank"]) + [out_dir],
+                stdout=f, stderr=subprocess.STDOUT, env=env))
+    deadline, err = time.time() + 600, None
+    while any(p.poll() is None for p in procs):
+        bad = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
+        if bad or time.time() > deadline:
+            err = (f"rank {bad[0]} exited {procs[bad[0]].returncode}" if bad
+                   else "the join's 600 s ran out")
+            break
+        time.sleep(0.5)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    if err is None and any(p.returncode for p in procs):
+        err = f"exit codes {[p.returncode for p in procs]}"
+    if err:
+        for r, log in enumerate(logs):
+            print(f"--- 4dp rank {r} log (tail) ---\n" + open(log).read()[-4000:],
+                  flush=True)
+        fail(f"4dp (b): {err}")
+    res = [json.load(open(os.path.join(out_dir, f"rank{r}.json"))) for r in range(2)]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    for modality in ("audio", "pc"):
+        for r in range(2):
+            got = res[r][modality]
+            if not got["ok_launches"]:
+                fail(f"4dp (b) rank {r} {modality}: launches {got['launches']}, "
+                     f"expected {got['want']}")
+            for name, n in got["launches"].items():
+                totals[name] += n
+        r0 = res[0][modality]
+        for name, n in r0["single_launches"].items():
+            totals[name] += n
+        cos, cos64 = r0["cosines"], r0["cosines_b64"]
+        floor = r0["cosines_floor"] if r0["bn_rel"] else r0["cosines_b64_accum2"]
+        if not r0["ok_single"]:
+            fail(f"4dp (b) {modality}: the B64 steps' launches "
+                 f"{r0['single_launches']}")
+        below = [k for k, v in cos64.items()
+                 if v < COS_MIN or v < floor[k] - DP_FLOOR_SLACK]
+        bn_off = {k: v for k, v in r0["bn_rel"].items() if v > DP_BN_REL}
+        if (r0["loss_rel"] > DP_LOSS_REL or below
+                or (modality == "audio" and min(cos.values()) < DP_COS_MIN)
+                or r0["grad_norm_rel"] > DP_NORM_REL or bn_off):
+            fail(f"4dp (b) {modality}: two ranks vs the B64 step: loss "
+                 f"{r0['metrics']['loss']} vs {r0['single']['loss']}, "
+                 f"grad_norm {r0['metrics']['grad_norm']} vs "
+                 f"{r0['single']['grad_norm']} (relative "
+                 f"{r0['grad_norm_rel']:.3e}, bar {DP_NORM_REL}), BatchNorm "
+                 f"statistics past {DP_BN_REL} relative {bn_off}, gradient "
+                 f"cosines vs plain {cos64} (one-process floor {floor}), vs "
+                 f"accum_freq 2 {cos}")
+        if res[1][modality]["metrics"] != r0["metrics"]:
+            fail(f"4dp (b) {modality}: the ranks' metrics differ: "
+                 f"{r0['metrics']} vs {res[1][modality]['metrics']}")
+        print(f"[4dp (b) two ranks, gloo] {card} | vitlensL {modality} "
+              + ("audio+text step (phase 4b's recipe)" if modality == "audio"
+                 else "pc tri step, synced BatchNorm, pinned FPS starts")
+              + f": 2 ranks x B{B // 2} vs one B{B} step: loss "
+              f"{r0['metrics']['loss']:.6f} vs {r0['single']['loss']:.6f} "
+              f"(relative {r0['loss_rel']:.3e}, bar {DP_LOSS_REL}), grad_norm "
+              f"{r0['metrics']['grad_norm']:.6f} vs {r0['single']['grad_norm']:.6f}"
+              f" (relative {r0['grad_norm_rel']:.3e}, bar {DP_NORM_REL}); "
+              "gradient cosine a group "
+              f"vs the plain B{B} step: "
+              + ", ".join(f"{k} {v:.6f}" for k, v in cos64.items())
+              + f" (bar {COS_MIN} and the floor less {DP_FLOOR_SLACK}, the "
+              f"floor {'swapped halves' if r0['bn_rel'] else 'accum_freq 2'}); "
+              f"the B{B} step on the batch with its halves swapped (loss "
+              f"{r0['swapped']['loss']:.6f}) vs the plain one: "
+              + ", ".join(f"{k} {v:.6f}" for k, v in
+                          r0["cosines_floor"].items())
+              + f"; vs the B{B} step with accum_freq 2 (loss "
+              f"{r0['accum2']['loss']:.6f}" + (", the ranks' B32 shapes): "
+                                               if modality == "audio" else
+                                               ", BatchNorm over 32 rows): ")
+              + ", ".join(f"{k} {v:.6f}" for k, v in cos.items())
+              + (f" (bar {DP_COS_MIN})" if modality == "audio" else "")
+              + f"; plain B{B} vs accum_freq 2, both one process: " + ", ".join(
+                  f"{k} {v:.6f}" for k, v in r0["cosines_b64_accum2"].items())
+              + (("; BatchNorm running statistics, DP vs B64, largest relative "
+                  "difference " + ", ".join(f"{k.split('adapter.')[-1]} {v:.3e}"
+                                            for k, v in r0["bn_rel"].items())
+                  + f" (bar {DP_BN_REL})")
+                 if r0["bn_rel"] else "")
+              + f"; launches each rank {res[0][modality]['launches']} and "
+              f"{res[1][modality]['launches']} (as expected), the three B{B} "
+              f"steps {r0['single_launches']}; DP step {r0['step_s']:.3f} s and "
+              f"{res[1][modality]['step_s']:.3f} s, B{B} step "
+              f"{r0['single_s']:.3f} s (first calls, host-timed)", flush=True)
+    total = resident + sum(r["peak_gb"] for r in res)
+    print(f"[4dp (b) memory] {card} | peak GB rank 0 {res[0]['peak_gb']:.2f}, "
+          f"rank 1 {res[1]['peak_gb']:.2f}, this process resident "
+          f"{resident:.2f}: {total:.2f} GB at most together; phase "
+          f"{time.time() - t0:.1f} s", flush=True)
+
+
+def dp_encode_phase(torch, np, counters, totals, card):
+    """Phase 4dp (c): ViTLens("vitlensL", ("audio", "text")) over a local mesh
+    of the card twice (two chunks, one replica) against the same model
+    without a mesh: B = 5 audio requests (three clips each, padded to 6 and
+    split 3 + 3) and 3 captions, row for row (cosine >= DP_ENCODE_COS);
+    launches twice a chunk's tower_launches. Then a served closed loop (32
+    audio requests of one 5 s WAV from 8 client threads) on the model the
+    serve CLI's --data-parallel 1 mesh builds."""
+    import tempfile
+    import threading
+
+    from tools.reference_layout import pcm_from_float, write_wav
+    from vitlens_tpu_torch.api import ViTLens
+    from vitlens_tpu_torch.cli import serve as S
+    from vitlens_tpu_torch.parallel.mesh import make_mesh
+    from vitlens_tpu_torch.serve import make_server
+
+    t0 = time.time()
+    kw = dict(compute_dtype=torch.bfloat16, seed=SEED)
+    dp = ViTLens("vitlensL", ("audio", "text"),
+                 mesh=make_mesh(devices=["cuda:0", "cuda:0"]), **kw)
+    one = ViTLens("vitlensL", ("audio", "text"), device="cuda", **kw)
+    acfg, n_text = one.towers["audio"].cfg, one.towers["text"].cfg.layers
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    fb5 = torch.randn(5, 3, acfg.audio.target_length, acfg.audio.mel_bins,
+                      generator=g, device="cuda") * 0.5
+    captions = ["a dog barking", "rain on a tin roof", "an engine starting"]
+    rows = {}
+    for m, x, per_chunk in (("audio", fb5, tower_launches(acfg)),
+                            ("text", captions, launch_counts(fused_mlp=n_text))):
+        pre = m == "audio"
+        got, counts = run_counted(
+            torch, counters, totals,
+            lambda: dp.encode({m: x}, preprocessed=pre)[m])
+        want = one.encode({m: x}, preprocessed=pre)[m]
+        expect = {k: 2 * v for k, v in per_chunk.items()}
+        if counts != expect:
+            fail(f"4dp (c) {m}: launches {counts}, expected {expect}")
+        rows[m] = (tuple(got.shape), cos_min(torch, got, want), abs_err(got, want))
+        if got.shape != want.shape or rows[m][1] < DP_ENCODE_COS:
+            fail(f"4dp (c) {m}: mesh encode vs one device {rows[m]}")
+    del dp, one
+    torch.cuda.empty_cache()
+    args = S.build_parser().parse_args(["--data-parallel", "1"])
+    served = ViTLens("vitlensL", ("audio",), mesh=S.data_parallel_mesh(
+        args.data_parallel, args.device), **kw)
+    root = tempfile.mkdtemp(prefix="chip_smoke_dp_serve_")
+    wav = os.path.join(root, "a.wav")
+    write_wav(wav, pcm_from_float(_tone(np, 16000, 5.0, 1, 3), 16), 16000)
+    srv, th = _serve(make_server, served, 32, 50)
+    port = srv.server_address[1]
+    _post(port, {"inputs": {"audio": [wav]}})  # warm the path
+    errors = []
+
+    def client():
+        for _ in range(4):
+            try:
+                _post(port, {"inputs": {"audio": [wav]}})
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append(e)
+
+    clients = [threading.Thread(target=client) for _ in range(8)]
+    t1 = time.perf_counter()
+    for c in clients:
+        c.start()
+    for c in clients:
+        c.join(600)
+    wall = time.perf_counter() - t1
+    health = _healthz(port)
+    _stop(srv, th)
+    shutil.rmtree(root, ignore_errors=True)
+    del served
+    torch.cuda.empty_cache()
+    if errors:
+        fail(f"4dp (c) served run: {len(errors)} requests failed: {errors[0]!r}")
+    lat = health["latency"]
+    print(f"[4dp (c) mesh encode] {card} | ViTLens('vitlensL', ('audio', 'text'),"
+          f" mesh=make_mesh(devices=['cuda:0', 'cuda:0'])) vs the same model on "
+          f"one device, (shape, min cosine, max abs difference): "
+          + ", ".join(f"{m} {v[0]} {v[1]:.7f} {v[2]:.3e}" for m, v in rows.items())
+          + f" (bar {DP_ENCODE_COS}); launches twice a chunk's; served closed "
+          f"loop with --data-parallel 1: 32 audio requests (one 5 s WAV) from 8 "
+          f"client threads: {32 / wall:.2f} requests/s, p50 {lat['p50_ms']} ms, "
+          f"p95 {lat['p95_ms']} ms; phase {time.time() - t0:.1f} s", flush=True)
+
+
 # -- phase 4o: the OpenShape trainer (vitlensG, the pc baselines) ----------------
 
 OS_B = 16             # the OpenShape CLI's default batch
@@ -3413,7 +3956,7 @@ def openshape_cli_phase(torch, np, counters, totals, card):
         seen = {}
         build = CLI.build_optimizer
 
-        def spy(args, model, total_steps):  # the weights the resumed run starts from
+        def spy(args, model, total_steps, mesh=None):  # the weights the resumed run starts from
             saved = torch.load(os.path.join(ckpt, "epoch_latest", C.TREE_FILE),
                                map_location="cpu", weights_only=True)
             seen["equal"] = all(
@@ -3422,7 +3965,7 @@ def openshape_cli_phase(torch, np, counters, totals, card):
                 torch.equal(b.cpu(), saved["state"][n])
                 for n, b in model.named_buffers())
             del saved
-            out = build(args, model, total_steps)
+            out = build(args, model, total_steps, mesh)
             seen["opt"] = out[1]
             return out
 
@@ -4649,14 +5192,7 @@ def main() -> int:
                "row_gather": row_gather, "fused_mlp_chunked": fused_mlp_chunked,
                "fused_attnout_mlp": fused_attnout_mlp,
                "fused_ln_qkv": fused_ln_proj}
-    counters = dict(zip(COUNTED, (fused_mlp, fused_mlp_save_preact,
-                                  flash_attention, fps_indices,
-                                  fused_point_encoder, fused_ln_proj,
-                                  int8_matmul, int8_matmul_dequant,
-                                  int8_quantize, row_gather, fused_mlp_chunked,
-                                  fused_attnout_mlp)))
-    if len(counters) != len(COUNTED):
-        fail("a launch counter is missing")
+    counters = launch_counters()
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"[1 device] {card} | torch {torch.__version__} cuda "
@@ -5188,6 +5724,9 @@ def main() -> int:
         finally:
             os.environ.pop("VITLENS_ENABLE_FUSED_LNQKV", None)
     profile_encode(torch, card, f"B{B} audio train step", step64)
+    # -- 4dp (a): the same step over a world-size-1 NCCL group ----------------
+    dp_nccl_phase(torch, np, counters, launches, trainer, state, tx, mask, sc,
+                  train_batch)
     del trainer, state, train_step, batch64
     tri_rates = tri_timings(torch, np, card, [(tri_depth, 0, (B,)),
                                               (tri_video, 8, (B, 32)),
@@ -5202,6 +5741,11 @@ def main() -> int:
     del served
 
     mark("5 rates")
+    # -- 4dp (b): two ranks sharing the card; (c): the mesh encode and serve --
+    del model, fb64, pc64, audio64, pc64_encode, qaudio64, step64
+    dp_ranks_phase(torch, launches, card)
+    dp_encode_phase(torch, np, counters, launches, card)
+    mark("4dp")
     replaces = {
         "fused_mlp": "vitlens_tpu/ops/fused_mlp.py:105",
         "flash_attention": "vitlens_tpu/ops/flash_attention.py:53",
@@ -5283,4 +5827,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:
+        sys.exit(dp_rank_main(sys.argv[2]))
     sys.exit(main())

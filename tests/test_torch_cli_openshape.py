@@ -2,10 +2,10 @@
 ``--tiny`` tower: one epoch from fixture triplet files with eval, a resumed
 second epoch (the checkpoint's weights and epoch, a fresh optimizer whose
 schedule count restarts at 0), an eval-only run from the last checkpoint,
-a baseline run (``--pc-model PointNet``), and the flags that raise: more
-than one CUDA device, ``--use-mask`` with ``--negative-sample-num 2``, a
-missing ``--resume`` path, and no ``--device`` on a machine without a
-card. The modules the CLI drives are held against the JAX package in
+a baseline run (``--pc-model PointNet``), and the flags that raise:
+``--use-mask`` with ``--negative-sample-num 2``, a missing ``--resume``
+path, and no ``--device`` on a machine without a card (more than one
+device trains over ranks: test_torch_parallel_cli.py). The modules the CLI drives are held against the JAX package in
 test_torch_openshape.py and test_torch_pc_baselines.py."""
 
 import json
@@ -75,10 +75,10 @@ def test_train_resume_and_eval_only(files, tmp_path, monkeypatch):
     seen = {}
     build = PCLI.build_optimizer
 
-    def spy(args, model, total_steps):
+    def spy(args, model, total_steps, mesh=None):
         seen["params"] = {n: p.detach().clone() for n, p in model.named_parameters()}
         seen["buffers"] = {n: b.clone() for n, b in model.named_buffers()}
-        tx, state, step = build(args, model, total_steps)
+        tx, state, step = build(args, model, total_steps, mesh)
         seen["state"], seen["tx"] = state, tx
         return tx, state, step
 
@@ -119,9 +119,10 @@ def test_flags_that_raise(files, tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="negative-sample-num"):
         PCLI.main(_argv(files, tmp_path, *train, "--use-mask",
                         "--negative-sample-num", "2"))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        PCLI.check_supported(PCLI.build_args([]), n_devices=2)
-    PCLI.check_supported(PCLI.build_args(["--use-mask"]), n_devices=1)
+    # several devices no longer raise: one process a card trains over
+    # them (tests/test_torch_parallel_cli.py runs two ranks)
+    PCLI.check_supported(PCLI.build_args([]))
+    PCLI.check_supported(PCLI.build_args(["--use-mask"]))
     with pytest.raises(FileNotFoundError):
         PCLI.main(_argv(files, tmp_path, *train, "--resume",
                         str(tmp_path / "missing")))

@@ -224,7 +224,10 @@ def test_raises_without_cuda(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flags,item", [
     (["--fsdp"], "item 12"), (["--tp", "2"], "item 12"),
-    (["--n-devices", "2"], "item 12"),
+    # data parallelism is ported: --n-devices must be the number of ranks,
+    # and one process is one rank
+    pytest.param(["--n-devices", "2"], r"--n-devices 2 but the run has 1 rank",
+                 id="flags2-item 12"),
     # item 11's flags are ported: LoRA builds, and a pretrained tag resolves
     # through the hub's cache (an unknown one raises the hub's KeyError)
     pytest.param(["--lora-rank", "4", "--visual-stat-flops"], None,
@@ -237,7 +240,7 @@ def test_unported_flags_raise(tmp_path, flags, item):
     if item is None:
         assert _port(argv) == 0
         return
-    with pytest.raises((NotImplementedError, KeyError), match=item):
+    with pytest.raises((NotImplementedError, KeyError, ValueError), match=item):
         _port(argv)
 
 

@@ -22,6 +22,7 @@ from vitlens_tpu.config import VisionArch as JVisionArch
 from vitlens_tpu.models import coca as JC
 from vitlens_tpu_torch import config as PCfg
 from vitlens_tpu_torch.models import coca as PC
+from vitlens_tpu_torch.parallel.mesh import make_mesh
 from vitlens_tpu_torch.train.losses import coca_loss
 from vitlens_tpu_torch.weights.from_jax import flatten, load_coca_params
 
@@ -152,8 +153,13 @@ def test_forward_and_loss_match_jax_fp32(setup):
     np.testing.assert_array_equal(got["labels"].numpy(), want["labels"])
     for g, w in zip(coca_loss(got, pcfg), JC.coca_loss(want, jcfg)):
         assert abs(float(g) - float(w)) <= 1e-5 * abs(float(w))
-    with pytest.raises(NotImplementedError, match="12a"):
+    # the data axis: unbound without a process group (JAX's name is unbound
+    # outside shard_map); a one-device mesh gathers nothing
+    with pytest.raises(RuntimeError, match="unbound"):
         coca_loss(got, pcfg, axis_name="data")
+    one = make_mesh(devices=["cpu"])
+    for g, w in zip(coca_loss(got, pcfg, axis_name=one), coca_loss(got, pcfg)):
+        assert float(g) == float(w)
 
 
 def test_gradients_match_jax_fp32(setup):

@@ -200,15 +200,17 @@ def test_templates_and_metadata(tmp_path, monkeypatch):
 
 
 def test_merge_across_processes_raises(monkeypatch):
-    """One process: the merge is the identity; more than one: not yet
-    ported (ROADMAP Queue 1, item 12)."""
+    """One process: the merge is the identity. More than one: an all-gather
+    over the process group (here two processes that saw the same samples,
+    so every count doubles); distributed=False merges nothing. The merge
+    over two real ranks is in test_torch_parallel_cli.py."""
     a = np.arange(3)
     assert PM._dist_concat(a) is a
     monkeypatch.setattr(PM, "_n_processes", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        PM._dist_concat(a)
+    monkeypatch.setattr(PM, "_all_gather_object", lambda obj: [obj, obj])
+    np.testing.assert_array_equal(PM._dist_concat(a), np.r_[a, a])
     acc = PM.Accuracy()
     acc.compute([0], np.ones((1, 2)), [0])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        acc.merge_results()
+    out = acc.merge_results(output_predict=True)
+    assert (out["score_sum"], out["score_cnt"], out["accuracy"]) == (2.0, 2, 1.0)
     assert PM.Accuracy(distributed=False).merge_results()["score_cnt"] == 0

@@ -66,8 +66,9 @@ def test_infer_cli_prints_the_api_matrices(tmp_path, capsys):
     np.testing.assert_allclose(got[("audio", "text")], sm.ravel(), rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(CLI.similarity_matrices(out, 50.0)[("audio", "text")], sm,
                                atol=1e-12)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        CLI.main(["--text", "a", "--data-parallel", "2", "--device", "cpu"])
+    # --data-parallel is ported (its matrices: test_torch_parallel_cli.py)
+    assert CLI.main(["--model-var", "vitlensB", "--text", "a",
+                     "--data-parallel", "2", "--device", "cpu"]) == 0
     with pytest.raises(SystemExit):
         CLI.main(["--device", "cpu"])
 

@@ -172,5 +172,12 @@ def test_device_prefetcher_on_cpu_is_a_pass_through():
 
 
 def test_device_prefetcher_raises_on_a_mesh():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        PLd.DevicePrefetcher([], mesh=object())
+    """A mesh places on its (this rank's) device: on the CPU a pass-through;
+    a device that is not the mesh's raises."""
+    from vitlens_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(devices=["cpu"])
+    got = list(PLd.DevicePrefetcher([{"x": np.ones(2)}], mesh=mesh))
+    assert len(got) == 1 and got[0]["x"].sum() == 2
+    with pytest.raises(ValueError, match="mesh"):
+        PLd.DevicePrefetcher([], mesh=mesh, device="meta")

@@ -41,7 +41,8 @@ def test_port_imports_no_jax():
         "          'models.point_transformer', 'cli.train_openshape', 'models.eva',\n"
         "          'train.lora', 'models.bert_text', 'models.hf_text', 'models.linear_probe',\n"
         "          'cli.train_linprobe', 'cli.infer', 'utils.export', 'utils.hub',\n"
-        "          'models.resnet', 'ops.custom', 'models.lora', 'models.coca'):\n"
+        "          'models.resnet', 'ops.custom', 'models.lora', 'models.coca',\n"
+        "          'parallel.mesh'):\n"
         "    assert 'vitlens_tpu_torch.' + n in names, n\n"
         "sys.path.insert(0, '.')\n"
         "import tools.reference_layout\n"
@@ -75,7 +76,7 @@ def test_port_sources_never_name_jax():
                 "models/linear_probe.py", "cli/train_linprobe.py",
                 "cli/infer.py", "utils/export.py", "utils/hub.py",
                 "models/resnet.py", "ops/custom.py", "models/lora.py",
-                "models/coca.py"):
+                "models/coca.py", "parallel/mesh.py"):
         assert new in names, new
     paths += [os.path.join(REPO, "tools", "reference_layout.py"),
               os.path.join(REPO, "chip_smoke.py")]

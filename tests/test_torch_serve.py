@@ -666,8 +666,8 @@ def test_serve_cli_default_buckets():
 
 def test_serve_cli_parser():
     """The port's flags: bf16 by default, mapped to torch dtypes; --device;
-    --data-parallel is not yet ported and raises before any model is
-    built."""
+    --data-parallel N needs N cards (or --device cpu) and raises before any
+    model is built without them."""
     from vitlens_tpu_torch.cli import serve as S
 
     args = S.build_parser().parse_args([])
@@ -679,5 +679,5 @@ def test_serve_cli_parser():
          "--device", "cpu", "--batch-buckets", "1", "8"])
     assert args.ckpt == ["all=/x.pt", "text=/y.pt"] and not args.warmup
     assert args.batch_buckets == [1, 8] and args.device == "cpu"
-    with pytest.raises(NotImplementedError, match="not yet ported.*item 12"):
+    with pytest.raises(RuntimeError, match="--data-parallel 4: .* CUDA device"):
         S.main(["--data-parallel", "4"])

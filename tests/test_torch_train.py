@@ -245,8 +245,10 @@ def test_train_step_matches_jax(tiny, accum, remat, clip, unlock):
 
 
 def test_train_step_refuses_the_unported(tiny):
-    """What still raises: a mesh or FSDP, an unknown remat tag, a mask that
-    was never applied and a trainable parameter that is no fp32 master.
+    """What still raises: FSDP (item 12b), a mesh that is not the port's
+    (the data-parallel step runs over parallel.mesh.Mesh: tests/
+    test_torch_parallel.py), an unknown remat tag, a mask that was never
+    applied and a trainable parameter that is no fp32 master.
     Point-cloud training, train-time patch dropout and the "dots" remat,
     which raised here too, run: a train pass moves the tokenizer's running
     statistics, a dropping tower keeps CLS and the drawn patches, "dots"
@@ -256,7 +258,7 @@ def test_train_step_refuses_the_unported(tiny):
     mask = PF.tri_model_mask(model, pcfg, unlock_cls=True)
     tx, mask = PStep.make_optimizer(model, PStep.OptimizerConfig(), mask)
     two = PStep.StepConfig(n_tower=2, align_to="text")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(TypeError, match="Mesh"):
         PStep.make_train_step(pcfg, tx, mask, two, mesh=object())
     with pytest.raises(NotImplementedError, match="item 12"):
         PStep.make_train_step(pcfg, tx, mask, two, partition="fsdp")

@@ -11,6 +11,7 @@ given starts or generator.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Optional, Tuple
 
@@ -25,6 +26,7 @@ from vitlens_tpu_torch.ops.fps import ball_query, fps, group_points, take_points
 from vitlens_tpu_torch.ops.fused_point_encoder import (
     BN_EPS, fused_point_encoder, mini_pointnet, point_encoder_applicable,
     point_encoder_reference)
+from vitlens_tpu_torch.parallel.mesh import all_reduce_mean
 
 BN_MOMENTUM = 0.1  # JAX's batch_norm default; no caller sets another
 
@@ -157,11 +159,15 @@ class AudioAdapter(nn.Module):
 class BatchNorm(nn.Module):
     """BatchNorm over the last axis: ``scale`` and ``bias`` are parameters,
     the running ``mean`` and ``var`` buffers (JAX keeps them in the state
-    tree; ``weights.from_jax.load_state`` copies them)."""
+    tree; ``weights.from_jax.load_state`` copies them). ``sync`` is the data
+    mesh whose ranks share the batch statistics in train mode (JAX's
+    ``bn_axis_name``; set it for a step with :func:`batch_norm_synced`), or
+    None."""
 
     def __init__(self, dim: int, eps: float = BN_EPS, device=None):
         super().__init__()
         self.eps = eps
+        self.sync = None
         self.scale = _param(dim, device=device)
         self.bias = _param(dim, device=device)
         self.register_buffer("mean", torch.empty(dim, device=device))
@@ -183,21 +189,43 @@ class BatchNorm(nn.Module):
         gradient flows through both), var = E[x^2] - mean^2; the running
         mean and var move by BN_MOMENTUM towards the batch's mean and
         unbiased var (var * n / (n - 1)). Both in fp32, rounded back to x's
-        dtype."""
+        dtype. Synced, the moments (not per-rank variances) are averaged
+        over the ranks in one differentiable all-reduce of the stacked
+        [mean, E[x^2]] pair, and n counts every rank's rows."""
         x32 = x.float()
         if not train:
             mean, var = self.mean.float(), self.var.float()
         else:
             axes = tuple(range(x.dim() - 1))
             mean = x32.mean(dim=axes)
-            var = x32.square().mean(dim=axes) - mean.square()
+            ex2 = x32.square().mean(dim=axes)
             n = x.numel() // x.shape[-1]
+            if self.sync is not None:
+                mean, ex2 = all_reduce_mean(torch.stack([mean, ex2]), self.sync)
+                n *= self.sync.data
+            var = ex2 - mean.square()
             m = BN_MOMENTUM
             with torch.no_grad():
                 self.mean.copy_((1 - m) * self.mean + m * mean)
                 self.var.copy_((1 - m) * self.var + m * (var * (n / max(n - 1, 1))))
         inv = torch.rsqrt(var + self.eps) * self.scale.float()
         return ((x32 - mean) * inv + self.bias.float()).to(x.dtype)
+
+
+@contextlib.contextmanager
+def batch_norm_synced(module: nn.Module, mesh):
+    """Every BatchNorm of ``module`` syncs its train-mode statistics over
+    ``mesh`` inside the block (None: each rank its own, as DDP without
+    SyncBatchNorm); restored on exit."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    saved = [bn.sync for bn in bns]
+    for bn in bns:
+        bn.sync = mesh
+    try:
+        yield
+    finally:
+        for bn, s in zip(bns, saved):
+            bn.sync = s
 
 
 class PointTokenizer(nn.Module):

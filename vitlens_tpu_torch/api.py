@@ -23,10 +23,18 @@ grey) and the ViT-bigG-14 trunk with its first 16 blocks skipped.
 dicts (the released per-modality files, a merged file with
 ``vitlens.{modality}.`` keys, or a CLIP file). The model is built on the card
 unless ``device`` names another device.
+
+``mesh`` (a local ``parallel.mesh.make_mesh(devices=[...])``) serves one
+replica of each tower on each device of the mesh: every encode batch pads
+to a multiple of the mesh's ``data`` size and splits into contiguous chunks,
+one a device, whose embeddings gather on the first device (JAX's
+``shard_map`` encode over a single-host mesh).
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 from typing import Dict, Optional, Sequence
 
@@ -40,6 +48,7 @@ from vitlens_tpu_torch.factory import (cast_matmul_weights_, make_generator,
                                        resolve_device)
 from vitlens_tpu_torch.models.text import TextTower
 from vitlens_tpu_torch.models.vit import VisionTower
+from vitlens_tpu_torch.parallel.mesh import split_rows
 from vitlens_tpu_torch.train.openshape import vitlensG_tower_config
 
 PORTED_MODALITIES = ("image", "tactile", "depth", "audio", "eeg", "video",
@@ -79,7 +88,15 @@ class ViTLens(nn.Module):
     every floating parameter at load (bf16 halves the memory of the vitlensG
     trunk), and the weights are cast to the compute dtype at use.
     ``batch_buckets`` pads each encode batch up to the next bucket with zero
-    rows, which are sliced off (rows are computed independently)."""
+    rows, which are sliced off (rows are computed independently).
+
+    ``mesh``: a local data mesh (``make_mesh(devices=["cuda:0", "cuda:1"])``)
+    in place of ``device``: the towers are built on its first device and
+    copied to each other one, and each encode splits its rows over them
+    (padded with zero rows to a multiple of ``data``, sliced off after), so
+    embeddings are row for row those of one device. A device may repeat
+    (``["cuda:0", "cuda:0"]``, or ``["cpu", "cpu"]``): its chunks then share
+    that device and its one replica."""
 
     def __init__(self, model_var: str = "vitlensL",
                  modality_loaded: Sequence[str] = ("image", "text"),
@@ -87,7 +104,7 @@ class ViTLens(nn.Module):
                  seed: int = 0,
                  batch_buckets: Optional[Sequence[int]] = None,
                  checkpoints: Optional[Dict[str, str]] = None,
-                 param_dtype: Optional[torch.dtype] = None):
+                 param_dtype: Optional[torch.dtype] = None, mesh=None):
         super().__init__()
         self.model_var = model_var
         self.trunk = _TRUNKS[model_var]
@@ -95,6 +112,15 @@ class ViTLens(nn.Module):
         for m in self.modalities:
             if m not in PORTED_MODALITIES:
                 raise NotImplementedError(f"modality {m!r} is not yet ported")
+        if mesh is not None:
+            if mesh.spans_processes:
+                raise ValueError("ViTLens serves over a local mesh "
+                                 "(make_mesh(devices=[...])), one process")
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's first "
+                                 f"device {mesh.device}")
+            device = mesh.device
+        self.mesh = mesh
         device = resolve_device(device)
         self.compute_dtype = compute_dtype
         self.param_dtype = param_dtype
@@ -139,6 +165,17 @@ class ViTLens(nn.Module):
             pt = self.towers["pc"].cfg.point
             self.processors["pc"].n = pt.npoints
             self.processors["pc"].channels = pt.in_channel
+        self._replicas: Dict[torch.device, nn.ModuleDict] = {}
+        self._sync_replicas()
+
+    def _sync_replicas(self) -> None:
+        """Copy the towers to each other device of the mesh (kept out of
+        the module's parameters: ``towers`` is the one that is exported,
+        loaded and fine-tuned)."""
+        self._replicas = {self.device: self.towers} if self.mesh is not None else {}
+        for d in (self.mesh.devices if self.mesh is not None else ()):
+            if d not in self._replicas:
+                self._replicas[d] = copy.deepcopy(self.towers).to(d)
 
     @property
     def device(self) -> torch.device:
@@ -202,7 +239,7 @@ class ViTLens(nn.Module):
         model-ready arrays with ``preprocessed=True``)}. Returns {modality:
         [B, embed_dim]} on the model's device (fp32 when normalized)."""
         out: Dict[str, torch.Tensor] = {}
-        dev, dt = self.device, self.compute_dtype
+        dev = self.device
         for m, data in inputs.items():
             if m not in self.towers:
                 raise KeyError(f"modality {m!r} not loaded; have {self.modalities}")
@@ -211,16 +248,28 @@ class ViTLens(nn.Module):
             x = x.to(dev)
             B = x.shape[0]
             x = self._pad_to_bucket(x)
-            tower = self.towers[m]
-            if m == "audio" and x.dim() == 4:
-                Bp, S = x.shape[:2]
-                feats = tower(x.reshape((Bp * S,) + tuple(x.shape[2:])), dt)
-                feats = feats.reshape(Bp, S, -1).mean(dim=1)  # clip mean
+            if self.mesh is None:
+                feats = self._encode_rows(self.towers[m], m, x)
             else:
-                feats = tower(x, dt)
+                chunks, _ = split_rows(self.mesh, x)
+                parts = []
+                for c in chunks:  # the kernels launch on the current device
+                    with (torch.cuda.device(c.device) if c.device.type == "cuda"
+                          else contextlib.nullcontext()):
+                        parts.append(self._encode_rows(
+                            self._replicas[c.device][m], m, c).to(dev))
+                feats = torch.cat(parts)
             feats = feats[:B]
             out[m] = _l2n(feats) if normalize else feats
         return out
+
+    def _encode_rows(self, tower: nn.Module, m: str, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if m == "audio" and x.dim() == 4:
+            Bp, S = x.shape[:2]
+            feats = tower(x.reshape((Bp * S,) + tuple(x.shape[2:])), dt)
+            return feats.reshape(Bp, S, -1).mean(dim=1)  # clip mean
+        return tower(x, dt)
 
     # -- warmup (serving cold start) ---------------------------------------
 
@@ -322,3 +371,4 @@ class ViTLens(nn.Module):
         for m in self.modalities:
             if has_lora(self.towers[m]):
                 reset_lora(self.towers[m])
+        self._sync_replicas()

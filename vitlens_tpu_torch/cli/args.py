@@ -4,8 +4,10 @@ flags and validation, plus ``--device``).
 One typed surface replacing the reference's ~170-flag argparse
 (training/params.py:1-1013). Flags keep the reference names where they
 exist so recipes translate 1:1; defaults follow params.py. The parallel
-flags (``--fsdp``, ``--tp`` > 1, ``--n-devices`` > 1) parse as in JAX;
-the trainer raises on them, naming their ROADMAP Queue 1 item.
+flags parse as in JAX: ``--n-devices`` is the data-parallel width, one
+process a card (``torch.distributed.run``), and must equal the number of
+ranks; ``--fsdp`` and ``--tp`` > 1 raise, naming ROADMAP Queue 1 items 12b
+and 12c.
 """
 
 from __future__ import annotations
@@ -122,7 +124,7 @@ class TrainArgs:
     device: Optional[str] = None
 
     # parallelism
-    n_devices: Optional[int] = None   # default all
+    n_devices: Optional[int] = None   # default: every rank of the run
     # overlap host->device batch staging with compute (DevicePrefetcher,
     # the reference PrefetchLoader equivalent, training/data.py:42-107);
     # --no-input-prefetch restores synchronous per-step transfer

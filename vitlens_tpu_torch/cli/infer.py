@@ -6,8 +6,9 @@ across modalities and print the softmax similarity matrices of each pair:
       --ckpt audio=/path/vitlensL_audio.pt --ckpt text=/path/clip.bin
 
 The JAX CLI's flags, plus ``--device`` (default: the CUDA device) and
-``--precision`` (fp32, as JAX, or bf16). ``--data-parallel`` needs the
-parallel encode, not yet ported (ROADMAP Queue 1, item 12).
+``--precision`` (fp32, as JAX, or bf16). ``--data-parallel N`` splits each
+encode over the first N cards, a replica of each tower on each (with
+``--device cpu``, N chunks on the host).
 """
 
 from __future__ import annotations
@@ -64,10 +65,9 @@ def main(argv=None) -> int:
               if getattr(args, m)}
     if not inputs:
         parser.error("no inputs given")
-    if args.data_parallel:
-        raise NotImplementedError(
-            "--data-parallel needs the parallel encode, not yet ported: "
-            "ROADMAP Queue 1, item 12 (parallelism)")
+    from vitlens_tpu_torch.cli.serve import data_parallel_mesh
+
+    mesh = data_parallel_mesh(args.data_parallel, args.device)
     ckpts = {}
     for spec in args.ckpt:
         k, _, v = spec.partition("=")
@@ -76,7 +76,8 @@ def main(argv=None) -> int:
     from vitlens_tpu_torch.api import ViTLens
 
     model = ViTLens(model_var=args.model_var, modality_loaded=list(inputs),
-                    checkpoints=ckpts, device=args.device,
+                    checkpoints=ckpts, device=None if mesh else args.device,
+                    mesh=mesh,
                     compute_dtype=(torch.bfloat16 if args.precision == "bf16"
                                    else torch.float32))
     out = model.encode(inputs, normalize=True)

@@ -7,8 +7,11 @@ endpoint with cross-request micro-batching (see ``vitlens_tpu_torch/serve.py``).
 
 Pair ``--batch-buckets`` with ``--max-batch`` equal to the top bucket, so
 that coalesced batches land on warmed sizes. The model runs on the card
-unless ``--device cpu`` is given. SIGTERM or SIGINT drains the admitted
-requests and exits 0.
+unless ``--device cpu`` is given. ``--data-parallel N`` serves a replica of
+each tower on each of the first N cards (``cuda:0`` .. ``cuda:N-1``; with
+``--device cpu``, N chunks on the host), every device batch split into N
+contiguous chunks (``api.ViTLens(mesh=)``). SIGTERM or SIGINT drains the
+admitted requests and exits 0.
 """
 
 from __future__ import annotations
@@ -48,8 +51,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "of 2 up to --max-batch, so every coalesced batch "
                         "lands on a warmed size")
     p.add_argument("--data-parallel", type=int, default=0, metavar="N",
-                   help="shard device batches over N cards (not yet ported: "
-                        "ROADMAP Queue 1, item 12; 0 = one device)")
+                   help="split device batches over the first N cards, a "
+                        "replica of each tower on each (0 = one device)")
     p.add_argument("--request-timeout", type=float, default=600.0,
                    help="per-request default timeout in seconds; without "
                         "warmup it must cover the first call's kernel build")
@@ -78,12 +81,27 @@ def default_buckets(max_batch: int) -> list:
     return buckets
 
 
+def data_parallel_mesh(n: int, device=None):
+    """The local mesh of ``--data-parallel n`` (None for 0): the first n
+    CUDA devices, or n chunks on the CPU when ``device`` is the CPU."""
+    if not n:
+        return None
+    import torch
+
+    from vitlens_tpu_torch.parallel.mesh import make_mesh
+
+    if device is not None and torch.device(device).type == "cpu":
+        return make_mesh(devices=["cpu"] * n)
+    count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if count < n:
+        raise RuntimeError(f"--data-parallel {n}: {count} CUDA device(s) "
+                           "visible (pass --device cpu for the host)")
+    return make_mesh(devices=[f"cuda:{i}" for i in range(n)])
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.data_parallel:
-        raise NotImplementedError(
-            "--data-parallel: serving over several cards is not yet ported "
-            "(ROADMAP Queue 1, item 12, parallelism)")
+    mesh = data_parallel_mesh(args.data_parallel, args.device)
 
     ckpts = {}
     for spec in args.ckpt:
@@ -106,7 +124,8 @@ def main(argv=None) -> int:
     bf16 = args.precision == "bf16"
     model = ViTLens(model_var=args.model_var,
                     modality_loaded=list(args.modalities), checkpoints=ckpts,
-                    device=args.device, batch_buckets=buckets,
+                    device=None if mesh else args.device, mesh=mesh,
+                    batch_buckets=buckets,
                     compute_dtype=torch.bfloat16 if bf16 else torch.float32,
                     param_dtype=(torch.bfloat16
                                  if bf16 and args.model_var == "vitlensG"

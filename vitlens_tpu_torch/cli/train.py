@@ -1,6 +1,6 @@
-"""The trainer (port of vitlens_tpu/cli/train.py) on one device.
+"""The trainer (port of vitlens_tpu/cli/train.py).
 
-One entry point for every modality and objective of the single-device train step:
+One entry point for every modality and objective of the train step:
 build the model, the data and the step, run epochs, evaluate zero-shot at
 each epoch end, checkpoint epoch_N / epoch_latest / checkpoint_best, resume.
 Eval-only mode when --train-data is absent (reference audio_main.py:525-535).
@@ -13,10 +13,22 @@ Usage:
       --val-data esc50@fold-1::audiocaps@test
   python -m vitlens_tpu_torch.cli.train --modality pc --val-data modelnet40
 
+Data parallel over N cards, one process a card (the reference's DDP):
+  python -m torch.distributed.run --nproc-per-node N \
+      -m vitlens_tpu_torch.cli.train ... --batch-size 64
+joins the process group first (``parallel.mesh.init_distributed``: torchrun's
+or SLURM's variables; NCCL on the cards, gloo with --device cpu). --batch-size
+stays per replica; each rank loads its slice of the data, the step gathers
+the embeddings and averages the gradients over the ranks, the eval encodes a
+slice of each batch on each rank and gathers the features, rank 0 writes the
+logs, results and checkpoints (the others log to out.rank{r}.log), and a
+SIGTERM is agreed over the ranks. --n-devices, when given, must equal the
+number of ranks; --fsdp and --tp > 1 wait for ROADMAP Queue 1 items 12b and
+12c and raise.
+
 The step's randomness (FPS starts, train-time patch dropout) comes from one
-``torch.Generator`` on the device, seeded with --seed. The data-parallel and
-sharded flags (--fsdp, --tp > 1, --n-devices > 1) wait for the parallel work
-(ROADMAP Queue 1, item 12) and raise, naming it. --lora-rank > 0 trains
+``torch.Generator`` on the device, seeded with --seed + the rank (the
+reference seeds each rank so). --lora-rank > 0 trains
 rank-r factors on the --lora-towers' trunks alone (train/lora.py); a
 --pretrained tag that is no file resolves through the local cache
 (utils/hub.py).
@@ -37,6 +49,7 @@ from vitlens_tpu_torch.cli.args import TrainArgs, parse_args
 from vitlens_tpu_torch.config import make_model_config
 from vitlens_tpu_torch.data.loader import DataInfo, SyntheticDataset, build_loader
 from vitlens_tpu_torch.models import tri
+from vitlens_tpu_torch.parallel.mesh import map_rank_rows
 from vitlens_tpu_torch.train import checkpoint as C
 from vitlens_tpu_torch.train.freeze import tri_model_mask
 from vitlens_tpu_torch.train.step import (
@@ -55,8 +68,9 @@ MODALITY_BATCH_KEY = {"pc": "pc", "audio": "audio", "depth": "depth",
 def build_train_data(args: TrainArgs, tokenizer, n_shards: int,
                      cfg=None, proc_id: int = 0,
                      n_procs: int = 1) -> Optional[DataInfo]:
-    """n_shards = data-parallel replicas (1 here); the loader of this
-    process's slice of the batch (reference DistributedSampler semantics)."""
+    """n_shards = the global data-parallel replicas; the loader of this
+    process's 1/n_procs slice of the global batch (reference
+    DistributedSampler semantics: shard_id = rank)."""
     if not args.train_data:
         return None
     batch = args.batch_size * n_shards // n_procs
@@ -213,16 +227,20 @@ def _prep_batch(raw: Dict[str, Any], args: TrainArgs, tokenizer) -> Dict[str, An
     return batch
 
 
-def eval_encoders(args: TrainArgs, model):
+def eval_encoders(args: TrainArgs, model, mesh=None):
     """(encode_visual, encode_text) of the eval loops: numpy in, fp32 numpy
     features (not normalised) out, through the model's towers on its device
-    in the --precision compute dtype, without autograd."""
+    in the --precision compute dtype, without autograd. Over a mesh each
+    rank encodes its slice of the visual rows and the features gather
+    (``parallel.mesh.map_rank_rows``); the text encodes run whole on every
+    rank."""
     dt, dev = _dtype(args), model.logit_scale.device
 
     @torch.no_grad()
     def encode_visual(x):
         x = torch.as_tensor(np.asarray(x), dtype=torch.float32).to(dev)
-        return tri.encode_visual(model, x, compute_dtype=dt).float().cpu().numpy()
+        return map_rank_rows(mesh, lambda v: tri.encode_visual(
+            model, v, compute_dtype=dt), x).float().cpu().numpy()
 
     @torch.no_grad()
     def encode_text(toks):
@@ -235,18 +253,19 @@ def eval_encoders(args: TrainArgs, model):
 def evaluate(args: TrainArgs, model, cfg, tokenizer,
              mesh=None) -> Dict[str, float]:
     """Zero-shot eval on --val-data (dispatch on dataset.eval_metric), on the
-    model's device."""
+    model's device. Over a mesh every rank iterates the whole val set, each
+    encodes its slice of every visual (or image) batch and the features
+    gather (the reference shards eval over its ranks, zero_shot.py:709-788);
+    the metrics, computed alike on every rank from the gathered features,
+    do not merge again (``distributed=False``), and equal one device's."""
     if not args.val_data:
         return {}
-    if mesh is not None:
-        raise NotImplementedError("eval over a mesh is not yet ported: "
-                                  "ROADMAP Queue 1, item 12 (parallelism)")
     from vitlens_tpu_torch.eval.zero_shot import (
         build_zero_shot_classifier, classification_eval, map_eval,
         retrieval_eval,
     )
 
-    encode_visual, encode_text = eval_encoders(args, model)
+    encode_visual, encode_text = eval_encoders(args, model, mesh)
     dt, dev = _dtype(args), model.logit_scale.device
     results = {}
     for spec in args.val_data.split("::"):
@@ -262,9 +281,9 @@ def evaluate(args: TrainArgs, model, cfg, tokenizer,
             with torch.no_grad():
                 for b in info.dataloader:
                     img = torch.as_tensor(np.asarray(b["image"])).to(dev)
-                    img_feats.append(tri.encode_image(
-                        model, img, normalize=True,
-                        compute_dtype=dt).float().cpu().numpy())
+                    img_feats.append(map_rank_rows(mesh, lambda v: tri.encode_image(
+                        model, v, normalize=True, compute_dtype=dt),
+                        img).float().cpu().numpy())
                     txt_feats.append(encode_text(b["text"]))
             tf = np.concatenate(txt_feats)
             tf /= np.maximum(np.linalg.norm(tf, axis=1, keepdims=True), 1e-12)
@@ -373,12 +392,23 @@ def _flatten_results(results: Dict[str, Dict]) -> Dict[str, float]:
     return flat
 
 
-def check_supported(args: TrainArgs) -> None:
-    """Raise on the flags whose work is not yet ported, naming its item."""
-    if args.fsdp or args.tp > 1 or (args.n_devices or 1) > 1:
+def check_supported(args: TrainArgs, world: Optional[int] = None) -> None:
+    """Raise on the flags whose work is not yet ported, naming its item,
+    and on an --n-devices that is not the ``world`` of ranks (when
+    given)."""
+    if args.fsdp:
         raise NotImplementedError(
-            "--fsdp, --tp > 1 and --n-devices > 1 need the parallel train "
-            "step, not yet ported: ROADMAP Queue 1, item 12 (parallelism)")
+            "--fsdp: the FSDP train step is not yet ported: ROADMAP Queue 1, "
+            "item 12b (FSDP2)")
+    if args.tp > 1:
+        raise NotImplementedError(
+            "--tp > 1: tensor parallelism is not yet ported: ROADMAP Queue 1, "
+            "item 12c (TP/SP)")
+    if world is not None and args.n_devices not in (None, world):
+        raise ValueError(
+            f"--n-devices {args.n_devices} but the run has {world} rank(s): "
+            "data parallelism runs one process a card; launch with python -m "
+            f"torch.distributed.run --nproc-per-node {args.n_devices}")
 
 
 def build_model(args: TrainArgs, device):
@@ -456,10 +486,11 @@ def attach_lora(args: TrainArgs, model, mask):
     return {n: mask[n] for n, _ in model.named_parameters()}
 
 
-def build_step(args: TrainArgs, model, cfg, mask, total_steps: int):
-    """(step, state): the optimizer and the single-device step of the
-    recipe's flags; the model's trainable parameters become fp32 masters and
-    its frozen matmul weights are cast to the compute dtype."""
+def build_step(args: TrainArgs, model, cfg, mask, total_steps: int, mesh=None):
+    """(step, state): the optimizer and the step of the recipe's flags (over
+    ``mesh``, the data-parallel one); the model's trainable parameters
+    become fp32 masters and its frozen matmul weights are cast to the
+    compute dtype."""
     from vitlens_tpu_torch.factory import make_trainable_
 
     tx, mask = make_optimizer(
@@ -478,13 +509,16 @@ def build_step(args: TrainArgs, model, cfg, mask, total_steps: int):
         # (reference create_loss keyed on exp_args, factory.py:750-851)
         contra_loss_type=("distill_token" if args.video_distill
                           else args.contra_loss_type),
+        local_loss=args.local_loss,
         sim_thres=args.sim_thres, accum_freq=args.accum_freq,
         video_distill=args.video_distill,
         compute_dtype=_dtype(args),
         remat=(args.remat_policy if args.grad_checkpointing
                and args.remat_policy != "full" else args.grad_checkpointing),
+        sync_bn=args.use_bn_sync and mesh is not None,
     )
-    return make_train_step(cfg, tx, mask, sc), init_train_state(model, tx)
+    return (make_train_step(cfg, tx, mask, sc, mesh=mesh),
+            init_train_state(model, tx))
 
 
 def main(argv=None) -> int:
@@ -506,17 +540,49 @@ def main(argv=None) -> int:
 
 
 def _main(argv=None) -> int:
+    import torch.distributed as dist
+
     from vitlens_tpu_torch.factory import cast_matmul_weights_, resolve_device
+    from vitlens_tpu_torch.parallel import mesh as PM
 
     args = parse_args(argv)
     check_supported(args)
-    device = resolve_device(args.device)
+    # join the process group before anything touches the device (torchrun's
+    # or SLURM's variables; a no-op for one process or a group already up)
+    owns_group = not (dist.is_available() and dist.is_initialized())
+    rank = PM.init_distributed(device=args.device)
+    owns_group = owns_group and dist.is_initialized()
+    try:
+        return _train(args, rank, resolve_device, cast_matmul_weights_, PM)
+    finally:
+        if owns_group:
+            dist.destroy_process_group()
+
+
+def _train(args: TrainArgs, rank: int, resolve_device, cast_matmul_weights_,
+           PM) -> int:
+    world = PM.process_count()
+    check_supported(args, world)
+    mesh = PM.make_mesh(device=args.device) if world > 1 else None
+    device = mesh.device if mesh is not None else resolve_device(args.device)
+    is_rank0 = rank == 0
     name = args.name or f"{args.modality}_{args.model}_{time.strftime('%Y%m%d_%H%M%S')}"
+    if not args.name and world > 1:
+        # the timestamp is each rank's own: agree on rank 0's, or the run
+        # splits over several log and checkpoint directories
+        name = PM.broadcast_object(name)
     log_dir = os.path.join(args.logs, name)
-    setup_logging(os.path.join(log_dir, "out.log"))
-    dump_params(log_dir, vars(args))
+    # rank 0 owns out.log and params.txt (reference is_master gating); the
+    # others log to their own file so that a shared directory never
+    # interleaves
+    setup_logging(os.path.join(log_dir, "out.log" if is_rank0
+                               else f"out.rank{rank}.log"))
+    if is_rank0:
+        dump_params(log_dir, vars(args))
 
     cfg, tokenizer, model, mask = build_model(args, device)
+    if mesh is not None:  # the same weights on every rank, rank 0's
+        PM.replicate(mesh, model)
     log_param_census(model, mask)
 
     if args.visual_stat_flops:
@@ -538,34 +604,39 @@ def _main(argv=None) -> int:
         print(_json.dumps(out))
         return 0
 
-    train_info = build_train_data(args, tokenizer, 1, cfg)
+    train_info = build_train_data(args, tokenizer, world, cfg, proc_id=rank,
+                                  n_procs=world)
     if train_info is None:
         cast_matmul_weights_(model, _dtype(args))
-        results = evaluate(args, model, cfg, tokenizer)
+        results = evaluate(args, model, cfg, tokenizer, mesh=mesh)
         flat = {(os.path.basename(k) if os.path.sep in k else k):
                 _primary_metric({k: v}) for k, v in results.items()}
         flat.update(_flatten_results(results))
-        MetricsWriter(log_dir).log(flat, 0, "val")
+        if is_rank0:  # one appender to the shared results.jsonl
+            MetricsWriter(log_dir).log(flat, 0, "val")
         return 0
 
     steps_per_epoch = train_info.num_batches
     step, ts = build_step(args, model, cfg, mask,
-                          total_steps=steps_per_epoch * args.epochs)
+                          total_steps=steps_per_epoch * args.epochs, mesh=mesh)
 
     ckpt_dir = os.path.join(log_dir, "checkpoints")
     start_epoch = 0
     if args.resume:
         path = (C.get_latest_checkpoint(ckpt_dir) if args.resume == "latest"
                 else args.resume)
+        if world > 1:  # every rank resumes from rank 0's choice
+            path = PM.broadcast_object(path)
         if path:
             ts = C.load_checkpoint(path, ts, ckpt_only=args.resume_ckpt_only)
             start_epoch = C.load_meta(path).get("epoch", 0)
             logging.info(f"resumed from {path} (epoch {start_epoch})")
-    writer = MetricsWriter(log_dir, use_tensorboard="tensorboard" in args.report_to)
-    meter = ThroughputMeter(n_chips=1)
-    saver = C.AsyncSaver()
+    writer = (MetricsWriter(log_dir, use_tensorboard="tensorboard" in args.report_to)
+              if is_rank0 else None)
+    meter = ThroughputMeter(n_chips=world)
+    saver = C.AsyncSaver() if is_rank0 else None
     sync_stop = None
-    if args.remote_sync:
+    if args.remote_sync and is_rank0:
         sync_stop = C.start_remote_sync(ckpt_dir, args.remote_sync,
                                         args.remote_sync_frequency)
 
@@ -583,7 +654,14 @@ def _main(argv=None) -> int:
         except ValueError:
             pass
 
-    gen = torch.Generator(device=device).manual_seed(args.seed)
+    def preempt_agreed() -> bool:
+        if world == 1:
+            return got_sigterm["flag"]
+        # the ranks may get SIGTERM at different steps (or only some of
+        # them): agree, so that every rank stops at the same step or none
+        return any(PM.all_gather_object(got_sigterm["flag"]))
+
+    gen = torch.Generator(device=device).manual_seed(args.seed + rank)
     global_step = int(ts.step)
     trace = None
     preempted = False
@@ -595,13 +673,15 @@ def _main(argv=None) -> int:
             from vitlens_tpu_torch.data.loader import DevicePrefetcher
 
             batches = DevicePrefetcher(
-                train_info.dataloader, device=device,
+                train_info.dataloader, mesh=mesh,
+                device=None if mesh is not None else device,
                 map_fn=lambda raw: _prep_batch(raw, args, tokenizer))
         else:
             batches = (_prep_batch(raw, args, tokenizer)
                        for raw in train_info.dataloader)
         for batch in batches:
-            if args.profile_steps and global_step == 2 and trace is None:
+            if (args.profile_steps and global_step == 2 and trace is None
+                    and is_rank0):
                 # steady state: step 0 builds the kernels, step 1 warms caches
                 trace = start_trace()
             ts, metrics = step(ts, batch, fps_generator=gen)
@@ -612,47 +692,58 @@ def _main(argv=None) -> int:
                 trace = None
             if global_step % args.log_every_n_steps == 0:
                 sps, spsc = meter.tick_step(
-                    args.batch_size * args.log_every_n_steps)
+                    args.batch_size * world * args.log_every_n_steps)
                 m = {k: float(v) for k, v in metrics.items()}
                 m.update({"samples_per_s": sps, "samples_per_s_chip": spsc,
                           "epoch": epoch})
-                writer.log(m, global_step, "train")
+                if is_rank0:
+                    writer.log(m, global_step, "train")
                 logging.info(
                     f"epoch {epoch} step {global_step}: "
                     + ", ".join(f"{k}={v:.4f}" for k, v in m.items()))
-            if args.preempt_sync_every > 0 and got_sigterm["flag"]:
+            # one process: the flag is free to read every step; several:
+            # the agreement is a collective, every preempt_sync_every steps
+            if (args.preempt_sync_every > 0
+                    and (world == 1 or global_step % args.preempt_sync_every == 0)
+                    and preempt_agreed()):
                 logging.info(f"SIGTERM: checkpointing at step {global_step} "
                              f"(epoch {epoch} incomplete) and exiting")
-                tag = f"preempt_step_{global_step}"
-                extra = {"preempt_step": global_step}
-                # meta epoch = completed epochs -> resume restarts this one;
-                # through the saver queue: an epoch-end save may be in flight
-                host = C.snapshot(ts)
-                saver.submit(lambda s=host, e=epoch:
-                             C.save_checkpoint(ckpt_dir, s, e, is_latest=True,
-                                               extra=extra, tag=tag))
+                if is_rank0:
+                    tag = f"preempt_step_{global_step}"
+                    extra = {"preempt_step": global_step}
+                    # meta epoch = completed epochs -> resume restarts this
+                    # one; through the saver queue: an epoch-end save may be
+                    # in flight
+                    host = C.snapshot(ts)
+                    saver.submit(lambda s=host, e=epoch:
+                                 C.save_checkpoint(ckpt_dir, s, e, is_latest=True,
+                                                   extra=extra, tag=tag))
                 preempted = True
                 break
         if preempted:
             break
-        # end epoch: eval + ckpt; the host snapshot is synchronous (the next
-        # step updates the parameters in place), the disk write happens on
-        # the saver worker so the next epoch starts immediately
-        host_ts = C.snapshot(ts)
+        # end epoch: eval + ckpt; rank 0's host snapshot is synchronous (the
+        # next step updates the parameters in place), the disk write happens
+        # on the saver worker so the next epoch starts immediately
+        host_ts = C.snapshot(ts) if is_rank0 else None
         if args.val_data and (epoch + 1) % args.val_frequency == 0:
-            results = evaluate(args, model, cfg, tokenizer)
+            results = evaluate(args, model, cfg, tokenizer, mesh=mesh)
             metric = _primary_metric(results)
-            writer.log({"primary": metric, **_flatten_results(results)},
-                       global_step, "val")
-            saver.submit(lambda s=host_ts, e=epoch + 1, m=metric:
-                         C.save_best(ckpt_dir, s, e, m))
-        if (epoch + 1) % args.save_frequency == 0 or args.save_most_recent:
+            if is_rank0:
+                writer.log({"primary": metric, **_flatten_results(results)},
+                           global_step, "val")
+                saver.submit(lambda s=host_ts, e=epoch + 1, m=metric:
+                             C.save_best(ckpt_dir, s, e, m))
+        if is_rank0 and ((epoch + 1) % args.save_frequency == 0
+                         or args.save_most_recent):
             saver.submit(lambda s=host_ts, e=epoch + 1:
                          C.save_checkpoint(ckpt_dir, s, e,
                                            is_latest=args.save_most_recent))
     if trace is not None:  # --profile-steps exceeded the run length
         stop_trace(trace, os.path.join(log_dir, "trace"))
-    saver.close()  # drain pending writes; re-raises a failed save
+    if saver is not None:
+        saver.close()  # drain pending writes; re-raises a failed save
+    PM.barrier()  # rank 0's checkpoints are on disk before any rank goes on
     if sync_stop is not None:
         sync_stop.set()
     return 0

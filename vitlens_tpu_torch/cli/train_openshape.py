@@ -17,10 +17,16 @@ per-class text embeddings. ``--resume latest|PATH`` loads the weights and
 starts at the saved epoch; the optimizer and its schedule count restart at
 0, as in JAX. Without --train-files the run is eval-only (``--resume`` then
 names the checkpoint to evaluate). Every FPS start comes from one
-``torch.Generator`` on the device, seeded with --seed. More than one CUDA
-device (JAX's mesh path) waits for the parallel work (ROADMAP Queue 1, item
-12), and ``--use-mask`` with ``--negative-sample-num > 1`` raises, as in
-JAX.
+``torch.Generator`` on the device, seeded with --seed + the rank.
+``--use-mask`` with ``--negative-sample-num > 1`` raises, as in JAX.
+
+Over N cards, one process a card (JAX shards its step over every device):
+  python -m torch.distributed.run --nproc-per-node N \
+      -m vitlens_tpu_torch.cli.train_openshape --train-files ... --batch-size 16
+each rank loads its --batch-size objects of a global batch of --batch-size x
+N, the contrastive loss gathers the features over the ranks, BatchNorm
+syncs its moments and the gradients are averaged; rank 0 logs, evaluates
+and writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -124,10 +130,11 @@ def build_model(args, tower, device) -> torch.nn.Module:
     return model
 
 
-def build_optimizer(args, model, total_steps: int):
+def build_optimizer(args, model, total_steps: int, mesh=None):
     """(tx, opt_state, step): JAX's chain of clip_by_global_norm(1.0) and
     adamw(cosine, --wd, the ndim >= 2 mask), with --trunk-lr-scale on
-    CLIPBind's trunk; every parameter trains."""
+    CLIPBind's trunk; every parameter trains. Over ``mesh`` the step is the
+    data-parallel one."""
     model.requires_grad_(True)
     lr_scale = (OS.trunk_lr_scale(model, args.trunk_lr_scale)
                 if args.pc_model == "clipbind"
@@ -138,7 +145,7 @@ def build_optimizer(args, model, total_steps: int):
     step = OS.make_openshape_step(
         tx, text_weight=args.text_weight, image_weight=args.image_weight,
         use_text_proj=args.use_text_proj, use_image_proj=args.use_image_proj,
-        compute_dtype=_dtype(args))
+        compute_dtype=_dtype(args), mesh=mesh)
     return tx, tx.init(model), step
 
 
@@ -146,15 +153,9 @@ def _dtype(args):
     return torch.bfloat16 if args.precision == "bf16" else torch.float32
 
 
-def check_supported(args, n_devices: int) -> None:
-    """Raise on what the single-device port does not run: JAX shards the
-    step over every device it sees; the kNN-grouped sampler that --use-mask
-    with k > 1 needs exists in neither package."""
-    if n_devices > 1:
-        raise NotImplementedError(
-            f"{n_devices} CUDA devices: the data-parallel OpenShape step is "
-            "not yet ported (ROADMAP Queue 1, item 12, parallelism); make "
-            "one device visible (CUDA_VISIBLE_DEVICES)")
+def check_supported(args) -> None:
+    """Raise on what neither package runs: the kNN-grouped sampler that
+    --use-mask with k > 1 needs."""
     if args.use_mask and args.negative_sample_num > 1:
         raise NotImplementedError(
             "--use-mask with --negative-sample-num > 1 needs kNN-"
@@ -164,16 +165,39 @@ def check_supported(args, n_devices: int) -> None:
 
 
 def main(argv=None) -> int:
-    from vitlens_tpu_torch.factory import resolve_device
+    import torch.distributed as dist
+
+    from vitlens_tpu_torch.parallel import mesh as PM
 
     args = build_args(argv)
-    device = resolve_device(args.device)
+    owns_group = not (dist.is_available() and dist.is_initialized())
+    rank = PM.init_distributed(device=args.device)
+    owns_group = owns_group and dist.is_initialized()
+    try:
+        return _run(args, rank, PM)
+    finally:
+        if owns_group:
+            dist.destroy_process_group()
+
+
+def _run(args, rank: int, PM) -> int:
+    from vitlens_tpu_torch.factory import resolve_device
+
+    world = PM.process_count()
+    mesh = PM.make_mesh(device=args.device) if world > 1 else None
+    device = mesh.device if mesh is not None else resolve_device(args.device)
+    is_rank0 = rank == 0
     name = args.name or f"openshape_{time.strftime('%Y%m%d_%H%M%S')}"
+    if not args.name and world > 1:
+        name = PM.broadcast_object(name)
     log_dir = os.path.join(args.logs, name)
-    setup_logging(os.path.join(log_dir, "out.log"))
+    setup_logging(os.path.join(log_dir, "out.log" if is_rank0
+                               else f"out.rank{rank}.log"))
 
     tower = tower_config(args)
     model = build_model(args, tower, device)
+    if mesh is not None:  # the same weights on every rank, rank 0's
+        PM.replicate(mesh, model)
     files = sorted(glob.glob(args.train_files)) if args.train_files else []
     if not files:
         # eval-only mode (reference inference.py:77-230)
@@ -181,12 +205,12 @@ def main(argv=None) -> int:
             C.load_checkpoint(args.resume, model)
             logging.info(f"loaded {args.resume}")
         if args.eval_feats and args.eval_files and args.eval_labels:
-            _run_eval(args, model, MetricsWriter(log_dir), 0)
+            if is_rank0:
+                _run_eval(args, model, MetricsWriter(log_dir), 0)
             return 0
         logging.info("no training files and no eval spec; nothing to do")
         return 0
-    check_supported(args, torch.cuda.device_count() if device.type == "cuda"
-                    else 1)
+    check_supported(args)
     ckpt_dir = os.path.join(log_dir, "checkpoints")
     start_epoch = 0
     if args.resume:
@@ -194,6 +218,8 @@ def main(argv=None) -> int:
         # optimizer state, so the optimizer and its schedule restart
         path = (C.get_latest_checkpoint(ckpt_dir) if args.resume == "latest"
                 else args.resume)
+        if world > 1:
+            path = PM.broadcast_object(path)
         if path:
             C.load_checkpoint(path, model)
             start_epoch = int(C.load_meta(path).get("epoch", 0))
@@ -203,22 +229,23 @@ def main(argv=None) -> int:
             raise FileNotFoundError(args.resume)
     ds = OS.OpenShapeTripletDataset(files, npoints=args.npoints, seed=args.seed)
     info = build_loader(ds, batch_size=args.batch_size, shuffle=True,
-                        seed=args.seed)
+                        seed=args.seed, shard_id=rank, n_shards=world)
     tx, opt_state, step = build_optimizer(args, model,
-                                          info.num_batches * args.epochs)
+                                          info.num_batches * args.epochs, mesh)
     if args.use_mask:
         logging.info("--use-mask with negative-sample-num=1 is a no-op "
                      "(reference mask_other = eye|~kron is all-ones at "
                      "k=1); continuing unmasked")
 
-    writer = MetricsWriter(log_dir)
-    meter = ThroughputMeter(n_chips=1)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
+    writer = MetricsWriter(log_dir) if is_rank0 else None
+    meter = ThroughputMeter(n_chips=world)
+    gen = torch.Generator(device=device).manual_seed(args.seed + rank)
     gstep = start_epoch * info.num_batches
     for epoch in range(start_epoch, args.epochs):
         info.set_epoch(epoch)
         batches = DevicePrefetcher(
-            info.dataloader, device=device,
+            info.dataloader, mesh=mesh,
+            device=None if mesh is not None else device,
             map_fn=lambda raw: {k: raw[k] for k in BATCH_KEYS})
         for batch in batches:
             metrics = step(model, opt_state, batch, fps_generator=gen)
@@ -226,15 +253,18 @@ def main(argv=None) -> int:
             if gstep % args.log_every_n_steps == 0:
                 m = {k: float(v) for k, v in metrics.items()}
                 m["samples_per_s"], _ = meter.tick_step(
-                    args.batch_size * args.log_every_n_steps)
-                writer.log(m, gstep)
+                    args.batch_size * world * args.log_every_n_steps)
+                if is_rank0:
+                    writer.log(m, gstep)
                 logging.info(f"epoch {epoch} step {gstep}: " + ", ".join(
                     f"{k}={v:.4f}" for k, v in m.items()))
-        C.save_checkpoint(ckpt_dir, C.snapshot(
-            {"params": dict(model.named_parameters()),
-             "state": dict(model.named_buffers())}), epoch + 1)
-        if args.eval_feats and args.eval_files and args.eval_labels:
-            _run_eval(args, model, writer, gstep)
+        if is_rank0:
+            C.save_checkpoint(ckpt_dir, C.snapshot(
+                {"params": dict(model.named_parameters()),
+                 "state": dict(model.named_buffers())}), epoch + 1)
+            if args.eval_feats and args.eval_files and args.eval_labels:
+                _run_eval(args, model, writer, gstep)
+        PM.barrier()  # rank 0's checkpoint is on disk before any rank goes on
     return 0
 
 

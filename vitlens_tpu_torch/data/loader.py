@@ -188,19 +188,22 @@ class DevicePrefetcher:
     without it the caching allocator could hand the tensor's memory to the
     side stream's next copy while the consumer's kernels still read it. On
     the CPU (``device`` None or "cpu") the prefetcher is a pass-through of
-    the mapped batches. ``mesh`` is the data-parallel placement, not yet
-    ported (ROADMAP Queue 1, item 12)."""
+    the mapped batches. ``mesh`` (a ``parallel.mesh.Mesh``) places on this
+    rank's device: the loader already holds this rank's slice of the
+    global batch (``build_loader(shard_id=rank, n_shards=world)``)."""
 
     def __init__(self, loader: Iterable, mesh=None, exclude_keys=(),
                  depth: int = 1, map_fn: Optional[Callable] = None,
                  device=None):
         # depth=1 already gives full overlap (stage N+1 while N computes) at
         # a 2-batch device watermark, the same as the synchronous path
-        if mesh is not None:
-            raise NotImplementedError(
-                "sharding batches over a mesh is not yet ported: ROADMAP "
-                "Queue 1, item 12 (parallelism)")
         import torch
+
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.device}")
+            device = mesh.device
 
         self.loader = loader
         self.exclude = set(exclude_keys)

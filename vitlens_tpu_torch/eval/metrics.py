@@ -4,10 +4,10 @@ vitlens_tpu/eval/metrics.py, numpy on the host as there).
 Re-design of the reference metric accumulators
 (open_clip/metrics/{accuracy,map,recall}.py): pure numpy accumulators on the
 host (the eval loops move features device->host once per batch). The merge
-across processes is the identity in one process; with more than one
-``torch.distributed`` process it raises, as the parallel work is not yet
-ported (ROADMAP Queue 1, item 12). sklearn is not required — AP is computed
-from the precision-recall definition it implements.
+across processes is the identity in one process, and an all-gather of the
+numpy results over the ``torch.distributed`` group with more (each process
+having seen its own samples). sklearn is not required — AP is computed from
+the precision-recall definition it implements.
 """
 
 from __future__ import annotations
@@ -15,6 +15,9 @@ from __future__ import annotations
 from typing import Dict, List
 
 import numpy as np
+
+from vitlens_tpu_torch.parallel.mesh import all_gather_object as _all_gather_object
+from vitlens_tpu_torch.parallel.mesh import process_count
 
 
 def average_precision(targets: np.ndarray, scores: np.ndarray) -> float:
@@ -75,7 +78,7 @@ class Accuracy:
     class ids [N] or multi-hot [N, C] (correct if predicted class is hot).
 
     distributed=False skips the cross-process merge: the CLI's mesh eval
-    runs every rank over the FULL val set in lockstep (collective jits),
+    gathers every rank's features of the FULL val set before the metrics,
     so merging would count each sample process_count times."""
 
     def __init__(self, distributed: bool = True):
@@ -233,25 +236,20 @@ def clip_val_metrics(image_features: np.ndarray, text_features: np.ndarray,
 
 
 def _n_processes() -> int:
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return 1
-
-
-def _single_process() -> None:
-    if _n_processes() > 1:
-        raise NotImplementedError(
-            "merging eval metrics across processes is not yet ported: "
-            "ROADMAP Queue 1, item 12 (parallelism)")
+    return process_count()
 
 
 def _dist_concat(arr: np.ndarray) -> np.ndarray:
-    _single_process()
-    return arr
+    if _n_processes() == 1:
+        return arr
+    return np.concatenate(_all_gather_object(np.asarray(arr)), axis=0)
 
 
 def _dist_merge(score_sum, score_cnt, ids, hyps):
-    _single_process()
-    return score_sum, score_cnt, ids, hyps
+    if _n_processes() == 1:
+        return score_sum, score_cnt, ids, hyps
+    parts = _all_gather_object((float(score_sum), int(score_cnt),
+                                np.asarray(ids), np.asarray(hyps)))
+    return (float(sum(p[0] for p in parts)), int(sum(p[1] for p in parts)),
+            np.concatenate([p[2] for p in parts]),
+            np.concatenate([p[3] for p in parts]))

@@ -12,6 +12,10 @@ constructor plus generic runners dispatched by `eval_metric` in
 Runners take callables + batch iterables, so they work with any tower and
 any data pipeline. Classifier logits intentionally use the plain feature
 inner product (reference uses `feat @ text.T`, scale-free for argmax).
+``distributed=True`` (the default) merges the metrics over the process
+group, each process having seen its own samples; the trainer's eval over a
+mesh gathers every rank's features of the whole val set first and passes
+False, as JAX's does, so that no sample counts once a rank.
 """
 
 from __future__ import annotations

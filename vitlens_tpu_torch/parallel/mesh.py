@@ -1,0 +1,492 @@
+"""Data-parallel runtime (port of vitlens_tpu/parallel/mesh.py).
+
+JAX's mesh is single-controller: one process drives every local device and
+``shard_map`` splits the batch. The port maps it onto PyTorch's idiom in two
+ways, both behind one :class:`Mesh`:
+
+- Training runs one process per rank (``torch.distributed``).
+  :func:`init_distributed` reads the torchrun or SLURM environment and joins
+  the process group (NCCL for a rank on the card, gloo on the CPU);
+  ``make_mesh()`` is then that group: ``data`` is the world size, the device
+  is this rank's, and each rank feeds its own slice of the global batch.
+  The collectives of the losses and BatchNorm are autograd-aware
+  (:func:`all_gather`, :func:`all_reduce_mean`), and
+  :func:`average_gradients_` all-reduces the trainable gradients in buckets.
+- Serving and ``infer`` run one process with a replica of each tower on each
+  device of the mesh: ``make_mesh(devices=[...])`` lists them. Rows pad to a
+  multiple of ``data``, split into contiguous chunks, one a device, and the
+  results gather on the first device (``api.ViTLens(mesh=)``).
+
+The ``model`` axis (tensor parallelism) waits for ROADMAP Queue 1 item 12c;
+FSDP for 12b.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import re
+from dataclasses import dataclass
+from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+DATA_AXIS = "data"
+MODEL_AXIS = "model"
+DEFAULT_PORT = 29500   # torchrun's
+DEFAULT_TIMEOUT_S = 600.0
+BUCKET_ELEMS = 1 << 24  # fp32 elements of one gradient all-reduce (64 MB)
+
+
+# ---------------------------------------------------------------------------
+# process bootstrap
+# ---------------------------------------------------------------------------
+
+
+def slurm_first_host(nodelist: str) -> str:
+    """The first host of a SLURM compressed node list, the rank-0 node that
+    JAX's SlurmCluster plugin takes as coordinator: ``node[03-06,09]`` ->
+    ``node03``, ``a1,b2`` -> ``a1``, ``gpu-[7,9]-x`` -> ``gpu-7-x``."""
+    nodelist = nodelist.strip()
+    if not nodelist:
+        raise ValueError("empty SLURM node list")
+    depth, end = 0, len(nodelist)
+    for i, c in enumerate(nodelist):  # the first entry: up to a top-level ","
+        depth += (c == "[") - (c == "]")
+        if c == "," and depth == 0:
+            end = i
+            break
+    first = nodelist[:end]
+    m = re.match(r"^(.*?)\[([^\]]*)\](.*)$", first)
+    if m is None:
+        return first
+    prefix, ranges, rest = m.groups()
+    lo = ranges.split(",")[0].split("-")[0]
+    return slurm_first_host(prefix + lo + rest) if "[" in rest else prefix + lo + rest
+
+
+class DistEnv(NamedTuple):
+    """What the environment says of this process's place in a run."""
+    address: str      # host:port of rank 0's store
+    world_size: int
+    rank: int
+    local_rank: int
+
+
+def distributed_env(env: Optional[Mapping[str, str]] = None) -> Optional[DistEnv]:
+    """The run the environment describes, or None for one process (the
+    discovery order of JAX's ``init_distributed``):
+
+    - torchrun-style ``WORLD_SIZE`` > 1 with ``RANK`` and ``MASTER_ADDR``
+      (``MASTER_PORT``, default 29500) or ``COORDINATOR_ADDRESS``
+      (host:port); the local device index from ``LOCAL_RANK``;
+    - SLURM's ``SLURM_NTASKS`` > 1 with ``SLURM_PROCID`` and
+      ``SLURM_LOCALID``; the address from ``COORDINATOR_ADDRESS`` or
+      ``MASTER_ADDR``, else the first host of ``SLURM_STEP_NODELIST`` (or
+      ``SLURM_JOB_NODELIST``) at ``MASTER_PORT``.
+
+    ``WORLD_SIZE`` > 1 with no address or no ``RANK`` raises: N independent
+    single-process jobs would duplicate the data and clobber each other's
+    checkpoints."""
+    env = os.environ if env is None else env
+    addr = env.get("COORDINATOR_ADDRESS") or None
+    port = env.get("MASTER_PORT") or str(DEFAULT_PORT)
+    if env.get("WORLD_SIZE", "1") not in ("", "1"):
+        if not (addr or env.get("MASTER_ADDR")):
+            raise RuntimeError(
+                f"WORLD_SIZE={env['WORLD_SIZE']} but neither MASTER_ADDR nor "
+                "COORDINATOR_ADDRESS is set: cannot join the process group")
+        if "RANK" not in env:
+            raise RuntimeError(
+                f"WORLD_SIZE={env['WORLD_SIZE']} but RANK is not set: every "
+                "process needs its torchrun-style rank")
+        return DistEnv(addr or f"{env['MASTER_ADDR']}:{port}",
+                       int(env["WORLD_SIZE"]), int(env["RANK"]),
+                       int(env.get("LOCAL_RANK", "0")))
+    if env.get("SLURM_NTASKS", "1") not in ("", "1"):
+        if not addr and env.get("MASTER_ADDR"):
+            addr = f"{env['MASTER_ADDR']}:{port}"
+        if not addr:
+            nodes = env.get("SLURM_STEP_NODELIST") or env.get("SLURM_JOB_NODELIST")
+            if not nodes:
+                raise RuntimeError(
+                    f"SLURM_NTASKS={env['SLURM_NTASKS']} but no "
+                    "COORDINATOR_ADDRESS, MASTER_ADDR or SLURM_STEP_NODELIST "
+                    "names rank 0's host: export COORDINATOR_ADDRESS "
+                    "(host:port of rank 0) in the sbatch script")
+            addr = f"{slurm_first_host(nodes)}:{port}"
+        return DistEnv(addr, int(env["SLURM_NTASKS"]), int(env["SLURM_PROCID"]),
+                       int(env.get("SLURM_LOCALID", "0")))
+    return None
+
+
+def rank_device(local_rank: int, device=None) -> torch.device:
+    """This rank's device: ``cuda:<local_rank>`` unless ``device`` names the
+    CPU (or another device). A local index past the visible cards raises."""
+    if device is not None:
+        device = torch.device(device)
+        if device.type != "cuda" or device.index is not None:
+            return device
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device for this rank; pass device='cpu' "
+                           "to train on the host")
+    if local_rank >= torch.cuda.device_count():
+        raise RuntimeError(
+            f"local rank {local_rank} has no device: {torch.cuda.device_count()} "
+            "CUDA device(s) visible")
+    return torch.device("cuda", local_rank)
+
+
+def init_distributed(device=None, timeout_s: float = DEFAULT_TIMEOUT_S) -> int:
+    """Join the process group the environment describes
+    (:func:`distributed_env`) and return this process's rank: NCCL when the
+    rank's device (:func:`rank_device`) is CUDA, gloo on the CPU; a CUDA
+    rank's device becomes the current one. A no-op returning the rank when
+    a group is already initialised (the caller set it up), and returning 0
+    for one process."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    de = distributed_env()
+    if de is None:
+        return 0
+    dev = rank_device(de.local_rank, device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "nccl" if dev.type == "cuda" else "gloo",
+        init_method=f"tcp://{de.address}", world_size=de.world_size,
+        rank=de.rank, timeout=datetime.timedelta(seconds=timeout_s))
+    return de.rank
+
+
+def process_index() -> int:
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
+def process_count() -> int:
+    return (dist.get_world_size() if dist.is_available() and dist.is_initialized()
+            else 1)
+
+
+# ---------------------------------------------------------------------------
+# the mesh
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """A ``data`` axis of ``data`` replicas (``model`` is 1).
+
+    A mesh that spans processes (``group`` set, from :func:`make_mesh` after
+    :func:`init_distributed`) is one process a rank: ``rank`` is this
+    process's index and ``devices`` holds its one device. A local mesh
+    (``group`` None) lists every device of the axis in this process; a
+    device may repeat, and then its replicas share that device."""
+    devices: Tuple[torch.device, ...]
+    data: int
+    rank: int = 0
+    group: Any = None
+    model: int = 1
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {DATA_AXIS: self.data, MODEL_AXIS: self.model}
+
+    @property
+    def device(self) -> torch.device:
+        """This rank's device (the first device of a local mesh)."""
+        return self.devices[0]
+
+    @property
+    def spans_processes(self) -> bool:
+        return self.group is not None
+
+    @property
+    def backend(self) -> Optional[str]:
+        return dist.get_backend(self.group) if self.group is not None else None
+
+
+def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
+              devices: Optional[Sequence[Any]] = None, device=None) -> Mesh:
+    """The data mesh. With ``devices`` (e.g. ``["cuda:0", "cuda:1"]``, or
+    ``["cpu", "cpu"]``): a local mesh over the first ``n_data`` of them.
+    Without, in an initialised process group: the group, one rank a process
+    (``n_data``, when given, must be the world size), on ``device`` (by
+    default the current CUDA device under NCCL, the CPU otherwise; ``cuda``
+    without an index is the current one). Without either: a local mesh over
+    the visible CUDA devices."""
+    if n_model != 1:
+        raise NotImplementedError(
+            "a model axis (tensor and sequence parallelism) is not yet "
+            "ported: ROADMAP Queue 1, item 12c")
+    if devices is None and dist.is_available() and dist.is_initialized():
+        world = dist.get_world_size()
+        if n_data not in (None, world):
+            raise ValueError(f"n_data={n_data} but the process group has "
+                             f"{world} ranks: one rank a replica")
+        dev = torch.device(device if device is not None else
+                           "cuda" if dist.get_backend() == "nccl" else "cpu")
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        return Mesh(devices=(dev,), data=world, rank=dist.get_rank(),
+                    group=dist.group.WORLD)
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device for the mesh; pass devices="
+                               "['cpu', ...] for the host")
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    devices = [torch.device(d) for d in devices]
+    n = len(devices) if n_data is None else n_data
+    if not 1 <= n <= len(devices):
+        raise ValueError(f"n_data={n_data} with {len(devices)} devices")
+    for d in devices[:n]:
+        if d.type == "cuda" and (d.index or 0) >= torch.cuda.device_count():
+            raise RuntimeError(f"{d}: {torch.cuda.device_count()} CUDA "
+                               "device(s) visible")
+    return Mesh(devices=tuple(devices[:n]), data=n)
+
+
+def data_axis(axis) -> Optional[Mesh]:
+    """The mesh a loss or BatchNorm reduces over: None (one device), a
+    :class:`Mesh`, or the axis name ``"data"``, which is the process group
+    (as JAX's name is bound by ``shard_map``; unbound, it raises)."""
+    if axis is None or isinstance(axis, Mesh):
+        return axis
+    if axis == DATA_AXIS:
+        if not (dist.is_available() and dist.is_initialized()):
+            raise RuntimeError(
+                "axis 'data' is unbound: no process group is initialised "
+                "(init_distributed, or pass the Mesh itself)")
+        return make_mesh()
+    raise TypeError(f"not a data axis: {axis!r}")
+
+
+# ---------------------------------------------------------------------------
+# collectives
+# ---------------------------------------------------------------------------
+
+
+def _local(mesh: Mesh) -> bool:
+    """True where a collective over ``mesh`` is the identity: a local mesh
+    of one device. A mesh that spans processes runs its collectives even
+    at world size 1; a local mesh of several devices has none."""
+    if mesh.group is not None:
+        return False
+    if mesh.data == 1:
+        return True
+    raise ValueError("a collective needs a mesh that spans processes "
+                     "(make_mesh() after init_distributed), one rank a "
+                     "process; a local mesh of several devices only serves")
+
+
+class _AllGather(torch.autograd.Function):
+    """Rows of every rank, in rank order; the backward sums the cotangents
+    of every rank and keeps this rank's rows (JAX: ``all_gather``, whose
+    transpose is ``psum_scatter``)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(mesh.data)]
+        dist.all_gather(parts, x, group=mesh.group)
+        return torch.cat(parts)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = ctx.mesh
+        g = g.contiguous()
+        b = g.shape[0] // mesh.data
+        if mesh.backend == "nccl":
+            out = g.new_empty((b,) + tuple(g.shape[1:]))
+            dist.reduce_scatter(out, list(g.chunk(mesh.data)), group=mesh.group)
+            return out, None
+        g = g.clone()
+        dist.all_reduce(g, group=mesh.group)
+        return g[mesh.rank * b:(mesh.rank + 1) * b], None
+
+
+class _AllReduceMean(torch.autograd.Function):
+    """The mean over ranks; the backward is the mean of the cotangents, as
+    ``lax.pmean``'s is."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        y = x.detach().clone().contiguous()
+        dist.all_reduce(y, group=mesh.group)
+        return y / mesh.data
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = ctx.mesh
+        g = g.detach().clone().contiguous()
+        dist.all_reduce(g, group=mesh.group)
+        return g / mesh.data, None
+
+
+def all_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """[B, ...] on each rank -> [data * B, ...], differentiable."""
+    if _local(mesh):
+        return x
+    return _AllGather.apply(x, mesh)
+
+
+def all_reduce_mean(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The mean of ``x`` over ranks, differentiable."""
+    if _local(mesh):
+        return x
+    return _AllReduceMean.apply(x, mesh)
+
+
+def average_gradients_(grads: Dict[str, torch.Tensor],
+                       mesh: Mesh) -> Dict[str, torch.Tensor]:
+    """All-reduce-mean the gradients in place, packed into flat fp32 buckets
+    of at most ``BUCKET_ELEMS`` elements (a gradient larger than that goes on
+    its own, unpacked): a few collectives a step, and never a second copy
+    of every gradient."""
+    if _local(mesh):
+        return grads
+    bucket: List[torch.Tensor] = []
+
+    def flush():
+        if not bucket:
+            return
+        if len(bucket) == 1 and bucket[0].dtype == torch.float32 \
+                and bucket[0].is_contiguous():
+            dist.all_reduce(bucket[0], group=mesh.group)
+            bucket[0].div_(mesh.data)
+        else:
+            flat = torch.cat([g.reshape(-1).float() for g in bucket])
+            dist.all_reduce(flat, group=mesh.group)
+            flat.div_(mesh.data)
+            o = 0
+            for g in bucket:
+                g.copy_(flat[o:o + g.numel()].view_as(g))
+                o += g.numel()
+        bucket.clear()
+
+    size = 0
+    for g in grads.values():
+        if bucket and size + g.numel() > BUCKET_ELEMS:
+            flush()
+            size = 0
+        bucket.append(g)
+        size += g.numel()
+    flush()
+    return grads
+
+
+def mean_over_ranks(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """The mean of a metric over ranks, without autograd."""
+    if mesh is None or _local(mesh):
+        return x
+    y = x.detach().float().clone()
+    dist.all_reduce(y, group=mesh.group)
+    return y / mesh.data
+
+
+# ---------------------------------------------------------------------------
+# placement
+# ---------------------------------------------------------------------------
+
+
+def shard_batch(mesh: Mesh, batch):
+    """This rank's slice of the global batch on its device (the loader
+    already split the data by rank): a dict of arrays or tensors. A local
+    mesh of one device takes the whole batch; a local mesh of several splits
+    rows with :func:`split_rows`."""
+    if mesh.spans_processes or mesh.data == 1:
+        return {k: torch.as_tensor(v).to(mesh.device) for k, v in batch.items()}
+    raise ValueError("a local mesh of several devices splits rows with "
+                     "split_rows; a train batch needs a mesh that spans "
+                     "processes")
+
+
+def _pad_rows(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x`` with zero rows appended up to a multiple of ``n`` rows."""
+    pad = (-x.shape[0]) % n
+    if not pad:
+        return x
+    return torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+
+
+def split_rows(mesh: Mesh, x: torch.Tensor) -> Tuple[List[torch.Tensor], int]:
+    """(chunks, rows) on a local mesh: ``x`` padded with zero rows to a
+    multiple of ``data`` and cut into ``data`` contiguous chunks, chunk i on
+    the mesh's i-th device."""
+    chunks = _pad_rows(x, mesh.data).chunk(mesh.data)
+    return [c.to(d) for c, d in zip(chunks, mesh.devices)], x.shape[0]
+
+
+def map_rank_rows(mesh: Optional[Mesh], fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn`` (rows in, rows out) over the ranks of a mesh that spans
+    processes, each rank holding the same ``x``: padded as
+    :func:`split_rows` pads, this rank's contiguous chunk through ``fn``,
+    the outputs (fp32) gathered on every rank and trimmed to ``x``'s rows.
+    Without a mesh, ``fn(x)``."""
+    if mesh is None:
+        return fn(x)
+    b = -(-x.shape[0] // mesh.data)
+    mine = _pad_rows(x, mesh.data)[mesh.rank * b:(mesh.rank + 1) * b]
+    return all_gather(fn(mine).float(), mesh)[:x.shape[0]]
+
+
+def replicate(mesh: Mesh, tree):
+    """Make ``tree`` (a tensor, a dict or list of them, or a module) equal
+    on every rank: broadcast from rank 0, in place, and return it. A local
+    mesh's replicas are ``api.ViTLens``'s (one a device)."""
+    if _local(mesh):
+        return tree
+    with torch.no_grad():
+        for t in _tensors(tree):
+            dist.broadcast(t.data if isinstance(t, torch.nn.Parameter) else t,
+                           src=0, group=mesh.group)
+    return tree
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.nn.Module):
+        yield from tree.parameters()
+        yield from tree.buffers()
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+
+
+def local_batch_size(mesh: Mesh, global_batch: int) -> int:
+    n = mesh.shape[DATA_AXIS]
+    assert global_batch % n == 0, (global_batch, n)
+    return global_batch // n
+
+
+def broadcast_object(obj, root: int = 0):
+    """A picklable object from the ``root`` process to every process (the
+    reference's broadcast_object: e.g. the run name). One process:
+    identity."""
+    if process_count() == 1:
+        return obj
+    box = [obj if process_index() == root else None]
+    dist.broadcast_object_list(box, src=root)
+    return box[0]
+
+
+def all_gather_object(obj) -> list:
+    """Every process's picklable object, in rank order. One process:
+    ``[obj]``."""
+    if process_count() == 1:
+        return [obj]
+    out = [None] * process_count()
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def barrier() -> None:
+    if process_count() > 1:
+        dist.barrier()

@@ -18,8 +18,11 @@ with ``torch.save``, of plain CPU tensors. A ``TrainState`` is saved as
 int}``: the model's parameters (trainable fp32 masters and frozen weights in
 their stored dtype), its buffers (BatchNorm statistics), the AdamW moments
 and the step. JAX's checkpoints are orbax trees, and orbax needs JAX, so the
-port neither reads nor writes them. The collective (``*_sharded``) savers
-need the parallel work (ROADMAP Queue 1, item 12) and raise.
+port neither reads nor writes them. A data-parallel run's state is
+replicated: its rank 0 writes it, and the trainer's other ranks wait at a
+barrier for the write before any of them reads it back. The collective
+(``*_sharded``) savers of a sharded state wait for FSDP (ROADMAP Queue 1,
+item 12b) and raise.
 """
 
 from __future__ import annotations
@@ -221,14 +224,14 @@ def _save_tree(path: str, tree: Any) -> None:
 
 
 # ---------------------------------------------------------------------------
-# distributed (sharded, collective) checkpointing: ROADMAP Queue 1, item 12
+# distributed (sharded, collective) checkpointing: ROADMAP Queue 1, item 12b
 # ---------------------------------------------------------------------------
 
 
 def _sharded(*_a, **_k):
     raise NotImplementedError(
-        "collective (sharded) checkpoints need the parallel work, not yet "
-        "ported: ROADMAP Queue 1, item 12 (parallelism)")
+        "collective (sharded) checkpoints of an FSDP state are not yet "
+        "ported: ROADMAP Queue 1, item 12b (FSDP2)")
 
 
 save_checkpoint_sharded = save_best_sharded = load_checkpoint_sharded = _sharded

@@ -29,12 +29,14 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from vitlens_tpu_torch.adapters.tokenizers import batch_norm_synced
 from vitlens_tpu_torch.config import (PerceiverConfig, PointAdapterConfig,
                                       TowerConfig, get_arch)
 from vitlens_tpu_torch.models.layers import Linear, _param
 from vitlens_tpu_torch.models.pc_baselines import make_pc_baseline
 from vitlens_tpu_torch.models.vit import VisionTower
-from vitlens_tpu_torch.train.losses import cross_entropy
+from vitlens_tpu_torch.parallel.mesh import data_axis
+from vitlens_tpu_torch.train.losses import cross_entropy, gather_features
 
 Tensor = torch.Tensor
 
@@ -165,11 +167,15 @@ def _normalize(x: Tensor) -> Tensor:
 
 
 def contras_loss(feat1: Tensor, feat2: Tensor, logit_scale: Tensor,
-                 mask: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
-    """Reference Trainer.contras_loss (train.py:175-191) on one device:
-    normalise both, full-matrix logits (optionally times ``mask``),
-    symmetric CE. Returns (loss, top-1 accuracy), fp32."""
-    logits = logit_scale.float() * _normalize(feat1) @ _normalize(feat2).t()
+                 mask: Optional[Tensor] = None,
+                 axis_name=None) -> Tuple[Tensor, Tensor]:
+    """Reference Trainer.contras_loss (train.py:175-191): normalise both,
+    all-gather both over the data axis (``axis_name``; with their gradient),
+    full-matrix logits (optionally times ``mask``), symmetric CE. Returns
+    (loss, top-1 accuracy), fp32."""
+    f1 = gather_features(_normalize(feat1), axis_name)
+    f2 = gather_features(_normalize(feat2), axis_name)
+    logits = logit_scale.float() * f1 @ f2.t()
     if mask is not None:
         logits = logits * mask
     labels = torch.arange(logits.shape[0], device=logits.device)
@@ -238,15 +244,19 @@ def openshape_loss(model: nn.Module, batch: Dict[str, Tensor], *,
                    mask: Optional[Tensor] = None,
                    compute_dtype=torch.float32, train: bool = True,
                    fps_start: Optional[Tensor] = None,
-                   fps_generator: Optional[torch.Generator] = None
-                   ) -> Tuple[Tensor, Dict[str, Tensor]]:
+                   fps_generator: Optional[torch.Generator] = None,
+                   axis_name=None) -> Tuple[Tensor, Dict[str, Tensor]]:
     """The OpenShape step loss (train.py:255-330): the bind's prediction
     from ``batch["xyz_features"]`` against the precomputed
     ``batch["text_feat"]`` and ``batch["img_feat"]`` (each through its
     projection when asked), in fp32. Returns (loss, {text_loss, img_loss,
-    text_acc, img_acc})."""
-    pred = model(batch["xyz_features"], compute_dtype, train=train,
-                 fps_start=fps_start, fps_generator=fps_generator)
+    text_acc, img_acc}). With ``axis_name`` (a ``parallel.mesh.Mesh`` or
+    ``"data"``) the features gather over the ranks and the BatchNorms of
+    the bind sync their moments in train mode, as JAX's ``bn_axis_name``."""
+    mesh = data_axis(axis_name)
+    with batch_norm_synced(model, mesh if train else None):
+        pred = model(batch["xyz_features"], compute_dtype, train=train,
+                     fps_start=fps_start, fps_generator=fps_generator)
     scale = model.logit_scale.exp()
     text_feat = batch["text_feat"].float()
     img_feat = batch["img_feat"].float()
@@ -254,8 +264,8 @@ def openshape_loss(model: nn.Module, batch: Dict[str, Tensor], *,
         text_feat = model.text_proj(text_feat)
     if use_image_proj:
         img_feat = model.image_proj(img_feat)
-    t_loss, t_acc = contras_loss(pred, text_feat, scale, mask)
-    i_loss, i_acc = contras_loss(pred, img_feat, scale, mask)
+    t_loss, t_acc = contras_loss(pred, text_feat, scale, mask, mesh)
+    i_loss, i_acc = contras_loss(pred, img_feat, scale, mask, mesh)
     loss = text_weight * t_loss + image_weight * i_loss
     metrics = {"text_loss": t_loss.detach(), "img_loss": i_loss.detach(),
                "text_acc": t_acc, "img_acc": i_acc}
@@ -265,14 +275,20 @@ def openshape_loss(model: nn.Module, batch: Dict[str, Tensor], *,
 def make_openshape_step(tx, *, text_weight: float = 1.0,
                         image_weight: float = 1.0, use_text_proj: bool = False,
                         use_image_proj: bool = False,
-                        compute_dtype=torch.float32):
+                        compute_dtype=torch.float32, mesh=None):
     """The trainer's step: ``step(model, opt_state, batch, fps_generator=None,
     fps_start=None) -> metrics``. The gradient of :func:`openshape_loss` in
     train mode for every parameter (zeros where none flows: the skipped
     trunk blocks, the unused projections), then ``tx`` (an ``AdamW`` from
     ``train.step.make_openshape_optimizer``) updates the model in place.
-    ``logit_scale`` is not clamped, as in JAX."""
-    from vitlens_tpu_torch.train.step import _grads
+    ``logit_scale`` is not clamped, as in JAX. With ``mesh`` (one process a
+    rank, each with its rows of the global batch) the loss gathers over the
+    ranks and the gradients are averaged before the update, as JAX's
+    ``shard_map`` step."""
+    from vitlens_tpu_torch.parallel.mesh import average_gradients_
+    from vitlens_tpu_torch.train.step import _grads, _step_mesh
+
+    mesh = _step_mesh(mesh, "ddp")
 
     def step(model: nn.Module, opt_state, batch,
              fps_generator: Optional[torch.Generator] = None,
@@ -285,8 +301,11 @@ def make_openshape_step(tx, *, text_weight: float = 1.0,
             model, batch, text_weight=text_weight, image_weight=image_weight,
             use_text_proj=use_text_proj, use_image_proj=use_image_proj,
             compute_dtype=compute_dtype, train=True, fps_start=fps_start,
-            fps_generator=fps_generator)
-        tx.update_(params, _grads(loss, params), opt_state)
+            fps_generator=fps_generator, axis_name=mesh)
+        grads = _grads(loss, params)
+        if mesh is not None:
+            average_gradients_(grads, mesh)
+        tx.update_(params, grads, opt_state)
         return dict(metrics, loss=loss.detach())
 
     return step

@@ -1,7 +1,6 @@
-"""Training step, single device (port of vitlens_tpu/train/step.py with
-``mesh=None``): AdamW with the reference's weight-decay exclusion, frozen
-towers, trainable-only gradients, the accum-freq cached-negative replay, the
-logit-scale clamp.
+"""Training step (port of vitlens_tpu/train/step.py): AdamW with the
+reference's weight-decay exclusion, frozen towers, trainable-only gradients,
+the accum-freq cached-negative replay, the logit-scale clamp.
 
 The optimizer reproduces the JAX package's ``optax.masked(optax.chain(
 clip_by_global_norm, adamw(schedule, mask=wd_mask)), trainable)``: the lr of
@@ -23,7 +22,14 @@ once, from the generator it is given (JAX folds ``fps_key`` with the
 micro-batch's index), and both passes of that micro-batch use them. The
 running statistics move once a micro-batch, in the cached pass when
 ``accum_freq`` > 1 (JAX keeps the state of its no-grad pass and drops the
-grad pass's). A mesh needs the parallelism work (ROADMAP Queue 1, item 12).
+grad pass's).
+
+With a mesh (``parallel.mesh.make_mesh()`` in a process group, one process a
+rank) the step is JAX's ``shard_map`` DDP step: each rank computes the loss
+of its rows with the embeddings gathered over the ranks (``local_loss``: its
+``[B_local, B_global]`` block), its BatchNorms share their moments
+(``sync_bn``), and the trainable gradients and the loss are averaged over
+the ranks before the update, so every rank applies the same one.
 """
 
 from __future__ import annotations
@@ -36,9 +42,11 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from vitlens_tpu_torch.adapters.tokenizers import BatchNorm
+from vitlens_tpu_torch.adapters.tokenizers import BatchNorm, batch_norm_synced
 from vitlens_tpu_torch.models import tri
 from vitlens_tpu_torch.models.vit import draw_patch_keep
+from vitlens_tpu_torch.parallel.mesh import (Mesh, average_gradients_,
+                                             mean_over_ranks)
 from vitlens_tpu_torch.train import losses as losses_lib
 from vitlens_tpu_torch.train.freeze import Mask
 from vitlens_tpu_torch.train.schedules import get_schedule
@@ -183,12 +191,16 @@ class StepConfig:
     n_tower: int = 3                  # 3 = tri loss, 2 = dual (align_to)
     align_to: str = "image"           # dual anchor: image | text; or "clip"
     contra_loss_type: str = "general"  # general | label_mask | sim_mask
+    # over a mesh: this rank's [B_local, B_global] logit block
+    local_loss: bool = True
     sim_thres: float = 0.9
     accum_freq: int = 1
     compute_dtype: torch.dtype = torch.bfloat16
     # True or "full": recompute each trunk block; "dots": save its 2-D
     # products, recompute the rest (models.layers.remat_policy)
     remat: Any = False
+    # over a mesh: BatchNorm moments averaged over the ranks (SyncBatchNorm)
+    sync_bn: bool = True
     # the video distill-tokens step (reference vid_distill_tokens,
     # model.py:545-585): the frame-mean image tower over the clip as the
     # anchor, plus token distillation into the video Lens tower
@@ -339,10 +351,35 @@ def draw_patch_keeps(model, batch, sc: StepConfig,
     return [draw_patch_keep(cfg, b, generator) for _ in range(sc.accum_freq)]
 
 
+def _step_mesh(mesh, partition: str) -> Optional[Mesh]:
+    """The mesh the step reduces over (None: one device)."""
+    if partition == "fsdp":
+        raise NotImplementedError(
+            "the FSDP train step (partition='fsdp') is not yet ported: ROADMAP "
+            "Queue 1, item 12b (FSDP2)")
+    if partition != "ddp":
+        raise ValueError(f"unknown partition style: {partition!r}")
+    if mesh is None:
+        return None
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.mesh.Mesh, got {type(mesh)!r}")
+    if mesh.model != 1:
+        raise NotImplementedError("a model axis is not yet ported: ROADMAP "
+                                  "Queue 1, item 12c")
+    if not mesh.spans_processes:
+        if mesh.data > 1:
+            raise ValueError(
+                "the data-parallel step runs one process a rank: launch it "
+                "with torchrun and pass make_mesh() of the process group (a "
+                "local mesh of several devices serves, it does not train)")
+        return None
+    return mesh
+
+
 def make_train_step(model_cfg, tx: AdamW, trainable_mask: Mask,
                     sc: StepConfig = StepConfig(), mesh=None,
                     partition: str = "ddp"):
-    """Build the single-device step: ``step(state, batch, fps_generator=None,
+    """Build the step: ``step(state, batch, fps_generator=None,
     fps_starts=None) -> (state, metrics)`` with batch ``{"text": [B, 77] ids,
     "visual": the Lens tower's input, "image": images [B, 3, H, W] or frames
     [B, T, 3, H, W], optional "label"}`` (the keys the objective reads) and
@@ -354,17 +391,22 @@ def make_train_step(model_cfg, tx: AdamW, trainable_mask: Mask,
     generator, as JAX's ``fps_key`` is its key: the Lens tower's train-time
     patch dropout is drawn from it too (:func:`draw_patch_keeps`), and
     without it no patch is dropped. The towers come from the state's model;
-    ``model_cfg`` is the JAX signature's and is not read."""
-    if mesh is not None or partition != "ddp":
-        raise NotImplementedError(
-            "the data-parallel and FSDP train steps (mesh, partition) are not "
-            "yet ported: ROADMAP Queue 1, item 12 (parallelism)")
+    ``model_cfg`` is the JAX signature's and is not read.
+
+    ``mesh``: the data-parallel step (module docstring). Each rank passes its
+    own rows, and its own ``fps_generator`` (the reference seeds each rank
+    with seed + rank) or ``fps_starts``; ``loss`` is the mean over the ranks
+    and ``grad_norm`` the norm of the averaged gradient. ``partition="fsdp"``
+    waits for ROADMAP Queue 1, item 12b."""
+    mesh = _step_mesh(mesh, partition)
     if sc.n_tower not in (2, 3) or sc.align_to not in ("text", "image",
                                                        "video", "clip"):
         raise ValueError(f"unknown step: n_tower={sc.n_tower}, "
                          f"align_to={sc.align_to!r}")
     loss_fn = losses_lib.make_loss_fn(sc.n_tower, sc.contra_loss_type,
+                                      axis_name=mesh, local_loss=sc.local_loss,
                                       sim_thres=sc.sim_thres)
+    bn_mesh = mesh if sc.sync_bn else None
     names = [n for n, t in trainable_mask.items() if t]
     A = sc.accum_freq
 
@@ -386,14 +428,18 @@ def make_train_step(model_cfg, tx: AdamW, trainable_mask: Mask,
         patch_keeps = draw_patch_keeps(model, batch, sc, fps_generator)
         all_params = dict(model.named_parameters())
         params = {n: all_params[n] for n in names}
-        if A > 1:
-            loss, grads = accum_grads(model, batch, sc, params, loss_fn,
-                                      fps_starts, patch_keeps)
-        else:
-            loss, grads = micro_grads(
-                model, batch, sc, params, loss_fn,
-                None if fps_starts is None else fps_starts[0],
-                None if patch_keeps is None else patch_keeps[0])
+        with batch_norm_synced(model, bn_mesh):
+            if A > 1:
+                loss, grads = accum_grads(model, batch, sc, params, loss_fn,
+                                          fps_starts, patch_keeps)
+            else:
+                loss, grads = micro_grads(
+                    model, batch, sc, params, loss_fn,
+                    None if fps_starts is None else fps_starts[0],
+                    None if patch_keeps is None else patch_keeps[0])
+        if mesh is not None:  # the DDP gradient all-reduce
+            average_gradients_(grads, mesh)
+            loss = mean_over_ranks(loss, mesh)
         grad_norm = global_norm(grads)
         tx.update_(params, grads, state.opt_state)
         clamp_logit_scale(model)
