@@ -332,6 +332,21 @@ Phases, one printed line each (or more); any failure exits non-zero:
      against one device (B = 5 audio requests, padded to 6, and 3
      captions: cosine >= 0.9999, launches twice a chunk's) and a served
      closed loop on the --data-parallel 1 mesh of the serve CLI.
+  4fs. FSDP (vitlens_tpu_torch/parallel/fsdp.py, FSDP2): (a) inside 4dp
+     (a)'s group, the same B64 audio step with partition="fsdp" after
+     fsdp_place (FSDP2 over one rank) against the mesh=None step: every
+     gradient and updated parameter within 1e-6 relative, launches as
+     train_launches; (b) in 4dp (b)'s rank processes, after each rank's DP
+     step, the FSDP step from the same state on the same rows (the audio
+     step and the pc tri step, BatchNorm over both ranks' rows, the global
+     batch's FPS starts) against that DP step: loss, grad_norm, every
+     gradient and updated parameter (gathered) within 1e-5, each BatchNorm
+     statistic within 1e-5 relative, launches equal; each rank's bytes of
+     parameters + moments against the DP step's and the placements' count,
+     and the FSDP step's peak; (c) the audio FSDP state saved collectively
+     (DCP), reloaded into the two ranks and into one process, unsharded,
+     bit for bit. `python3 tools/dp_first_call.py --fsdp --plant` runs (b)
+     under three planted faults, each of which must fail it.
   5. timing: each kernel against its plain version (and, where one PyTorch
      call computes the same function, that call) at the B64 shapes of the
      main paths, beside each kernel's bound, with cuBLAS's products alone
@@ -383,6 +398,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import gc
 import json
 import os
 import shutil
@@ -3096,13 +3112,17 @@ def free_port() -> int:
 
 def grabbed_step(torch, tx, step, *args, **kw):
     """step(*args, **kw) with the gradients AdamW was given (after the
-    ranks' average) copied out: (step's output, {name: gradient})."""
+    ranks' average; an FSDP shard gathered whole) copied out: (step's
+    output, {name: gradient})."""
+    from vitlens_tpu_torch.parallel.fsdp import full_tensor
+
     grads = {}
     update = tx.update_
 
-    def grabbing(params, g, st):
-        grads.update({n: t.detach().float().clone() for n, t in g.items()})
-        return update(params, g, st)
+    def grabbing(params, g, st, **ukw):
+        grads.update({n: full_tensor(t).detach().float().clone()
+                      for n, t in g.items()})
+        return update(params, g, st, **ukw)
 
     tx.update_ = grabbing
     try:
@@ -3136,11 +3156,16 @@ def dp_nccl_phase(torch, np, counters, totals, model, state, tx, mask, sc,
     same state and batch: loss, grad_norm, every gradient and every updated
     trainable parameter within DP_REL relative (the collectives run: the
     feature gather and its reduce-scatter, the bucketed all-reduce);
-    launches those of train_launches, the collectives adding none of ours."""
+    launches those of train_launches, the collectives adding none of ours.
+    Then phase 4fs (a): the same step with partition="fsdp" on the state
+    placed by fsdp_place over the same group (FSDP2's all-gathers and
+    reduce-scatters over one rank), held to the same bar and launches. The
+    placement is in place and for good: the model is spent after it."""
     import datetime
 
     import torch.distributed as dist
 
+    from vitlens_tpu_torch.parallel import fsdp as F
     from vitlens_tpu_torch.parallel import mesh as PM
     from vitlens_tpu_torch.train.step import make_train_step
 
@@ -3164,7 +3189,9 @@ def dp_nccl_phase(torch, np, counters, totals, model, state, tx, mask, sc,
         if (mesh.data, mesh.rank, mesh.backend, str(mesh.device)) != (
                 1, 0, "nccl", "cuda:0"):
             fail(f"4dp (a): mesh {mesh}")
-        for label, m in (("mesh=None", None), ("world-1 NCCL", mesh)):
+        for label, m, part in (("mesh=None", None, "ddp"),
+                               ("world-1 NCCL", mesh, "ddp"),
+                               ("world-1 NCCL FSDP", mesh, "fsdp")):
             with torch.no_grad():
                 for n in names:
                     params[n].copy_(snap[0][n])
@@ -3172,17 +3199,25 @@ def dp_nccl_phase(torch, np, counters, totals, model, state, tx, mask, sc,
                     for n, t in snap[1][k].items():
                         state.opt_state[k][n].copy_(t)
             state.opt_state["count"], state.step = snap[2], snap[3]
-            step = make_train_step(cfg, tx, mask, sc, mesh=m)
+            step = make_train_step(cfg, tx, mask, sc, mesh=m, partition=part)
+            t_run = time.time()
+            if part == "fsdp":
+                F.fsdp_place(state, mesh)
+                placed = sum(a is not None for a in
+                             F.placements_of(state)["params"].values())
             ((_, met), grads), counts = run_counted(
                 torch, counters, totals,
                 lambda: grabbed_step(torch, tx, step, state, bt))
             if counts != want:
-                fail(f"4dp (a) {label}: launches {counts}, expected {want}")
+                fail(f"4{'fs' if part == 'fsdp' else 'dp'} (a) {label}: "
+                     f"launches {counts}, expected {want}")
+            now = dict(model.named_parameters())
             runs[label] = ({k: float(v) for k, v in met.items()}, grads,
-                           {n: params[n].detach().float().clone() for n in names})
+                           {n: F.full_tensor(now[n]).detach().float().clone()
+                            for n in names}, time.time() - t_run)
     finally:
         dist.destroy_process_group()
-    (m0, g0, p0), (m1, g1, p1) = runs["mesh=None"], runs["world-1 NCCL"]
+    (m0, g0, p0, _), (m1, g1, p1, _) = runs["mesh=None"], runs["world-1 NCCL"]
     d = {"loss": abs(m1["loss"] / m0["loss"] - 1),
          "grad_norm": abs(m1["grad_norm"] / m0["grad_norm"] - 1),
          "gradients": max(rel_err(g1[n], g0[n]) for n in names),
@@ -3197,14 +3232,37 @@ def dp_nccl_phase(torch, np, counters, totals, model, state, tx, mask, sc,
           + ", ".join(f"{k} {v:.3e}" for k, v in d.items())
           + f" (bar {DP_REL}); launches {counts} each, as train_launches; "
           f"phase {time.time() - t0:.1f} s", flush=True)
+    m2, g2, p2, fs_s = runs["world-1 NCCL FSDP"]
+    d = {"loss": abs(m2["loss"] / m0["loss"] - 1),
+         "grad_norm": abs(m2["grad_norm"] / m0["grad_norm"] - 1),
+         "gradients": max(rel_err(g2[n], g0[n]) for n in names),
+         "parameters": max(rel_err(p2[n], p0[n]) for n in names)}
+    same = [n for n in names if torch.equal(g2[n], g0[n])
+            and torch.equal(p2[n], p0[n])]
+    if max(d.values()) > DP_REL:
+        fail(f"4fs (a) world-1 NCCL FSDP step vs mesh=None: relative "
+             f"differences {d}")
+    print(f"[4fs (a) NCCL world 1, FSDP] {card_line()} | vitlensL audio+text "
+          f"train step B{B}, make_train_step(partition='fsdp') after "
+          f"fsdp_place ({placed} of {len(now)} parameters sharded over the one "
+          f"rank) vs mesh=None from the same state and batch: loss "
+          f"{m2['loss']:.6f} vs {m0['loss']:.6f}, grad_norm "
+          f"{m2['grad_norm']:.6f} vs {m0['grad_norm']:.6f}; largest relative "
+          "differences " + ", ".join(f"{k} {v:.3e}" for k, v in d.items())
+          + f" (bar {DP_REL}); {len(same)} of {len(names)} trained tensors "
+          f"bit-equal in gradient and update; launches {counts}, as "
+          f"train_launches; {fs_s:.1f} s", flush=True)
+    return fs_s
 
 
-def dp_rank_recipe(torch, np, counters, mesh, modality):
+def dp_rank_recipe(torch, np, counters, mesh, modality, ckpt_root=None):
     """One rank of phase 4dp (b): the vitlensL ``modality`` recipe's DP step
     at B32 (this rank's half of a seeded B64 batch; the pc tri step with
     synced BatchNorm and pinned FPS starts), then on rank 0 the mesh=None
-    step at B64 on the whole batch from the same initial state. Returns
-    what the parent prints and checks."""
+    step at B64 on the whole batch from the same initial state; then phase
+    4fs (b) on every rank, the FSDP step from that state on the same rows
+    (fs_rank_step; with ``ckpt_root``, 4fs (c)'s collective checkpoint).
+    Returns what the parent prints and checks."""
     from vitlens_tpu_torch.factory import create_model, make_trainable_
     from vitlens_tpu_torch.train.freeze import tri_model_mask
     from vitlens_tpu_torch.train.step import (OptimizerConfig, StepConfig,
@@ -3212,6 +3270,8 @@ def dp_rank_recipe(torch, np, counters, mesh, modality):
                                               make_train_step)
 
     t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()  # 4dp (b)'s peak: this recipe's
+    start_gb = torch.cuda.memory_allocated() / 1e9  # what it starts with
     model = create_model("ViT-L-14", modality, seed=SEED, device="cuda",
                          dtype=torch.float32)
     cfg = model.cfg
@@ -3271,8 +3331,10 @@ def dp_rank_recipe(torch, np, counters, mesh, modality):
         local, None if starts is None else starts[r * half:(r + 1) * half], mesh)
     out = {"metrics": met, "launches": counts, "want": want, "step_s": secs,
            "ok_launches": counts == want}
+    bn_dp = {n: b.clone() for n, b in bufs.items()}
+    # on the host, out of the B64 steps' peak
+    dp_after = {n: params[n].detach().float().cpu() for n in names}
     if r == 0:
-        bn_dp = {n: b.clone() for n, b in bufs.items()}
         reset()
         met1, grads1, counts1, secs1 = run(batch, starts, None)
         bn_rel = {n: rel_err(bn_dp[n], bufs[n]) for n in bufs}
@@ -3297,19 +3359,196 @@ def dp_rank_recipe(torch, np, counters, mesh, modality):
             cosines_b64=group_cosines(torch, grads, grads1, names),
             cosines_b64_accum2=group_cosines(torch, grads1, grads2, names),
             bn_rel=bn_rel)
-    del model, params, init, bufs, bn0, grads
+        del grads1, grads2, grads3
+    reset()
+    dp = {"metrics": met, "grads": grads, "params": dp_after, "bn": bn_dp,
+          "launches": counts}
+    del params, init, bn0, grads
+    out["dp_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["dp_start_gb"] = start_gb
+    out["fsdp"] = fs_rank_step(torch, counters, mesh, model, tx, mask, sc,
+                               local, starts, names, bufs, dp, flags, ckpt_root)
+    out["_gathered"] = out["fsdp"].pop("_gathered", None)
+    del model, bufs, dp
+    # FSDP2's hooks keep the placed model in reference cycles: collect them,
+    # or the next recipe starts with this one's state resident
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     out["seconds"] = time.time() - t0
     return out
 
 
+# -- phase 4fs: FSDP (ROADMAP Queue 1 item 12b) ------------------------------------
+
+FS_REL = 1e-5  # (b) the FSDP step against the same ranks' DP step
+
+
+def state_bytes(state):
+    """{"params", "moments"}: the bytes of parameters and AdamW moments this
+    rank stores (a shard's local bytes)."""
+    from vitlens_tpu_torch.parallel.fsdp import local_tensor
+
+    def nbytes(t):
+        t = local_tensor(t)
+        return t.numel() * t.element_size()
+
+    return {"params": sum(nbytes(p) for p in state.model.parameters()),
+            "moments": sum(nbytes(t) for m in ("mu", "nu")
+                           for t in state.opt_state[m].values())}
+
+
+def fs_rank_step(torch, counters, mesh, model, tx, mask, sc, local, starts,
+                 names, bufs, dp, flags, ckpt_root=None):
+    """Phase 4fs (b) on one rank: the FSDP step (fsdp_place, then
+    make_train_step(partition="fsdp")) from the DP step's initial state on
+    the same rows, the FPS starts the global batch's: loss and grad_norm,
+    every gradient and updated parameter (gathered) against the DP step's
+    ``dp``, each BatchNorm running statistic, the launches; the bytes of
+    parameters and moments this rank stores beside the DP step's and the
+    placements' count, and the step's peak memory. With ``ckpt_root``,
+    phase 4fs (c): the collective save, the reload into the two ranks (bit
+    for bit), and rank 0's gathered state for the unsharded load
+    (fs_unsharded_load). The model is placed for good."""
+    from vitlens_tpu_torch.parallel import fsdp as F
+    from vitlens_tpu_torch.train import checkpoint as C
+    from vitlens_tpu_torch.train.step import init_train_state, make_train_step
+
+    def say(msg):  # the rank's log: where a crash happened
+        print(f"rank {mesh.rank} {model.cfg.tower.modality} 4fs: {msg}",
+              flush=True)
+
+    t0 = time.time()
+    state = init_train_state(model, tx)
+    axes = F.param_axes(model, mesh.data)
+    full = state_bytes(state)
+    placed_bytes = sum(
+        p.numel() // (mesh.data if axes[n] is not None else 1) * p.element_size()
+        * (3 if n in state.opt_state["mu"] else 1)
+        for n, p in model.named_parameters())
+    step = make_train_step(model.cfg, tx, mask, sc, mesh=mesh, partition="fsdp")
+    say("fsdp_place")
+    F.fsdp_place(state, mesh)
+    stored = state_bytes(state)
+    say("the step")
+    bt = {k: v.cuda() for k, v in local.items()}
+    st = None if starts is None else [starts.cuda()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    ((_, met), grads), counts = run_counted(
+        torch, counters, dict.fromkeys(counters, 0),
+        lambda: grabbed_step(torch, tx, step, state, bt, fps_starts=st))
+    step_s = time.time() - t
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    now = dict(model.named_parameters())
+    after = {n: F.full_tensor(now[n]).detach().float() for n in names}
+
+    def err(a, b):  # of b's max|b|
+        return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+    out = {
+        "metrics": {k: float(v) for k, v in met.items()},
+        "loss_rel": abs(float(met["loss"]) / dp["metrics"]["loss"] - 1),
+        "grad_norm_rel": abs(float(met["grad_norm"])
+                             / dp["metrics"]["grad_norm"] - 1),
+        "grad_err": max(err(grads[n], dp["grads"][n]) for n in names),
+        "param_err": max(err(after[n], dp["params"][n].to(after[n].device))
+                         for n in names),
+        "bn_rel": {n: rel_err(b, dp["bn"][n]) for n, b in bufs.items()},
+        "launches": counts, "ok_launches": counts == dp["launches"],
+        "bytes": {"dp": full["params"] + full["moments"],
+                  "fsdp": stored["params"] + stored["moments"],
+                  "placements": placed_bytes},
+        "sharded": sum(a is not None for a in axes.values()),
+        "tensors": len(axes), "peak_gb": peak,
+        "step_s": step_s}
+    del grads, after
+    say(f"step done: {out['metrics']}")
+    if ckpt_root is not None:
+        say("the collective save")
+        t = time.time()
+        path = C.save_checkpoint_sharded(ckpt_root, state, 1)
+        out["save_s"] = time.time() - t
+        keep = [F.local_tensor(p).detach().clone() for p in model.parameters()]
+        keep += [F.local_tensor(x).clone() for k in ("mu", "nu")
+                 for x in state.opt_state[k].values()]
+        gathered = {
+            "params": {n: F.full_tensor(p).detach().cpu()
+                       for n, p in model.named_parameters()},
+            "mu": {n: F.full_tensor(x).cpu()
+                   for n, x in state.opt_state["mu"].items()},
+            "nu": {n: F.full_tensor(x).cpu()
+                   for n, x in state.opt_state["nu"].items()},
+            "count": state.opt_state["count"], "step": state.step,
+            "path": path, "flags": flags, "cfg": model.cfg}
+        with torch.no_grad():
+            live = [F.local_tensor(p) for p in model.parameters()]
+            live += [F.local_tensor(x) for k in ("mu", "nu")
+                     for x in state.opt_state[k].values()]
+            for x in live:
+                x.fill_(float("nan"))
+        state.step = state.opt_state["count"] = 0
+        say("the reload")
+        t = time.time()
+        C.load_checkpoint_sharded(path, state)
+        torch.cuda.synchronize()
+        out["load_s"] = time.time() - t
+        out["reloaded"] = (all(torch.equal(a, b) for a, b in zip(live, keep))
+                           and (state.step, state.opt_state["count"]) == (
+                               gathered["step"], gathered["count"]))
+        out["ckpt_gb"] = sum(
+            os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)
+        ) / 1e9 if mesh.rank == 0 else None
+        if mesh.rank == 0:
+            out["_gathered"] = gathered
+        del keep, live
+    del state, step
+    out["seconds"] = time.time() - t0
+    return out
+
+
+def fs_unsharded_load(torch, gathered):
+    """Phase 4fs (c) in one process (no process group): a fresh vitlensL
+    state of the recipe, unplaced, loads the two ranks' collective
+    checkpoint; every parameter and moment against the ranks' gathered
+    state, bit for bit. Returns (equal, seconds)."""
+    from vitlens_tpu_torch.factory import make_trainable_
+    from vitlens_tpu_torch.models.tri import TriModel
+    from vitlens_tpu_torch.train import checkpoint as C
+    from vitlens_tpu_torch.train.freeze import tri_model_mask
+    from vitlens_tpu_torch.train.step import (OptimizerConfig, init_train_state,
+                                              make_optimizer)
+
+    t0 = time.time()
+    cfg = gathered["cfg"]
+    model = TriModel(cfg, device="cuda")  # every value comes from the load
+    mask = tri_model_mask(model, cfg, **gathered["flags"])
+    tx, mask = make_optimizer(model, OptimizerConfig(), mask)
+    make_trainable_(model, mask, torch.bfloat16)
+    state = init_train_state(model, tx)
+    C.load_checkpoint_sharded(gathered["path"], state)
+    equal = all(torch.equal(p.detach().cpu(), gathered["params"][n])
+                for n, p in model.named_parameters())
+    for k in ("mu", "nu"):
+        equal = equal and sorted(state.opt_state[k]) == sorted(gathered[k]) and all(
+            torch.equal(x.cpu(), gathered[k][n])
+            for n, x in state.opt_state[k].items())
+    equal = equal and (state.step, state.opt_state["count"]) == (
+        gathered["step"], gathered["count"])
+    del model, state
+    torch.cuda.empty_cache()
+    return equal, time.time() - t0
+
+
 def dp_rank_main(out_dir) -> int:
     """A rank process of phase 4dp (b), started by dp_ranks_phase with
     torchrun's variables: a gloo group sharing the card with the other
     rank (the phase sets it up; init_distributed then no-ops), the audio
-    and the pc recipe (dp_rank_recipe), results to rank{r}.json."""
+    and the pc recipe (dp_rank_recipe), results to rank{r}.json. A crash
+    prints the Python stack (faulthandler) into the rank's log."""
     import datetime
+    import faulthandler
 
     import numpy as np
     import torch
@@ -3318,6 +3557,7 @@ def dp_rank_main(out_dir) -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from vitlens_tpu_torch.parallel import mesh as PM
 
+    faulthandler.enable()
     env = os.environ
     rank, world = int(env["RANK"]), int(env["WORLD_SIZE"])
     torch.cuda.set_device(0)
@@ -3332,13 +3572,20 @@ def dp_rank_main(out_dir) -> int:
         fail(f"mesh {mesh}")
     counters = launch_counters()
     res = {"rank": rank}
+    gathered = None
     for modality in ("audio", "pc"):
-        res[modality] = dp_rank_recipe(torch, np, counters, mesh, modality)
+        res[modality] = dp_rank_recipe(
+            torch, np, counters, mesh, modality,
+            os.path.join(out_dir, "ckpt") if modality == "audio" else None)
+        gathered = res[modality].pop("_gathered") or gathered
         dist.barrier()
-    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    # the DP recipes' peak (4fs (b) reads its own)
+    res["peak_gb"] = max(res[m]["dp_peak_gb"] for m in ("audio", "pc"))
+    dist.destroy_process_group()
+    if rank == 0:  # 4fs (c): the checkpoint into one process, unsharded
+        res["unsharded"] = fs_unsharded_load(torch, gathered)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
-    dist.destroy_process_group()
     return 0
 
 
@@ -3352,8 +3599,12 @@ def dp_ranks_phase(torch, totals, card, rank_argv=None):
     (DP_COS_MIN and the one-process floor), grad_norm (DP_NORM_REL), each
     BatchNorm running statistic (DP_BN_REL), each rank's launches against
     train_launches and tri_train_launches; prints each rank's peak memory
-    beside this process's. ``rank_argv``: the command of a rank before its
-    output directory (default: this script's ``--dp-rank``)."""
+    beside this process's. Then phase 4fs (b) and (c) from the same ranks
+    (fs_rank_step, fs_unsharded_load): the FSDP step against each rank's
+    DP step (FS_REL) and its launches, the collective checkpoint's round
+    trips. Returns 4fs's seconds in the ranks. ``rank_argv``: the command
+    of a rank before its output directory (default: this script's
+    ``--dp-rank``)."""
     import tempfile
 
     t0 = time.time()
@@ -3462,10 +3713,82 @@ def dp_ranks_phase(torch, totals, card, rank_argv=None):
               f"{res[1][modality]['step_s']:.3f} s, B{B} step "
               f"{r0['single_s']:.3f} s (first calls, host-timed)", flush=True)
     total = resident + sum(r["peak_gb"] for r in res)
+    each = "; ".join(
+        f"rank {r}: " + ", ".join(
+            f"{m} {res[r][m]['dp_peak_gb']:.2f} (from "
+            f"{res[r][m]['dp_start_gb']:.2f})" for m in ("audio", "pc"))
+        for r in range(2))
     print(f"[4dp (b) memory] {card} | peak GB rank 0 {res[0]['peak_gb']:.2f}, "
-          f"rank 1 {res[1]['peak_gb']:.2f}, this process resident "
+          f"rank 1 {res[1]['peak_gb']:.2f} (each recipe's, from what it "
+          f"started with: {each}), this process resident "
           f"{resident:.2f}: {total:.2f} GB at most together; phase "
           f"{time.time() - t0:.1f} s", flush=True)
+    return fs_check(res, totals, card)
+
+
+def fs_check(res, totals, card):
+    """Phase 4fs (b) and (c)'s checks and lines, from the rank files;
+    returns the seconds 4fs took in the ranks (rank 0's)."""
+    fs_s = 0.0
+    for modality in ("audio", "pc"):
+        fs = [res[r][modality]["fsdp"] for r in range(2)]
+        for r, f in enumerate(fs):
+            if not f["ok_launches"]:
+                fail(f"4fs (b) rank {r} {modality}: launches {f['launches']}, "
+                     f"the DP step's {res[r][modality]['launches']}")
+            for name, n in f["launches"].items():
+                totals[name] += n
+            bn_off = {k: v for k, v in f["bn_rel"].items() if v > FS_REL}
+            errs = {k: f[k] for k in ("loss_rel", "grad_norm_rel", "grad_err",
+                                      "param_err")}
+            if max(errs.values()) > FS_REL or bn_off:
+                fail(f"4fs (b) rank {r} {modality}: the FSDP step vs the same "
+                     f"ranks' DP step: {errs}, BatchNorm statistics past "
+                     f"{FS_REL} relative {bn_off} (bar {FS_REL}); loss "
+                     f"{f['metrics']['loss']} vs "
+                     f"{res[r][modality]['metrics']['loss']}, grad_norm "
+                     f"{f['metrics']['grad_norm']} vs "
+                     f"{res[r][modality]['metrics']['grad_norm']}")
+        if fs[1]["metrics"] != fs[0]["metrics"]:
+            fail(f"4fs (b) {modality}: the ranks' metrics differ: "
+                 f"{fs[0]['metrics']} vs {fs[1]['metrics']}")
+        gb = [{k: v / 1e9 for k, v in f["bytes"].items()} for f in fs]
+        print(f"[4fs (b) two ranks, gloo, FSDP] {card} | vitlensL {modality} "
+              + ("audio+text step" if modality == "audio" else
+                 "pc tri step, BatchNorm over both ranks' rows, the global "
+                 "batch's FPS starts")
+              + f", B{B // 2} a rank, fsdp_place ({fs[0]['sharded']} of "
+              f"{fs[0]['tensors']} parameters sharded) vs the same ranks' DP "
+              f"step from the same state: loss {fs[0]['metrics']['loss']:.6f} "
+              f"(relative {fs[0]['loss_rel']:.3e}), grad_norm "
+              f"{fs[0]['metrics']['grad_norm']:.6f} ({fs[0]['grad_norm_rel']:.3e}),"
+              f" gradients {max(f['grad_err'] for f in fs):.3e} and updated "
+              f"parameters {max(f['param_err'] for f in fs):.3e} of max|DP|"
+              + (", BatchNorm statistics " + ", ".join(
+                  f"{k.split('adapter.')[-1]} {max(f['bn_rel'][k] for f in fs):.3e}"
+                  for k in fs[0]["bn_rel"]) if fs[0]["bn_rel"] else "")
+              + f" (bar {FS_REL}); launches each rank {fs[0]['launches']} and "
+              f"{fs[1]['launches']}, the DP step's; parameters + moments "
+              f"stored GB rank 0 {gb[0]['fsdp']:.3f}, rank 1 {gb[1]['fsdp']:.3f} "
+              f"(DP {gb[0]['dp']:.3f}, the placements' count "
+              f"{gb[0]['placements']:.3f}); the FSDP step's peak GB rank 0 "
+              f"{fs[0]['peak_gb']:.2f}, rank 1 {fs[1]['peak_gb']:.2f}; FSDP "
+              f"step {fs[0]['step_s']:.3f} s and {fs[1]['step_s']:.3f} s (first "
+              "calls, host-timed)", flush=True)
+        fs_s += fs[0]["seconds"]
+    ck = [res[r]["audio"]["fsdp"] for r in range(2)]
+    same, secs = res[0]["unsharded"]
+    if not (ck[0]["reloaded"] and ck[1]["reloaded"] and same):
+        fail(f"4fs (c): the collective checkpoint did not round-trip: reload "
+             f"into the ranks {[c['reloaded'] for c in ck]}, into one process "
+             f"unsharded {same}")
+    print(f"[4fs (c) sharded checkpoint] {card} | the audio FSDP state after "
+          f"(b): saved collectively by the two ranks in {ck[0]['save_s']:.2f} s "
+          f"({ck[0]['ckpt_gb']:.3f} GB, DCP), reloaded into the two ranks "
+          f"({ck[0]['load_s']:.2f} s) and into one process unsharded "
+          f"({secs:.2f} s), both bit for bit against the saved state",
+          flush=True)
+    return fs_s + secs
 
 
 def dp_encode_phase(torch, np, counters, totals, card):
@@ -5724,9 +6047,10 @@ def main() -> int:
         finally:
             os.environ.pop("VITLENS_ENABLE_FUSED_LNQKV", None)
     profile_encode(torch, card, f"B{B} audio train step", step64)
-    # -- 4dp (a): the same step over a world-size-1 NCCL group ----------------
-    dp_nccl_phase(torch, np, counters, launches, trainer, state, tx, mask, sc,
-                  train_batch)
+    # -- 4dp (a), 4fs (a): the same step over a world-size-1 NCCL group, then
+    # under FSDP on it (the model is placed for good) -------------------------
+    fs_a = dp_nccl_phase(torch, np, counters, launches, trainer, state, tx,
+                         mask, sc, train_batch)
     del trainer, state, train_step, batch64
     tri_rates = tri_timings(torch, np, card, [(tri_depth, 0, (B,)),
                                               (tri_video, 8, (B, 32)),
@@ -5743,9 +6067,11 @@ def main() -> int:
     mark("5 rates")
     # -- 4dp (b): two ranks sharing the card; (c): the mesh encode and serve --
     del model, fb64, pc64, audio64, pc64_encode, qaudio64, step64
-    dp_ranks_phase(torch, launches, card)
+    fs_bc = dp_ranks_phase(torch, launches, card)
     dp_encode_phase(torch, np, counters, launches, card)
-    mark("4dp")
+    print(f"[4fs] {card} | phase 4fs {fs_a + fs_bc:.1f} s: (a) {fs_a:.1f} s, "
+          f"(b) and (c) {fs_bc:.1f} s in the rank processes", flush=True)
+    mark("4dp, 4fs")
     replaces = {
         "fused_mlp": "vitlens_tpu/ops/fused_mlp.py:105",
         "flash_attention": "vitlens_tpu/ops/flash_attention.py:53",

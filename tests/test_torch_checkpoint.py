@@ -192,11 +192,38 @@ def test_async_saver_orders_and_reraises(tmp_path):
     saver2.close()
 
 
-def test_sharded_savers_raise():
-    for fn in (PC.save_checkpoint_sharded, PC.save_best_sharded,
-               PC.load_checkpoint_sharded):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            fn("x", None, 1)
+def test_sharded_savers_raise(tmp_path):
+    """The collective savers take a TrainState and raise on anything else;
+    in one process (no process group) they write the port's tree with DCP:
+    meta.json says sharded, latest.json points at the checkpoint, a load
+    into another state is bit for bit (ckpt_only: the weights alone), and
+    save_best_sharded keeps the best. The two-rank path:
+    tests/test_torch_fsdp.py."""
+    x, tree = str(tmp_path / "x"), {"a": torch.ones(2)}
+    for call in (lambda: PC.save_checkpoint_sharded(x, tree, 1),
+                 lambda: PC.save_best_sharded(x, tree, 1, 0.5),
+                 lambda: PC.load_checkpoint_sharded(x, tree)):
+        with pytest.raises(TypeError, match="TrainState"):
+            call()
+    ts = _train_state(0, 2)
+    root = str(tmp_path / "ck")
+    path = PC.save_checkpoint_sharded(root, ts, 1)
+    assert PC.load_meta(path) == {"epoch": 1, "extra": {}, "sharded": True}
+    assert json.load(open(os.path.join(root, "latest.json"))) == {"tag": "epoch_1"}
+    assert PC.get_latest_checkpoint(root) == path
+    fresh = _train_state(1, 0)
+    assert PC.load_checkpoint_sharded(path, fresh) is fresh
+    _equal_states(fresh, ts)
+    assert fresh.step == 2 and fresh.opt_state["count"] == 2
+    only = _train_state(2, 0)
+    PC.load_checkpoint_sharded(path, only, ckpt_only=True)
+    _equal_states(only, ts, opt=False)
+    assert only.step == 0
+    assert PC.save_best_sharded(root, ts, 1, 0.5) == os.path.join(
+        root, "checkpoint_best")
+    assert PC.save_best_sharded(root, ts, 2, 0.25) is None
+    assert json.load(open(os.path.join(root, "best.json"))) == {
+        "metric": 0.5, "epoch": 1}
 
 
 def test_remote_sync_mirrors(tmp_path):

@@ -223,7 +223,10 @@ def test_raises_without_cuda(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--fsdp"], "item 12"), (["--tp", "2"], "item 12"),
+    # FSDP is ported: one process runs the one-device step and eval, as in
+    # JAX (two ranks: tests/test_torch_fsdp.py)
+    pytest.param(["--fsdp"], None, id="flags0-item 12"),
+    (["--tp", "2"], "item 12"),
     # data parallelism is ported: --n-devices must be the number of ranks,
     # and one process is one rank
     pytest.param(["--n-devices", "2"], r"--n-devices 2 but the run has 1 rank",

@@ -339,8 +339,8 @@ def test_distributed_env_refusals_and_nodelists():
 def test_init_distributed_single_process_and_meshes(monkeypatch):
     """One process: init_distributed returns rank 0 and joins nothing; a
     rank whose device is the CUDA default raises without a card; the local
-    meshes; the data axis is unbound without a group; the model axis and
-    FSDP wait for items 12c and 12b."""
+    meshes; the data axis is unbound without a group; the model axis waits
+    for item 12c; FSDP without a mesh is the one-device step."""
     import torch.distributed as dist
 
     from vitlens_tpu_torch.parallel import mesh as PM
@@ -375,8 +375,12 @@ def test_init_distributed_single_process_and_meshes(monkeypatch):
         PM.data_axis("data")
     with pytest.raises(NotImplementedError, match="12c"):
         PM.make_mesh(n_model=2, devices=["cpu"] * 2)
-    with pytest.raises(NotImplementedError, match="12b"):
-        PStep._step_mesh(None, "fsdp")
+    # FSDP is ported: without a mesh, or on one device, the one-device
+    # step (as in JAX); a local mesh of several devices raises
+    assert PStep._step_mesh(None, "fsdp") is None
+    assert PStep._step_mesh(one, "fsdp") is None
+    with pytest.raises(ValueError, match="FSDP step runs one process a rank"):
+        PStep._step_mesh(mesh, "fsdp")
     with pytest.raises(ValueError, match="one process a rank"):
         PStep._step_mesh(mesh, "ddp")
     assert PStep._step_mesh(one, "ddp") is None

@@ -245,10 +245,12 @@ def test_train_step_matches_jax(tiny, accum, remat, clip, unlock):
 
 
 def test_train_step_refuses_the_unported(tiny):
-    """What still raises: FSDP (item 12b), a mesh that is not the port's
-    (the data-parallel step runs over parallel.mesh.Mesh: tests/
-    test_torch_parallel.py), an unknown remat tag, a mask that was never
-    applied and a trainable parameter that is no fp32 master.
+    """What still raises: an unknown partition style (FSDP without a mesh
+    is the one-device step, as in JAX; over ranks: tests/
+    test_torch_fsdp.py), a mesh that is not the port's (the data-parallel
+    step runs over parallel.mesh.Mesh: tests/test_torch_parallel.py), an
+    unknown remat tag, a mask that was never applied and a trainable
+    parameter that is no fp32 master.
     Point-cloud training, train-time patch dropout and the "dots" remat,
     which raised here too, run: a train pass moves the tokenizer's running
     statistics, a dropping tower keeps CLS and the drawn patches, "dots"
@@ -260,8 +262,9 @@ def test_train_step_refuses_the_unported(tiny):
     two = PStep.StepConfig(n_tower=2, align_to="text")
     with pytest.raises(TypeError, match="Mesh"):
         PStep.make_train_step(pcfg, tx, mask, two, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 12"):
-        PStep.make_train_step(pcfg, tx, mask, two, partition="fsdp")
+    with pytest.raises(ValueError, match="unknown partition"):
+        PStep.make_train_step(pcfg, tx, mask, two, partition="zero")
+    assert callable(PStep.make_train_step(pcfg, tx, mask, two, partition="fsdp"))
     pc = TriModel(PC.make_model_config("ViT-Tiny-Test", "pc"), device="cpu")
     pc.init_(torch.Generator().manual_seed(0))
     feats = pc.visual(torch.randn(2, 64, 3), train=True)

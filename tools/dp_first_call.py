@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""First call of the data-parallel phase on the card (chip_smoke.py phase
-4dp), without the rest of chip_smoke.py:
+"""First call of the data-parallel and FSDP phases on the card
+(chip_smoke.py phases 4dp and 4fs), without the rest of chip_smoke.py:
 
     python3 tools/dp_first_call.py           # the first call
     python3 tools/dp_first_call.py --plant   # phase 4dp (b) against two faults
+    python3 tools/dp_first_call.py --fsdp    # phases 4dp/4fs (a), (b), (c)
+    python3 tools/dp_first_call.py --fsdp --plant [NAME]  # 4fs (b), faults
 
 1. two ranks that both take cuda:0 under NCCL: prints what NCCL says (it
    refuses two ranks on one device);
@@ -19,6 +21,16 @@ in both rank processes (the step's functions replaced at run time; no file
 changes): ``unsynced-bn`` (BatchNorm normalised over the rank's own rows)
 and ``summed-grads`` (the gradients summed over the ranks, not averaged).
 Exits 0 only when the phase fails under each fault.
+
+With ``--fsdp``: the gloo probe, then phases 4dp (a) and 4fs (a) on a
+fresh vitlensL audio state, then the two rank processes of 4dp (b), which
+run 4fs (b) and (c) after it. With ``--fsdp --plant``, 4fs (b) runs under
+each fault of FS_FAULTS (or the one named), planted in the FSDP step
+alone, so that 4dp (b) still passes: ``autograd-grad`` (the gradients
+through ``torch.autograd.grad`` where a parameter is sharded: FSDP2's sharded
+parameters are not in the graph), ``local-norm`` (grad_norm over this
+rank's shards and the replicated gradients, not all-reduced) and
+``unsynced-bn`` (the FSDP step's BatchNorm over the rank's own rows).
 """
 
 from __future__ import annotations
@@ -71,7 +83,78 @@ def probe(kind: str) -> int:
             pass
 
 
-def run_probe(kind: str):
+def probe_fsdp() -> int:
+    """A rank of the FSDP probe: gloo on cuda:0, each stage printed before it
+    runs (a crash's Python stack from faulthandler): all_gather_into_tensor
+    and reduce_scatter_tensor of CUDA tensors, then fully_shard of two
+    Linear layers, a forward and backward, the gradients checked against
+    one process's, gathered with ``parallel.fsdp.full_tensor``
+    (``DTensor.full_tensor`` crashes a gloo group on CUDA tensors)."""
+    import faulthandler
+
+    import torch
+    import torch.distributed as dist
+
+    faulthandler.enable()
+    sys.path.insert(0, REPO)
+    env = os.environ
+    rank, world = int(env["RANK"]), int(env["WORLD_SIZE"])
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{env['MASTER_PORT']}",
+        world_size=world, rank=rank, timeout=datetime.timedelta(seconds=60))
+
+    def say(msg):
+        print(f"fsdp rank {rank}: {msg}", flush=True)
+
+    x = torch.full((4, 3), float(rank + 1), device="cuda")
+    try:
+        say("all_gather_into_tensor")
+        out = x.new_empty((4 * world, 3))
+        dist.all_gather_into_tensor(out, x)
+        say(f"  {out[::4, 0].tolist()}")
+        say("reduce_scatter_tensor")
+        y = x.new_empty((4 // world, 3))
+        dist.reduce_scatter_tensor(y, x)
+        say(f"  {y[:, 0].tolist()}")
+    except Exception as e:  # noqa: BLE001 - printed for the record
+        say(f"{type(e).__name__}: {str(e)[:600]}")
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.fsdp import fully_shard
+
+    torch.manual_seed(0)
+    net = torch.nn.Sequential(torch.nn.Linear(64, 64), torch.nn.Linear(64, 8)).cuda()
+    ref = [p.detach().clone() for p in net.parameters()]
+    inp = torch.randn(8, 64, device="cuda")
+    try:
+        say("fully_shard")
+        mesh = DeviceMesh.from_group(dist.group.WORLD, "cuda")
+        for m in net:
+            fully_shard(m, mesh=mesh)
+        say("forward")
+        loss = net(inp[rank * 4:(rank + 1) * 4]).square().sum()
+        say("backward")
+        loss.backward()
+        torch.cuda.synchronize()
+        from vitlens_tpu_torch.parallel.fsdp import full_tensor
+
+        g = [full_tensor(p.grad) for p in net.parameters()]
+        one = torch.nn.Sequential(torch.nn.Linear(64, 64), torch.nn.Linear(64, 8)).cuda()
+        with torch.no_grad():
+            for p, r in zip(one.parameters(), ref):
+                p.copy_(r)
+        (one(inp).square().sum() / world).backward()
+        err = max((a - p.grad).abs().max().item() for a, p in zip(g, one.parameters()))
+        say(f"gradients against one process: max abs diff {err:.3e}")
+        return 0 if err < 1e-4 else 1
+    except Exception as e:  # noqa: BLE001 - printed for the record
+        say(f"{type(e).__name__}: {str(e)[:600]}")
+        return 2
+    finally:
+        dist.destroy_process_group()
+
+
+def run_probe(kind: str, *more):
     import socket
 
     with socket.socket() as s:
@@ -84,7 +167,8 @@ def run_probe(kind: str):
         env = dict(os.environ, WORLD_SIZE="2", RANK=str(r), MASTER_PORT=port)
         with open(logs[-1], "w") as f:
             procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--probe", kind],
+                [sys.executable, os.path.abspath(__file__), "--probe", kind,
+                 *more],
                 stdout=f, stderr=subprocess.STDOUT, env=env))
     for p in procs:
         try:
@@ -95,21 +179,51 @@ def run_probe(kind: str):
     for r, log in enumerate(logs):
         text = open(log).read().strip().splitlines()
         said = [ln for ln in text if ln.startswith(kind)] or text[-3:]
-        print(f"[probe {kind}] rank {r} exit {procs[r].returncode}: "
-              + " | ".join(said), flush=True)
+        print(f"[probe {kind} {' '.join(more)}] rank {r} exit "
+              f"{procs[r].returncode}: " + " | ".join(said), flush=True)
+        if procs[r].returncode:
+            print("\n".join(text[-40:]), flush=True)
     return [p.returncode for p in procs]
 
 
 FAULTS = ("unsynced-bn", "summed-grads")
+FS_FAULTS = ("autograd-grad", "local-norm", "unsynced-bn")
+
+
+def plant_fsdp(fault: str) -> None:
+    """Plant ``fault`` (FS_FAULTS) in the FSDP step of train/step.py."""
+    import torch
+
+    from vitlens_tpu_torch.parallel import fsdp as F
+    from vitlens_tpu_torch.train import step as S
+
+    if fault == "autograd-grad":
+        backward = S._backward_grads
+        S._backward_grads = lambda loss, params: (
+            S._grads if any(F.shard_axis(p) is not None
+                            for p in params.values()) else backward)(
+                                loss, params)
+    elif fault == "local-norm":
+        S.sharded_norm = lambda grads, mesh: torch.sqrt(sum(
+            F.local_tensor(g).float().square().sum() for g in grads.values()))
+    elif fault == "unsynced-bn":
+        synced = S.batch_norm_synced
+        S.batch_norm_synced = lambda model, mesh: synced(
+            model, None if F.fsdp_units(model) else mesh)
+    else:
+        raise ValueError(f"unknown fault {fault!r}; one of {FS_FAULTS}")
 
 
 def plant_rank(fault: str, out_dir: str) -> int:
-    """A rank of phase 4dp (b) with ``fault`` planted in the train step."""
+    """A rank of phase 4dp (b) with ``fault`` planted in the train step
+    (``fsdp:<fault>``: in the FSDP step alone)."""
     sys.path.insert(0, REPO)
     import chip_smoke as CS
     from vitlens_tpu_torch.train import step as S
 
-    if fault == "unsynced-bn":
+    if fault.startswith("fsdp:"):
+        plant_fsdp(fault[len("fsdp:"):])
+    elif fault == "unsynced-bn":
         synced = S.batch_norm_synced
         S.batch_norm_synced = lambda model, mesh: synced(model, None)
     elif fault == "summed-grads":
@@ -127,8 +241,9 @@ def plant_rank(fault: str, out_dir: str) -> int:
     return CS.dp_rank_main(out_dir)
 
 
-def plant_main() -> int:
-    """Phase 4dp (b) under each of FAULTS: 0 when every one fails it."""
+def plant_main(faults=FAULTS, prefix="") -> int:
+    """Phase 4dp (b) (with ``prefix`` "fsdp:", its 4fs (b)) under each of
+    ``faults``: 0 when every one fails it."""
     import torch
 
     sys.path.insert(0, REPO)
@@ -140,26 +255,27 @@ def plant_main() -> int:
     card = CS.card_line()
     print(f"{card} | torch {torch.__version__} cuda {torch.version.cuda}; "
           f"kernels built in {time.time() - t0:.1f} s", flush=True)
+    phase = "4fs (b)" if prefix else "4dp (b)"
     passed = []
-    for fault in FAULTS:
+    for fault in faults:
         t = time.time()
         try:
             CS.dp_ranks_phase(torch, dict.fromkeys(CS.COUNTED, 0), card,
                               rank_argv=[sys.executable, os.path.abspath(__file__),
-                                         "--plant-rank", fault])
+                                         "--plant-rank", prefix + fault])
         except SystemExit as e:
-            print(f"[plant {fault}] {card} | phase 4dp (b) failed, as it "
+            print(f"[plant {fault}] {card} | phase {phase} failed, as it "
                   f"must ({time.time() - t:.1f} s): {e}", flush=True)
             continue
         passed.append(fault)
-        print(f"[plant {fault}] {card} | phase 4dp (b) PASSED with the fault "
+        print(f"[plant {fault}] {card} | phase {phase} PASSED with the fault "
               f"planted", flush=True)
     print(f"[done] faults the phase let through: {passed or 'none'}; "
           f"{time.time() - t0:.1f} s", flush=True)
     return 1 if passed else 0
 
 
-def main() -> int:
+def main(fsdp: bool = False) -> int:
     import numpy as np
     import torch
 
@@ -172,9 +288,12 @@ def main() -> int:
     card = CS.card_line()
     print(f"{card} | torch {torch.__version__} cuda {torch.version.cuda}; "
           f"kernels built in {time.time() - t0:.1f} s", flush=True)
-    run_probe("nccl")
+    if not fsdp:
+        run_probe("nccl")
     if run_probe("gloo") != [0, 0]:
         CS.fail("gloo collectives on CUDA tensors")
+    if fsdp and run_probe("fsdp") != [0, 0]:
+        CS.fail("FSDP2 over gloo on CUDA tensors")
 
     from vitlens_tpu_torch.factory import create_model, make_trainable_
     from vitlens_tpu_torch.train.freeze import tri_model_mask
@@ -202,21 +321,30 @@ def main() -> int:
                 "visual": torch.from_numpy(fb.astype(np.float32))}
 
     sc = StepConfig(n_tower=2, align_to="text", compute_dtype=torch.bfloat16)
-    CS.dp_nccl_phase(torch, np, counters, totals, model, state, tx, mask, sc,
-                     batch)
+    fs_a = CS.dp_nccl_phase(torch, np, counters, totals, model, state, tx, mask,
+                            sc, batch)
     del model, state
-    CS.dp_ranks_phase(torch, totals, card)
-    CS.dp_encode_phase(torch, np, counters, totals, card)
+    fs_bc = CS.dp_ranks_phase(torch, totals, card)
+    print(f"[4fs] {card} | phase 4fs {fs_a + fs_bc:.1f} s: (a) {fs_a:.1f} s, "
+          f"(b) and (c) {fs_bc:.1f} s in the rank processes", flush=True)
+    if not fsdp:
+        CS.dp_encode_phase(torch, np, counters, totals, card)
     print(f"[done] {card} | launches {totals}; {time.time() - t0:.1f} s",
           flush=True)
     return 0
 
 
 if __name__ == "__main__":
+    if sys.argv[1:3] == ["--probe", "fsdp"]:
+        sys.exit(probe_fsdp())
     if sys.argv[1:2] == ["--probe"]:
         sys.exit(probe(sys.argv[2]))
     if sys.argv[1:2] == ["--plant-rank"]:
         sys.exit(plant_rank(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--plant"]:
         sys.exit(plant_main())
+    if sys.argv[1:3] == ["--fsdp", "--plant"]:
+        sys.exit(plant_main(tuple(sys.argv[3:]) or FS_FAULTS, "fsdp:"))
+    if sys.argv[1:2] == ["--fsdp"]:
+        sys.exit(main(fsdp=True))
     sys.exit(main())

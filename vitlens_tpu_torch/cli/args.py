@@ -6,8 +6,8 @@ One typed surface replacing the reference's ~170-flag argparse
 exist so recipes translate 1:1; defaults follow params.py. The parallel
 flags parse as in JAX: ``--n-devices`` is the data-parallel width, one
 process a card (``torch.distributed.run``), and must equal the number of
-ranks; ``--fsdp`` and ``--tp`` > 1 raise, naming ROADMAP Queue 1 items 12b
-and 12c.
+ranks; ``--fsdp`` shards the train state over them (``parallel.fsdp``);
+``--tp`` > 1 raises, naming ROADMAP Queue 1 item 12c.
 """
 
 from __future__ import annotations

@@ -23,12 +23,21 @@ the embeddings and averages the gradients over the ranks, the eval encodes a
 slice of each batch on each rank and gathers the features, rank 0 writes the
 logs, results and checkpoints (the others log to out.rank{r}.log), and a
 SIGTERM is agreed over the ranks. --n-devices, when given, must equal the
-number of ranks; --fsdp and --tp > 1 wait for ROADMAP Queue 1 items 12b and
-12c and raise.
+number of ranks; --tp > 1 waits for ROADMAP Queue 1 item 12c and raises.
+
+--fsdp over several ranks shards the train state (``parallel.fsdp``: FSDP2
+over the blocks and towers) and runs JAX's global-batch FSDP step
+(``make_train_step(partition="fsdp")``). Its checkpoints are collective
+(``checkpoint.save_checkpoint_sharded``): every rank writes its shards,
+synchronously, at each epoch save, best save and preemption save; a resume
+from one is deferred until after the placement ("resumed (sharded) from").
+Its eval calls every tower the same number of times on every rank (each
+call gathers the tower's weights).
 
 The step's randomness (FPS starts, train-time patch dropout) comes from one
 ``torch.Generator`` on the device, seeded with --seed + the rank (the
-reference seeds each rank so). --lora-rank > 0 trains
+reference seeds each rank so); under --fsdp with --seed on every rank, as
+the draws are the global batch's. --lora-rank > 0 trains
 rank-r factors on the --lora-towers' trunks alone (train/lora.py); a
 --pretrained tag that is no file resolves through the local cache
 (utils/hub.py).
@@ -396,10 +405,6 @@ def check_supported(args: TrainArgs, world: Optional[int] = None) -> None:
     """Raise on the flags whose work is not yet ported, naming its item,
     and on an --n-devices that is not the ``world`` of ranks (when
     given)."""
-    if args.fsdp:
-        raise NotImplementedError(
-            "--fsdp: the FSDP train step is not yet ported: ROADMAP Queue 1, "
-            "item 12b (FSDP2)")
     if args.tp > 1:
         raise NotImplementedError(
             "--tp > 1: tensor parallelism is not yet ported: ROADMAP Queue 1, "
@@ -486,11 +491,12 @@ def attach_lora(args: TrainArgs, model, mask):
     return {n: mask[n] for n, _ in model.named_parameters()}
 
 
-def build_step(args: TrainArgs, model, cfg, mask, total_steps: int, mesh=None):
+def build_step(args: TrainArgs, model, cfg, mask, total_steps: int, mesh=None,
+               partition: str = "ddp"):
     """(step, state): the optimizer and the step of the recipe's flags (over
-    ``mesh``, the data-parallel one); the model's trainable parameters
-    become fp32 masters and its frozen matmul weights are cast to the
-    compute dtype."""
+    ``mesh``, the data-parallel one, or the FSDP one with
+    ``partition="fsdp"``); the model's trainable parameters become fp32
+    masters and its frozen matmul weights are cast to the compute dtype."""
     from vitlens_tpu_torch.factory import make_trainable_
 
     tx, mask = make_optimizer(
@@ -517,7 +523,7 @@ def build_step(args: TrainArgs, model, cfg, mask, total_steps: int, mesh=None):
                and args.remat_policy != "full" else args.grad_checkpointing),
         sync_bn=args.use_bn_sync and mesh is not None,
     )
-    return (make_train_step(cfg, tx, mask, sc, mesh=mesh),
+    return (make_train_step(cfg, tx, mask, sc, mesh=mesh, partition=partition),
             init_train_state(model, tx))
 
 
@@ -617,24 +623,41 @@ def _train(args: TrainArgs, rank: int, resolve_device, cast_matmul_weights_,
         return 0
 
     steps_per_epoch = train_info.num_batches
+    # the sharded state's checkpoints are collective, every rank writing
+    sharded = args.fsdp and mesh is not None
     step, ts = build_step(args, model, cfg, mask,
-                          total_steps=steps_per_epoch * args.epochs, mesh=mesh)
+                          total_steps=steps_per_epoch * args.epochs, mesh=mesh,
+                          partition="fsdp" if sharded else "ddp")
 
     ckpt_dir = os.path.join(log_dir, "checkpoints")
     start_epoch = 0
+    resume_sharded = None
     if args.resume:
         path = (C.get_latest_checkpoint(ckpt_dir) if args.resume == "latest"
                 else args.resume)
         if world > 1:  # every rank resumes from rank 0's choice
             path = PM.broadcast_object(path)
-        if path:
+        if path and C.load_meta(path).get("sharded"):
+            # a collective checkpoint restores onto the placed state
+            resume_sharded = path
+        elif path:
             ts = C.load_checkpoint(path, ts, ckpt_only=args.resume_ckpt_only)
             start_epoch = C.load_meta(path).get("epoch", 0)
             logging.info(f"resumed from {path} (epoch {start_epoch})")
+    if sharded:
+        from vitlens_tpu_torch.parallel.fsdp import fsdp_place
+
+        ts = fsdp_place(ts, mesh)
+    if resume_sharded:
+        ts = C.load_checkpoint_sharded(resume_sharded, ts,
+                                       ckpt_only=args.resume_ckpt_only)
+        start_epoch = C.load_meta(resume_sharded).get("epoch", 0)
+        logging.info(f"resumed (sharded) from {resume_sharded} "
+                     f"(epoch {start_epoch})")
     writer = (MetricsWriter(log_dir, use_tensorboard="tensorboard" in args.report_to)
               if is_rank0 else None)
     meter = ThroughputMeter(n_chips=world)
-    saver = C.AsyncSaver() if is_rank0 else None
+    saver = C.AsyncSaver() if is_rank0 and not sharded else None
     sync_stop = None
     if args.remote_sync and is_rank0:
         sync_stop = C.start_remote_sync(ckpt_dir, args.remote_sync,
@@ -661,7 +684,8 @@ def _train(args: TrainArgs, rank: int, resolve_device, cast_matmul_weights_,
         # them): agree, so that every rank stops at the same step or none
         return any(PM.all_gather_object(got_sigterm["flag"]))
 
-    gen = torch.Generator(device=device).manual_seed(args.seed + rank)
+    gen = torch.Generator(device=device).manual_seed(
+        args.seed + (0 if sharded else rank))
     global_step = int(ts.step)
     trace = None
     preempted = False
@@ -708,7 +732,12 @@ def _train(args: TrainArgs, rank: int, resolve_device, cast_matmul_weights_,
                     and preempt_agreed()):
                 logging.info(f"SIGTERM: checkpointing at step {global_step} "
                              f"(epoch {epoch} incomplete) and exiting")
-                if is_rank0:
+                if sharded:  # COLLECTIVE: every rank writes its shards
+                    C.save_checkpoint_sharded(
+                        ckpt_dir, ts, epoch, is_latest=True,
+                        extra={"preempt_step": global_step},
+                        tag=f"preempt_step_{global_step}")
+                elif is_rank0:
                     tag = f"preempt_step_{global_step}"
                     extra = {"preempt_step": global_step}
                     # meta epoch = completed epochs -> resume restarts this
@@ -725,20 +754,26 @@ def _train(args: TrainArgs, rank: int, resolve_device, cast_matmul_weights_,
         # end epoch: eval + ckpt; rank 0's host snapshot is synchronous (the
         # next step updates the parameters in place), the disk write happens
         # on the saver worker so the next epoch starts immediately
-        host_ts = C.snapshot(ts) if is_rank0 else None
+        host_ts = C.snapshot(ts) if is_rank0 and not sharded else None
         if args.val_data and (epoch + 1) % args.val_frequency == 0:
             results = evaluate(args, model, cfg, tokenizer, mesh=mesh)
             metric = _primary_metric(results)
             if is_rank0:
                 writer.log({"primary": metric, **_flatten_results(results)},
                            global_step, "val")
+            if sharded:  # COLLECTIVE: every rank enters it, or none
+                C.save_best_sharded(ckpt_dir, ts, epoch + 1, metric)
+            elif is_rank0:
                 saver.submit(lambda s=host_ts, e=epoch + 1, m=metric:
                              C.save_best(ckpt_dir, s, e, m))
-        if is_rank0 and ((epoch + 1) % args.save_frequency == 0
-                         or args.save_most_recent):
-            saver.submit(lambda s=host_ts, e=epoch + 1:
-                         C.save_checkpoint(ckpt_dir, s, e,
-                                           is_latest=args.save_most_recent))
+        if (epoch + 1) % args.save_frequency == 0 or args.save_most_recent:
+            if sharded:  # COLLECTIVE and synchronous
+                C.save_checkpoint_sharded(ckpt_dir, ts, epoch + 1,
+                                          is_latest=args.save_most_recent)
+            elif is_rank0:
+                saver.submit(lambda s=host_ts, e=epoch + 1:
+                             C.save_checkpoint(ckpt_dir, s, e,
+                                               is_latest=args.save_most_recent))
     if trace is not None:  # --profile-steps exceeded the run length
         stop_trace(trace, os.path.join(log_dir, "trace"))
     if saver is not None:

@@ -17,8 +17,8 @@ ways, both behind one :class:`Mesh`:
   multiple of ``data``, split into contiguous chunks, one a device, and the
   results gather on the first device (``api.ViTLens(mesh=)``).
 
-The ``model`` axis (tensor parallelism) waits for ROADMAP Queue 1 item 12c;
-FSDP for 12b.
+FSDP (the train state sharded over the ranks) is ``parallel.fsdp``. The
+``model`` axis (tensor parallelism) waits for ROADMAP Queue 1 item 12c.
 """
 
 from __future__ import annotations

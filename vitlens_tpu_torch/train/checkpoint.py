@@ -20,9 +20,17 @@ their stored dtype), its buffers (BatchNorm statistics), the AdamW moments
 and the step. JAX's checkpoints are orbax trees, and orbax needs JAX, so the
 port neither reads nor writes them. A data-parallel run's state is
 replicated: its rank 0 writes it, and the trainer's other ranks wait at a
-barrier for the write before any of them reads it back. The collective
-(``*_sharded``) savers of a sharded state wait for FSDP (ROADMAP Queue 1,
-item 12b) and raise.
+barrier for the write before any of them reads it back.
+
+An FSDP state (``parallel.fsdp.fsdp_place``) is saved collectively
+(``save_checkpoint_sharded``, ``save_best_sharded``): the same tree, written
+with ``torch.distributed.checkpoint`` (DCP), every rank writing its own
+shards and rank 0 the replicated tensors, with no gather; rank 0 writes
+``meta.json`` (``"sharded": true``) and a ``latest.json`` pointer (tmp +
+rename) in place of a copy to ``epoch_latest``. ``load_checkpoint_sharded``
+restores onto the target's placements: a placed state of any number of
+ranks, or a whole state in one process (DCP reshards on read, as orbax does
+for JAX).
 """
 
 from __future__ import annotations
@@ -224,17 +232,119 @@ def _save_tree(path: str, tree: Any) -> None:
 
 
 # ---------------------------------------------------------------------------
-# distributed (sharded, collective) checkpointing: ROADMAP Queue 1, item 12b
+# distributed (sharded, collective) checkpointing
 # ---------------------------------------------------------------------------
 
 
-def _sharded(*_a, **_k):
-    raise NotImplementedError(
-        "collective (sharded) checkpoints of an FSDP state are not yet "
-        "ported: ROADMAP Queue 1, item 12b (FSDP2)")
+def _live_tree(state: TrainState) -> Dict[str, Any]:
+    """The state's tree of live tensors (a sharded parameter's or moment's
+    ``DTensor``, a plain tensor otherwise; the counts as 0-dim tensors) for
+    DCP to write from or read into."""
+    from vitlens_tpu_torch.parallel.fsdp import reshard_
+
+    if not isinstance(state, TrainState):
+        raise TypeError(f"a collective checkpoint holds a TrainState, got "
+                        f"{type(state).__name__}")
+    model = state.model
+    reshard_(model)
+    opt = state.opt_state
+    return {
+        "params": {n: p.detach() for n, p in model.named_parameters()},
+        "model_state": {n: b for n, b in model.named_buffers()
+                        if b is not None},
+        "opt_state": {"count": torch.tensor(int(opt["count"])),
+                      "mu": dict(opt["mu"]), "nu": dict(opt["nu"])},
+        "step": torch.tensor(int(state.step)),
+    }
 
 
-save_checkpoint_sharded = save_best_sharded = load_checkpoint_sharded = _sharded
+def _collective_save(path: str, state: TrainState) -> None:
+    """DCP save of ``state`` into ``path`` (replaced): every process calls
+    it; each writes its own shards."""
+    import torch.distributed.checkpoint as dcp
+
+    from vitlens_tpu_torch.parallel.mesh import barrier, process_index
+
+    if process_index() == 0 and os.path.exists(path):
+        shutil.rmtree(path)
+    barrier()  # no rank writes before the old directory is gone
+    dcp.save(_live_tree(state), checkpoint_id=os.path.abspath(path))
+
+
+def save_checkpoint_sharded(
+    root: str,
+    state: TrainState,
+    epoch: int,
+    *,
+    is_latest: bool = True,
+    extra: Optional[Dict] = None,
+    tag: Optional[str] = None,
+) -> str:
+    """The collective counterpart of :func:`save_checkpoint` for a state
+    sharded over processes: every rank writes its shards under epoch_{N}
+    (or ``tag``); rank 0 writes ``meta.json`` with ``"sharded": true`` and,
+    with ``is_latest``, points ``latest.json`` at it (a pointer, not a copy:
+    tmp + rename). ``root`` must be visible to every process. COLLECTIVE:
+    every process calls it with its part of the same state."""
+    from vitlens_tpu_torch.parallel.mesh import process_index
+
+    os.makedirs(root, exist_ok=True)
+    path = _ckpt_path(root, tag or f"epoch_{epoch}")
+    _collective_save(path, state)
+    if process_index() == 0:
+        with open(os.path.join(path, "meta.json"), "w") as f:
+            json.dump({"epoch": epoch, "extra": extra or {}, "sharded": True}, f)
+        if is_latest:
+            tmp = os.path.join(root, "latest.json.tmp")
+            with open(tmp, "w") as f:
+                json.dump({"tag": os.path.basename(path)}, f)
+            os.replace(tmp, os.path.join(root, "latest.json"))
+    return path
+
+
+def save_best_sharded(root: str, state: TrainState, epoch: int,
+                      metric: float) -> Optional[str]:
+    """:func:`save_best` for a state sharded over processes. Rank 0 alone
+    reads and writes best.json; its decision is broadcast, so that every
+    rank enters the collective save or none does."""
+    from vitlens_tpu_torch.parallel.mesh import broadcast_object, process_index
+
+    best_meta = os.path.join(root, "best.json")
+    improved = None
+    if process_index() == 0:
+        prev = -float("inf")
+        if os.path.exists(best_meta):
+            with open(best_meta) as f:
+                prev = json.load(f)["metric"]
+        improved = bool(metric > prev)
+    if not broadcast_object(improved):
+        return None
+    os.makedirs(root, exist_ok=True)
+    path = _ckpt_path(root, "checkpoint_best")
+    _collective_save(path, state)
+    if process_index() == 0:
+        with open(best_meta, "w") as f:
+            json.dump({"metric": metric, "epoch": epoch}, f)
+    return path
+
+
+def load_checkpoint_sharded(path: str, target: TrainState, *,
+                            ckpt_only: bool = False) -> TrainState:
+    """Restore a collective checkpoint into ``target`` in place, onto its
+    placements: a state placed by ``fsdp_place`` (after the placement, as
+    in JAX) or a whole state, each rank reading what it holds; with
+    ``ckpt_only=True`` the parameters and buffers only. COLLECTIVE when a
+    process group is up: every process calls it."""
+    import torch.distributed.checkpoint as dcp
+
+    tree = _live_tree(target)
+    if ckpt_only:
+        tree = {"params": tree["params"], "model_state": tree["model_state"]}
+    dcp.load(tree, checkpoint_id=os.path.abspath(path))
+    if not ckpt_only:
+        target.opt_state["count"] = int(tree["opt_state"]["count"])
+        target.step = int(tree["step"])
+    return target
 
 
 # ---------------------------------------------------------------------------

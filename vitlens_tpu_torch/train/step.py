@@ -30,6 +30,25 @@ of its rows with the embeddings gathered over the ranks (``local_loss``: its
 ``[B_local, B_global]`` block), its BatchNorms share their moments
 (``sync_bn``), and the trainable gradients and the loss are averaged over
 the ranks before the update, so every rank applies the same one.
+
+``partition="fsdp"`` over such a mesh is JAX's FSDP step, which JAX runs as
+one global-batch computation on sharded arrays: the state is placed first
+(``parallel.fsdp.fsdp_place``: FSDP2 over the blocks and towers), and the
+step computes what that global computation does. The loss gathers the
+features as the DP step's does; BatchNorm takes its moments over every
+rank's rows whatever ``sync_bn`` says; the FPS starts and the patch dropout
+are drawn for the global batch from a generator seeded alike on every rank,
+and each rank takes its rows. With ``accum_freq`` A > 1, JAX's micro-batch
+i is the i-th of A contiguous slices of the global batch, so the ranks
+first trade rows (:func:`jax_micro_rows`): rank r's i-th micro-batch is its
+share of that slice. Every step takes its gradients with
+``loss.backward()``: FSDP2 reduce-scatters (averages) the sharded ones into
+their ``.grad`` (``autograd.grad`` against a sharded parameter, which is
+not in the graph, since FSDP2 runs the forward on gathered copies, would
+give nothing). The replicated ones are averaged as the DP step averages
+them; ``grad_norm`` is the one global norm (``parallel.fsdp.
+sharded_norm``), and the clip and AdamW run elementwise on each rank's
+shards.
 """
 
 from __future__ import annotations
@@ -45,7 +64,11 @@ import torch.nn as nn
 from vitlens_tpu_torch.adapters.tokenizers import BatchNorm, batch_norm_synced
 from vitlens_tpu_torch.models import tri
 from vitlens_tpu_torch.models.vit import draw_patch_keep
-from vitlens_tpu_torch.parallel.mesh import (Mesh, average_gradients_,
+from vitlens_tpu_torch.parallel.fsdp import (fsdp_units, local_tensor,
+                                             reshard_, shard_axis,
+                                             sharded_norm)
+from vitlens_tpu_torch.parallel.mesh import (Mesh, all_gather,
+                                             average_gradients_,
                                              mean_over_ranks)
 from vitlens_tpu_torch.train import losses as losses_lib
 from vitlens_tpu_torch.train.freeze import Mask
@@ -111,11 +134,17 @@ class AdamW:
 
     @torch.no_grad()
     def update_(self, params: Dict[str, torch.Tensor],
-                grads: Dict[str, torch.Tensor], state: Dict[str, Any]) -> None:
-        """Apply one update to ``params`` (the trainable ones) in place."""
+                grads: Dict[str, torch.Tensor], state: Dict[str, Any],
+                norm: Optional[torch.Tensor] = None) -> None:
+        """Apply one update to ``params`` (the trainable ones) in place. The
+        clip takes ``norm``, the gradients' global norm, when given (the
+        FSDP step's, over the ranks' shards), else computes it. Sharded
+        parameters, gradients and moments (``DTensor``s) update on their
+        local shards."""
         cfg = self.cfg
+        grads = {n: local_tensor(g) for n, g in grads.items()}
         if cfg.grad_clip_norm:
-            norm = global_norm(grads)
+            norm = global_norm(grads) if norm is None else norm
             keep = norm < cfg.grad_clip_norm
             grads = {n: torch.where(keep, g, g / norm * cfg.grad_clip_norm)
                      for n, g in grads.items()}
@@ -124,8 +153,9 @@ class AdamW:
         t = count + 1
         bc1, bc2 = 1 - cfg.beta1 ** t, 1 - cfg.beta2 ** t
         for name in self.names:
-            p, g = params[name], grads[name]
-            mu, nu = state["mu"][name], state["nu"][name]
+            p, g = local_tensor(params[name]), grads[name]
+            mu = local_tensor(state["mu"][name])
+            nu = local_tensor(state["nu"][name])
             mu.mul_(cfg.beta1).add_(g, alpha=1 - cfg.beta1)
             nu.mul_(cfg.beta2).addcmul_(g, g, value=1 - cfg.beta2)
             u = (mu / bc1) / ((nu / bc2).sqrt() + cfg.eps)
@@ -252,9 +282,26 @@ def _forward_features(model, batch, sc: StepConfig,
 
 
 def _grads(loss, params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``autograd.grad`` of ``loss`` for ``params`` (the OpenShape step's):
+    blind to FSDP2's sharded parameters, which are not in the graph."""
     got = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
     return {n: torch.zeros_like(p) if g is None else g
             for (n, p), g in zip(params.items(), got)}
+
+
+def _backward_grads(loss, params: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+    """The gradients ``loss.backward()`` leaves in the ``params``' ``.grad``,
+    taken out (the fields cleared, so that the next pass starts from none):
+    under FSDP2 a sharded parameter's is its reduce-scattered shard. Only
+    the trainable parameters may require grad (``factory.make_trainable_``):
+    the backward fills the ``.grad`` of every one that does."""
+    loss.backward()
+    out = {}
+    for n, p in params.items():
+        out[n] = torch.zeros_like(p) if p.grad is None else p.grad
+        p.grad = None
+    return out
 
 
 @contextlib.contextmanager
@@ -279,7 +326,7 @@ def micro_grads(model, batch, sc: StepConfig, params, loss_fn,
     trainable ``params`` only."""
     loss = loss_fn(_forward_features(model, batch, sc, fps_start, patch_keep),
                    batch.get("label"))
-    return loss.detach(), _grads(loss, params)
+    return loss.detach(), _backward_grads(loss, params)
 
 
 def accum_grads(model, batch, sc: StepConfig, params, loss_fn,
@@ -315,49 +362,79 @@ def accum_grads(model, batch, sc: StepConfig, params, loss_fn,
                 merged[k] = torch.cat([out_i[k] if j == i else cached[j][k]
                                        for j in range(A)])
             loss = loss_fn(merged, batch.get("label"))
-            grads = _grads(loss, params)
+            grads = _backward_grads(loss, params)
             loss_total = loss_total + loss.detach()
             grads_total = grads if grads_total is None else {
                 n: grads_total[n] + g for n, g in grads.items()}
     return loss_total / A, grads_total
 
 
+def _rank_rows(x: torch.Tensor, world: int, rank: int) -> torch.Tensor:
+    b = x.shape[0] // world
+    return x[rank * b:(rank + 1) * b]
+
+
+def jax_micro_rows(batch: Dict[str, torch.Tensor], mesh: Mesh,
+                   accum_freq: int) -> Dict[str, torch.Tensor]:
+    """This rank's rows of the global batch (every rank's, in rank order)
+    in JAX's micro-batch order: the i-th of its ``accum_freq`` equal slices
+    is its share of the i-th contiguous slice of the global batch, which
+    JAX's global step takes as micro-batch i. The ranks all-gather the
+    batch, each keeps its rows."""
+    W, r, A = mesh.data, mesh.rank, accum_freq
+    out = {}
+    with torch.no_grad():
+        for k, v in batch.items():
+            if v.shape[0] % A:
+                raise ValueError(f"batch {v.shape[0]} is not divisible by "
+                                 f"accum_freq {A}")
+            g, m = all_gather(v, mesh), v.shape[0] // A
+            out[k] = torch.cat([g[(i * W + r) * m:(i * W + r + 1) * m]
+                                for i in range(A)])
+    return out
+
+
 def draw_fps_starts(model, batch, accum_freq: int,
-                    generator: Optional[torch.Generator]):
+                    generator: Optional[torch.Generator], world: int = 1,
+                    rank: int = 0):
     """One FPS start a cloud for each of the ``accum_freq`` micro-batches,
     uniform in [0, N) from ``generator``, on its device; None where the Lens
     tower is no point-cloud tower or no generator is given (FPS then starts
-    at point 0, as JAX's does without ``fps_key``)."""
+    at point 0, as JAX's does without ``fps_key``). With ``world`` > 1 the
+    starts are drawn for the micro-batches of the global batch, ``world``
+    times this rank's rows, and ``rank``'s share of each (the ``rank``-th
+    of ``world`` equal slices) is kept."""
     if generator is None or model.visual.cfg.modality != "pc":
         return None
     b, n = batch["visual"].shape[:2]
-    return [torch.randint(0, n, (b // accum_freq,), generator=generator,
-                          device=generator.device, dtype=torch.int32)
-            for _ in range(accum_freq)]
+    return [_rank_rows(torch.randint(
+        0, n, (world * b // accum_freq,), generator=generator,
+        device=generator.device, dtype=torch.int32), world, rank)
+        for _ in range(accum_freq)]
 
 
 def draw_patch_keeps(model, batch, sc: StepConfig,
-                     generator: Optional[torch.Generator]):
+                     generator: Optional[torch.Generator], world: int = 1,
+                     rank: int = 0):
     """The Lens tower's train-time patch dropout, drawn once for each of the
     ``accum_freq`` micro-batches from ``generator`` (after the FPS starts),
     shared by both passes of a micro-batch (JAX folds ``fps_key`` with the
     micro-batch's index); None where the tower has no patch dropout, no
     generator is given or the step is the video distill one (JAX gives that
-    forward no ``fps_key``)."""
+    forward no ``fps_key``). ``world`` and ``rank``: as
+    :func:`draw_fps_starts`."""
     cfg = model.visual.cfg
     if generator is None or cfg.patch_dropout <= 0 or sc.video_distill:
         return None
-    b = batch["visual"].shape[0] // sc.accum_freq
-    return [draw_patch_keep(cfg, b, generator) for _ in range(sc.accum_freq)]
+    b = world * batch["visual"].shape[0] // sc.accum_freq
+    return [_rank_rows(draw_patch_keep(cfg, b, generator), world, rank)
+            for _ in range(sc.accum_freq)]
 
 
 def _step_mesh(mesh, partition: str) -> Optional[Mesh]:
-    """The mesh the step reduces over (None: one device)."""
-    if partition == "fsdp":
-        raise NotImplementedError(
-            "the FSDP train step (partition='fsdp') is not yet ported: ROADMAP "
-            "Queue 1, item 12b (FSDP2)")
-    if partition != "ddp":
+    """The mesh the step reduces over (None: one device; then
+    ``partition="fsdp"`` is the one-device step, as in JAX)."""
+    if partition not in ("ddp", "fsdp"):
         raise ValueError(f"unknown partition style: {partition!r}")
     if mesh is None:
         return None
@@ -369,7 +446,8 @@ def _step_mesh(mesh, partition: str) -> Optional[Mesh]:
     if not mesh.spans_processes:
         if mesh.data > 1:
             raise ValueError(
-                "the data-parallel step runs one process a rank: launch it "
+                f"the {'FSDP' if partition == 'fsdp' else 'data-parallel'} "
+                "step runs one process a rank: launch it "
                 "with torchrun and pass make_mesh() of the process group (a "
                 "local mesh of several devices serves, it does not train)")
         return None
@@ -396,9 +474,15 @@ def make_train_step(model_cfg, tx: AdamW, trainable_mask: Mask,
     ``mesh``: the data-parallel step (module docstring). Each rank passes its
     own rows, and its own ``fps_generator`` (the reference seeds each rank
     with seed + rank) or ``fps_starts``; ``loss`` is the mean over the ranks
-    and ``grad_norm`` the norm of the averaged gradient. ``partition="fsdp"``
-    waits for ROADMAP Queue 1, item 12b."""
+    and ``grad_norm`` the norm of the averaged gradient. With
+    ``partition="fsdp"`` the state must be placed (``parallel.fsdp.
+    fsdp_place``); each rank passes its own rows and a generator seeded as
+    every other rank's, or the global batch's ``fps_starts`` (one [world *
+    B / accum_freq] a micro-batch: JAX's micro-batch i, the i-th contiguous
+    slice of the global batch), and the metrics are those of the
+    data-parallel step."""
     mesh = _step_mesh(mesh, partition)
+    fsdp = mesh is not None and partition == "fsdp"
     if sc.n_tower not in (2, 3) or sc.align_to not in ("text", "image",
                                                        "video", "clip"):
         raise ValueError(f"unknown step: n_tower={sc.n_tower}, "
@@ -406,26 +490,40 @@ def make_train_step(model_cfg, tx: AdamW, trainable_mask: Mask,
     loss_fn = losses_lib.make_loss_fn(sc.n_tower, sc.contra_loss_type,
                                       axis_name=mesh, local_loss=sc.local_loss,
                                       sim_thres=sc.sim_thres)
-    bn_mesh = mesh if sc.sync_bn else None
+    # the global computation's BatchNorm takes every rank's rows
+    bn_mesh = mesh if (sc.sync_bn or fsdp) else None
     names = [n for n, t in trainable_mask.items() if t]
     A = sc.accum_freq
+    world, rank = (mesh.data, mesh.rank) if fsdp else (1, 0)
 
     def step(state: TrainState, batch,
              fps_generator: Optional[torch.Generator] = None,
              fps_starts: Optional[Sequence[torch.Tensor]] = None
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         model = state.model
+        if fsdp:
+            if not fsdp_units(model):
+                raise ValueError("partition='fsdp': place the state with "
+                                 "parallel.fsdp.fsdp_place first")
+            reshard_(model)  # an eval may have left a tower gathered
         dev = model.logit_scale.device
         batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
         batch["text"] = batch["text"].long()
+        if fsdp and A > 1:
+            batch = jax_micro_rows(batch, mesh, A)
         if fps_starts is None:
-            fps_starts = draw_fps_starts(model, batch, A, fps_generator)
+            fps_starts = draw_fps_starts(model, batch, A, fps_generator,
+                                         world, rank)
+        elif fsdp:  # the global batch's: this rank's rows
+            fps_starts = [_rank_rows(torch.as_tensor(s), world, rank)
+                          for s in fps_starts]
         if fps_starts is not None:
             if len(fps_starts) != A:
                 raise ValueError(f"{len(fps_starts)} sets of FPS starts for "
                                  f"accum_freq {A}")
             fps_starts = [torch.as_tensor(s).to(dev) for s in fps_starts]
-        patch_keeps = draw_patch_keeps(model, batch, sc, fps_generator)
+        patch_keeps = draw_patch_keeps(model, batch, sc, fps_generator,
+                                       world, rank)
         all_params = dict(model.named_parameters())
         params = {n: all_params[n] for n in names}
         with batch_norm_synced(model, bn_mesh):
@@ -437,11 +535,21 @@ def make_train_step(model_cfg, tx: AdamW, trainable_mask: Mask,
                     model, batch, sc, params, loss_fn,
                     None if fps_starts is None else fps_starts[0],
                     None if patch_keeps is None else patch_keeps[0])
-        if mesh is not None:  # the DDP gradient all-reduce
-            average_gradients_(grads, mesh)
+        if fsdp:
+            # FSDP2 averaged the sharded gradients; the replicated ones,
+            # and the loss, as the DDP step averages them
+            reshard_(model)
+            average_gradients_({n: g for n, g in grads.items()
+                                if shard_axis(g) is None}, mesh)
             loss = mean_over_ranks(loss, mesh)
-        grad_norm = global_norm(grads)
-        tx.update_(params, grads, state.opt_state)
+            grad_norm = sharded_norm(grads, mesh)
+            tx.update_(params, grads, state.opt_state, norm=grad_norm)
+        else:
+            if mesh is not None:  # the DDP gradient all-reduce
+                average_gradients_(grads, mesh)
+                loss = mean_over_ranks(loss, mesh)
+            grad_norm = global_norm(grads)
+            tx.update_(params, grads, state.opt_state)
         clamp_logit_scale(model)
         state.step += 1
         return state, {"loss": loss, "grad_norm": grad_norm,
