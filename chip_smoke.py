@@ -347,6 +347,27 @@ Phases, one printed line each (or more); any failure exits non-zero:
      (DCP), reloaded into the two ranks and into one process, unsharded,
      bit for bit. `python3 tools/dp_first_call.py --fsdp --plant` runs (b)
      under three planted faults, each of which must fail it.
+  4tp. the model axis (vitlens_tpu_torch/parallel/tp.py, sp.py, the 2D
+     state of fsdp.py): after 4dp/4fs, four rank processes sharing the card
+     over gloo, laid out [data 2, model 2] by make_mesh(n_model=2) (`python3
+     chip_smoke.py --tp-rank DIR` is a rank). (a) ViTLens("vitlensL",
+     ("audio",)) in bf16, B = 8 requests of 3 clips, each data row a [data
+     1, model 2] pair: the one-process encode, then under
+     sequence_sharded_activations (SP: kernel 2 on the rank's query rows
+     against every key, kernel 1 on its rows), split by shard_vision_tower
+     (TP: kernel 2 on the rank's 8 heads, the MLP plain as in JAX) and both;
+     cosine >= 0.9999 against the one process, launches a rank as
+     tower_launches(tp=) derives them; the trunk's out_b drawn from the seed
+     (MHA's init zeroes it). (b) the audio + text step with the whole audio
+     tower trained, B32 global (B16 a data rank), after fsdp_tp_place:
+     bf16 TP and TP + SP against the one-process B32 step (loss 1e-3,
+     grad_norm 1e-2 relative, each group's gradient cosine >= COS_MIN and
+     the one-process bf16 floor, B32 against accum_freq 2, less 2e-3), fp32
+     TP (with remat) against the fp32 step (every group's cosine >= 0.999);
+     launches as train_launches(tp=True), equal metrics on every rank, each
+     rank's audio trunk bytes half the whole, the peaks. `python3
+     tools/dp_first_call.py --tp --plant` runs it under two planted faults,
+     each of which must fail (b).
   5. timing: each kernel against its plain version (and, where one PyTorch
      call computes the same function, that call) at the B64 shapes of the
      main paths, beside each kernel's bound, with cuBLAS's products alone
@@ -765,14 +786,20 @@ def launch_counts(**counts):
     return {**dict.fromkeys(COUNTED, 0), **counts}
 
 
-def tower_launches(cfg, **more):
+def tower_launches(cfg, tp=False, **more):
     """Expected launches of one bf16 encode of a vision tower, derived from
     its config: kernel 1 and kernel 2 once a trunk block that runs (the
     first skip_first_n_layers are skipped); a Perceiver Lens adds one
     attention a cross and a self block; a transformer Lens adds its blocks'
-    MLP and attention; the identity Lens adds nothing."""
+    MLP and attention; the identity Lens adds nothing. ``tp``: the trunk
+    split over a model axis (parallel.tp), whose blocks' MLP is plain, as
+    in JAX (attention still once a block, on the rank's heads); sequence
+    parallelism alone changes no count (each kernel runs on the rank's
+    rows)."""
     p = cfg.perceiver
     mlp = attn = cfg.arch.layers - (cfg.skip_first_n_layers or 0)
+    if tp:
+        mlp = 0
     if p is not None and p.as_transformer:
         mlp, attn = mlp + p.depth, attn + p.depth
     elif p is not None and not p.as_identity:
@@ -799,23 +826,25 @@ def coca_launches(cfg, what, steps=0):
     raise ValueError(what)
 
 
-def train_launches(cfg, text_layers, accum, remat, opt_in):
+def train_launches(cfg, text_layers, accum, remat, opt_in, tp=False):
     """Launches per kernel variant of one train step of the dual audio+text
     recipe, derived from the config: each pass with grad runs the audio
     trunk through the save-preact variant (twice under remat: the block is
     recomputed in the backward) and the frozen text tower through the plain
     one; accum_freq > 1 adds a cached pass of both towers without grad.
     Attention: the trunk's blocks and the Lens's cross and self blocks (the
-    text tower's causal attention is plain)."""
+    text tower's causal attention is plain). ``tp``: the audio trunk split
+    over a model axis, its MLP and its LN + qkv plain (kernel 2 only)."""
     la, lt = cfg.arch.layers, text_layers
     lens = cfg.perceiver.depth * (1 + cfg.perceiver.self_per_cross_attn)
     cached = accum if accum > 1 else 0
     r = 2 if remat else 1
+    lk = 0 if tp else la  # trunk blocks that launch kernels 1 and 6
     return launch_counts(
-        fused_mlp=accum * lt + cached * (la + lt),
-        fused_mlp_save_preact=accum * la * r,
+        fused_mlp=accum * lt + cached * (lk + lt),
+        fused_mlp_save_preact=accum * lk * r,
         flash_attention=accum * (la * r + lens) + cached * (la + lens),
-        fused_ln_proj=(accum * (la * r + lt) + cached * (la + lt)
+        fused_ln_proj=(accum * (lk * r + lt) + cached * (lk + lt)
                        if opt_in else 0))
 
 
@@ -3110,17 +3139,21 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def grabbed_step(torch, tx, step, *args, **kw):
+def grabbed_step(torch, tx, step, *args, split=None, **kw):
     """step(*args, **kw) with the gradients AdamW was given (after the
-    ranks' average; an FSDP shard gathered whole) copied out: (step's
-    output, {name: gradient})."""
+    ranks' average; an FSDP shard gathered whole, and a TP slice of a block
+    in ``split``, parallel.tp.split_params, gathered whole in JAX's layout)
+    copied out: (step's output, {name: gradient})."""
     from vitlens_tpu_torch.parallel.fsdp import full_tensor
+    from vitlens_tpu_torch.parallel.tp import gather_whole
 
     grads = {}
     update = tx.update_
+    split = split or {}
 
     def grabbing(params, g, st, **ukw):
-        grads.update({n: full_tensor(t).detach().float().clone()
+        grads.update({n: (gather_whole(n, t, split[n]) if n in split else
+                          full_tensor(t)).detach().float().clone()
                       for n, t in g.items()})
         return update(params, g, st, **ukw)
 
@@ -3605,45 +3638,12 @@ def dp_ranks_phase(torch, totals, card, rank_argv=None):
     trips. Returns 4fs's seconds in the ranks. ``rank_argv``: the command
     of a rank before its output directory (default: this script's
     ``--dp-rank``)."""
-    import tempfile
-
     t0 = time.time()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     resident = torch.cuda.memory_allocated() / 1e9
-    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dp_")
-    port = str(free_port())
-    procs, logs = [], []
-    for r in range(2):
-        env = dict(os.environ, WORLD_SIZE="2", RANK=str(r), LOCAL_RANK="0",
-                   MASTER_ADDR="127.0.0.1", MASTER_PORT=port)
-        logs.append(os.path.join(out_dir, f"rank{r}.log"))
-        with open(logs[-1], "w") as f:
-            procs.append(subprocess.Popen(
-                (rank_argv or [sys.executable, os.path.abspath(__file__),
-                               "--dp-rank"]) + [out_dir],
-                stdout=f, stderr=subprocess.STDOUT, env=env))
-    deadline, err = time.time() + 600, None
-    while any(p.poll() is None for p in procs):
-        bad = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
-        if bad or time.time() > deadline:
-            err = (f"rank {bad[0]} exited {procs[bad[0]].returncode}" if bad
-                   else "the join's 600 s ran out")
-            break
-        time.sleep(0.5)
-    for p in procs:
-        if p.poll() is None:
-            p.kill()
-        p.wait()
-    if err is None and any(p.returncode for p in procs):
-        err = f"exit codes {[p.returncode for p in procs]}"
-    if err:
-        for r, log in enumerate(logs):
-            print(f"--- 4dp rank {r} log (tail) ---\n" + open(log).read()[-4000:],
-                  flush=True)
-        fail(f"4dp (b): {err}")
-    res = [json.load(open(os.path.join(out_dir, f"rank{r}.json"))) for r in range(2)]
-    shutil.rmtree(out_dir, ignore_errors=True)
+    res = run_ranks("4dp (b)", 2, rank_argv or [
+        sys.executable, os.path.abspath(__file__), "--dp-rank"])
     for modality in ("audio", "pc"):
         for r in range(2):
             got = res[r][modality]
@@ -3875,6 +3875,428 @@ def dp_encode_phase(torch, np, counters, totals, card):
           f"loop with --data-parallel 1: 32 audio requests (one 5 s WAV) from 8 "
           f"client threads: {32 / wall:.2f} requests/s, p50 {lat['p50_ms']} ms, "
           f"p95 {lat['p95_ms']} ms; phase {time.time() - t0:.1f} s", flush=True)
+
+
+# -- phase 4tp: the model axis (ROADMAP Queue 1 item 12c) -----------------------
+
+TP_WORLD, TP_MODEL = 4, 2  # [data 2, model 2], four ranks sharing the card
+TP_ENCODE_B = 8            # (a): the audio encode's requests (3 clips each)
+TP_B = 32                  # (b): the step's global batch, B16 a data rank
+TP_BIAS_STD = 0.02         # the trunk's out_b, drawn from SEED: MHA's init
+                           # zeroes it, which would hide a bias added twice
+TP_BYTES_SLACK = 0.01      # (b): a rank's trunk bytes within 1% of half
+TP_MODES = ("sp", "tp", "tpsp")
+TP_STEPS = {"tp": "bfloat16", "tpsp": "bfloat16", "tp32": "float32"}
+
+
+def tp_groups(names):
+    """Trainable tensors grouped by their path with the block and layer
+    indices left out: each kind of trunk parameter (a block's ln_1.scale,
+    its qkv_w, ...) is a group of its own, so that a fault in a small one
+    (the LayerNorms) shows in its cosine."""
+    groups = {}
+    for n in names:
+        key = ".".join("*" if p.isdigit() else p for p in n.split("."))
+        groups.setdefault(key, []).append(n)
+    return groups
+
+
+def tp_cosines(torch, a, b, names):
+    out = {}
+    for g, ns in tp_groups(names).items():
+        x = torch.cat([a[n].double().flatten().cpu() for n in ns])
+        y = torch.cat([b[n].double().flatten().cpu() for n in ns])
+        out[g] = (x @ y / (x.norm() * y.norm()).clamp_min(1e-300)).item()
+    return out
+
+
+def tp_biases_(torch, tower):
+    """Give the trunk's out_b values from SEED (MHA's init leaves them 0)."""
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    with torch.no_grad():
+        for block in tower.trunk.blocks:
+            b = block.attn.out_b
+            b.copy_(torch.randn(b.shape, generator=g) * TP_BIAS_STD)
+
+
+def tp_encode(torch, np, counters, mesh):
+    """Phase 4tp (a) on one rank: ViTLens("vitlensL", ("audio",)) in bf16,
+    B8 requests of 3 clips, on the one process (the whole trunk), under SP
+    alone (the same weights), then split over the model axis (TP), and
+    under TP + SP; each data row of the mesh is a [data 1, model 2] pair
+    encoding the same batch. The cosine of each against the one-process
+    encode, the launches of each encode, and its host-timed ms (the second
+    of two calls)."""
+    from vitlens_tpu_torch.api import ViTLens
+    from vitlens_tpu_torch.parallel.sp import sequence_sharded_activations
+    from vitlens_tpu_torch.parallel.tp import shard_vision_tower
+
+    one = ViTLens("vitlensL", ("audio",), device="cuda",
+                  compute_dtype=torch.bfloat16, seed=SEED)
+    tower = one.towers["audio"]
+    acfg, dev = tower.cfg, next(tower.parameters()).device
+    tp_biases_(torch, tower)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    fb = torch.randn(TP_ENCODE_B, 3, acfg.audio.target_length,
+                     acfg.audio.mel_bins, generator=g, device=dev) * 0.5
+
+    def encode():
+        return one.encode({"audio": fb}, preprocessed=True)["audio"]
+
+    def timed(ctx):
+        with ctx():
+            out, counts = run_counted(torch, counters,
+                                      dict.fromkeys(counters, 0), encode)
+            t = time.time()
+            encode()
+            torch.cuda.synchronize()
+        return out, counts, (time.time() - t) * 1e3
+
+    import contextlib
+
+    sp = lambda: sequence_sharded_activations(mesh)  # noqa: E731
+    want, want_counts, want_ms = timed(contextlib.nullcontext)
+    out = {"one": {"counts": want_counts, "ms": want_ms,
+                   "want": tower_launches(acfg)}}
+    for mode in TP_MODES:
+        if mode == "tp":
+            shard_vision_tower(tower, mesh)
+        got, counts, ms = timed(sp if "sp" in mode else contextlib.nullcontext)
+        out[mode] = {"cos": cos_min(torch, got, want),
+                     "err": abs_err(got, want), "counts": counts, "ms": ms,
+                     "want": tower_launches(acfg, tp="tp" in mode)}
+    del one, tower
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_step(torch, np, counters, mesh):
+    """Phase 4tp (b) on one rank: the vitlensL audio + text recipe with the
+    whole audio tower trained, its trunk too (text locked), B32 global
+    (this data rank's B16 rows), after fsdp_tp_place, from the placed
+    initial state each time: the 2D step in bf16 (the trainer's --tp
+    path), the same under sequence_sharded_activations (TP + SP), and the
+    2D step in fp32 (with remat). Rank 0 first runs the one-process B32
+    steps from the same state: bf16 plain and with accum_freq 2 (the same
+    gradient at other shapes: their cosine is the one-process bf16 floor),
+    and fp32 (with remat).
+    Each 2D step against its dtype's plain step: loss, grad_norm, the
+    gradient cosine a group of tp_groups. Each rank's launches, trunk
+    weight bytes (whole and its own) and peak memory."""
+    import contextlib
+
+    import torch.distributed as dist
+
+    from vitlens_tpu_torch.factory import create_model, make_trainable_
+    from vitlens_tpu_torch.parallel import fsdp as F
+    from vitlens_tpu_torch.parallel.sp import sequence_sharded_activations
+    from vitlens_tpu_torch.parallel.tp import split_params
+    from vitlens_tpu_torch.train.freeze import tri_model_mask
+    from vitlens_tpu_torch.train.step import (OptimizerConfig, StepConfig,
+                                              init_train_state, make_optimizer,
+                                              make_train_step)
+
+    t0 = time.time()
+    first = mesh.rank == 0 and mesh.model_rank == 0
+    torch.cuda.reset_peak_memory_stats()
+    model = create_model("ViT-L-14", "audio", seed=SEED, device="cuda",
+                         dtype=torch.float32)
+    tp_biases_(torch, model.visual)
+    cfg, dev = model.cfg, model.logit_scale.device
+    rng = np.random.RandomState(SEED)  # the same B32 batch on every rank
+    text = rng.randint(1, 49000, size=(TP_B, 77))
+    text[:, 0], text[:, -1] = 49406, 49407
+    a = cfg.tower.audio
+    fb = rng.randn(TP_B, a.target_length, a.mel_bins) * 0.5
+    batch = {"text": torch.from_numpy(text).long().to(dev),
+             "visual": torch.from_numpy(fb.astype(np.float32)).to(dev)}
+    sc = StepConfig(n_tower=2, align_to="text", compute_dtype=torch.bfloat16)
+    mask = tri_model_mask(model, cfg, lock_visual=False, lock_text=True)
+    tx, mask = make_optimizer(model, OptimizerConfig(
+        lr=1e-4, warmup=10, total_steps=1000, grad_clip_norm=1.0), mask)
+    make_trainable_(model, mask, torch.bfloat16)
+    names = [n for n, t in mask.items() if t]
+    params = dict(model.named_parameters())
+    trunk_whole = sum(p.numel() * p.element_size() for n, p in params.items()
+                      if n.startswith("visual.trunk."))
+    out = {"trunk_whole_gb": trunk_whole / 1e9}
+    ref = {}
+    if first:  # its peak is read apart from the 2D steps'
+        torch.cuda.reset_peak_memory_stats()
+        init = {n: params[n].detach().clone() for n in names}
+        for key, accum, dtype in (("bf16", 1, torch.bfloat16),
+                                  ("accum2", 2, torch.bfloat16),
+                                  ("fp32", 1, torch.float32)):
+            state = init_train_state(model, tx)
+            step = make_train_step(cfg, tx, mask, dataclasses.replace(
+                sc, accum_freq=accum, compute_dtype=dtype,
+                remat=dtype == torch.float32))
+            ((_, met), grads), _ = run_counted(
+                torch, counters, dict.fromkeys(counters, 0),
+                lambda: grabbed_step(torch, tx, step, state, batch))
+            ref[key] = ({k: float(v) for k, v in met.items()},
+                        {n: g.cpu() for n, g in grads.items()})
+            del grads, state
+            with torch.no_grad():
+                for n in names:
+                    params[n].copy_(init[n])
+        del init
+        out["floor"] = tp_cosines(torch, ref["accum2"][1], ref["bf16"][1], names)
+        out["single"] = {k: v[0] for k, v in ref.items()}
+        out["single_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    dist.barrier()
+    state = init_train_state(model, tx)
+    F.fsdp_tp_place(state, mesh)
+    split = split_params(model)
+    out["trunk_rank_gb"] = sum(
+        F.local_tensor(p).numel() * p.element_size()
+        for n, p in model.named_parameters() if n.startswith("visual.trunk.")) / 1e9
+    out["split"] = len(split)
+    live = [F.local_tensor(p) for p in model.parameters()] + [
+        F.local_tensor(t) for m in ("mu", "nu") for t in state.opt_state[m].values()]
+    start = [t.detach().clone() for t in live]
+    d = mesh.rank
+    rows = {k: v[d * TP_B // mesh.data:(d + 1) * TP_B // mesh.data]
+            for k, v in batch.items()}
+    for mode, dtype in TP_STEPS.items():
+        dtype = getattr(torch, dtype)
+        with torch.no_grad():
+            for t, s0 in zip(live, start):
+                t.copy_(s0)
+        state.step, state.opt_state["count"] = 0, 0
+        # fp32 with remat (both sides): four ranks' fp32 activations at
+        # once would not fit on the one card
+        step = make_train_step(cfg, tx, mask, dataclasses.replace(
+            sc, compute_dtype=dtype, remat=dtype == torch.float32),
+            mesh=mesh, partition="fsdp")
+        ctx = (sequence_sharded_activations(mesh) if mode == "tpsp"
+               else contextlib.nullcontext())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.time()
+        with ctx:
+            ((_, met), grads), counts = run_counted(
+                torch, counters, dict.fromkeys(counters, 0),
+                lambda: grabbed_step(torch, tx, step, state, rows, split=split))
+        r = {"metrics": {k: float(v) for k, v in met.items()},
+             "counts": counts, "step_s": time.time() - t,
+             "want": (launch_counts() if dtype == torch.float32 else
+                      train_launches(cfg.tower, cfg.text.layers, 1, False,
+                                     False, tp=True))}
+        if first:
+            one = ref["fp32" if dtype == torch.float32 else "bf16"]
+            r["loss_rel"] = abs(r["metrics"]["loss"] / one[0]["loss"] - 1)
+            r["grad_norm_rel"] = abs(r["metrics"]["grad_norm"]
+                                     / one[0]["grad_norm"] - 1)
+            r["cos"] = tp_cosines(torch, grads, one[1], names)
+        out[mode] = r
+        del grads
+        r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.empty_cache()  # the other ranks share the card
+    out["peak_gb"] = max(out[m]["peak_gb"] for m in TP_STEPS)
+    del model, state, step, live, start, ref, params
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.time() - t0
+    return out
+
+
+def tp_rank_main(out_dir) -> int:
+    """A rank process of phase 4tp, started by tp_ranks_phase with
+    torchrun's variables: one of four gloo ranks sharing the card, laid out
+    [data 2, model 2] by make_mesh(n_model=2); (a) tp_encode, (b) tp_step;
+    results to rank{r}.json."""
+    import datetime
+    import faulthandler
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from vitlens_tpu_torch.parallel import mesh as PM
+
+    faulthandler.enable()
+    env = os.environ
+    rank, world = int(env["RANK"]), int(env["WORLD_SIZE"])
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://{env['MASTER_ADDR']}:{env['MASTER_PORT']}",
+        world_size=world, rank=rank, timeout=datetime.timedelta(seconds=300))
+    mesh = PM.make_mesh(n_model=TP_MODEL, device="cuda:0")
+    layout = (mesh.data, mesh.model, mesh.rank, mesh.model_rank, mesh.backend)
+    if layout != (world // TP_MODEL, TP_MODEL, rank // TP_MODEL,
+                  rank % TP_MODEL, "gloo"):
+        fail(f"4tp: mesh layout {layout} on rank {rank}")
+    counters = launch_counters()
+    res = {"rank": rank, "encode": tp_encode(torch, np, counters, mesh)}
+    dist.barrier()
+    res["step"] = tp_step(torch, np, counters, mesh)
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def run_ranks(label, world, rank_argv, limit_s=600):
+    """Start ``world`` rank processes of ``rank_argv`` + [output dir] with
+    torchrun's variables (one card, LOCAL_RANK 0), wait for them (a rank
+    that fails or outlives ``limit_s`` fails the phase, with every rank's
+    log), and return their rank{r}.json results."""
+    import tempfile
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    port = str(free_port())
+    procs, logs = [], []
+    for r in range(world):
+        env = dict(os.environ, WORLD_SIZE=str(world), RANK=str(r),
+                   LOCAL_RANK="0", MASTER_ADDR="127.0.0.1", MASTER_PORT=port)
+        logs.append(os.path.join(out_dir, f"rank{r}.log"))
+        with open(logs[-1], "w") as f:
+            procs.append(subprocess.Popen(rank_argv + [out_dir], stdout=f,
+                                          stderr=subprocess.STDOUT, env=env))
+    deadline, err = time.time() + limit_s, None
+    while any(p.poll() is None for p in procs):
+        bad = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
+        if bad or time.time() > deadline:
+            err = (f"rank {bad[0]} exited {procs[bad[0]].returncode}" if bad
+                   else f"the join's {limit_s} s ran out")
+            break
+        time.sleep(0.5)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    if err is None and any(p.returncode for p in procs):
+        err = f"exit codes {[p.returncode for p in procs]}"
+    if err:
+        for r, log in enumerate(logs):
+            print(f"--- {label} rank {r} log (tail) ---\n"
+                  + open(log).read()[-4000:], flush=True)
+        fail(f"{label}: {err}")
+    res = [json.load(open(os.path.join(out_dir, f"rank{r}.json")))
+           for r in range(world)]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return res
+
+
+def tp_ranks_phase(torch, totals, card, rank_argv=None):
+    """Phase 4tp: four rank processes sharing the card over gloo, [data 2,
+    model 2] (tp_rank_main). (a) the full-width vitlensL audio encode at B8
+    under SP, TP and TP + SP against the one-process encode (cosine >=
+    DP_ENCODE_COS), launches a rank as tower_launches derives them; (b) the
+    B32 audio + text step after fsdp_tp_place against the one-process B32
+    step: in bf16, TP and TP + SP (loss DP_LOSS_REL, grad_norm DP_NORM_REL,
+    the gradient cosine a group of tp_groups >= COS_MIN and the one-process
+    floor less DP_FLOOR_SLACK: a bf16 gradient that comes back through 24
+    blocks computed at other shapes reads ~0.998, as 4dp (b) found, and the
+    split products are other shapes), launches as train_launches(tp=True);
+    in fp32, TP (the same loss and grad_norm bars, every group's cosine >=
+    DP_COS_MIN; no kernel launches: the gates send fp32 to the plain
+    paths); equal metrics on every rank, each rank's trunk weight bytes
+    half the whole (TP_BYTES_SLACK) and its peak memory. Returns the
+    phase's seconds. ``rank_argv``: the command of a rank before its
+    output directory (default: this script's ``--tp-rank``)."""
+    t0 = time.time()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated() / 1e9
+    res = run_ranks("4tp", TP_WORLD, rank_argv or [
+        sys.executable, os.path.abspath(__file__), "--tp-rank"])
+    for r, got in enumerate(res):
+        for mode in ("one",) + TP_MODES:
+            e = got["encode"][mode]
+            if e["counts"] != e["want"]:
+                fail(f"4tp (a) rank {r} {mode}: launches {e['counts']}, "
+                     f"expected {e['want']}")
+            if mode != "one" and e["cos"] < DP_ENCODE_COS:
+                fail(f"4tp (a) rank {r} {mode}: the encode vs the one-process "
+                     f"encode: cosine {e['cos']} (bar {DP_ENCODE_COS}), max "
+                     f"abs difference {e['err']}")
+            for name, n in e["counts"].items():
+                totals[name] += n
+    e0 = res[0]["encode"]
+    print(f"[4tp (a) encodes, 4 gloo ranks, [data 2, model 2]] {card} | "
+          f"vitlensL audio B{TP_ENCODE_B} x 3 clips, bf16, each data row a "
+          "[data 1, model 2] pair: min cosine against the one-process encode "
+          + ", ".join(f"{m} {min(g['encode'][m]['cos'] for g in res):.7f}"
+                      for m in TP_MODES)
+          + f" (bar {DP_ENCODE_COS}); rank 0 launches a mode (kernel 1, "
+          "kernel 2): " + ", ".join(
+              f"{m} ({e0[m]['counts']['fused_mlp']}, "
+              f"{e0[m]['counts']['flash_attention']})" for m in ("one",) + TP_MODES)
+          + "; host ms an encode (second call) " + ", ".join(
+              f"{m} {e0[m]['ms']:.1f}" for m in ("one",) + TP_MODES), flush=True)
+    s0 = res[0]["step"]
+    floor = s0["floor"]
+    for mode, dtype in TP_STEPS.items():
+        r0, one = s0[mode], s0["single"]["fp32" if dtype == "float32" else "bf16"]
+        for r, got in enumerate(res):
+            st = got["step"][mode]
+            if st["counts"] != st["want"]:
+                fail(f"4tp (b) rank {r} {mode}: launches {st['counts']}, "
+                     f"expected {st['want']}")
+            if st["metrics"] != r0["metrics"]:
+                fail(f"4tp (b) {mode}: the ranks' metrics differ: "
+                     f"{r0['metrics']} vs rank {r} {st['metrics']}")
+            for name, n in st["counts"].items():
+                totals[name] += n
+        if dtype == "float32":  # rounding noise far below the bar
+            low = {k: v for k, v in r0["cos"].items() if v < DP_COS_MIN}
+            bar = f"{DP_COS_MIN}"
+        else:  # bf16: the one-process floor of the same gradient
+            low = {k: v for k, v in r0["cos"].items()
+                   if v < COS_MIN or v < floor[k] - DP_FLOOR_SLACK}
+            bar = (f"{COS_MIN} and the one-process bf16 floor (B{TP_B} "
+                   f"against accum_freq 2) less {DP_FLOOR_SLACK}")
+        if (r0["loss_rel"] > DP_LOSS_REL or r0["grad_norm_rel"] > DP_NORM_REL
+                or low):
+            fail(f"4tp (b) {mode} ({dtype}): the 2D step vs the one-process "
+                 f"B{TP_B} step: loss {r0['metrics']['loss']} vs "
+                 f"{one['loss']} (relative {r0['loss_rel']:.3e}, bar "
+                 f"{DP_LOSS_REL}), grad_norm {r0['metrics']['grad_norm']} vs "
+                 f"{one['grad_norm']} (relative {r0['grad_norm_rel']:.3e}, bar "
+                 f"{DP_NORM_REL}); groups below the bar ({bar}): {low}"
+                 + ("" if dtype == "float32" else
+                    f"; their floors {({k: floor[k] for k in low})}"))
+        worst = sorted(r0["cos"].items(), key=lambda kv: kv[1])[:3]
+        print(f"[4tp (b) {'TP + SP' if mode == 'tpsp' else 'TP'} step, "
+              f"{dtype}, 4 gloo ranks] {card} | vitlensL audio + text (the "
+              f"whole audio tower trained, text locked), B{TP_B // 2} a data "
+              f"rank, fsdp_tp_place ({s0['split']} TP slices) vs one process "
+              f"at B{TP_B}: loss {r0['metrics']['loss']:.6f} vs "
+              f"{one['loss']:.6f} (relative {r0['loss_rel']:.3e}, bar "
+              f"{DP_LOSS_REL}), grad_norm {r0['metrics']['grad_norm']:.6f} vs "
+              f"{one['grad_norm']:.6f} (relative {r0['grad_norm_rel']:.3e}, "
+              f"bar {DP_NORM_REL}); {len(r0['cos'])} gradient groups, lowest "
+              "cosines " + ", ".join(
+                  f"{k} {v:.6f}" + ("" if dtype == "float32" else
+                                    f" (floor {floor[k]:.6f})")
+                  for k, v in worst)
+              + f" (bar {bar}); launches each rank {r0['counts']} (as "
+              "expected); step s a rank " + ", ".join(
+                  f"{g['step'][mode]['step_s']:.2f}" for g in res)
+              + " (first calls, host-timed)", flush=True)
+    for r, got in enumerate(res):
+        st = got["step"]
+        if abs(st["trunk_rank_gb"] / st["trunk_whole_gb"] - 0.5) > TP_BYTES_SLACK:
+            fail(f"4tp (b) rank {r}: trunk weight bytes {st['trunk_rank_gb']} GB "
+                 f"of {st['trunk_whole_gb']} GB whole, not half")
+    print(f"[4tp (b) memory] {card} | audio trunk weight GB a rank "
+          + ", ".join(f"{g['step']['trunk_rank_gb']:.4f}" for g in res)
+          + f" of {s0['trunk_whole_gb']:.4f} whole; peak GB a rank, the 2D "
+          "steps (" + ", ".join(TP_STEPS) + "): " + "; ".join(
+              ", ".join(f"{g['step'][m]['peak_gb']:.2f}" for m in TP_STEPS)
+              for g in res)
+          + f"; rank 0's one-process B{TP_B} steps "
+          f"{s0['single_peak_gb']:.2f}; this "
+          f"process resident {resident:.2f}; in the ranks (a) + (b) "
+          + ", ".join(f"{g['step']['seconds']:.1f}" for g in res)
+          + f" s of (b); phase {time.time() - t0:.1f} s", flush=True)
+    return time.time() - t0
 
 
 # -- phase 4o: the OpenShape trainer (vitlensG, the pc baselines) ----------------
@@ -6072,6 +6494,11 @@ def main() -> int:
     print(f"[4fs] {card} | phase 4fs {fs_a + fs_bc:.1f} s: (a) {fs_a:.1f} s, "
           f"(b) and (c) {fs_bc:.1f} s in the rank processes", flush=True)
     mark("4dp, 4fs")
+    # -- 4tp: four ranks sharing the card, [data 2, model 2] ------------------
+    tp_s = tp_ranks_phase(torch, launches, card)
+    print(f"[4tp] {card} | phase 4tp {tp_s:.1f} s; whole run so far "
+          f"{time.time() - t_start:.1f} s", flush=True)
+    mark("4tp")
     replaces = {
         "fused_mlp": "vitlens_tpu/ops/fused_mlp.py:105",
         "flash_attention": "vitlens_tpu/ops/flash_attention.py:53",
@@ -6155,4 +6582,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:
         sys.exit(dp_rank_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--tp-rank"]:
+        sys.exit(tp_rank_main(sys.argv[2]))
     sys.exit(main())

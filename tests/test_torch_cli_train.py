@@ -226,7 +226,10 @@ def test_raises_without_cuda(tmp_path, monkeypatch):
     # FSDP is ported: one process runs the one-device step and eval, as in
     # JAX (two ranks: tests/test_torch_fsdp.py)
     pytest.param(["--fsdp"], None, id="flags0-item 12"),
-    (["--tp", "2"], "item 12"),
+    # tensor parallelism is ported: --tp must divide the ranks (JAX's
+    # SystemExit; four ranks: tests/test_torch_tp.py)
+    pytest.param(["--tp", "2"], r"--tp 2 does not divide 1 rank",
+                 id="flags1-item 12"),
     # data parallelism is ported: --n-devices must be the number of ranks,
     # and one process is one rank
     pytest.param(["--n-devices", "2"], r"--n-devices 2 but the run has 1 rank",
@@ -243,7 +246,8 @@ def test_unported_flags_raise(tmp_path, flags, item):
     if item is None:
         assert _port(argv) == 0
         return
-    with pytest.raises((NotImplementedError, KeyError, ValueError), match=item):
+    with pytest.raises((NotImplementedError, KeyError, ValueError, SystemExit),
+                       match=item):
         _port(argv)
 
 

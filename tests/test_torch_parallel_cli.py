@@ -29,6 +29,7 @@ import json
 import os
 import pickle
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -88,13 +89,33 @@ def _eval(mesh=None):
         T._build_real_dataset = saved
 
 
+class _PerObjectRNG:
+    """The dataset's RNG, drawing from a RandomState seeded with the index
+    of the object that the calling loader thread is loading."""
+
+    def __init__(self):
+        self.local = threading.local()
+
+    def __getattr__(self, name):
+        return getattr(self.local.rs, name)
+
+
 def _unaugmented(OS):
-    """OpenShapeTripletDataset without its random rotation and rgb drop:
-    each object is then the same on a rank as in one process (the point
-    order aside, which PointNet's max-pool does not see)."""
+    """OpenShapeTripletDataset without its random rotation and rgb drop,
+    and with each object's point sample drawn from the object's index: each
+    object is then the same, point order included, on a rank as in one
+    process, whatever loader thread loads it. The dataset's own RNG gives
+    each loader thread a stream of its own, so which thread loads an object
+    (the machine's load decides) would pick its point order, and the
+    synced BatchNorm's sums over points round by that order."""
     class Plain(OS.OpenShapeTripletDataset):
         def __init__(self, *a, **k):
             super().__init__(*a, **dict(k, augment=False))
+            self.rng = _PerObjectRNG()
+
+        def __getitem__(self, idx):
+            self.rng.local.rs = np.random.RandomState(idx)
+            return super().__getitem__(idx)
 
     return Plain
 
@@ -373,7 +394,8 @@ def test_init_distributed_single_process_and_meshes(monkeypatch):
         PM.all_gather(x, mesh)
     with pytest.raises(RuntimeError, match="unbound"):
         PM.data_axis("data")
-    with pytest.raises(NotImplementedError, match="12c"):
+    # a model axis needs one process a rank (four ranks: test_torch_tp.py)
+    with pytest.raises(ValueError, match="one process a rank"):
         PM.make_mesh(n_model=2, devices=["cpu"] * 2)
     # FSDP is ported: without a mesh, or on one device, the one-device
     # step (as in JAX); a local mesh of several devices raises

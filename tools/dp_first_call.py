@@ -6,6 +6,8 @@
     python3 tools/dp_first_call.py --plant   # phase 4dp (b) against two faults
     python3 tools/dp_first_call.py --fsdp    # phases 4dp/4fs (a), (b), (c)
     python3 tools/dp_first_call.py --fsdp --plant [NAME]  # 4fs (b), faults
+    python3 tools/dp_first_call.py --tp      # phase 4tp
+    python3 tools/dp_first_call.py --tp --plant [NAME]    # 4tp (b), faults
 
 1. two ranks that both take cuda:0 under NCCL: prints what NCCL says (it
    refuses two ranks on one device);
@@ -31,6 +33,15 @@ through ``torch.autograd.grad`` where a parameter is sharded: FSDP2's sharded
 parameters are not in the graph), ``local-norm`` (grad_norm over this
 rank's shards and the replicated gradients, not all-reduced) and
 ``unsynced-bn`` (the FSDP step's BatchNorm over the rank's own rows).
+
+With ``--tp``: the gloo probe, then phase 4tp (four ranks sharing the card,
+[data 2, model 2]: the encodes of (a), the 2D steps of (b)). With ``--tp
+--plant``, 4tp runs under each fault of TP_FAULTS (or the one named),
+planted in (b)'s steps alone, so that (a) still passes: ``bias-twice`` (a
+split block's out_b added on each model rank before the all-reduce, i.e.
+tp + 1 times in all) and ``unsummed-sp`` (under sequence parallelism, the
+gradients of a block's LayerNorm parameters left as each rank's part, not
+summed over the model axis).
 """
 
 from __future__ import annotations
@@ -188,6 +199,54 @@ def run_probe(kind: str, *more):
 
 FAULTS = ("unsynced-bn", "summed-grads")
 FS_FAULTS = ("autograd-grad", "local-norm", "unsynced-bn")
+TP_FAULTS = ("bias-twice", "unsummed-sp")
+
+
+def plant_tp(fault: str) -> None:
+    """Plant ``fault`` (TP_FAULTS) in the split blocks' forward
+    (models/layers.py), from phase 4tp (b)'s steps on."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    import chip_smoke as CS
+    from vitlens_tpu_torch.models import layers as L
+
+    forward = L.ResBlock.model_axis_forward
+    if fault == "bias-twice":
+        def planted(self, x, mask=None, sp=None):
+            if self.tp is None:
+                return forward(self, x, mask, sp)
+            b = self.attn.out_b
+            keep = b.detach().clone()
+            with torch.no_grad():
+                b.mul_(self.tp.model + 1)
+            try:
+                return forward(self, x, mask, sp)
+            finally:
+                with torch.no_grad():
+                    b.copy_(keep)
+    elif fault == "unsummed-sp":
+        copy = L.model_copy
+
+        def planted(self, x, mask=None, sp=None):
+            if sp is None:
+                return forward(self, x, mask, sp)
+            lns = {id(t) for m in (self.ln_1, self.ln_2)
+                   for t in (m.scale, m.bias)}
+            L.model_copy = lambda t, mesh: t if id(t) in lns else copy(t, mesh)
+            try:
+                return forward(self, x, mask, sp)
+            finally:
+                L.model_copy = copy
+    else:
+        raise ValueError(f"unknown fault {fault!r}; one of {TP_FAULTS}")
+    step = CS.tp_step
+
+    def planted_step(*a, **k):
+        L.ResBlock.model_axis_forward = planted
+        return step(*a, **k)
+
+    CS.tp_step = planted_step
 
 
 def plant_fsdp(fault: str) -> None:
@@ -221,6 +280,9 @@ def plant_rank(fault: str, out_dir: str) -> int:
     import chip_smoke as CS
     from vitlens_tpu_torch.train import step as S
 
+    if fault.startswith("tp:"):
+        plant_tp(fault[len("tp:"):])
+        return CS.tp_rank_main(out_dir)
     if fault.startswith("fsdp:"):
         plant_fsdp(fault[len("fsdp:"):])
     elif fault == "unsynced-bn":
@@ -242,8 +304,9 @@ def plant_rank(fault: str, out_dir: str) -> int:
 
 
 def plant_main(faults=FAULTS, prefix="") -> int:
-    """Phase 4dp (b) (with ``prefix`` "fsdp:", its 4fs (b)) under each of
-    ``faults``: 0 when every one fails it."""
+    """Phase 4dp (b) (with ``prefix`` "fsdp:", its 4fs (b); with "tp:",
+    phase 4tp) under each of ``faults``: 0 when every one fails it on its
+    checks (a rank that crashes catches nothing)."""
     import torch
 
     sys.path.insert(0, REPO)
@@ -255,24 +318,52 @@ def plant_main(faults=FAULTS, prefix="") -> int:
     card = CS.card_line()
     print(f"{card} | torch {torch.__version__} cuda {torch.version.cuda}; "
           f"kernels built in {time.time() - t0:.1f} s", flush=True)
-    phase = "4fs (b)" if prefix else "4dp (b)"
+    phase = {"": "4dp (b)", "fsdp:": "4fs (b)", "tp:": "4tp"}[prefix]
+    run_phase = CS.tp_ranks_phase if prefix == "tp:" else CS.dp_ranks_phase
     passed = []
     for fault in faults:
         t = time.time()
         try:
-            CS.dp_ranks_phase(torch, dict.fromkeys(CS.COUNTED, 0), card,
-                              rank_argv=[sys.executable, os.path.abspath(__file__),
-                                         "--plant-rank", prefix + fault])
+            run_phase(torch, dict.fromkeys(CS.COUNTED, 0), card,
+                      rank_argv=[sys.executable, os.path.abspath(__file__),
+                                 "--plant-rank", prefix + fault])
         except SystemExit as e:
-            print(f"[plant {fault}] {card} | phase {phase} failed, as it "
-                  f"must ({time.time() - t:.1f} s): {e}", flush=True)
-            continue
+            if not any(w in str(e) for w in ("exited", "ran out",
+                                             "exit codes")):
+                print(f"[plant {fault}] {card} | phase {phase} failed, as it "
+                      f"must ({time.time() - t:.1f} s): {e}", flush=True)
+                continue
+            print(f"[plant {fault}] {card} | phase {phase} did not run to "
+                  f"its checks: {e}", flush=True)  # a crash catches nothing
         passed.append(fault)
         print(f"[plant {fault}] {card} | phase {phase} PASSED with the fault "
               f"planted", flush=True)
-    print(f"[done] faults the phase let through: {passed or 'none'}; "
+    print(f"[done] faults the phase let through or crashed on: "
+          f"{passed or 'none'}; "
           f"{time.time() - t0:.1f} s", flush=True)
     return 1 if passed else 0
+
+
+def tp_main() -> int:
+    """The gloo probe, then phase 4tp as chip_smoke.py runs it."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    import chip_smoke as CS
+    from vitlens_tpu_torch.ops import _build
+
+    t0 = time.time()
+    _build.library()
+    card = CS.card_line()
+    print(f"{card} | torch {torch.__version__} cuda {torch.version.cuda}; "
+          f"kernels built in {time.time() - t0:.1f} s", flush=True)
+    if run_probe("gloo") != [0, 0]:
+        CS.fail("gloo collectives on CUDA tensors")
+    totals = dict.fromkeys(CS.COUNTED, 0)
+    tp_s = CS.tp_ranks_phase(torch, totals, card)
+    print(f"[done] {card} | phase 4tp {tp_s:.1f} s; launches {totals}; "
+          f"{time.time() - t0:.1f} s", flush=True)
+    return 0
 
 
 def main(fsdp: bool = False) -> int:
@@ -347,4 +438,8 @@ if __name__ == "__main__":
         sys.exit(plant_main(tuple(sys.argv[3:]) or FS_FAULTS, "fsdp:"))
     if sys.argv[1:2] == ["--fsdp"]:
         sys.exit(main(fsdp=True))
+    if sys.argv[1:3] == ["--tp", "--plant"]:
+        sys.exit(plant_main(tuple(sys.argv[3:]) or TP_FAULTS, "tp:"))
+    if sys.argv[1:2] == ["--tp"]:
+        sys.exit(tp_main())
     sys.exit(main())

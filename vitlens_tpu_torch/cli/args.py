@@ -7,7 +7,8 @@ exist so recipes translate 1:1; defaults follow params.py. The parallel
 flags parse as in JAX: ``--n-devices`` is the data-parallel width, one
 process a card (``torch.distributed.run``), and must equal the number of
 ranks; ``--fsdp`` shards the train state over them (``parallel.fsdp``);
-``--tp`` > 1 raises, naming ROADMAP Queue 1 item 12c.
+``--tp`` N splits the ranks into a ``[ranks / N, N]`` mesh whose model axis
+splits the Lens trunk (``parallel.tp``, placed by ``fsdp_tp_place``).
 """
 
 from __future__ import annotations

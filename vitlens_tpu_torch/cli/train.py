@@ -23,7 +23,15 @@ the embeddings and averages the gradients over the ranks, the eval encodes a
 slice of each batch on each rank and gathers the features, rank 0 writes the
 logs, results and checkpoints (the others log to out.rank{r}.log), and a
 SIGTERM is agreed over the ranks. --n-devices, when given, must equal the
-number of ranks; --tp > 1 waits for ROADMAP Queue 1 item 12c and raises.
+number of ranks.
+
+--tp N splits the ranks into a [ranks / N, N] mesh (``parallel.mesh.
+make_mesh(n_model=N)``; N must divide the ranks): the ranks of one data row
+load the same rows and split the Lens tower's trunk over the model axis
+(Megatron TP, ``parallel.tp``), and the state is placed by
+``parallel.fsdp.fsdp_tp_place`` (FSDP over the data axis for the rest) for
+the step of ``partition="fsdp"``, as in JAX. --batch-size stays per data
+replica; the throughput meter counts every rank.
 
 --fsdp over several ranks shards the train state (``parallel.fsdp``: FSDP2
 over the blocks and towers) and runs JAX's global-batch FSDP step
@@ -402,13 +410,10 @@ def _flatten_results(results: Dict[str, Dict]) -> Dict[str, float]:
 
 
 def check_supported(args: TrainArgs, world: Optional[int] = None) -> None:
-    """Raise on the flags whose work is not yet ported, naming its item,
-    and on an --n-devices that is not the ``world`` of ranks (when
-    given)."""
-    if args.tp > 1:
-        raise NotImplementedError(
-            "--tp > 1: tensor parallelism is not yet ported: ROADMAP Queue 1, "
-            "item 12c (TP/SP)")
+    """Raise on an --n-devices that is not the ``world`` of ranks and on a
+    --tp that does not divide it (when given; JAX's SystemExit)."""
+    if world is not None and args.tp > 1 and world % args.tp:
+        raise SystemExit(f"--tp {args.tp} does not divide {world} rank(s)")
     if world is not None and args.n_devices not in (None, world):
         raise ValueError(
             f"--n-devices {args.n_devices} but the run has {world} rank(s): "
@@ -569,7 +574,10 @@ def _train(args: TrainArgs, rank: int, resolve_device, cast_matmul_weights_,
            PM) -> int:
     world = PM.process_count()
     check_supported(args, world)
-    mesh = PM.make_mesh(device=args.device) if world > 1 else None
+    mesh = (PM.make_mesh(n_model=args.tp, device=args.device) if world > 1
+            else None)
+    # data-parallel replicas (the per-replica batch); under --tp world / tp
+    n_data, data_rank = (mesh.data, mesh.rank) if mesh is not None else (1, 0)
     device = mesh.device if mesh is not None else resolve_device(args.device)
     is_rank0 = rank == 0
     name = args.name or f"{args.modality}_{args.model}_{time.strftime('%Y%m%d_%H%M%S')}"
@@ -610,8 +618,8 @@ def _train(args: TrainArgs, rank: int, resolve_device, cast_matmul_weights_,
         print(_json.dumps(out))
         return 0
 
-    train_info = build_train_data(args, tokenizer, world, cfg, proc_id=rank,
-                                  n_procs=world)
+    train_info = build_train_data(args, tokenizer, n_data, cfg,
+                                  proc_id=data_rank, n_procs=n_data)
     if train_info is None:
         cast_matmul_weights_(model, _dtype(args))
         results = evaluate(args, model, cfg, tokenizer, mesh=mesh)
@@ -624,7 +632,7 @@ def _train(args: TrainArgs, rank: int, resolve_device, cast_matmul_weights_,
 
     steps_per_epoch = train_info.num_batches
     # the sharded state's checkpoints are collective, every rank writing
-    sharded = args.fsdp and mesh is not None
+    sharded = (args.fsdp or args.tp > 1) and mesh is not None
     step, ts = build_step(args, model, cfg, mask,
                           total_steps=steps_per_epoch * args.epochs, mesh=mesh,
                           partition="fsdp" if sharded else "ddp")
@@ -645,9 +653,9 @@ def _train(args: TrainArgs, rank: int, resolve_device, cast_matmul_weights_,
             start_epoch = C.load_meta(path).get("epoch", 0)
             logging.info(f"resumed from {path} (epoch {start_epoch})")
     if sharded:
-        from vitlens_tpu_torch.parallel.fsdp import fsdp_place
+        from vitlens_tpu_torch.parallel.fsdp import fsdp_place, fsdp_tp_place
 
-        ts = fsdp_place(ts, mesh)
+        ts = fsdp_tp_place(ts, mesh) if args.tp > 1 else fsdp_place(ts, mesh)
     if resume_sharded:
         ts = C.load_checkpoint_sharded(resume_sharded, ts,
                                        ckpt_only=args.resume_ckpt_only)
@@ -716,7 +724,7 @@ def _train(args: TrainArgs, rank: int, resolve_device, cast_matmul_weights_,
                 trace = None
             if global_step % args.log_every_n_steps == 0:
                 sps, spsc = meter.tick_step(
-                    args.batch_size * world * args.log_every_n_steps)
+                    args.batch_size * n_data * args.log_every_n_steps)
                 m = {k: float(v) for k, v in metrics.items()}
                 m.update({"samples_per_s": sps, "samples_per_s_chip": spsc,
                           "epoch": epoch})

@@ -40,6 +40,8 @@ from vitlens_tpu_torch.ops.fused_ln_proj import (fused_ln_proj_applicable,
 from vitlens_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_applicable
 from vitlens_tpu_torch.quant import int8_matmul
 from vitlens_tpu_torch.models.lora import merged_block_weights
+from vitlens_tpu_torch.parallel.mesh import (model_copy, model_gather,
+                                             model_reduce_scatter, model_sum)
 
 # Leaf names of the parameters that feed a matmul or a convolution: the
 # factory casts exactly these to the compute dtype once, at load (q_w, k_w and
@@ -164,18 +166,24 @@ class MHA(nn.Module):
     def from_qkv(self, qkv, mask: Optional[torch.Tensor] = None):
         """Attention and the out-projection given the packed [B, N, 3D]
         projection (JAX ``_attn_from_qkv``)."""
-        B, N, D3 = qkv.shape
-        D = D3 // 3
-        # q, k, v are strided views of the packed projection (the kernel
-        # reads them in place) and the kernel's output is [B, N, H, Dh] seen
-        # as [B, H, N, Dh], so the reshape back to [B, N, D] is a view too.
-        q, k, v = qkv.view(B, N, 3, self.heads, D // self.heads).permute(2, 0, 3, 1, 4)
-        o = dot_product_attention(q, k, v, mask=mask)
-        o = o.transpose(1, 2).reshape(B, N, D)
+        o = attend_packed(qkv, self.heads, mask)
         if self.out_w_q is not None:  # int8-quantized (quant.py)
             return int8_matmul(o, self.out_w_q, self.out_w_s, self.out_b,
                                self.out_w_qt)
         return o @ self.out_w.to(qkv.dtype) + self.out_b.to(qkv.dtype)
+
+
+def attend_packed(qkv, heads: int, mask: Optional[torch.Tensor] = None):
+    """Attention of the packed [B, N, 3 * heads * Dh] projection ([q|k|v],
+    each head-major) -> [B, N, heads * Dh]."""
+    B, N, D3 = qkv.shape
+    D = D3 // 3
+    # q, k, v are strided views of the packed projection (the kernel reads
+    # them in place) and the kernel's output is [B, N, H, Dh] seen as
+    # [B, H, N, Dh], so the reshape back to [B, N, D] is a view too.
+    q, k, v = qkv.view(B, N, 3, heads, D // heads).permute(2, 0, 3, 1, 4)
+    o = dot_product_attention(q, k, v, mask=mask)
+    return o.transpose(1, 2).reshape(B, N, D)
 
 
 class MLP(nn.Module):
@@ -214,12 +222,20 @@ class ResBlock(nn.Module):
     applies (bf16, widths multiples of 128), as in JAX. A quantized block
     (``quant.quantize_resblocks``) takes the plain composition for both
     halves, as in JAX: neither kernel reads int8 weights. ``ln_eps`` is
-    both LayerNorms' eps (EVA's 1e-6), which the kernels take too."""
+    both LayerNorms' eps (EVA's 1e-6), which the kernels take too.
+
+    ``tp`` is the mesh whose model axis splits the block (Megatron tensor
+    parallelism, set by ``parallel.tp.shard_vision_tower``, which also cuts
+    the weights) or None. A block called with ``sp`` (a
+    :class:`SequenceFrame`, from a :class:`Transformer` inside
+    ``parallel.sp.sequence_sharded_activations``) holds this model rank's
+    rows of the sequence. Either takes :meth:`model_axis_forward`."""
 
     def __init__(self, dim: int, heads: int, mlp_ratio: float = 4.0,
                  ls_init_value: Optional[float] = None,
                  quick: bool = False, device=None, ln_eps: float = 1e-5):
         super().__init__()
+        self.tp = None
         self.act = "quick_gelu" if quick else "gelu"
         self.ln_1 = LayerNorm(dim, ln_eps, device=device)
         self.attn = MHA(dim, heads, device=device)
@@ -241,7 +257,10 @@ class ResBlock(nn.Module):
     def quantized(self) -> bool:
         return self.attn.qkv_w_q is not None
 
-    def forward(self, x, mask: Optional[torch.Tensor] = None):
+    def forward(self, x, mask: Optional[torch.Tensor] = None,
+                sp: Optional["SequenceFrame"] = None):
+        if self.tp is not None or sp is not None:
+            return self.model_axis_forward(x, mask, sp)
         if (not self.quantized and fused_ln_proj_available()
                 and fused_ln_proj_applicable(x, self.attn.qkv_w)):
             a = self.attn.from_qkv(fused_ln_qkv(x, self.ln_1, self.attn), mask)
@@ -262,6 +281,151 @@ class ResBlock(nn.Module):
                         proj.w.to(x.dtype), proj.b.float(), self.act,
                         self.ln_2.eps)
         return out.reshape(x.shape)
+
+    def model_axis_forward(self, x, mask: Optional[torch.Tensor] = None,
+                           sp: Optional["SequenceFrame"] = None):
+        """The block split over a model axis, the same function as
+        :meth:`forward` on the whole sequence.
+
+        Tensor parallelism (``self.tp``; JAX's ``parallel/tp.py`` specs):
+        this rank holds its heads' columns of the packed qkv (q, k and v
+        alike) and their rows of ``out_w``, and its columns of the MLP's
+        ``fc`` and rows of ``proj``; Megatron's f (``model_copy``) stands
+        in front of each column-parallel product and g (``model_sum``)
+        after each row-parallel one, and ``out_b`` and ``proj.b`` are added
+        once, after g. Attention runs on the rank's own heads (kernel 2 in
+        bf16). Where the ranks cannot split the heads (``heads % tp``),
+        this rank holds JAX's contiguous columns of the packed qkv: they are
+        gathered, attention runs on all heads and the rank keeps its
+        columns of the output for ``out_w``. The MLP takes the plain
+        composition, as JAX's TP trunk does: kernel 1 adds the residual and
+        ``proj.b`` itself, which a rank's partial product must not get.
+
+        Sequence parallelism (``sp``): ``x`` is this rank's rows. Alone,
+        the rank runs ln_1, the products and the MLP (kernel 1 in bf16,
+        which works row by row) on its rows, and its queries attend to the
+        keys and values of every rank, gathered (kernel 2: NQ rows against
+        NK). With tensor parallelism (Megatron-SP) the rows are gathered in
+        front of each column-parallel product and reduce-scattered after
+        each row-parallel one. A replicated parameter used on a rank's rows
+        gets that rank's part of its gradient: ``model_copy`` sums them.
+        Padded rows (``sp.rows`` * tp >= N) are never keys.
+
+        The LayerNorms and products are plain: kernel 6 (the opt-in LN +
+        qkv) runs in the unsplit block alone. A quantized block is not split
+        (``parallel.tp`` refuses it)."""
+        if self.quantized:
+            raise NotImplementedError("a quantized block does not run split "
+                                      "over a model axis")
+        tp = self.tp
+        mesh = tp if tp is not None else sp.mesh
+        attn, fc, proj = self.attn, self.mlp.fc, self.mlp.proj
+        dt = x.dtype
+
+        def part(t):  # a replicated parameter used on this rank's rows
+            return model_copy(t, mesh) if sp is not None else t
+
+        def ln(m, h):
+            return layer_norm(h, part(m.scale), part(m.bias), m.eps)
+
+        h = ln(self.ln_1, x)
+        if tp is None:  # sequence parallelism alone: replicated weights
+            qkv = h @ part(attn.qkv_w).to(dt) + part(attn.qkv_b).to(dt)
+            d = qkv.shape[-1] // 3
+            kv = model_gather(qkv[..., d:], mesh, 1)[:, :sp.n]
+            a = _attend_rows(qkv[..., :d], kv, attn.heads, sp.mask_rows(mask))
+            a = a @ part(attn.out_w).to(dt) + part(attn.out_b).to(dt)
+        else:
+            h = (model_copy(h, mesh) if sp is None else
+                 model_gather(h, mesh, 1)[:, :sp.n])
+            qkv = h @ attn.qkv_w.to(dt) + attn.qkv_b.to(dt)
+            if attn.heads % mesh.model == 0:
+                o = attend_packed(qkv, attn.heads // mesh.model, mask)
+            else:  # JAX's contiguous columns: gather, keep the rank's
+                o = attend_packed(model_gather(qkv, mesh, -1), attn.heads,
+                                  mask)
+                w = o.shape[-1] // mesh.model
+                o = o[..., mesh.model_rank * w:(mesh.model_rank + 1) * w]
+            a = o @ attn.out_w.to(dt)
+            a = (model_sum(a, mesh) if sp is None else
+                 model_reduce_scatter(sp.pad(a), mesh, 1))
+            a = a + part(attn.out_b).to(dt)
+        if self.ls_1 is not None:
+            a = a * part(self.ls_1.gamma).to(dt)
+        x = x + a
+        act = quick_gelu if self.act == "quick_gelu" else gelu
+        if tp is None:
+            if (self.ls_2 is None and fused_mlp_applicable(x)):
+                out = fused_mlp(
+                    x.reshape(-1, x.shape[-1]), part(self.ln_2.scale).float(),
+                    part(self.ln_2.bias).float(), part(fc.w).to(dt),
+                    part(fc.b).float(), part(proj.w).to(dt),
+                    part(proj.b).float(), self.act, self.ln_2.eps)
+                return out.reshape(x.shape)
+            h = act(ln(self.ln_2, x) @ part(fc.w).to(dt) + part(fc.b).to(dt))
+            h = h @ part(proj.w).to(dt) + part(proj.b).to(dt)
+        else:
+            h = ln(self.ln_2, x)
+            h = model_copy(h, mesh) if sp is None else model_gather(h, mesh, 1)
+            h = act(h @ fc.w.to(dt) + fc.b.to(dt)) @ proj.w.to(dt)
+            h = (model_sum(h, mesh) if sp is None else
+                 model_reduce_scatter(h, mesh, 1))
+            h = h + part(proj.b).to(dt)
+        if self.ls_2 is not None:
+            h = h * part(self.ls_2.gamma).to(dt)
+        return x + h
+
+
+def _attend_rows(q, kv, heads: int, mask: Optional[torch.Tensor]):
+    """Attention of this rank's queries q [B, NQ, D] to every key and value,
+    kv [B, NK, 2D] ([k|v]) -> [B, NQ, D]."""
+    B, nq, D = q.shape
+    dh = D // heads
+    q = q.view(B, nq, heads, dh).transpose(1, 2)
+    k, v = kv.view(B, kv.shape[1], 2, heads, dh).permute(2, 0, 3, 1, 4)
+    o = dot_product_attention(q, k, v, mask=mask)
+    return o.transpose(1, 2).reshape(B, nq, D)
+
+
+# The activation hook of ``parallel.sp.sequence_sharded_activations`` (JAX's
+# ``set_activation_constraint``): a :class:`SequenceSharding` under which
+# every Transformer keeps its carry sequence-sharded over a model axis
+# between blocks, or None.
+_ACTIVATION_CONSTRAINT = None
+
+
+def set_activation_constraint(constraint) -> None:
+    global _ACTIVATION_CONSTRAINT
+    _ACTIVATION_CONSTRAINT = constraint
+
+
+class SequenceFrame:
+    """The sequence split of one Transformer call: the true length ``n``,
+    the ``rows`` each model rank holds (the length padded to a multiple of
+    the model axis, divided by it) and the ``mesh``."""
+
+    def __init__(self, mesh, n: int):
+        self.mesh, self.n = mesh, n
+        self.rows = -(-n // mesh.model)
+
+    def pad(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, n, ...] -> [B, rows * tp, ...], zero rows appended."""
+        extra = self.rows * self.mesh.model - x.shape[1]
+        if not extra:
+            return x
+        return torch.cat([x, x.new_zeros((x.shape[0], extra) + x.shape[2:])], 1)
+
+    def mask_rows(self, mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """This rank's query rows of an additive [n, n] mask (padded rows
+        see every key)."""
+        if mask is None:
+            return None
+        r0 = self.mesh.model_rank * self.rows
+        rows = mask[r0:r0 + self.rows]
+        if rows.shape[0] < self.rows:
+            rows = torch.cat([rows, rows.new_zeros(
+                (self.rows - rows.shape[0],) + rows.shape[1:])])
+        return rows
 
 
 class Transformer(nn.Module):
@@ -291,23 +455,27 @@ class Transformer(nn.Module):
         checkpoint."""
         policy = remat_policy(remat)
         first = skip_first_n or 0
+        hook = _ACTIVATION_CONSTRAINT
+        sp = None
+        if hook is not None and x.ndim == 3:  # the carry, sequence-sharded
+            x, sp = hook.shard(x)
         for i, b in enumerate(self.blocks[first:], start=first):
             if lora is not None:
                 b = functools.partial(_lora_block, lora, i, b)
             if policy is None or not torch.is_grad_enabled():
-                x = b(x, mask)
+                x = b(x, mask, sp)
             elif policy == "dots":
-                x = checkpoint(b, x, mask, use_reentrant=False,
+                x = checkpoint(b, x, mask, sp, use_reentrant=False,
                                context_fn=_save_2d_products_context)
             else:
-                x = checkpoint(b, x, mask, use_reentrant=False)
-        return x
+                x = checkpoint(b, x, mask, sp, use_reentrant=False)
+        return x if sp is None else hook.unshard(x, sp)
 
 
-def _lora_block(lora, i, block, x, mask):
+def _lora_block(lora, i, block, x, mask, sp=None):
     """Block ``i`` on W + scale * a @ b for each weight ``lora`` adapts."""
     return functional_call(block, merged_block_weights(lora, i, block),
-                           (x, mask))
+                           (x, mask, sp))
 
 
 # The 2-D products of a block: the qkv and out projections and the plain

@@ -35,8 +35,16 @@ weight that is not contiguous or not 16-byte aligned, and launch on the
 current stream, which FSDP2's stream events order. So the FSDP step
 launches exactly the kernels the data-parallel step launches.
 
-FSDP over a model axis (``fsdp_tp_shardings``, ``fsdp_tp_place``) waits for
-tensor parallelism, ROADMAP Queue 1 item 12c.
+Over a ``[data, model]`` mesh FSDP2 shards over the data axis alone (a
+``DeviceMesh`` of the mesh's data group), and the ranks of one model column
+hold the same shards. The 2D state (:func:`fsdp_tp_place`, JAX's
+``fsdp_tp_place``) first splits the named towers' trunks over the model axis
+(``parallel.tp``): those slices stay whole over the data axis, ignored by
+FSDP2, their gradients averaged over the data group and their AdamW moments
+cut alike; everything else is FSDP over the data axis. The TP slices are
+plain tensors, not ``DTensor``s over a 2D device mesh: a DTensor
+redistribution waits on functional collectives, which crash a gloo group on
+CUDA tensors (torch 2.11; :func:`full_tensor`).
 """
 
 from __future__ import annotations
@@ -48,7 +56,7 @@ import torch
 import torch.distributed as dist
 import torch.nn as nn
 
-from vitlens_tpu_torch.parallel.mesh import Mesh
+from vitlens_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh
 
 MIN_ELEMS = 4096  # below this, replication is cheaper than the collectives
 
@@ -146,21 +154,24 @@ def _device_mesh(mesh: Mesh):
     if not mesh.spans_processes:
         raise ValueError("FSDP runs one process a rank: pass make_mesh() of "
                          "the process group")
-    if mesh.model != 1:
-        raise NotImplementedError("FSDP over a model axis is not yet ported: "
-                                  "ROADMAP Queue 1, item 12c")
     return DeviceMesh.from_group(mesh.group, mesh.device.type)
 
 
 def fsdp_place(state, mesh: Mesh, *, min_elems: int = MIN_ELEMS):
     """Shard ``state`` (a ``train.step.TrainState`` whose model sits on the
-    mesh's device) over ``mesh``'s ranks in place, and return it: the
+    mesh's device) over ``mesh``'s data axis in place, and return it: the
     parameters the rule shards become ``DTensor``s (``Shard(axis)``), the
     others stay plain and are ignored by FSDP2; each AdamW moment becomes a
     ``DTensor`` of its parameter's placement, its local shard cut from the
     whole moment every rank holds (zeros, or a resumed unsharded state).
     Every rank must hold the same state (``parallel.mesh.replicate``).
     The entry point before the first step of ``partition="fsdp"``."""
+    return _fsdp_place(state, mesh, min_elems, keep=())
+
+
+def _fsdp_place(state, mesh: Mesh, min_elems: int, keep):
+    """:func:`fsdp_place`, the parameters named in ``keep`` left as they
+    are (ignored by FSDP2)."""
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import DTensor, Shard
 
@@ -173,6 +184,7 @@ def fsdp_place(state, mesh: Mesh, *, min_elems: int = MIN_ELEMS):
             "weights outside its forward")
     dmesh = _device_mesh(mesh)
     axes = param_axes(model, mesh.data, min_elems)
+    axes.update(dict.fromkeys(keep))
     params = dict(model.named_parameters())
     by_id = {id(p): axes[n] for n, p in params.items()}
     ignored = {p for n, p in params.items() if axes[n] is None}
@@ -197,19 +209,27 @@ def fsdp_place(state, mesh: Mesh, *, min_elems: int = MIN_ELEMS):
 
 def placements_of(state) -> Dict[str, Dict[str, Any]]:
     """The counterpart of JAX's ``shardings_of``: ``{"params": {name:
-    Shard(axis) or None}, "mu": {...}, "nu": {...}}`` of a placed (or
-    unplaced: every entry None) state. The model's wrapped modules must be
-    resharded (:func:`reshard_`; the step leaves them so): a gathered
-    module's parameters read as plain tensors."""
+    placement}, "mu": {...}, "nu": {...}}`` of a placed (or unplaced: every
+    entry None) state, a placement being ``Shard(axis)`` (FSDP over the data
+    axis), ``("model", axis)`` (a TP slice, whole over data) or None. The
+    model's wrapped modules must be resharded (:func:`reshard_`; the step
+    leaves them so): a gathered module's parameters read as plain
+    tensors."""
     from torch.distributed.tensor import Shard
 
-    def of(t):
+    from vitlens_tpu_torch.parallel.tp import split_axis, split_params
+
+    split = split_params(state.model)
+
+    def of(n, t):
+        if n in split:
+            return (MODEL_AXIS, split_axis(n))
         axis = shard_axis(t)
         return None if axis is None else Shard(axis)
 
-    out = {"params": {n: of(p) for n, p in state.model.named_parameters()}}
+    out = {"params": {n: of(n, p) for n, p in state.model.named_parameters()}}
     for moment in ("mu", "nu"):
-        out[moment] = {n: of(t) for n, t in state.opt_state[moment].items()}
+        out[moment] = {n: of(n, t) for n, t in state.opt_state[moment].items()}
     return out
 
 
@@ -248,16 +268,25 @@ def full_tensor(t: torch.Tensor) -> torch.Tensor:
     return torch.cat(parts, dim=axis)
 
 
-def sharded_norm(grads: Dict[str, torch.Tensor], mesh: Mesh) -> torch.Tensor:
-    """The global L2 norm of gradients some of which are sharded
-    (``DTensor``s, each rank its shard) and the others replicated (the same
-    on every rank): the local sums of squares of the shards, plus the
-    replicated ones' on rank 0 alone, all-reduced once."""
+def sharded_norm(grads: Dict[str, torch.Tensor], mesh: Mesh,
+                 split=()) -> torch.Tensor:
+    """The global L2 norm of gradients some of which are sharded over the
+    data axis (``DTensor``s, each data rank its shard, the same on every
+    model rank), some split over the model axis (the names in ``split``,
+    each model rank its slice, the same on every data rank) and the others
+    replicated: each tensor's sum of squares counted once, on the ranks
+    that hold a distinct part of it, all-reduced once over the mesh."""
     sq = None
-    for g in grads.values():
+    for n, g in grads.items():
         if shard_axis(g) is not None:
+            if mesh.model_rank:
+                continue
             s = g.to_local().float().square().sum()
-        elif mesh.rank == 0:
+        elif n in split:
+            if mesh.rank:
+                continue
+            s = g.float().square().sum()
+        elif mesh.rank == 0 and mesh.model_rank == 0:
             s = g.float().square().sum()
         else:
             continue
@@ -265,13 +294,60 @@ def sharded_norm(grads: Dict[str, torch.Tensor], mesh: Mesh) -> torch.Tensor:
     if sq is None:
         sq = torch.zeros((), device=mesh.device)
     sq = sq.detach().clone()
-    dist.all_reduce(sq, group=mesh.group)
+    dist.all_reduce(sq)  # the mesh spans the process group
     return sq.sqrt()
 
 
-def fsdp_tp_shardings(*_a, **_k):
-    raise NotImplementedError("FSDP x tensor parallelism is not yet ported: "
-                              "ROADMAP Queue 1, item 12c")
+def _towers(model: nn.Module, names: Sequence[str]) -> Dict[str, nn.Module]:
+    """{module name: module} of every module whose own name (the last
+    component) is one of ``names``: the boundary-aware match of JAX's
+    suffix rule (``audio_visual`` is not ``visual``)."""
+    return {n: m for n, m in model.named_modules()
+            if n and n.split(".")[-1] in names and hasattr(m, "trunk")}
 
 
-fsdp_tp_place = fsdp_tp_shardings
+def fsdp_tp_shardings(model: nn.Module, mesh: Mesh, *,
+                      tp_towers=("visual",), min_elems: int = MIN_ELEMS
+                      ) -> Dict[str, Any]:
+    """{parameter name: placement} of the 2D state (JAX's
+    ``fsdp_tp_shardings``): ``("model", axis)`` for the TP-split trunk
+    weights of the ``tp_towers`` (whole over data), else the FSDP rule's
+    ``("data", axis)`` over the data axis, or None (whole). Read on an
+    unplaced model; the AdamW moments follow their parameters."""
+    from vitlens_tpu_torch.parallel.tp import vision_tower_specs
+
+    out = {n: None if a is None else (DATA_AXIS, a)
+           for n, a in param_axes(model, mesh.data, min_elems).items()}
+    for name, tower in _towers(model, tp_towers).items():
+        for n, a in vision_tower_specs(tower).items():
+            if a is not None:
+                out[f"{name}.{n}"] = (MODEL_AXIS, a)
+    return out
+
+
+def fsdp_tp_place(state, mesh: Mesh, *, tp_towers=("visual",),
+                  min_elems: int = MIN_ELEMS):
+    """Place ``state`` in the 2D layout of :func:`fsdp_tp_shardings`, in
+    place, and return it: the ``tp_towers``' trunks split over the model
+    axis (``parallel.tp.shard_vision_tower``; their AdamW moments cut to
+    the same slices), then FSDP2 over the data axis for every other
+    parameter. Every rank must hold the same state. The entry point before
+    the first step of ``partition="fsdp"`` over a model axis."""
+    from vitlens_tpu_torch.parallel.tp import (local_of, shard_vision_tower,
+                                               split_params)
+
+    if mesh.model_group is None:
+        raise ValueError("fsdp_tp_place needs a mesh with a model axis over "
+                         "processes: make_mesh(n_model=tp)")
+    towers = _towers(state.model, tp_towers)
+    if not towers:
+        raise ValueError(f"no tower named {tp_towers} to split")
+    for tower in towers.values():
+        shard_vision_tower(tower, mesh)
+    split = split_params(state.model)
+    with torch.no_grad():
+        for moment in ("mu", "nu"):
+            tree = state.opt_state[moment]
+            for n in [n for n in tree if n in split]:
+                tree[n] = local_of(n, tree[n], split[n]).contiguous().clone()
+    return _fsdp_place(state, mesh, min_elems, keep=split)

@@ -17,8 +17,16 @@ ways, both behind one :class:`Mesh`:
   multiple of ``data``, split into contiguous chunks, one a device, and the
   results gather on the first device (``api.ViTLens(mesh=)``).
 
-FSDP (the train state sharded over the ranks) is ``parallel.fsdp``. The
-``model`` axis (tensor parallelism) waits for ROADMAP Queue 1 item 12c.
+A process group may also carry a ``model`` axis: ``make_mesh(n_data,
+n_model)`` lays the ranks out as JAX reshapes its devices, ``[n_data,
+n_model]`` with ``model`` innermost, so rank r is data row r // n_model and
+model column r % n_model. Every collective of the data axis (the losses'
+gathers, synced BatchNorm, the gradient average, the loader's and the
+eval's slices) runs over the ranks of one model column, ``Mesh.group``; the
+ranks of one data row see the same rows and share the model axis,
+``Mesh.model_group``, over which tensor and sequence parallelism
+(``parallel.tp``, ``parallel.sp``) split a tower. FSDP (the train state
+sharded over the data axis) is ``parallel.fsdp``.
 """
 
 from __future__ import annotations
@@ -176,18 +184,24 @@ def process_count() -> int:
 
 @dataclass(frozen=True)
 class Mesh:
-    """A ``data`` axis of ``data`` replicas (``model`` is 1).
+    """A ``data`` axis of ``data`` replicas by a ``model`` axis of ``model``
+    ranks.
 
     A mesh that spans processes (``group`` set, from :func:`make_mesh` after
     :func:`init_distributed`) is one process a rank: ``rank`` is this
-    process's index and ``devices`` holds its one device. A local mesh
-    (``group`` None) lists every device of the axis in this process; a
+    process's index on the data axis and ``group`` the ranks of its model
+    column (the data axis's collectives), ``model_rank`` its index on the
+    model axis and ``model_group`` the ranks of its data row (None while
+    ``model`` is 1); ``devices`` holds its one device. A local mesh
+    (``group`` None) lists every device of the data axis in this process; a
     device may repeat, and then its replicas share that device."""
     devices: Tuple[torch.device, ...]
     data: int
     rank: int = 0
     group: Any = None
     model: int = 1
+    model_rank: int = 0
+    model_group: Any = None
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -207,30 +221,64 @@ class Mesh:
         return dist.get_backend(self.group) if self.group is not None else None
 
 
+# {(world size, n_model): (one group a model column, one a data row)}: c10d
+# subgroups are made collectively, so each layout's are made once
+_AXIS_GROUPS: Dict[Tuple[int, int], Tuple[list, list]] = {}
+
+
+def _axis_groups(world: int, n_model: int) -> Tuple[list, list]:
+    """The subgroups of a ``[world / n_model, n_model]`` layout: for each
+    model column m the ranks m, m + n_model, ... (a data axis), for each
+    data row d the ranks d * n_model ... (d + 1) * n_model - 1 (a model
+    axis). Every rank creates every group, in this order."""
+    key = (world, n_model)
+    if key not in _AXIS_GROUPS:
+        n_data = world // n_model
+        columns = [dist.new_group([m + i * n_model for i in range(n_data)])
+                   for m in range(n_model)]
+        rows = [dist.new_group(list(range(d * n_model, (d + 1) * n_model)))
+                for d in range(n_data)]
+        _AXIS_GROUPS[key] = (columns, rows)
+    return _AXIS_GROUPS[key]
+
+
 def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
               devices: Optional[Sequence[Any]] = None, device=None) -> Mesh:
-    """The data mesh. With ``devices`` (e.g. ``["cuda:0", "cuda:1"]``, or
-    ``["cpu", "cpu"]``): a local mesh over the first ``n_data`` of them.
-    Without, in an initialised process group: the group, one rank a process
-    (``n_data``, when given, must be the world size), on ``device`` (by
+    """The ``[data, model]`` mesh. With ``devices`` (e.g. ``["cuda:0",
+    "cuda:1"]``, or ``["cpu", "cpu"]``): a local mesh over the first
+    ``n_data`` of them (no model axis: it needs one process a rank).
+    Without, in an initialised process group: the group, one rank a process,
+    laid out ``[world / n_model, n_model]`` with the model axis innermost
+    (``n_data``, when given, must be that quotient), on ``device`` (by
     default the current CUDA device under NCCL, the CPU otherwise; ``cuda``
     without an index is the current one). Without either: a local mesh over
     the visible CUDA devices."""
-    if n_model != 1:
-        raise NotImplementedError(
-            "a model axis (tensor and sequence parallelism) is not yet "
-            "ported: ROADMAP Queue 1, item 12c")
+    if n_model < 1:
+        raise ValueError(f"n_model={n_model}")
     if devices is None and dist.is_available() and dist.is_initialized():
-        world = dist.get_world_size()
-        if n_data not in (None, world):
+        world, rank = dist.get_world_size(), dist.get_rank()
+        if world % n_model:
+            raise ValueError(f"n_model={n_model} does not divide the "
+                             f"{world} ranks of the process group")
+        if n_data not in (None, world // n_model):
             raise ValueError(f"n_data={n_data} but the process group has "
-                             f"{world} ranks: one rank a replica")
+                             f"{world} ranks: one rank a replica of "
+                             f"{n_model} model rank(s)")
         dev = torch.device(device if device is not None else
                            "cuda" if dist.get_backend() == "nccl" else "cpu")
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-        return Mesh(devices=(dev,), data=world, rank=dist.get_rank(),
-                    group=dist.group.WORLD)
+        if n_model == 1:
+            return Mesh(devices=(dev,), data=world, rank=rank,
+                        group=dist.group.WORLD)
+        columns, rows = _axis_groups(world, n_model)
+        return Mesh(devices=(dev,), data=world // n_model,
+                    rank=rank // n_model, group=columns[rank % n_model],
+                    model=n_model, model_rank=rank % n_model,
+                    model_group=rows[rank // n_model])
+    if n_model != 1:
+        raise ValueError("a model axis needs one process a rank: "
+                         "make_mesh() after init_distributed")
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device for the mesh; pass devices="
@@ -340,6 +388,165 @@ def all_reduce_mean(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return _AllReduceMean.apply(x, mesh)
 
 
+# -- the model axis: Megatron's operators and the sequence's ---------------------
+#
+# Every tensor these take is replicated over the model axis or split along
+# ``dim`` into equal parts, part r on model rank r; the computation after
+# each is the same on every model rank (the ranks of a data row compute one
+# loss), so an operator's backward is the transpose of its forward under
+# that view. Reduce-scatter is NCCL's where the group runs NCCL; gloo has
+# none, and there it is an all-reduce and a slice.
+
+
+def _model_sum_(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    dist.all_reduce(t, group=mesh.model_group)
+    return t
+
+
+def _model_cat(x: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(mesh.model)]
+    dist.all_gather(parts, x, group=mesh.model_group)
+    return torch.cat(parts, dim)
+
+
+def _model_part(x: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
+    n = x.shape[dim] // mesh.model
+    return x.narrow(dim, mesh.model_rank * n, n)
+
+
+def _model_reduce_scatter(x: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
+    if dist.get_backend(mesh.model_group) == "nccl":
+        parts = [c.contiguous() for c in x.chunk(mesh.model, dim)]
+        out = torch.empty_like(parts[0])
+        dist.reduce_scatter(out, parts, group=mesh.model_group)
+        return out
+    return _model_part(_model_sum_(x.contiguous().clone(), mesh), mesh,
+                       dim).contiguous()
+
+
+class _ModelCopy(torch.autograd.Function):
+    """Megatron's f: the identity, whose backward sums the model ranks'
+    partial cotangents (in front of a column-parallel product, and on a
+    replicated parameter that each rank uses on its part of the rows)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _model_sum_(g.contiguous().clone(), ctx.mesh), None
+
+
+class _ModelSum(torch.autograd.Function):
+    """Megatron's g: the sum of the model ranks' partial products (after a
+    row-parallel product); the backward is the identity."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return _model_sum_(x.contiguous().clone(), mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _ModelGather(torch.autograd.Function):
+    """The parts of every model rank, concatenated along ``dim``; each rank
+    computes something else from the whole, so the backward sums the ranks'
+    cotangents and keeps this rank's part (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return _model_cat(x, mesh, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _model_reduce_scatter(g, ctx.mesh, ctx.dim), None, None
+
+
+class _ModelReduceScatter(torch.autograd.Function):
+    """The sum of the model ranks' partial products, this rank's part along
+    ``dim`` (Megatron-SP's reduce-scatter after a row-parallel product);
+    the backward all-gathers the parts' cotangents."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return _model_reduce_scatter(x, mesh, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _model_cat(g, ctx.mesh, ctx.dim), None, None
+
+
+class _ModelSplit(torch.autograd.Function):
+    """This rank's part of a replicated tensor along ``dim``; the backward
+    all-gathers the parts' cotangents."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return _model_part(x, mesh, dim).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _model_cat(g, ctx.mesh, ctx.dim), None, None
+
+
+class _ModelUnsplit(torch.autograd.Function):
+    """The parts of every model rank, concatenated along ``dim``, where what
+    follows is replicated: the backward keeps this rank's part of the
+    (equal) cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return _model_cat(x, mesh, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _model_part(g, ctx.mesh, ctx.dim).contiguous(), None, None
+
+
+def model_copy(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Megatron's f over ``mesh``'s model axis (:class:`_ModelCopy`); ``x``
+    itself where no gradient is recorded for it."""
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _ModelCopy.apply(x, mesh)
+
+
+def model_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Megatron's g over ``mesh``'s model axis (:class:`_ModelSum`)."""
+    return _ModelSum.apply(x, mesh)
+
+
+def model_gather(x: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
+    """Every model rank's part along ``dim`` (:class:`_ModelGather`)."""
+    return _ModelGather.apply(x, mesh, dim)
+
+
+def model_reduce_scatter(x: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
+    """The model ranks' sum, this rank's part along ``dim``
+    (:class:`_ModelReduceScatter`)."""
+    return _ModelReduceScatter.apply(x, mesh, dim)
+
+
+def model_split(x: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
+    """This model rank's part of a replicated ``x`` (:class:`_ModelSplit`)."""
+    return _ModelSplit.apply(x, mesh, dim)
+
+
+def model_unsplit(x: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
+    """The model ranks' parts, whole, before replicated work
+    (:class:`_ModelUnsplit`)."""
+    return _ModelUnsplit.apply(x, mesh, dim)
+
+
 def average_gradients_(grads: Dict[str, torch.Tensor],
                        mesh: Mesh) -> Dict[str, torch.Tensor]:
     """All-reduce-mean the gradients in place, packed into flat fp32 buckets
@@ -435,14 +642,16 @@ def map_rank_rows(mesh: Optional[Mesh], fn, x: torch.Tensor) -> torch.Tensor:
 
 def replicate(mesh: Mesh, tree):
     """Make ``tree`` (a tensor, a dict or list of them, or a module) equal
-    on every rank: broadcast from rank 0, in place, and return it. A local
-    mesh's replicas are ``api.ViTLens``'s (one a device)."""
+    on every rank of the mesh, both axes: broadcast from rank 0, in place,
+    and return it. A local mesh's replicas are ``api.ViTLens``'s (one a
+    device)."""
     if _local(mesh):
         return tree
+    group = mesh.group if mesh.model == 1 else dist.group.WORLD
     with torch.no_grad():
         for t in _tensors(tree):
             dist.broadcast(t.data if isinstance(t, torch.nn.Parameter) else t,
-                           src=0, group=mesh.group)
+                           src=0, group=group)
     return tree
 
 

@@ -30,7 +30,10 @@ shards and rank 0 the replicated tensors, with no gather; rank 0 writes
 rename) in place of a copy to ``epoch_latest``. ``load_checkpoint_sharded``
 restores onto the target's placements: a placed state of any number of
 ranks, or a whole state in one process (DCP reshards on read, as orbax does
-for JAX).
+for JAX). A 2D state's TP slices (``parallel.fsdp.fsdp_tp_place``) are
+written whole, in JAX's packed-qkv layout (gathered over the model axis at
+save, ``parallel.tp.gather_whole``), and cut to each rank's slice again at
+load, so the checkpoint is the same tree whatever the layout of its run.
 """
 
 from __future__ import annotations
@@ -258,17 +261,32 @@ def _live_tree(state: TrainState) -> Dict[str, Any]:
     }
 
 
+def _split_entries(tree: Dict[str, Any], model):
+    """[(subtree, name, block)] of the tree's TP slices (``parallel.tp``)."""
+    from vitlens_tpu_torch.parallel.tp import split_params
+
+    split = split_params(model)
+    return [(sub, n, split[n])
+            for sub in (tree["params"], tree.get("opt_state", {}).get("mu", {}),
+                        tree.get("opt_state", {}).get("nu", {}))
+            for n in sub if n in split]
+
+
 def _collective_save(path: str, state: TrainState) -> None:
     """DCP save of ``state`` into ``path`` (replaced): every process calls
-    it; each writes its own shards."""
+    it; each writes its own shards, a TP slice gathered whole."""
     import torch.distributed.checkpoint as dcp
 
     from vitlens_tpu_torch.parallel.mesh import barrier, process_index
+    from vitlens_tpu_torch.parallel.tp import gather_whole
 
     if process_index() == 0 and os.path.exists(path):
         shutil.rmtree(path)
+    tree = _live_tree(state)
+    for sub, n, block in _split_entries(tree, state.model):
+        sub[n] = gather_whole(n, sub[n], block)
     barrier()  # no rank writes before the old directory is gone
-    dcp.save(_live_tree(state), checkpoint_id=os.path.abspath(path))
+    dcp.save(tree, checkpoint_id=os.path.abspath(path))
 
 
 def save_checkpoint_sharded(
@@ -337,10 +355,22 @@ def load_checkpoint_sharded(path: str, target: TrainState, *,
     process group is up: every process calls it."""
     import torch.distributed.checkpoint as dcp
 
+    from vitlens_tpu_torch.parallel.tp import local_of, split_axis
+
     tree = _live_tree(target)
     if ckpt_only:
         tree = {"params": tree["params"], "model_state": tree["model_state"]}
+    split = _split_entries(tree, target.model)
+    live = {}
+    for sub, n, block in split:  # read whole, then cut to this rank's slice
+        live[id(sub), n] = t = sub[n]
+        shape = list(t.shape)
+        shape[split_axis(n)] *= block.tp.model
+        sub[n] = t.new_empty(shape)
     dcp.load(tree, checkpoint_id=os.path.abspath(path))
+    with torch.no_grad():
+        for sub, n, block in split:
+            live[id(sub), n].copy_(local_of(n, sub[n], block))
     if not ckpt_only:
         target.opt_state["count"] = int(tree["opt_state"]["count"])
         target.step = int(tree["step"])

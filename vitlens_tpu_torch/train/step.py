@@ -49,6 +49,13 @@ give nothing). The replicated ones are averaged as the DP step averages
 them; ``grad_norm`` is the one global norm (``parallel.fsdp.
 sharded_norm``), and the clip and AdamW run elementwise on each rank's
 shards.
+
+A mesh with a model axis (``make_mesh(n_model=tp)``) runs either step over
+its data axis; a tower split over the model axis (``parallel.tp``, placed
+by ``parallel.fsdp.fsdp_tp_place``) computes the same features on every
+model rank of a data row, so every model rank computes the same loss. Its
+TP slices' gradients are averaged over the data axis like a replicated
+one's, and ``grad_norm`` counts each slice once and each whole tensor once.
 """
 
 from __future__ import annotations
@@ -70,6 +77,7 @@ from vitlens_tpu_torch.parallel.fsdp import (fsdp_units, local_tensor,
 from vitlens_tpu_torch.parallel.mesh import (Mesh, all_gather,
                                              average_gradients_,
                                              mean_over_ranks)
+from vitlens_tpu_torch.parallel.tp import split_params
 from vitlens_tpu_torch.train import losses as losses_lib
 from vitlens_tpu_torch.train.freeze import Mask
 from vitlens_tpu_torch.train.schedules import get_schedule
@@ -440,9 +448,6 @@ def _step_mesh(mesh, partition: str) -> Optional[Mesh]:
         return None
     if not isinstance(mesh, Mesh):
         raise TypeError(f"mesh must be a parallel.mesh.Mesh, got {type(mesh)!r}")
-    if mesh.model != 1:
-        raise NotImplementedError("a model axis is not yet ported: ROADMAP "
-                                  "Queue 1, item 12c")
     if not mesh.spans_processes:
         if mesh.data > 1:
             raise ValueError(
@@ -536,18 +541,17 @@ def make_train_step(model_cfg, tx: AdamW, trainable_mask: Mask,
                     None if fps_starts is None else fps_starts[0],
                     None if patch_keeps is None else patch_keeps[0])
         if fsdp:
-            # FSDP2 averaged the sharded gradients; the replicated ones,
-            # and the loss, as the DDP step averages them
             reshard_(model)
+        if mesh is not None:
+            # the DDP all-reduce; FSDP2 averaged the sharded gradients, the
+            # others and the loss are averaged as the DDP step averages them
             average_gradients_({n: g for n, g in grads.items()
                                 if shard_axis(g) is None}, mesh)
             loss = mean_over_ranks(loss, mesh)
-            grad_norm = sharded_norm(grads, mesh)
+        if fsdp or (mesh is not None and mesh.model > 1):
+            grad_norm = sharded_norm(grads, mesh, split_params(model))
             tx.update_(params, grads, state.opt_state, norm=grad_norm)
         else:
-            if mesh is not None:  # the DDP gradient all-reduce
-                average_gradients_(grads, mesh)
-                loss = mean_over_ranks(loss, mesh)
             grad_norm = global_norm(grads)
             tx.update_(params, grads, state.opt_state)
         clamp_logit_scale(model)
