@@ -368,6 +368,27 @@ Phases, one printed line each (or more); any failure exits non-zero:
      rank's audio trunk bytes half the whole, the peaks. `python3
      tools/dp_first_call.py --tp --plant` runs it under two planted faults,
      each of which must fail (b).
+  4pp. pipelining (vitlens_tpu_torch/parallel/pp.py), in 4tp's four rank
+     processes after 4tp (b) (`python3 chip_smoke.py --pp-rank DIR` is a
+     rank of 4pp alone). (a) ViTLens("vitlensL", ("audio",)) in bf16, B = 8
+     requests of 3 clips, placed by pipeline_place and encoded under
+     pipelined_trunks on [data 1, pipe 4] (M = 4) and [data 2, pipe 2] (M =
+     2, each data row its 4 requests): cosine >= 0.9999 against the
+     one-process encode, launches a rank as tower_launches(pp=) derives
+     them, each rank's trunk bytes 1 / stages of the whole; (b) the vitlensG
+     pc encode at B16 (32 of 48 bigG blocks run, 8 a stage on [data 1, pipe
+     4], M = 4; the 16 skipped blocks dropped): the same bars, FPS once,
+     each rank's bytes of the blocks that run a quarter of the 32's, the
+     peaks; (c) the gradient of the audio x text contrastive loss at B16
+     through the pipelined audio tower (the whole tower trainable; the text
+     tower's 12 blocks pipeline too) on [data 1, pipe 4], M = 4, against
+     one process: fp32 with remat (every group's cosine >= 0.999, the loss
+     within 1e-4 relative), bf16 (each group's cosine >= COS_MIN and the
+     one-process floor at the microbatches' shapes, B16 against accum_freq
+     4, less 2e-3); the stages' blocks gathered to rank 0, the replicated
+     gradients equal on every rank. Host ms of the pipelined encodes beside
+     the one process's. `python3 tools/dp_first_call.py --pp --plant` runs
+     it under two planted faults, each of which must fail it.
   5. timing: each kernel against its plain version (and, where one PyTorch
      call computes the same function, that call) at the B64 shapes of the
      main paths, beside each kernel's bound, with cuBLAS's products alone
@@ -786,7 +807,7 @@ def launch_counts(**counts):
     return {**dict.fromkeys(COUNTED, 0), **counts}
 
 
-def tower_launches(cfg, tp=False, **more):
+def tower_launches(cfg, tp=False, pp=None, **more):
     """Expected launches of one bf16 encode of a vision tower, derived from
     its config: kernel 1 and kernel 2 once a trunk block that runs (the
     first skip_first_n_layers are skipped); a Perceiver Lens adds one
@@ -795,9 +816,13 @@ def tower_launches(cfg, tp=False, **more):
     split over a model axis (parallel.tp), whose blocks' MLP is plain, as
     in JAX (attention still once a block, on the rank's heads); sequence
     parallelism alone changes no count (each kernel runs on the rank's
-    rows)."""
+    rows). ``pp``: (stages, microbatches) of a trunk pipelined on a rank
+    (parallel.pp): its blocks run (layers - skip) / stages times a
+    microbatch, the bubble ticks none."""
     p = cfg.perceiver
     mlp = attn = cfg.arch.layers - (cfg.skip_first_n_layers or 0)
+    if pp is not None:
+        mlp = attn = mlp // pp[0] * pp[1]
     if tp:
         mlp = 0
     if p is not None and p.as_transformer:
@@ -4106,8 +4131,8 @@ def tp_step(torch, np, counters, mesh):
 def tp_rank_main(out_dir) -> int:
     """A rank process of phase 4tp, started by tp_ranks_phase with
     torchrun's variables: one of four gloo ranks sharing the card, laid out
-    [data 2, model 2] by make_mesh(n_model=2); (a) tp_encode, (b) tp_step;
-    results to rank{r}.json."""
+    [data 2, model 2] by make_mesh(n_model=2); (a) tp_encode, (b) tp_step,
+    then phase 4pp (pp_rank) on its pipe meshes; results to rank{r}.json."""
     import datetime
     import faulthandler
 
@@ -4134,6 +4159,8 @@ def tp_rank_main(out_dir) -> int:
     res = {"rank": rank, "encode": tp_encode(torch, np, counters, mesh)}
     dist.barrier()
     res["step"] = tp_step(torch, np, counters, mesh)
+    dist.barrier()
+    res["pp"] = pp_rank(torch, np, counters, rank)
     dist.barrier()
     dist.destroy_process_group()
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
@@ -4295,7 +4322,449 @@ def tp_ranks_phase(torch, totals, card, rank_argv=None):
           f"{s0['single_peak_gb']:.2f}; this "
           f"process resident {resident:.2f}; in the ranks (a) + (b) "
           + ", ".join(f"{g['step']['seconds']:.1f}" for g in res)
-          + f" s of (b); phase {time.time() - t0:.1f} s", flush=True)
+          + f" s of (b); phase {time.time() - t0:.1f} s with 4pp", flush=True)
+    pp_check(res, totals, card)
+    return time.time() - t0
+
+
+# -- phase 4pp: pipelining (ROADMAP Queue 1 item 12d) ---------------------------
+
+PP_WORLD = 4
+# (a): (stages, data rows, microbatches): 6 blocks a stage at microbatch 6,
+# and 12 blocks a stage on each data row's 4 requests (microbatch 6)
+PP_ENCODE_LAYOUTS = ((4, 1, 4), (2, 2, 2))
+PP_G_LAYOUT = (4, 1, 4)     # (b): 8 of the 32 bigG blocks that run, a stage
+PP_G_B = 16
+PP_GRAD_LAYOUT = (4, 1, 4)  # (c)
+PP_GRAD_B = 16
+PP_LOSS_REL = 1e-4          # (c) fp32: the pipelined loss against one process's
+PP_EQUAL_REL = 1e-4         # (c): a replicated gradient on a rank against rank
+                            # 0's (the same inputs; cuDNN's weight gradients
+                            # may sum in another order)
+PP_BYTES_SLACK = 0.01       # a rank's bytes of the blocks that run within 1%
+                            # of 1 / stages of the whole's
+
+
+def block_bytes(trunk, indices):
+    """Bytes of the parameters this rank holds of the trunk blocks
+    ``indices`` (a block placed on another stage holds none)."""
+    return sum(p.numel() * p.element_size() for i in indices
+               for p in trunk.blocks[i].parameters())
+
+
+def pp_timed(torch, counters, model, modality, x):
+    """(embeddings, launches, host ms of a second call) of
+    ``model.encode({modality: x})``."""
+    def encode():
+        return model.encode({modality: x}, preprocessed=True)[modality]
+
+    out, counts = run_counted(torch, counters, dict.fromkeys(counters, 0), encode)
+    t = time.time()
+    encode()
+    torch.cuda.synchronize()
+    return out, counts, (time.time() - t) * 1e3
+
+
+def pp_encode(torch, counters):
+    """Phase 4pp (a) on one rank: ViTLens("vitlensL", ("audio",)) in bf16,
+    B8 requests of 3 clips: the one-process encode, then for each layout of
+    PP_ENCODE_LAYOUTS a copy of the model placed by pipeline_place, this
+    data row's requests encoded under pipelined_trunks. The cosine of each
+    against the one-process encode's rows, its launches, the rank's trunk
+    weight bytes against the whole's, and host ms an encode (the second of
+    two calls)."""
+    from vitlens_tpu_torch.api import ViTLens
+    from vitlens_tpu_torch.parallel.pp import (make_pipe_mesh, pipeline_place,
+                                               pipelined_trunks)
+
+    one = ViTLens("vitlensL", ("audio",), device="cuda",
+                  compute_dtype=torch.bfloat16, seed=SEED)
+    acfg = one.towers["audio"].cfg
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    fb = torch.randn(TP_ENCODE_B, 3, acfg.audio.target_length,
+                     acfg.audio.mel_bins, generator=g, device="cuda") * 0.5
+    want, counts, ms = pp_timed(torch, counters, one, "audio", fb)
+    layers = range(acfg.arch.layers)
+    out = {"one": {"counts": counts, "want": tower_launches(acfg), "ms": ms},
+           "trunk_whole_gb": block_bytes(one.towers["audio"].trunk, layers) / 1e9}
+    for stages, n_data, m in PP_ENCODE_LAYOUTS:
+        mesh = make_pipe_mesh(stages, n_data, device="cuda:0")
+        model = copy.deepcopy(one)
+        pipeline_place(model.towers["audio"], mesh)
+        torch.cuda.empty_cache()
+        b = TP_ENCODE_B // n_data
+        rows = slice(mesh.rank * b, (mesh.rank + 1) * b)
+        with pipelined_trunks(mesh, m):
+            got, counts, ms = pp_timed(torch, counters, model, "audio", fb[rows])
+        out[f"{n_data}x{stages}"] = {
+            "cos": cos_min(torch, got, want[rows]),
+            "err": abs_err(got, want[rows]), "counts": counts, "ms": ms,
+            "want": tower_launches(acfg, pp=(stages, m)),
+            "trunk_rank_gb": block_bytes(model.towers["audio"].trunk,
+                                         layers) / 1e9}
+        del model, got
+    del one, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def pp_vitlensG(torch, counters):
+    """Phase 4pp (b) on one rank: ViTLens("vitlensG", ("pc",)) in bf16
+    (weights bf16), B16 clouds of 10000 x 6: the one-process encode, then
+    the tower placed on the [data 1, pipe 4] mesh (pipeline_place keeps the
+    8 blocks of the 32 that run that are this stage's and drops the 16
+    skipped ones) and encoded under pipelined_trunks: the cosine, launches,
+    the rank's bytes of the blocks that run (and of the skipped ones)
+    against the whole's, the peaks (the build and one-process encode; the
+    pipelined encode after placement) and host ms."""
+    from vitlens_tpu_torch.api import ViTLens
+    from vitlens_tpu_torch.parallel.pp import (make_pipe_mesh, pipeline_place,
+                                               pipelined_trunks)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    one = ViTLens("vitlensG", ("pc",), device="cuda",
+                  compute_dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                  seed=SEED)
+    tower = one.towers["pc"]
+    cfg, pt = tower.cfg, tower.cfg.point
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    pc = torch.cat([torch.randn(PP_G_B, pt.npoints, 3, generator=g, device="cuda") * 0.4,
+                    torch.rand(PP_G_B, pt.npoints, 3, generator=g, device="cuda")], -1)
+    want, counts, ms = pp_timed(torch, counters, one, "pc", pc)
+    first, layers = cfg.skip_first_n_layers, cfg.arch.layers
+    run, skipped = range(first, layers), range(first)
+    out = {"one": {"counts": counts, "want": tower_launches(cfg, fps=1), "ms": ms},
+           "run_whole_gb": block_bytes(tower.trunk, run) / 1e9,
+           "skipped_whole_gb": block_bytes(tower.trunk, skipped) / 1e9,
+           "built_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    stages, n_data, m = PP_G_LAYOUT
+    mesh = make_pipe_mesh(stages, n_data, device="cuda:0")
+    pipeline_place(tower, mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["resident_gb"] = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    with pipelined_trunks(mesh, m):
+        got, counts, ms = pp_timed(torch, counters, one, "pc", pc)
+    out.update({
+        "cos": cos_min(torch, got, want), "err": abs_err(got, want),
+        "counts": counts, "ms": ms, "want": tower_launches(cfg, pp=(stages, m), fps=1),
+        "run_rank_gb": block_bytes(tower.trunk, run) / 1e9,
+        "skipped_rank_gb": block_bytes(tower.trunk, skipped) / 1e9,
+        "encode_peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+    del one, tower, want, got, pc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def pp_grads(torch, np, counters, rank):
+    """Phase 4pp (c) on one rank: the gradient of the audio x text
+    contrastive loss (make_loss_fn(2)) at B16 through the vitlensL audio +
+    text model, the whole audio tower trainable (its trunk too), text
+    locked. Rank 0 first runs one process's passes: bf16, bf16 at the
+    microbatches' shapes (accum_freq 4: the bf16 floor) and fp32 with
+    remat. Then the audio tower is placed on the [data 1, pipe 4] mesh and
+    the passes run under pipelined_trunks (M = 4; the text tower's 12
+    blocks pipeline too, forward only): bf16, and fp32 with remat. Each
+    rank's gradients (its stage's blocks and the replicated ones) are
+    gathered to rank 0, which holds them against its one-process passes: the
+    loss, the cosine a group of tp_groups, and each rank's replicated
+    gradients against rank 0's."""
+    import torch.distributed as dist
+
+    from vitlens_tpu_torch.factory import create_model, make_trainable_
+    from vitlens_tpu_torch.parallel.pp import (make_pipe_mesh, pipeline_place,
+                                               pipelined_trunks)
+    from vitlens_tpu_torch.train.freeze import tri_model_mask
+    from vitlens_tpu_torch.train.losses import make_loss_fn
+    from vitlens_tpu_torch.train.step import (OptimizerConfig, StepConfig,
+                                              accum_grads, make_optimizer,
+                                              micro_grads)
+
+    model = create_model("ViT-L-14", "audio", seed=SEED, device="cuda",
+                         dtype=torch.float32)
+    cfg, dev = model.cfg, model.logit_scale.device
+    rng = np.random.RandomState(SEED)
+    text = rng.randint(1, 49000, size=(PP_GRAD_B, 77))
+    text[:, 0], text[:, -1] = 49406, 49407
+    a = cfg.tower.audio
+    fb = rng.randn(PP_GRAD_B, a.target_length, a.mel_bins) * 0.5
+    batch = {"text": torch.from_numpy(text).long().to(dev),
+             "visual": torch.from_numpy(fb.astype(np.float32)).to(dev)}
+    mask = tri_model_mask(model, cfg, lock_visual=False, lock_text=True)
+    _, mask = make_optimizer(model, OptimizerConfig(
+        lr=1e-4, warmup=10, total_steps=1000), mask)
+    make_trainable_(model, mask, torch.bfloat16)
+    names = [n for n, t in mask.items() if t]
+    loss_fn = make_loss_fn(2)
+    sc = StepConfig(n_tower=2, align_to="text")
+    passes = {"bf16": (torch.bfloat16, False), "fp32": (torch.float32, True)}
+
+    def grads_of(dtype, remat, accum=1):
+        s = dataclasses.replace(sc, compute_dtype=dtype, remat=remat,
+                                accum_freq=accum)
+        mine = {n: p for n, p in model.named_parameters() if p.requires_grad}
+        fn = accum_grads if accum > 1 else micro_grads
+        (loss, grads), counts = run_counted(
+            torch, counters, dict.fromkeys(counters, 0),
+            lambda: fn(model, batch, s, mine, loss_fn))
+        return float(loss), {n: g.float().cpu() for n, g in grads.items()}, counts
+
+    out, ref = {}, {}
+    t = time.time()
+    if rank == 0:
+        for key, (dtype, remat) in passes.items():
+            ref[key] = grads_of(dtype, remat)[:2]
+        ref["accum4"] = grads_of(torch.bfloat16, False, PP_GRAD_LAYOUT[2])[:2]
+        out["floor"] = tp_cosines(torch, ref["accum4"][1], ref["bf16"][1], names)
+        out["single"] = {k: v[0] for k, v in ref.items()}
+        out["single_s"] = time.time() - t
+        torch.cuda.empty_cache()
+    dist.barrier()
+    stages, n_data, m = PP_GRAD_LAYOUT
+    mesh = make_pipe_mesh(stages, n_data, device="cuda:0")
+    pipeline_place(model.visual, mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    trunk = "visual.trunk.blocks."
+    for key, (dtype, remat) in passes.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.time()
+        with pipelined_trunks(mesh, m):
+            loss, grads, counts = grads_of(dtype, remat)
+        r = {"loss": loss, "counts": counts, "s": time.time() - t,
+             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        t = time.time()
+        every = [None] * dist.get_world_size() if rank == 0 else None
+        dist.gather_object(grads, every, dst=0)
+        del grads
+        if rank == 0:
+            one_loss, one = ref[key]
+            rep = [n for n in names if not n.startswith(trunk)]
+            merged = {n: g for got in every for n, g in got.items()
+                      if n.startswith(trunk)}
+            merged.update({n: every[0][n] for n in rep})
+            r["missing"] = sorted(set(names) - set(merged))
+            r["loss_rel"] = abs(loss / one_loss - 1)
+            r["cos"] = tp_cosines(torch, merged, one, names) if not r["missing"] else {}
+            r["rep_cos"] = [min(tp_cosines(torch, got, one, rep).values())
+                            for got in every]
+            r["rep_rel"] = [max(rel_err(got[n], every[0][n]) for n in rep)
+                            for got in every]
+            r["blocks"] = [sorted({int(n[len(trunk):].split(".")[0])
+                                   for n in got if n.startswith(trunk)})
+                           for got in every]
+            del every, merged
+        r["check_s"] = time.time() - t
+        out[key] = r
+        gc.collect()
+        torch.cuda.empty_cache()
+    del model, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def pp_rank(torch, np, counters, rank):
+    """Phase 4pp on one of four gloo ranks sharing the card: (a), (b), (c);
+    returns their results and the seconds each took on this rank."""
+    import torch.distributed as dist
+
+    res, t0 = {}, time.time()
+    for name, fn in (("encode", lambda: pp_encode(torch, counters)),
+                     ("g", lambda: pp_vitlensG(torch, counters)),
+                     ("grads", lambda: pp_grads(torch, np, counters, rank))):
+        t = time.time()
+        res[name] = fn()
+        dist.barrier()
+        res[name + "_s"] = time.time() - t
+    res["seconds"] = time.time() - t0
+    return res
+
+
+def pp_rank_main(out_dir) -> int:
+    """A rank process of phase 4pp alone (tools/dp_first_call.py --pp), as
+    tp_rank_main starts one: four gloo ranks sharing the card; results to
+    rank{r}.json."""
+    import datetime
+    import faulthandler
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    faulthandler.enable()
+    env = os.environ
+    rank, world = int(env["RANK"]), int(env["WORLD_SIZE"])
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://{env['MASTER_ADDR']}:{env['MASTER_PORT']}",
+        world_size=world, rank=rank, timeout=datetime.timedelta(seconds=300))
+    res = {"rank": rank, "pp": pp_rank(torch, np, launch_counters(), rank)}
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def pp_check(res, totals, card):
+    """Phase 4pp's bars on the ranks' results (pp_rank's): (a) and (b) each
+    rank's cosine against the one-process encode >= DP_ENCODE_COS, launches
+    as tower_launches(pp=) derives them, its trunk bytes 1 / stages of the
+    whole (b: of the blocks that run; the skipped ones none); (c) the loss
+    (fp32 PP_LOSS_REL, bf16 DP_LOSS_REL) and each group's gradient cosine
+    (fp32 >= DP_COS_MIN; bf16 >= COS_MIN and the one-process floor at the
+    microbatches' shapes less DP_FLOOR_SLACK), every trainable tensor's
+    gradient present once gathered, and each rank's replicated gradients
+    within PP_EQUAL_REL of rank 0's and at the same bars. Prints the phase's
+    lines; returns its seconds in the ranks."""
+    pp = [r["pp"] for r in res]
+    for r, got in enumerate(pp):
+        for part, keys in (("encode", ["one"] + [f"{d}x{s}" for s, d, _ in
+                                                 PP_ENCODE_LAYOUTS]),
+                           ("g", ["one", None])):
+            for k in keys:
+                e = got[part] if k is None else got[part][k]
+                label = f"4pp ({'a' if part == 'encode' else 'b'}) rank {r} {k or 'pipelined'}"
+                if e["counts"] != e["want"]:
+                    fail(f"{label}: launches {e['counts']}, expected {e['want']}")
+                if "cos" in e and e["cos"] < DP_ENCODE_COS:
+                    fail(f"{label}: the encode vs the one-process encode: cosine "
+                         f"{e['cos']} (bar {DP_ENCODE_COS}), max abs difference "
+                         f"{e['err']}")
+                for name, n in e["counts"].items():
+                    totals[name] += n
+        enc = got["encode"]
+        for s, d, _ in PP_ENCODE_LAYOUTS:
+            share = enc[f"{d}x{s}"]["trunk_rank_gb"] / enc["trunk_whole_gb"]
+            if abs(share * s - 1) > PP_BYTES_SLACK:
+                fail(f"4pp (a) rank {r} [data {d}, pipe {s}]: trunk weight "
+                     f"bytes {share:.4f} of the whole, not 1/{s}")
+        gg = got["g"]
+        share = gg["run_rank_gb"] / gg["run_whole_gb"]
+        if abs(share * PP_G_LAYOUT[0] - 1) > PP_BYTES_SLACK or gg["skipped_rank_gb"]:
+            fail(f"4pp (b) rank {r}: bytes of the blocks that run {share:.4f} of "
+                 f"the whole, not 1/{PP_G_LAYOUT[0]}; of the skipped blocks "
+                 f"{gg['skipped_rank_gb']} GB")
+    e0 = pp[0]["encode"]
+    print(f"[4pp (a) pipelined encodes, 4 gloo ranks] {card} | vitlensL audio "
+          f"B{TP_ENCODE_B} x 3 clips, bf16, pipeline_place + pipelined_trunks: "
+          "min cosine against the one-process encode " + ", ".join(
+              f"[data {d}, pipe {s}] M = {m} "
+              f"{min(g['encode'][f'{d}x{s}']['cos'] for g in pp):.7f}"
+              for s, d, m in PP_ENCODE_LAYOUTS)
+          + f" (bar {DP_ENCODE_COS}); rank 0 launches (kernel 1, kernel 2): one "
+          f"process ({e0['one']['counts']['fused_mlp']}, "
+          f"{e0['one']['counts']['flash_attention']}), " + ", ".join(
+              f"[{d}, {s}] ({e0[f'{d}x{s}']['counts']['fused_mlp']}, "
+              f"{e0[f'{d}x{s}']['counts']['flash_attention']})"
+              for s, d, _ in PP_ENCODE_LAYOUTS)
+          + "; audio trunk weight GB a rank " + "; ".join(
+              f"[{d}, {s}] " + ", ".join(f"{g['encode'][f'{d}x{s}']['trunk_rank_gb']:.4f}"
+                                         for g in pp)
+              for s, d, _ in PP_ENCODE_LAYOUTS)
+          + f" of {e0['trunk_whole_gb']:.4f} whole; host ms an encode (second "
+          "call) a rank: one process " + ", ".join(
+              f"{g['encode']['one']['ms']:.1f}" for g in pp) + "; " + "; ".join(
+              f"[{d}, {s}] " + ", ".join(f"{g['encode'][f'{d}x{s}']['ms']:.1f}"
+                                         for g in pp)
+              for s, d, _ in PP_ENCODE_LAYOUTS), flush=True)
+    g0 = pp[0]["g"]
+    print(f"[4pp (b) pipelined vitlensG pc encode, 4 gloo ranks, [data 1, pipe "
+          f"{PP_G_LAYOUT[0]}], M = {PP_G_LAYOUT[2]}] {card} | B{PP_G_B} clouds of "
+          "10000 x 6, bf16, weights bf16, 32 of 48 bigG blocks run: min cosine "
+          f"{min(g['g']['cos'] for g in pp):.7f} (bar {DP_ENCODE_COS}); rank 0 "
+          f"launches (kernel 1, kernel 2, FPS): one process "
+          f"({g0['one']['counts']['fused_mlp']}, "
+          f"{g0['one']['counts']['flash_attention']}, {g0['one']['counts']['fps']}), "
+          f"pipelined ({g0['counts']['fused_mlp']}, "
+          f"{g0['counts']['flash_attention']}, {g0['counts']['fps']}); GB a rank "
+          "of the blocks that run " + ", ".join(
+              f"{g['g']['run_rank_gb']:.4f}" for g in pp)
+          + f" of {g0['run_whole_gb']:.4f} whole, of the 16 skipped blocks "
+          + ", ".join(f"{g['g']['skipped_rank_gb']:.4f}" for g in pp)
+          + f" (one process holds {g0['skipped_whole_gb']:.4f}); peak GB a rank: "
+          "the build and one-process encode " + ", ".join(
+              f"{g['g']['built_peak_gb']:.2f}" for g in pp)
+          + ", resident after placement " + ", ".join(
+              f"{g['g']['resident_gb']:.2f}" for g in pp)
+          + ", the pipelined encode " + ", ".join(
+              f"{g['g']['encode_peak_gb']:.2f}" for g in pp)
+          + "; host ms an encode (second call) a rank: one process " + ", ".join(
+              f"{g['g']['one']['ms']:.1f}" for g in pp) + "; pipelined "
+          + ", ".join(f"{g['g']['ms']:.1f}" for g in pp), flush=True)
+    c0 = pp[0]["grads"]
+    floor = c0["floor"]
+    for key in ("bf16", "fp32"):
+        r0 = c0[key]
+        for r, got in enumerate(pp):
+            for name, n in got["grads"][key]["counts"].items():
+                totals[name] += n
+        if r0["missing"]:
+            fail(f"4pp (c) {key}: no rank gave the gradients of {r0['missing'][:6]}")
+        if key == "fp32":
+            bar_loss, bar = PP_LOSS_REL, f"{DP_COS_MIN}"
+            low = {k: v for k, v in r0["cos"].items() if v < DP_COS_MIN}
+            rep_low = [c for c in r0["rep_cos"] if c < DP_COS_MIN]
+        else:
+            bar_loss = DP_LOSS_REL
+            bar = (f"{COS_MIN} and the one-process bf16 floor (B{PP_GRAD_B} "
+                   f"against accum_freq {PP_GRAD_LAYOUT[2]}) less {DP_FLOOR_SLACK}")
+            low = {k: v for k, v in r0["cos"].items()
+                   if v < COS_MIN or v < floor[k] - DP_FLOOR_SLACK}
+            rep_low = [c for c in r0["rep_cos"] if c < COS_MIN]
+        if (r0["loss_rel"] > bar_loss or low or rep_low
+                or max(r0["rep_rel"]) > PP_EQUAL_REL):
+            fail(f"4pp (c) {key}: the pipelined gradient vs one process's at "
+                 f"B{PP_GRAD_B}: loss {r0['loss']} vs {c0['single'][key]} "
+                 f"(relative {r0['loss_rel']:.3e}, bar {bar_loss}); groups below "
+                 f"the bar ({bar}): {low}; each rank's replicated gradients: "
+                 f"lowest group cosine {r0['rep_cos']}, max relative difference "
+                 f"from rank 0's {r0['rep_rel']} (bar {PP_EQUAL_REL})")
+        worst = sorted(r0["cos"].items(), key=lambda kv: kv[1])[:3]
+        print(f"[4pp (c) pipelined gradient, {key}, 4 gloo ranks, [data 1, pipe "
+              f"{PP_GRAD_LAYOUT[0]}], M = {PP_GRAD_LAYOUT[2]}] {card} | vitlensL "
+              f"audio x text contrastive loss at B{PP_GRAD_B}, the whole audio "
+              f"tower trainable"
+              + (", remat" if key == "fp32" else "")
+              + f": loss {r0['loss']:.6f} vs one process {c0['single'][key]:.6f} "
+              f"(relative {r0['loss_rel']:.3e}, bar {bar_loss}); blocks a rank "
+              f"{[(b[0], b[-1]) for b in r0['blocks']]}; {len(r0['cos'])} "
+              "gradient groups, lowest cosines " + ", ".join(
+                  f"{k} {v:.6f}" + ("" if key == "fp32" else f" (floor {floor[k]:.6f})")
+                  for k, v in worst)
+              + f" (bar {bar}); replicated gradients a rank: lowest cosine "
+              + ", ".join(f"{c:.6f}" for c in r0["rep_cos"])
+              + ", max relative difference from rank 0's "
+              + ", ".join(f"{e:.3e}" for e in r0["rep_rel"])
+              + f" (bar {PP_EQUAL_REL}); rank 0 launches {r0['counts']}; s a "
+              "pass a rank " + ", ".join(f"{g['grads'][key]['s']:.2f}" for g in pp)
+              + f" (rank 0's gather and check {r0['check_s']:.1f} s); peak GB "
+              "a rank " + ", ".join(
+                  f"{g['grads'][key]['peak_gb']:.2f}" for g in pp), flush=True)
+    secs = max(g["seconds"] for g in pp)
+    print(f"[4pp] {card} | in the ranks (a) " + ", ".join(
+        f"{g['encode_s']:.1f}" for g in pp) + " s, (b) " + ", ".join(
+        f"{g['g_s']:.1f}" for g in pp) + " s, (c) " + ", ".join(
+        f"{g['grads_s']:.1f}" for g in pp) + f" s (rank 0's one-process "
+        f"passes {c0['single_s']:.1f} s); phase 4pp {secs:.1f} s", flush=True)
+    return secs
+
+
+def pp_ranks_phase(torch, totals, card, rank_argv=None):
+    """Phase 4pp in four rank processes of its own (pp_rank_main; in the
+    whole script it runs in 4tp's ranks, tp_rank_main). Returns the seconds
+    of the phase's command."""
+    t0 = time.time()
+    res = run_ranks("4pp", PP_WORLD, rank_argv or [
+        sys.executable, os.path.abspath(__file__), "--pp-rank"])
+    pp_check(res, totals, card)
     return time.time() - t0
 
 
@@ -6495,10 +6964,11 @@ def main() -> int:
           f"(b) and (c) {fs_bc:.1f} s in the rank processes", flush=True)
     mark("4dp, 4fs")
     # -- 4tp: four ranks sharing the card, [data 2, model 2] ------------------
+    # -- 4pp: pipelined trunks, in 4tp's ranks after (b) --------------------
     tp_s = tp_ranks_phase(torch, launches, card)
-    print(f"[4tp] {card} | phase 4tp {tp_s:.1f} s; whole run so far "
+    print(f"[4tp] {card} | phases 4tp and 4pp {tp_s:.1f} s; whole run so far "
           f"{time.time() - t_start:.1f} s", flush=True)
-    mark("4tp")
+    mark("4tp, 4pp")
     replaces = {
         "fused_mlp": "vitlens_tpu/ops/fused_mlp.py:105",
         "flash_attention": "vitlens_tpu/ops/flash_attention.py:53",
@@ -6580,6 +7050,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--pp-rank"]:
+        sys.exit(pp_rank_main(sys.argv[2]))
     if sys.argv[1:2] == ["--dp-rank"]:
         sys.exit(dp_rank_main(sys.argv[2]))
     if sys.argv[1:2] == ["--tp-rank"]:

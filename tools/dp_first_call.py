@@ -8,6 +8,8 @@
     python3 tools/dp_first_call.py --fsdp --plant [NAME]  # 4fs (b), faults
     python3 tools/dp_first_call.py --tp      # phase 4tp
     python3 tools/dp_first_call.py --tp --plant [NAME]    # 4tp (b), faults
+    python3 tools/dp_first_call.py --pp      # point-to-point probe, phase 4pp
+    python3 tools/dp_first_call.py --pp --plant [NAME]    # 4pp, faults
 
 1. two ranks that both take cuda:0 under NCCL: prints what NCCL says (it
    refuses two ranks on one device);
@@ -42,6 +44,18 @@ split block's out_b added on each model rank before the all-reduce, i.e.
 tp + 1 times in all) and ``unsummed-sp`` (under sequence parallelism, the
 gradients of a block's LayerNorm parameters left as each rank's part, not
 summed over the model axis).
+
+With ``--pp``: the point-to-point probe (two gloo ranks on cuda:0 exchange
+4 MB CUDA tensors, bf16 and fp32, by ``send``/``recv``, by ``isend``/
+``irecv``, by ``batch_isend_irecv`` and staged through host copies; each
+op in rank processes of its own, what arrived printed), then phase 4pp in
+four rank processes of its own (chip_smoke.py ``--pp-rank``). With ``--pp
+--plant``, 4pp runs under each fault of PP_FAULTS (or the one named):
+``no-input-sum`` (Megatron's f in front of a pipelined trunk without its
+backward's all-reduce: the pre-trunk gradients are zero on the stages past
+the first) and ``stored-depth-stages`` (the stages split the stored blocks,
+ignoring ``skip_first_n``: the vitlensG stages run 0, 8, 12 and 12 of its
+32 blocks).
 """
 
 from __future__ import annotations
@@ -165,6 +179,83 @@ def probe_fsdp() -> int:
         dist.destroy_process_group()
 
 
+PP_PROBE_BYTES = 4 << 20   # 4 MB a tensor, bf16 and fp32
+PP_OPS = ("send", "isend", "batch", "staged")
+
+
+def probe_pp(op: str) -> int:
+    """A rank of the point-to-point probe: two gloo ranks on cuda:0, each
+    sends a 4 MB CUDA tensor (bf16, then fp32) to the other by ``op``:
+    ``send`` (rank 0 a blocking send, rank 1 a blocking recv, then the
+    other way), ``isend`` (isend and irecv both posted, then both waited),
+    ``batch`` (``dist.batch_isend_irecv`` of the pair), ``staged`` (the
+    isend/irecv pair on host copies, the received one copied to the card).
+    Prints what arrived and the ms of the exchange (the second of two);
+    each op runs in rank processes of its own, so that a crash of one
+    leaves the others' answers."""
+    import torch
+    import torch.distributed as dist
+
+    env = os.environ
+    rank, world = int(env["RANK"]), int(env["WORLD_SIZE"])
+    peer = 1 - rank
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{env['MASTER_PORT']}",
+        world_size=world, rank=rank, timeout=datetime.timedelta(seconds=30))
+
+    def say(msg):
+        print(f"pp rank {rank}: {op} {msg}", flush=True)
+
+    def exchange(x, got):
+        if op == "send":
+            for src in (0, 1):
+                if rank == src:
+                    dist.send(x, peer)
+                else:
+                    dist.recv(got, peer)
+            return got
+        if op == "isend":
+            works = [dist.isend(x, peer), dist.irecv(got, peer)]
+        elif op == "batch":
+            works = dist.batch_isend_irecv([dist.P2POp(dist.isend, x, peer),
+                                            dist.P2POp(dist.irecv, got, peer)])
+        else:  # staged through the host
+            host = torch.empty(got.shape, dtype=got.dtype)
+            works = [dist.isend(x.cpu(), peer), dist.irecv(host, peer)]
+        for w in works:
+            w.wait()
+        if op == "staged":
+            got.copy_(host)
+        return got
+
+    status = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        n = PP_PROBE_BYTES // torch.tensor([], dtype=dtype).element_size()
+        x = torch.arange(n, device="cuda").to(dtype) * 0 + (rank + 1)
+        x[: 1024] = torch.arange(1024, device="cuda").to(dtype) + rank
+        want = torch.arange(n, device="cuda").to(dtype) * 0 + (peer + 1)
+        want[: 1024] = torch.arange(1024, device="cuda").to(dtype) + peer
+        try:
+            got = exchange(x, torch.zeros_like(x))
+            torch.cuda.synchronize()
+            ok = torch.equal(got, want)
+            t = time.time()
+            exchange(x, torch.zeros_like(x))
+            torch.cuda.synchronize()
+            say(f"{dtype} CUDA 4 MB: {'correct' if ok else 'WRONG'}, "
+                f"{(time.time() - t) * 1e3:.2f} ms")
+            status |= 0 if ok else 1
+        except Exception as e:  # noqa: BLE001 - printed for the record
+            say(f"{dtype} CUDA 4 MB: {type(e).__name__}: {str(e)[:400]}")
+            status |= 2
+    try:
+        dist.destroy_process_group()
+    except Exception:  # noqa: BLE001
+        pass
+    return status
+
+
 def run_probe(kind: str, *more):
     import socket
 
@@ -200,6 +291,23 @@ def run_probe(kind: str, *more):
 FAULTS = ("unsynced-bn", "summed-grads")
 FS_FAULTS = ("autograd-grad", "local-norm", "unsynced-bn")
 TP_FAULTS = ("bias-twice", "unsummed-sp")
+PP_FAULTS = ("no-input-sum", "stored-depth-stages")
+
+
+def plant_pp(fault: str) -> None:
+    """Plant ``fault`` (PP_FAULTS) in parallel/pp.py."""
+    from vitlens_tpu_torch.parallel import pp as PP
+
+    if fault == "no-input-sum":
+        PP.axis_copy = lambda x, group: x
+    elif fault == "stored-depth-stages":
+        def stored(layers, first, n_stages, stage):
+            per = layers // n_stages
+            return range(max(first, stage * per), (stage + 1) * per)
+
+        PP.stage_blocks = stored
+    else:
+        raise ValueError(f"unknown fault {fault!r}; one of {PP_FAULTS}")
 
 
 def plant_tp(fault: str) -> None:
@@ -283,6 +391,9 @@ def plant_rank(fault: str, out_dir: str) -> int:
     if fault.startswith("tp:"):
         plant_tp(fault[len("tp:"):])
         return CS.tp_rank_main(out_dir)
+    if fault.startswith("pp:"):
+        plant_pp(fault[len("pp:"):])
+        return CS.pp_rank_main(out_dir)
     if fault.startswith("fsdp:"):
         plant_fsdp(fault[len("fsdp:"):])
     elif fault == "unsynced-bn":
@@ -305,8 +416,9 @@ def plant_rank(fault: str, out_dir: str) -> int:
 
 def plant_main(faults=FAULTS, prefix="") -> int:
     """Phase 4dp (b) (with ``prefix`` "fsdp:", its 4fs (b); with "tp:",
-    phase 4tp) under each of ``faults``: 0 when every one fails it on its
-    checks (a rank that crashes catches nothing)."""
+    phase 4tp; with "pp:", phase 4pp) under each of ``faults``: 0 when
+    every one fails it on its checks (a rank that crashes catches
+    nothing)."""
     import torch
 
     sys.path.insert(0, REPO)
@@ -318,8 +430,9 @@ def plant_main(faults=FAULTS, prefix="") -> int:
     card = CS.card_line()
     print(f"{card} | torch {torch.__version__} cuda {torch.version.cuda}; "
           f"kernels built in {time.time() - t0:.1f} s", flush=True)
-    phase = {"": "4dp (b)", "fsdp:": "4fs (b)", "tp:": "4tp"}[prefix]
-    run_phase = CS.tp_ranks_phase if prefix == "tp:" else CS.dp_ranks_phase
+    phase = {"": "4dp (b)", "fsdp:": "4fs (b)", "tp:": "4tp", "pp:": "4pp"}[prefix]
+    run_phase = {"tp:": CS.tp_ranks_phase, "pp:": CS.pp_ranks_phase}.get(
+        prefix, CS.dp_ranks_phase)
     passed = []
     for fault in faults:
         t = time.time()
@@ -362,6 +475,32 @@ def tp_main() -> int:
     totals = dict.fromkeys(CS.COUNTED, 0)
     tp_s = CS.tp_ranks_phase(torch, totals, card)
     print(f"[done] {card} | phase 4tp {tp_s:.1f} s; launches {totals}; "
+          f"{time.time() - t0:.1f} s", flush=True)
+    return 0
+
+
+def pp_main() -> int:
+    """The point-to-point probe, then phase 4pp in four rank processes of
+    its own. The hop's gloo route (``parallel.pp``) is the staged one: the
+    probe must find it correct; the direct ops' answers are printed."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    import chip_smoke as CS
+    from vitlens_tpu_torch.ops import _build
+
+    t0 = time.time()
+    _build.library()
+    card = CS.card_line()
+    print(f"{card} | torch {torch.__version__} cuda {torch.version.cuda}; "
+          f"kernels built in {time.time() - t0:.1f} s", flush=True)
+    said = {op: run_probe("pp", op) for op in PP_OPS}
+    print(f"[probe pp] {card} | exit codes a rank: {said}", flush=True)
+    if said["staged"] != [0, 0]:
+        CS.fail("gloo point-to-point staged through the host")
+    totals = dict.fromkeys(CS.COUNTED, 0)
+    pp_s = CS.pp_ranks_phase(torch, totals, card)
+    print(f"[done] {card} | phase 4pp {pp_s:.1f} s; launches {totals}; "
           f"{time.time() - t0:.1f} s", flush=True)
     return 0
 
@@ -428,6 +567,8 @@ def main(fsdp: bool = False) -> int:
 if __name__ == "__main__":
     if sys.argv[1:3] == ["--probe", "fsdp"]:
         sys.exit(probe_fsdp())
+    if sys.argv[1:3] == ["--probe", "pp"]:
+        sys.exit(probe_pp(sys.argv[3]))
     if sys.argv[1:2] == ["--probe"]:
         sys.exit(probe(sys.argv[2]))
     if sys.argv[1:2] == ["--plant-rank"]:
@@ -442,4 +583,8 @@ if __name__ == "__main__":
         sys.exit(plant_main(tuple(sys.argv[3:]) or TP_FAULTS, "tp:"))
     if sys.argv[1:2] == ["--tp"]:
         sys.exit(tp_main())
+    if sys.argv[1:3] == ["--pp", "--plant"]:
+        sys.exit(plant_main(tuple(sys.argv[3:]) or PP_FAULTS, "pp:"))
+    if sys.argv[1:2] == ["--pp"]:
+        sys.exit(pp_main())
     sys.exit(main())

@@ -452,24 +452,53 @@ class Transformer(nn.Module):
         the scan body); it only acts while autograd records. See
         :func:`remat_policy` for its values. ``lora`` (``models/lora.py``)
         runs each block on its merged weights, merged inside the block's
-        checkpoint."""
-        policy = remat_policy(remat)
+        checkpoint. Inside ``parallel.pp.pipelined_trunks`` a trunk whose
+        depth after ``skip_first_n`` divides the stages and whose batch
+        divides the microbatches runs the GPipe schedule instead (JAX's
+        gate; it takes precedence over sequence parallelism)."""
         first = skip_first_n or 0
+        if _TRUNK_PIPELINE is not None:
+            mesh, n_mb = _TRUNK_PIPELINE
+            if ((len(self.blocks) - first) % mesh.pipe == 0
+                    and x.shape[0] % n_mb == 0):
+                from vitlens_tpu_torch.parallel.pp import pipeline_transformer
+
+                return pipeline_transformer(
+                    x, self, mask, mesh=mesh, n_microbatches=n_mb,
+                    remat=remat, skip_first_n=first, lora=lora)
+        policy = remat_policy(remat)
         hook = _ACTIVATION_CONSTRAINT
         sp = None
         if hook is not None and x.ndim == 3:  # the carry, sequence-sharded
             x, sp = hook.shard(x)
         for i, b in enumerate(self.blocks[first:], start=first):
-            if lora is not None:
-                b = functools.partial(_lora_block, lora, i, b)
-            if policy is None or not torch.is_grad_enabled():
-                x = b(x, mask, sp)
-            elif policy == "dots":
-                x = checkpoint(b, x, mask, sp, use_reentrant=False,
-                               context_fn=_save_2d_products_context)
-            else:
-                x = checkpoint(b, x, mask, sp, use_reentrant=False)
+            x = run_block(b, i, x, mask, policy, lora, sp)
         return x if sp is None else hook.unshard(x, sp)
+
+
+# The trunk-pipelining hook of ``parallel.pp.pipelined_trunks`` (JAX's
+# ``set_trunk_pipeline``): a (pipe mesh, n_microbatches) pair, or None.
+_TRUNK_PIPELINE = None
+
+
+def set_trunk_pipeline(cfg) -> None:
+    global _TRUNK_PIPELINE
+    _TRUNK_PIPELINE = cfg
+
+
+def run_block(block, i: int, x, mask=None, policy: Optional[str] = None,
+              lora=None, sp=None):
+    """Trunk block ``i`` on ``x``: on ``lora``'s merged weights where given,
+    recomputed in the backward pass under the remat ``policy``
+    (:func:`remat_policy`'s) while autograd records."""
+    if lora is not None:
+        block = functools.partial(_lora_block, lora, i, block)
+    if policy is None or not torch.is_grad_enabled():
+        return block(x, mask, sp)
+    if policy == "dots":
+        return checkpoint(block, x, mask, sp, use_reentrant=False,
+                          context_fn=_save_2d_products_context)
+    return checkpoint(block, x, mask, sp, use_reentrant=False)
 
 
 def _lora_block(lora, i, block, x, mask, sp=None):

@@ -26,7 +26,11 @@ eval's slices) runs over the ranks of one model column, ``Mesh.group``; the
 ranks of one data row see the same rows and share the model axis,
 ``Mesh.model_group``, over which tensor and sequence parallelism
 (``parallel.tp``, ``parallel.sp``) split a tower. FSDP (the train state
-sharded over the data axis) is ``parallel.fsdp``.
+sharded over the data axis) is ``parallel.fsdp``. ``make_pipe_mesh(n_stages,
+n_data)`` lays the ranks out ``[n_data, n_stages]`` with a ``pipe`` axis
+innermost instead (JAX's ``parallel/pp.py::make_pipe_mesh``): the ranks of
+one data row are the stages of one pipeline (``Mesh.pipe_group``), over
+which ``parallel.pp`` runs a trunk's blocks stage by stage.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ import torch.distributed as dist
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
+PIPE_AXIS = "pipe"
 DEFAULT_PORT = 29500   # torchrun's
 DEFAULT_TIMEOUT_S = 600.0
 BUCKET_ELEMS = 1 << 24  # fp32 elements of one gradient all-reduce (64 MB)
@@ -194,7 +199,10 @@ class Mesh:
     model axis and ``model_group`` the ranks of its data row (None while
     ``model`` is 1); ``devices`` holds its one device. A local mesh
     (``group`` None) lists every device of the data axis in this process; a
-    device may repeat, and then its replicas share that device."""
+    device may repeat, and then its replicas share that device. A pipe mesh
+    (:func:`make_pipe_mesh`) has ``pipe`` stages in place of the model
+    axis: ``stage`` is this rank's and ``pipe_group`` the ranks of its data
+    row, one a stage."""
     devices: Tuple[torch.device, ...]
     data: int
     rank: int = 0
@@ -202,10 +210,16 @@ class Mesh:
     model: int = 1
     model_rank: int = 0
     model_group: Any = None
+    pipe: int = 1
+    stage: int = 0
+    pipe_group: Any = None
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {DATA_AXIS: self.data, MODEL_AXIS: self.model}
+        shape = {DATA_AXIS: self.data, MODEL_AXIS: self.model}
+        if self.pipe > 1:
+            shape[PIPE_AXIS] = self.pipe
+        return shape
 
     @property
     def device(self) -> torch.device:
@@ -222,7 +236,8 @@ class Mesh:
 
 
 # {(world size, n_model): (one group a model column, one a data row)}: c10d
-# subgroups are made collectively, so each layout's are made once
+# subgroups are made collectively, so each layout's are made once (a pipe
+# mesh's stages are laid out as a model axis's ranks and share its groups)
 _AXIS_GROUPS: Dict[Tuple[int, int], Tuple[list, list]] = {}
 
 
@@ -256,18 +271,8 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
     if n_model < 1:
         raise ValueError(f"n_model={n_model}")
     if devices is None and dist.is_available() and dist.is_initialized():
-        world, rank = dist.get_world_size(), dist.get_rank()
-        if world % n_model:
-            raise ValueError(f"n_model={n_model} does not divide the "
-                             f"{world} ranks of the process group")
-        if n_data not in (None, world // n_model):
-            raise ValueError(f"n_data={n_data} but the process group has "
-                             f"{world} ranks: one rank a replica of "
-                             f"{n_model} model rank(s)")
-        dev = torch.device(device if device is not None else
-                           "cuda" if dist.get_backend() == "nccl" else "cpu")
-        if dev.type == "cuda" and dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
+        world, rank = _group_layout(n_data, n_model, "model")
+        dev = _group_device(device)
         if n_model == 1:
             return Mesh(devices=(dev,), data=world, rank=rank,
                         group=dist.group.WORLD)
@@ -293,6 +298,51 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
             raise RuntimeError(f"{d}: {torch.cuda.device_count()} CUDA "
                                "device(s) visible")
     return Mesh(devices=tuple(devices[:n]), data=n)
+
+
+def _group_layout(n_data: Optional[int], inner: int, axis: str) -> Tuple[int, int]:
+    """(world size, rank) of the process group, checked to lay out as
+    ``[n_data, inner]``."""
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if world % inner:
+        raise ValueError(f"n_{axis}={inner} does not divide the {world} "
+                         "ranks of the process group")
+    if n_data not in (None, world // inner):
+        raise ValueError(f"n_data={n_data} but the process group has {world} "
+                         f"ranks: one rank a replica of {inner} {axis} "
+                         "rank(s)")
+    return world, rank
+
+
+def _group_device(device) -> torch.device:
+    """This rank's device: ``device``, by default the current CUDA device
+    under NCCL and the CPU otherwise (``cuda`` without an index is the
+    current one)."""
+    dev = torch.device(device if device is not None else
+                       "cuda" if dist.get_backend() == "nccl" else "cpu")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def make_pipe_mesh(n_stages: int, n_data: int = 1, device=None) -> Mesh:
+    """The ``[data, pipe]`` mesh over the initialised process group, the pipe
+    axis innermost as in JAX's ``make_pipe_mesh``: rank r is data row
+    r // n_stages and stage r % n_stages. The data axis's collectives run
+    over the ranks of one stage (``group``), the pipeline's over the stages
+    of one data row (``pipe_group``); ``n_data * n_stages`` must be the
+    world size. ``device`` as :func:`make_mesh`'s."""
+    if n_stages < 1:
+        raise ValueError(f"n_stages={n_stages}")
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("a pipe mesh needs one process a rank: "
+                           "make_pipe_mesh() after init_distributed")
+    world, rank = _group_layout(n_data, n_stages, "stages")
+    columns, rows = _axis_groups(world, n_stages)
+    return Mesh(devices=(_group_device(device),), data=world // n_stages,
+                rank=rank // n_stages, group=columns[rank % n_stages],
+                pipe=n_stages, stage=rank % n_stages,
+                pipe_group=rows[rank // n_stages])
 
 
 def data_axis(axis) -> Optional[Mesh]:
@@ -395,11 +445,13 @@ def all_reduce_mean(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 # each is the same on every model rank (the ranks of a data row compute one
 # loss), so an operator's backward is the transpose of its forward under
 # that view. Reduce-scatter is NCCL's where the group runs NCCL; gloo has
-# none, and there it is an all-reduce and a slice.
+# none, and there it is an all-reduce and a slice. Megatron's f and g
+# (:class:`_AxisCopy`, :class:`_AxisSum`) take the group of their axis: the
+# model axis's here, the pipe axis's in ``parallel.pp``.
 
 
-def _model_sum_(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    dist.all_reduce(t, group=mesh.model_group)
+def _group_sum_(t: torch.Tensor, group) -> torch.Tensor:
+    dist.all_reduce(t, group=group)
     return t
 
 
@@ -421,32 +473,36 @@ def _model_reduce_scatter(x: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor
         out = torch.empty_like(parts[0])
         dist.reduce_scatter(out, parts, group=mesh.model_group)
         return out
-    return _model_part(_model_sum_(x.contiguous().clone(), mesh), mesh,
-                       dim).contiguous()
+    return _model_part(_group_sum_(x.contiguous().clone(), mesh.model_group),
+                       mesh, dim).contiguous()
 
 
-class _ModelCopy(torch.autograd.Function):
-    """Megatron's f: the identity, whose backward sums the model ranks'
-    partial cotangents (in front of a column-parallel product, and on a
-    replicated parameter that each rank uses on its part of the rows)."""
+class _AxisCopy(torch.autograd.Function):
+    """Megatron's f over the ranks of ``group``: the identity, whose backward
+    sums the ranks' partial cotangents (in front of a column-parallel
+    product, on a replicated parameter that each model rank uses on its
+    part of the rows, and on a pipelined trunk's input, which the first
+    stage alone reads)."""
 
     @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
+    def forward(ctx, x, group):
+        ctx.group = group
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return _model_sum_(g.contiguous().clone(), ctx.mesh), None
+        return _group_sum_(g.contiguous().clone(), ctx.group), None
 
 
-class _ModelSum(torch.autograd.Function):
-    """Megatron's g: the sum of the model ranks' partial products (after a
-    row-parallel product); the backward is the identity."""
+class _AxisSum(torch.autograd.Function):
+    """Megatron's g over the ranks of ``group``: the sum of the ranks'
+    partial results (after a row-parallel product; a pipeline's banked
+    output, zeros on all but the last stage); the backward is the
+    identity."""
 
     @staticmethod
-    def forward(ctx, x, mesh):
-        return _model_sum_(x.contiguous().clone(), mesh)
+    def forward(ctx, x, group):
+        return _group_sum_(x.contiguous().clone(), group)
 
     @staticmethod
     def backward(ctx, g):
@@ -512,17 +568,27 @@ class _ModelUnsplit(torch.autograd.Function):
         return _model_part(g, ctx.mesh, ctx.dim).contiguous(), None, None
 
 
-def model_copy(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """Megatron's f over ``mesh``'s model axis (:class:`_ModelCopy`); ``x``
+def axis_copy(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's f over the ranks of ``group`` (:class:`_AxisCopy`); ``x``
     itself where no gradient is recorded for it."""
     if not (torch.is_grad_enabled() and x.requires_grad):
         return x
-    return _ModelCopy.apply(x, mesh)
+    return _AxisCopy.apply(x, group)
+
+
+def axis_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's g over the ranks of ``group`` (:class:`_AxisSum`)."""
+    return _AxisSum.apply(x, group)
+
+
+def model_copy(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Megatron's f over ``mesh``'s model axis."""
+    return axis_copy(x, mesh.model_group)
 
 
 def model_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """Megatron's g over ``mesh``'s model axis (:class:`_ModelSum`)."""
-    return _ModelSum.apply(x, mesh)
+    """Megatron's g over ``mesh``'s model axis."""
+    return axis_sum(x, mesh.model_group)
 
 
 def model_gather(x: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
@@ -647,7 +713,8 @@ def replicate(mesh: Mesh, tree):
     device)."""
     if _local(mesh):
         return tree
-    group = mesh.group if mesh.model == 1 else dist.group.WORLD
+    group = (mesh.group if mesh.model == 1 and mesh.pipe == 1
+             else dist.group.WORLD)
     with torch.no_grad():
         for t in _tensors(tree):
             dist.broadcast(t.data if isinstance(t, torch.nn.Parameter) else t,
