@@ -331,7 +331,9 @@ Phases, one printed line each (or more); any failure exits non-zero:
      ("audio", "text"), mesh=make_mesh(devices=["cuda:0", "cuda:0"]))
      against one device (B = 5 audio requests, padded to 6, and 3
      captions: cosine >= 0.9999, launches twice a chunk's) and a served
-     closed loop on the --data-parallel 1 mesh of the serve CLI.
+     closed loop on the --data-parallel 1 mesh of the serve CLI. (b)'s
+     audio and pc recipes (and so 4fs (b) and (c)) cut the Lens trunk to
+     CUT_DEPTH (12) of its 24 blocks, for time.
   4fs. FSDP (vitlens_tpu_torch/parallel/fsdp.py, FSDP2): (a) inside 4dp
      (a)'s group, the same B64 audio step with partition="fsdp" after
      fsdp_place (FSDP2 over one rank) against the mesh=None step: every
@@ -346,7 +348,14 @@ Phases, one printed line each (or more); any failure exits non-zero:
      and the FSDP step's peak; (c) the audio FSDP state saved collectively
      (DCP), reloaded into the two ranks and into one process, unsharded,
      bit for bit. `python3 tools/dp_first_call.py --fsdp --plant` runs (b)
-     under three planted faults, each of which must fail it.
+     under three planted faults, each of which must fail it. (b) also runs
+     phase 4l's LoRA recipe (attach_lora_: vitlensL audio + text, rank 8 on
+     the four targets of the 24-block audio trunk, the b's drawn nonzero,
+     the factors alone trained, bf16 with fp32 masters) as a third recipe
+     of 4dp (b): its DP step against the one-process B64 step (the audio
+     recipe's bars: the floor less 2e-3), its FSDP step against that DP
+     step (FS_REL; whether bit-equal printed), every base weight bit-equal
+     after the step and every factor moved, the bytes and peaks a rank.
   4tp. the model axis (vitlens_tpu_torch/parallel/tp.py, sp.py, the 2D
      state of fsdp.py): after 4dp/4fs, four rank processes sharing the card
      over gloo, laid out [data 2, model 2] by make_mesh(n_model=2) (`python3
@@ -358,7 +367,8 @@ Phases, one printed line each (or more); any failure exits non-zero:
      (TP: kernel 2 on the rank's 8 heads, the MLP plain as in JAX) and both;
      cosine >= 0.9999 against the one process, launches a rank as
      tower_launches(tp=) derives them; the trunk's out_b drawn from the seed
-     (MHA's init zeroes it). (b) the audio + text step with the whole audio
+     (MHA's init zeroes it); (a)'s trunk is cut to CUT_DEPTH (12) of its
+     24 blocks, for time. (b) the audio + text step with the whole audio
      tower trained, B32 global (B16 a data rank), after fsdp_tp_place:
      bf16 TP and TP + SP against the one-process B32 step (loss 1e-3,
      grad_norm 1e-2 relative, each group's gradient cosine >= COS_MIN and
@@ -367,7 +377,12 @@ Phases, one printed line each (or more); any failure exits non-zero:
      launches as train_launches(tp=True), equal metrics on every rank, each
      rank's audio trunk bytes half the whole, the peaks. `python3
      tools/dp_first_call.py --tp --plant` runs it under two planted faults,
-     each of which must fail (b).
+     each of which must fail (b). Then (b)'s LoRA variant: phase 4l's
+     factors on the split audio trunk (whole on each model rank, FSDP over
+     data), the factors alone trained, TP in bf16 (the floor less 2e-3)
+     and fp32 with remat (cosine >= 0.999), launches as
+     train_launches(tp=True): kernel 2 on the rank's heads, no kernel 1 in
+     a split block.
   4pp. pipelining (vitlens_tpu_torch/parallel/pp.py), in 4tp's four rank
      processes after 4tp (b) (`python3 chip_smoke.py --pp-rank DIR` is a
      rank of 4pp alone). (a) ViTLens("vitlensL", ("audio",)) in bf16, B = 8
@@ -380,15 +395,22 @@ Phases, one printed line each (or more); any failure exits non-zero:
      4], M = 4; the 16 skipped blocks dropped): the same bars, FPS once,
      each rank's bytes of the blocks that run a quarter of the 32's, the
      peaks; (c) the gradient of the audio x text contrastive loss at B16
-     through the pipelined audio tower (the whole tower trainable; the text
+     through the pipelined audio tower (its trunk cut to CUT_DEPTH (12)
+     blocks for time, 3 a stage; the whole tower trainable; the text
      tower's 12 blocks pipeline too) on [data 1, pipe 4], M = 4, against
      one process: fp32 with remat (every group's cosine >= 0.999, the loss
      within 1e-4 relative), bf16 (each group's cosine >= COS_MIN and the
      one-process floor at the microbatches' shapes, B16 against accum_freq
      4, less 2e-3); the stages' blocks gathered to rank 0, the replicated
-     gradients equal on every rank. Host ms of the pipelined encodes beside
+     gradients equal on every rank; launches a rank as pp_grad_launches
+     derives them. Then (c)'s LoRA variant: phase 4l's factors on the audio
+     and the text trunk, the factors alone trained, both towers placed and
+     pipelined (M = 4): two trained towers in one backward, held to one
+     process's passes as (c) is. Host ms of the pipelined encodes beside
      the one process's. `python3 tools/dp_first_call.py --pp --plant` runs
-     it under two planted faults, each of which must fail it.
+     it under two planted faults, each of which must fail it. `python3
+     tools/dp_first_call.py --lora` runs the LoRA sub-phases of 4fs (b), 4tp
+     (b) and 4pp (c) alone (`--dp-rank --lora`, `--tp-rank --lora`).
   5. timing: each kernel against its plain version (and, where one PyTorch
      call computes the same function, that call) at the B64 shapes of the
      main paths, beside each kernel's bound, with cuBLAS's products alone
@@ -3129,6 +3151,26 @@ DP_FLOOR_SLACK = 2e-3
 DP_NORM_REL = 1e-2
 DP_BN_REL = 1e-4
 DP_ENCODE_COS = 0.9999  # (c) the mesh encode against one device, row for row
+# The Lens tower's trunk depth of the earlier multi-rank paths cut for time
+# (ROADMAP's rule past 1050 s): 4dp (b)'s audio and pc steps (so 4fs (b)
+# and (c) too), 4tp (a)'s encodes and 4pp (c)'s whole-tower gradient; full
+# width, 12 of ViT-L/14's 24 blocks. The LoRA paths keep all 24.
+CUT_DEPTH = 12
+
+
+def cut_arch():
+    """ViT-L/14's trunk at CUT_DEPTH blocks (create_model's ``arch=``)."""
+    from vitlens_tpu_torch.config import get_arch
+
+    return dataclasses.replace(get_arch("ViT-L-14")["vision"], layers=CUT_DEPTH)
+
+
+def cut_tower_(tower):
+    """``tower``'s trunk cut to its first CUT_DEPTH blocks, its config too."""
+    tower.trunk.blocks = tower.trunk.blocks[:CUT_DEPTH]
+    tower.cfg = dataclasses.replace(tower.cfg, arch=dataclasses.replace(
+        tower.cfg.arch, layers=CUT_DEPTH))
+    return tower
 
 
 def launch_counters():
@@ -3190,10 +3232,15 @@ def grabbed_step(torch, tx, step, *args, split=None, **kw):
 
 
 def grad_groups(names):
-    """Trainable tensors grouped by their first two name components."""
+    """Trainable tensors grouped by their first two name components; LoRA
+    factors (``<tower>.lora.trunk.blocks.<i>.<target>.<a|b>``) by tower,
+    target and factor, the block left out."""
     groups = {}
     for n in names:
-        groups.setdefault(".".join(n.split(".")[:2]), []).append(n)
+        parts = n.split(".")
+        key = (".".join(parts[:2] + parts[5:]) if parts[1:2] == ["lora"]
+               else ".".join(parts[:2]))
+        groups.setdefault(key, []).append(n)
     return groups
 
 
@@ -3316,11 +3363,12 @@ def dp_nccl_phase(torch, np, counters, totals, model, state, tx, mask, sc,
 def dp_rank_recipe(torch, np, counters, mesh, modality, ckpt_root=None):
     """One rank of phase 4dp (b): the vitlensL ``modality`` recipe's DP step
     at B32 (this rank's half of a seeded B64 batch; the pc tri step with
-    synced BatchNorm and pinned FPS starts), then on rank 0 the mesh=None
-    step at B64 on the whole batch from the same initial state; then phase
-    4fs (b) on every rank, the FSDP step from that state on the same rows
-    (fs_rank_step; with ``ckpt_root``, 4fs (c)'s collective checkpoint).
-    Returns what the parent prints and checks."""
+    synced BatchNorm and pinned FPS starts; "lora": the audio step of phase
+    4l's recipe, attach_lora_'s factors alone trained), then on rank 0 the
+    mesh=None step at B64 on the whole batch from the same initial state;
+    then phase 4fs (b) on every rank, the FSDP step from that state on the
+    same rows (fs_rank_step; with ``ckpt_root``, 4fs (c)'s collective
+    checkpoint). Returns what the parent prints and checks."""
     from vitlens_tpu_torch.factory import create_model, make_trainable_
     from vitlens_tpu_torch.train.freeze import tri_model_mask
     from vitlens_tpu_torch.train.step import (OptimizerConfig, StepConfig,
@@ -3330,13 +3378,15 @@ def dp_rank_recipe(torch, np, counters, mesh, modality, ckpt_root=None):
     t0 = time.time()
     torch.cuda.reset_peak_memory_stats()  # 4dp (b)'s peak: this recipe's
     start_gb = torch.cuda.memory_allocated() / 1e9  # what it starts with
-    model = create_model("ViT-L-14", modality, seed=SEED, device="cuda",
-                         dtype=torch.float32)
+    lora = modality == "lora"
+    model = create_model("ViT-L-14", "audio" if lora else modality, seed=SEED,
+                         device="cuda", dtype=torch.float32,
+                         **({} if lora else {"arch": cut_arch()}))
     cfg = model.cfg
     rng = np.random.RandomState(SEED)  # the same B64 batch on every rank
     starts = None
-    if modality == "audio":
-        flags = dict(lock_visual=True, lock_text=True, unlock_cls=True)
+    if modality in ("audio", "lora"):
+        flags = dict(lock_visual=True, lock_text=True, unlock_cls=not lora)
         sc = StepConfig(n_tower=2, align_to="text", compute_dtype=torch.bfloat16)
         text = rng.randint(1, 49000, size=(B, 77))
         text[:, 0], text[:, -1] = 49406, 49407
@@ -3353,6 +3403,8 @@ def dp_rank_recipe(torch, np, counters, mesh, modality, ckpt_root=None):
                                   .astype(np.int32))
         want = tri_train_launches(cfg, 1)
     mask = tri_model_mask(model, cfg, **flags)
+    if lora:
+        mask = attach_lora_(torch, model, mask)
     tx, mask = make_optimizer(model, OptimizerConfig(
         lr=1e-4, warmup=10, total_steps=1000, grad_clip_norm=1.0), mask)
     make_trainable_(model, mask, torch.bfloat16)
@@ -3409,8 +3461,8 @@ def dp_rank_recipe(torch, np, counters, mesh, modality, ckpt_root=None):
             swapped=met3, cosines_floor=group_cosines(torch, grads3, grads1, names),
             single_s=secs1, accum2=met2,
             ok_single=counts1 == want == counts3 and counts2 == (
-                train_launches(cfg.tower, cfg.text.layers, 2, False, False)
-                if modality == "audio" else tri_train_launches(cfg, 2)),
+                tri_train_launches(cfg, 2) if modality == "pc" else
+                train_launches(cfg.tower, cfg.text.layers, 2, False, False)),
             loss_rel=abs(met["loss"] / met1["loss"] - 1),
             grad_norm_rel=abs(met["grad_norm"] / met1["grad_norm"] - 1),
             cosines=group_cosines(torch, grads, grads2, names),
@@ -3477,6 +3529,11 @@ def fs_rank_step(torch, counters, mesh, model, tx, mask, sc, local, starts,
               flush=True)
 
     t0 = time.time()
+    # the LoRA recipe: every base weight bit-equal after the step, every
+    # factor moved (kept on the host)
+    lora = any(".lora." in n for n in names)
+    before = ({n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+              if lora else None)
     state = init_train_state(model, tx)
     axes = F.param_axes(model, mesh.data)
     full = state_bytes(state)
@@ -3521,6 +3578,23 @@ def fs_rank_step(torch, counters, mesh, model, tx, mask, sc, local, starts,
         "sharded": sum(a is not None for a in axes.values()),
         "tensors": len(axes), "peak_gb": peak,
         "step_s": step_s}
+    # grad_norm sums the shards' squares in another order than the DP
+    # step's global norm; the parameters feel that only through the clip
+    out["bit_equal"] = (out["loss_rel"] == 0
+                        and all(torch.equal(grads[n], dp["grads"][n])
+                                for n in names)
+                        and all(torch.equal(after[n], dp["params"][n].to(
+                            after[n].device)) for n in names))
+    if lora:
+        now = {n: F.full_tensor(p).detach().cpu() for n, p in
+               model.named_parameters()}
+        out["lora"] = {
+            "factors": len([n for n in names if ".lora." in n]),
+            "base_moved": [n for n in now if n not in names
+                           and not torch.equal(now[n], before[n])],
+            "factors_still": [n for n in names if ".lora." in n
+                              and torch.equal(now[n], before[n])]}
+        del now, before
     del grads, after
     say(f"step done: {out['metrics']}")
     if ckpt_root is not None:
@@ -3599,12 +3673,28 @@ def fs_unsharded_load(torch, gathered):
     return equal, time.time() - t0
 
 
-def dp_rank_main(out_dir) -> int:
+DP_RECIPES = ("audio", "pc", "lora")  # 4dp (b) / 4fs (b)'s, in this order
+
+
+def recipe_line(modality):
+    """What a 4dp (b) / 4fs (b) line calls the recipe."""
+    return {"audio": (f"audio+text step (phase 4b's recipe; the Lens trunk "
+                      f"cut to {CUT_DEPTH} blocks)"),
+            "pc": (f"pc tri step, synced BatchNorm, pinned FPS starts (the "
+                   f"Lens trunk cut to {CUT_DEPTH} blocks)"),
+            "lora": (f"audio+text LoRA step (phase 4l's recipe: rank "
+                     f"{LORA_RANK} on the four targets of the audio trunk, "
+                     f"the b's drawn N(0, {LORA_B_STD}), the factors and the "
+                     "logit scale alone trained)")}[modality]
+
+
+def dp_rank_main(out_dir, recipes=DP_RECIPES) -> int:
     """A rank process of phase 4dp (b), started by dp_ranks_phase with
     torchrun's variables: a gloo group sharing the card with the other
-    rank (the phase sets it up; init_distributed then no-ops), the audio
-    and the pc recipe (dp_rank_recipe), results to rank{r}.json. A crash
-    prints the Python stack (faulthandler) into the rank's log."""
+    rank (the phase sets it up; init_distributed then no-ops), the audio,
+    the pc and the LoRA recipe (dp_rank_recipe; ``recipes``: those to run),
+    results to rank{r}.json. A crash prints the Python stack (faulthandler)
+    into the rank's log."""
     import datetime
     import faulthandler
 
@@ -3631,23 +3721,23 @@ def dp_rank_main(out_dir) -> int:
     counters = launch_counters()
     res = {"rank": rank}
     gathered = None
-    for modality in ("audio", "pc"):
+    for modality in recipes:
         res[modality] = dp_rank_recipe(
             torch, np, counters, mesh, modality,
             os.path.join(out_dir, "ckpt") if modality == "audio" else None)
         gathered = res[modality].pop("_gathered") or gathered
         dist.barrier()
     # the DP recipes' peak (4fs (b) reads its own)
-    res["peak_gb"] = max(res[m]["dp_peak_gb"] for m in ("audio", "pc"))
+    res["peak_gb"] = max(res[m]["dp_peak_gb"] for m in recipes)
     dist.destroy_process_group()
-    if rank == 0:  # 4fs (c): the checkpoint into one process, unsharded
-        res["unsharded"] = fs_unsharded_load(torch, gathered)
+    if rank == 0 and gathered is not None:  # 4fs (c): the checkpoint into
+        res["unsharded"] = fs_unsharded_load(torch, gathered)  # one process
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
     return 0
 
 
-def dp_ranks_phase(torch, totals, card, rank_argv=None):
+def dp_ranks_phase(torch, totals, card, rank_argv=None, lora_only=False):
     """Phase 4dp (b): two rank processes sharing the card over gloo (NCCL
     refuses two ranks on one device), each running the audio step and the
     pc tri step with synced BatchNorm at B32 (dp_rank_recipe); rank 0 then
@@ -3660,16 +3750,20 @@ def dp_ranks_phase(torch, totals, card, rank_argv=None):
     beside this process's. Then phase 4fs (b) and (c) from the same ranks
     (fs_rank_step, fs_unsharded_load): the FSDP step against each rank's
     DP step (FS_REL) and its launches, the collective checkpoint's round
-    trips. Returns 4fs's seconds in the ranks. ``rank_argv``: the command
-    of a rank before its output directory (default: this script's
-    ``--dp-rank``)."""
+    trips. The LoRA recipe takes the audio recipe's bars, and 4fs (b) also
+    checks that its base weights stay bit-equal and its factors move.
+    Returns 4fs's seconds in the ranks. ``rank_argv``: the command of a
+    rank before its output directory (default: this script's
+    ``--dp-rank``); ``lora_only``: the ranks run the LoRA recipe alone."""
     t0 = time.time()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     resident = torch.cuda.memory_allocated() / 1e9
     res = run_ranks("4dp (b)", 2, rank_argv or [
-        sys.executable, os.path.abspath(__file__), "--dp-rank"])
-    for modality in ("audio", "pc"):
+        sys.executable, os.path.abspath(__file__), "--dp-rank"]
+        + (["--lora"] if lora_only else []))
+    recipes = [m for m in DP_RECIPES if m in res[0]]
+    for modality in recipes:
         for r in range(2):
             got = res[r][modality]
             if not got["ok_launches"]:
@@ -3689,7 +3783,7 @@ def dp_ranks_phase(torch, totals, card, rank_argv=None):
                  if v < COS_MIN or v < floor[k] - DP_FLOOR_SLACK]
         bn_off = {k: v for k, v in r0["bn_rel"].items() if v > DP_BN_REL}
         if (r0["loss_rel"] > DP_LOSS_REL or below
-                or (modality == "audio" and min(cos.values()) < DP_COS_MIN)
+                or (modality != "pc" and min(cos.values()) < DP_COS_MIN)
                 or r0["grad_norm_rel"] > DP_NORM_REL or bn_off):
             fail(f"4dp (b) {modality}: two ranks vs the B64 step: loss "
                  f"{r0['metrics']['loss']} vs {r0['single']['loss']}, "
@@ -3703,8 +3797,7 @@ def dp_ranks_phase(torch, totals, card, rank_argv=None):
             fail(f"4dp (b) {modality}: the ranks' metrics differ: "
                  f"{r0['metrics']} vs {res[1][modality]['metrics']}")
         print(f"[4dp (b) two ranks, gloo] {card} | vitlensL {modality} "
-              + ("audio+text step (phase 4b's recipe)" if modality == "audio"
-                 else "pc tri step, synced BatchNorm, pinned FPS starts")
+              + recipe_line(modality)
               + f": 2 ranks x B{B // 2} vs one B{B} step: loss "
               f"{r0['metrics']['loss']:.6f} vs {r0['single']['loss']:.6f} "
               f"(relative {r0['loss_rel']:.3e}, bar {DP_LOSS_REL}), grad_norm "
@@ -3721,10 +3814,10 @@ def dp_ranks_phase(torch, totals, card, rank_argv=None):
                           r0["cosines_floor"].items())
               + f"; vs the B{B} step with accum_freq 2 (loss "
               f"{r0['accum2']['loss']:.6f}" + (", the ranks' B32 shapes): "
-                                               if modality == "audio" else
+                                               if modality != "pc" else
                                                ", BatchNorm over 32 rows): ")
               + ", ".join(f"{k} {v:.6f}" for k, v in cos.items())
-              + (f" (bar {DP_COS_MIN})" if modality == "audio" else "")
+              + (f" (bar {DP_COS_MIN})" if modality != "pc" else "")
               + f"; plain B{B} vs accum_freq 2, both one process: " + ", ".join(
                   f"{k} {v:.6f}" for k, v in r0["cosines_b64_accum2"].items())
               + (("; BatchNorm running statistics, DP vs B64, largest relative "
@@ -3741,7 +3834,7 @@ def dp_ranks_phase(torch, totals, card, rank_argv=None):
     each = "; ".join(
         f"rank {r}: " + ", ".join(
             f"{m} {res[r][m]['dp_peak_gb']:.2f} (from "
-            f"{res[r][m]['dp_start_gb']:.2f})" for m in ("audio", "pc"))
+            f"{res[r][m]['dp_start_gb']:.2f})" for m in recipes)
         for r in range(2))
     print(f"[4dp (b) memory] {card} | peak GB rank 0 {res[0]['peak_gb']:.2f}, "
           f"rank 1 {res[1]['peak_gb']:.2f} (each recipe's, from what it "
@@ -3755,7 +3848,7 @@ def fs_check(res, totals, card):
     """Phase 4fs (b) and (c)'s checks and lines, from the rank files;
     returns the seconds 4fs took in the ranks (rank 0's)."""
     fs_s = 0.0
-    for modality in ("audio", "pc"):
+    for modality in [m for m in DP_RECIPES if m in res[0]]:
         fs = [res[r][modality]["fsdp"] for r in range(2)]
         for r, f in enumerate(fs):
             if not f["ok_launches"]:
@@ -3777,11 +3870,14 @@ def fs_check(res, totals, card):
         if fs[1]["metrics"] != fs[0]["metrics"]:
             fail(f"4fs (b) {modality}: the ranks' metrics differ: "
                  f"{fs[0]['metrics']} vs {fs[1]['metrics']}")
+        lora = [f["lora"] for f in fs if "lora" in f]
+        if any(x["base_moved"] or x["factors_still"] for x in lora):
+            fail(f"4fs (b) lora: base weights that changed "
+                 f"{[x['base_moved'][:4] for x in lora]}, factors that did not "
+                 f"{[x['factors_still'][:4] for x in lora]}")
         gb = [{k: v / 1e9 for k, v in f["bytes"].items()} for f in fs]
         print(f"[4fs (b) two ranks, gloo, FSDP] {card} | vitlensL {modality} "
-              + ("audio+text step" if modality == "audio" else
-                 "pc tri step, BatchNorm over both ranks' rows, the global "
-                 "batch's FPS starts")
+              + recipe_line(modality)
               + f", B{B // 2} a rank, fsdp_place ({fs[0]['sharded']} of "
               f"{fs[0]['tensors']} parameters sharded) vs the same ranks' DP "
               f"step from the same state: loss {fs[0]['metrics']['loss']:.6f} "
@@ -3792,15 +3888,25 @@ def fs_check(res, totals, card):
               + (", BatchNorm statistics " + ", ".join(
                   f"{k.split('adapter.')[-1]} {max(f['bn_rel'][k] for f in fs):.3e}"
                   for k in fs[0]["bn_rel"]) if fs[0]["bn_rel"] else "")
-              + f" (bar {FS_REL}); launches each rank {fs[0]['launches']} and "
+              + f" (bar {FS_REL}; loss, gradients and updated parameters "
+              f"bit-equal to the DP step's on each rank: "
+              f"{[f['bit_equal'] for f in fs]})"
+              + (f"; {lora[0]['factors']} factor tensors, every base weight "
+                 "bit-equal after the step and every factor moved on both "
+                 "ranks" if lora else "")
+              + f"; launches each rank {fs[0]['launches']} and "
               f"{fs[1]['launches']}, the DP step's; parameters + moments "
               f"stored GB rank 0 {gb[0]['fsdp']:.3f}, rank 1 {gb[1]['fsdp']:.3f} "
               f"(DP {gb[0]['dp']:.3f}, the placements' count "
               f"{gb[0]['placements']:.3f}); the FSDP step's peak GB rank 0 "
               f"{fs[0]['peak_gb']:.2f}, rank 1 {fs[1]['peak_gb']:.2f}; FSDP "
               f"step {fs[0]['step_s']:.3f} s and {fs[1]['step_s']:.3f} s (first "
-              "calls, host-timed)", flush=True)
+              "calls, host-timed); the recipe (4dp (b) and 4fs (b)) "
+              + ", ".join(f"{res[r][modality]['seconds']:.1f}" for r in range(2))
+              + " s a rank", flush=True)
         fs_s += fs[0]["seconds"]
+    if "unsharded" not in res[0]:
+        return fs_s
     ck = [res[r]["audio"]["fsdp"] for r in range(2)]
     same, secs = res[0]["unsharded"]
     if not (ck[0]["reloaded"] and ck[1]["reloaded"] and same):
@@ -3912,6 +4018,7 @@ TP_BIAS_STD = 0.02         # the trunk's out_b, drawn from SEED: MHA's init
 TP_BYTES_SLACK = 0.01      # (b): a rank's trunk bytes within 1% of half
 TP_MODES = ("sp", "tp", "tpsp")
 TP_STEPS = {"tp": "bfloat16", "tpsp": "bfloat16", "tp32": "float32"}
+TP_LORA_STEPS = {"tp": "bfloat16", "tp32": "float32"}  # (b)'s LoRA variant
 
 
 def tp_groups(names):
@@ -3945,7 +4052,8 @@ def tp_biases_(torch, tower):
 
 
 def tp_encode(torch, np, counters, mesh):
-    """Phase 4tp (a) on one rank: ViTLens("vitlensL", ("audio",)) in bf16,
+    """Phase 4tp (a) on one rank: ViTLens("vitlensL", ("audio",)) in bf16
+    (its trunk cut to CUT_DEPTH blocks),
     B8 requests of 3 clips, on the one process (the whole trunk), under SP
     alone (the same weights), then split over the model axis (TP), and
     under TP + SP; each data row of the mesh is a [data 1, model 2] pair
@@ -3958,7 +4066,7 @@ def tp_encode(torch, np, counters, mesh):
 
     one = ViTLens("vitlensL", ("audio",), device="cuda",
                   compute_dtype=torch.bfloat16, seed=SEED)
-    tower = one.towers["audio"]
+    tower = cut_tower_(one.towers["audio"])
     acfg, dev = tower.cfg, next(tower.parameters()).device
     tp_biases_(torch, tower)
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -3995,7 +4103,7 @@ def tp_encode(torch, np, counters, mesh):
     return out
 
 
-def tp_step(torch, np, counters, mesh):
+def tp_step(torch, np, counters, mesh, lora=False):
     """Phase 4tp (b) on one rank: the vitlensL audio + text recipe with the
     whole audio tower trained, its trunk too (text locked), B32 global
     (this data rank's B16 rows), after fsdp_tp_place, from the placed
@@ -4007,7 +4115,10 @@ def tp_step(torch, np, counters, mesh):
     and fp32 (with remat).
     Each 2D step against its dtype's plain step: loss, grad_norm, the
     gradient cosine a group of tp_groups. Each rank's launches, trunk
-    weight bytes (whole and its own) and peak memory."""
+    weight bytes (whole and its own) and peak memory. ``lora``: (b)'s LoRA
+    variant, phase 4l's recipe (attach_lora_: the audio trunk's factors
+    alone trained, whole on every model rank, its base weights split),
+    the bf16 and fp32 2D steps (TP_LORA_STEPS)."""
     import contextlib
 
     import torch.distributed as dist
@@ -4036,7 +4147,9 @@ def tp_step(torch, np, counters, mesh):
     batch = {"text": torch.from_numpy(text).long().to(dev),
              "visual": torch.from_numpy(fb.astype(np.float32)).to(dev)}
     sc = StepConfig(n_tower=2, align_to="text", compute_dtype=torch.bfloat16)
-    mask = tri_model_mask(model, cfg, lock_visual=False, lock_text=True)
+    mask = tri_model_mask(model, cfg, lock_visual=lora, lock_text=True)
+    if lora:
+        mask = attach_lora_(torch, model, mask)
     tx, mask = make_optimizer(model, OptimizerConfig(
         lr=1e-4, warmup=10, total_steps=1000, grad_clip_norm=1.0), mask)
     make_trainable_(model, mask, torch.bfloat16)
@@ -4084,7 +4197,8 @@ def tp_step(torch, np, counters, mesh):
     d = mesh.rank
     rows = {k: v[d * TP_B // mesh.data:(d + 1) * TP_B // mesh.data]
             for k, v in batch.items()}
-    for mode, dtype in TP_STEPS.items():
+    steps = TP_LORA_STEPS if lora else TP_STEPS
+    for mode, dtype in steps.items():
         dtype = getattr(torch, dtype)
         with torch.no_grad():
             for t, s0 in zip(live, start):
@@ -4119,7 +4233,7 @@ def tp_step(torch, np, counters, mesh):
         del grads
         r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         torch.cuda.empty_cache()  # the other ranks share the card
-    out["peak_gb"] = max(out[m]["peak_gb"] for m in TP_STEPS)
+    out["peak_gb"] = max(out[m]["peak_gb"] for m in steps)
     del model, state, step, live, start, ref, params
     gc.collect()
     torch.cuda.synchronize()
@@ -4128,11 +4242,13 @@ def tp_step(torch, np, counters, mesh):
     return out
 
 
-def tp_rank_main(out_dir) -> int:
+def tp_rank_main(out_dir, lora_only=False) -> int:
     """A rank process of phase 4tp, started by tp_ranks_phase with
     torchrun's variables: one of four gloo ranks sharing the card, laid out
-    [data 2, model 2] by make_mesh(n_model=2); (a) tp_encode, (b) tp_step,
-    then phase 4pp (pp_rank) on its pipe meshes; results to rank{r}.json."""
+    [data 2, model 2] by make_mesh(n_model=2); (a) tp_encode, (b) tp_step
+    and its LoRA variant, then phase 4pp (pp_rank) on its pipe meshes;
+    results to rank{r}.json. ``lora_only``: the LoRA parts alone (4tp (b)'s
+    variant and 4pp (c)'s)."""
     import datetime
     import faulthandler
 
@@ -4156,11 +4272,15 @@ def tp_rank_main(out_dir) -> int:
                   rank % TP_MODEL, "gloo"):
         fail(f"4tp: mesh layout {layout} on rank {rank}")
     counters = launch_counters()
-    res = {"rank": rank, "encode": tp_encode(torch, np, counters, mesh)}
+    res = {"rank": rank}
+    if not lora_only:
+        res["encode"] = tp_encode(torch, np, counters, mesh)
+        dist.barrier()
+        res["step"] = tp_step(torch, np, counters, mesh)
+        dist.barrier()
+    res["step_lora"] = tp_step(torch, np, counters, mesh, lora=True)
     dist.barrier()
-    res["step"] = tp_step(torch, np, counters, mesh)
-    dist.barrier()
-    res["pp"] = pp_rank(torch, np, counters, rank)
+    res["pp"] = pp_rank(torch, np, counters, rank, lora_only)
     dist.barrier()
     dist.destroy_process_group()
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
@@ -4210,7 +4330,68 @@ def run_ranks(label, world, rank_argv, limit_s=600):
     return res
 
 
-def tp_ranks_phase(torch, totals, card, rank_argv=None):
+def tp_step_check(res, key, totals, card):
+    """Phase 4tp (b)'s bars on the ranks' ``key`` steps (tp_step's: "step",
+    or "step_lora" for its LoRA variant), and their lines."""
+    s0 = res[0][key]
+    floor = s0["floor"]
+    lora = key == "step_lora"
+    for mode, dtype in (TP_LORA_STEPS if lora else TP_STEPS).items():
+        r0, one = s0[mode], s0["single"]["fp32" if dtype == "float32" else "bf16"]
+        for r, got in enumerate(res):
+            st = got[key][mode]
+            if st["counts"] != st["want"]:
+                fail(f"4tp (b) rank {r} {key} {mode}: launches {st['counts']}, "
+                     f"expected {st['want']}")
+            if st["metrics"] != r0["metrics"]:
+                fail(f"4tp (b) {key} {mode}: the ranks' metrics differ: "
+                     f"{r0['metrics']} vs rank {r} {st['metrics']}")
+            for name, n in st["counts"].items():
+                totals[name] += n
+        if dtype == "float32":  # rounding noise far below the bar
+            low = {k: v for k, v in r0["cos"].items() if v < DP_COS_MIN}
+            bar = f"{DP_COS_MIN}"
+        else:  # bf16: the one-process floor of the same gradient
+            low = {k: v for k, v in r0["cos"].items()
+                   if v < COS_MIN or v < floor[k] - DP_FLOOR_SLACK}
+            bar = (f"{COS_MIN} and the one-process bf16 floor (B{TP_B} "
+                   f"against accum_freq 2) less {DP_FLOOR_SLACK}")
+        if (r0["loss_rel"] > DP_LOSS_REL or r0["grad_norm_rel"] > DP_NORM_REL
+                or low):
+            fail(f"4tp (b) {key} {mode} ({dtype}): the 2D step vs the one-process "
+                 f"B{TP_B} step: loss {r0['metrics']['loss']} vs "
+                 f"{one['loss']} (relative {r0['loss_rel']:.3e}, bar "
+                 f"{DP_LOSS_REL}), grad_norm {r0['metrics']['grad_norm']} vs "
+                 f"{one['grad_norm']} (relative {r0['grad_norm_rel']:.3e}, bar "
+                 f"{DP_NORM_REL}); groups below the bar ({bar}): {low}"
+                 + ("" if dtype == "float32" else
+                    f"; their floors {({k: floor[k] for k in low})}"))
+        worst = sorted(r0["cos"].items(), key=lambda kv: kv[1])[:3]
+        print(f"[4tp (b) {'TP + SP' if mode == 'tpsp' else 'TP'} "
+              f"{'LoRA ' if lora else ''}step, {dtype}, 4 gloo ranks] {card} | "
+              "vitlensL audio + text ("
+              + (f"LoRA rank {LORA_RANK} on the four targets of the split "
+                 "audio trunk, the factors alone trained, whole on each model "
+                 "rank" if lora else "the whole audio tower trained")
+              + f", text locked), B{TP_B // 2} a data "
+              f"rank, fsdp_tp_place ({s0['split']} TP slices) vs one process "
+              f"at B{TP_B}: loss {r0['metrics']['loss']:.6f} vs "
+              f"{one['loss']:.6f} (relative {r0['loss_rel']:.3e}, bar "
+              f"{DP_LOSS_REL}), grad_norm {r0['metrics']['grad_norm']:.6f} vs "
+              f"{one['grad_norm']:.6f} (relative {r0['grad_norm_rel']:.3e}, "
+              f"bar {DP_NORM_REL}); {len(r0['cos'])} gradient groups, lowest "
+              "cosines " + ", ".join(
+                  f"{k} {v:.6f}" + ("" if dtype == "float32" else
+                                    f" (floor {floor[k]:.6f})")
+                  for k, v in worst)
+              + f" (bar {bar}); launches each rank {r0['counts']} (as "
+              "expected: kernel 2 on the rank's heads, no kernel 1 in a "
+              "split block); step s a rank " + ", ".join(
+                  f"{g[key][mode]['step_s']:.2f}" for g in res)
+              + " (first calls, host-timed)", flush=True)
+
+
+def tp_ranks_phase(torch, totals, card, rank_argv=None, lora_only=False):
     """Phase 4tp: four rank processes sharing the card over gloo, [data 2,
     model 2] (tp_rank_main). (a) the full-width vitlensL audio encode at B8
     under SP, TP and TP + SP against the one-process encode (cosine >=
@@ -4225,14 +4406,55 @@ def tp_ranks_phase(torch, totals, card, rank_argv=None):
     DP_COS_MIN; no kernel launches: the gates send fp32 to the plain
     paths); equal metrics on every rank, each rank's trunk weight bytes
     half the whole (TP_BYTES_SLACK) and its peak memory. Returns the
-    phase's seconds. ``rank_argv``: the command of a rank before its
-    output directory (default: this script's ``--tp-rank``)."""
+    phase's seconds. (b)'s LoRA variant (tp_step(lora=True)) takes the same
+    bars on its bf16 and fp32 steps. ``rank_argv``: the command of a rank
+    before its output directory (default: this script's ``--tp-rank``);
+    ``lora_only``: the ranks run the LoRA parts of 4tp (b) and 4pp (c)
+    alone."""
     t0 = time.time()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     resident = torch.cuda.memory_allocated() / 1e9
     res = run_ranks("4tp", TP_WORLD, rank_argv or [
-        sys.executable, os.path.abspath(__file__), "--tp-rank"])
+        sys.executable, os.path.abspath(__file__), "--tp-rank"]
+        + (["--lora"] if lora_only else []))
+    if not lora_only:
+        tp_encode_check(res, totals, card)
+    for key in ("step", "step_lora"):
+        if key in res[0]:
+            tp_step_check(res, key, totals, card)
+    for r, got in enumerate(res):
+        for key in ("step", "step_lora"):
+            st = got.get(key)
+            if st and abs(st["trunk_rank_gb"] / st["trunk_whole_gb"]
+                          - 0.5) > TP_BYTES_SLACK:
+                fail(f"4tp (b) rank {r} {key}: trunk weight bytes "
+                     f"{st['trunk_rank_gb']} GB of {st['trunk_whole_gb']} GB "
+                     "whole, not half")
+    for key, steps in (("step", TP_STEPS), ("step_lora", TP_LORA_STEPS)):
+        if key not in res[0]:
+            continue
+        s0 = res[0][key]
+        print(f"[4tp (b) memory, {key}] {card} | audio trunk weight GB a rank "
+              + ", ".join(f"{g[key]['trunk_rank_gb']:.4f}" for g in res)
+              + f" of {s0['trunk_whole_gb']:.4f} whole; peak GB a rank, the 2D "
+              "steps (" + ", ".join(steps) + "): " + "; ".join(
+                  ", ".join(f"{g[key][m]['peak_gb']:.2f}" for m in steps)
+                  for g in res)
+              + f"; rank 0's one-process B{TP_B} steps "
+              f"{s0['single_peak_gb']:.2f}; this process resident "
+              f"{resident:.2f}; in the ranks "
+              + ("(a) + (b) " if key == "step" else "")
+              + ", ".join(f"{g[key]['seconds']:.1f}" for g in res)
+              + " s of (b)", flush=True)
+    pp_check(res, totals, card)
+    print(f"[4tp] {card} | phase {time.time() - t0:.1f} s with 4pp",
+          flush=True)
+    return time.time() - t0
+
+
+def tp_encode_check(res, totals, card):
+    """Phase 4tp (a)'s bars on the ranks' encodes, and its line."""
     for r, got in enumerate(res):
         for mode in ("one",) + TP_MODES:
             e = got["encode"][mode]
@@ -4247,7 +4469,8 @@ def tp_ranks_phase(torch, totals, card, rank_argv=None):
                 totals[name] += n
     e0 = res[0]["encode"]
     print(f"[4tp (a) encodes, 4 gloo ranks, [data 2, model 2]] {card} | "
-          f"vitlensL audio B{TP_ENCODE_B} x 3 clips, bf16, each data row a "
+          f"vitlensL audio (trunk cut to {CUT_DEPTH} blocks) "
+          f"B{TP_ENCODE_B} x 3 clips, bf16, each data row a "
           "[data 1, model 2] pair: min cosine against the one-process encode "
           + ", ".join(f"{m} {min(g['encode'][m]['cos'] for g in res):.7f}"
                       for m in TP_MODES)
@@ -4257,74 +4480,6 @@ def tp_ranks_phase(torch, totals, card, rank_argv=None):
               f"{e0[m]['counts']['flash_attention']})" for m in ("one",) + TP_MODES)
           + "; host ms an encode (second call) " + ", ".join(
               f"{m} {e0[m]['ms']:.1f}" for m in ("one",) + TP_MODES), flush=True)
-    s0 = res[0]["step"]
-    floor = s0["floor"]
-    for mode, dtype in TP_STEPS.items():
-        r0, one = s0[mode], s0["single"]["fp32" if dtype == "float32" else "bf16"]
-        for r, got in enumerate(res):
-            st = got["step"][mode]
-            if st["counts"] != st["want"]:
-                fail(f"4tp (b) rank {r} {mode}: launches {st['counts']}, "
-                     f"expected {st['want']}")
-            if st["metrics"] != r0["metrics"]:
-                fail(f"4tp (b) {mode}: the ranks' metrics differ: "
-                     f"{r0['metrics']} vs rank {r} {st['metrics']}")
-            for name, n in st["counts"].items():
-                totals[name] += n
-        if dtype == "float32":  # rounding noise far below the bar
-            low = {k: v for k, v in r0["cos"].items() if v < DP_COS_MIN}
-            bar = f"{DP_COS_MIN}"
-        else:  # bf16: the one-process floor of the same gradient
-            low = {k: v for k, v in r0["cos"].items()
-                   if v < COS_MIN or v < floor[k] - DP_FLOOR_SLACK}
-            bar = (f"{COS_MIN} and the one-process bf16 floor (B{TP_B} "
-                   f"against accum_freq 2) less {DP_FLOOR_SLACK}")
-        if (r0["loss_rel"] > DP_LOSS_REL or r0["grad_norm_rel"] > DP_NORM_REL
-                or low):
-            fail(f"4tp (b) {mode} ({dtype}): the 2D step vs the one-process "
-                 f"B{TP_B} step: loss {r0['metrics']['loss']} vs "
-                 f"{one['loss']} (relative {r0['loss_rel']:.3e}, bar "
-                 f"{DP_LOSS_REL}), grad_norm {r0['metrics']['grad_norm']} vs "
-                 f"{one['grad_norm']} (relative {r0['grad_norm_rel']:.3e}, bar "
-                 f"{DP_NORM_REL}); groups below the bar ({bar}): {low}"
-                 + ("" if dtype == "float32" else
-                    f"; their floors {({k: floor[k] for k in low})}"))
-        worst = sorted(r0["cos"].items(), key=lambda kv: kv[1])[:3]
-        print(f"[4tp (b) {'TP + SP' if mode == 'tpsp' else 'TP'} step, "
-              f"{dtype}, 4 gloo ranks] {card} | vitlensL audio + text (the "
-              f"whole audio tower trained, text locked), B{TP_B // 2} a data "
-              f"rank, fsdp_tp_place ({s0['split']} TP slices) vs one process "
-              f"at B{TP_B}: loss {r0['metrics']['loss']:.6f} vs "
-              f"{one['loss']:.6f} (relative {r0['loss_rel']:.3e}, bar "
-              f"{DP_LOSS_REL}), grad_norm {r0['metrics']['grad_norm']:.6f} vs "
-              f"{one['grad_norm']:.6f} (relative {r0['grad_norm_rel']:.3e}, "
-              f"bar {DP_NORM_REL}); {len(r0['cos'])} gradient groups, lowest "
-              "cosines " + ", ".join(
-                  f"{k} {v:.6f}" + ("" if dtype == "float32" else
-                                    f" (floor {floor[k]:.6f})")
-                  for k, v in worst)
-              + f" (bar {bar}); launches each rank {r0['counts']} (as "
-              "expected); step s a rank " + ", ".join(
-                  f"{g['step'][mode]['step_s']:.2f}" for g in res)
-              + " (first calls, host-timed)", flush=True)
-    for r, got in enumerate(res):
-        st = got["step"]
-        if abs(st["trunk_rank_gb"] / st["trunk_whole_gb"] - 0.5) > TP_BYTES_SLACK:
-            fail(f"4tp (b) rank {r}: trunk weight bytes {st['trunk_rank_gb']} GB "
-                 f"of {st['trunk_whole_gb']} GB whole, not half")
-    print(f"[4tp (b) memory] {card} | audio trunk weight GB a rank "
-          + ", ".join(f"{g['step']['trunk_rank_gb']:.4f}" for g in res)
-          + f" of {s0['trunk_whole_gb']:.4f} whole; peak GB a rank, the 2D "
-          "steps (" + ", ".join(TP_STEPS) + "): " + "; ".join(
-              ", ".join(f"{g['step'][m]['peak_gb']:.2f}" for m in TP_STEPS)
-              for g in res)
-          + f"; rank 0's one-process B{TP_B} steps "
-          f"{s0['single_peak_gb']:.2f}; this "
-          f"process resident {resident:.2f}; in the ranks (a) + (b) "
-          + ", ".join(f"{g['step']['seconds']:.1f}" for g in res)
-          + f" s of (b); phase {time.time() - t0:.1f} s with 4pp", flush=True)
-    pp_check(res, totals, card)
-    return time.time() - t0
 
 
 # -- phase 4pp: pipelining (ROADMAP Queue 1 item 12d) ---------------------------
@@ -4460,11 +4615,30 @@ def pp_vitlensG(torch, counters):
     return out
 
 
-def pp_grads(torch, np, counters, rank):
+def pp_grad_launches(cfg, lora):
+    """Expected launches a rank of one bf16 pass of 4pp (c), derived from
+    the config: each stage runs its (layers / stages) audio trunk blocks
+    once a microbatch through the save-preact variant (the tower, or its
+    LoRA factors, trains) and kernel 2, the Lens its cross and self blocks
+    once (it is not pipelined), and the text tower's stage blocks once a
+    microbatch through kernel 1: the plain variant while text is locked,
+    the save-preact one where its LoRA factors train (its causal attention
+    is plain)."""
+    stages, _, m = PP_GRAD_LAYOUT
+    la = cfg.tower.arch.layers // stages * m
+    lt = cfg.text.layers // stages * m
+    p = cfg.tower.perceiver
+    return launch_counts(
+        fused_mlp=0 if lora else lt,
+        fused_mlp_save_preact=la + (lt if lora else 0),
+        flash_attention=la + p.depth * (1 + p.self_per_cross_attn))
+
+
+def pp_grads(torch, np, counters, rank, lora=False):
     """Phase 4pp (c) on one rank: the gradient of the audio x text
     contrastive loss (make_loss_fn(2)) at B16 through the vitlensL audio +
-    text model, the whole audio tower trainable (its trunk too), text
-    locked. Rank 0 first runs one process's passes: bf16, bf16 at the
+    text model (the audio trunk cut to CUT_DEPTH blocks), the whole audio
+    tower trainable (its trunk too), text locked. Rank 0 first runs one process's passes: bf16, bf16 at the
     microbatches' shapes (accum_freq 4: the bf16 floor) and fp32 with
     remat. Then the audio tower is placed on the [data 1, pipe 4] mesh and
     the passes run under pipelined_trunks (M = 4; the text tower's 12
@@ -4472,12 +4646,16 @@ def pp_grads(torch, np, counters, rank):
     rank's gradients (its stage's blocks and the replicated ones) are
     gathered to rank 0, which holds them against its one-process passes: the
     loss, the cosine a group of tp_groups, and each rank's replicated
-    gradients against rank 0's."""
+    gradients against rank 0's. ``lora``: the variant whose text tower
+    trains too, two trained towers pipelined in one backward: phase 4l's
+    factors (attach_lora_) on the audio and the text trunk, the factors
+    alone trained, both towers placed; a factor's gradient is the stage's
+    that runs its block (the others hold zeros), summed over the ranks."""
     import torch.distributed as dist
 
     from vitlens_tpu_torch.factory import create_model, make_trainable_
-    from vitlens_tpu_torch.parallel.pp import (make_pipe_mesh, pipeline_place,
-                                               pipelined_trunks)
+    from vitlens_tpu_torch.parallel.pp import (OtherStage, make_pipe_mesh,
+                                               pipeline_place, pipelined_trunks)
     from vitlens_tpu_torch.train.freeze import tri_model_mask
     from vitlens_tpu_torch.train.losses import make_loss_fn
     from vitlens_tpu_torch.train.step import (OptimizerConfig, StepConfig,
@@ -4485,7 +4663,8 @@ def pp_grads(torch, np, counters, rank):
                                               micro_grads)
 
     model = create_model("ViT-L-14", "audio", seed=SEED, device="cuda",
-                         dtype=torch.float32)
+                         dtype=torch.float32,
+                         **({} if lora else {"arch": cut_arch()}))
     cfg, dev = model.cfg, model.logit_scale.device
     rng = np.random.RandomState(SEED)
     text = rng.randint(1, 49000, size=(PP_GRAD_B, 77))
@@ -4494,7 +4673,9 @@ def pp_grads(torch, np, counters, rank):
     fb = rng.randn(PP_GRAD_B, a.target_length, a.mel_bins) * 0.5
     batch = {"text": torch.from_numpy(text).long().to(dev),
              "visual": torch.from_numpy(fb.astype(np.float32)).to(dev)}
-    mask = tri_model_mask(model, cfg, lock_visual=False, lock_text=True)
+    mask = tri_model_mask(model, cfg, lock_visual=lora, lock_text=True)
+    if lora:
+        mask = attach_lora_(torch, model, mask, towers=("visual", "text"))
     _, mask = make_optimizer(model, OptimizerConfig(
         lr=1e-4, warmup=10, total_steps=1000), mask)
     make_trainable_(model, mask, torch.bfloat16)
@@ -4527,9 +4708,14 @@ def pp_grads(torch, np, counters, rank):
     stages, n_data, m = PP_GRAD_LAYOUT
     mesh = make_pipe_mesh(stages, n_data, device="cuda:0")
     pipeline_place(model.visual, mesh)
+    if lora:
+        pipeline_place(model.text, mesh)
     gc.collect()
     torch.cuda.empty_cache()
     trunk = "visual.trunk.blocks."
+    out["held"] = [[i for i, b in enumerate(t.trunk.blocks)
+                    if not isinstance(b, OtherStage)]
+                   for t in (model.visual, model.text)]
     for key, (dtype, remat) in passes.items():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -4537,17 +4723,22 @@ def pp_grads(torch, np, counters, rank):
         with pipelined_trunks(mesh, m):
             loss, grads, counts = grads_of(dtype, remat)
         r = {"loss": loss, "counts": counts, "s": time.time() - t,
-             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "want": (pp_grad_launches(cfg, lora) if dtype == torch.bfloat16
+                      else launch_counts())}
         t = time.time()
         every = [None] * dist.get_world_size() if rank == 0 else None
         dist.gather_object(grads, every, dst=0)
         del grads
         if rank == 0:
             one_loss, one = ref[key]
-            rep = [n for n in names if not n.startswith(trunk)]
+            rep = [n for n in names if not n.startswith(trunk)
+                   and ".lora." not in n]
             merged = {n: g for got in every for n, g in got.items()
                       if n.startswith(trunk)}
             merged.update({n: every[0][n] for n in rep})
+            merged.update({n: sum(got[n] for got in every)
+                           for n in names if ".lora." in n})
             r["missing"] = sorted(set(names) - set(merged))
             r["loss_rel"] = abs(loss / one_loss - 1)
             r["cos"] = tp_cosines(torch, merged, one, names) if not r["missing"] else {}
@@ -4569,15 +4760,19 @@ def pp_grads(torch, np, counters, rank):
     return out
 
 
-def pp_rank(torch, np, counters, rank):
-    """Phase 4pp on one of four gloo ranks sharing the card: (a), (b), (c);
-    returns their results and the seconds each took on this rank."""
+def pp_rank(torch, np, counters, rank, lora_only=False):
+    """Phase 4pp on one of four gloo ranks sharing the card: (a), (b), (c)
+    and (c)'s LoRA variant (``lora_only``: that alone); returns their
+    results and the seconds each took on this rank."""
     import torch.distributed as dist
 
     res, t0 = {}, time.time()
-    for name, fn in (("encode", lambda: pp_encode(torch, counters)),
-                     ("g", lambda: pp_vitlensG(torch, counters)),
-                     ("grads", lambda: pp_grads(torch, np, counters, rank))):
+    parts = (("encode", lambda: pp_encode(torch, counters)),
+             ("g", lambda: pp_vitlensG(torch, counters)),
+             ("grads", lambda: pp_grads(torch, np, counters, rank)),
+             ("grads_lora", lambda: pp_grads(torch, np, counters, rank,
+                                             lora=True)))
+    for name, fn in parts[3:] if lora_only else parts:
         t = time.time()
         res[name] = fn()
         dist.barrier()
@@ -4613,18 +4808,76 @@ def pp_rank_main(out_dir) -> int:
     return 0
 
 
-def pp_check(res, totals, card):
-    """Phase 4pp's bars on the ranks' results (pp_rank's): (a) and (b) each
-    rank's cosine against the one-process encode >= DP_ENCODE_COS, launches
-    as tower_launches(pp=) derives them, its trunk bytes 1 / stages of the
-    whole (b: of the blocks that run; the skipped ones none); (c) the loss
-    (fp32 PP_LOSS_REL, bf16 DP_LOSS_REL) and each group's gradient cosine
-    (fp32 >= DP_COS_MIN; bf16 >= COS_MIN and the one-process floor at the
-    microbatches' shapes less DP_FLOOR_SLACK), every trainable tensor's
-    gradient present once gathered, and each rank's replicated gradients
-    within PP_EQUAL_REL of rank 0's and at the same bars. Prints the phase's
-    lines; returns its seconds in the ranks."""
-    pp = [r["pp"] for r in res]
+def pp_grad_check(pp, part, totals, card):
+    """Phase 4pp (c)'s bars on the ranks' ``part`` ("grads", or
+    "grads_lora" for its LoRA variant), and its lines."""
+    c0 = pp[0][part]
+    floor = c0["floor"]
+    lora = part == "grads_lora"
+    label = "4pp (c) LoRA" if lora else "4pp (c)"
+    for key in ("bf16", "fp32"):
+        r0 = c0[key]
+        for r, got in enumerate(pp):
+            g = got[part][key]
+            if g["counts"] != g["want"]:
+                fail(f"{label} {key} rank {r}: launches {g['counts']}, "
+                     f"expected {g['want']}")
+            for name, n in g["counts"].items():
+                totals[name] += n
+        if r0["missing"]:
+            fail(f"{label} {key}: no rank gave the gradients of {r0['missing'][:6]}")
+        if key == "fp32":
+            bar_loss, bar = PP_LOSS_REL, f"{DP_COS_MIN}"
+            low = {k: v for k, v in r0["cos"].items() if v < DP_COS_MIN}
+            rep_low = [c for c in r0["rep_cos"] if c < DP_COS_MIN]
+        else:
+            bar_loss = DP_LOSS_REL
+            bar = (f"{COS_MIN} and the one-process bf16 floor (B{PP_GRAD_B} "
+                   f"against accum_freq {PP_GRAD_LAYOUT[2]}) less {DP_FLOOR_SLACK}")
+            low = {k: v for k, v in r0["cos"].items()
+                   if v < COS_MIN or v < floor[k] - DP_FLOOR_SLACK}
+            rep_low = [c for c in r0["rep_cos"] if c < COS_MIN]
+        if (r0["loss_rel"] > bar_loss or low or rep_low
+                or max(r0["rep_rel"]) > PP_EQUAL_REL):
+            fail(f"{label} {key}: the pipelined gradient vs one process's at "
+                 f"B{PP_GRAD_B}: loss {r0['loss']} vs {c0['single'][key]} "
+                 f"(relative {r0['loss_rel']:.3e}, bar {bar_loss}); groups below "
+                 f"the bar ({bar}): {low}; each rank's replicated gradients: "
+                 f"lowest group cosine {r0['rep_cos']}, max relative difference "
+                 f"from rank 0's {r0['rep_rel']} (bar {PP_EQUAL_REL})")
+        worst = sorted(r0["cos"].items(), key=lambda kv: kv[1])[:3]
+        held = [g[part]["held"] for g in pp]
+        print(f"[{label} pipelined gradient, {key}, 4 gloo ranks, [data 1, "
+              f"pipe {PP_GRAD_LAYOUT[0]}], M = {PP_GRAD_LAYOUT[2]}] {card} | "
+              f"vitlensL audio x text contrastive loss at B{PP_GRAD_B}, "
+              + (f"LoRA rank {LORA_RANK} on the audio and the text trunk, the "
+                 "factors alone trainable, both towers pipelined (two trained "
+                 "towers in one backward)" if lora else
+                 f"the whole audio tower trainable (its trunk cut to "
+                 f"{CUT_DEPTH} blocks)")
+              + (", remat" if key == "fp32" else "")
+              + f": loss {r0['loss']:.6f} vs one process {c0['single'][key]:.6f} "
+              f"(relative {r0['loss_rel']:.3e}, bar {bar_loss}); audio, text "
+              "blocks a rank "
+              f"{[[(b[0], b[-1]) for b in h] for h in held]}; {len(r0['cos'])} "
+              "gradient groups, lowest cosines " + ", ".join(
+                  f"{k} {v:.6f}" + ("" if key == "fp32" else f" (floor {floor[k]:.6f})")
+                  for k, v in worst)
+              + f" (bar {bar}); replicated gradients a rank: lowest cosine "
+              + ", ".join(f"{c:.6f}" for c in r0["rep_cos"])
+              + ", max relative difference from rank 0's "
+              + ", ".join(f"{e:.3e}" for e in r0["rep_rel"])
+              + f" (bar {PP_EQUAL_REL}); rank 0 launches {r0['counts']} (as "
+              "expected); s a pass a rank " + ", ".join(
+                  f"{g[part][key]['s']:.2f}" for g in pp)
+              + f" (rank 0's gather and check {r0['check_s']:.1f} s); peak GB "
+              "a rank " + ", ".join(
+                  f"{g[part][key]['peak_gb']:.2f}" for g in pp), flush=True)
+
+
+def pp_encode_check(pp, totals, card):
+    """Phase 4pp (a) and (b)'s bars on the ranks' results, and their
+    lines."""
     for r, got in enumerate(pp):
         for part, keys in (("encode", ["one"] + [f"{d}x{s}" for s, d, _ in
                                                  PP_ENCODE_LAYOUTS]),
@@ -4699,61 +4952,36 @@ def pp_check(res, totals, card):
           + "; host ms an encode (second call) a rank: one process " + ", ".join(
               f"{g['g']['one']['ms']:.1f}" for g in pp) + "; pipelined "
           + ", ".join(f"{g['g']['ms']:.1f}" for g in pp), flush=True)
-    c0 = pp[0]["grads"]
-    floor = c0["floor"]
-    for key in ("bf16", "fp32"):
-        r0 = c0[key]
-        for r, got in enumerate(pp):
-            for name, n in got["grads"][key]["counts"].items():
-                totals[name] += n
-        if r0["missing"]:
-            fail(f"4pp (c) {key}: no rank gave the gradients of {r0['missing'][:6]}")
-        if key == "fp32":
-            bar_loss, bar = PP_LOSS_REL, f"{DP_COS_MIN}"
-            low = {k: v for k, v in r0["cos"].items() if v < DP_COS_MIN}
-            rep_low = [c for c in r0["rep_cos"] if c < DP_COS_MIN]
-        else:
-            bar_loss = DP_LOSS_REL
-            bar = (f"{COS_MIN} and the one-process bf16 floor (B{PP_GRAD_B} "
-                   f"against accum_freq {PP_GRAD_LAYOUT[2]}) less {DP_FLOOR_SLACK}")
-            low = {k: v for k, v in r0["cos"].items()
-                   if v < COS_MIN or v < floor[k] - DP_FLOOR_SLACK}
-            rep_low = [c for c in r0["rep_cos"] if c < COS_MIN]
-        if (r0["loss_rel"] > bar_loss or low or rep_low
-                or max(r0["rep_rel"]) > PP_EQUAL_REL):
-            fail(f"4pp (c) {key}: the pipelined gradient vs one process's at "
-                 f"B{PP_GRAD_B}: loss {r0['loss']} vs {c0['single'][key]} "
-                 f"(relative {r0['loss_rel']:.3e}, bar {bar_loss}); groups below "
-                 f"the bar ({bar}): {low}; each rank's replicated gradients: "
-                 f"lowest group cosine {r0['rep_cos']}, max relative difference "
-                 f"from rank 0's {r0['rep_rel']} (bar {PP_EQUAL_REL})")
-        worst = sorted(r0["cos"].items(), key=lambda kv: kv[1])[:3]
-        print(f"[4pp (c) pipelined gradient, {key}, 4 gloo ranks, [data 1, pipe "
-              f"{PP_GRAD_LAYOUT[0]}], M = {PP_GRAD_LAYOUT[2]}] {card} | vitlensL "
-              f"audio x text contrastive loss at B{PP_GRAD_B}, the whole audio "
-              f"tower trainable"
-              + (", remat" if key == "fp32" else "")
-              + f": loss {r0['loss']:.6f} vs one process {c0['single'][key]:.6f} "
-              f"(relative {r0['loss_rel']:.3e}, bar {bar_loss}); blocks a rank "
-              f"{[(b[0], b[-1]) for b in r0['blocks']]}; {len(r0['cos'])} "
-              "gradient groups, lowest cosines " + ", ".join(
-                  f"{k} {v:.6f}" + ("" if key == "fp32" else f" (floor {floor[k]:.6f})")
-                  for k, v in worst)
-              + f" (bar {bar}); replicated gradients a rank: lowest cosine "
-              + ", ".join(f"{c:.6f}" for c in r0["rep_cos"])
-              + ", max relative difference from rank 0's "
-              + ", ".join(f"{e:.3e}" for e in r0["rep_rel"])
-              + f" (bar {PP_EQUAL_REL}); rank 0 launches {r0['counts']}; s a "
-              "pass a rank " + ", ".join(f"{g['grads'][key]['s']:.2f}" for g in pp)
-              + f" (rank 0's gather and check {r0['check_s']:.1f} s); peak GB "
-              "a rank " + ", ".join(
-                  f"{g['grads'][key]['peak_gb']:.2f}" for g in pp), flush=True)
+
+
+def pp_check(res, totals, card):
+    """Phase 4pp's bars on the ranks' results (pp_rank's): (a) and (b) each
+    rank's cosine against the one-process encode >= DP_ENCODE_COS, launches
+    as tower_launches(pp=) derives them, its trunk bytes 1 / stages of the
+    whole (b: of the blocks that run; the skipped ones none); (c) the loss
+    (fp32 PP_LOSS_REL, bf16 DP_LOSS_REL) and each group's gradient cosine
+    (fp32 >= DP_COS_MIN; bf16 >= COS_MIN and the one-process floor at the
+    microbatches' shapes less DP_FLOOR_SLACK), every trainable tensor's
+    gradient present once gathered, and each rank's replicated gradients
+    within PP_EQUAL_REL of rank 0's and at the same bars. Prints the phase's
+    lines; returns its seconds in the ranks. (c)'s LoRA variant, where the
+    ranks ran it, takes (c)'s bars and launches as pp_grad_launches derives
+    them."""
+    pp = [r["pp"] for r in res]
+    if "encode" in pp[0]:
+        pp_encode_check(pp, totals, card)
+    for part in ("grads", "grads_lora"):
+        if part in pp[0]:
+            pp_grad_check(pp, part, totals, card)
     secs = max(g["seconds"] for g in pp)
-    print(f"[4pp] {card} | in the ranks (a) " + ", ".join(
-        f"{g['encode_s']:.1f}" for g in pp) + " s, (b) " + ", ".join(
-        f"{g['g_s']:.1f}" for g in pp) + " s, (c) " + ", ".join(
-        f"{g['grads_s']:.1f}" for g in pp) + f" s (rank 0's one-process "
-        f"passes {c0['single_s']:.1f} s); phase 4pp {secs:.1f} s", flush=True)
+    print(f"[4pp] {card} | in the ranks " + "; ".join(
+        f"{label} " + ", ".join(f"{g[part + '_s']:.1f}" for g in pp) + " s"
+        for part, label in (("encode", "(a)"), ("g", "(b)"), ("grads", "(c)"),
+                            ("grads_lora", "(c) LoRA")) if part in pp[0])
+        + " (rank 0's one-process passes " + ", ".join(
+            f"{pp[0][part]['single_s']:.1f}" for part in ("grads", "grads_lora")
+            if part in pp[0])
+        + f" s); phase 4pp {secs:.1f} s", flush=True)
     return secs
 
 
@@ -5259,6 +5487,29 @@ EVA_B = (16, 64)
 LORA_RANK = 8
 LORA_STEPS = 3
 LORA_B_STD = 2e-3  # the b's before the B = 2 comparison: scale * a @ b ~ 2e-3
+
+
+def attach_lora_(torch, model, mask, towers=("visual",)):
+    """Phase 4l's LoRA recipe on ``model`` (a TriModel) for the sharded
+    phases (4fs, 4tp, 4pp (c)): rank-LORA_RANK factors on the four targets
+    of each of ``towers``' trunks, drawn as cli.train draws them (SEED + 17
+    + i), each b then drawn N(0, LORA_B_STD) (SEED + 19) so that the merged
+    weights differ from the base ones; ``mask`` (tri_model_mask's) updated
+    so that those towers train their factors alone. Returns the mask in the
+    model's parameter order."""
+    from vitlens_tpu_torch.factory import make_generator
+    from vitlens_tpu_torch.train.lora import lora_init, lora_mask
+
+    g_b = make_generator(SEED + 19, "cuda")
+    for i, t in enumerate(towers):
+        tower = getattr(model, t)
+        lora_init(tower, LORA_RANK, make_generator(SEED + 17 + i, "cuda"))
+        mask.update({f"{t}.{k}": v for k, v in lora_mask(tower).items()})
+        with torch.no_grad():
+            for n, p in tower.lora.named_parameters():
+                if n.endswith(".b"):
+                    p.normal_(0.0, LORA_B_STD, generator=g_b)
+    return {n: mask[n] for n, _ in model.named_parameters()}
 LP_IMAGES = 16  # tactile frames the linear probe trains on (2 steps an epoch at B8)
 
 
@@ -5465,7 +5716,7 @@ def lora_phase(torch, np, counters, totals, card):
                                            make_trainable_)
     from vitlens_tpu_torch.models.lora import Factors
     from vitlens_tpu_torch.train.freeze import tri_model_mask
-    from vitlens_tpu_torch.train.lora import lora_init, lora_mask
+    from vitlens_tpu_torch.train.lora import lora_init
     from vitlens_tpu_torch.train.losses import make_loss_fn
     from vitlens_tpu_torch.train.step import (OptimizerConfig, StepConfig,
                                               init_train_state, make_optimizer,
@@ -5477,19 +5728,12 @@ def lora_phase(torch, np, counters, totals, card):
                          dtype=torch.float32)
     cfg = model.cfg
     acfg, n_text = cfg.tower, cfg.text.layers
-    mask = tri_model_mask(model, cfg, lock_visual=True, lock_text=True)
-    lora_init(model.visual, LORA_RANK, make_generator(SEED + 17, "cuda"))
-    mask.update({f"visual.{k}": v for k, v in lora_mask(model.visual).items()})
-    mask = {n: mask[n] for n, _ in model.named_parameters()}
+    mask = attach_lora_(torch, model, tri_model_mask(
+        model, cfg, lock_visual=True, lock_text=True))
     tx, mask = make_optimizer(model, OptimizerConfig(lr=1e-3, warmup=1,
                                                      total_steps=10), mask)
     make_trainable_(model, mask, torch.bfloat16)
     factors = [n for n, t in mask.items() if t and ".lora." in n]
-    g_b = make_generator(SEED + 19, "cuda")
-    with torch.no_grad():
-        for n, p in model.named_parameters():
-            if n in factors and n.endswith(".b"):
-                p.normal_(0.0, LORA_B_STD, generator=g_b)
     base0 = {n: p.detach().clone() for n, p in model.named_parameters()
              if not mask[n]}
     fac0 = {n: p.detach().clone() for n, p in model.named_parameters()
@@ -7052,8 +7296,9 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--pp-rank"]:
         sys.exit(pp_rank_main(sys.argv[2]))
-    if sys.argv[1:2] == ["--dp-rank"]:
-        sys.exit(dp_rank_main(sys.argv[2]))
-    if sys.argv[1:2] == ["--tp-rank"]:
-        sys.exit(tp_rank_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--dp-rank"]:  # --dp-rank [--lora] DIR
+        sys.exit(dp_rank_main(sys.argv[-1], ("lora",) if "--lora" in
+                              sys.argv[2:-1] else DP_RECIPES))
+    if sys.argv[1:2] == ["--tp-rank"]:  # --tp-rank [--lora] DIR
+        sys.exit(tp_rank_main(sys.argv[-1], "--lora" in sys.argv[2:-1]))
     sys.exit(main())

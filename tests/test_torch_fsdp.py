@@ -33,7 +33,15 @@ parent meanwhile. A rank never imports jax. The cases:
   over the ranks;
 - ``cli.train --fsdp`` over the two ranks: train with an eval set of 7
   samples in batches of 3 (pads on every call), save, resume ("resumed
-  (sharded) from").
+  (sharded) from");
+- LoRA under FSDP: the tri step with rank-4 factors on the visual trunk and
+  rank-1 factors on the text trunk (b drawn away from zero), the factors
+  and the logit scale alone trained, against JAX's step on the tree
+  carrying ``"lora"`` (the same bars); the factors' placements leaf by leaf
+  (the rule on JAX's stacked factor; the rank-1 ``a``s under
+  ``min_elems``); every base weight bit-equal after the step; the
+  collective checkpoint of that state; and ``cli.train --fsdp
+  --lora-rank 4`` saving and resuming.
 
 Run this file as a script (``python tests/test_torch_fsdp.py PLAN OUT``,
 torchrun's variables set) to run one rank.
@@ -93,12 +101,10 @@ def _state(case, mesh=None):
     """(model, tx, mask, state) of a case, placed over ``mesh`` when
     given."""
     from vitlens_tpu_torch.factory import make_trainable_
-    from vitlens_tpu_torch.models.tri import TriModel
     from vitlens_tpu_torch.parallel.fsdp import fsdp_place
     from vitlens_tpu_torch.train import step as S
 
-    model = TriModel(case["pcfg"], device="cpu")
-    model.load_state_dict(case["state_dict"])
+    model = _model(case)
     mask = case["mask"]
     tx, mask = S.make_optimizer(model, S.OptimizerConfig(**case["opt"]), mask)
     make_trainable_(model, mask, torch.float32)
@@ -106,6 +112,25 @@ def _state(case, mesh=None):
     if mesh is not None:
         fsdp_place(state, mesh, min_elems=MIN_ELEMS)
     return model, tx, mask, state
+
+
+def _unloaded(case):
+    """The case's TriModel on the CPU with its LoRA factors attached
+    (``case["lora"]``: {tower: rank})."""
+    from vitlens_tpu_torch.models.tri import TriModel
+    from vitlens_tpu_torch.train.lora import lora_init
+
+    model = TriModel(case["pcfg"], device="cpu")
+    for tower, rank in case.get("lora", {}).items():
+        lora_init(getattr(model, tower), rank, torch.Generator())
+    return model
+
+
+def _model(case):
+    """:func:`_unloaded`, loaded from the case's state dict."""
+    model = _unloaded(case)
+    model.load_state_dict(case["state_dict"])
+    return model
 
 
 def _gathered(model):
@@ -144,11 +169,14 @@ def _run_step(case, mesh):
         state, m = step(state, batch, gen, fps_starts=case.get("starts"))
     finally:
         del tx.update_
+    after = _gathered(model)
     out = {"metrics": {k: float(v) for k, v in m.items()}, "grads": grads,
-           "params": {n: a for n, a in _gathered(model).items() if mask[n]},
+           "params": {n: a for n, a in after.items() if mask[n]},
            "buffers": {n: b.numpy().copy() for n, b in model.named_buffers()
                        if n.endswith((".mean", ".var"))},
-           "placed": placed, "local": local}
+           "placed": placed, "local": local,
+           "frozen_moved": [n for n, a in after.items() if not mask[n] and
+                            not np.array_equal(a, case["state_dict"][n])]}
     return out, (model, tx, mask, state, step, batch)
 
 
@@ -281,7 +309,11 @@ def _worker(plan_path, out_dir) -> int:
                              "placed": F.placements_of(state),
                              "params": _gathered(model)}
             res["ckpt"] = _run_checkpoint(live, mesh, plan["ckpt_root"])
+        if name == "lora":
+            res["ckpt_lora"] = _run_checkpoint(live, mesh,
+                                               plan["ckpt_root_lora"])
     res["cli"] = _run_cli(plan["cli_train"], plan["cli_resume"])
+    res["cli_lora"] = _run_cli(plan["cli_lora_train"], plan["cli_lora_resume"])
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(res, f)
     torch.distributed.destroy_process_group()
@@ -320,11 +352,64 @@ def _jax_mesh():
     return Mesh(np.array(cpu_devices()[:WORLD]), ("data",))
 
 
+def _with_lora(params, ranks, seed=17):
+    """JAX's params with a ``"lora"`` subtree on each tower of ``ranks``
+    ({tower: rank}): the tree JAX's ``lora_init`` lays out (the default
+    targets, stacked [L, in, r] ``a`` and [L, r, out] ``b``, scale = alpha
+    / r at alpha twice the rank), drawn with numpy, ``b`` away from its zero
+    init (a trained adapter: ``a``'s gradient is zero while ``b`` is)."""
+    from vitlens_tpu.train.lora import DEFAULT_TARGETS
+
+    params = dict(params)
+    for i, (tower, rank) in enumerate(ranks.items()):
+        rng = np.random.RandomState(seed + i)
+        tree = {}
+        for target in DEFAULT_TARGETS:
+            path = target.split(".")
+            w, node = params[tower]["trunk"]["blocks"], tree
+            for k in path:
+                w = w[k]
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            layers, fan_in, fan_out = w.shape
+            node[path[-1]] = {
+                "a": (rng.randn(layers, fan_in, rank) * rank ** -0.5
+                      ).astype(np.float32),
+                "b": (0.05 * rng.randn(layers, rank, fan_out)).astype(np.float32)}
+        params[tower] = dict(params[tower], lora={
+            "scale": np.float32(2.0), "trunk": {"blocks": tree}})
+    return params
+
+
+def _lora_ranks(params):
+    """{tower: LoRA rank} of the towers of a JAX tree that carry one."""
+    return {t: int(params[t]["lora"]["trunk"]["blocks"]["attn"]["qkv_w"]["a"]
+                   .shape[-1]) for t in ("visual", "text") if "lora" in params[t]}
+
+
+def _jax_mask(params, jcfg, flags):
+    """JAX's trainability mask of a case: None (every leaf) without flags,
+    else the lock flags' tri_model_mask; a tower that carries LoRA factors
+    takes its lora_mask (the factors alone), as cli.train --lora-rank
+    sets it."""
+    from vitlens_tpu.train import freeze as JF
+    from vitlens_tpu.train.lora import lora_mask
+
+    if flags is None:
+        return None
+    mask = dict(JF.tri_model_mask(params, jcfg, **flags))
+    for tower in _lora_ranks(params):
+        mask[tower] = lora_mask(params[tower])
+    return mask
+
+
 def _cases():
     """{name: (JAX config, port config, JAX params, JAX state, mask flags,
     StepConfig fields, batch, FPS key, optimizer fields)}: the tri step on
     JAX's tiny model with every parameter trained, its accum_freq-2 twin
-    with image and text locked (tests/test_fsdp.py's), and the pc tri step
+    with image and text locked (tests/test_fsdp.py's), the LoRA step (rank
+    4 on the visual trunk, rank 1 on the text trunk, every tower locked:
+    the factors and the logit scale train) and the pc tri step
     with BatchNorm, at accum_freq 1 and 2. The pc step's AdamW takes eps
     1e-4, as
     tests/test_torch_parallel.py's: at 1e-6 the biases a batch-statistics
@@ -354,7 +439,11 @@ def _cases():
                 tiny_batch(np.random.RandomState(1), B), None, OPT),
         "accum2": (jcfg, _tiny(PC), params, state,
                    dict(lock_image=True, lock_text=True), dict(accum_freq=2),
-                   tiny_batch(np.random.RandomState(3), 16), None, OPT)}
+                   tiny_batch(np.random.RandomState(3), 16), None, OPT),
+        "lora": (jcfg, _tiny(PC), _with_lora(params, {"visual": 4, "text": 1}),
+                 state, dict(lock_image=True, lock_text=True,
+                             lock_visual=True), {},
+                 tiny_batch(np.random.RandomState(7), B), None, OPT)}
     pp["visual"]["adapter"] = _without_cancelled_biases(pp["visual"]["adapter"])
     pc_flags = dict(lock_image=True, lock_text=True, lock_visual=True)
     out["pc_bn"] = (pjc, ppc, pp, ps, pc_flags, {},
@@ -374,22 +463,22 @@ def _plans(cases, root):
     import jax
 
     from tests.test_torch_train import _per_param
-    from vitlens_tpu.train import freeze as JF
     from vitlens_tpu.train.freeze import ones_like_mask
-    from vitlens_tpu_torch.models.tri import TriModel
     from vitlens_tpu_torch.weights.from_jax import load_state, load_tri_params
 
     steps = {}
     for name, (jcfg, pcfg, params, state, flags, step_kw, batch, key,
                opt) in cases.items():
-        model = load_tri_params(TriModel(pcfg, device="cpu"), params)
+        plan = {"pcfg": pcfg, "lora": _lora_ranks(params)}
+        model = load_tri_params(_unloaded(plan), params)
         load_state(model, state)
         jmask = (ones_like_mask(params) if flags is None
-                 else JF.tri_model_mask(params, jcfg, **flags))
-        plan = {"pcfg": pcfg, "state_dict": model.state_dict(),
-                "mask": _per_param(jmask, params), "batch": batch, "opt": opt,
-                "step": dict(n_tower=3, compute_dtype=torch.float32,
-                             sync_bn=False, **step_kw)}
+                 else _jax_mask(params, jcfg, flags))
+        plan.update({"state_dict": model.state_dict(),
+                     "mask": _per_param(jmask, params), "batch": batch,
+                     "opt": opt, "step": dict(n_tower=3,
+                                              compute_dtype=torch.float32,
+                                              sync_bn=False, **step_kw)})
         if key is not None:  # JAX's global step draws for the global batch,
             # micro-batch i from its key folded with i
             A, n = step_kw.get("accum_freq", 1), len(batch["text"])
@@ -409,9 +498,13 @@ def _plans(cases, root):
            "synthetic", "--train-data", "synthetic", "--train-num-samples",
            "8", "--val-data", "fake", "--fsdp", "--logs", str(root / "cli"),
            "--name", "run"]
+    lora = cli[:-1] + ["lora", "--lora-rank", "4"]
     return {"steps": steps, "ckpt_root": str(root / "ckpt"),
+            "ckpt_root_lora": str(root / "ckpt_lora"),
             "cli_train": cli + ["--epochs", "1"],
-            "cli_resume": cli + ["--epochs", "2", "--resume", "latest"]}
+            "cli_resume": cli + ["--epochs", "2", "--resume", "latest"],
+            "cli_lora_train": lora + ["--epochs", "1"],
+            "cli_lora_resume": lora + ["--epochs", "2", "--resume", "latest"]}
 
 
 def _jax_steps(cases):
@@ -433,12 +526,10 @@ def _jax_step(mesh, jcfg, _, params, state, flags, step_kw, batch, key, opt):
     import optax
 
     from vitlens_tpu.parallel.fsdp import fsdp_place
-    from vitlens_tpu.train import freeze as JF
     from vitlens_tpu.train import step as JStep
 
-    jtx, jmask = JStep.make_optimizer(
-        params, JStep.OptimizerConfig(**opt),
-        None if flags is None else JF.tri_model_mask(params, jcfg, **flags))
+    jtx, jmask = JStep.make_optimizer(params, JStep.OptimizerConfig(**opt),
+                                      _jax_mask(params, jcfg, flags))
     tx = optax.chain(_stash(), jtx)
     jstep = JStep.make_train_step(jcfg, tx, jmask, JStep.StepConfig(
         n_tower=3, local_loss=False, compute_dtype=jnp.float32,
@@ -563,7 +654,8 @@ def test_placements_stay_over_two_steps(run):
 # -- the step -----------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name", ["tri", "accum2", "pc_bn", "pc_accum2"])
+@pytest.mark.parametrize("name", ["tri", "accum2", "pc_bn", "pc_accum2",
+                                  "lora"])
 def test_fsdp_step_matches_jax(run, name):
     """Loss and grad_norm 1e-5 relative (grad_norm is the global norm: a
     rank-local one, or gradients taken with autograd.grad, fail it); each
@@ -707,4 +799,102 @@ def test_cli_train_fsdp_saves_and_resumes(run):
     with open(run_dir / "results.jsonl") as f:
         recs = [json.loads(line) for line in f]
     assert sum("val/primary" in r for r in recs) == 2
+    assert all(np.isfinite(r["train/loss"]) for r in recs if "train/loss" in r)
+
+
+# -- LoRA under FSDP ------------------------------------------------------------
+
+
+def test_lora_placements_match_jax_leaf_by_leaf(run):
+    """The LoRA state: every parameter, the factors included, is sharded on
+    the axis JAX's fsdp_place shards of its leaf (a factor's row of JAX's
+    stacked [L, in, r] / [L, r, out] leaf), on both ranks, with its share
+    of that axis local; the rank-4 factors of the visual trunk all shard,
+    some rank-1 text factors stay whole (under min_elems); the moments are
+    the trained names' alone and follow their parameters."""
+    from torch.distributed.tensor import Shard
+
+    from vitlens_tpu_torch.parallel.fsdp import param_axes
+
+    plan, jax_out, got, _ = run
+    _, _, _, specs, params = jax_out["lora"]
+    want = _jax_axes(specs, params)
+    case = plan["steps"]["lora"]
+    factors = [n for n in want if ".lora." in n and n.endswith((".a", ".b"))]
+    assert len(factors) == 2 * 2 * 4 * 2
+    assert all(want[n] is not None for n in factors if n.startswith("visual."))
+    assert any(want[n] is None for n in factors if n.startswith("text."))
+    assert want["visual.lora.trunk.blocks.0.attn.qkv_w.a"] == 0  # in
+    assert want["visual.lora.trunk.blocks.0.attn.qkv_w.b"] == 1  # out
+    model = _unloaded(case)
+    assert param_axes(model, WORLD, MIN_ELEMS) == want
+    shards = {n: None if a is None else Shard(a) for n, a in want.items()}
+    trained = sorted(n for n, t in case["mask"].items() if t)
+    assert trained == sorted(factors + ["logit_scale"])
+    shapes = {n: tuple(t.shape) for n, t in case["state_dict"].items()}
+    for res in got:
+        placed, local = res["steps"]["lora"]["placed"], res["steps"]["lora"]["local"]
+        assert placed["params"] == shards
+        assert sorted(placed["mu"]) == trained
+        assert placed["mu"] == placed["nu"] == {n: shards[n] for n in trained}
+        for n in factors:
+            a, shape = want[n], shapes[n]
+            assert local[n] == (shape if a is None else shape[:a] + (
+                shape[a] // WORLD,) + shape[a + 1:]), n
+
+
+def test_lora_step_trains_the_factors_alone(run):
+    """After the FSDP LoRA step every base weight (and the scale) is
+    bit-equal to the loaded one on both ranks, and every factor moved."""
+    plan, _, got, _ = run
+    sd = plan["steps"]["lora"]["state_dict"]
+    for res in got:
+        step = res["steps"]["lora"]
+        assert step["frozen_moved"] == []
+        moved = [n for n, a in step["params"].items()
+                 if n != "logit_scale" and not np.array_equal(a, sd[n])]
+        assert sorted(moved) == sorted(n for n in step["params"]
+                                       if n != "logit_scale")
+
+
+def test_lora_checkpoint_round_trips(run):
+    """The collective checkpoint of the LoRA state reloads into the two
+    ranks bit for bit, and a load into one process (an unplaced state with
+    its factors attached) equals the gathered state, factors and their
+    moments included."""
+    from vitlens_tpu_torch.train import checkpoint as C
+
+    plan, _, got, _ = run
+    ck = [r["ckpt_lora"] for r in got]
+    assert ck[0]["path"] == ck[1]["path"] and all(c["reloaded"] for c in ck)
+    _, _, _, state = _state(plan["steps"]["lora"])
+    C.load_checkpoint_sharded(ck[0]["path"], state)
+    g = ck[0]["gathered"]
+    assert any(".lora." in n for n in g["mu"])
+    for n, p in state.model.named_parameters():
+        np.testing.assert_array_equal(p.detach().numpy(), g["params"][n], err_msg=n)
+    for k in ("mu", "nu"):
+        assert sorted(state.opt_state[k]) == sorted(g[k])
+        for n, t in state.opt_state[k].items():
+            np.testing.assert_array_equal(t.numpy(), g[k][n], err_msg=n)
+
+
+def test_cli_train_fsdp_lora_saves_and_resumes(run):
+    """cli.train --fsdp --lora-rank 4 over two gloo ranks: the epoch's
+    collective checkpoint carries the factors; the second run resumes from
+    it after the placement and saves epoch 2."""
+    import torch.distributed.checkpoint as dcp
+
+    _, _, got, root = run
+    assert [r["cli_lora"] for r in got] == [[0, 0], [0, 0]]
+    run_dir = root / "cli" / "lora"
+    ck = run_dir / "checkpoints"
+    with open(ck / "latest.json") as f:
+        assert json.load(f) == {"tag": "epoch_2"}
+    keys = dcp.FileSystemReader(str(ck / "epoch_2")).read_metadata().state_dict_metadata
+    assert any(".lora.trunk.blocks.0.attn.qkv_w.a" in k for k in keys)
+    log = open(run_dir / "out.log").read()
+    assert f"resumed (sharded) from {ck / 'epoch_1'} (epoch 1)" in log
+    with open(run_dir / "results.jsonl") as f:
+        recs = [json.loads(line) for line in f]
     assert all(np.isfinite(r["train/loss"]) for r in recs if "train/loss" in r)

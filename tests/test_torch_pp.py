@@ -36,15 +36,28 @@ cases, on each layout:
   the hook it runs plain;
 - the bf16 kernel routes through the wrappers' plain versions: attention
   and the fused MLP (L - skip) / S x M times a rank, at the microbatch's
-  shapes.
+  shapes;
+- two trained towers, both pipelined (M = 2), in one backward: the EEG
+  tower (4 blocks) and the causal text tower (4 blocks) under one
+  ``pipelined_trunks``, a contrastive loss over the global batch (the
+  features gathered over the data axis), every parameter trained, and
+  again with rank-2 LoRA factors on both trunks (the factors alone
+  trained), against ``jax.value_and_grad`` under JAX's
+  ``pipelined_trunks`` (loss 1e-5 relative, each gradient 1e-5 of
+  max|ref|; a factor's gradient from the stage that runs its block). The
+  ranks write the other cases' results first and run these under a 45 s
+  watchdog, so a hang fails these tests alone;
+- ``pipeline_place`` refuses an FSDP-placed tower.
 
 Run this file as a script (``python tests/test_torch_pp.py PLAN OUT``,
 torchrun's variables set) to run one rank.
 """
 
+import faulthandler
 import os
 import pickle
 import sys
+import threading
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -67,6 +80,9 @@ TAIL_M, TAIL_OUT = 4, 16
 TOWER_LAYERS = {"1x4": 4, "2x2": 2}
 TOWER_M = 2
 TOWER_B = 4
+TWO_B, TWO_M, TWO_LAYERS, TWO_RANK = 8, 2, 4, 2  # the two-tower cases
+TWO_CASES = ("plain", "lora")
+TWO_WATCHDOG_S = 45
 
 
 def _tower(C, layers, skip=None):
@@ -245,6 +261,89 @@ def _run_routes(plan, mesh):
     return out
 
 
+def _text_arch(C):
+    """The two-tower cases' causal text trunk: width 32, 2 heads,
+    ``TWO_LAYERS`` blocks, 8 tokens."""
+    return C.TextArch(context_length=8, vocab_size=50, width=32, heads=2,
+                      layers=TWO_LAYERS)
+
+
+def _clip_loss(v, t):
+    """The symmetric contrastive loss of features ``v`` and ``t`` [B, E] at
+    logit scale 10 (``_jax_clip_loss`` is JAX's)."""
+    logits = 10.0 * (v / v.norm(dim=-1, keepdim=True)) @ (
+        t / t.norm(dim=-1, keepdim=True)).T
+    n = torch.arange(logits.shape[0])
+    return -(torch.log_softmax(logits, -1)[n, n].mean()
+             + torch.log_softmax(logits.T, -1)[n, n].mean()) / 2
+
+
+def _run_two_towers(plan, mesh):
+    """{case: (loss, {name: gradient summed over the data axis})} of the
+    two-tower cases on ``mesh``: both towers pipeline_place'd, run under one
+    pipelined_trunks (M = 2), the features of every data rank gathered, the
+    global contrastive loss's backward (over data ranks, each computing it:
+    divided by their number)."""
+    from vitlens_tpu_torch.models.text import TextTower
+    from vitlens_tpu_torch.models.vit import VisionTower
+    from vitlens_tpu_torch.parallel.mesh import all_gather
+    from vitlens_tpu_torch.parallel.pp import pipeline_place, pipelined_trunks
+    from vitlens_tpu_torch.train.lora import lora_init, lora_mask
+
+    d, n_data = mesh.rank, mesh.data
+    out = {}
+    for case in TWO_CASES:
+        c = plan["two"][case]
+        towers = {"visual": VisionTower(c["vcfg"], device="cpu"),
+                  "text": TextTower(c["tcfg"], 32, device="cpu")}
+        for k, tower in towers.items():
+            if case == "lora":
+                lora_init(tower, TWO_RANK, torch.Generator())
+            tower.load_state_dict(c[k])
+            trains = (lora_mask(tower) if case == "lora" else
+                      dict.fromkeys(tower.state_dict(), True))
+            for n, p in tower.named_parameters():
+                p.requires_grad_(trains[n])
+            pipeline_place(tower, mesh)
+        x = torch.from_numpy(_rows(plan["two_x"], d, n_data))
+        text = torch.from_numpy(_rows(plan["two_text"], d, n_data)).long()
+        with pipelined_trunks(mesh, TWO_M):
+            v = towers["visual"](x)
+            t = towers["text"](text)
+        loss = _clip_loss(all_gather(v, mesh), all_gather(t, mesh))
+        (loss / n_data).backward()
+        grads = {}
+        for k, tower in towers.items():
+            grads.update({f"{k}.{n}": g for n, g in _grads(tower, mesh).items()
+                          if dict(tower.named_parameters())[n].requires_grad})
+        out[case] = (float(loss), grads)
+    return out
+
+
+def _fsdp_refused(plan) -> bool:
+    """True where pipeline_place refuses a tower whose blocks and whole
+    are FSDP2 units (fsdp_place's wrapping) over the data axis."""
+    from torch.distributed.fsdp import fully_shard
+
+    from vitlens_tpu_torch.models.vit import VisionTower
+    from vitlens_tpu_torch.parallel.fsdp import _device_mesh
+    from vitlens_tpu_torch.parallel.mesh import make_mesh
+    from vitlens_tpu_torch.parallel.pp import make_pipe_mesh, pipeline_place
+
+    case = plan["towers"]["tower_2x2"]
+    tower = VisionTower(case["pcfg"], device="cpu")
+    tower.load_state_dict(case["state_dict"])
+    dmesh = _device_mesh(make_mesh())
+    for block in tower.trunk.blocks:
+        fully_shard(block, mesh=dmesh)
+    fully_shard(tower, mesh=dmesh)
+    try:
+        pipeline_place(tower, make_pipe_mesh(2, 2))
+    except ValueError:
+        return True
+    return False
+
+
 def _tp_refused(plan) -> bool:
     """True where pipeline_place refuses a tower split over a model axis."""
     from vitlens_tpu_torch.models.vit import VisionTower
@@ -280,8 +379,17 @@ def _worker(plan_path, out_dir) -> int:
     except ValueError:
         res["bad_layout_raises"] = True
     res["tp_refused"] = _tp_refused(plan)
+    res["fsdp_refused"] = _fsdp_refused(plan)
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(res, f)
+    # a hang here must cost the two-tower tests alone: the other results
+    # are written, and the watchdog ends the rank with its stack in the log
+    faulthandler.dump_traceback_later(TWO_WATCHDOG_S, exit=True)
+    two = {name: _run_two_towers(plan, make_pipe_mesh(stages, n_data))
+           for name, (stages, n_data) in LAYOUTS.items()}
+    faulthandler.cancel_dump_traceback_later()
+    with open(os.path.join(out_dir, f"rank{rank}_two.pkl"), "wb") as f:
+        pickle.dump(two, f)
     torch.distributed.destroy_process_group()
     return 0
 
@@ -339,9 +447,15 @@ def _jax_trunks(name, p, plan):
     return out
 
 
+# JAX's pipelined_trunks hook is one module global, read at trace time: a
+# thread holds this while it traces under the hook
+_HOOK = threading.Lock()
+
+
 def _jax_hooked(towers, trunk3, plan):
-    """JAX's computations under its trace-time hook, one after another (the
-    hook is a module global): each tower's features and gradients under
+    """JAX's computations under its trace-time hook, each traced holding
+    :data:`_HOOK` and compiled after: each tower's
+    features and gradients under
     pipelined_trunks after pipeline_place, and the 3-block trunk's forward
     under the hook (plain) with its shard_trunk_pipeline's assert."""
     import jax
@@ -361,10 +475,12 @@ def _jax_hooked(towers, trunk3, plan):
         def feats(p, v):
             return vision_tower_apply(p, state, v, jcfg)[0]
 
-        with pipelined_trunks(mesh, n_microbatches=TOWER_M):
-            f = jax.jit(feats)(placed, x)
-            g = jax.jit(jax.grad(lambda p, v: jnp.sum(feats(p, v) * ct)))(placed, x)
-        out["towers"][case] = (np.asarray(f), jax.device_get(g))
+        with _HOOK, pipelined_trunks(mesh, n_microbatches=TOWER_M):
+            f = jax.jit(feats).lower(placed, x)
+            g = jax.jit(jax.grad(lambda p, v: jnp.sum(feats(p, v) * ct))).lower(
+                placed, x)
+        out["towers"][case] = (np.asarray(f.compile()(placed, x)),
+                               jax.device_get(g.compile()(placed, x)))
     for name in LAYOUTS:
         mesh = _jax_mesh(name)
         try:
@@ -372,11 +488,111 @@ def _jax_hooked(towers, trunk3, plan):
             out["three_raises"][name] = False
         except AssertionError:
             out["three_raises"][name] = True
-        with pipelined_trunks(mesh, n_microbatches=2):
-            out["three"][name] = np.asarray(jax.jit(
-                lambda p, v: transformer(v, p, HEADS, gelu))(
-                    trunk3, jnp.asarray(plan["x"])))
+        with _HOOK, pipelined_trunks(mesh, n_microbatches=2):
+            three = jax.jit(lambda p, v: transformer(v, p, HEADS, gelu)).lower(
+                trunk3, jnp.asarray(plan["x"]))
+        out["three"][name] = np.asarray(three.compile()(
+            trunk3, jnp.asarray(plan["x"])))
     return out
+
+
+def _jax_clip_loss(v, t):
+    """:func:`_clip_loss` in JAX."""
+    import jax
+    import jax.numpy as jnp
+
+    logits = 10.0 * (v / jnp.linalg.norm(v, axis=-1, keepdims=True)) @ (
+        t / jnp.linalg.norm(t, axis=-1, keepdims=True)).T
+    d = jnp.arange(logits.shape[0])
+    return -(jax.nn.log_softmax(logits, -1)[d, d].mean()
+             + jax.nn.log_softmax(logits.T, -1)[d, d].mean()) / 2
+
+
+def _two_towers_init(plan, vision):
+    """The two-tower cases' JAX trees ({case: (vision config, text arch,
+    vision params, vision state, text params)}; the LoRA case's trees carry
+    rank-2 factors with b away from zero) and their port state dicts in
+    ``plan["two"]``; the global batch in ``plan["two_x"]`` and
+    ``plan["two_text"]`` (each text's highest id, its EOT, at a random
+    place). ``vision``: the tower_1x4 case's (config, params, state)."""
+    import jax
+
+    from tests.test_torch_fsdp import _with_lora
+    from tests.test_torch_tp import _biased
+    from vitlens_tpu import config as JC
+    from vitlens_tpu.models.text import text_tower_init
+    from vitlens_tpu_torch import config as PC
+    from vitlens_tpu_torch.models.text import TextTower
+    from vitlens_tpu_torch.models.vit import VisionTower
+    from vitlens_tpu_torch.train.lora import lora_init
+    from vitlens_tpu_torch.weights.from_jax import load_params
+
+    rng = np.random.RandomState(21)
+    plan["two_x"] = rng.randn(TWO_B, 8, 16).astype(np.float32)
+    text = rng.randint(1, 49, size=(TWO_B, 8)).astype(np.int32)
+    text[np.arange(TWO_B), rng.randint(1, 8, size=TWO_B)] = 49
+    plan["two_text"] = text
+    vj, vp, vs = vision
+    tj = _text_arch(JC)
+    tp = text_tower_init(jax.random.PRNGKey(32), tj, 32)
+    tp = dict(tp, trunk=_biased(tp["trunk"], 32))
+    lora = _with_lora({"visual": vp, "text": tp},
+                      {"visual": TWO_RANK, "text": TWO_RANK}, seed=33)
+    trees = {"plain": (vj, tj, vp, vs, tp),
+             "lora": (vj, tj, lora["visual"], vs, lora["text"])}
+    plan["two"] = {}
+    for case, (_, _, v, _, t) in trees.items():
+        vcfg, tcfg = _tower(PC, TWO_LAYERS), _text_arch(PC)
+        towers = (VisionTower(vcfg, device="cpu"), TextTower(tcfg, 32, device="cpu"))
+        if case == "lora":
+            for tower in towers:
+                lora_init(tower, TWO_RANK, torch.Generator())
+        plan["two"][case] = {
+            "vcfg": vcfg, "tcfg": tcfg,
+            "visual": load_params(towers[0], v).state_dict(),
+            "text": load_params(towers[1], t).state_dict()}
+    return trees
+
+
+def _jax_two_towers(name, case, tree, plan):
+    """(loss, {port name: gradient}) of jax.value_and_grad of the global
+    contrastive loss on layout ``name``: both towers pipeline_place'd and
+    traced under JAX's pipelined_trunks (M = 2), the trace holding
+    :data:`_HOOK`, the compile not."""
+    import jax
+    import jax.numpy as jnp
+
+    from vitlens_tpu.models.text import text_tower_apply
+    from vitlens_tpu.models.vit import vision_tower_apply
+    from vitlens_tpu.parallel.pp import pipeline_place, pipelined_trunks
+    from vitlens_tpu_torch.weights.from_jax import flatten
+
+    vcfg, tcfg, vp, vs, tp = tree
+    x, text = jnp.asarray(plan["two_x"]), jnp.asarray(plan["two_text"])
+
+    def loss(p):
+        v = vision_tower_apply(p["visual"], vs, x, vcfg)[0]
+        return _jax_clip_loss(v, text_tower_apply(p["text"], text, tcfg))
+
+    mesh = _jax_mesh(name)
+    placed = {"visual": pipeline_place(vp, mesh), "text": pipeline_place(tp, mesh)}
+    with _HOOK, pipelined_trunks(mesh, n_microbatches=TWO_M):
+        lowered = jax.jit(jax.value_and_grad(loss)).lower(placed)
+    value, g = lowered.compile()(placed)
+    return float(value), flatten(jax.device_get(g))
+
+
+def _wait(ranks, root):
+    """``wait_ranks``; a failure after every rank wrote its results of the
+    other cases (so in the two-tower cases) is returned, not raised: it
+    fails those tests alone."""
+    try:
+        wait_ranks(*ranks)
+    except AssertionError as e:
+        if not all((root / f"rank{r}.pkl").exists() for r in range(WORLD)):
+            raise
+        return str(e)
+    return None
 
 
 @pytest.fixture(scope="module")
@@ -416,24 +632,32 @@ def run(tmp_path_factory):
         towers[case] = (jcfg, p, s)
         plan["towers"][case] = {"pcfg": pcfg, "state_dict": load_params(
             VisionTower(pcfg, device="cpu"), p).state_dict()}
+    trees = _two_towers_init(plan, towers["tower_1x4"])
     with open(root / "plan.pkl", "wb") as f:
         pickle.dump(plan, f)
     ranks = start_ranks([sys.executable, os.path.abspath(__file__),
                          str(root / "plan.pkl"), str(root)], str(root / "logs"),
                         world=WORLD)
     try:
-        with ThreadPoolExecutor(3) as pool:
+        with ThreadPoolExecutor(7) as pool:
             trunks = {n: pool.submit(_jax_trunks, n, trunk, plan) for n in LAYOUTS}
             hooked = pool.submit(_jax_hooked, towers, trunk3, plan)
+            two = {(n, c): pool.submit(_jax_two_towers, n, c, tree, plan)
+                   for n in LAYOUTS for c, tree in trees.items()}
             jax_out = {"trunks": {n: f.result() for n, f in trunks.items()},
                        "hooked": hooked.result(), "trunk": trunk,
-                       "towers": {c: v[1] for c, v in towers.items()}}
+                       "towers": {c: v[1] for c, v in towers.items()},
+                       "two": {k: f.result() for k, f in two.items()}}
     finally:
-        wait_ranks(*ranks)
+        two_failed = _wait(ranks, root)
+    jax_out["two_failed"] = two_failed
     got = []
     for r in range(WORLD):
         with open(root / f"rank{r}.pkl", "rb") as f:
             got.append(pickle.load(f))
+        if two_failed is None:
+            with open(root / f"rank{r}_two.pkl", "rb") as f:
+                got[r]["two"] = pickle.load(f)
     return plan, jax_out, got
 
 
@@ -635,3 +859,48 @@ def test_kernel_routes(run, name):
                       else calls(2, rows))}
     for res in got:
         assert res[name]["routes"] == want
+
+
+# -- two trained towers in one backward ---------------------------------------------
+
+
+@pytest.mark.parametrize("case", TWO_CASES)
+@pytest.mark.parametrize("name", list(LAYOUTS))
+def test_two_trained_towers_pipelined_in_one_backward(run, name, case):
+    """The vision and the text tower, both pipelined (M = 2) under one
+    pipelined_trunks and trained by one backward of a contrastive loss over
+    the global batch, every parameter ("plain") or the LoRA factors of
+    both trunks alone ("lora"): the loss on every rank 1e-5 relative to
+    JAX's, and each gradient (summed over the data axis) 1e-5 of its
+    max|ref| against jax.value_and_grad under JAX's pipelined_trunks; a
+    trunk block's (or its factors') from the stage that runs it, the others
+    on every rank. The ranks run these cases under a watchdog: a hang ends
+    them within 45 s and fails these tests alone."""
+    _, jax_out, got = run
+    assert jax_out["two_failed"] is None, jax_out["two_failed"]
+    loss, want = jax_out["two"][name, case]
+    merged, seen = {}, set()
+    for r, res in enumerate(got):
+        d, _ = _place(r, name)
+        got_loss, grads = res["two"][name][case]
+        assert _rel(got_loss, loss) < 1e-5, r
+        seen.update(grads)
+        for n, g in grads.items():
+            if ".trunk.blocks." in n:
+                if d == 0:
+                    merged[n] = merged.get(n, 0) + g
+            else:
+                assert _rel(g, want[n]) < 1e-5, (r, n)
+    trained = [n for n in want if case == "plain" or (
+        ".lora." in n and n.endswith((".a", ".b")))]
+    assert sorted(seen) == sorted(trained)
+    assert len(trained) == (len(want) if case == "plain" else 2 * 4 * 4 * 2)
+    for n, g in merged.items():
+        assert _rel(g, want[n]) < 1e-5, n
+
+
+def test_pipeline_place_refuses_fsdp_tower(run):
+    """A tower wrapped by FSDP2 as fsdp_place wraps it (each trunk block,
+    then the tower) is refused by pipeline_place on every rank."""
+    _, _, got = run
+    assert [res["fsdp_refused"] for res in got] == [True] * WORLD

@@ -36,7 +36,15 @@ cases:
   rc 0 on every rank, the logged losses and the eval's metrics equal one
   process's run at twice the batch (1e-5 relative), the collective epoch
   checkpoint, and a second run that resumes from it after the 2D
-  placement.
+  placement;
+- LoRA on the split trunk: the 2D step of the tiny model with rank-4
+  factors on the visual trunk (split over the model axis) and rank-1
+  factors on the text trunk (FSDP alone), every tower locked, against
+  JAX's ``fsdp_tp_place`` step on the tree carrying ``"lora"`` (the same
+  bars; every base weight bit-equal after the step), its placements leaf
+  by leaf (the factors whole over the model axis, FSDP over data) and its
+  checkpoint; ``cli.train --tp 2 --lora-rank 4 --lora-towers visual,text``
+  against one process's run and resumed.
 
 Run this file as a script (``python tests/test_torch_tp.py PLAN OUT``,
 torchrun's variables set) to run one rank.
@@ -62,6 +70,7 @@ OPT = dict(lr=1e-3, warmup=1, total_steps=100)
 DIM, HEADS, LAYERS = 32, 2, 3            # tests/test_sp.py's trunk
 TRUNK_CASES = {"n8": (8, False), "n9": (9, False), "n9_causal": (9, True)}
 TOWERS = {"tower": (64, 16), "heads3": (48, 16)}  # width, head width
+LORA_FLAGS = ("--lora-rank", "4", "--lora-towers", "visual,text")
 
 
 def _tower(C, width=64, head_width=16):
@@ -197,13 +206,12 @@ def _run_routes(plan, mesh):
 def _state(case, mesh=None):
     """(model, tx, mask, state) of the step case, 2D-placed over ``mesh``
     when given."""
+    from tests.test_torch_fsdp import _model
     from vitlens_tpu_torch.factory import make_trainable_
-    from vitlens_tpu_torch.models.tri import TriModel
     from vitlens_tpu_torch.parallel.fsdp import fsdp_tp_place
     from vitlens_tpu_torch.train import step as S
 
-    model = TriModel(case["pcfg"], device="cpu")
-    model.load_state_dict(case["state_dict"])
+    model = _model(case)
     mask = case["mask"]
     tx, mask = S.make_optimizer(model, S.OptimizerConfig(**OPT), mask)
     make_trainable_(model, mask, torch.float32)
@@ -304,7 +312,10 @@ def _worker(plan_path, out_dir) -> int:
     res["trunks"] = _run_trunks(plan, mesh)
     res["routes"] = _run_routes(plan, mesh)
     res["step"] = _run_step(plan["step"], mesh, plan["ckpt_root"])
+    res["step_lora"] = _run_step(plan["step_lora"], mesh,
+                                 plan["ckpt_root_lora"])
     res["cli"] = _run_cli(T, [plan["cli"], plan["cli_resume"]])
+    res["cli_lora"] = _run_cli(T, [plan["cli_lora"], plan["cli_lora_resume"]])
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(res, f)
     torch.distributed.destroy_process_group()
@@ -388,8 +399,9 @@ def _jax_trunk(params, x, mask, ct):
     return np.asarray(y), jax.device_get(gp), np.asarray(gx)
 
 
-def _jax_step(jcfg, params, state, batch):
-    """JAX's 2D step (tests/test_fsdp.py's) with its gradients kept."""
+def _jax_step(jcfg, params, state, batch, mask=None):
+    """JAX's 2D step (tests/test_fsdp.py's) with its gradients kept;
+    ``mask`` as ``make_optimizer``'s (None: every leaf trains)."""
     import jax
     import jax.numpy as jnp
     import optax
@@ -397,7 +409,8 @@ def _jax_step(jcfg, params, state, batch):
     from vitlens_tpu.parallel.fsdp import fsdp_tp_place
     from vitlens_tpu.train import step as JStep
 
-    jtx, jmask = JStep.make_optimizer(params, JStep.OptimizerConfig(**OPT))
+    jtx, jmask = JStep.make_optimizer(params, JStep.OptimizerConfig(**OPT),
+                                      mask)
     tx = optax.chain(_stash(), jtx)
     mesh = _jax_mesh()
     jstep = JStep.make_train_step(jcfg, tx, jmask, JStep.StepConfig(
@@ -444,6 +457,8 @@ def run(tmp_path_factory):
     ranks' results, root)."""
     import jax
 
+    from tests.test_torch_fsdp import (_jax_mask, _lora_ranks, _unloaded,
+                                       _with_lora)
     from tests.test_torch_train import _per_param
     from tests.test_train_step import tiny_batch, tiny_model_cfg
     from vitlens_tpu import config as JC
@@ -461,7 +476,13 @@ def run(tmp_path_factory):
     plan = {"towers": {}, "trunks": {}, "ckpt_root": str(root / "ckpt"),
             "cli": _cli_argv(root / "cli", "tp", 2, "--tp", "2", "--epochs", "1"),
             "cli_resume": _cli_argv(root / "cli", "tp", 2, "--tp", "2",
-                                    "--epochs", "2", "--resume", "latest")}
+                                    "--epochs", "2", "--resume", "latest"),
+            "ckpt_root_lora": str(root / "ckpt_lora"),
+            "cli_lora": _cli_argv(root / "cli", "lora", 2, "--tp", "2",
+                                  "--epochs", "1", *LORA_FLAGS),
+            "cli_lora_resume": _cli_argv(root / "cli", "lora", 2, "--tp", "2",
+                                         "--epochs", "2", "--resume",
+                                         "latest", *LORA_FLAGS)}
     jax_towers = {}
     for i, (name, (width, hw)) in enumerate(TOWERS.items()):
         jcfg, pcfg = _tower(JC, width, hw), _tower(PC, width, hw)
@@ -490,6 +511,14 @@ def run(tmp_path_factory):
     plan["step"] = {"pcfg": _tiny(PC), "state_dict": model.state_dict(),
                     "mask": _per_param(ones_like_mask(params), params),
                     "batch": batch}
+    lparams = _with_lora(params, {"visual": 4, "text": 1})
+    lmask = _jax_mask(lparams, jcfg, dict(lock_image=True, lock_text=True,
+                                          lock_visual=True))
+    lcase = {"pcfg": _tiny(PC), "lora": _lora_ranks(lparams)}
+    lmodel = load_tri_params(_unloaded(lcase), lparams)
+    lbatch = tiny_batch(np.random.RandomState(8), 16)
+    plan["step_lora"] = dict(lcase, state_dict=lmodel.state_dict(),
+                             mask=_per_param(lmask, lparams), batch=lbatch)
     with open(root / "plan.pkl", "wb") as f:
         pickle.dump(plan, f)
     ranks = start_ranks([sys.executable, os.path.abspath(__file__),
@@ -503,15 +532,21 @@ def run(tmp_path_factory):
                                      c["ct"])
                       for n, c in plan["trunks"].items()}
             step = pool.submit(_jax_step, jcfg, params, state, batch)
+            step_lora = pool.submit(_jax_step, jcfg, lparams, state, lbatch,
+                                    lmask)
             from vitlens_tpu_torch.cli import train as T
 
             one = _run_cli(T, [_cli_argv(root / "one", "one", 4, "--epochs",
                                          "1")])
+            one_lora = _run_cli(T, [_cli_argv(root / "one", "lora", 4,
+                                              "--epochs", "1", *LORA_FLAGS)])
             jax_out = {"towers": {n: f.result() for n, f in towers.items()},
                        "trunks": {n: f.result() for n, f in trunks.items()},
                        "step": step.result(), "trunk_params": tp_params,
                        "tower_params": {n: v[1] for n, v in jax_towers.items()},
-                       "step_params": params, "one": one}
+                       "step_params": params, "one": one,
+                       "step_lora": step_lora.result(), "one_lora": one_lora,
+                       "step_lora_params": lparams}
     finally:
         wait_ranks(*ranks)
     got = []
@@ -653,15 +688,21 @@ def test_fsdp_tp_placements_match_jax(run):
     its leaf: the visual trunk's TP weights split over the model axis
     (whole over data), the rest FSDP over the data axis at min_elems 128
     or whole."""
+    _check_2d_placements(run, "step")
+
+
+def _check_2d_placements(run, key):
+    """The placements of step case ``key`` against JAX's, leaf by leaf,
+    on every rank, and ``fsdp_tp_shardings`` on an unplaced model."""
     from torch.distributed.tensor import Shard
 
+    from tests.test_torch_fsdp import _unloaded
     from vitlens_tpu_torch.parallel.fsdp import fsdp_tp_shardings
-    from vitlens_tpu_torch.models.tri import TriModel
     from vitlens_tpu_torch.parallel.mesh import Mesh
 
     plan, jax_out, got, _ = run
-    _, _, _, specs = jax_out["step"]
-    params = jax_out["step_params"]
+    _, _, _, specs = jax_out[key]
+    params = jax_out[key + "_params"]
     model_axes = _port_axes(specs, params, "model")
     data_axes = _port_axes(specs, params, "data")
     want = {n: (("model", model_axes[n]) if model_axes[n] is not None else
@@ -669,15 +710,18 @@ def test_fsdp_tp_placements_match_jax(run):
             for n in model_axes}
     assert sum(isinstance(w, tuple) for w in want.values()) == 2 * 6
     assert sum(isinstance(w, Shard) for w in want.values()) > 10
+    trained = sorted(n for n, t in plan[key]["mask"].items() if t)
     for res in got:
-        placed = res["step"]["placed"]
+        placed = res[key]["placed"]
         assert placed["params"] == want
-        assert placed["mu"] == placed["nu"] == want
-    rule = fsdp_tp_shardings(TriModel(plan["step"]["pcfg"], device="meta"),
+        assert sorted(placed["mu"]) == trained
+        assert placed["mu"] == placed["nu"] == {n: want[n] for n in trained}
+    rule = fsdp_tp_shardings(_unloaded(plan[key]),
                              Mesh(devices=(torch.device("cpu"),), data=N_DATA,
                                   model=N_MODEL), min_elems=MIN_ELEMS)
     assert rule == {n: None if w is None else w if isinstance(w, tuple)
                     else ("data", w.dim) for n, w in want.items()}
+    return want
 
 
 def test_fsdp_tp_step_matches_jax(run):
@@ -685,22 +729,30 @@ def test_fsdp_tp_step_matches_jax(run):
     each FSDP shard once), equal on all four ranks; each gradient before
     AdamW 1e-5 of its max|ref|; the parameters after the step 5e-5
     absolute (tests/test_fsdp.py's bar), equal on all four ranks."""
+    _check_2d_step(run, "step")
+
+
+def _check_2d_step(run, key):
+    """Step case ``key`` against JAX's 2D step; returns the ranks'
+    results."""
     from vitlens_tpu_torch.weights.from_jax import flatten
 
     _, jax_out, got, _ = run
-    ts, jgrads, jm, _ = jax_out["step"]
-    res = [r["step"] for r in got]
+    ts, jgrads, jm, _ = jax_out[key]
+    res = [r[key] for r in got]
     for k in ("loss", "grad_norm", "logit_scale"):
         assert _rel(res[0]["metrics"][k], jm[k]) < 1e-5, k
         assert all(r["metrics"][k] == res[0]["metrics"][k] for r in res), k
     want_g, want_p = flatten(jgrads), flatten(ts.params)
-    assert sorted(res[0]["grads"]) == sorted(want_p)
+    assert sorted(res[0]["grads"]) == sorted(
+        n for n, t in run[0][key]["mask"].items() if t)
     for n, g in res[0]["grads"].items():
         assert _rel(g, want_g[n]) < 1e-5, n
     for n, p in res[0]["gathered"]["params"].items():
         np.testing.assert_allclose(p, want_p[n], rtol=0, atol=5e-5, err_msg=n)
         for r in res[1:]:
             np.testing.assert_array_equal(r["gathered"]["params"][n], p)
+    return res
 
 
 def test_tp_checkpoint_loads_whole_and_resumes(run):
@@ -761,5 +813,89 @@ def test_cli_train_tp_matches_one_process(run):
         with open(ck / f"epoch_{e}" / "meta.json") as f:
             meta = json.load(f)
         assert meta["sharded"] and meta["epoch"] == e
+    log = open(run_dir / "out.log").read()
+    assert f"resumed (sharded) from {ck / 'epoch_1'} (epoch 1)" in log
+
+
+# -- LoRA on the split trunk ----------------------------------------------------
+
+
+def test_fsdp_tp_lora_placements_match_jax(run):
+    """The LoRA state placed as JAX's fsdp_tp_place places the tree
+    carrying "lora": the visual trunk's base weights split over the model
+    axis, every factor (outside trunk.blocks) whole over the model axis
+    and FSDP over data by JAX's rule on its stacked leaf (the visual
+    rank-4 factors all sharded, some text rank-1 ones whole); the moments
+    are the trained names' alone."""
+    from torch.distributed.tensor import Shard
+
+    want = _check_2d_placements(run, "step_lora")
+    factors = {n: w for n, w in want.items()
+               if ".lora." in n and n.endswith((".a", ".b"))}
+    assert len(factors) == 2 * 2 * 4 * 2
+    assert all(isinstance(w, Shard) for n, w in factors.items()
+               if n.startswith("visual."))
+    assert any(w is None for n, w in factors.items() if n.startswith("text."))
+
+
+def test_fsdp_tp_lora_step_matches_jax(run):
+    """The 2D LoRA step against JAX's (loss, grad_norm and logit_scale
+    1e-5 relative, equal on all four ranks; each factor's gradient, summed
+    over the model axis, 1e-5 of its max|ref|; the parameters after the
+    step 5e-5 absolute); every base weight, the split ones gathered in
+    JAX's layout, is bit-equal to the loaded one after the step, and every
+    factor moved."""
+    plan = run[0]
+    res = _check_2d_step(run, "step_lora")
+    sd, mask = plan["step_lora"]["state_dict"], plan["step_lora"]["mask"]
+    for r in res:
+        for n, p in r["gathered"]["params"].items():
+            if not mask[n]:
+                np.testing.assert_array_equal(p, sd[n].numpy(), err_msg=n)
+            elif n != "logit_scale":
+                assert not np.array_equal(p, sd[n].numpy()), n
+
+
+def test_tp_lora_checkpoint_round_trips(run):
+    """The LoRA 2D state's collective checkpoint reloads into the four
+    ranks bit for bit and loads whole into one process (factors and their
+    moments included)."""
+    from vitlens_tpu_torch.train import checkpoint as C
+
+    plan, _, got, _ = run
+    assert all(r["step_lora"]["reloaded"] for r in got)
+    _, _, _, state = _state(plan["step_lora"])
+    C.load_checkpoint_sharded(got[0]["step_lora"]["path"], state)
+    g = got[0]["step_lora"]["gathered"]
+    assert any(".lora." in n for n in g["mu"])
+    for n, p in state.model.named_parameters():
+        np.testing.assert_array_equal(p.detach().numpy(), g["params"][n], err_msg=n)
+    for k in ("mu", "nu"):
+        assert sorted(state.opt_state[k]) == sorted(g[k])
+        for n, t in state.opt_state[k].items():
+            np.testing.assert_array_equal(t.numpy(), g[k][n], err_msg=n)
+
+
+def test_cli_train_tp_lora_matches_one_process(run):
+    """cli.train --tp 2 --lora-rank 4 --lora-towers visual,text over the
+    four ranks (the visual trunk split, its factors whole; the text tower
+    FSDP alone) logs one process's losses at twice the batch, 1e-5
+    relative, and the second run resumes from its collective checkpoint."""
+    _, jax_out, got, root = run
+    assert [r["cli_lora"] for r in got] == [[0, 0]] * WORLD
+    assert jax_out["one_lora"] == [0]
+
+    def records(run_dir):
+        with open(run_dir / "results.jsonl") as f:
+            return [json.loads(line) for line in f if "train/loss" in line]
+
+    run_dir = root / "cli" / "lora"
+    tp, one = records(run_dir), records(root / "one" / "lora")
+    assert len(tp) == 4 and len(one) == 2
+    for a, b in zip(tp, one):
+        assert _rel(a["train/loss"], b["train/loss"]) < 1e-5
+    ck = run_dir / "checkpoints"
+    with open(ck / "latest.json") as f:
+        assert json.load(f) == {"tag": "epoch_2"}
     log = open(run_dir / "out.log").read()
     assert f"resumed (sharded) from {ck / 'epoch_1'} (epoch 1)" in log

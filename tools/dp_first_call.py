@@ -10,6 +10,9 @@
     python3 tools/dp_first_call.py --tp --plant [NAME]    # 4tp (b), faults
     python3 tools/dp_first_call.py --pp      # point-to-point probe, phase 4pp
     python3 tools/dp_first_call.py --pp --plant [NAME]    # 4pp, faults
+    python3 tools/dp_first_call.py --lora    # the LoRA parts of 4fs, 4tp, 4pp
+    python3 tools/dp_first_call.py --fsdp --lora          # 4fs (b)'s alone
+    python3 tools/dp_first_call.py --tp --lora   # 4tp (b)'s and 4pp (c)'s
 
 1. two ranks that both take cuda:0 under NCCL: prints what NCCL says (it
    refuses two ranks on one device);
@@ -56,6 +59,12 @@ backward's all-reduce: the pre-trunk gradients are zero on the stages past
 the first) and ``stored-depth-stages`` (the stages split the stored blocks,
 ignoring ``skip_first_n``: the vitlensG stages run 0, 8, 12 and 12 of its
 32 blocks).
+
+With ``--lora``: the gloo and FSDP2-over-gloo probes, then the LoRA
+sub-phases alone: 4fs (b)'s LoRA recipe in two rank processes
+(chip_smoke.py ``--dp-rank --lora``), then 4tp (b)'s LoRA step and 4pp
+(c)'s LoRA variant in four (``--tp-rank --lora``). ``--fsdp --lora`` runs
+the first of those, ``--tp --lora`` (or ``--pp --lora``) the second.
 """
 
 from __future__ import annotations
@@ -505,6 +514,38 @@ def pp_main() -> int:
     return 0
 
 
+def lora_main(fsdp: bool = True, tp: bool = True) -> int:
+    """The probes, then the LoRA sub-phases of 4fs (b) (``fsdp``) and of
+    4tp (b) and 4pp (c) (``tp``) as chip_smoke.py runs them."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    import chip_smoke as CS
+    from vitlens_tpu_torch.ops import _build
+
+    t0 = time.time()
+    _build.library()
+    card = CS.card_line()
+    print(f"{card} | torch {torch.__version__} cuda {torch.version.cuda}; "
+          f"kernels built in {time.time() - t0:.1f} s", flush=True)
+    if run_probe("gloo") != [0, 0]:
+        CS.fail("gloo collectives on CUDA tensors")
+    if fsdp and run_probe("fsdp") != [0, 0]:
+        CS.fail("FSDP2 over gloo on CUDA tensors")
+    totals = dict.fromkeys(CS.COUNTED, 0)
+    if fsdp:
+        t = time.time()
+        CS.dp_ranks_phase(torch, totals, card, lora_only=True)
+        print(f"[4fs lora] {card} | {time.time() - t:.1f} s", flush=True)
+    if tp:
+        t = time.time()
+        CS.tp_ranks_phase(torch, totals, card, lora_only=True)
+        print(f"[4tp, 4pp lora] {card} | {time.time() - t:.1f} s", flush=True)
+    print(f"[done] {card} | launches {totals}; {time.time() - t0:.1f} s",
+          flush=True)
+    return 0
+
+
 def main(fsdp: bool = False) -> int:
     import numpy as np
     import torch
@@ -575,6 +616,12 @@ if __name__ == "__main__":
         sys.exit(plant_rank(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--plant"]:
         sys.exit(plant_main())
+    if sys.argv[1:2] == ["--lora"]:
+        sys.exit(lora_main())
+    if sys.argv[1:3] == ["--fsdp", "--lora"]:
+        sys.exit(lora_main(tp=False))
+    if sys.argv[1:3] in (["--tp", "--lora"], ["--pp", "--lora"]):
+        sys.exit(lora_main(fsdp=False))
     if sys.argv[1:3] == ["--fsdp", "--plant"]:
         sys.exit(plant_main(tuple(sys.argv[3:]) or FS_FAULTS, "fsdp:"))
     if sys.argv[1:2] == ["--fsdp"]:

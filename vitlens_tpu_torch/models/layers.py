@@ -23,14 +23,12 @@ Each module's ``init_(g)`` fills its parameters from the ``torch.Generator``
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from vitlens_tpu_torch.ops.attention import dot_product_attention
@@ -39,7 +37,7 @@ from vitlens_tpu_torch.ops.fused_ln_proj import (fused_ln_proj_applicable,
                                                  fused_ln_qkv)
 from vitlens_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_applicable
 from vitlens_tpu_torch.quant import int8_matmul
-from vitlens_tpu_torch.models.lora import merged_block_weights
+from vitlens_tpu_torch.models.lora import merged_block_weights, swapped_weights
 from vitlens_tpu_torch.parallel.mesh import (model_copy, model_gather,
                                              model_reduce_scatter, model_sum)
 
@@ -229,7 +227,17 @@ class ResBlock(nn.Module):
     the weights) or None. A block called with ``sp`` (a
     :class:`SequenceFrame`, from a :class:`Transformer` inside
     ``parallel.sp.sequence_sharded_activations``) holds this model rank's
-    rows of the sequence. Either takes :meth:`model_axis_forward`."""
+    rows of the sequence. Either takes :meth:`model_axis_forward`.
+
+    A block called with ``lora`` (a ``models.lora.LoRA`` and this block's
+    index in the trunk) runs on W + scale * a @ b for each weight it
+    adapts, merged here, inside the call: under FSDP2 after the block's
+    pre-forward hook has gathered W, under remat inside the block's
+    checkpoint, and in a split block on the rank's slice
+    (``models.lora.merged_block_weights``). The merged weights take the
+    paths any weight takes: kernel 1's save-preact variant and kernel 2
+    in an unsplit bf16 block, kernel 2 on the rank's heads in a split
+    one."""
 
     def __init__(self, dim: int, heads: int, mlp_ratio: float = 4.0,
                  ls_init_value: Optional[float] = None,
@@ -258,7 +266,10 @@ class ResBlock(nn.Module):
         return self.attn.qkv_w_q is not None
 
     def forward(self, x, mask: Optional[torch.Tensor] = None,
-                sp: Optional["SequenceFrame"] = None):
+                sp: Optional["SequenceFrame"] = None, lora=None):
+        if lora is not None:
+            with swapped_weights(self, merged_block_weights(*lora, self)):
+                return self.forward(x, mask, sp)
         if self.tp is not None or sp is not None:
             return self.model_axis_forward(x, mask, sp)
         if (not self.quantized and fused_ln_proj_available()
@@ -452,10 +463,11 @@ class Transformer(nn.Module):
         the scan body); it only acts while autograd records. See
         :func:`remat_policy` for its values. ``lora`` (``models/lora.py``)
         runs each block on its merged weights, merged inside the block's
-        checkpoint. Inside ``parallel.pp.pipelined_trunks`` a trunk whose
-        depth after ``skip_first_n`` divides the stages and whose batch
-        divides the microbatches runs the GPipe schedule instead (JAX's
-        gate; it takes precedence over sequence parallelism)."""
+        call (``ResBlock.forward``), and so inside its checkpoint. Inside
+        ``parallel.pp.pipelined_trunks`` a trunk whose depth after
+        ``skip_first_n`` divides the stages and whose batch divides the
+        microbatches runs the GPipe schedule instead (JAX's gate; it takes
+        precedence over sequence parallelism)."""
         first = skip_first_n or 0
         if _TRUNK_PIPELINE is not None:
             mesh, n_mb = _TRUNK_PIPELINE
@@ -488,23 +500,17 @@ def set_trunk_pipeline(cfg) -> None:
 
 def run_block(block, i: int, x, mask=None, policy: Optional[str] = None,
               lora=None, sp=None):
-    """Trunk block ``i`` on ``x``: on ``lora``'s merged weights where given,
-    recomputed in the backward pass under the remat ``policy``
-    (:func:`remat_policy`'s) while autograd records."""
-    if lora is not None:
-        block = functools.partial(_lora_block, lora, i, block)
+    """Trunk block ``i`` on ``x``: on ``lora``'s merged weights where given
+    (merged inside the block's call: ``ResBlock.forward``), recomputed in
+    the backward pass under the remat ``policy`` (:func:`remat_policy`'s)
+    while autograd records."""
+    args = (x, mask, sp) if lora is None else (x, mask, sp, (lora, i))
     if policy is None or not torch.is_grad_enabled():
-        return block(x, mask, sp)
+        return block(*args)
     if policy == "dots":
-        return checkpoint(block, x, mask, sp, use_reentrant=False,
+        return checkpoint(block, *args, use_reentrant=False,
                           context_fn=_save_2d_products_context)
-    return checkpoint(block, x, mask, sp, use_reentrant=False)
-
-
-def _lora_block(lora, i, block, x, mask, sp=None):
-    """Block ``i`` on W + scale * a @ b for each weight ``lora`` adapts."""
-    return functional_call(block, merged_block_weights(lora, i, block),
-                           (x, mask, sp))
+    return checkpoint(block, *args, use_reentrant=False)
 
 
 # The 2-D products of a block: the qkv and out projections and the plain

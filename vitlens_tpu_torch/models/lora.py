@@ -6,17 +6,26 @@ at ``lora.trunk.blocks.<i>.<target path>`` of the :class:`LoRA` module a
 tower carries as ``tower.lora``, beside ``lora.scale`` = alpha / r: the names
 ``weights/from_jax.py`` gives JAX's ``"lora"`` subtree. The merge
 W + scale * a @ b (:func:`merged_block_weights`) is model arithmetic, run
-block by block inside ``Transformer.forward`` (``models/layers.py``) under
-autograd.
+inside each block's own forward (``ResBlock.forward`` with ``lora=``, in
+``models/layers.py``) under autograd: under FSDP2 that is after the block's
+pre-forward hook has gathered its weights, and under remat inside the
+block's checkpoint. The block runs on the merged tensors put in its
+weights' places (:func:`swapped_weights`), not through
+``torch.func.functional_call``, which would call the block (and FSDP2's
+hooks on it) a second time.
 """
 
 from __future__ import annotations
 
 import logging
+from contextlib import contextmanager
 from typing import Dict, Sequence, Tuple
 
 import torch
 import torch.nn as nn
+
+from vitlens_tpu_torch.parallel.mesh import model_copy
+from vitlens_tpu_torch.parallel.tp import TRUNK_SPECS, local_part
 
 # dotted paths within one trunk block (models/layers.py ResBlock): every
 # matmul of the block
@@ -109,10 +118,50 @@ class LoRA(nn.Module):
 def merged_block_weights(lora: LoRA, i: int,
                          block: nn.Module) -> Dict[str, torch.Tensor]:
     """{dotted name in ``block``: W + scale * a @ b} of trunk block ``i``,
-    in W's dtype (JAX ``_merge_into``)."""
+    in W's dtype (JAX ``_merge_into``).
+
+    In a block split over a model axis (``block.tp``, ``parallel.tp``) W is
+    the rank's slice, and so is the delta: the factor on W's split axis is
+    cut as :func:`parallel.tp.local_part` cuts W (``b``'s columns, head by
+    head for the packed qkv, for a column-parallel W; ``a``'s rows for a
+    row-parallel one), the other stays whole; (a @ b)'s slice is the
+    product of those. The factors are whole on every model rank and each
+    rank's gradient covers its slice alone, so both pass Megatron's f
+    (``model_copy``) first, whose backward sums them over the model
+    axis."""
+    tp = getattr(block, "tp", None)
     out = {}
     for path, f in lora.factors(i):
+        name = ".".join(path)
         w = _get(block, path)
-        delta = lora.scale.to(w.dtype) * (f.a.to(w.dtype) @ f.b.to(w.dtype))
-        out[".".join(path)] = w + delta
+        a, b = f.a, f.b
+        if tp is not None:
+            a, b = model_copy(a, tp), model_copy(b, tp)
+            if TRUNK_SPECS[name] == 0:
+                a = local_part(name, a, block.attn.heads, tp.model,
+                               tp.model_rank)
+            else:
+                b = local_part(name, b, block.attn.heads, tp.model,
+                               tp.model_rank)
+        delta = lora.scale.to(w.dtype) * (a.to(w.dtype) @ b.to(w.dtype))
+        out[name] = w + delta
     return out
+
+
+@contextmanager
+def swapped_weights(module: nn.Module, weights: Dict[str, torch.Tensor]):
+    """Inside, each parameter of ``module`` named in ``weights`` (dotted
+    names) reads as the given tensor, which takes its slot as
+    ``torch.func.functional_call`` puts it; the parameters are back on
+    exit."""
+    saved = []
+    try:
+        for name, t in weights.items():
+            owner = module.get_submodule(name.rpartition(".")[0])
+            leaf = name.rpartition(".")[2]
+            saved.append((owner, leaf, owner._parameters[leaf]))
+            owner._parameters[leaf] = t
+        yield
+    finally:
+        for owner, leaf, p in reversed(saved):
+            owner._parameters[leaf] = p

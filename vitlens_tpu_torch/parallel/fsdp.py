@@ -23,6 +23,17 @@ moments follow their parameters: each becomes a ``DTensor`` of its
 parameter's placement, so the update is elementwise on the local shards.
 Buffers (the BatchNorm running statistics) stay whole on every rank.
 
+A tower's LoRA factors (``tower.lora``: ``lora.trunk.blocks.<i>.<target>.
+{a,b}``) sit under a ``blocks`` ModuleList, so the rule takes them on
+JAX's stacked ``[L, in, r]`` / ``[L, r, out]`` leaves as it takes a block's
+weights (at two ranks ``a`` shards ``in`` and ``b`` ``out`` where they pass
+``min_elems``). They belong to the tower's unit, not the blocks': the
+tower's pre-forward hook gathers them, they stay gathered until the
+backward (a tower is an FSDP2 root) and their gradients are
+reduce-scattered after it. Each block merges them into its own gathered
+weights inside its forward (``ResBlock.forward``), so the frozen base
+weights stay sharded outside it; AdamW runs on the factors' local shards.
+
 No mixed-precision policy: FSDP2 gathers the stored dtype, as JAX does (fp32
 masters, the frozen matmul weights in the compute dtype after
 ``factory.cast_matmul_weights_``).
@@ -178,10 +189,6 @@ def _fsdp_place(state, mesh: Mesh, min_elems: int, keep):
     model = state.model
     if fsdp_units(model):
         raise ValueError("the state is already placed")
-    if any(getattr(m, "lora", None) is not None for m in model.modules()):
-        raise NotImplementedError(
-            "LoRA under FSDP is not ported: the merge reads a block's "
-            "weights outside its forward")
     dmesh = _device_mesh(mesh)
     axes = param_axes(model, mesh.data, min_elems)
     axes.update(dict.fromkeys(keep))

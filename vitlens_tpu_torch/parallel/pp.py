@@ -33,7 +33,9 @@ and a closing ``psum`` gives every stage the last stage's banked outputs;
   them, the same collectives in the same order on every stage. Whether
   the pipeline records a graph at all is agreed over the pipe (one flag
   all-reduced), so that a stage whose blocks are frozen still answers its
-  neighbours.
+  neighbours; a trunk whose only trained tensors are its LoRA factors
+  (``lora``, merged inside each block) records one. A factor's gradient
+  is the stage's that runs its block; the other stages hold none.
 - A hop's route is fixed by the pipe group's backend: NCCL sends and
   receives the tensors themselves; gloo's ``send``/``recv`` read host
   memory only (on a CUDA tensor its TCP transport fails with ``writev:
@@ -44,9 +46,14 @@ and a closing ``psum`` gives every stage the last stage's banked outputs;
 As in JAX, nothing composes the pipe with tensor or sequence parallelism or
 FSDP: :func:`pipeline_place` refuses a TP-split or FSDP-placed tower, and a
 pipelined trunk takes precedence over the SP hook. Two pipelined trunks in
-one backward are ordered by their data flow (a transformer Lens feeds its
-trunk); two trained towers' trunks, whose backward passes autograd may
-interleave otherwise on each stage, are not pipelined in one graph.
+one backward, each threading its own token, meet in the same order on
+every rank: where one feeds the other (a transformer Lens and its trunk)
+by their data flow, and two trained towers' trunks (a contrastive loss
+over a vision and a text tower, or LoRA on both) because autograd runs a
+device's ready nodes latest-created first, so that on every stage the
+backward of the trunk that ran second in the forward runs whole before
+the other's. tests/test_torch_pp.py holds such a pair against JAX's
+``jax.grad`` on both layouts.
 """
 
 from __future__ import annotations
@@ -238,7 +245,9 @@ def pipeline_transformer(x: torch.Tensor, trunk: nn.Module,
     policy = "full" if remat_policy(remat) is not None else None
     grad = torch.is_grad_enabled() and _pipe_any(
         x.requires_grad or any(p.requires_grad for _, b in mine
-                               for p in b.parameters()), mesh)
+                               for p in b.parameters())
+        or (lora is not None and any(f.requires_grad
+                                     for f in lora.parameters())), mesh)
     with torch.set_grad_enabled(grad):
         xf = axis_copy(x, mesh.pipe_group)                      # f
         token = torch.zeros((), dtype=x.dtype, device=x.device,

@@ -29,6 +29,11 @@ is the block's own (a split block's MLP takes the plain composition, and
 its LN + qkv too: kernel 6, the opt-in, runs in unsplit blocks alone).
 Kernel 5 (the point encoder) sits in the pc tokenizer, which TP leaves
 whole, and runs as it does without TP.
+
+A tower's LoRA factors (``tower.lora``, ``train/lora.py``) stay whole on
+every model rank, as JAX's specs leave everything outside ``trunk.blocks``
+replicated; a split block merges its slice of the delta
+(``models.lora.merged_block_weights``).
 """
 
 from __future__ import annotations
@@ -121,9 +126,6 @@ def shard_vision_tower(tower: nn.Module, mesh: Mesh) -> nn.Module:
     if mesh.model_group is None:
         raise ValueError("tensor parallelism needs a mesh with a model axis "
                          "over processes: make_mesh(n_model=tp)")
-    if getattr(tower, "lora", None) is not None:
-        raise NotImplementedError("LoRA on a trunk split over a model axis is "
-                                  "not ported")
     tp, rank = mesh.model, mesh.model_rank
     with torch.no_grad():
         for block in tower.trunk.blocks:

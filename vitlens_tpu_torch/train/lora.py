@@ -11,13 +11,15 @@ frozen. As in JAX:
     that the adapted model at init is the base model), beside ``lora.scale``
     = alpha / r. These are the names ``weights/from_jax.py`` gives JAX's
     ``"lora"`` subtree, so a JAX tree loads whole.
-  * The merge W + scale * a @ b happens at forward time, block by block
-    inside ``Transformer.forward`` (``models/lora.py``
-    :func:`merged_block_weights`), under
-    autograd: gradients reach a and b while the base W stays frozen, and the
-    merged weights reach the kernels' autograd Functions (the fused MLP's
-    save-preact variant, attention) as any trunk weight does. The merge runs
-    inside a block's remat checkpoint, so a recomputed block merges again.
+  * The merge W + scale * a @ b happens at forward time, inside each
+    trunk block's own call (``ResBlock.forward``; ``models/lora.py``
+    :func:`merged_block_weights`), under autograd: gradients reach a and b
+    while the base W stays frozen, and the merged weights reach the
+    kernels' autograd Functions (the fused MLP's save-preact variant,
+    attention) as any trunk weight does. The merge runs inside a block's
+    remat checkpoint, so a recomputed block merges again; under FSDP2 it
+    reads the weights the block's unit has gathered, and in a block split
+    over a model axis it merges the rank's slice.
   * :func:`lora_mask` trains the factors alone (the scale is frozen);
     :func:`merge_lora` gives the merged weights, :func:`reset_lora` zeroes
     every ``b``.
