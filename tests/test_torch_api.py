@@ -3,6 +3,8 @@
 (the JAX model's export_params(), loaded with weights/from_jax.py) and the
 same inputs. ViT-B-16 keeps it to seconds; vitlensL runs the same code."""
 
+import copy
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -11,6 +13,9 @@ import torch
 from vitlens_tpu.api import ViTLens as JaxViTLens
 from vitlens_tpu_torch.api import ViTLens
 from vitlens_tpu_torch.weights.from_jax import load_params
+from tests.test_torch_threads import share_cores
+
+share_cores()
 
 CAPTIONS = ["a dog barking", "sea waves crashing on rocks", "an engine idles"]
 MODALITIES = ("audio", "text")
@@ -37,23 +42,34 @@ def _cosines(a, b):
     return (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
 
 
+def computing_in(jm, dtype):
+    """The JAX ViTLens ``jm`` with compute dtype ``dtype``: its towers
+    (weights and state) shared, its jit cache its own. The same model as
+    ``JaxViTLens(..., compute_dtype=dtype)`` given ``jm``'s weights, without
+    a second random init of every tower."""
+    out = copy.copy(jm)
+    out.compute_dtype, out._jit_cache = dtype, {}
+    return out
+
+
 @pytest.fixture(scope="module")
-def jax_params():
-    return JaxViTLens(model_var="vitlensB", modality_loaded=MODALITIES,
-                      seed=0).export_params()
+def jax_model():
+    return JaxViTLens(model_var="vitlensB", modality_loaded=MODALITIES, seed=0)
+
+
+@pytest.fixture(scope="module")
+def jax_params(jax_model):
+    return jax_model.export_params()
 
 
 @pytest.mark.parametrize("dtype,min_cos", [("float32", 0.99999),
                                            ("bfloat16", 0.99)])
-def test_encode_matches_jax(jax_params, dtype, min_cos):
+def test_encode_matches_jax(jax_model, jax_params, dtype, min_cos):
     """fp32: cosine >= 0.99999 per row. bf16 policy on both sides: cosine
     >= 0.99, computed in fp32."""
     jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
     tdt = torch.float32 if dtype == "float32" else torch.bfloat16
-    jm = JaxViTLens(model_var="vitlensB", modality_loaded=MODALITIES,
-                    compute_dtype=jdt)
-    for m in MODALITIES:
-        jm._towers[m]["params"] = jax_params[m]
+    jm = computing_in(jax_model, jdt)
     pm = ViTLens("vitlensB", MODALITIES, device="cpu", compute_dtype=tdt)
     for m in MODALITIES:
         load_params(pm.towers[m], jax_params[m])

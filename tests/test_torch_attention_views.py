@@ -18,6 +18,9 @@ from vitlens_tpu_torch.ops import attention as PA
 from vitlens_tpu_torch.ops.attention import causal_mask
 from vitlens_tpu_torch.ops.flash_attention import flash_attention
 from vitlens_tpu_torch.weights.from_jax import load_params
+from tests.test_torch_threads import share_cores
+
+share_cores()
 
 DTYPES = {"fp32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}
 

@@ -14,6 +14,9 @@ from vitlens_tpu.data import audio_decode as JD
 from vitlens_tpu.data import processors as JP
 from vitlens_tpu_torch.data import audio_decode as PD
 from vitlens_tpu_torch.data import processors as PP
+from tests.test_torch_threads import share_cores
+
+share_cores()
 
 
 def _signal(rate: int, seconds: float, channels: int, seed: int = 0) -> np.ndarray:

@@ -24,6 +24,9 @@ from vitlens_tpu_torch.models import tri as PT
 from vitlens_tpu_torch.models.tri import TriModel
 from vitlens_tpu_torch.weights import torch_convert as PTC
 from vitlens_tpu_torch.weights.from_jax import flatten, load_tri_params
+from tests.test_torch_threads import share_cores
+
+share_cores()
 
 transformers = pytest.importorskip("transformers")
 

@@ -18,6 +18,9 @@ import torch
 from vitlens_tpu.train import checkpoint as JC
 from vitlens_tpu_torch import api
 from vitlens_tpu_torch.train import checkpoint as PC
+from tests.test_torch_threads import share_cores
+
+share_cores()
 
 
 def _jstate(v):

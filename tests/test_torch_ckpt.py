@@ -28,6 +28,9 @@ from vitlens_tpu_torch.models.text import TextTower
 from vitlens_tpu_torch.models.vit import VisionTower
 from vitlens_tpu_torch.weights import torch_convert as PCV
 from vitlens_tpu_torch.weights.from_jax import flatten, load_params, load_state
+from tests.test_torch_threads import share_cores
+
+share_cores()
 
 TRUNK = "ViT-Tiny-Test"
 VISUAL = ("image", "tactile", "audio", "pc")

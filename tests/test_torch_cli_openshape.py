@@ -17,6 +17,9 @@ import torch
 
 from vitlens_tpu_torch.cli import train_openshape as PCLI
 from vitlens_tpu_torch.train import checkpoint as C
+from tests.test_torch_threads import share_cores
+
+share_cores()
 
 
 @pytest.fixture(scope="module")

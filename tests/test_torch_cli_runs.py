@@ -18,6 +18,9 @@ import numpy as np
 from test_torch_cli_train import (SYNTH, _audio_files, _common, _port,
                                   _records)
 from test_torch_cli_train import pretrained  # noqa: F401 - the fixture
+from tests.test_torch_threads import child_env, share_cores
+
+share_cores()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -45,7 +48,7 @@ def test_resume_latest_continues(tmp_path, pretrained):
 def test_sigterm_preemption_and_resume(tmp_path, pretrained):
     """SIGTERM mid-train: a preempt_step_N checkpoint mirrored to
     epoch_latest, exit 0, and --resume latest continues the epoch."""
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = child_env(1, {"PYTHONPATH": REPO})
     cmd = [sys.executable, "-m", "vitlens_tpu_torch.cli.train",
            *_common(pretrained, tmp_path, "--dataset-type", "synthetic",
                     "--train-data", "synthetic", "--train-num-samples", "8",

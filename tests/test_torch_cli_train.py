@@ -28,6 +28,9 @@ import jax
 
 from tools import reference_layout as RL
 from vitlens_tpu_torch import config as PC
+from tests.test_torch_threads import share_cores
+
+share_cores()
 
 LR = 5e-4
 

@@ -25,6 +25,9 @@ from vitlens_tpu_torch.models import coca as PC
 from vitlens_tpu_torch.parallel.mesh import make_mesh
 from vitlens_tpu_torch.train.losses import coca_loss
 from vitlens_tpu_torch.weights.from_jax import flatten, load_coca_params
+from tests.test_torch_threads import share_cores
+
+share_cores()
 
 GEN_KW = dict(sot_token_id=1, eos_token_id=63, pad_token_id=0, seq_len=8,
               min_seq_len=1)

@@ -7,6 +7,9 @@ import pytest
 
 from vitlens_tpu import config as JC
 from vitlens_tpu_torch import config as PC
+from tests.test_torch_threads import share_cores
+
+share_cores()
 
 
 @pytest.mark.parametrize("modality", ["audio", "image"])

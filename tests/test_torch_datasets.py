@@ -24,6 +24,9 @@ from tools.reference_layout import pcm_from_float, write_flac, write_wav
 from vitlens_tpu.data import datasets as JD
 from vitlens_tpu.data import lmdb_reader as JL
 from vitlens_tpu_torch.data import datasets as PD
+from tests.test_torch_threads import share_cores
+
+share_cores()
 
 SR = 16000
 

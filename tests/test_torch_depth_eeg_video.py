@@ -35,6 +35,10 @@ from vitlens_tpu_torch.data.rng import ThreadLocalRNG
 from vitlens_tpu_torch.models.vit import VisionTower
 from vitlens_tpu_torch.weights import torch_convert as PCV
 from vitlens_tpu_torch.weights.from_jax import flatten, load_params, load_state
+from tests.test_torch_api import computing_in
+from tests.test_torch_threads import share_cores
+
+share_cores()
 
 NEW = ("depth", "eeg", "video")
 
@@ -134,6 +138,15 @@ def _tower_cfgs(name):
     return cfgs
 
 
+def _jax_tower(p, s, x, jcfg):
+    """vision_tower_apply's features in fp32 and under bf16 compute, each
+    one jax.jit of the tower (op-by-op dispatch of a ViT-B-wide tower costs
+    several times its compile)."""
+    return [jax.jit(lambda p_, s_, x_: vision_tower_apply(
+        p_, s_, x_, jcfg, compute_dtype=dt)[0])(p, s, x)
+        for dt in (jnp.float32, jnp.bfloat16)]
+
+
 @pytest.mark.parametrize("name", list(TOWERS))
 def test_towers_match_jax(name):
     """The whole tower against ``vision_tower_apply`` with JAX's weights:
@@ -152,12 +165,10 @@ def test_towers_match_jax(name):
     if name == "video_no_ltpos":
         assert tower.adapter.ltpos is None and "ltpos" not in p["adapter"]
     x = _inputs(modality, pcfg, seed=11)
-    want, _ = vision_tower_apply(p, s, jnp.asarray(x), jcfg)
+    want, want16 = _jax_tower(p, s, jnp.asarray(x), jcfg)
     got = tower(torch.from_numpy(x))
     assert tuple(got.shape) == (2, 512)
     assert _rel(got.numpy(), want) < 1e-5
-    want16, _ = vision_tower_apply(p, s, jnp.asarray(x), jcfg,
-                                   compute_dtype=jnp.bfloat16)
     got16 = tower(torch.from_numpy(x), torch.bfloat16)
     assert got16.dtype == torch.bfloat16
     assert _cos(_np(got16), _np(want16)).min() >= 0.99
@@ -176,8 +187,8 @@ def test_create_model_encodes_the_new_modalities():
         model = create_model("ViT-Tiny-Test", m, device="cpu")
         load_params(model.visual, params["visual"])
         x = _inputs(m, model.cfg.tower, seed=i)
-        want, _ = JT.encode_visual(params, state, jnp.asarray(x), cfg,
-                                   normalize=True)
+        want, _ = jax.jit(lambda p, s, v: JT.encode_visual(
+            p, s, v, cfg, normalize=True))(params, state, jnp.asarray(x))
         got = PT.encode_visual(model, torch.from_numpy(x), normalize=True)
         assert _rel(got.detach().numpy(), want) < 1e-4, m
 
@@ -399,24 +410,27 @@ def files(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def jax_params():
-    return JaxViTLens(model_var="vitlensB", modality_loaded=MODALITIES,
-                      seed=0).export_params()
+def jax_model():
+    return JaxViTLens(model_var="vitlensB", modality_loaded=MODALITIES, seed=0)
+
+
+@pytest.fixture(scope="module")
+def jax_params(jax_model):
+    return jax_model.export_params()
 
 
 @pytest.mark.parametrize("dtype,min_cos", [("float32", 0.9999),
                                            ("bfloat16", 0.99)])
-def test_vitlens_encodes_files_like_jax(files, jax_params, dtype, min_cos):
+def test_vitlens_encodes_files_like_jax(files, jax_model, jax_params, dtype,
+                                        min_cos):
     """Depth (.npy, 16-bit .png), EEG (.pt, an array), video (frame
     directories of 12 and 5 frames) and captions through both
     ViTLens.encode, the same weights on both sides; vitlensB at full depth."""
     jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
     tdt = torch.float32 if dtype == "float32" else torch.bfloat16
-    jm = JaxViTLens(model_var="vitlensB", modality_loaded=MODALITIES,
-                    compute_dtype=jdt)
+    jm = computing_in(jax_model, jdt)
     pm = ViTLens("vitlensB", MODALITIES, device="cpu", compute_dtype=tdt)
     for m in MODALITIES:
-        jm._towers[m]["params"] = jax_params[m]
         load_params(pm.towers[m], jax_params[m])
     for m in MODALITIES:
         want = jm.encode({m: files[m]})[m]
@@ -427,12 +441,12 @@ def test_vitlens_encodes_files_like_jax(files, jax_params, dtype, min_cos):
         assert _cos(_np(got), _np(want)).min() >= min_cos, m
 
 
-def test_vitlens_warmup_shapes(jax_params):
+def test_vitlens_warmup_shapes(jax_model):
     """Warmup samples have JAX's shapes (depth [b, 1, hw, hw], EEG [b,
     chans, time_len], video [b, n_frames, 3, hw, hw]); warmup runs every
     (modality, bucket) encode, and a 5-D preprocessed video batch pads to
     its bucket with the rows unchanged."""
-    jm = JaxViTLens(model_var="vitlensB", modality_loaded=NEW)
+    jm = jax_model  # holds the NEW towers; a sample's shape is its config's
     pm = ViTLens("vitlensB", NEW, device="cpu", batch_buckets=(1, 4))
     for m in NEW:
         assert pm._warmup_sample(m, 3).shape == jm._warmup_sample(m, 3).shape

@@ -27,6 +27,9 @@ from vitlens_tpu_torch.ops.flash_attention import flash_attention_applicable
 from vitlens_tpu_torch.ops.fused_mlp import fused_mlp_applicable
 from vitlens_tpu_torch.ops.fused_point_encoder import point_encoder_applicable
 from vitlens_tpu_torch.weights.from_jax import load_params, load_state
+from tests.test_torch_threads import share_cores
+
+share_cores()
 
 SMALL = dict(npoints=256, num_group=16, group_size=32)
 DTYPES = {"fp32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}

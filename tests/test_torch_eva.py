@@ -23,6 +23,9 @@ from vitlens_tpu_torch.config import make_tower_config
 from vitlens_tpu_torch.models import eva as PE
 from vitlens_tpu_torch.models import layers as PL
 from vitlens_tpu_torch.weights.from_jax import load_params, load_state
+from tests.test_torch_threads import share_cores
+
+share_cores()
 
 ARCH = dict(image_size=28, patch_size=14, width=64, layers=3, head_width=16,
             mlp_ratio=4.3637, proj_dim=32)

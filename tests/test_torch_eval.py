@@ -14,6 +14,9 @@ from vitlens_tpu.eval import zero_shot as JZ
 from vitlens_tpu_torch.eval import metadata as PMD
 from vitlens_tpu_torch.eval import metrics as PM
 from vitlens_tpu_torch.eval import zero_shot as PZ
+from tests.test_torch_threads import share_cores
+
+share_cores()
 
 
 def _close(a, b, key=""):

@@ -20,6 +20,9 @@ import torch
 
 from vitlens_tpu.ops import fbank as JF
 from vitlens_tpu_torch.ops import fbank as PF
+from tests.test_torch_threads import share_cores
+
+share_cores()
 
 ATOL = 2e-4  # on the normalised output ((log e - mean) / std)
 MEAN, STD = -4.2677393, 4.5689974  # the AST normalisation: ATOL * STD on log e

@@ -13,6 +13,9 @@ import torch
 
 import vitlens_tpu.ops.fps as JF
 from vitlens_tpu_torch.ops import fps as PF
+from tests.test_torch_threads import share_cores
+
+share_cores()
 
 THREADS = 256  # csrc/fps.cu's CTA
 NO_INDEX = 0x7FFFFFFF

@@ -60,6 +60,9 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from tests.test_torch_parallel import start_ranks, wait_ranks  # noqa: E402
+from tests.test_torch_threads import share_cores  # noqa: E402
+
+share_cores()
 
 WORLD = 2
 MIN_ELEMS = 128
@@ -288,7 +291,6 @@ def _run_cli(argv_train, argv_resume):
 
 
 def _worker(plan_path, out_dir) -> int:
-    torch.set_num_threads(2)
     from vitlens_tpu_torch.parallel import fsdp as F
     from vitlens_tpu_torch.parallel.mesh import init_distributed, make_mesh
 

@@ -18,6 +18,9 @@ from vitlens_tpu_torch.models import layers as PL
 from vitlens_tpu_torch.ops import attention as PA
 from vitlens_tpu_torch.ops import flash_attention as PFA
 from vitlens_tpu_torch.weights.from_jax import load_params
+from tests.test_torch_threads import share_cores
+
+share_cores()
 
 
 def _x(*shape, seed=0):

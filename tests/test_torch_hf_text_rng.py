@@ -7,6 +7,9 @@ import torch
 import transformers
 
 from vitlens_tpu_torch.models.hf_text import HFTextEncoder
+from tests.test_torch_threads import share_cores
+
+share_cores()
 
 
 def _config_dir(tmp_path):

@@ -17,13 +17,18 @@ from vitlens_tpu.api import ViTLens as JaxViTLens
 from vitlens_tpu.config import image_tower_config as jax_image_tower_config
 from vitlens_tpu.config import make_model_config as jax_model_config
 from vitlens_tpu.data import processors as JP
-from vitlens_tpu.models.vit import vision_tower_apply, vision_tower_init
+from vitlens_tpu.models.vit import vision_tower_init
 from vitlens_tpu_torch import config as PC
 from vitlens_tpu_torch.adapters.tokenizers import patchify_2d
 from vitlens_tpu_torch.api import ViTLens
 from vitlens_tpu_torch.data import processors as PP
 from vitlens_tpu_torch.models.vit import VisionTower
 from vitlens_tpu_torch.weights.from_jax import load_params
+from tests.test_torch_api import computing_in
+from tests.test_torch_depth_eeg_video import _jax_tower
+from tests.test_torch_threads import share_cores
+
+share_cores()
 
 
 def _cos(a, b) -> np.ndarray:
@@ -91,12 +96,10 @@ def test_image_tower_matches_jax(modality):
     x = np.random.RandomState(7).randn(2, 3, 224, 224).astype(np.float32)
     tower = load_params(VisionTower(pcfg), p)
     assert tower.perceiver is None and tuple(tower.adapter.conv1.w.shape) == (768, 768)
-    want, _ = vision_tower_apply(p, s, jnp.asarray(x), jcfg)
+    want, want16 = _jax_tower(p, s, jnp.asarray(x), jcfg)
     got = tower(torch.from_numpy(x))
     want = np.asarray(want)
     assert np.abs(got.numpy() - want).max() / np.abs(want).max() < 1e-5
-    want16, _ = vision_tower_apply(p, s, jnp.asarray(x), jcfg,
-                                   compute_dtype=jnp.bfloat16)
     got16 = tower(torch.from_numpy(x), torch.bfloat16)
     assert got16.dtype == torch.bfloat16
     assert _cos(_np(got16), _np(want16)).min() >= 0.99
@@ -130,25 +133,28 @@ def files(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def jax_params():
-    return JaxViTLens(model_var="vitlensB", modality_loaded=MODALITIES,
-                      seed=0).export_params()
+def jax_model():
+    return JaxViTLens(model_var="vitlensB", modality_loaded=MODALITIES, seed=0)
+
+
+@pytest.fixture(scope="module")
+def jax_params(jax_model):
+    return jax_model.export_params()
 
 
 @pytest.mark.parametrize("dtype,min_cos", [("float32", 0.9999),
                                            ("bfloat16", 0.99)])
-def test_vitlens_encodes_files_like_jax(files, jax_params, dtype, min_cos):
+def test_vitlens_encodes_files_like_jax(files, jax_model, jax_params, dtype,
+                                        min_cos):
     """Image, tactile and audio files (WAV and FLAC, resampled, 3 clips)
     through both ViTLens.encode with no preprocessed flag; the same weights
     on both sides. fp32: cosine >= 0.9999 per row (the fbanks differ by up
     to 2e-4); bf16 compute on both sides: >= 0.99."""
     jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
     tdt = torch.float32 if dtype == "float32" else torch.bfloat16
-    jm = JaxViTLens(model_var="vitlensB", modality_loaded=MODALITIES,
-                    compute_dtype=jdt)
+    jm = computing_in(jax_model, jdt)
     pm = ViTLens("vitlensB", MODALITIES, device="cpu", compute_dtype=tdt)
     for m in MODALITIES:
-        jm._towers[m]["params"] = jax_params[m]
         load_params(pm.towers[m], jax_params[m])
     for m in MODALITIES:
         want = jm.encode({m: files[m]})[m]
@@ -159,12 +165,11 @@ def test_vitlens_encodes_files_like_jax(files, jax_params, dtype, min_cos):
         assert _cos(_np(got), _np(want)).min() >= min_cos, m
 
 
-def test_vitlens_raw_waveform_runs_the_tower_fbank(jax_params):
+def test_vitlens_raw_waveform_runs_the_tower_fbank(jax_model, jax_params):
     """A preprocessed [B, samples] waveform reaches the tower's fbank
     branch: equal to JAX's on-device fbank path, and to the host processor's
     fbank of the same samples as one clip."""
-    jm = JaxViTLens(model_var="vitlensB", modality_loaded=("audio",))
-    jm._towers["audio"]["params"] = jax_params["audio"]
+    jm = computing_in(jax_model, jnp.float32)
     pm = ViTLens("vitlensB", ("audio",), device="cpu")
     load_params(pm.towers["audio"], jax_params["audio"])
     wave = (0.1 * np.random.RandomState(5).randn(2, 80000)).astype(np.float32)

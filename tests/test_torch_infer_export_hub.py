@@ -21,6 +21,9 @@ from vitlens_tpu_torch.api import ViTLens
 from vitlens_tpu_torch.cli import infer as CLI
 from vitlens_tpu_torch.utils import export as PX
 from vitlens_tpu_torch.utils import hub as PH
+from tests.test_torch_threads import share_cores
+
+share_cores()
 
 
 def _jax_matrices(out, scale):

@@ -21,6 +21,9 @@ from vitlens_tpu_torch.ops import attention as PA
 from vitlens_tpu_torch.ops import fused_mlp as PFM
 from vitlens_tpu_torch.ops.flash_attention import (attention_reference,
                                                    flash_attention)
+from tests.test_torch_threads import share_cores
+
+share_cores()
 
 
 def _mlp_args(m=200, d=128, hidden=256, seed=0):

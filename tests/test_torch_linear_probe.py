@@ -26,6 +26,9 @@ from vitlens_tpu_torch.config import make_model_config
 from vitlens_tpu_torch.models import linear_probe as PLP
 from vitlens_tpu_torch.train.schedules import get_schedule
 from vitlens_tpu_torch.weights.from_jax import load_params, load_state, read_state
+from tests.test_torch_threads import share_cores
+
+share_cores()
 
 N_CLASSES = 3
 
@@ -113,16 +116,16 @@ def test_head_only_training_matches_jax():
     for p in head.values():
         p.requires_grad_(True)
     opt = PLP.lars_for_head(m, get_schedule("cosine", 0.05, 1, 3), 0.01)
+
+    def loss_fn(p, st, x, y):
+        logits, new_st = JLP.linear_probe_apply(p, st, x, jcfg, train=True)
+        return JLP.softmax_cross_entropy_loss(logits, y), new_st
+
+    grad_fn = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
     for i in range(3):
         x = _x(6, seed=10 + i)
         y = np.random.RandomState(i).randint(0, N_CLASSES, 6).astype(np.int32)
-
-        def loss_fn(p):
-            logits, new_st = JLP.linear_probe_apply(p, state, jnp.asarray(x), jcfg,
-                                                    train=True)
-            return JLP.softmax_cross_entropy_loss(logits, jnp.asarray(y)), new_st
-
-        (jloss, state), g = jax.value_and_grad(loss_fn, has_aux=True)(params)
+        (jloss, state), g = grad_fn(params, state, jnp.asarray(x), jnp.asarray(y))
         g = jax_apply_mask(g, mask)
         upd, opt_state = tx.update(g, opt_state, params)
         params = optax.apply_updates(params, jax_apply_mask(upd, mask))

@@ -10,6 +10,9 @@ import pytest
 
 from vitlens_tpu.data import lmdb_reader as JL
 from vitlens_tpu_torch.data import lmdb_reader as PL
+from tests.test_torch_threads import share_cores
+
+share_cores()
 
 
 def _items(n, big_every, seed):

@@ -15,6 +15,9 @@ from PIL import Image
 
 from vitlens_tpu.data import loader as JLd
 from vitlens_tpu_torch.data import loader as PLd
+from tests.test_torch_threads import share_cores
+
+share_cores()
 
 
 def _equal_batches(a, b):

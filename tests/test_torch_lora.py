@@ -31,6 +31,9 @@ from vitlens_tpu_torch.train import step as PStep
 from vitlens_tpu_torch.weights.from_jax import flatten, load_tri_params
 
 from test_torch_train import _batch, _per_param, _rel, _tiny
+from tests.test_torch_threads import share_cores
+
+share_cores()
 
 
 def _jax_with_lora(towers=("visual",), rank=4, alpha=8.0, targets=PL.DEFAULT_TARGETS,

@@ -22,6 +22,9 @@ from vitlens_tpu_torch.models.text import TextTower
 from vitlens_tpu_torch.models.vit import VisionTower
 from vitlens_tpu_torch.ops.attention import causal_mask
 from vitlens_tpu_torch.weights.from_jax import flatten, load_params
+from tests.test_torch_threads import share_cores
+
+share_cores()
 
 
 def _rel(got, want):

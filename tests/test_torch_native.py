@@ -19,6 +19,9 @@ from vitlens_tpu.data import processors as JP
 from vitlens_tpu_torch.data import audio_decode as PD
 from vitlens_tpu_torch.data import native as PN
 from vitlens_tpu_torch.data import processors as PP
+from tests.test_torch_threads import share_cores
+
+share_cores()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -30,6 +30,9 @@ from vitlens_tpu_torch.train import openshape as POS
 from vitlens_tpu_torch.train.step import _grads, make_openshape_optimizer
 from vitlens_tpu_torch.weights.from_jax import (flatten, load_params,
                                                 load_state, read_state)
+from tests.test_torch_threads import share_cores
+
+share_cores()
 
 N = 64  # points a cloud
 TINY = ["--tiny", "--npoints", str(N)]

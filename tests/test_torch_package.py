@@ -17,6 +17,9 @@ from vitlens_tpu_torch.ops import fused_ln_proj as PFL
 from vitlens_tpu_torch.ops import fused_mlp as PFM
 from vitlens_tpu_torch.ops import fused_point_encoder as PFE
 from vitlens_tpu_torch.text import tokenizer as PT
+from tests.test_torch_threads import share_cores
+
+share_cores()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

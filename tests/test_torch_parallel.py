@@ -36,6 +36,9 @@ import types
 import numpy as np
 import pytest
 import torch
+from tests.test_torch_threads import child_env, share_cores
+
+share_cores()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD = 2
@@ -63,9 +66,9 @@ def start_ranks(argv, out_dir, world=WORLD, env=None, cwd=REPO):
     port = str(free_port())
     procs, logs = [], []
     for r in range(world):
-        e = dict(os.environ, **(env or {}))
+        e = child_env(world, env)  # the ranks' share of the cores
         e.update(WORLD_SIZE=str(world), RANK=str(r), LOCAL_RANK=str(r),
-                 MASTER_ADDR="127.0.0.1", MASTER_PORT=port, OMP_NUM_THREADS="2",
+                 MASTER_ADDR="127.0.0.1", MASTER_PORT=port,
                  PYTHONPATH=REPO + os.pathsep + e.get("PYTHONPATH", ""))
         log = os.path.join(out_dir, f"rank{r}.log")
         logs.append(log)
@@ -192,7 +195,6 @@ def _run_functions(plan, mesh):
 
 
 def _worker(plan_path, out_dir) -> int:
-    torch.set_num_threads(2)
     from vitlens_tpu_torch.parallel.mesh import init_distributed, make_mesh
 
     rank = init_distributed(device="cpu", timeout_s=120)

@@ -12,6 +12,9 @@ import sys
 import pytest
 
 from tests import test_torch_parallel as TP
+from tests.test_torch_threads import share_cores
+
+share_cores()
 
 HERE = ("accum2",)
 CASES = TP.cases_of(HERE)

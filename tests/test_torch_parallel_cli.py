@@ -38,6 +38,9 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from tests.test_torch_parallel import WORLD, start_ranks, wait_ranks  # noqa: E402
+from tests.test_torch_threads import cores, share_cores  # noqa: E402
+
+share_cores()
 
 
 class _SavesCounted:
@@ -132,7 +135,6 @@ def _openshape(argv):
 
 
 def _worker(plan_path, out_dir) -> int:
-    torch.set_num_threads(2)
     from vitlens_tpu_torch.cli import train as T
     from vitlens_tpu_torch.parallel import mesh as PM
     from vitlens_tpu_torch.train import checkpoint as C
@@ -216,13 +218,21 @@ def ranks(tmp_path_factory):
         pickle.dump(plan, f)
     procs = start_ranks([sys.executable, os.path.abspath(__file__),
                          str(root / "plan.pkl"), str(root)], str(root / "logs"))
-    try:  # one process's runs, meanwhile
+    # one process's runs, meanwhile, on torch's whole pool (one thread a
+    # core), as in a lone process: the OpenShape run's BatchNorm variances
+    # agree with the ranks' to 1.4e-5 of their max on 8 cores there and to
+    # 1.2e-4 at 1 or 2 threads (the reduction order, amplified by AdamW's
+    # eps of 1e-8; test_cli_train_openshape_two_ranks holds 1e-4)
+    share = torch.get_num_threads()
+    torch.set_num_threads(cores())
+    try:
         one_eval = _eval()
         from vitlens_tpu_torch.cli import train as T
 
         assert T.main(_train_argv(root / "one", 4, "--name", "one")) == 0
         assert _openshape(_openshape_argv(files, root / "os_one", 4)) == 0
     finally:
+        torch.set_num_threads(share)
         wait_ranks(*procs)
     got = []
     for r in range(WORLD):

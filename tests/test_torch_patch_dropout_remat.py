@@ -30,6 +30,9 @@ from vitlens_tpu_torch.train import step as PStep
 from vitlens_tpu_torch.weights.from_jax import load_tri_params
 
 from test_torch_train import _batch, _tiny
+from tests.test_torch_threads import share_cores
+
+share_cores()
 
 
 def _models(prob):

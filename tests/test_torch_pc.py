@@ -28,6 +28,9 @@ from vitlens_tpu_torch.models.vit import VisionTower
 from vitlens_tpu_torch.ops import fps as PF
 from vitlens_tpu_torch.ops import fused_point_encoder as PFE
 from vitlens_tpu_torch.weights.from_jax import load_params, load_state
+from tests.test_torch_threads import share_cores
+
+share_cores()
 
 SMALL = dict(npoints=512, num_group=32, group_size=32)  # 32 groups of 32
 

@@ -25,6 +25,9 @@ from vitlens_tpu_torch.models import pc_baselines as PB
 from vitlens_tpu_torch.weights import torch_convert as PCV
 from vitlens_tpu_torch.weights.from_jax import (flatten, load_params,
                                                 load_state, read_state)
+from tests.test_torch_threads import share_cores
+
+share_cores()
 
 
 def _rel(got, want):

@@ -36,6 +36,9 @@ from vitlens_tpu_torch.train import step as PStep
 from vitlens_tpu_torch.weights.from_jax import (flatten, load_params,
                                                 load_state, load_tri_params,
                                                 read_state)
+from tests.test_torch_threads import share_cores
+
+share_cores()
 
 TRUNK = "ViT-Tiny-Test"
 SMALL = dict(npoints=256, num_group=8, group_size=16)  # 8 groups of 16
@@ -160,8 +163,8 @@ def test_point_tokenizer_train_matches_jax():
             params, s, jnp.asarray(pts), cfg, train=True, fps_key=key)
         return jnp.sum(tokens * proj_t) + jnp.sum(pos * proj_p), (tokens, pos, new_s)
 
-    (_, (want_t, want_p, new_s)), grads = jax.value_and_grad(
-        loss, has_aux=True)(p)
+    (_, (want_t, want_p, new_s)), grads = jax.jit(jax.value_and_grad(
+        loss, has_aux=True))(p)
     want_g = flatten(grads)
     tok = _port_tokenizer(p, s)
     for t in tok.parameters():

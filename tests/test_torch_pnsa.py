@@ -41,6 +41,9 @@ from vitlens_tpu_torch.train.openshape import vitlensG_tower_config
 from vitlens_tpu_torch.weights import torch_convert as PCV
 from vitlens_tpu_torch.weights.from_jax import (flatten, load_params,
                                                 load_state, read_state)
+from tests.test_torch_threads import share_cores
+
+share_cores()
 
 TRUNK = "ViT-Tiny-Test"
 # the vitlensG tokenizer's geometry at a tiny size: 16 balls of 8 points
@@ -168,7 +171,7 @@ def test_pnsa_train_gradients_match_jax():
             train=True, fps_key=key)
         return jnp.sum(tokens * proj)
 
-    want = flatten(jax.grad(loss)(p))
+    want = flatten(jax.jit(jax.grad(loss))(p))
     tok = _port_pnsa(p, s)
     for t in tok.parameters():
         t.requires_grad_(True)

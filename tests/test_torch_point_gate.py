@@ -24,6 +24,9 @@ from vitlens_tpu_torch import config as PC
 from vitlens_tpu_torch.adapters import tokenizers as PT
 from vitlens_tpu_torch.ops import fused_point_encoder as PFE
 from vitlens_tpu_torch.weights.from_jax import load_params, load_state
+from tests.test_torch_threads import share_cores
+
+share_cores()
 
 GROUP_SIZES = (8, 16, 24, 32, 48, 64, 128)
 KERNEL_WIDTHS = ((128, 256, 512, 256), (128, 256, 512, 128),

@@ -18,6 +18,9 @@ import vitlens_tpu.ops.fps as JF
 from vitlens_tpu.ops import fused_point_encoder as FPE
 from vitlens_tpu_torch.ops import fps as PF
 from vitlens_tpu_torch.ops import fused_point_encoder as PFE
+from tests.test_torch_threads import share_cores
+
+share_cores()
 
 
 def _xyz(b, n, seed=0):

@@ -27,6 +27,9 @@ from vitlens_tpu_torch.models import point_transformer as PPT
 from vitlens_tpu_torch.models.perceiver import PointPerceiver
 from vitlens_tpu_torch.weights.from_jax import (flatten, load_params,
                                                 load_state, read_state)
+from tests.test_torch_threads import share_cores
+
+share_cores()
 
 POINT = dict(npoints=256, num_group=8, group_size=16, encoder_dims=64,
              trans_dim=64)

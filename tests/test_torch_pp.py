@@ -67,6 +67,9 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from tests.test_torch_parallel import start_ranks, wait_ranks  # noqa: E402
+from tests.test_torch_threads import share_cores  # noqa: E402
+
+share_cores()
 
 WORLD = 4
 LAYOUTS = {"1x4": (4, 1), "2x2": (2, 2)}     # name: (stages, data rows)
@@ -363,7 +366,6 @@ def _tp_refused(plan) -> bool:
 
 
 def _worker(plan_path, out_dir) -> int:
-    torch.set_num_threads(1)
     from vitlens_tpu_torch.parallel.mesh import init_distributed
     from vitlens_tpu_torch.parallel.pp import make_pipe_mesh
 
@@ -434,17 +436,32 @@ def _jax_trunks(name, p, plan):
 
     xg = jnp.asarray(plan["xg"])
     kw = dict(n_microbatches=GRAD_M[name], remat=True)
-    y = jax.jit(lambda p, v: pp(p, v, **kw))(ps, xg)
-    gp, gx = jax.jit(jax.grad(lambda p, v: jnp.sum(pp(p, v, **kw) ** 2),
-                              argnums=(0, 1)))(ps, xg)
+    y, (gp, gx) = jax.jit(_out_and_grad(lambda p, v: pp(p, v, **kw),
+                                        lambda y: jnp.sum(y ** 2), (0, 1)))(ps, xg)
     out["grad"] = (np.asarray(y), np.asarray(gx), jax.device_get(gp))
     w = jnp.asarray(plan["w"])
     kw = dict(n_microbatches=TAIL_M, tail_fn=lambda h: h.mean(axis=1) @ w)
     x = jnp.asarray(plan["x"])
-    y = jax.jit(lambda p, v: pp(p, v, **kw))(ps, x)
-    gp = jax.jit(jax.grad(lambda p, v: jnp.sum(pp(p, v, **kw) ** 2)))(ps, x)
+    y, gp = jax.jit(_out_and_grad(lambda p, v: pp(p, v, **kw),
+                                  lambda y: jnp.sum(y ** 2)))(ps, x)
     out["tail"] = (np.asarray(y), jax.device_get(gp))
     return out
+
+
+def _out_and_grad(f, loss, argnums=0):
+    """(f's output, the gradient of loss(f's output)) in one program: one
+    trace and one compile where a forward and a jax.grad took two."""
+    import jax
+
+    def with_out(*a):
+        y = f(*a)
+        return loss(y), y
+
+    def fn(*a):
+        (_, y), g = jax.value_and_grad(with_out, argnums, has_aux=True)(*a)
+        return y, g
+
+    return fn
 
 
 # JAX's pipelined_trunks hook is one module global, read at trace time: a
@@ -452,35 +469,42 @@ def _jax_trunks(name, p, plan):
 _HOOK = threading.Lock()
 
 
-def _jax_hooked(towers, trunk3, plan):
-    """JAX's computations under its trace-time hook, each traced holding
-    :data:`_HOOK` and compiled after: each tower's
-    features and gradients under
-    pipelined_trunks after pipeline_place, and the 3-block trunk's forward
-    under the hook (plain) with its shard_trunk_pipeline's assert."""
+def _jax_hooked_tower(case, tower, plan):
+    """JAX's features of a tower case and the gradient of sum(features *
+    ct), under pipelined_trunks after pipeline_place: one program, traced
+    holding :data:`_HOOK`, compiled after."""
+    import jax
+    import jax.numpy as jnp
+
+    from vitlens_tpu.models.vit import vision_tower_apply
+    from vitlens_tpu.parallel.pp import pipeline_place, pipelined_trunks
+
+    jcfg, params, state = tower
+    x, ct = jnp.asarray(plan["xt"]), jnp.asarray(plan["ct"])
+    mesh = _jax_mesh(_towers()[case][0])
+    placed = pipeline_place(params, mesh)
+
+    def feats(p, v):
+        return vision_tower_apply(p, state, v, jcfg)[0]
+
+    with _HOOK, pipelined_trunks(mesh, n_microbatches=TOWER_M):
+        fg = jax.jit(_out_and_grad(feats, lambda y: jnp.sum(y * ct))).lower(
+            placed, x)
+    f, g = fg.compile()(placed, x)
+    return np.asarray(f), jax.device_get(g)
+
+
+def _jax_hooked(trunk3, plan):
+    """The 3-block trunk's forward under JAX's trace-time hook (plain),
+    traced holding :data:`_HOOK` and compiled after, with its
+    shard_trunk_pipeline's assert."""
     import jax
     import jax.numpy as jnp
 
     from vitlens_tpu.models.layers import gelu, transformer
-    from vitlens_tpu.models.vit import vision_tower_apply
-    from vitlens_tpu.parallel.pp import (pipeline_place, pipelined_trunks,
-                                         shard_trunk_pipeline)
+    from vitlens_tpu.parallel.pp import pipelined_trunks, shard_trunk_pipeline
 
-    out = {"towers": {}, "three": {}, "three_raises": {}}
-    x, ct = jnp.asarray(plan["xt"]), jnp.asarray(plan["ct"])
-    for case, (jcfg, params, state) in towers.items():
-        mesh = _jax_mesh(_towers()[case][0])
-        placed = pipeline_place(params, mesh)
-
-        def feats(p, v):
-            return vision_tower_apply(p, state, v, jcfg)[0]
-
-        with _HOOK, pipelined_trunks(mesh, n_microbatches=TOWER_M):
-            f = jax.jit(feats).lower(placed, x)
-            g = jax.jit(jax.grad(lambda p, v: jnp.sum(feats(p, v) * ct))).lower(
-                placed, x)
-        out["towers"][case] = (np.asarray(f.compile()(placed, x)),
-                               jax.device_get(g.compile()(placed, x)))
+    out = {"three": {}, "three_raises": {}}
     for name in LAYOUTS:
         mesh = _jax_mesh(name)
         try:
@@ -641,11 +665,15 @@ def run(tmp_path_factory):
     try:
         with ThreadPoolExecutor(7) as pool:
             trunks = {n: pool.submit(_jax_trunks, n, trunk, plan) for n in LAYOUTS}
-            hooked = pool.submit(_jax_hooked, towers, trunk3, plan)
+            hooked = pool.submit(_jax_hooked, trunk3, plan)
+            hooked_towers = {c: pool.submit(_jax_hooked_tower, c, t, plan)
+                             for c, t in towers.items()}
             two = {(n, c): pool.submit(_jax_two_towers, n, c, tree, plan)
                    for n in LAYOUTS for c, tree in trees.items()}
             jax_out = {"trunks": {n: f.result() for n, f in trunks.items()},
-                       "hooked": hooked.result(), "trunk": trunk,
+                       "hooked": dict(hooked.result(), towers={
+                           c: f.result() for c, f in hooked_towers.items()}),
+                       "trunk": trunk,
                        "towers": {c: v[1] for c, v in towers.items()},
                        "two": {k: f.result() for k, f in two.items()}}
     finally:

@@ -25,6 +25,9 @@ from vitlens_tpu_torch.ops import fused_mlp as PFM
 from vitlens_tpu_torch.ops import fused_mlp_chain as PC
 from vitlens_tpu_torch.ops import int8_matmul as PI
 from vitlens_tpu_torch.ops import row_gather as PG
+from tests.test_torch_threads import share_cores
+
+share_cores()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 1e-2

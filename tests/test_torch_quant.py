@@ -23,6 +23,9 @@ from vitlens_tpu_torch.ops import fused_ln_proj as PFL
 from vitlens_tpu_torch.ops import fused_mlp as PFM
 from vitlens_tpu_torch.ops import int8_matmul as PI
 from vitlens_tpu_torch.weights.from_jax import flatten, load_params, load_tri_params
+from tests.test_torch_threads import share_cores
+
+share_cores()
 
 
 def _cos_min(a, b):

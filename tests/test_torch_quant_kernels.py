@@ -16,6 +16,9 @@ import torch
 from vitlens_tpu import quant as JQ
 from vitlens_tpu_torch import quant as PQ
 from vitlens_tpu_torch.ops import int8_matmul as PI
+from tests.test_torch_threads import share_cores
+
+share_cores()
 
 
 def _rows(m, k, seed=0):

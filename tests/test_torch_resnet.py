@@ -16,6 +16,9 @@ from tools.reference_layout import modified_resnet_state_dict
 from vitlens_tpu.models import resnet as JR
 from vitlens_tpu_torch.models import resnet as PR
 from vitlens_tpu_torch.weights.from_jax import flatten, load_params
+from tests.test_torch_threads import share_cores
+
+share_cores()
 
 SMALL = dict(layers=(1, 2, 1, 1), width=16, image_size=64, embed_dim=24, heads=8)
 

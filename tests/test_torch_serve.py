@@ -20,6 +20,9 @@ from tools.reference_layout import pcm_from_float, write_flac, write_wav
 from vitlens_tpu_torch.serve import (
     BatchingEncoder, ServerOverloadedError, _decode_items, make_server,
 )
+from tests.test_torch_threads import child_env, share_cores
+
+share_cores()
 
 
 class _FakeModel:
@@ -611,8 +614,7 @@ def test_serve_cli_sigterm_graceful_drain(tmp_path):
     import sys
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ)
-    env["PYTHONPATH"] = repo
+    env = child_env(1, {"PYTHONPATH": repo})
     cmd = [sys.executable, "-m", "vitlens_tpu_torch.cli.serve",
            "--model-var", "vitlensB", "--modalities", "text",
            "--precision", "fp32", "--device", "cpu", "--port", "0",
@@ -631,7 +633,7 @@ def test_serve_cli_sigterm_graceful_drain(tmp_path):
                     port = int(m.group(1))
                     break
                 assert p.poll() is None, errf.read_text()[-2000:]
-                time.sleep(0.5)
+                time.sleep(0.05)
             assert port, "server never printed its port"
             conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
             conn.request("POST", "/v1/encode",

@@ -8,6 +8,9 @@ from vitlens_tpu.data.processors import TextProcessor as JaxTextProcessor
 from vitlens_tpu.text import tokenizer as JT
 from vitlens_tpu_torch.data.processors import TextProcessor
 from vitlens_tpu_torch.text import tokenizer as PT
+from tests.test_torch_threads import share_cores
+
+share_cores()
 
 CAPTIONS = [
     "a dog barking in the distance",

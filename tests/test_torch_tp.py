@@ -63,6 +63,9 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from tests.test_torch_parallel import start_ranks, wait_ranks  # noqa: E402
+from tests.test_torch_threads import share_cores  # noqa: E402
+
+share_cores()
 
 WORLD, N_DATA, N_MODEL = 4, 2, 2
 MIN_ELEMS = 128
@@ -288,7 +291,6 @@ def _live(state):
 
 
 def _worker(plan_path, out_dir) -> int:
-    torch.set_num_threads(1)
     from vitlens_tpu_torch.cli import train as T
     from vitlens_tpu_torch.models import layers as L
     from vitlens_tpu_torch.parallel.mesh import init_distributed, make_mesh

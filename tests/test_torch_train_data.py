@@ -16,6 +16,9 @@ from vitlens_tpu_torch.data import augment as PA
 from vitlens_tpu_torch.data import processors as PP
 from vitlens_tpu_torch.data import video_processors as PV
 from vitlens_tpu_torch.data import video_randaugment as PR
+from tests.test_torch_threads import share_cores
+
+share_cores()
 
 
 def _rgb(seed, w=96, h=72):

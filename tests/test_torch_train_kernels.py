@@ -21,6 +21,9 @@ from vitlens_tpu_torch.ops import flash_attention as PFA
 from vitlens_tpu_torch.ops import fused_ln_proj as PFL
 from vitlens_tpu_torch.ops import fused_mlp as PFM
 from vitlens_tpu_torch.weights.from_jax import load_params
+from tests.test_torch_threads import share_cores
+
+share_cores()
 
 BF16_ULP = 2.0 ** -7  # spacing of bf16 values in [1, 2)
 

@@ -28,6 +28,9 @@ from vitlens_tpu_torch.train import freeze as PF
 from vitlens_tpu_torch.train import losses as PLs
 from vitlens_tpu_torch.train import step as PStep
 from vitlens_tpu_torch.weights.from_jax import flatten, load_params, load_tri_params
+from tests.test_torch_threads import share_cores
+
+share_cores()
 
 TRUNK = "ViT-Tiny-Test"
 
