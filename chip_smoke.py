@@ -3,7 +3,19 @@
 
     python3 chip_smoke.py
 
-Phases, one printed line each (or more); any failure exits non-zero:
+Phases, one printed line each (or more); any failure exits non-zero. Where
+a phase holds a bf16 card run against "the fp32 reference", that is the
+same weights in fp32 through the plain paths (Fp32Reference): on the card,
+with TF32 off, FPS taken on the host and no launch of the port's kernels
+(printed), unless the phase names the CPU. Each phase ends in a [time] line
+(its wall seconds, this process's and its children's CPU seconds, its host
+costs by kind: SPAN_KINDS); a [time table] of them all precedes the kernels
+line. The input files of 4v, 4g and 4x are written while nvcc builds the
+kernels, and 4v's and 4g's models are built from them in threads beside
+phases 3 and 4; phase 4x's CLI runs and phase 4v's serve CLI start after
+phase 4 and run beside phases 4v to 4p, each checked where
+its phase stands; phase 5 runs once they have exited, before 4o, 4ev to 4ex
+and 4co.
   1. device: needs CUDA; prints the card's name and power limit (nvidia-smi).
   2. build: compiles the hand-written kernels from vitlens_tpu_torch/csrc/
      (one nvcc per source, in parallel).
@@ -67,12 +79,12 @@ Phases, one printed line each (or more); any failure exits non-zero:
      request (audio: 24 fused MLP + 32 attention; pc: 24 fused MLP + 32
      attention + 1 FPS + 1 point encoder; text: 12 fused MLP) and agreement
      (cosine >= 0.99) of the B = 1 audio and pc requests and the text request
-     with the same weights moved to the CPU in fp32, where the plain versions
-     run. The pc clouds are rounded through bf16 first, so that both runs give
-     FPS the same coordinates; their FPS indices must be equal. Then the B = 1
+     with the fp32 reference. The pc clouds are rounded through bf16 first,
+     so that both runs give FPS the same coordinates; the card's FPS indices
+     must equal the CPU's. Then the B = 1
      pc request again with the tokenizer's group size set to 24, which the
      point-encoder kernel does not take: the plain encoder runs (1 FPS, 0
-     point-encoder launches) and the cosine against the CPU holds.
+     point-encoder launches) and the cosine against the reference holds.
   4v. served from files: writes WAV files (16 kHz mono 5 s, 44.1 kHz stereo
      12 s, 8 kHz 1.5 s), a FLAC file (tools/reference_layout.py's writer),
      PNG and JPEG images (320 x 240, RGB and gray), .npy clouds of 9000
@@ -82,13 +94,15 @@ Phases, one printed line each (or more); any failure exits non-zero:
      vitlens.{audio, pc, depth, eeg, video}. keys, a CLIP file with visual.
      and text keys; fp16). ViTLens("vitlensL", ("image", "tactile",
      "depth", "audio", "eeg", "video", "pc", "text"), checkpoints=...,
-     batch_buckets=(1, 4, 8)) on the card in bf16 and the same in fp32 on
-     the CPU: loaded tensors equal the files' after the cast; B = 1 encodes
+     batch_buckets=(1, 4, 8)) on the card in bf16 and the same built in fp32
+     from the files as the reference: loaded tensors equal the files' after
+     the cast; B = 1 encodes
      from files (and one B = 3 audio request: WAV, the 8 kHz WAV, the FLAC;
      one B = 2 depth request: the .npy and the .png) with the launches per
      request derived from the config (image, tactile and depth 24 fused MLP
      + 24 attention, EEG 24 + 26, video 24 + 28, audio 24 + 32, pc 24 + 32 +
-     1 FPS + 1 point encoder, text 12) and cosine >= 0.99 against the CPU. The on-device fbank of
+     1 FPS + 1 point encoder, text 12) and cosine >= 0.99 against the
+     reference. The on-device fbank of
      [3, 80000] waveforms (the tower's waveform branch) against the host
      AudioProcessor's of the same samples: max |d| <= 1e-3 on the normalised
      fbank, tower features cosine >= 0.99. Then
@@ -104,7 +118,7 @@ Phases, one printed line each (or more); any failure exits non-zero:
   4t. transformer Lens: a vitlensL depth tower whose Lens is 2 trunk-width
      blocks (as_transformer) at full width and depth, a B = 2 bf16 encode
      with 26 fused MLP + 26 attention launches and cosine >= 0.99 against
-     the fp32 CPU copy.
+     the fp32 reference.
   4f. fp32 default: ViTLens("vitlensL", ("audio", "pc", "text")) with its
      default compute dtype (fp32, as in JAX) encodes B = 2 of each on the
      card through the plain paths (the kernels take bf16, as JAX's gates
@@ -114,9 +128,9 @@ Phases, one printed line each (or more); any failure exits non-zero:
      off); the text encode on its own line.
   4h. head dims: bf16 B = 1 audio encodes at full width whose trunks have
      head dims other than 64, ViTLens("vitlensG", ("audio",)) (ViT-bigG-14,
-     104) and a ViT-H-14 audio tower (80), each trunk cut to 4 blocks so that
-     the CPU run stays short: launches derived from the config (4 fused MLP,
-     4 + the Lens's attention), cosine >= 0.99 against the CPU in fp32.
+     104) and a ViT-H-14 audio tower (80), each trunk cut to 4 blocks:
+     launches derived from the config (4 fused MLP, 4 + the Lens's
+     attention), cosine >= 0.99 against the fp32 reference.
   4g. vitlensG pc: ViTLens("vitlensG", ("pc", "text")) at full ViT-bigG-14
      width and depth (the first 16 of 48 trunk blocks skipped, as published)
      with the PNSA tokenizer over 10000 xyz + rgb points, bf16 compute and
@@ -127,7 +141,7 @@ Phases, one printed line each (or more); any failure exits non-zero:
      xyz-only clouds (the processor fills 0.4 grey), each with 1 FPS, 32
      fused MLP and 40 attention launches and no point-encoder launch
      (tower_launches), and a text request (32 fused MLP); cosine >= 0.99
-     against the same weights in fp32 on the CPU, which gets the
+     against the fp32 reference, which gets the
      processor's clouds rounded through bf16 as the card sees them; then one
      HTTP request of two clouds and a caption through make_server, cosine
      >= 0.999 against the direct encodes.
@@ -149,7 +163,7 @@ Phases, one printed line each (or more); any failure exits non-zero:
      trainable masters, frozen weights in bf16, bf16 compute, with the
      published audio recipe (visual and text towers locked, CLS unlocked,
      dual loss aligned to text). The gradients of one B = 2 pass and one
-     B = 2 step against the same on the CPU in fp32 (loss within 5e-2,
+     B = 2 step against the fp32 reference (loss within 5e-2,
      grad_norm within 1e-1 relative, gradient cosine >= 0.99); 3 steps at
      B = 8, 2 at B = 8 with accum_freq 4 and one with remat, each with its
      launches per kernel variant against the count derived from the config;
@@ -158,14 +172,14 @@ Phases, one printed line each (or more); any failure exits non-zero:
   4c. opt-in: with VITLENS_ENABLE_FUSED_LNQKV=1 (set for this phase only), a
      B = 1 audio encode, a text encode and a train step launch the fused LN +
      projection 24 times per audio tower pass and 12 per text pass; the
-     encode and the B = 2 gradients hold cosine >= 0.99 against the CPU fp32
-     path.
+     encode and the B = 2 gradients hold cosine >= 0.99 against the fp32
+     reference.
   4d. tri train: the vitlensL depth model (create_model("ViT-L-14",
      "depth")) at full width and depth with its frozen ViT-L-14 image tower,
      fp32 trainable masters, frozen weights in bf16, bf16 compute, the
      published depth recipe (image, text and visual towers locked, the first
      4 trunk blocks unlocked, n_tower=3). The gradients of one B = 2 pass
-     against the same pass on the CPU in fp32 (loss within 5e-2, grad_norm
+     against the fp32 reference's (loss within 5e-2, grad_norm
      within 1e-1 relative, cosine >= 0.99); 3 steps at B = 8 and 2 with
      accum_freq 4, each with its launches per kernel variant against
      tri_train_launches (the image and text towers only kernel 1's plain
@@ -176,20 +190,20 @@ Phases, one printed line each (or more); any failure exits non-zero:
      the distill-token loss (the image tower over the 8 frames of each clip,
      its features and tokens averaged over the frames, distilled into the
      video Lens tower; image, text and visual towers locked, so the Lens
-     and the adapter train): the B = 2 gradients against the CPU in fp32,
+     and the adapter train): the B = 2 gradients against the fp32 reference,
      then 2 steps at B = 4 with accum_freq 2 (the cached tokens spliced in),
      with launches, frozen and trained checks as in 4d.
   4p. pc tri train: the vitlensL pc model (create_model("ViT-L-14", "pc"):
      the PointBERT tokenizer over 8192 points, the Lens of depth 4) at full
      width and depth with the published pc recipe (image, text and visual
      towers locked: the tokenizer and the Lens train, n_tower=3). The B = 2
-     pass against the CPU fp32 pass as in 4d, FPS started at the same given
-     points on both, the clouds rounded through bf16 once and the CPU pass
+     pass against the fp32 reference's as in 4d, FPS started at the same given
+     points on both, the clouds rounded through bf16 once and the reference
      given the card pass's kNN groups (bf16 distances, rounded as JAX's
      are, pick other neighbours than fp32 in most groups: the share is
      printed), with the
      moves of the tokenizer's BatchNorm running statistics held to the
-     CPU's (cosine >= 0.99); 2 steps at B = 8 and 2 with accum_freq 4, FPS
+     reference's (cosine >= 0.99); 2 steps at B = 8 and 2 with accum_freq 4, FPS
      starts drawn from a CUDA generator, each with its launches against
      tri_train_launches (FPS once a pass that runs the tokenizer, the point
      encoder never: it is eval-only, as in JAX), the frozen and trained
@@ -214,8 +228,9 @@ Phases, one printed line each (or more); any failure exits non-zero:
      to the file's; one train step (the batch through the DevicePrefetcher)
      with its launches against train_launches; one eval batch (8 x 3 clips)
      with tower_launches; checkpoint_best's eval features (loaded with
-     load_checkpoint) cosine >= 0.99 against the same weights in fp32 on the
-     CPU. Run (c): --visual-stat-flops prints its JSON line.
+     load_checkpoint) cosine >= 0.99 against the fp32 reference. Run (c):
+     --visual-stat-flops prints its JSON line. Runs (a) then (b), and (c),
+     start early and run beside phases 4v to 4p.
   4o. OpenShape: the vitlensG CLIPBind (train/openshape.py: PNSA over
      10000 xyz + rgb points, the bigG Lens, 16 of 48 trunk blocks skipped,
      out 1280) at full width, bf16 compute, fp32 masters, JAX's optimizer
@@ -226,14 +241,15 @@ Phases, one printed line each (or more); any failure exits non-zero:
      prod(1 - lr_t * wd * 0.1) (their moments 0), logit_scale moved, an
      eval batch (32 plain kernel 1, 40, 1) and the peak memory; the B = 2
      gradients of a bigG-width tower of 8 trunk blocks (4 skipped) and a
-     Lens of depth 1, bf16 on the card against fp32 on the CPU (cosine >=
-     0.99, the CPU given the card's ball-query groups); the baselines at
-     the CLI's widths in fp32 (PointBERT/PPAT, DGCNN and PointNet at
+     Lens of depth 1, bf16 on the card against the fp32 reference (cosine >=
+     0.99, the reference given the card's ball-query groups); the baselines
+     at the CLI's widths in fp32 (PointBERT/PPAT, DGCNN and PointNet at
      scaling 3): a train step each at B16 (FPS once for PPAT), a B = 2
      forward against the CPU from the same starts and groups (1e-3 without
-     TF32), a PointNet2 forward (2 FPS launches); the PointTransformer
-     (8192 points, 12 blocks) in bf16 eval at B8 (1 FPS, 1 point encoder,
-     12 kernel 1, 12 kernel 2; cosine >= 0.99 against fp32 on the CPU);
+     TF32), a PointNet2 forward (2 FPS launches); the
+     PointTransformer (8192 points, 12 blocks) in bf16 eval at B8 (1 FPS, 1
+     point encoder, 12 kernel 1, 12 kernel 2; cosine >= 0.99 against the
+     fp32 reference);
      then `python -m vitlens_tpu_torch.cli.train_openshape` at full width
      in this process on 32 fixture triplets at --batch-size 16: one epoch
      with eval, --resume latest to epoch 2 (from the file's weights, the
@@ -249,8 +265,8 @@ Phases, one printed line each (or more); any failure exits non-zero:
      of 1408 with 16 heads of 88, MLP 6144, LayerNorm eps 1e-6, head to
      1024), random weights from a seeded CUDA generator, bf16: B16 and B64
      encodes with launches exactly tower_launches(cfg) (39 kernel 1, 47
-     kernel 2, 1 FPS, 1 point encoder); a B = 2 encode against the same
-     weights in fp32 on the CPU (clouds rounded through bf16, the card's kNN
+     kernel 2, 1 FPS, 1 point encoder); a B = 2 encode against the fp32
+     reference (clouds rounded through bf16, the card's kNN
      groups replayed), cosine >= 0.99; B16 and B64 rates, peak memory and a
      profile. Phase 3 holds kernel 1 at D 1408 / H 6144 with eps 1e-6 (M =
      16 x 257 and 64 x 257, both variants; gradients at the smaller) and
@@ -260,7 +276,7 @@ Phases, one printed line each (or more); any failure exits non-zero:
   4l. LoRA: the vitlensL audio+text model with rank-8 factors on the four
      targets of the audio trunk, the factors alone trained (the trainer's
      --lora-* recipe), bf16 compute, the b's drawn nonzero: a B = 2
-     gradient pass and step against the same model in fp32 on the CPU (loss,
+     gradient pass and step against the fp32 reference (loss,
      cosine of the a's and the b's gradients >= 0.99, grad_norm), then 3
      steps at B = 8 with train_launches' counts, every base weight bit-equal
      and every factor moved; the tower in a ViTLens: export_checkpoint holds
@@ -271,10 +287,10 @@ Phases, one printed line each (or more); any failure exits non-zero:
   4rb. RoBERTa: create_model("roberta-ViT-B-32", "image") at full width,
      bf16: the text tower on token ids given directly (no launch: post-LN,
      masked) and the image tower (12 + 12 launches), cosine >= 0.99 against
-     fp32 on the CPU; the text B64 rate.
+     the fp32 reference; the text B64 rate.
   4r. RN50: models.resnet.make_modified_resnet("RN50") at 224, bf16, one
-     attention launch a forward, cosine >= 0.99 against fp32 on the CPU;
-     the B64 rate.
+     attention launch a forward, cosine >= 0.99 against the fp32
+     reference; the B64 rate.
   4lp. linear probe: `python -m vitlens_tpu_torch.cli.train_linprobe` as a
      child process on written GelSight frames at full ViT-L width, B = 8,
      2 epochs of LARS steps and an eval each; exit 0, an accuracy a val
@@ -287,17 +303,17 @@ Phases, one printed line each (or more); any failure exits non-zero:
      counters by tower_launches and equals the eager encode; the host cost
      a call of the custom ops against the wrappers' own dispatch.
   4co. CoCa: models.coca.make_coca("coca_ViT-L-14") at full width and depth
-     (0.64 B parameters) in bf16 against the same weights in fp32 on the
-     CPU: a B = 2 encode and forward (captions with a pad tail; cosine of
+     (0.64 B parameters) in bf16 against the fp32 reference: a B = 2 encode
+     and forward (captions with a pad tail; cosine of
      the image and text features and the caption logits >= 0.999, the
      contrastive and caption losses within 1e-2 relative), a B = 2 backward
      of their sum on fp32 masters (gradient cosine >= 0.99 on the pooler,
      the decoder's cross blocks and the vision trunk's last block), beam
      search (6 beams, 3 groups, seq_len 20) twice: identical, SOT first,
      pad after the end; width-1 beam equal to top_k=1 sampling up to the
-     first EOS or top-logit tie; the card's tokens teacher-forced on the
-     CPU (width-1 beam: the CPU's argmax or within 0.05 of its max; beam
-     search: within 0.05 of the CPU's top 4, the width a step draws from);
+     first EOS or top-logit tie; the card's tokens teacher-forced through
+     the reference (width-1 beam: its argmax or within 0.05 of its max; beam
+     search: within 0.05 of its top 4, the width a step draws from);
      launches of the encode, forward and beam search as coca_launches
      derives them. coca_ViT-B-32 at full width: a B = 2 encode and forward,
      cosines and launches. Then the L-14 image encode at B64, the forward +
@@ -332,8 +348,8 @@ Phases, one printed line each (or more); any failure exits non-zero:
      against one device (B = 5 audio requests, padded to 6, and 3
      captions: cosine >= 0.9999, launches twice a chunk's) and a served
      closed loop on the --data-parallel 1 mesh of the serve CLI. (b)'s
-     audio and pc recipes (and so 4fs (b) and (c)) cut the Lens trunk to
-     CUT_DEPTH (12) of its 24 blocks, for time.
+     audio, pc and LoRA recipes (and so 4fs (b) and (c)) cut the Lens trunk
+     to CUT_DEPTH (8) of its 24 blocks, for time.
   4fs. FSDP (vitlens_tpu_torch/parallel/fsdp.py, FSDP2): (a) inside 4dp
      (a)'s group, the same B64 audio step with partition="fsdp" after
      fsdp_place (FSDP2 over one rank) against the mesh=None step: every
@@ -367,8 +383,8 @@ Phases, one printed line each (or more); any failure exits non-zero:
      (TP: kernel 2 on the rank's 8 heads, the MLP plain as in JAX) and both;
      cosine >= 0.9999 against the one process, launches a rank as
      tower_launches(tp=) derives them; the trunk's out_b drawn from the seed
-     (MHA's init zeroes it); (a)'s trunk is cut to CUT_DEPTH (12) of its
-     24 blocks, for time. (b) the audio + text step with the whole audio
+     (MHA's init zeroes it); (a)'s and (b)'s trunk are cut to CUT_DEPTH (8)
+     of its 24 blocks, for time. (b) the audio + text step with the whole audio
      tower trained, B32 global (B16 a data rank), after fsdp_tp_place:
      bf16 TP and TP + SP against the one-process B32 step (loss 1e-3,
      grad_norm 1e-2 relative, each group's gradient cosine >= COS_MIN and
@@ -395,8 +411,8 @@ Phases, one printed line each (or more); any failure exits non-zero:
      4], M = 4; the 16 skipped blocks dropped): the same bars, FPS once,
      each rank's bytes of the blocks that run a quarter of the 32's, the
      peaks; (c) the gradient of the audio x text contrastive loss at B16
-     through the pipelined audio tower (its trunk cut to CUT_DEPTH (12)
-     blocks for time, 3 a stage; the whole tower trainable; the text
+     through the pipelined audio tower (its trunk cut to CUT_DEPTH (8)
+     blocks for time, 2 a stage; the whole tower trainable; the text
      tower's 12 blocks pipeline too) on [data 1, pipe 4], M = 4, against
      one process: fp32 with remat (every group's cosine >= 0.999, the loss
      within 1e-4 relative), bf16 (each group's cosine >= COS_MIN and the
@@ -460,14 +476,19 @@ The last lines are {"kernels": [...]}, the card's name and power limit, then
 
 from __future__ import annotations
 
+import atexit
+import contextlib
 import copy
 import dataclasses
+import functools
 import gc
 import json
 import os
+import resource
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 MLP_TOL = 2.5e-2   # bf16 rounding; the kernel keeps the act input in fp32
@@ -501,6 +522,168 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
 
 
+# Host costs inside a phase, by kind: the wall seconds of each kind since
+# the last [time] line, in the main thread (work in a Background thread
+# counts as the wait for its result). A block inside a block of its own
+# kind adds nothing (a save inside a checkpoint write, a build inside a
+# build); kinds overlap (a checkpoint load inside a model build counts in
+# both).
+SPAN_KINDS = ("ref", "proc", "ckpt", "build", "timed")
+SPANS = dict.fromkeys(SPAN_KINDS, 0.0)
+_OPEN_SPANS = set()
+
+
+@contextlib.contextmanager
+def spent(kind):
+    """Adds the block's wall seconds to ``SPANS[kind]``: "ref" an fp32
+    reference (its copy and its passes), "proc" a process this script starts
+    and waits for, "ckpt" a checkpoint or input file written or read back,
+    "build" a model built, "timed" a timed loop."""
+    if (kind in _OPEN_SPANS
+            or threading.current_thread() is not threading.main_thread()):
+        yield
+        return
+    _OPEN_SPANS.add(kind)
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        _OPEN_SPANS.discard(kind)
+        SPANS[kind] += time.perf_counter() - t0
+
+
+def spends(kind):
+    """Decorator: every call of the function is a ``spent(kind)`` block."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kw):
+            with spent(kind):
+                return fn(*args, **kw)
+        return inner
+    return wrap
+
+
+def host_clock():
+    """(wall s, this process's CPU s, its waited-for children's CPU s)."""
+    ru = resource.getrusage(resource.RUSAGE_CHILDREN)
+    return time.time(), time.process_time(), ru.ru_utime + ru.ru_stime
+
+
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
+CHILDREN = []  # every process started here; one still running at exit is killed
+
+
+@atexit.register
+def _kill_children():
+    for p in CHILDREN:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def start_child(cmd, env, stdout, stderr):
+    """``cmd`` started from the repo's root, kept in CHILDREN."""
+    p = subprocess.Popen(cmd, cwd=REPO_ROOT, env=env, stdout=stdout,
+                         stderr=stderr, text=True)
+    CHILDREN.append(p)
+    return p
+
+
+def run_child(cmd, env, log, timeout=900):
+    """``cmd`` as a child process on the card, its stderr into ``log``,
+    waited for; -> (exit code, seconds, stdout). Past ``timeout`` it is
+    killed and subprocess.TimeoutExpired raised, as subprocess.run does."""
+    t0 = time.time()
+    with open(log, "w") as err:
+        p = start_child(cmd, env, subprocess.PIPE, err)
+        try:
+            out, _ = p.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.communicate()
+            raise
+    return p.returncode, time.time() - t0, out
+
+
+class Background:
+    """``fn()`` in a thread from now on, beside what follows (child
+    processes run one after another, the kernels' nvcc, a model build);
+    ``result()`` waits for it (the wait a ``kind`` span of the phase that
+    asks) and returns its value or raises its error."""
+
+    def __init__(self, fn, kind="proc"):
+        self.value = self.error = None
+        self.kind = kind
+        self.thread = threading.Thread(target=self._run, args=(fn,), daemon=True)
+        self.thread.start()
+
+    def _run(self, fn):
+        try:
+            self.value = fn()
+        except BaseException as e:  # handed to result()
+            self.error = e
+
+    def result(self):
+        with spent(self.kind):
+            self.thread.join()
+        if self.error is not None:
+            raise self.error
+        return self.value
+
+
+def count_host_costs(torch):
+    """Times this process's model builds ("build") and checkpoint writes and
+    loads ("ckpt") under ``SPANS``: the entry points are wrapped in place."""
+    from vitlens_tpu_torch import factory
+    from vitlens_tpu_torch.api import ViTLens
+    from vitlens_tpu_torch.train import checkpoint as C
+
+    factory.create_model = spends("build")(factory.create_model)
+    ViTLens.__init__ = spends("build")(ViTLens.__init__)
+    torch.save, torch.load = spends("ckpt")(torch.save), spends("ckpt")(torch.load)
+    for name in ("save_checkpoint", "load_checkpoint", "save_checkpoint_sharded",
+                 "load_checkpoint_sharded"):
+        setattr(C, name, spends("ckpt")(getattr(C, name)))
+
+
+class PhaseClock:
+    """Where the run's time goes, phase by phase: ``mark(label)`` ends a
+    phase and prints its wall seconds, this process's CPU seconds and its
+    children's, and the host costs of ``SPANS``; ``table()`` prints them all
+    with the whole run's."""
+
+    def __init__(self):
+        self.start = self.last = host_clock()
+        self.rows = []
+        for k in SPANS:
+            SPANS[k] = 0.0
+
+    def mark(self, label):
+        now = host_clock()
+        wall, cpu, children = (a - b for a, b in zip(now, self.last))
+        spans = {k: round(v, 1) for k, v in SPANS.items() if v >= 0.05}
+        print(f"[time] {label} done at {now[0] - self.start[0]:.1f} s: wall "
+              f"{wall:.1f} s, cpu {cpu:.1f} s, children cpu {children:.1f} s"
+              f"; host costs (s) {spans}", flush=True)
+        self.rows.append((label, wall, cpu, children, dict(SPANS)))
+        self.last = now
+        for k in SPANS:
+            SPANS[k] = 0.0
+
+    def table(self):
+        head = ("phase", "wall", "cpu", "children", *SPAN_KINDS)
+        print("[time table] " + " | ".join(head), flush=True)
+        for label, wall, cpu, children, spans in self.rows:
+            print("[time table] " + " | ".join(
+                [label] + [f"{v:.1f}" for v in (wall, cpu, children)]
+                + [f"{spans[k]:.1f}" for k in SPAN_KINDS]), flush=True)
+        total = [sum(r[i] for r in self.rows) for i in (1, 2, 3)]
+        print("[time table] " + " | ".join(
+            ["whole run"] + [f"{v:.1f}" for v in total]
+            + [f"{sum(r[4][k] for r in self.rows):.1f}" for k in SPAN_KINDS]),
+            flush=True)
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -532,6 +715,7 @@ def cuda_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+@spends("timed")
 def paired_ms(kernel, plain, iters: int = 20, plain_iters: int = 20):
     """Mean kernel and plain times over the order plain, kernel, kernel,
     plain, so that drift over the window falls on both sides alike."""
@@ -897,7 +1081,8 @@ def train_launches(cfg, text_layers, accum, remat, opt_in, tp=False):
 
 def train_phase(torch, np, counters, totals):
     """Phases 4b and 4c: the audio train step of the published recipe on
-    the card, against the CPU in fp32. Returns what phase 5 times."""
+    the card, against the same model in fp32 (``Fp32Reference``). Returns
+    what phase 5 times."""
     from dataclasses import replace
 
     from vitlens_tpu_torch.factory import create_model, make_trainable_
@@ -930,7 +1115,8 @@ def train_phase(torch, np, counters, totals):
     tx, mask = make_optimizer(model, OptimizerConfig(
         lr=1e-4, warmup=10, total_steps=1000, grad_clip_norm=1.0), mask)
     make_trainable_(model, mask, torch.bfloat16)
-    ref = copy.deepcopy(model).to(device="cpu", dtype=torch.float32)
+    # on the card: ViT-L and the text tower in fp32 take 1.7 GB there
+    ref = Fp32Reference(torch, counters, model, "cuda")
     names = [n for n, t in mask.items() if t]
     rng = np.random.RandomState(SEED)
 
@@ -961,14 +1147,14 @@ def train_phase(torch, np, counters, totals):
             fail(f"{label}: launches {counts}, expected {want}")
 
     b2 = batch(2)
-    loss_cpu, g_cpu = grads_of(ref, sc_cpu, b2)
+    loss_cpu, g_cpu = ref(lambda m: grads_of(m, sc_cpu, b2))
     reset()
     loss_card, g_card = grads_of(model, sc, b2)
     expect("B=2 gradients", read(), train_launches(acfg, n_text, 1, False, False))
     cos_g = cosine(g_card, g_cpu)
     if not (cos_g >= COS_MIN and abs(loss_card - loss_cpu) <= LOSS_TOL):
-        fail(f"B=2 gradients vs CPU fp32: cosine {cos_g}, loss {loss_card} vs "
-             f"{loss_cpu}")
+        fail(f"B=2 gradients vs the fp32 reference: cosine {cos_g}, loss "
+             f"{loss_card} vs {loss_cpu}")
 
     # -- 4c: the opt-in fused LN + projection, at the initial weights -------
     os.environ["VITLENS_ENABLE_FUSED_LNQKV"] = "1"
@@ -987,35 +1173,39 @@ def train_phase(torch, np, counters, totals):
             temb = tri.encode_text(model, ids1.cuda(), normalize=True,
                                    compute_dtype=torch.bfloat16)
             n_txt = read()["fused_ln_proj"]
-            emb_cpu = tri.encode_visual(ref, fb1, normalize=True)
-            temb_cpu = tri.encode_text(ref, ids1, normalize=True)
+            emb_cpu = ref(lambda m: tri.encode_visual(
+                m, fb1.to(ref.device), normalize=True))
+            temb_cpu = ref(lambda m: tri.encode_text(
+                m, ids1.to(ref.device), normalize=True))
     finally:
         del os.environ["VITLENS_ENABLE_FUSED_LNQKV"]
-    cos_opt = {"audio encode": cosine(emb.cpu(), emb_cpu),
-               "text encode": cosine(temb.cpu(), temb_cpu),
+    cos_opt = {"audio encode": cosine(emb.cpu(), emb_cpu.cpu()),
+               "text encode": cosine(temb.cpu(), temb_cpu.cpu()),
                "B=2 gradients": cosine(g_opt, g_cpu)}
     if (n_audio, n_txt) != (acfg.arch.layers, n_text):
         fail(f"opt-in encodes: fused_ln_proj launches audio {n_audio}, text "
              f"{n_txt}, expected {acfg.arch.layers} and {n_text}")
     if min(cos_opt.values()) < COS_MIN or abs(loss_opt - loss_cpu) > LOSS_TOL:
-        fail(f"opt-in vs CPU fp32: cosines {cos_opt}, loss {loss_opt} vs {loss_cpu}")
+        fail(f"opt-in vs the fp32 reference: cosines {cos_opt}, loss {loss_opt} "
+             f"vs {loss_cpu}")
     print(f"[4c opt-in] VITLENS_ENABLE_FUSED_LNQKV=1: fused_ln_proj launches "
           f"{n_audio} per audio encode (B=1), {n_txt} per text encode, "
           f"{train_launches(acfg, n_text, 1, False, True)['fused_ln_proj']} per "
-          f"B=2 gradient pass; cosine vs CPU fp32: "
+          f"B=2 gradient pass; cosine vs the {ref.note}: "
           + " ".join(f"{k} {v:.6f}" for k, v in cos_opt.items())
-          + f"; loss {loss_opt:.5f} (CPU {loss_cpu:.5f})", flush=True)
+          + f"; loss {loss_opt:.5f} (reference {loss_cpu:.5f})", flush=True)
 
     # -- 4b: train steps -----------------------------------------------------
     frozen0 = {n: p.detach().clone() for n, p in model.named_parameters()
                if not mask[n]}
     train0 = {n: p.detach().clone() for n, p in model.named_parameters()
               if mask[n]}
-    state, state_cpu = init_train_state(model, tx), init_train_state(ref, tx)
+    state = init_train_state(model, tx)
     step_cpu = make_train_step(cfg, tx, mask, sc_cpu)
-    state_cpu, m_cpu = step_cpu(state_cpu, b2)
-    del ref, state_cpu
-    runs = ([("B=2, the CPU's step", b2, 1, False, False)]
+    m_cpu = ref(lambda m: step_cpu(init_train_state(m, tx), b2)[1])
+    note = ref.note
+    del ref
+    runs = ([("B=2, the reference's step", b2, 1, False, False)]
             + [("B=8", None, 1, False, False)] * 3
             + [("B=8 accum_freq 4", None, 4, False, False)] * 2
             + [("B=8 remat", None, 1, True, False),
@@ -1042,7 +1232,7 @@ def train_phase(torch, np, counters, totals):
     d_loss = abs(m_card["loss"] - float(m_cpu["loss"]))
     d_norm = abs(m_card["grad_norm"] / float(m_cpu["grad_norm"]) - 1)
     if d_loss > LOSS_TOL or d_norm > NORM_TOL:
-        fail(f"B=2 step vs CPU fp32: card {m_card}, CPU "
+        fail(f"B=2 step vs the fp32 reference: card {m_card}, reference "
              f"{ {k: float(v) for k, v in m_cpu.items()} }")
     moved = [n for n, p in model.named_parameters() if not mask[n]
              and not torch.equal(p, frozen0[n])]
@@ -1055,7 +1245,8 @@ def train_phase(torch, np, counters, totals):
     print(f"[4b train] vitlensL audio+text, recipe lock_visual + lock_text + "
           f"unlock_cls: {count_trainable(model, mask)} trainable parameters "
           f"in {len(names)} tensors; phases 4b and 4c took "
-          f"{time.time() - t0:.1f} s with the CPU fp32 runs; B=2 vs CPU fp32: gradient cosine {cos_g:.6f}, loss "
+          f"{time.time() - t0:.1f} s with the reference runs; B=2 vs the {note}: "
+          f"gradient cosine {cos_g:.6f}, loss "
           f"{loss_card:.5f} vs {loss_cpu:.5f}, step grad_norm "
           f"{m_card['grad_norm']:.5f} vs {float(m_cpu['grad_norm']):.5f}; steps "
           f"(label, loss, launches) {per_step}; frozen parameters "
@@ -1089,7 +1280,7 @@ def tri_batch(torch, np, cfg, b, rng, frames=0):
     """A seeded tri batch on the host: token ids, images (``frames`` > 0:
     clips [B, frames, 3, 224, 224], also the Lens tower's input) and the
     Lens tower's input: depth maps, or point clouds [B, npoints, 3] rounded
-    through bf16 once (so that an fp32 run on the CPU gives FPS the
+    through bf16 once (so that the fp32 reference gives FPS the
     coordinates the card's bf16 run sees)."""
     text = rng.randint(1, 49000, size=(b, 77))
     text[:, 0], text[:, -1] = 49406, 49407
@@ -1213,7 +1404,7 @@ def tri_train_phase(torch, np, counters, totals, tag, modality, flags, sc,
     """Phase 4d, 4e or 4p: a tri-shaped recipe on the vitlensL ``modality``
     model at full width and depth (fp32 trainable masters, frozen weights
     in bf16, bf16 compute). The gradients of one B = 2 pass against the
-    same pass on the CPU in fp32 (loss, grad_norm, cosine); then ``runs``
+    same pass of the fp32 reference (loss, grad_norm, cosine); then ``runs``
     [(label, B, accum_freq)] steps, each with its launches per kernel
     variant against tri_train_launches; every frozen parameter (the whole
     image tower too) bit-identical, every trainable one changed. A point
@@ -1257,18 +1448,20 @@ def tri_train_phase(torch, np, counters, totals, tag, modality, flags, sc,
                                        for n in names]).double()
 
     b2 = tri_batch(torch, np, cfg, 2, rng, frames)
-    ref = copy.deepcopy(model).to(device="cpu", dtype=torch.float32)
+    # on the card: the three fp32 towers take 3 GB there
+    ref = Fp32Reference(torch, counters, model, "cuda")
     bn0 = batch_norm_stats(torch, model)
 
-    def cpu_pass():
+    def ref_pass():
         t = time.time()
-        out = grads_of(ref, replace(sc, compute_dtype=torch.float32), b2)
+        out = ref(lambda m: grads_of(m, replace(sc, compute_dtype=torch.float32), b2))
         return out, time.time() - t
 
     ((loss_card, g_card), counts), ((loss_cpu, g_cpu), t_cpu), knn_line = \
         shared_knn_groups(torch, lambda: run_counted(
-            torch, counters, totals, lambda: grads_of(model, sc, b2)), cpu_pass)
-    bn_cpu = batch_norm_stats(torch, ref)
+            torch, counters, totals, lambda: grads_of(model, sc, b2)), ref_pass)
+    bn_cpu = batch_norm_stats(torch, ref.model)
+    note = ref.note
     del ref
     if counts != tri_train_launches(cfg, 1):
         fail(f"{tag} B=2 gradients: launches {counts}, expected "
@@ -1277,7 +1470,7 @@ def tri_train_phase(torch, np, counters, totals, tag, modality, flags, sc,
     norm_card, norm_cpu = g_card.norm().item(), g_cpu.norm().item()
     if not (cos_g >= COS_MIN and abs(loss_card - loss_cpu) <= LOSS_TOL
             and abs(norm_card / norm_cpu - 1) <= NORM_TOL):
-        fail(f"{tag} B=2 gradients vs CPU fp32: cosine {cos_g}, loss "
+        fail(f"{tag} B=2 gradients vs the fp32 reference: cosine {cos_g}, loss "
              f"{loss_card} vs {loss_cpu}, grad_norm {norm_card} vs {norm_cpu}")
     bn_line = ""
     if bn0:  # the running statistics' moves, card against CPU
@@ -1285,10 +1478,10 @@ def tri_train_phase(torch, np, counters, totals, tag, modality, flags, sc,
         moves = {k: cos_min(torch, (bn_card[k] - bn0[k])[None],
                             (bn_cpu[k] - bn0[k])[None]) for k in bn0}
         if min(moves.values()) < COS_MIN:
-            fail(f"{tag} B=2: running statistics moved unlike the CPU's: "
-                 f"cosines {moves}")
+            fail(f"{tag} B=2: running statistics moved unlike the "
+                 f"reference's: cosines {moves}")
         bn_line = (f"; running statistics after the B=2 pass, cosine of "
-                   f"their moves vs CPU fp32: " + ", ".join(
+                   f"their moves vs the fp32 reference: " + ", ".join(
                        f"{k} {v:.6f}" for k, v in moves.items()))
 
     frozen0 = {n: p.detach().clone() for n, p in model.named_parameters()
@@ -1328,9 +1521,9 @@ def tri_train_phase(torch, np, counters, totals, tag, modality, flags, sc,
     print(f"[{tag}] vitlensL {modality} tri model, {flags}, {sc.n_tower} "
           f"towers, video_distill {sc.video_distill}, loss "
           f"{sc.contra_loss_type}: {count_trainable(model, mask)} trainable "
-          f"parameters in {len(names)} tensors; B=2 vs CPU fp32: gradient "
+          f"parameters in {len(names)} tensors; B=2 vs the {note}: gradient "
           f"cosine {cos_g:.6f}, loss {loss_card:.5f} vs {loss_cpu:.5f}, "
-          f"grad_norm {norm_card:.5f} vs {norm_cpu:.5f} (the CPU pass took "
+          f"grad_norm {norm_card:.5f} vs {norm_cpu:.5f} (the reference pass took "
           f"{t_cpu:.1f} s){knn_line}{bn_line}; steps (label, loss, launches plain, "
           f"save-preact, attention, FPS, point encoder) {per_step}; frozen "
           f"parameters bit-identical ({n_image} tensors of the image tower "
@@ -1341,6 +1534,7 @@ def tri_train_phase(torch, np, counters, totals, tag, modality, flags, sc,
     return model, state, tx, mask, sc
 
 
+@spends("timed")
 def profile_encode(torch, card, label, encode):
     """One call under torch.profiler: the top kernels by device time and the
     device's busy and idle share. Returns (the kernels' profiler rows,
@@ -1367,6 +1561,7 @@ def profile_encode(torch, card, label, encode):
     return kernels, busy_ms
 
 
+@spends("timed")
 def encode_rate(torch, card, label, encode, samples, rows_note="", dim=768):
     encode()
     torch.cuda.synchronize()
@@ -1386,6 +1581,7 @@ def encode_rate(torch, card, label, encode, samples, rows_note="", dim=768):
     return samples / best
 
 
+@spends("timed")
 def encode_latency(torch, card, label, encode, runs=5):
     """Host-timed latency of one request: the best of ``runs`` calls, each
     ending in torch.cuda.synchronize(). Returns ms."""
@@ -1402,6 +1598,7 @@ def encode_latency(torch, card, label, encode, runs=5):
     return min(times)
 
 
+@spends("timed")
 def train_rate(torch, card, label, step, samples, runs=3):
     step()
     torch.cuda.synchronize()
@@ -1745,13 +1942,97 @@ def cos_min(torch, a, b):
 FP32_COS_MIN = 0.999  # fp32 on the card against fp32 on the CPU
 
 
+@contextlib.contextmanager
+def tf32_off(torch):
+    """fp32 products in fp32: TF32 off for cuBLAS matmuls and cuDNN (the
+    audio patch convolution), both flags restored after."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+@contextlib.contextmanager
+def host_fps(torch):
+    """FPS through its plain version on the host: the wrapper launches its
+    kernel on any CUDA tensor, whatever the dtype, so a reference on the card
+    takes its centers from the CPU, as a reference on the CPU does. Callers
+    reach the wrapper through its module (ops.fps.fps and the baselines'
+    ``P.fps_indices``), which is where it is swapped."""
+    from vitlens_tpu_torch.ops import fps as F
+
+    launcher = F.fps_indices
+
+    def on_host(xyz, npoint, start=None, generator=None):
+        if start is None and generator is not None:  # drawn where the wrapper draws
+            start = torch.randint(0, xyz.shape[1], (xyz.shape[0],),
+                                  generator=generator, device=generator.device)
+        return launcher(xyz.cpu(), npoint, None if start is None else start.cpu()
+                        ).to(xyz.device)
+
+    F.fps_indices = on_host
+    try:
+        yield
+    finally:
+        F.fps_indices = launcher
+
+
+class Fp32Reference:
+    """An fp32 copy of a model, on ``device``, for the plain-path reference
+    a bf16 card run is held against. ``ref(fn)`` returns ``fn(copy)``, timed
+    as a "ref" span. On the card each call runs with TF32 off, with FPS on
+    the host (``host_fps``) and with the port's launch counters read around
+    it: the copy is fp32, so every other kernel's dtype gate sends it down
+    the plain path, and a launch fails the run. ``note`` says where it ran.
+    The source model is not touched; ``built=True`` takes a model built in
+    fp32 on ``device`` for the reference alone as it is."""
+
+    def __init__(self, torch, counters, model, device, built=False):
+        self.torch, self.counters = torch, counters
+        self.device = torch.device(device)
+        with spent("ref"):
+            self.model = model if built else copy.deepcopy(model).to(
+                device=self.device, dtype=torch.float32)
+        if hasattr(self.model, "compute_dtype"):
+            self.model.compute_dtype = torch.float32
+        self.calls = self.launches = 0
+
+    def __call__(self, fn):
+        torch = self.torch
+        if self.device.type != "cuda":
+            with spent("ref"):
+                return fn(self.model)
+        before = sum(c.launches for c in self.counters.values())
+        with spent("ref"), tf32_off(torch), host_fps(torch):
+            out = fn(self.model)
+            torch.cuda.synchronize()
+        launched = sum(c.launches for c in self.counters.values()) - before
+        self.calls += 1
+        self.launches += launched
+        if launched:
+            fail(f"the fp32 reference on the card launched {launched} kernel(s): "
+                 + str({n: c.launches for n, c in self.counters.items()}))
+        return out
+
+    @property
+    def note(self):
+        if self.device.type != "cuda":
+            return "fp32 plain path on the CPU"
+        return (f"fp32 plain path on the card, TF32 off, {self.launches} "
+                f"launches in {self.calls} call(s)")
+
+
 def transformer_lens_phase(torch, counters, totals):
     """Phase 4t: a vitlensL depth tower whose Lens is the transformer Lens
     (2 trunk-width blocks; no released config uses it) at full width and
     depth, random weights from a seeded generator: a B = 2 bf16 encode on
     the card with the launches derived from the config (26 fused MLP + 26
-    attention) and cosine >= 0.99 against the same tower in fp32 on the
-    CPU."""
+    attention) and cosine >= 0.99 against the same tower in fp32."""
     from vitlens_tpu_torch.config import make_model_config
     from vitlens_tpu_torch.factory import cast_matmul_weights_, make_generator
     from vitlens_tpu_torch.models.vit import VisionTower
@@ -1762,24 +2043,24 @@ def transformer_lens_phase(torch, counters, totals):
         cfg.perceiver, as_identity=False, as_transformer=True, depth=2))
     tower = VisionTower(cfg, device="cuda")
     tower.init_(make_generator(SEED, "cuda"))
-    ref = copy.deepcopy(tower).to(device="cpu")
+    ref = Fp32Reference(torch, counters, tower, "cuda")  # 1.3 GB in fp32
     cast_matmul_weights_(tower, torch.bfloat16)
     g = torch.Generator(device="cuda").manual_seed(SEED + 7)
     x = torch.randn(2, 1, 224, 224, generator=g, device="cuda")
     with torch.inference_mode():
         emb, counts = run_counted(torch, counters, totals,
                                   lambda: tower(x, torch.bfloat16))
-        want = ref(x.cpu())
+        want = ref(lambda m: m(x))
     if counts != tower_launches(cfg) or counts["fused_mlp"] != 26:
         fail(f"4t transformer Lens: launches {counts}, expected "
              f"{tower_launches(cfg)}")
     cos = cos_min(torch, emb, want)
     if cos < COS_MIN or not torch.isfinite(emb).all():
-        fail(f"4t transformer Lens: cosine vs CPU fp32 {cos} < {COS_MIN}")
+        fail(f"4t transformer Lens: cosine vs the fp32 reference {cos} < {COS_MIN}")
     print(f"[4t transformer Lens] vitlensL depth tower with a 2-block "
           f"transformer Lens, B=2 bf16: launches (fused MLP, attention) "
-          f"{counts['fused_mlp']}, {counts['flash_attention']}; cosine vs CPU "
-          f"fp32 {cos:.6f}; phase took {time.time() - t0:.1f} s", flush=True)
+          f"{counts['fused_mlp']}, {counts['flash_attention']}; cosine vs the "
+          f"{ref.note} {cos:.6f}; phase took {time.time() - t0:.1f} s", flush=True)
 
 
 def fp32_phase(torch, counters, totals, fb2, clouds2, captions2):
@@ -1793,10 +2074,12 @@ def fp32_phase(torch, counters, totals, fb2, clouds2, captions2):
     model = ViTLens("vitlensL", ("audio", "pc", "text"), device="cuda", seed=SEED)
     if model.compute_dtype != torch.float32:
         fail(f"ViTLens's default compute dtype is {model.compute_dtype}, not fp32")
-    ref = copy.deepcopy(model).to("cpu")
+    # on the CPU: what this phase checks is the card's fp32 path against
+    # the host's
+    ref = Fp32Reference(torch, counters, model, "cpu")
     want = {"audio": launch_counts(), "pc": launch_counts(fps=1),
             "text": launch_counts()}
-    cos, per_call = {}, []
+    cos, per_call, host = {}, [], {}
     for path, data, pre in (("audio", fb2, True), ("pc", clouds2, True),
                             ("text", captions2, False)):
         emb, counts = run_counted(torch, counters, totals,
@@ -1806,16 +2089,17 @@ def fp32_phase(torch, counters, totals, fb2, clouds2, captions2):
         if tuple(emb.shape) != (2, 768) or not torch.isfinite(emb).all():
             fail(f"fp32 {path} B=2: shape {tuple(emb.shape)} or non-finite values")
         cpu_data = data.cpu() if isinstance(data, torch.Tensor) else data
-        cos[path] = cos_min(torch, emb, ref.encode({path: cpu_data},
-                                                   preprocessed=pre)[path])
+        host[path] = ref(lambda r: r.encode({path: cpu_data}, preprocessed=pre)[path])
+        cos[path] = cos_min(torch, emb, host[path])
         per_call.append((path, counts["fps"]))
     # cuDNN runs the audio adapter's fp32 convolution in TF32 by default
     # (fp32 products outside it stay fp32): the same encode without it.
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
-        cos_no_tf32 = cos_min(torch, model.encode({"audio": fb2}, preprocessed=True)["audio"],
-                              ref.encode({"audio": fb2.cpu()}, preprocessed=True)["audio"])
+        cos_no_tf32 = cos_min(  # the host's encode is the same as above
+            torch, model.encode({"audio": fb2}, preprocessed=True)["audio"],
+            host["audio"])
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
     del model, ref
@@ -1834,12 +2118,12 @@ def fp32_phase(torch, counters, totals, fb2, clouds2, captions2):
           f"kernel launch", flush=True)
 
 
-HD_DEPTH = 4  # trunk blocks kept in the head-dim phase (the CPU run stays short)
+HD_DEPTH = 4  # trunk blocks kept in the head-dim phase
 
 
 def head_dim_phase(torch, counters, totals, fb1):
     """Phase 4h: bf16 B = 1 audio encodes at full width whose trunks have
-    head dims other than 64, on the card against the CPU in fp32, with
+    head dims other than 64, on the card against the fp32 reference, with
     launch counts derived from the config: ViTLens("vitlensG", ("audio",))
     (ViT-bigG-14, head dim 104) and a ViT-H-14 audio tower (head dim 80),
     each trunk cut to HD_DEPTH blocks."""
@@ -1870,10 +2154,10 @@ def head_dim_phase(torch, counters, totals, fb1):
     for label, net, encode, ref_encode in (
             ("vitlensG audio (ViT-bigG-14, head dim 104)", big,
              lambda m: m.encode({"audio": fb1}, preprocessed=True)["audio"],
-             lambda m: m.encode({"audio": fb1.cpu()}, preprocessed=True)["audio"]),
+             lambda m: m.encode({"audio": fb1}, preprocessed=True)["audio"]),
             ("ViT-H-14 audio tower (head dim 80)", h14,
              lambda m: h14_encode(m, clips, torch.bfloat16),
-             lambda m: h14_encode(m, clips.cpu(), torch.float32))):
+             lambda m: h14_encode(m, clips, torch.float32))):
         tcfg = net.towers["audio"].cfg if net is big else net.cfg
         heads = tcfg.arch.width // tcfg.arch.heads
         want = launch_counts(
@@ -1885,20 +2169,20 @@ def head_dim_phase(torch, counters, totals, fb1):
             fail(f"{label}: launches {counts}, expected {want}")
         if tuple(emb.shape) != (1, tcfg.embed_dim) or not torch.isfinite(emb).all():
             fail(f"{label}: shape {tuple(emb.shape)} or non-finite values")
-        ref = copy.deepcopy(net).to(device="cpu", dtype=torch.float32)
-        if net is big:
-            ref.compute_dtype = torch.float32
-        cos = cos_min(torch, emb, ref_encode(ref))
-        del ref
+        # on the card: the cut towers take under 3 GB in fp32
+        ref = Fp32Reference(torch, counters, net, "cuda")
+        cos = cos_min(torch, emb, ref(ref_encode))
         if cos < COS_MIN:
-            fail(f"{label}: cosine vs CPU fp32 {cos} < {COS_MIN}")
+            fail(f"{label}: cosine vs the fp32 reference {cos} < {COS_MIN}")
         lines.append(f"{label}, width {tcfg.arch.width}, head dim {heads}: "
                      f"launches (fused MLP, attention) {counts['fused_mlp']}, "
-                     f"{counts['flash_attention']}; cosine vs CPU fp32 {cos:.6f}")
+                     f"{counts['flash_attention']}; cosine vs the {ref.note} "
+                     f"{cos:.6f}")
+        del ref
     del big, h14
     torch.cuda.empty_cache()
     print(f"[4h head dims] bf16 B=1 x 3 clips audio encodes at full width, each "
-          f"trunk cut to {HD_DEPTH} blocks (the CPU fp32 run stays short): "
+          f"trunk cut to {HD_DEPTH} blocks: "
           + "; ".join(lines) + f"; phase took {time.time() - t0:.1f} s", flush=True)
 
 
@@ -1964,10 +2248,10 @@ def quant_phase(torch, model, counters, totals, fb1, fb64, captions, want):
     # what the int8 encodes are held against (these launches are not counted)
     floats = {label: model.encode({"audio": fb}, preprocessed=True)["audio"].float()
               for label, fb in (("audio B=1", fb1), (f"audio B={B}", fb64))}
-    qref = copy.deepcopy(qmodel).to(device="cpu", dtype=torch.float32)
-    qref.compute_dtype = torch.float32
-    cpu1 = qref.encode({"audio": fb1.cpu()}, preprocessed=True)["audio"]
-    del qref
+    # on the CPU: the int8 product launches on any CUDA tensor, whatever
+    # the dtype around it, so an fp32 copy on the card is no plain path
+    cpu1 = Fp32Reference(torch, counters, qmodel, "cpu")(
+        lambda r: r.encode({"audio": fb1.cpu()}, preprocessed=True)["audio"])
 
     cos = {"B=1 int8 card vs quantized fp32 CPU": cos_min(torch, embs["audio B=1"], cpu1),
            "B=1 int8 vs float bf16, card": cos_min(torch, embs["audio B=1"],
@@ -2146,6 +2430,7 @@ def _tone(np, rate, seconds, channels, seed):
     return 0.4 * np.sin(2 * np.pi * f * t) + 0.013 * rng.randn(channels, t.size)
 
 
+@spends("ckpt")
 def write_inputs(torch, np, root):
     """Phase 4v's files: WAV (16 kHz mono 5 s, 44.1 kHz stereo 12 s, 8 kHz
     1.5 s), one FLAC (the tests' minimal writer), PNG and JPEG images at
@@ -2251,28 +2536,16 @@ def _stop(srv, th):
         fail(f"threads still alive after the drain: {alive}")
 
 
-def vitlensG_phase(torch, np, counters, totals):
-    """Phase 4g: ViTLens("vitlensG", ("pc", "text")) on the card in bf16
-    (weights stored in bf16, as the serve CLI stores vitlensG's), loaded
-    from reference-layout checkpoints that tools/reference_layout.py writes
-    (fp16): the PNSA tokenizer over 10000 xyz + rgb points, the bigG Lens
-    and the ViT-bigG-14 trunk with its first 16 of 48 blocks skipped (they
-    still hold the file's weights), and the bigG text tower. B = 1 and B = 2
-    encodes of raw .npy clouds of 10000 x 6 and of xyz-only clouds
-    (OpenShape's 0.4 grey fills their rgb), with the launches per request
-    from tower_launches (1 FPS, 32 trunk blocks, 4 Lens layers; no point
-    encoder) and cosine >= 0.99 against the same weights in fp32 on the CPU,
-    given the processor's clouds rounded through bf16 as the card sees
-    them; a text request (32 fused MLP); then one HTTP request of two
-    clouds and a caption through make_server, cosine >= 0.999 against the
-    direct encodes. Returns the model, for phase 5."""
+def vitlensG_inputs(torch, np):
+    """Phase 4g's files in a new temporary directory: vitlensG's pc tower
+    and bigG's text tower as reference-layout fp16 checkpoints
+    (tools/reference_layout.py), two .npy clouds of 10000 x 6 and one of
+    10000 x 3; -> (root, files, two of the file's weights, seconds)."""
     import tempfile
 
     from tools.reference_layout import (text_tower_state_dict,
                                         vision_tower_state_dict)
-    from vitlens_tpu_torch.api import ViTLens
     from vitlens_tpu_torch.config import make_model_config
-    from vitlens_tpu_torch.serve import make_server
     from vitlens_tpu_torch.train.openshape import vitlensG_tower_config
 
     t0 = time.time()
@@ -2296,15 +2569,50 @@ def vitlensG_phase(torch, np, counters, totals):
             [rng.randn(10000, 3) * 0.4, rng.rand(10000, 3)], 1).astype(np.float32))
     files["xyz"] = os.path.join(root, "xyz_only.npy")
     np.save(files["xyz"], (rng.randn(10000, 3) * 0.4).astype(np.float32))
-    t_files = time.time() - t0
+    return root, files, want_w, time.time() - t0
 
-    t0 = time.time()
-    model = ViTLens("vitlensG", ("pc", "text"), device="cuda",
-                    compute_dtype=torch.bfloat16, param_dtype=torch.bfloat16,
-                    seed=SEED, checkpoints={"pc": files["pc"],
-                                            "text": files["text"]})
-    torch.cuda.synchronize()
-    t_load = time.time() - t0
+
+def vitlensG_build(torch, inputs):
+    """Phase 4g's model, ViTLens("vitlensG", ("pc", "text")) in bf16 from
+    vitlensG_inputs' files, built in a background thread (the checkpoint
+    conversion is host work) beside the phases before 4g (3 to 4h); ->
+    (``inputs``, the Background of (model, seconds))."""
+    from vitlens_tpu_torch.api import ViTLens
+
+    files = inputs[1]
+
+    def build():
+        t0 = time.time()
+        model = ViTLens("vitlensG", ("pc", "text"), device="cuda",
+                        compute_dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                        seed=SEED, checkpoints={"pc": files["pc"],
+                                                "text": files["text"]})
+        torch.cuda.synchronize()
+        return model, time.time() - t0
+
+    return inputs, Background(build, kind="build")
+
+
+def vitlensG_phase(torch, np, counters, totals, inputs):
+    """Phase 4g: ViTLens("vitlensG", ("pc", "text")) on the card in bf16
+    (weights stored in bf16, as the serve CLI stores vitlensG's), loaded
+    from reference-layout checkpoints that tools/reference_layout.py writes
+    (fp16): the PNSA tokenizer over 10000 xyz + rgb points, the bigG Lens
+    and the ViT-bigG-14 trunk with its first 16 of 48 blocks skipped (they
+    still hold the file's weights), and the bigG text tower. B = 1 and B = 2
+    encodes of raw .npy clouds of 10000 x 6 and of xyz-only clouds
+    (OpenShape's 0.4 grey fills their rgb), with the launches per request
+    from tower_launches (1 FPS, 32 trunk blocks, 4 Lens layers; no point
+    encoder) and cosine >= 0.99 against the fp32 reference,
+    given the processor's clouds rounded through bf16 as the card sees
+    them; a text request (32 fused MLP); then one HTTP request of two
+    clouds and a caption through make_server, cosine >= 0.999 against the
+    direct encodes (``inputs``: vitlensG_inputs' files and vitlensG_build's
+    model). Returns the model, for phase 5."""
+    from vitlens_tpu_torch.serve import make_server
+
+    (root, files, want_w, t_files), building = inputs
+    model, t_load = building.result()
     tower = model.towers["pc"]
     got_w = {"sa.0.conv.w": tower.adapter.sa[0].conv.w,
              "trunk.blocks.0.attn.qkv_w": tower.trunk.blocks[0].attn.qkv_w}
@@ -2338,21 +2646,22 @@ def vitlensG_phase(torch, np, counters, totals):
                         counts["flash_attention"], counts["fps"]))
 
     t0 = time.time()
-    ref = copy.deepcopy(model).to(device="cpu", dtype=torch.float32)
-    ref.compute_dtype = torch.float32
+    # on the card: bigG's pc and text towers take 10 GB there in fp32
+    ref = Fp32Reference(torch, counters, model, "cuda")
     cos = {}
     for m, items, emb in outs:
         if m == "pc":  # the processor's clouds as the card's bf16 cast sees them
             x = torch.from_numpy(proc(items)).bfloat16().float()
-            ref_emb = ref.encode({"pc": x}, preprocessed=True)["pc"]
+            ref_emb = ref(lambda r: r.encode({"pc": x}, preprocessed=True)["pc"])
         else:
-            ref_emb = ref.encode({m: items})[m]
+            ref_emb = ref(lambda r: r.encode({m: items})[m])
         label = f"{m} B={len(items)}" + (" xyz-only" if files["xyz"] in items else "")
         cos[label] = cos_min(torch, emb, ref_emb)
-    t_cpu = time.time() - t0
+    t_ref = time.time() - t0
+    ref_note = ref.note
     del ref
     if min(cos.values()) < COS_MIN:
-        fail(f"4g: card bf16 vs CPU fp32 cosines {cos} < {COS_MIN}")
+        fail(f"4g: card bf16 vs the fp32 reference: cosines {cos} < {COS_MIN}")
 
     srv, th = _serve(make_server, model, 4, 20)
     try:
@@ -2371,39 +2680,70 @@ def vitlensG_phase(torch, np, counters, totals):
           f"bf16, from reference-layout fp16 checkpoints (written in "
           f"{t_files:.1f} s, loaded in {t_load:.1f} s; the skipped block 0 "
           f"holds the file's weights): requests (modality, B, launches "
-          f"(mlp, attn, fps)) {per_req}; cosine vs CPU fp32 (took "
-          f"{t_cpu:.1f} s): " + " ".join(f"{k} {v:.6f}" for k, v in cos.items())
+          f"(mlp, attn, fps)) {per_req}; cosine vs the {ref_note} (took "
+          f"{t_ref:.1f} s): " + " ".join(f"{k} {v:.6f}" for k, v in cos.items())
           + "; one HTTP request (2 clouds, one xyz-only, and a caption): "
           + " ".join(f"{k} {v:.6f}" for k, v in served.items()), flush=True)
     return model
 
 
-def served_phase(torch, np, counters, totals, card):
-    """Phase 4v: vitlensL with every ported modality, loaded from
-    reference-layout checkpoints, encodes raw files on the card and is
-    served over HTTP. Returns what phase 5 times."""
+def served_inputs(torch, np):
+    """Phase 4v's input files (write_inputs) in a new temporary directory:
+    -> (root, files, merged, clip, seconds)."""
     import tempfile
-    import threading
-
-    from vitlens_tpu_torch.api import ViTLens
-    from vitlens_tpu_torch.ops.fbank import fbank_fixed_length
-    from vitlens_tpu_torch.serve import make_server
 
     t0 = time.time()
     root = tempfile.mkdtemp(prefix="vitlens_4v_")
-    files, merged, clip = write_inputs(torch, np, root)
-    t_files = time.time() - t0
-    mods = ("image", "tactile", "depth", "audio", "eeg", "video", "pc", "text")
+    return (root, *write_inputs(torch, np, root), time.time() - t0)
+
+
+SERVED_MODS = ("image", "tactile", "depth", "audio", "eeg", "video", "pc", "text")
+
+
+def served_builds(torch, inputs):
+    """Phase 4v's two models from served_inputs' files, each built in a
+    background thread (the checkpoint conversion is host work, and its
+    copies release the GIL) beside the phases before 4v: ViTLens("vitlensL",
+    SERVED_MODS) in bf16 as a user builds it, and the same in fp32 as the
+    reference, built from the same files and not copied from the bf16 model,
+    so that it holds the files' weights (fp32: 9 GB on the card). ->
+    (``inputs``, the Background of (model, seconds) of each)."""
+    from vitlens_tpu_torch.api import ViTLens
+
+    files = inputs[1]
     ckpts = {"all": files["all"], "image": files["clip"],
              "tactile": files["clip"], "text": files["clip"]}
-    t0 = time.time()
-    model = ViTLens("vitlensL", mods, device="cuda", compute_dtype=torch.bfloat16,
-                    seed=SEED, checkpoints=ckpts, batch_buckets=(1, 4, 8))
-    torch.cuda.synchronize()
-    t_card = time.time() - t0
-    t0 = time.time()
-    ref = ViTLens("vitlensL", mods, device="cpu", seed=SEED, checkpoints=ckpts)
-    t_cpu = time.time() - t0
+
+    def build(**kw):
+        t0 = time.time()
+        model = ViTLens("vitlensL", SERVED_MODS, device="cuda", seed=SEED,
+                        checkpoints=ckpts, **kw)
+        torch.cuda.synchronize()
+        return model, time.time() - t0
+
+    return (inputs, Background(lambda: build(compute_dtype=torch.bfloat16,
+                                             batch_buckets=(1, 4, 8)), kind="build"),
+            Background(build, kind="ref"))
+
+
+def served_phase(torch, np, counters, totals, card, inputs):
+    """Phase 4v: vitlensL with every ported modality, loaded from
+    reference-layout checkpoints (``inputs``: served_builds'), encodes raw
+    files on the card and is served over HTTP. Returns what phase 5
+    times."""
+    import threading
+
+    from vitlens_tpu_torch.ops.fbank import fbank_fixed_length
+    from vitlens_tpu_torch.serve import make_server
+
+    (root, files, merged, clip, t_files), card_build, ref_build = inputs
+    # the serve CLI starts now and loads its towers beside what follows
+    serve = serve_cli_start(files, root)
+    mods = SERVED_MODS
+    model, t_card = card_build.result()
+    ref_model, t_ref = ref_build.result()
+    ref = Fp32Reference(torch, counters, ref_model, "cuda", built=True)
+    del ref_model
 
     # a handful of loaded tensors against the file's, after the cast
     t = model.towers
@@ -2468,21 +2808,25 @@ def served_phase(torch, np, counters, totals, card):
             fail(f"4v {m} from files: shape {tuple(emb.shape)}, non-finite "
                  "values or norms off 1")
         if m == "pc":  # the card's tower rounds the cloud to bf16 before FPS
-            x = torch.from_numpy(model.processors["pc"](items))
-            want_emb = ref.encode({"pc": x.bfloat16().float()}, preprocessed=True)["pc"]
+            x = torch.from_numpy(model.processors["pc"](items)).bfloat16().float()
+            want_emb = ref(lambda r: r.encode({"pc": x}, preprocessed=True)["pc"])
         else:
-            want_emb = ref.encode({m: items})[m]
+            want_emb = ref(lambda r: r.encode({m: items})[m])
         cos[f"{m} B={len(items)}"] = cos_min(torch, emb, want_emb)
+    ref_note = ref.note
     del ref
     if min(cos.values()) < COS_MIN:
-        fail(f"4v: card bf16 vs CPU fp32 from files: min cosine {cos} < {COS_MIN}")
+        fail(f"4v: card bf16 vs the fp32 reference from files: min cosine {cos} "
+             f"< {COS_MIN}")
     print(f"[4v files] vitlensL {mods} from reference-layout checkpoints "
           f"(merged vitlens.{{{','.join(LENS_FILE)}}}. export, CLIP visual. + "
           f"text file; "
           f"files written in {t_files:.1f} s, card model built and loaded in "
-          f"{t_card:.1f} s, CPU fp32 copy in {t_cpu:.1f} s); {len(pairs)} loaded "
-          f"tensors equal the files'; requests from files (modality, B, mlp, "
-          f"attn, fps, encoder) {per_req}; min cosine vs CPU fp32: "
+          f"{t_card:.1f} s, the fp32 reference built from the files in "
+          f"{t_ref:.1f} s, the two in threads beside phases 3 and 4); "
+          f"{len(pairs)} loaded tensors equal the files'; requests from "
+          f"files (modality, B, mlp, attn, fps, encoder) {per_req}; min cosine "
+          f"vs the {ref_note}: "
           + " ".join(f"{k} {v:.6f}" for k, v in cos.items()), flush=True)
 
     # the on-device fbank against the host processor's, same samples
@@ -2579,30 +2923,38 @@ def served_phase(torch, np, counters, totals, card):
           f"latency {health['latency']}; after shutdown and close both "
           f"workers have exited", flush=True)
 
-    print(f"[4v cli] {card} | {run_cli(torch, model, files, root)}", flush=True)
+    print(f"[4v cli] {card} | {serve_cli_check(torch, model, files, serve)}",
+          flush=True)
     return {"model": model, "files": files, "root": root}
 
 
-def run_cli(torch, model, files, tmp):
-    """python -m vitlens_tpu_torch.cli.serve on the card with the depth,
-    EEG, video and text towers loaded from phase 4v's reference-layout
-    checkpoints: answers one request of each (a disparity .npy, an EEG .pt,
-    a frame directory, a caption) at cosine >= SERVE_COS_MIN against
-    ``model``'s direct encode of the same items (the same files' weights),
-    drains on SIGTERM and exits 0. Its log goes to ``tmp``."""
-    import re
-    import signal
-
-    root = os.path.dirname(os.path.abspath(__file__))
+def serve_cli_start(files, tmp):
+    """Starts python -m vitlens_tpu_torch.cli.serve on the card with the
+    depth, EEG, video and text towers loaded from phase 4v's
+    reference-layout checkpoints, its log in ``tmp``; serve_cli_check
+    takes it from there."""
     log = os.path.join(tmp, "serve_cli.log")
     cmd = [sys.executable, "-m", "vitlens_tpu_torch.cli.serve", "--modalities",
            "depth", "eeg", "video", "text", "--ckpt", f"all={files['all']}",
            "--ckpt", f"text={files['clip']}", "--max-batch", "2", "--port", "0"]
+    out = open(log, "w")
+    return {"cmd": cmd, "log": log, "out": out, "t0": time.time(),
+            "p": start_child(cmd, None, out, subprocess.STDOUT)}
+
+
+@spends("proc")
+def serve_cli_check(torch, model, files, started):
+    """The serve CLI that serve_cli_start started: answers one request of
+    each (a disparity .npy, an EEG .pt, a frame directory, a caption) at
+    cosine >= SERVE_COS_MIN against ``model``'s direct encode of the same
+    items (the same files' weights), drains on SIGTERM and exits 0."""
+    import re
+    import signal
+
+    cmd, log, t0, p = (started[k] for k in ("cmd", "log", "t0", "p"))
     items = {"depth": [files["depth_npy"]], "eeg": [files["eeg_pt"]],
              "video": [files["frames"]], "text": ["a dog"]}
-    t0 = time.time()
-    with open(log, "w") as out:
-        p = subprocess.Popen(cmd, cwd=root, stdout=out, stderr=subprocess.STDOUT)
+    with started["out"]:
         try:
             port = None
             while time.time() - t0 < 300 and port is None:
@@ -2635,8 +2987,9 @@ def run_cli(torch, model, files, tmp):
     drained = re.search(r"vitlens-serve: drained, exiting \(served 4 items.*", text)
     if rc != 0 or "draining" not in text or not drained:
         fail(f"serve CLI: exit {rc}, log {text[-1500:]}")
-    return (f"{' '.join(cmd[1:6])} ... (merged and CLIP files): up (warmed) in "
-            f"{t_up:.1f} s, answered one depth, EEG, video and text request, "
+    return (f"{' '.join(cmd[1:6])} ... (merged and CLIP files): up (warmed) "
+            f"when asked, {t_up:.1f} s after its start, answered one depth, "
+            f"EEG, video and text request, "
             f"cosine vs a direct encode "
             + " ".join(f"{m} {c:.6f}" for m, c in cos.items())
             + f", exit {rc} on SIGTERM: {drained.group(0)!r}")
@@ -2771,6 +3124,7 @@ CLI_ARGS = ("--modality", "audio", "--model", "ViT-L-14", "--train-data",
             "--lr", "1e-4")
 
 
+@spends("ckpt")
 def write_cli_inputs(torch, np, root):
     """Phase 4x's files under ``root``: CLI_CLIPS AudioSet-style clips (16
     kHz mono, 5-10 s, every fourth one FLAC) with audioset_train.json and the
@@ -2835,13 +3189,7 @@ def write_cli_inputs(torch, np, root):
 def _cli(env, argv, log, timeout=900):
     """python -m vitlens_tpu_torch.cli.train ``argv`` as a child process on
     the card, its output into ``log``; -> (exit code, seconds, stdout)."""
-    cmd = [sys.executable, "-m", "vitlens_tpu_torch.cli.train", *argv]
-    t0 = time.time()
-    with open(log, "w") as err:
-        p = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
-                           env=env, stdout=subprocess.PIPE, stderr=err,
-                           text=True, timeout=timeout)
-    return p.returncode, time.time() - t0, p.stdout
+    return _module_cli("vitlens_tpu_torch.cli.train", argv, env, log, timeout)
 
 
 def _records(run_dir):
@@ -2856,7 +3204,46 @@ def _tree(path):
                       weights_only=True)
 
 
-def train_cli_phase(torch, np, counters, totals, card):
+def train_cli_inputs(torch, np):
+    """Phase 4x's input files (write_cli_inputs) in a new temporary
+    directory, and the runs' arguments: what train_cli_start starts."""
+    import tempfile
+
+    t0 = time.time()
+    root = tempfile.mkdtemp(prefix="vitlens_4x_")
+    env, pre = write_cli_inputs(torch, np, root)
+    logs = os.path.join(root, "logs")
+    return {"t_files": time.time() - t0, "root": root, "env": env, "logs": logs,
+            "argv": [*CLI_ARGS, "--pretrained", pre, "--logs", logs, "--name", "a"],
+            "run": os.path.join(logs, "a"),
+            "ckpts": os.path.join(logs, "a", "checkpoints")}
+
+
+def train_cli_start(ctx):
+    """Phase 4x's child runs, started early on train_cli_inputs' ``ctx``:
+    (a) and, once it has exited, (b) in one background thread (what run (a)
+    left is read before (b) starts), and (c) in another; returns ``ctx``
+    with them, for train_cli_phase."""
+    root, env, argv, logs, run, ckpts = (ctx[k] for k in (
+        "root", "env", "argv", "logs", "run", "ckpts"))
+
+    def a_then_b():
+        a = _cli(env, argv + ["--epochs", str(CLI_EPOCHS)],
+                 os.path.join(root, "run_a.log"))
+        if a[0] != 0:
+            return a, None, None, None
+        left = _records(run), sorted(os.listdir(ckpts))
+        b = _cli(env, argv + ["--epochs", str(CLI_EPOCHS + 1), "--resume", "latest"],
+                 os.path.join(root, "run_b.log"))
+        return (a, *left, b)
+
+    return {**ctx, "ab": Background(a_then_b),
+            "c": Background(lambda: _cli(
+                env, [*CLI_ARGS[:4], "--visual-stat-flops", "--logs", logs,
+                      "--name", "f"], os.path.join(root, "run_c.log")))}
+
+
+def train_cli_phase(torch, np, counters, totals, card, ctx):
     """Phase 4x: the published vitlensL audio recipe through ``python -m
     vitlens_tpu_torch.cli.train`` on the card at full ViT-L-14 width and
     depth, from audio files (see write_cli_inputs); run (a) trains 2 epochs
@@ -2866,10 +3253,8 @@ def train_cli_phase(torch, np, counters, totals, card):
     --visual-stat-flops. In this process, through cli.train's functions: the
     AdamW moments loaded from epoch_2 bit-equal to the file's, one train step
     and one eval batch with their launches, and checkpoint_best's eval
-    features against the same weights in fp32 on the CPU. Returns what
-    phase 5 prints."""
-    import tempfile
-
+    features against the fp32 reference. Runs (a) then (b), and (c), were
+    started by train_cli_start (``ctx``). Returns what phase 5 prints."""
     from vitlens_tpu_torch.cli import train as T
     from vitlens_tpu_torch.cli.args import parse_args
     from vitlens_tpu_torch.data.loader import DevicePrefetcher
@@ -2877,20 +3262,13 @@ def train_cli_phase(torch, np, counters, totals, card):
     from vitlens_tpu_torch.train import checkpoint as C
 
     t0 = time.time()
-    torch.cuda.empty_cache()  # the children allocate on the same card
-    root = tempfile.mkdtemp(prefix="vitlens_4x_")
-    env, pre = write_cli_inputs(torch, np, root)
-    t_files = time.time() - t0
-    logs = os.path.join(root, "logs")
-    argv = [*CLI_ARGS, "--pretrained", pre, "--logs", logs, "--name", "a"]
-    run, ckpts = os.path.join(logs, "a"), os.path.join(logs, "a", "checkpoints")
+    root, env, argv, run, ckpts = (ctx[k] for k in ("root", "env", "argv",
+                                                    "run", "ckpts"))
 
     # -- run (a): 2 epochs ------------------------------------------------------
-    rc, t_a, _ = _cli(env, argv + ["--epochs", str(CLI_EPOCHS)],
-                      os.path.join(root, "run_a.log"))
+    (rc, t_a, _), recs, names, run_b = ctx["ab"].result()
     if rc != 0:
         fail(f"4x run (a): exit {rc}: {open(os.path.join(root, 'run_a.log')).read()[-2000:]}")
-    recs = _records(run)
     train = [r for r in recs if "train/loss" in r]
     val = [r for r in recs if "val/primary" in r]
     steps_a = len(train)
@@ -2905,15 +3283,13 @@ def train_cli_phase(torch, np, counters, totals, card):
                  "val/primary")
     if len(val) != CLI_EPOCHS or not all(k in r for r in val for k in want_keys):
         fail(f"4x run (a): val lines {val}")
-    names = sorted(os.listdir(ckpts))
     for n in ("epoch_1", "epoch_2", "epoch_latest", "checkpoint_best", "best.json"):
         if n not in names:
             fail(f"4x run (a): {n} missing from {names}")
     ep2 = _tree(os.path.join(ckpts, "epoch_2"))
 
     # -- run (b): --resume latest into epoch 3 ------------------------------------
-    rc, t_b, _ = _cli(env, argv + ["--epochs", str(CLI_EPOCHS + 1), "--resume",
-                                   "latest"], os.path.join(root, "run_b.log"))
+    rc, t_b, _ = run_b
     out_log = open(os.path.join(run, "out.log")).read()
     if rc != 0 or f"(epoch {CLI_EPOCHS})" not in out_log:
         fail(f"4x run (b): exit {rc}: {open(os.path.join(root, 'run_b.log')).read()[-2000:]}")
@@ -2976,14 +3352,17 @@ def train_cli_phase(torch, np, counters, totals, card):
     feats, ecounts = run_counted(torch, counters, totals, lambda: enc_visual(flat))
     if ecounts != tower_launches(cfg.tower):
         fail(f"4x eval batch: launches {ecounts}, expected {tower_launches(cfg.tower)}")
-    # the CPU fp32 copy on one sample's 3 clips (ViT-L in fp32 on the host)
-    ref = copy.deepcopy(model.visual).to(device="cpu", dtype=torch.float32)
+    # the fp32 copy on one sample's 3 clips, on the card (ViT-L: 1.2 GB)
+    ref = Fp32Reference(torch, counters, model.visual, "cuda")
     with torch.no_grad():
-        want_feats = ref(torch.from_numpy(flat[:3]), torch.float32)
+        want_feats = ref(lambda m: m(torch.from_numpy(flat[:3]).to(ref.device),
+                                     torch.float32))
+    ref_note = ref.note
     del ref
     ecos = cos_min(torch, torch.from_numpy(feats[:3]), want_feats)
     if not (np.isfinite(feats).all() and ecos >= COS_MIN):
-        fail(f"4x: checkpoint_best's eval features vs CPU fp32: cosine {ecos}")
+        fail(f"4x: checkpoint_best's eval features vs the fp32 reference: "
+             f"cosine {ecos}")
     # the host pipeline a clip: decode, mixup, fbank, SpecAugment
     ds = info.dataloader.dataset
     clip_ms = []
@@ -2994,9 +3373,7 @@ def train_cli_phase(torch, np, counters, totals, card):
     del model, ts, step, batch
 
     # -- run (c): --visual-stat-flops ---------------------------------------------
-    rc, t_c, out = _cli(env, [*CLI_ARGS[:4], "--visual-stat-flops", "--logs",
-                              logs, "--name", "f"],
-                        os.path.join(root, "run_c.log"))
+    rc, t_c, out = ctx["c"].result()
     try:
         flops = json.loads(out.strip().splitlines()[-1])
     except (ValueError, IndexError):
@@ -3023,9 +3400,11 @@ def train_cli_phase(torch, np, counters, totals, card):
           f"to the file's; in-process B = 8 accum_freq 2 step launches "
           f"{dict((k, v) for k, v in counts.items() if v)}, eval batch (8 x 3 "
           f"clips) {dict((k, v) for k, v in ecounts.items() if v)}; "
-          f"checkpoint_best eval features vs CPU fp32 min cosine {ecos:.6f}; "
+          f"checkpoint_best eval features vs the {ref_note} min cosine "
+          f"{ecos:.6f}; "
           f"run (c) --visual-stat-flops {flops} in {t_c:.1f} s; files written "
-          f"in {t_files:.1f} s; phase took {time.time() - t0:.1f} s", flush=True)
+          f"in {ctx['t_files']:.1f} s; the runs started beside phases 4v to 4p, "
+          f"the checks here took {time.time() - t0:.1f} s", flush=True)
     return {"step_s": step_s, "clip_ms": clip_ms, "flops": flops}
 
 
@@ -3151,11 +3530,12 @@ DP_FLOOR_SLACK = 2e-3
 DP_NORM_REL = 1e-2
 DP_BN_REL = 1e-4
 DP_ENCODE_COS = 0.9999  # (c) the mesh encode against one device, row for row
-# The Lens tower's trunk depth of the earlier multi-rank paths cut for time
-# (ROADMAP's rule past 1050 s): 4dp (b)'s audio and pc steps (so 4fs (b)
-# and (c) too), 4tp (a)'s encodes and 4pp (c)'s whole-tower gradient; full
-# width, 12 of ViT-L/14's 24 blocks. The LoRA paths keep all 24.
-CUT_DEPTH = 12
+# The Lens tower's trunk depth of the multi-rank paths, cut for time: 4dp
+# (b)'s audio, pc and LoRA steps (so 4fs (b) and (c) too), 4tp (a)'s
+# encodes, 4tp (b)'s steps and their LoRA variant, and 4pp (c)'s gradients,
+# LoRA's too; full width, 8 of ViT-L/14's 24 blocks (12 of 24 for 4dp (b)'s
+# audio and pc steps, 4tp (a) and 4pp (c) before, the rest all 24).
+CUT_DEPTH = 8
 
 
 def cut_arch():
@@ -3380,8 +3760,7 @@ def dp_rank_recipe(torch, np, counters, mesh, modality, ckpt_root=None):
     start_gb = torch.cuda.memory_allocated() / 1e9  # what it starts with
     lora = modality == "lora"
     model = create_model("ViT-L-14", "audio" if lora else modality, seed=SEED,
-                         device="cuda", dtype=torch.float32,
-                         **({} if lora else {"arch": cut_arch()}))
+                         device="cuda", dtype=torch.float32, arch=cut_arch())
     cfg = model.cfg
     rng = np.random.RandomState(SEED)  # the same B64 batch on every rank
     starts = None
@@ -3685,7 +4064,8 @@ def recipe_line(modality):
             "lora": (f"audio+text LoRA step (phase 4l's recipe: rank "
                      f"{LORA_RANK} on the four targets of the audio trunk, "
                      f"the b's drawn N(0, {LORA_B_STD}), the factors and the "
-                     "logit scale alone trained)")}[modality]
+                     f"logit scale alone trained; the Lens trunk cut to "
+                     f"{CUT_DEPTH} blocks)")}[modality]
 
 
 def dp_rank_main(out_dir, recipes=DP_RECIPES) -> int:
@@ -4105,7 +4485,8 @@ def tp_encode(torch, np, counters, mesh):
 
 def tp_step(torch, np, counters, mesh, lora=False):
     """Phase 4tp (b) on one rank: the vitlensL audio + text recipe with the
-    whole audio tower trained, its trunk too (text locked), B32 global
+    whole audio tower trained, its trunk (cut to CUT_DEPTH blocks) too (text
+    locked), B32 global
     (this data rank's B16 rows), after fsdp_tp_place, from the placed
     initial state each time: the 2D step in bf16 (the trainer's --tp
     path), the same under sequence_sharded_activations (TP + SP), and the
@@ -4136,7 +4517,7 @@ def tp_step(torch, np, counters, mesh, lora=False):
     first = mesh.rank == 0 and mesh.model_rank == 0
     torch.cuda.reset_peak_memory_stats()
     model = create_model("ViT-L-14", "audio", seed=SEED, device="cuda",
-                         dtype=torch.float32)
+                         dtype=torch.float32, arch=cut_arch())
     tp_biases_(torch, model.visual)
     cfg, dev = model.cfg, model.logit_scale.device
     rng = np.random.RandomState(SEED)  # the same B32 batch on every rank
@@ -4288,6 +4669,7 @@ def tp_rank_main(out_dir, lora_only=False) -> int:
     return 0
 
 
+@spends("proc")
 def run_ranks(label, world, rank_argv, limit_s=600):
     """Start ``world`` rank processes of ``rank_argv`` + [output dir] with
     torchrun's variables (one card, LOCAL_RANK 0), wait for them (a rank
@@ -4305,6 +4687,7 @@ def run_ranks(label, world, rank_argv, limit_s=600):
         with open(logs[-1], "w") as f:
             procs.append(subprocess.Popen(rank_argv + [out_dir], stdout=f,
                                           stderr=subprocess.STDOUT, env=env))
+            CHILDREN.append(procs[-1])
     deadline, err = time.time() + limit_s, None
     while any(p.poll() is None for p in procs):
         bad = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
@@ -4373,7 +4756,8 @@ def tp_step_check(res, key, totals, card):
               + (f"LoRA rank {LORA_RANK} on the four targets of the split "
                  "audio trunk, the factors alone trained, whole on each model "
                  "rank" if lora else "the whole audio tower trained")
-              + f", text locked), B{TP_B // 2} a data "
+              + f", its trunk cut to {CUT_DEPTH} blocks, text locked), "
+              f"B{TP_B // 2} a data "
               f"rank, fsdp_tp_place ({s0['split']} TP slices) vs one process "
               f"at B{TP_B}: loss {r0['metrics']['loss']:.6f} vs "
               f"{one['loss']:.6f} (relative {r0['loss_rel']:.3e}, bar "
@@ -4663,8 +5047,7 @@ def pp_grads(torch, np, counters, rank, lora=False):
                                               micro_grads)
 
     model = create_model("ViT-L-14", "audio", seed=SEED, device="cuda",
-                         dtype=torch.float32,
-                         **({} if lora else {"arch": cut_arch()}))
+                         dtype=torch.float32, arch=cut_arch())
     cfg, dev = model.cfg, model.logit_scale.device
     rng = np.random.RandomState(SEED)
     text = rng.randint(1, 49000, size=(PP_GRAD_B, 77))
@@ -4851,8 +5234,9 @@ def pp_grad_check(pp, part, totals, card):
               f"pipe {PP_GRAD_LAYOUT[0]}], M = {PP_GRAD_LAYOUT[2]}] {card} | "
               f"vitlensL audio x text contrastive loss at B{PP_GRAD_B}, "
               + (f"LoRA rank {LORA_RANK} on the audio and the text trunk, the "
-                 "factors alone trainable, both towers pipelined (two trained "
-                 "towers in one backward)" if lora else
+                 f"factors alone trainable, both towers pipelined (two trained "
+                 f"towers in one backward; the audio trunk cut to {CUT_DEPTH} "
+                 f"blocks)" if lora else
                  f"the whole audio tower trainable (its trunk cut to "
                  f"{CUT_DEPTH} blocks)")
               + (", remat" if key == "fp32" else "")
@@ -5053,9 +5437,9 @@ def openshape_phase(torch, np, counters, totals, card):
     """Phase 4o and its phase-5 timings: the CLIPBind step at full vitlensG
     width (3 steps at B16: launches, the skipped blocks' decay-only closed
     form, logit_scale moved, an eval batch), the B = 2 gradients of a
-    bigG-width tower of 8 trunk blocks against the CPU in fp32, the three
+    bigG-width tower of 8 trunk blocks against the fp32 reference, the three
     baselines (a train step each, a B = 2 forward against the CPU) and a
-    PointNet2 forward, the PointTransformer's bf16 eval against the CPU,
+    PointNet2 forward, the PointTransformer's bf16 eval against the reference,
     then the CLI's train, resume and eval-only runs at full width."""
     from vitlens_tpu_torch.train import openshape as OS
 
@@ -5154,11 +5538,10 @@ def openshape_phase(torch, np, counters, totals, card):
 
 def openshape_grad_parity(torch, np, cfg, g):
     """The B = 2 gradients of a bigG-width CLIPBind cut to 8 trunk blocks
-    (the first 4 skipped) and a Lens of depth 1 (a full fp32 copy does not
-    fit the host), bf16 on the card against fp32 on the CPU: FPS from the
-    same starts, the CPU pass given the card's ball-query groups, clouds
-    rounded through bf16 once. Gradient cosine >= COS_MIN, loss within
-    LOSS_TOL."""
+    (the first 4 skipped) and a Lens of depth 1, bf16 on the card against
+    the same model in fp32 (``Fp32Reference``): FPS from the same starts,
+    the reference pass given the card's ball-query groups, clouds rounded
+    through bf16 once. Gradient cosine >= COS_MIN, loss within LOSS_TOL."""
     from vitlens_tpu_torch.adapters import tokenizers as T
     from vitlens_tpu_torch.train import openshape as OS
     from vitlens_tpu_torch.train.step import _grads
@@ -5173,7 +5556,8 @@ def openshape_grad_parity(torch, np, cfg, g):
     batch["xyz_features"] = batch["xyz_features"].bfloat16().float()
     starts = torch.tensor([17, 4242], dtype=torch.int32) % batch[
         "xyz_features"].shape[1]
-    ref = copy.deepcopy(model).cpu()
+    # on the card, which the full-width step above has left
+    ref = Fp32Reference(torch, launch_counters(), model, "cuda")
 
     def grads_of(m, dt):
         dev = m.logit_scale.device
@@ -5186,16 +5570,18 @@ def openshape_grad_parity(torch, np, cfg, g):
     t0 = time.time()
     (loss_card, g_card), (loss_cpu, g_cpu), note = shared_knn_groups(
         torch, lambda: grads_of(model, torch.bfloat16),
-        lambda: grads_of(ref, torch.float32), sites=[(T, "ball_query")])
+        lambda: ref(lambda m: grads_of(m, torch.float32)),
+        sites=[(T, "ball_query")])
     cos = (g_card @ g_cpu / (g_card.norm() * g_cpu.norm())).item()
     ratio = g_card.norm().item() / g_cpu.norm().item()
+    ref_note = ref.note
     del model, ref
     torch.cuda.empty_cache()
     if cos < COS_MIN or abs(loss_card - loss_cpu) > LOSS_TOL:
-        fail(f"4o gradients vs CPU fp32: cosine {cos}, loss {loss_card} vs "
-             f"{loss_cpu}")
+        fail(f"4o gradients vs the fp32 reference: cosine {cos}, loss "
+             f"{loss_card} vs {loss_cpu}")
     return (f"B=2 gradients of a bigG-width CLIPBind (8 trunk blocks, 4 "
-            f"skipped; Lens depth 1) bf16 on the card vs fp32 on the CPU: "
+            f"skipped; Lens depth 1) bf16 on the card vs the {ref_note}: "
             f"cosine {cos:.6f}, loss {loss_card:.5f} vs {loss_cpu:.5f}, "
             f"grad norm ratio {ratio:.4f} ({time.time() - t0:.1f} s){note}")
 
@@ -5204,8 +5590,9 @@ def openshape_baselines(torch, np, counters, totals, card, g):
     """The --pc-model baselines at the CLI's widths (scaling 3, 6 channels
     in, 1280 out), fp32: one train step each at B16 (FPS once for
     PointBERT, never for DGCNN and PointNet), the peak memory, a B = 2
-    eval forward against the CPU from the same FPS starts and groups
-    (BASELINE_TOL by the TF32 setting), the step timed; then a PointNet2
+    eval forward against the same model in fp32 on the CPU from the same
+    FPS starts and groups (BASELINE_TOL by the card run's TF32 setting),
+    the step timed; then a PointNet2
     forward at B16 x 10000 (FPS at both MSG levels). Returns the rates."""
     from vitlens_tpu_torch.models.pc_baselines import PointNet2
     from vitlens_tpu_torch.ops import fps as F
@@ -5241,20 +5628,22 @@ def openshape_baselines(torch, np, counters, totals, card, g):
         peak = peak_gb(torch)
         x2 = batch["xyz_features"][:2]
         starts = torch.tensor([17, 4242], dtype=torch.int32) % x2.shape[1]
-        ref = copy.deepcopy(model).cpu()
+        # on the CPU: the baselines run in fp32 on the card, so a reference
+        # there would repeat the computation it is held against
+        ref = Fp32Reference(torch, counters, model, "cpu")
         with torch.no_grad():
             got, want_x, note = shared_knn_groups(
                 torch, lambda: model(x2, fps_start=starts.cuda()),
-                lambda: ref(x2.cpu(), fps_start=starts),
+                lambda: ref(lambda r: r(x2.cpu(), fps_start=starts)),
                 sites=[(F, "knn_indices"), (F, "ball_query")])
-        err = rel_err(got.cpu(), want_x)
-        del ref
+        err = rel_err(got.cpu(), want_x.cpu())
         if not (err <= tol and torch.isfinite(got).all()):
-            fail(f"4o {name} B=2 vs CPU fp32: rel err {err} > {tol}")
+            fail(f"4o {name} B=2 vs the fp32 reference: rel err {err} > {tol}")
         lines.append(f"{name}: {sum(p.numel() for p in model.parameters())} "
                      f"parameters, B{b} step loss {float(m['loss']):.5f}, "
                      f"launches (fps) {counts['fps']}, peak {peak:.2f} GB, "
-                     f"B=2 vs CPU rel err {err:.2e}{note}")
+                     f"B=2 vs the {ref.note} rel err {err:.2e}{note}")
+        del ref
         rates[name] = (b, train_rate(
             torch, card, f"{name} baseline train step B{b} fp32 (scaling 3)",
             lambda: step(model, opt, batch, fps_generator=gen), b))
@@ -5283,8 +5672,8 @@ def point_transformer_phase(torch, np, counters, totals, card, g):
     """The PointBERT classifier (PointTransformerConfig(): 8192 points, 512
     groups of 32, width 384, 12 blocks of 6 heads) in bf16 eval: B8 with 1
     FPS, 1 point encoder, 12 kernel 1 and 12 kernel 2 launches, cosine >=
-    COS_MIN against fp32 on the CPU given the card's kNN groups; the B64
-    encode timed. Returns its rate."""
+    COS_MIN against the same model as an ``Fp32Reference`` given the card's
+    kNN groups; the B64 encode timed. Returns its rate."""
     from vitlens_tpu_torch.factory import cast_matmul_weights_
     from vitlens_tpu_torch.models.point_transformer import (
         PointTransformer, PointTransformerConfig)
@@ -5292,7 +5681,7 @@ def point_transformer_phase(torch, np, counters, totals, card, g):
     cfg = PointTransformerConfig()
     model = PointTransformer(cfg, device="cuda")
     model.init_(torch.Generator(device="cuda").manual_seed(SEED))
-    ref = copy.deepcopy(model).cpu()
+    ref = Fp32Reference(torch, counters, model, "cuda")
     cast_matmul_weights_(model, torch.bfloat16)
     x = (torch.randn(8, cfg.point.npoints, 3, generator=g, device="cuda")
          * 0.3).bfloat16().float()
@@ -5302,17 +5691,17 @@ def point_transformer_phase(torch, np, counters, totals, card, g):
         (emb, counts), want_x, note = shared_knn_groups(
             torch, lambda: run_counted(torch, counters, totals, lambda: model(
                 x, compute_dtype=torch.bfloat16)),
-            lambda: ref(x.cpu()))
+            lambda: ref(lambda r: r(x)))
     if counts != want:
         fail(f"4o PointTransformer: launches {counts}, expected {want}")
     cos = cos_min(torch, emb, want_x)
     if cos < COS_MIN:
-        fail(f"4o PointTransformer bf16 vs CPU fp32: cosine {cos}")
+        fail(f"4o PointTransformer bf16 vs the fp32 reference: cosine {cos}")
     print(f"[4o point transformer] B8 x {cfg.point.npoints} points bf16 eval: "
           f"launches (fps, encoder, mlp, attn) {counts['fps']}, "
           f"{counts['point_encoder']}, {counts['fused_mlp']}, "
-          f"{counts['flash_attention']}; cosine vs CPU fp32 {cos:.6f}{note}",
-          flush=True)
+          f"{counts['flash_attention']}; cosine vs the {ref.note} "
+          f"{cos:.6f}{note}", flush=True)
     del ref
     x64 = torch.randn(B, cfg.point.npoints, 3, generator=g, device="cuda") * 0.3
 
@@ -5328,6 +5717,7 @@ def point_transformer_phase(torch, np, counters, totals, card, g):
     return rate
 
 
+@spends("ckpt")
 def write_openshape_inputs(np, root, n_objects):
     """Triplet blobs as OpenShape stores them (xyz, rgb for every other one,
     text_feat [1, 1280], img_feat [1280]; 9000 to 12000 points, so the
@@ -5435,8 +5825,10 @@ def openshape_cli_phase(torch, np, counters, totals, card):
                 not all({"val/top3", "val/top5", "val/class_top1"} <= set(r)
                         for r in vals):
             fail(f"4o CLI: train steps {train_steps}, val records {vals}")
-        written = sum(os.path.getsize(os.path.join(d, f))
-                      for d, _, fs in os.walk(ckpt) for f in fs)
+        # by inode: epoch_latest's files are hard links to epoch_N's
+        written = sum({st.st_ino: st.st_size for st in (
+            os.stat(os.path.join(d, f)) for d, _, fs in os.walk(ckpt)
+            for f in fs)}.values())
         t = time.time()
         rc, counts = run_counted(torch, counters, totals, lambda: CLI.main(
             base + ["--logs", os.path.join(root, "eval_logs"),
@@ -5620,8 +6012,8 @@ def eva_phase(torch, np, counters, totals, card):
     (256 latents of 1408), 39 EVA blocks (1408, 16 heads of 88, MLP 6144,
     LayerNorm eps 1e-6), the head to 1024; random weights from a seeded CUDA
     generator, bf16. B16 and B64 encodes with launches tower_launches(cfg);
-    a B = 2 encode against the same weights in fp32 on the CPU (the clouds
-    rounded through bf16, the card's kNN groups replayed); rates, peak
+    a B = 2 encode against the same weights in fp32 (``Fp32Reference``; the
+    clouds rounded through bf16, the card's kNN groups replayed); rates, peak
     memory and a profile. Returns {B: samples/s}."""
     from vitlens_tpu_torch.models.eva import make_eva_tower
 
@@ -5636,7 +6028,7 @@ def eva_phase(torch, np, counters, totals, card):
     g = torch.Generator(device="cuda").manual_seed(SEED + 40)
     npts = cfg.point.npoints
 
-    def clouds(b):  # rounded through bf16, so the CPU sees what the card sees
+    def clouds(b):  # rounded through bf16: the reference sees what the card sees
         return (torch.randn(b, npts, 3, generator=g, device="cuda") * 0.3
                 ).bfloat16().float()
 
@@ -5655,16 +6047,16 @@ def eva_phase(torch, np, counters, totals, card):
             del xb, emb
         x2 = clouds(2)
         t1 = time.time()
-        ref = copy.deepcopy(tower).to(device="cpu", dtype=torch.float32)
+        ref = Fp32Reference(torch, counters, tower, "cuda")  # 5 GB in fp32
         (card2, _), cpu2, note = shared_knn_groups(
             torch, lambda: run_counted(torch, counters, totals,
                                        lambda: tower(x2, torch.bfloat16)),
-            lambda: ref(x2.cpu()))
-        cpu_s = time.time() - t1
+            lambda: ref(lambda r: r(x2)))
+        ref_s, ref_note = time.time() - t1, ref.note
         del ref
     cos = cos_min(torch, card2, cpu2)
     if cos < COS_MIN:
-        fail(f"4ev EVA-g B=2 vs CPU fp32: cosine {cos} < {COS_MIN}")
+        fail(f"4ev EVA-g B=2 vs the fp32 reference: cosine {cos} < {COS_MIN}")
     torch.cuda.reset_peak_memory_stats()
     rates = {}
     for b in EVA_B:
@@ -5679,7 +6071,8 @@ def eva_phase(torch, np, counters, totals, card):
           f"depth ({n_all / 1e9:.3f} B parameters, trunk {n_trunk / 1e9:.3f} B; "
           f"built in {build_s:.1f} s): launches (B, (mlp, attn, fps, encoder)) "
           f"{per_b}, expected {tuple(want[k] for k in ('fused_mlp', 'flash_attention', 'fps', 'point_encoder'))}; "
-          f"B=2 cosine vs CPU fp32 {cos:.6f} (CPU run {cpu_s:.1f} s){note}; "
+          f"B=2 cosine vs the {ref_note} {cos:.6f} (reference run "
+          f"{ref_s:.1f} s){note}; "
           f"rates B16 {rates[16]:.2f}, B64 {rates[64]:.2f} samples/s; peak "
           f"allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; phase "
           f"took {time.time() - t0:.1f} s", flush=True)
@@ -5694,8 +6087,8 @@ def lora_phase(torch, np, counters, totals, card):
     trained: the LoRA mask overrides the tower's lock flags), dual loss
     aligned to text, bf16 compute, fp32 masters. The b's are drawn nonzero
     first, so that the merged weights differ from the base ones. One B = 2
-    gradient pass and one B = 2 step against the same model in fp32 on the
-    CPU: loss within LOSS_TOL, the cosine of the a's and of the b's
+    gradient pass and one B = 2 step against the same model in fp32
+    (``Fp32Reference``): loss within LOSS_TOL, the cosine of the a's and of the b's
     gradients >= COS_MIN, the step's grad_norm within NORM_TOL (the cosine
     of each factor's change in the step is printed: Adam's first step is
     about lr * sign(g), so it measures the signs of near-zero gradients, not
@@ -5706,7 +6099,6 @@ def lora_phase(torch, np, counters, totals, card):
     apart from the port's merge; a second model with its own factors
     reloads it (its b's zeroed) to the same encode, and quant refuses the
     unmerged tower."""
-    import copy
     import tempfile
     from dataclasses import replace
 
@@ -5753,8 +6145,8 @@ def lora_phase(torch, np, counters, totals, card):
 
     want = train_launches(acfg, n_text, 1, False, False)
 
-    # -- B = 2 against the same model in fp32 on the CPU ---------------------
-    ref = copy.deepcopy(model).to(device="cpu", dtype=torch.float32)
+    # -- B = 2 against the same model in fp32, on the card (1.7 GB) ----------
+    ref = Fp32Reference(torch, counters, model, "cuda")
     a_names = [n for n in factors if n.endswith(".a")]
     b_names = [n for n in factors if n.endswith(".b")]
     loss_fn = make_loss_fn(2)
@@ -5772,18 +6164,19 @@ def lora_phase(torch, np, counters, totals, card):
         return (x @ y / (x.norm() * y.norm())).item()
 
     b2 = batch(2)
-    loss_cpu, g_cpu = grads_of(ref, sc_cpu, b2)
+    loss_cpu, g_cpu = ref(lambda m: grads_of(m, sc_cpu, b2))
     (loss_card, g_card), counts = run_counted(
         torch, counters, totals, lambda: grads_of(model, sc, b2))
     if counts != want:
         fail(f"4l LoRA B=2 gradients: launches {counts}, expected {want}")
     cos_ga, cos_gb = cosine(g_card, g_cpu, a_names), cosine(g_card, g_cpu, b_names)
     if not (abs(loss_card - loss_cpu) <= LOSS_TOL and min(cos_ga, cos_gb) >= COS_MIN):
-        fail(f"4l LoRA B=2 gradients vs CPU fp32: loss {loss_card} vs {loss_cpu}, "
+        fail(f"4l LoRA B=2 gradients vs the fp32 reference: loss {loss_card} vs "
+             f"{loss_cpu}, "
              f"cosine a {cos_ga}, b {cos_gb}")
     del g_card, g_cpu
-    state_cpu = init_train_state(ref, tx)
-    state_cpu, m_cpu = make_train_step(cfg, tx, mask, sc_cpu)(state_cpu, b2)
+    step_ref = make_train_step(cfg, tx, mask, sc_cpu)
+    m_cpu = ref(lambda m: step_ref(init_train_state(m, tx), b2)[1])
     (state, m_card), counts = run_counted(torch, counters, totals,
                                           lambda: step(state, b2))
     if counts != want:
@@ -5792,14 +6185,16 @@ def lora_phase(torch, np, counters, totals, card):
     m_cpu = {k: float(v) for k, v in m_cpu.items()}
     if (abs(m_card["loss"] - m_cpu["loss"]) > LOSS_TOL
             or abs(m_card["grad_norm"] / m_cpu["grad_norm"] - 1) > NORM_TOL):
-        fail(f"4l LoRA B=2 step vs CPU fp32: card {m_card}, CPU {m_cpu}")
+        fail(f"4l LoRA B=2 step vs the fp32 reference: card {m_card}, reference "
+             f"{m_cpu}")
     live = dict(model.named_parameters())
-    live_cpu = dict(ref.named_parameters())
+    live_cpu = dict(ref.model.named_parameters())
     d_card = {n: live[n].detach() - fac0[n] for n in factors}
-    d_cpu = {n: live_cpu[n].detach() - fac0[n].cpu() for n in factors}
+    d_cpu = {n: live_cpu[n].detach() - fac0[n].to(ref.device) for n in factors}
     cos_da, cos_db = cosine(d_card, d_cpu, a_names), cosine(d_card, d_cpu, b_names)
-    del ref, state_cpu, live, live_cpu, d_card, d_cpu
-    b2_line = (f"B=2 vs CPU fp32 (b's drawn N(0, {LORA_B_STD})): loss "
+    ref_note = ref.note
+    del ref, live, live_cpu, d_card, d_cpu
+    b2_line = (f"B=2 vs the {ref_note} (b's drawn N(0, {LORA_B_STD})): loss "
                f"{loss_card:.5f} vs {loss_cpu:.5f}, gradient cosine a "
                f"{cos_ga:.6f}, b {cos_gb:.6f}; one step: loss "
                f"{m_card['loss']:.5f} vs {m_cpu['loss']:.5f}, grad_norm "
@@ -5909,7 +6304,7 @@ def hf_text_phase(torch, np, counters, totals, card):
     bf16: the RoBERTa text tower on token ids given directly (the card has
     no HF tokenizer; post-LN with a pad mask, so the plain path: no launch)
     and the ViT-B-32 image tower (quick GELU; 12 fused MLP + 12 attention),
-    each against the same weights in fp32 on the CPU by cosine."""
+    each against the same weights in fp32 (``Fp32Reference``) by cosine."""
     from vitlens_tpu_torch.config import image_tower_config
     from vitlens_tpu_torch.factory import create_model
     from vitlens_tpu_torch.models import tri
@@ -5918,7 +6313,7 @@ def hf_text_phase(torch, np, counters, totals, card):
     model = create_model("roberta-ViT-B-32", "image", seed=SEED, device="cuda",
                          dtype=torch.bfloat16)
     cfg = model.cfg
-    ref = copy.deepcopy(model).to(device="cpu", dtype=torch.float32)
+    ref = Fp32Reference(torch, counters, model, "cuda")  # 0.8 GB in fp32
     rng = np.random.RandomState(SEED + 30)
     ids = rng.randint(3, cfg.text.vocab_size, size=(4, cfg.text.context_length))
     for i, n in enumerate((77, 40, 12, 5)):  # <s> ... </s>, then pads
@@ -5931,16 +6326,18 @@ def hf_text_phase(torch, np, counters, totals, card):
             model, ids.cuda(), normalize=True, compute_dtype=bf))
         iemb, ic = run_counted(torch, counters, totals, lambda: tri.encode_image(
             model, images.cuda(), normalize=True, compute_dtype=bf))
-        cos = {"text": cos_min(torch, temb, tri.encode_text(ref, ids, normalize=True)),
-               "image": cos_min(torch, iemb, tri.encode_image(ref, images,
-                                                              normalize=True))}
+        cos = {"text": cos_min(torch, temb, ref(lambda r: tri.encode_text(
+                   r, ids.cuda(), normalize=True))),
+               "image": cos_min(torch, iemb, ref(lambda r: tri.encode_image(
+                   r, images.cuda(), normalize=True)))}
+    ref_note = ref.note
     del ref
     want_i = tower_launches(image_tower_config(cfg))
     if tc != launch_counts() or ic != want_i:
         fail(f"4rb: launches text {tc} (expected none), image {ic}, expected {want_i}")
     if min(cos.values()) < COS_MIN or not (torch.isfinite(temb).all()
                                            and torch.isfinite(iemb).all()):
-        fail(f"4rb: cosine vs CPU fp32 {cos}")
+        fail(f"4rb: cosine vs the fp32 reference {cos}")
     ids64 = ids.repeat(16, 1).cuda()
     rate = encode_rate(torch, card, "roberta-ViT-B-32 text encode B64 bf16 "
                        "(RoBERTa-base, plain path)",
@@ -5949,7 +6346,7 @@ def hf_text_phase(torch, np, counters, totals, card):
     print(f"[4rb roberta] {card} | roberta-ViT-B-32 at full width, bf16: text "
           f"B=4 (lengths 77, 40, 12, 5) no kernel launch, image B=2 launches "
           f"(mlp, attn) ({ic['fused_mlp']}, {ic['flash_attention']}); cosine vs "
-          f"CPU fp32 " + " ".join(f"{k} {v:.6f}" for k, v in cos.items())
+          f"the {ref_note} " + " ".join(f"{k} {v:.6f}" for k, v in cos.items())
           + f"; text B64 {rate:.2f} samples/s; phase took {time.time() - t0:.1f} s",
           flush=True)
     del model
@@ -5959,29 +6356,32 @@ def hf_text_phase(torch, np, counters, totals, card):
 def resnet_phase(torch, np, counters, totals, card):
     """Phase 4r: ModifiedResNet RN50 at 224, bf16 (cuDNN convolutions, the
     attention pool through kernel 2: one launch a forward), against the same
-    weights in fp32 on the CPU by cosine; the B64 rate."""
+    weights in fp32 (``Fp32Reference``: cuDNN without TF32) by cosine; the
+    B64 rate."""
     from vitlens_tpu_torch.models.resnet import make_modified_resnet
 
     t0 = time.time()
     m = make_modified_resnet("RN50", device="cuda", seed=SEED, dtype=torch.bfloat16)
-    ref = copy.deepcopy(m).to(device="cpu", dtype=torch.float32)
+    ref = Fp32Reference(torch, counters, m, "cuda")
     x = torch.from_numpy(np.random.RandomState(SEED + 31).randn(2, 3, 224, 224)
                          .astype(np.float32))
     with torch.no_grad():
         emb, counts = run_counted(torch, counters, totals,
                                   lambda: m(x.cuda(), torch.bfloat16))
-        cos = cos_min(torch, emb, ref(x))
+        cos = cos_min(torch, emb, ref(lambda r: r(x.cuda())))
+    ref_note = ref.note
     del ref
     if counts != launch_counts(flash_attention=1):
         fail(f"4r RN50: launches {counts}, expected one attention launch")
     if cos < COS_MIN or tuple(emb.shape) != (2, 1024):
-        fail(f"4r RN50: cosine vs CPU fp32 {cos}, shape {tuple(emb.shape)}")
+        fail(f"4r RN50: cosine vs the fp32 reference {cos}, shape "
+             f"{tuple(emb.shape)}")
     x64 = torch.randn(64, 3, 224, 224, device="cuda")
     with torch.no_grad():
         rate = encode_rate(torch, card, "RN50 image encode B64 bf16",
                            lambda: m(x64, torch.bfloat16), 64, dim=1024)
     print(f"[4r rn50] {card} | ModifiedResNet RN50 at 224, bf16: launches "
-          f"(attention) {counts['flash_attention']}; cosine vs CPU fp32 "
+          f"(attention) {counts['flash_attention']}; cosine vs the {ref_note} "
           f"{cos:.6f}; B64 {rate:.2f} samples/s; phase took "
           f"{time.time() - t0:.1f} s", flush=True)
     del m
@@ -5991,13 +6391,7 @@ def resnet_phase(torch, np, counters, totals, card):
 def _module_cli(module, argv, env, log, timeout=900):
     """python -m ``module`` ``argv`` as a child process on the card, its
     stderr into ``log``; -> (exit code, seconds, stdout)."""
-    t0 = time.time()
-    with open(log, "w") as err:
-        p = subprocess.run([sys.executable, "-m", module, *argv],
-                           cwd=os.path.dirname(os.path.abspath(__file__)),
-                           env=env, stdout=subprocess.PIPE, stderr=err,
-                           text=True, timeout=timeout)
-    return p.returncode, time.time() - t0, p.stdout
+    return run_child([sys.executable, "-m", module, *argv], env, log, timeout)
 
 
 def linprobe_phase(torch, np, card):
@@ -6032,13 +6426,14 @@ def linprobe_phase(torch, np, card):
                VITLENS_METADATA_DIR=os.path.join(root, "meta"))
     logs = os.path.join(root, "logs")
     try:
-        rc, secs, _ = _module_cli(
-            "vitlens_tpu_torch.cli.train_linprobe",
-            ["--modality", "tactile", "--model", "ViT-L-14", "--train-split",
-             "train_rough", "--val-split", "test_rough", "--num-classes", "2",
-             "--batch-size", "8", "--epochs", "2", "--warmup", "1", "--workers",
-             "2", "--precision", "bf16", "--log-every-n-steps", "1", "--logs",
-             logs, "--name", "lp"], env, os.path.join(root, "lp.log"))
+        with spent("proc"):  # in the foreground: its step seconds are timings
+            rc, secs, _ = _module_cli(
+                "vitlens_tpu_torch.cli.train_linprobe",
+                ["--modality", "tactile", "--model", "ViT-L-14", "--train-split",
+                 "train_rough", "--val-split", "test_rough", "--num-classes", "2",
+                 "--batch-size", "8", "--epochs", "2", "--warmup", "1", "--workers",
+                 "2", "--precision", "bf16", "--log-every-n-steps", "1", "--logs",
+                 logs, "--name", "lp"], env, os.path.join(root, "lp.log"))
         if rc != 0:
             fail(f"4lp: exit {rc}: {open(os.path.join(root, 'lp.log')).read()[-2000:]}")
         recs = _records(os.path.join(logs, "lp"))
@@ -6090,8 +6485,13 @@ def infer_phase(torch, np, card):
     argv = ["--precision", "bf16", "--image", *files["image"], "--audio",
             *files["audio"], "--pc", *files["pc"], "--text", *captions]
     try:
-        rc, secs, out = _module_cli("vitlens_tpu_torch.cli.infer", argv,
-                                    dict(os.environ), os.path.join(root, "infer.log"))
+        # in the foreground, unlike 4x's children: its printed matrices
+        # are held to 1e-3 of this process's, and a run beside phases 4v to
+        # 4p once read 4.8e-3 (H100)
+        with spent("proc"):
+            rc, secs, out = _module_cli("vitlens_tpu_torch.cli.infer", argv,
+                                        dict(os.environ),
+                                        os.path.join(root, "infer.log"))
         if rc != 0:
             fail(f"4i: exit {rc}: {open(os.path.join(root, 'infer.log')).read()[-2000:]}")
         blocks = re.split(r"\n(\w+) x (\w+) softmax\([^)]*\):\n", "\n" + out)
@@ -6327,7 +6727,7 @@ def coca_tf_check(torch, seqs, logits, rank, min_seq_len=COCA_MIN_LEN):
 
 def coca_phase(torch, np, counters, totals, card):
     """Phase 4co: CoCa at full width and depth, seeded weights, bf16 on the
-    card against the same weights in fp32 on the CPU. coca_ViT-L-14 (0.64 B
+    card against the same weights in fp32 (``Fp32Reference``). coca_ViT-L-14 (0.64 B
     parameters): a B = 2 encode and forward (cosine of the image and text
     features and the caption logits >= COCA_COS_MIN, the two loss terms
     within COCA_LOSS_TOL relative), launches as coca_launches; a B = 2
@@ -6337,9 +6737,9 @@ def coca_phase(torch, np, counters, totals, card):
     twice, identical, SOT first and pad after the end, launches as
     coca_launches; width-1 beam against top_k=1 sampling, equal up to the
     first EOS or the first tie of the card's top logits; the card's tokens
-    teacher-forced on the CPU in fp32: each width-1 beam token the CPU's
+    teacher-forced through the fp32 reference: each width-1 beam token its
     argmax or within COCA_MARGIN of its max, each beam-search token within
-    COCA_MARGIN of the CPU's top 2 x (beams / groups), the width a beam
+    COCA_MARGIN of its top 2 x (beams / groups), the width a beam
     step draws from. coca_ViT-B-32: a B = 2 encode and forward, cosines
     and launches. Then the L-14 image encode at B64, the forward + backward
     at B16 and beam-search captions at B = 8 (seq_len COCA_TIME_SEQ), with
@@ -6353,9 +6753,9 @@ def coca_phase(torch, np, counters, totals, card):
     model = make_coca("coca_ViT-L-14", device="cuda", seed=SEED, dtype=bf)
     cfg = model.cfg
     n_params = sum(p.numel() for p in model.parameters())
-    ref = copy.deepcopy(model).to(device="cpu", dtype=torch.float32)
+    ref = Fp32Reference(torch, counters, model, "cuda")  # 2.6 GB in fp32
     rng = np.random.RandomState(SEED + 50)
-    # rounded through bf16, so the CPU sees the pixels the card sees
+    # rounded through bf16, so the reference sees the pixels the card sees
     images = torch.from_numpy(rng.randn(2, 3, 224, 224).astype(np.float32)
                               ).bfloat16().float()
     text = coca_captions(torch, np, rng, (18, 51), cfg.text.context_length)
@@ -6366,7 +6766,7 @@ def coca_phase(torch, np, counters, totals, card):
             torch, counters, totals, lambda: model.encode_image(im_c, bf))
         out, n_fwd = run_counted(torch, counters, totals,
                                  lambda: model(im_c, text_c, bf))
-        want = ref(images, text)
+        want = ref(lambda r: r(im_c, text_c))
     for label, got, exp in (("encode", n_enc, coca_launches(cfg, "encode")),
                             ("forward", n_fwd, coca_launches(cfg, "forward"))):
         if got != exp:
@@ -6377,11 +6777,11 @@ def coca_phase(torch, np, counters, totals, card):
                                                    coca_loss(want, cfg))]
     loss_rel = max(abs(a - b) / abs(b) for a, b in losses)
     if min(cos.values()) < COCA_COS_MIN or loss_rel > COCA_LOSS_TOL:
-        fail(f"4co L-14 B=2 vs CPU fp32: cosine {cos}, losses (card, CPU) "
-             f"{losses}")
+        fail(f"4co L-14 B=2 vs the fp32 reference: cosine {cos}, losses (card, "
+             f"reference) {losses}")
     lines.append(f"L-14 B=2 launches (mlp, attn) encode ({n_enc['fused_mlp']}, "
                  f"{n_enc['flash_attention']}), forward ({n_fwd['fused_mlp']}, "
-                 f"{n_fwd['flash_attention']}); cosine vs CPU fp32 "
+                 f"{n_fwd['flash_attention']}); cosine vs the {ref.note} "
                  + " ".join(f"{k} {v:.6f}" for k, v in cos.items())
                  + f"; contrastive {losses[0][0]:.5f} vs {losses[0][1]:.5f}, "
                  f"caption {losses[1][0]:.5f} vs {losses[1][1]:.5f}")
@@ -6392,8 +6792,8 @@ def coca_phase(torch, np, counters, totals, card):
     groups = {"pooler": "visual.attn_pool.",
               "decoder cross blocks": "text_decoder.cross_attn.",
               "vision trunk last block": last}
-    gm = copy.deepcopy(ref).to("cuda")
-    for m in (gm, ref):
+    gm = copy.deepcopy(ref.model)
+    for m in (gm, ref.model):
         for n, p in m.named_parameters():
             p.requires_grad_(n.startswith(tuple(groups.values())))
 
@@ -6406,16 +6806,16 @@ def coca_phase(torch, np, counters, totals, card):
 
     (loss_card, g_card), n_bwd = run_counted(torch, counters, totals,
                                              lambda: grads(gm, bf, "cuda"))
-    loss_cpu, g_cpu = grads(ref, torch.float32, "cpu")
+    loss_cpu, g_cpu = ref(lambda r: grads(r, torch.float32, "cuda"))
     gcos = {}
     for label, prefix in groups.items():
         a = torch.cat([g_card[n].flatten() for n in g_card if n.startswith(prefix)])
         b = torch.cat([g_cpu[n].flatten() for n in g_cpu if n.startswith(prefix)])
         gcos[label] = (a @ b / (a.norm() * b.norm())).item()
     if min(gcos.values()) < COS_MIN or abs(loss_card - loss_cpu) > COCA_LOSS_TOL * abs(loss_cpu):
-        fail(f"4co L-14 B=2 gradients vs CPU fp32: loss {loss_card} vs "
+        fail(f"4co L-14 B=2 gradients vs the fp32 reference: loss {loss_card} vs "
              f"{loss_cpu}, cosine {gcos}")
-    for p in ref.parameters():
+    for p in ref.model.parameters():
         p.requires_grad_(False)
     lines.append(f"B=2 backward (loss {loss_card:.5f} vs {loss_cpu:.5f}; "
                  f"launches plain, save-preact, attn ({n_bwd['fused_mlp']}, "
@@ -6458,36 +6858,36 @@ def coca_phase(torch, np, counters, totals, card):
         if r1[:stop] != rk[:stop]:
             fail(f"4co width-1 beam vs top_k=1 row {b_}: {r1} vs {rk} "
                  f"(compared up to {stop})")
-    # the card's tokens teacher-forced on the CPU in fp32
+    # the card's tokens teacher-forced through the fp32 reference
     with torch.no_grad():
-        _, embs_cpu = ref.encode_image(images)
-    n1, below1, worst1 = coca_tf_check(torch, beam1, coca_tf_logits(
-        torch, ref, embs_cpu, beam1.cpu(), torch.float32), 1)
+        _, embs_cpu = ref(lambda r: r.encode_image(im_c))
+    n1, below1, worst1 = coca_tf_check(torch, beam1, ref(lambda r: coca_tf_logits(
+        torch, r, embs_cpu, beam1, torch.float32)).cpu(), 1)
     width = 2 * COCA_BEAM["num_beams"] // COCA_BEAM["num_beam_groups"]
-    nb, belowb, worstb = coca_tf_check(torch, beam, coca_tf_logits(
-        torch, ref, embs_cpu, beam.cpu(), torch.float32), width)
+    nb, belowb, worstb = coca_tf_check(torch, beam, ref(lambda r: coca_tf_logits(
+        torch, r, embs_cpu, beam, torch.float32)).cpu(), width)
     if max(worst1, worstb) > COCA_MARGIN:
-        fail(f"4co teacher-forced on the CPU: width-1 beam worst shortfall "
-             f"{worst1}, beam search {worstb} > {COCA_MARGIN}")
+        fail(f"4co teacher-forced through the fp32 reference: width-1 beam "
+             f"worst shortfall {worst1}, beam search {worstb} > {COCA_MARGIN}")
     lines.append(
         f"beam search (6 beams, 3 groups, seq_len {COCA_SEQ}) launches (mlp, "
         f"attn) ({n_gen['fused_mlp']}, {n_gen['flash_attention']}), two runs "
         f"identical, tokens {beam.tolist()}; width-1 beam = top_k=1 over the "
-        f"first {agree} positions (ties cut at {cut}); teacher-forced on the "
-        f"CPU fp32: width-1 beam {n1} tokens, {below1} below the CPU's argmax "
-        f"(worst {worst1:.4f}), beam search {nb} tokens, {belowb} below the "
-        f"CPU's top {width} (worst {worstb:.4f}; margin {COCA_MARGIN})")
+        f"first {agree} positions (ties cut at {cut}); teacher-forced through "
+        f"the {ref.note}: width-1 beam {n1} tokens, {below1} below its argmax "
+        f"(worst {worst1:.4f}), beam search {nb} tokens, {belowb} below its "
+        f"top {width} (worst {worstb:.4f}; margin {COCA_MARGIN})")
     del ref, gm, tf_card
 
     # -- coca_ViT-B-32 at full width -------------------------------------------
     b32 = make_coca("coca_ViT-B-32", device="cuda", seed=SEED + 1, dtype=bf)
-    ref32 = copy.deepcopy(b32).to(device="cpu", dtype=torch.float32)
+    ref32 = Fp32Reference(torch, counters, b32, "cuda")
     with torch.no_grad():
         _, n_enc32 = run_counted(torch, counters, totals,
                                  lambda: b32.encode_image(im_c, bf))
         out32, n_fwd32 = run_counted(torch, counters, totals,
                                      lambda: b32(im_c, text_c, bf))
-        want32 = ref32(images, text)
+        want32 = ref32(lambda r: r(im_c, text_c))
     for label, got, exp in (("encode", n_enc32, coca_launches(b32.cfg, "encode")),
                             ("forward", n_fwd32, coca_launches(b32.cfg, "forward"))):
         if got != exp:
@@ -6495,7 +6895,7 @@ def coca_phase(torch, np, counters, totals, card):
     cos32 = {k: cos_min(torch, out32[k], want32[k])
              for k in ("image_features", "text_features", "logits")}
     if min(cos32.values()) < COCA_COS_MIN:
-        fail(f"4co B-32 B=2 vs CPU fp32: cosine {cos32}")
+        fail(f"4co B-32 B=2 vs the fp32 reference: cosine {cos32}")
     lines.append(f"B-32 B=2 launches encode ({n_enc32['fused_mlp']}, "
                  f"{n_enc32['flash_attention']}), forward ({n_fwd32['fused_mlp']}, "
                  f"{n_fwd32['flash_attention']}); cosine "
@@ -6554,8 +6954,8 @@ def coca_phase(torch, np, counters, totals, card):
                        model, x8, **COCA_BEAM, seq_len=COCA_PROFILE_SEQ,
                        compute_dtype=bf))
     print(f"[4co coca] {card} | coca_ViT-L-14 at full width and depth "
-          f"({n_params / 1e9:.3f} B parameters), bf16 on the card against fp32 "
-          f"on the CPU: " + "; ".join(lines)
+          f"({n_params / 1e9:.3f} B parameters), bf16 on the card against the "
+          f"fp32 reference: " + "; ".join(lines)
           + f"; checks took {check_s:.1f} s, the encode rate "
           f"{t_enc - t0 - check_s:.1f}, the forward + backward's "
           f"{t_train - t_enc:.1f}, the captions' {time.time() - t_train:.1f}; "
@@ -6612,9 +7012,11 @@ def main() -> int:
               "an NVIDIA GPU", file=sys.stderr)
         return 1
     t_start = time.time()
+    clock = PhaseClock()
 
-    def mark(label):  # where the run's time goes, phase by phase
-        print(f"[time] {label} done at {time.time() - t_start:.1f} s", flush=True)
+    def mark(label):
+        torch.cuda.empty_cache()  # the children started early share the card
+        clock.mark(label)
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
@@ -6651,6 +7053,7 @@ def main() -> int:
                "fused_attnout_mlp": fused_attnout_mlp,
                "fused_ln_qkv": fused_ln_proj}
     counters = launch_counters()
+    count_host_costs(torch)
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"[1 device] {card} | torch {torch.__version__} cuda "
@@ -6658,9 +7061,20 @@ def main() -> int:
           flush=True)
 
     t0 = time.time()
-    _build.library()
+    # nvcc compiles in its own processes; this one writes the input files of
+    # phases 4v, 4g and 4x meanwhile
+    building = Background(_build.library, kind="build")
+    early = {"4v": served_inputs(torch, np), "4g": vitlensG_inputs(torch, np),
+             "4x": train_cli_inputs(torch, np)}
+    t_inputs = time.time() - t0
+    building.result()
     print(f"[2 build] kernels built and loaded in {time.time() - t0:.1f} s "
-          f"({_build.BUILD_ROOT / _build.source_hash()})", flush=True)
+          f"({_build.BUILD_ROOT / _build.source_hash()}); the input files of "
+          f"phases 4v, 4g and 4x written beside in {t_inputs:.1f} s", flush=True)
+    # the models of phases 4v and 4g are built from those files in threads
+    # beside phases 3 and 4
+    early["4v"] = served_builds(torch, early["4v"])
+    early["4g"] = vitlensG_build(torch, early["4g"])
 
     # -- 3: each kernel against its plain version on the card ---------------
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -6846,7 +7260,7 @@ def main() -> int:
                              generator=g, device="cuda") * 0.5
               for b in (1, 4, 8)}
     npts = pcfg.point.npoints
-    # rounded through bf16 once, so the fp32 CPU run sees what the card sees
+    # rounded through bf16 once, so the fp32 reference sees what the card sees
     clouds = {b: (torch.randn(b, npts, 3, generator=g, device="cuda") * 0.3)
               .bfloat16().float() for b in (1, 4, 8)}
     rng = np.random.RandomState(SEED)
@@ -6874,32 +7288,30 @@ def main() -> int:
         if norm_err > 1e-3:
             fail(f"{path} B={b}: norms off 1 by {norm_err}")
 
-    ref = copy.deepcopy(model).to(device="cpu", dtype=torch.float32)
-    ref.compute_dtype = torch.float32
+    # on the card: the three towers take 3 GB there in fp32
+    ref = Fp32Reference(torch, counters, model, "cuda")
     card_emb = {path: emb for path, b, pre, emb in outs if b == 1 or path == "text"}
-    want = {"audio": ref.encode({"audio": fbanks[1].cpu()}, preprocessed=True),
-            "pc": ref.encode({"pc": clouds[1].cpu()}, preprocessed=True),
-            "text": ref.encode({"text": captions})}
-    cos = {path: torch.nn.functional.cosine_similarity(
-        card_emb[path].float().cpu(), want[path][path].float(), dim=-1).min().item()
-        for path in want}
+    want = {"audio": ref(lambda m: m.encode({"audio": fbanks[1]}, preprocessed=True)),
+            "pc": ref(lambda m: m.encode({"pc": clouds[1]}, preprocessed=True)),
+            "text": ref(lambda m: m.encode({"text": captions}))}
+    cos = {path: cos_min(torch, card_emb[path], want[path][path]) for path in want}
     # A group size the point-encoder kernel does not take (M = 24): the
     # tokenizer's gate sends the groups to the plain encoder, on both.
-    tok_card, tok_ref = model.towers["pc"].adapter, ref.towers["pc"].adapter
+    tok_card, tok_ref = model.towers["pc"].adapter, ref.model.towers["pc"].adapter
     saved = (tok_card.cfg, tok_ref.cfg)
     tok_card.cfg = tok_ref.cfg = dataclasses.replace(tok_card.cfg, group_size=24)
     try:
         emb24, counts24 = run_counted(
             torch, counters, launches,
             lambda: model.encode({"pc": clouds[1]}, preprocessed=True)["pc"])
-        want24 = ref.encode({"pc": clouds[1].cpu()}, preprocessed=True)["pc"]
+        want24 = ref(lambda m: m.encode({"pc": clouds[1]}, preprocessed=True)["pc"])
     finally:
         tok_card.cfg, tok_ref.cfg = saved
     if counts24 != tower_launches(pcfg, fps=1):
         fail(f"pc B=1 at group size 24: launches {counts24}, expected no "
              "point-encoder launch")
-    cos["pc group size 24"] = torch.nn.functional.cosine_similarity(
-        emb24.float().cpu(), want24.float(), dim=-1).min().item()
+    cos["pc group size 24"] = cos_min(torch, emb24, want24)
+    ref_note = ref.note
     del ref
     n_group = pcfg.point.num_group
     idx_card = fps_indices(clouds[1].bfloat16(), n_group).cpu()
@@ -6908,10 +7320,10 @@ def main() -> int:
         fail(f"pc B=1: {(idx_card != idx_cpu).sum().item()} FPS indices of "
              "the card run differ from the CPU run's")
     if min(cos.values()) < COS_MIN:
-        fail(f"card bf16 vs CPU fp32: min cosine {cos} < {COS_MIN}")
+        fail(f"card bf16 vs the fp32 reference: min cosine {cos} < {COS_MIN}")
     print(f"[4 slice] vitlensL audio+pc+text built in {build_s:.1f} s; requests "
           f"(path, B, launches (mlp, attn, fps, encoder)) {per_call}; "
-          f"main-path totals {launches}; min cosine vs CPU fp32 plain path: "
+          f"main-path totals {launches}; min cosine vs the {ref_note}: "
           + " ".join(f"{k} {v:.6f}" for k, v in cos.items())
           + f"; pc B=1 FPS indices equal on card and CPU ({n_group} centers); "
           f"pc B=1 at group size 24 through the plain encoder, launches "
@@ -6920,7 +7332,9 @@ def main() -> int:
 
     # -- 4v: served from files -------------------------------------------------
     mark("4")
-    served = served_phase(torch, np, counters, launches, card)
+    # children that run beside phases 4v to 4p; each is checked in its phase
+    cli_ctx = train_cli_start(early.pop("4x"))
+    served = served_phase(torch, np, counters, launches, card, early.pop("4v"))
     transformer_lens_phase(torch, counters, launches)
 
     # -- 4f: the fp32 default; 4h: head dims other than 64 --------------------
@@ -6931,7 +7345,7 @@ def main() -> int:
 
     # -- 4g: the vitlensG pc encode (PNSA, bigG) from files, and served -------
     mark("4f, 4h")
-    g_model = vitlensG_phase(torch, np, counters, launches)
+    g_model = vitlensG_phase(torch, np, counters, launches, early.pop("4g"))
 
     # -- 4q: the int8 quantized audio encode; 4s: the bench entry points -----
     mark("4g")
@@ -6978,28 +7392,10 @@ def main() -> int:
         [("B=8", 8, 1)] * 2 + [("B=8 accum_freq 4", 8, 4)] * 2)
     # -- 4x: the training CLI (files, eval, checkpoints, resume) ----------
     mark("4d, 4e, 4p")
-    cli = train_cli_phase(torch, np, counters, launches, card)
-    # -- 4o: the OpenShape trainer (vitlensG, the baselines, the PointBERT
-    # classifier, the CLI); its phase-5 timings run inside, on its models
+    cli = train_cli_phase(torch, np, counters, launches, card, cli_ctx)
+    # -- 5 runs once the children started early have exited, so that
+    # nothing else runs on the card while it times
     mark("4x")
-    os_rates = openshape_phase(torch, np, counters, launches, card)
-
-    # -- ROADMAP item 11: 4ev EVA-g, 4l LoRA, 4rb RoBERTa, 4r RN50, 4lp the
-    # linear probe, 4i the infer CLI, 4ex export ------------------------------
-    mark("4o")
-    eva_rates = eva_phase(torch, np, counters, launches, card)
-    lora_phase(torch, np, counters, launches, card)
-    hf_text_phase(torch, np, counters, launches, card)
-    resnet_phase(torch, np, counters, launches, card)
-    lp_steps = linprobe_phase(torch, np, card)
-    infer_phase(torch, np, card)
-    export_phase(torch, model, counters, launches, card, fbanks[4][:2])
-
-    # -- 4co: CoCa (coca_ViT-L-14 and coca_ViT-B-32); its phase-5 rates run
-    # inside, on its model
-    mark("4ev, 4l, 4rb, 4r, 4lp, 4i, 4ex")
-    coca_rates = coca_phase(torch, np, counters, launches, card)
-    mark("4co")
     # -- 5: timing at the B64 shapes -----------------------------------------
     timings = {name: [] for name in kernels}
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -7200,8 +7596,32 @@ def main() -> int:
     del served
 
     mark("5 rates")
+    del fb64, pc64, audio64, pc64_encode, qaudio64, step64
+
+    # -- 4o: the OpenShape trainer (vitlensG, the baselines, the PointBERT
+    # classifier, the CLI); its phase-5 timings run inside, on its models.
+    # It comes after phase 5, whose models are gone by then: the CLIPBind
+    # step peaks at ~44 GB above what is resident.
+    os_rates = openshape_phase(torch, np, counters, launches, card)
+
+    # -- ROADMAP item 11: 4ev EVA-g, 4l LoRA, 4rb RoBERTa, 4r RN50, 4lp the
+    # linear probe, 4i the infer CLI, 4ex export ------------------------------
+    mark("4o")
+    eva_rates = eva_phase(torch, np, counters, launches, card)
+    lora_phase(torch, np, counters, launches, card)
+    hf_text_phase(torch, np, counters, launches, card)
+    resnet_phase(torch, np, counters, launches, card)
+    lp_steps = linprobe_phase(torch, np, card)
+    infer_phase(torch, np, card)
+    export_phase(torch, model, counters, launches, card, fbanks[4][:2])
+
+    # -- 4co: CoCa (coca_ViT-L-14 and coca_ViT-B-32); its phase-5 rates run
+    # inside, on its model
+    mark("4ev, 4l, 4rb, 4r, 4lp, 4i, 4ex")
+    coca_rates = coca_phase(torch, np, counters, launches, card)
+    mark("4co")
     # -- 4dp (b): two ranks sharing the card; (c): the mesh encode and serve --
-    del model, fb64, pc64, audio64, pc64_encode, qaudio64, step64
+    del model
     fs_bc = dp_ranks_phase(torch, launches, card)
     dp_encode_phase(torch, np, counters, launches, card)
     print(f"[4fs] {card} | phase 4fs {fs_a + fs_bc:.1f} s: (a) {fs_a:.1f} s, "
@@ -7286,6 +7706,7 @@ def main() -> int:
           f"{served_rates['served_rps']:.2f} requests/s; whole run "
           f"{time.time() - t_start:.1f} s",
           flush=True)
+    clock.table()
     print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

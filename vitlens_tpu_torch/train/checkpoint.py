@@ -90,7 +90,10 @@ def save_checkpoint(
 ) -> str:
     """Save ``state`` (a TrainState or its :func:`snapshot`) under
     epoch_{N} (or ``tag``, e.g. a mid-epoch preemption snapshot); update
-    epoch_latest atomically via tmp+rename (audio_main.py:590-597)."""
+    epoch_latest atomically via tmp+rename (audio_main.py:590-597). Its
+    files are hard links to epoch_{N}'s where the filesystem allows (a
+    checkpoint's files are replaced, never rewritten in place), else
+    copies."""
     os.makedirs(root, exist_ok=True)
     path = _ckpt_path(root, tag or f"epoch_{epoch}")
     _save_tree(path, state)
@@ -104,11 +107,18 @@ def save_checkpoint(
         latest = _ckpt_path(root, "epoch_latest")
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
-        shutil.copytree(path, tmp)
+        shutil.copytree(path, tmp, copy_function=_link_or_copy)
         if os.path.exists(latest):
             shutil.rmtree(latest)
         os.replace(tmp, latest)
     return path
+
+
+def _link_or_copy(src: str, dst: str) -> None:
+    try:
+        os.link(src, dst)
+    except OSError:  # no hard links here (another device, a FAT volume)
+        shutil.copy2(src, dst)
 
 
 def save_best(root: str, state: Any, epoch: int, metric: float) -> Optional[str]:
